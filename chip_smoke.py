@@ -8,8 +8,10 @@ raises and the script exits non-zero:
 
 1. device — the card, CUDA and torch versions, and ``nvidia-smi``'s name
    and power limit (printed raw on a line of its own).
-2. build — compiles the port's kernel source from ``matcha_tpu_torch/csrc``.
-3. parity — each kernel against its plain PyTorch version on the card, at
+2. build — compiles the port's kernel sources from ``matcha_tpu_torch/csrc``
+   (one ``nvcc`` each, started together) and prints ptxas' registers and
+   spills.
+3. parity — the perm kernel's two instantiations against their plain PyTorch version on the card, at
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
    w_window in {1, 8}, dbuf on and off, f32 and bf16 wire, with and without
@@ -29,12 +31,37 @@ raises and the script exits non-zero:
    run on the card and on the CPU must agree.  Then the streamed-window
    instantiation, which ``train()`` does not take, runs one 64-step chain
    through ``perm_gossip_run(dbuf=False)``.
-6. a ``{"kernels": [...]}`` summary line, then the ``nvidia-smi`` line.
-7. last line: ``{"ok": true, "device": {...}}``.
+6. fused_parity — the fused W-stack kernel against its plain version: f32
+   stack on an f32 state, bf16 stack on an f32 state, bf16 stack on a bf16
+   state, T in {1, 64} at the slice's ``[16, 273258]`` (graph 4, MATCHA
+   weights); T in {1, 4, 64} (bf16) and T = 4 (f32) at ``[256, 273258]`` on
+   the 256-worker hypercube; two row passes per step at N = 100 and N = 300
+   (rings, T = 8, f32 and bf16); a ragged D and T = 0.  Bars scaled by the
+   output: f32 max |Δ| ≤ 1e-5·max|ref|, a bf16 operand pass ≤
+   2⁻⁷·max|ref| (whether it is bitwise and the share of elements that
+   differ are printed); bitwise against itself across ``w_window`` 1 vs 8
+   and two tile widths.  Then the dense mix on the card (f32 state, bf16
+   wire, and f32 with TF32 switched on by the caller) against a float64
+   product of the same rounded operands.
+7. fused_timing — the fused kernel, its plain version, the library call (T
+   calls of ``torch.matmul(W_t, x)``) and the bound, at ``[16, 273258]``
+   f32 for T = 1 and 64 and at ``[256, 273258]`` bf16 for T = 64.
+   fused_chain — the consensus chain at ``[256, 273258]`` bf16 through
+   ``make_decen(..., "fused").run``, stepped (one launch) and with
+   ``chunk=64`` (composed first), its launches counted, each held to the
+   plain version on its own stack; then the same in f32, where the two
+   chains are also held to each other (f32 bar), with all four times.
+8. fused_slice — ``train()`` at full width with the fused backend (the
+   dense product every step, the fused kernel in the comm-split timer's
+   chains), 2 epochs of 4 steps: loss and disagreement finite, the fused
+   kernel launched exactly once per timer chain.
+9. a ``{"kernels": [...]}`` summary line, then the ``nvidia-smi`` line.
+10. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -48,6 +75,11 @@ from matcha_tpu_torch import _kernels
 from matcha_tpu_torch.communicator import make_decen
 from matcha_tpu_torch.parallel import (
     LAUNCHES,
+    build_mixing_stack,
+    compose_mixing_stack,
+    fused_gossip_plain,
+    fused_gossip_run,
+    gossip_mix_dense,
     involution_tables,
     perm_gossip_plain,
     perm_gossip_run,
@@ -58,6 +90,7 @@ from matcha_tpu_torch.topology import (
     decompose,
     hypercube_graph,
     matching_laplacians,
+    ring_graph,
     select_graph,
 )
 from matcha_tpu_torch.models import select_model
@@ -71,13 +104,17 @@ from matcha_tpu_torch.train import (
     train,
 )
 
-# NVIDIA H100 SXM data sheet: HBM bandwidth and FP32 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM bandwidth, FP32 (non-tensor) peak and
+# the dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 SEED = 9001
 SLICE_D = 273258  # ResNet-20 parameters per worker
 SOURCE = "matcha_tpu_torch/csrc/perm_gossip.cu"
+FUSED_SOURCE = "matcha_tpu_torch/csrc/fused_gossip.cu"
+FUSED_REPLACES = "matcha_tpu/parallel/pallas_gossip.py:182"
 KERNELS = {
     "perm_gossip_dbuf": {"dbuf": True,
                          "replaces": "matcha_tpu/parallel/pallas_gossip.py:340"},
@@ -303,6 +340,263 @@ def phase_timing(dev, tables, big_tables):
     return rows
 
 
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def fused_bound(x, stack):
+    """The least time for T dense steps: bytes (state read and written
+    once, the stack read once) over the HBM rate, and 2·N²·D·T operations
+    over the peak of the stack's type (FP32, or bf16 tensor cores).
+    Returns (ms, "bytes"|"operations")."""
+    n, d = x.shape
+    t_steps = stack.shape[0]
+    nbytes = 2 * n * d * x.element_size() + stack.numel() * stack.element_size()
+    peak = BF16_OPS_PER_S if stack.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * n * n * d * t_steps / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mixing_stack(sched, t_steps, dtype, dev):
+    flags = torch.as_tensor(sched.flags[:t_steps], dtype=torch.float32,
+                            device=dev)
+    return build_mixing_stack(sched.laplacians(), sched.alpha, flags, dtype)
+
+
+def ring_stack(n: int, t_steps: int, dtype, dev):
+    """The mixing stack of a ring of ``n`` workers, each of its matchings
+    active with probability 0.5: it mixes slowly, so a few steps leave the
+    state far from consensus."""
+    ring = fixed_schedule(decompose(ring_graph(n), n, seed=SEED), n, t_steps,
+                          budget=0.5, mode="bernoulli", seed=SEED)
+    return mixing_stack(ring, t_steps, dtype, dev)
+
+
+def fused_bar(out_ref, x, stack) -> float:
+    """The bar of the fused kernel against its plain version, scaled by the
+    output: 1e-5·max|ref| for f32 operands (f32 sums in another order), one
+    bf16 ulp at the output's largest magnitude, 2⁻⁷·max|ref|, when a step's
+    operands are bf16 (a sum one f32 ulp apart may round a later operand
+    the other way)."""
+    exact = x.dtype == stack.dtype == torch.float32
+    return (1e-5 if exact else 2.0 ** -7) * float(out_ref.float().abs().max())
+
+
+def phase_fused_parity(dev, tables, big_tables):
+    """The fused kernel against its plain version (rounding bars scaled by
+    the output) and against itself (bitwise across w_window and tile
+    width); then the dense mix's precision on the card."""
+    sched, big = tables[0], big_tables[0]
+    f32, bf16 = torch.float32, torch.bfloat16
+    x16 = state(16, SLICE_D, dev)
+    cases = []
+    for t_steps in (1, 64):
+        for state_dtype, stack_dtype in ((f32, f32), (f32, bf16),
+                                         (bf16, bf16)):
+            cases.append((f"slice T={t_steps} state={state_dtype} "
+                          f"stack={stack_dtype}", x16.to(state_dtype),
+                          lambda t=t_steps, s=stack_dtype:
+                          mixing_stack(sched, t, s, dev)))
+    # N = 256 (tile 32, one pass of 256 rows): T = 1 and 4 before the
+    # hypercube reaches consensus, and T = 64, chain (b)'s length
+    x256 = state(256, SLICE_D, dev)
+    for t_steps, dtype in ((1, bf16), (4, bf16), (64, bf16), (4, f32)):
+        cases.append((f"hypercube N=256 T={t_steps} {dtype}/{dtype}",
+                      x256.to(dtype),
+                      lambda t=t_steps, s=dtype: mixing_stack(big, t, s, dev)))
+    # two row passes per step: N = 100 at tile 128 (passes of 64 rows; the
+    # 32-column tile below sums it in one pass), N = 300 at tile 32
+    for n in (100, 300):
+        for dtype in (f32, bf16):
+            cases.append((f"ring N={n} T=8 {dtype}/{dtype} (2 passes)",
+                          state(n, SLICE_D, dev).to(dtype),
+                          lambda n=n, s=dtype: ring_stack(n, 8, s, dev)))
+    cases.append(("ragged D=1031 T=13 f32/f32", state(16, 1031, dev),
+                  lambda: mixing_stack(sched, 13, f32, dev)))
+    rows, worst = [], 0.0
+    for label, x, make_stack in cases:
+        stack = make_stack()
+        ref = fused_gossip_plain(x, stack)
+        out = fused_gossip_run(x, stack)
+        torch.cuda.synchronize()
+        bar = fused_bar(ref, x, stack)
+        err = max_err(out, ref)
+        worst = max(worst, err)
+        row = {"case": label, "max_abs_err": err, "bar": bar,
+               "max_abs_ref": float(ref.float().abs().max()),
+               "bitwise": same_bits(out, ref),
+               "differ_share": float((out != ref).float().mean())}
+        if not err <= bar:
+            raise AssertionError(f"fused {label}: max |Δ| {err} > {bar}")
+        for kw in ({"w_window": 8}, {"block_d": 32}):
+            again = fused_gossip_run(x, stack, **kw)
+            if not same_bits(again, out):
+                raise AssertionError(f"fused {label} {kw}: not bitwise "
+                                     f"equal to the default launch")
+        rows.append(row)
+        del ref, out, stack
+    del cases, x16, x256
+    x = state(16, SLICE_D, dev)
+    if fused_gossip_run(x, torch.zeros((0, 16, 16), device=dev)) is not x:
+        raise AssertionError("fused T=0 must return the state itself")
+
+    # the dense step's own matrix: build_mixing_stack makes each W_t with
+    # the bits gossip_mix_dense makes for that step
+    lap = torch.as_tensor(sched.laplacians(), dtype=f32, device=dev)
+    flags = torch.as_tensor(sched.flags[5:6], dtype=f32, device=dev)
+    w = sched.alpha * flags[0]
+    wmat = build_mixing_stack(lap, sched.alpha, flags, f32)[0]
+    dense = {}
+    matmul = torch.backends.cuda.matmul
+    for label, compute, tf32 in (("bf16 wire", bf16, False),
+                                 ("f32, caller enabled TF32", f32, True)):
+        exact64 = torch.matmul(wmat.to(compute).double(),
+                               x.to(compute).double())
+        matmul.allow_tf32 = tf32
+        try:
+            got = gossip_mix_dense(x, lap, w, compute_dtype=compute)
+            naive = torch.matmul(wmat.to(compute), x.to(compute)).float()
+        finally:
+            matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        err = max_err(got, exact64)
+        bar = 1e-5 * float(x.abs().max())
+        dense[label] = {"max_abs_err_vs_f64": err, "bar": bar,
+                        "one_matmul_in_compute_dtype_err": max_err(naive,
+                                                                   exact64)}
+        if not err <= bar:
+            raise AssertionError(f"dense mix {label}: {err} > {bar} against "
+                                 f"the float64 product")
+    emit({"phase": "fused_parity", "cases": rows, "w_window_and_tile":
+          "bitwise", "T0_identity": True, "dense_mix": dense})
+    return worst
+
+
+def phase_fused_timing(dev, tables, big_tables):
+    flush = L2Flush(dev)
+    sched, big = tables[0], big_tables[0]
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for label, sch, n, t_steps, dtype in (
+            ("slice T=1 f32", sched, 16, 1, f32),
+            ("slice T=64 f32", sched, 16, 64, f32),
+            ("hypercube N=256 T=64 bf16", big, 256, 64, bf16)):
+        x = state(n, SLICE_D, dev).to(dtype)
+        stack = mixing_stack(sch, t_steps, dtype, dev)
+
+        def library(x=x, stack=stack):
+            out = x
+            for t in range(stack.shape[0]):
+                out = torch.matmul(stack[t], out)
+            return out
+
+        row = {"shape": label, "N": n, "D": SLICE_D, "T": t_steps,
+               "dtype": str(dtype),
+               "ms": time_ms(lambda: fused_gossip_run(x, stack), flush),
+               "device_ms": device_ms(lambda: fused_gossip_run(x, stack),
+                                      "fused_gossip_kernel"),
+               "plain_ms": time_ms(lambda: fused_gossip_plain(x, stack),
+                                   flush),
+               "library_ms": time_ms(library, flush)}
+        row["bound_ms"], row["bound_by"] = fused_bound(x, stack)
+        rows.append(row)
+        emit({"phase": "fused_timing", **row})
+        del x, stack
+
+    return rows
+
+
+def phase_fused_chain(dev, big_tables):
+    """The consensus chain at the bench shape, ``[256, 273258]`` bf16
+    through ``make_decen(..., "fused").run``: stepped (one launch for the
+    64-step stream) and with ``chunk=64`` (the stack composed first, one
+    launch).  The launch counts are read right after these two runs.  Each
+    chain is held to the plain version on its own stack (the fused bar).
+    Then the same two chains in f32, where composed and stepped must also
+    agree to the f32 bar (in bf16 the composed stack is rounded once and
+    the stepped state 64 times: their gap is printed, not held), and the
+    times of all four."""
+    flush = L2Flush(dev)
+    big = big_tables[0]
+    flags = big.flags[:64]
+    lap = torch.as_tensor(big.laplacians(), dtype=torch.float32, device=dev)
+    flags_t = torch.as_tensor(flags, dtype=torch.float32, device=dev)
+    chain = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = state(256, SLICE_D, dev).to(dtype)
+        comms = {chunk: make_decen(big, "fused", device=dev,
+                                   compute_dtype=dtype, chunk=chunk)
+                 for chunk in (1, 64)}
+        if dtype == torch.bfloat16:
+            reset_launch_counts()
+        outs = {chunk: comm.run(x, flags)[0] for chunk, comm in comms.items()}
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            launches = dict(LAUNCHES)
+        stack = build_mixing_stack(lap, big.alpha, flags_t, dtype)
+        for chunk, out in outs.items():
+            ref = fused_gossip_plain(x, compose_mixing_stack(stack, chunk))
+            bar = fused_bar(ref, x, stack)
+            err = max_err(out, ref)
+            chain[f"{dtype} chunk={chunk} vs plain max_abs_err"] = err
+            chain[f"{dtype} chunk={chunk} vs plain bar"] = bar
+            if not err <= bar:
+                raise AssertionError(f"{dtype} chain chunk={chunk}: {err} > "
+                                     f"{bar} against the plain version")
+            del ref
+        err = max_err(outs[64], outs[1])
+        chain[f"{dtype} chunk=64 vs step max_abs_err"] = err
+        if dtype == torch.float32:
+            bar = fused_bar(outs[1], x, stack)
+            chain[f"{dtype} chunk=64 vs step bar"] = bar
+            if not err <= bar:
+                raise AssertionError(f"f32 chain: chunk=64 vs stepped {err} "
+                                     f"> {bar}")
+        del stack
+        for chunk, comm in comms.items():
+            chain[f"{dtype} chunk={chunk} ms"] = time_ms(
+                lambda: comm.run(x, flags), flush)
+        del x, outs
+    if launches["fused_gossip"] != 2:
+        raise AssertionError(f"the two bf16 chains launched {launches}")
+    emit({"phase": "fused_chain", "N": 256, "D": SLICE_D, "T": 64,
+          "launches": launches, **chain})
+    return launches
+
+
+def phase_fused_slice(dev):
+    """The fused backend's training path at full width: every step mixes
+    with the dense product; each epoch's comm-split timer runs its chains
+    through the fused kernel."""
+    epochs = 2
+    cfg = dataclasses.replace(slice_config(epochs), gossip_backend="fused")
+    reset_launch_counts()
+    result = train(cfg, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    hist = result.history
+    bpe = 2048 // 16 // 32
+    expected = epochs * timer_chains(bpe)
+    for h in hist:
+        for key in ("loss", "disagreement", "test_loss_mean"):
+            if not math.isfinite(h[key]):
+                raise AssertionError(f"fused epoch {h['epoch']}: {key} = "
+                                     f"{h[key]}")
+    if launches["fused_gossip"] != expected or launches["perm_gossip_dbuf"]:
+        raise AssertionError(f"fused slice launches {launches}, expected "
+                             f"fused_gossip = {expected} (timer chains)")
+    emit({"phase": "fused_slice", "model": "resnet20", "workers": 16,
+          "graphid": 4, "budget": 0.5, "batch": 32, "backend": "fused",
+          "steps_per_epoch": bpe, "launches": launches,
+          "expected_launches": expected,
+          "ms_per_step": [h["epoch_time"] / bpe * 1e3 for h in hist],
+          "comm_ms_per_step": [h["comm_time"] / bpe * 1e3 for h in hist],
+          "loss": [h["loss"] for h in hist],
+          "disagreement": [h["disagreement"] for h in hist]})
+    return launches
+
+
 def timer_chains(steps_per_epoch: int, sample_steps: int = 32) -> int:
     """Chains the comm-split timer runs per epoch (train/loop.py): one
     warm-up and one timed run of each window it times — the whole epoch
@@ -485,11 +779,13 @@ def main():
           "torch": torch.__version__, "nvidia_smi": smi})
 
     t0 = time.perf_counter()
-    report = _kernels.build("perm_gossip")
-    ptxas = [line.strip() for line in report["ptxas"].splitlines()
-             if "registers" in line or "spill" in line]
+    reports = _kernels.build_all(["perm_gossip", "fused_gossip"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "source": SOURCE, "cached": report["cached"], "ptxas": ptxas[:16]})
+          "sources": [SOURCE, FUSED_SOURCE],
+          "cached": {k: r["cached"] for k, r in reports.items()},
+          "ptxas": {k: [line.strip() for line in r["ptxas"].splitlines()
+                        if "registers" in line or "spill" in line][:24]
+                    for k, r in reports.items()}})
 
     tables, big_tables = slice_tables(dev), hypercube_tables(dev)
     worst = phase_parity(dev, tables, big_tables)
@@ -498,6 +794,10 @@ def main():
     phase_profile(dev)
     phase_agreement(dev)
     stream_launches = phase_stream_chain(dev, tables)
+    fused_worst = phase_fused_parity(dev, tables, big_tables)
+    fused_rows = phase_fused_timing(dev, tables, big_tables)
+    chain_launches = phase_fused_chain(dev, big_tables)
+    fused_launches = phase_fused_slice(dev)
 
     main_shape = {"perm_gossip_dbuf": timings[0],    # T=1, the training mix
                   "perm_gossip_stream": timings[1]}  # T=64, the chain path
@@ -522,6 +822,27 @@ def main():
                          "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"]} for r in timings],
         })
+    fused_main = fused_rows[1]  # T=64 on the slice's state, a chain
+    kernels.append({
+        "name": "fused_gossip", "route": "cuda", "source": FUSED_SOURCE,
+        "replaces": FUSED_REPLACES,
+        "launches": fused_launches["fused_gossip"]
+        + chain_launches["fused_gossip"],
+        "launches_by_path": {"train() fused, timer chains":
+                             fused_launches["fused_gossip"],
+                             "Communicator.run chains at N=256":
+                             chain_launches["fused_gossip"]},
+        "bitwise": False, "max_abs_err": fused_worst,
+        "shape": fused_main["shape"], "ms": fused_main["ms"],
+        "device_ms": fused_main["device_ms"],
+        "plain_ms": fused_main["plain_ms"],
+        "bound_ms": fused_main["bound_ms"],
+        "bound_by": fused_main["bound_by"],
+        "library_ms": fused_main["library_ms"],
+        "timings": [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by")}
+                    for r in fused_rows],
+    })
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

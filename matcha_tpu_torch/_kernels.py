@@ -1,11 +1,17 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and count their
+launches.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``matcha_tpu_torch/_build/`` and loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds.  The library's file name
 carries a hash of its source and flags, so an edited source never loads a
-stale build.
+stale build.  ``build_all`` compiles several sources at once, one ``nvcc``
+each.  ``pick_tile`` is the column-tile rule every wrapper launches by.
+
+``LAUNCHES`` holds one count per kernel; each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its gossip
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -16,22 +22,35 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load", "nvcc_path"]
+__all__ = ["LAUNCHES", "NVCC_FLAGS", "TILES", "build", "build_all", "load",
+           "nvcc_path", "pick_tile", "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: -fmad=false keeps every product and sum separately rounded, which is what
-#: makes a kernel bitwise equal to its plain PyTorch version (separate mul
-#: and add kernels); -Xptxas -v reports registers, shared memory and spills.
+#: makes the perm kernel bitwise equal to its plain PyTorch version
+#: (separate mul and add kernels); a kernel that wants a fused multiply-add
+#: calls ``__fmaf_rn``, which the flag leaves alone.  -Xptxas -v reports
+#: registers, shared memory and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v")
 
 _LOADED: dict = {}
+
+#: kernel launches, counted by each wrapper where it launches its kernel
+LAUNCHES = {"perm_gossip_dbuf": 0, "perm_gossip_stream": 0,
+            "fused_gossip": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def nvcc_path() -> str:
@@ -78,13 +97,50 @@ def build(name: str) -> dict:
             "cached": False}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def build_all(names) -> dict:
+    """``build`` every source in ``names`` at once (one ``nvcc`` each, all
+    started together).  Returns ``{name: build report}``; raises the first
+    failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
+def load(name: str, signatures=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    ``signatures`` (``{function: (argtypes, restype)}``) types the C
+    functions once, at first load."""
     lib = _LOADED.get(name)
     if lib is None:
         path = _library_path(name)
         if not path.exists():
             build(name)
         lib = ctypes.CDLL(str(path))
+        for fn, (argtypes, restype) in (signatures or {}).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _LOADED[name] = lib
     return lib
+
+
+TILES = (128, 64, 32)
+
+
+def pick_tile(kernel: str, smem_bytes, limit: int, n: int, block_d: int,
+              blocks_per_sm: int) -> int:
+    """Columns per CTA for an ``[n, D]`` state: the widest of ``TILES`` that
+    is ≤ ``block_d`` (at least 32) and whose shared memory,
+    ``smem_bytes(tile)``, leaves room for ``blocks_per_sm`` CTAs on one SM
+    (``limit`` is what one block may use); else the narrowest tile, which
+    keeps the most CTAs in flight, if it fits one block at all."""
+    cap = max(TILES[-1], block_d)
+    for tile in TILES:
+        if tile <= cap and smem_bytes(tile) <= limit // blocks_per_sm:
+            return tile
+    need = smem_bytes(TILES[-1])
+    if need <= limit:
+        return TILES[-1]
+    raise ValueError(
+        f"{kernel}: {n} workers need {need} B of shared memory at the "
+        f"narrowest tile ({TILES[-1]} columns), more than the {limit} B a "
+        f"block may use; a large-N tiling is still to be ported (ROADMAP.md)")

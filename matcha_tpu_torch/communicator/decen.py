@@ -1,25 +1,39 @@
 """Decentralized gossip communicator (D-PSGD / MATCHA hot path).
 
 Port of ``matcha_tpu/communicator/decen.py``: ``make_decen`` (:77) with the
-two backends of this slice,
+four backends of the port so far,
 
 * ``"perm"``   — the permutation-form CUDA kernel for every phase: the
                  per-step training mix is a T=1 launch, ``run`` chains are
                  one launch for the whole flag stream (``parallel.
                  perm_gossip_run``);
+* ``"dense"``  — one matrix product ``W_t @ x`` per step
+                 (``parallel.gossip_mix_dense``, ``torch.matmul`` in f32);
+* ``"fused"``  — the dense step for training, and for a whole flag stream
+                 (``run`` chains, the comm-split timer) the fused W-stack
+                 CUDA kernel: one launch for the chain
+                 (``parallel.fused_gossip_run``);
 * ``"gather"`` — the per-matching gather oracle (``parallel.gossip_mix``).
 
-The other backends of the JAX package (``dense``, ``fused``, ``skip``,
-``shard_map`` and ``auto``, whose choice needs the planner's cost model)
-are not ported yet and raise.
+The fused ``multi_step`` has no masked twin: its stack knows nothing of
+survivors, so ``Communicator.run`` steps a masked chain through the dense
+mix, as the JAX package does.  The other backends of the JAX package
+(``skip``, ``shard_map`` and ``auto``, whose choice needs the planner's
+cost model) are not ported yet and raise.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from ..parallel import (
+    build_mixing_stack,
+    compose_mixing_stack,
+    dense_gossip_fn,
+    fused_gossip_run,
     gossip_mix,
     involution_tables,
     perm_gossip_run,
@@ -31,7 +45,7 @@ from .base import Communicator
 
 __all__ = ["make_decen"]
 
-PORTED_BACKENDS = ("perm", "gather")
+PORTED_BACKENDS = ("perm", "dense", "fused", "gather")
 
 
 def make_decen(
@@ -39,6 +53,8 @@ def make_decen(
     backend: str = "perm",
     *,
     device=None,
+    compute_dtype=torch.float32,
+    chunk: int = 1,
     block_d: int | None = None,
     w_window: int = 1,
     wire_dtype=None,
@@ -47,20 +63,57 @@ def make_decen(
 
     ``device``: where the state lives (the tables are placed there once);
     ``None`` means CUDA, and a host without CUDA raises unless the caller
-    passes ``device="cpu"``.  ``block_d``/``w_window`` tune the perm
-    kernel (tile width, steps per weight window) and never change its
-    arithmetic.  ``wire_dtype``
-    (``"f32"``/``"bf16"``/None) is the dtype of the exchanged values.
+    passes ``device="cpu"``.  ``wire_dtype`` (``"f32"``/``"bf16"``/None)
+    is the dtype of the exchanged values.  ``compute_dtype`` (dense and
+    fused): the dtype the mixing matrices and the state are rounded to
+    before each product, f32 accumulation either way; a bf16 wire turns an
+    f32 ``compute_dtype`` into bf16 (the product's operand pass *is* the
+    exchange), and an explicit narrower ``compute_dtype`` wins.
+
+    ``chunk`` (fused only): collapse runs of ``chunk`` consecutive mixing
+    matrices into their product before the kernel (``compose_mixing_stack``)
+    — the same ``x_T`` for consensus-only chains; keep 1 for training.
+    ``block_d``/``w_window`` tune the perm and fused kernels (tile width,
+    steps per window) and never change their arithmetic.
     """
     dev = resolve_device(device)
     perms = np.asarray(schedule.perms)
     alpha = float(schedule.alpha)
     wire = resolve_wire_dtype(wire_dtype)
+    if wire is not None and torch.finfo(compute_dtype).bits >= 32:
+        compute_dtype = wire
+
+    if backend not in ("fused", "perm") \
+            and (block_d is not None or w_window != 1):
+        warnings.warn(
+            f"block_d/w_window tune the fused/perm backends' CUDA kernels; "
+            f"backend '{backend}' ignores them. Note the fused kernel runs "
+            f"multi-step *chains* (Communicator.run / the comm-split timer) "
+            f"— the per-step training mix is a single dense product either "
+            f"way.",
+            stacklevel=2,
+        )
 
     multi_step = multi_step_masked = None
     if backend == "gather":
         def mix(x, w, alive=None):
             return gossip_mix(x, perms, w, alive, wire_dtype=wire)
+    elif backend in ("dense", "fused"):
+        laplacians = torch.as_tensor(schedule.laplacians(),
+                                     dtype=torch.float32, device=dev)
+        mix = dense_gossip_fn(laplacians, compute_dtype=compute_dtype,
+                              device=dev)
+        if backend == "fused":
+            kernel_kwargs = {"w_window": w_window}
+            if block_d is not None:
+                kernel_kwargs["block_d"] = block_d
+
+            def multi_step(flat, carry, flags):
+                stack = build_mixing_stack(laplacians, alpha, flags,
+                                           dtype=compute_dtype)
+                if chunk > 1:
+                    stack = compose_mixing_stack(stack, chunk)
+                return fused_gossip_run(flat, stack, **kernel_kwargs), carry
     elif backend == "perm":
         perms_i32, partnered = involution_tables(perms)
         perms_t = torch.as_tensor(perms_i32, device=dev)
@@ -86,8 +139,8 @@ def make_decen(
         raise ValueError(
             f"gossip backend '{backend}' is not ported yet: the port has "
             f"{list(PORTED_BACKENDS)}; ROADMAP.md lists the order in which "
-            f"the others ('dense', 'fused', 'skip', 'shard_map' and 'auto', "
-            f"which needs the planner's cost model) land")
+            f"the others ('skip', 'shard_map' and 'auto', which needs the "
+            f"planner's cost model) land")
 
     def init(flat: torch.Tensor):
         return ()

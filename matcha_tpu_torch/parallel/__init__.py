@@ -1,6 +1,7 @@
 """Gossip primitives on worker-stacked ``[N, ...]`` tensors.  Port of the
-slice-1 surface of ``matcha_tpu.parallel``: the wire-dtype seam, the gather
-oracle, the centralized collectives and the permutation-form kernel."""
+slice-1 and slice-2 surface of ``matcha_tpu.parallel``: the wire-dtype and
+precision seams, the gather oracle, the dense backend, the centralized
+collectives, the permutation-form kernel and the fused W-stack kernel."""
 
 from .collectives import (
     allreduce_mean,
@@ -9,7 +10,21 @@ from .collectives import (
     masked_mean_rows,
     worker_disagreement,
 )
-from .gossip import gossip_mix, resolve_wire_dtype
+from .fused_gossip import (
+    build_mixing_stack,
+    canonical_chunk,
+    compose_mixing_stack,
+    fused_gossip_plain,
+    fused_gossip_run,
+)
+from .gossip import (
+    dense_gossip_fn,
+    gossip_mix,
+    gossip_mix_dense,
+    masked_laplacians,
+    mxu_precision,
+    resolve_wire_dtype,
+)
 from .perm_gossip import (
     LAUNCHES,
     involution_tables,
@@ -22,10 +37,19 @@ __all__ = [
     "LAUNCHES",
     "allreduce_mean",
     "broadcast_worker0",
+    "build_mixing_stack",
+    "canonical_chunk",
+    "compose_mixing_stack",
+    "dense_gossip_fn",
+    "fused_gossip_plain",
+    "fused_gossip_run",
     "gossip_mix",
+    "gossip_mix_dense",
     "involution_tables",
     "masked_allreduce_mean",
+    "masked_laplacians",
     "masked_mean_rows",
+    "mxu_precision",
     "perm_gossip_plain",
     "perm_gossip_run",
     "reset_launch_counts",

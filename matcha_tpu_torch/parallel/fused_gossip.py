@@ -1,0 +1,221 @@
+"""Fused W-stack gossip: T dense mixing steps on an ``[N, D]`` state in one
+kernel launch.
+
+Port of the fused half of ``matcha_tpu/parallel/pallas_gossip.py``:
+``build_mixing_stack`` (:77), ``canonical_chunk`` (:95),
+``compose_mixing_stack`` (:107) and ``fused_gossip_run`` (:182).  The
+Pallas kernel behind ``fused_gossip_run`` (``_make_kernel`` :156) becomes
+the hand-written CUDA kernel ``csrc/fused_gossip.cu``: one CTA per column
+tile keeps its ``[N, tile]`` block in shared memory for all T steps while
+the ``[T, N, N]`` stack streams past it.
+
+Per step: ``x ← cast_state(W_t @ cast_stack(x))``, f32 accumulation.  The
+state is rounded to the stack's dtype at each step's input and the f32 sum
+to the state's dtype at its output, exactly as the per-step dense backend
+(``gossip.gossip_mix_dense``) does, so a chain equals stepping through it.
+
+``fused_gossip_run`` takes the plain PyTorch version, ``fused_gossip_plain``
+(one ``torch.matmul`` per step, TF32 off), for a tensor on the CPU only; a
+CUDA tensor launches the kernel or raises.  ``LAUNCHES["fused_gossip"]``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import operator
+
+import torch
+
+from .._kernels import LAUNCHES, pick_tile
+from .gossip import _dense_apply, _mixing_matrices, mxu_precision
+
+__all__ = [
+    "build_mixing_stack",
+    "canonical_chunk",
+    "compose_mixing_stack",
+    "fused_gossip_plain",
+    "fused_gossip_run",
+]
+
+# Launch shape: the CTAs a column tile should leave room for on one SM.  A
+# wider tile re-reads the stack from L2 fewer times ((D/tile)·T·N²
+# elements in all); two CTAs per SM let one load its W chunk while the
+# other multiplies.
+_BLOCKS_PER_SM = 2
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def build_mixing_stack(laplacians, alpha: float, flags,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    """``W[t] = I − Σ_j α·flags[t,j]·L_j`` for every step — ``[T, N, N]``,
+    built in f32 on the device of ``flags`` and cast to ``dtype`` at the
+    end.  Each ``W[t]`` has the bits the dense step builds for step t."""
+    device = flags.device if isinstance(flags, torch.Tensor) else None
+    lap = torch.as_tensor(laplacians, dtype=torch.float32, device=device)
+    w = alpha * torch.as_tensor(flags, dtype=torch.float32, device=device)
+    return _mixing_matrices(w, lap).to(dtype)
+
+
+def canonical_chunk(chunk: int) -> int:
+    """The chunk size :func:`compose_mixing_stack` actually executes:
+    powers of two (pairwise doubling); values ≤ 1 disable composition.
+    ``operator.index`` refuses a float instead of truncating it."""
+    chunk = operator.index(chunk)
+    return chunk if chunk <= 1 else 1 << (chunk - 1).bit_length()
+
+
+def compose_mixing_stack(stack: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Collapse runs of ``chunk`` consecutive mixing matrices into their
+    product: ``P_c = W_{cS+S−1} ⋯ W_{cS}`` — ``[⌈T/S⌉, N, N]``.
+
+    By associativity one ``P_c`` per chunk computes the same ``x_T`` as the
+    S steps (intermediate iterates are not materialized: consensus-only
+    chains, not training).  ``chunk`` rounds up to a power of two S; the
+    composition runs as log₂(S) pairwise-doubling levels of batched f32
+    products (TF32 off), later steps on the left, with identity matrices
+    padding the back of the stream, and casts to the stack's dtype once at
+    the end.
+    """
+    t_steps, n, _ = stack.shape
+    chunk2 = canonical_chunk(chunk)
+    if chunk2 <= 1:
+        return stack
+    levels = chunk2.bit_length() - 1
+    pad = (-t_steps) % chunk2
+    w = stack.to(torch.float32)
+    if pad:
+        eye = torch.eye(n, dtype=torch.float32, device=stack.device)
+        w = torch.cat([w, eye.expand(pad, n, n)])
+    with mxu_precision():
+        for _ in range(levels):
+            # steps (2i, 2i+1) fuse to W_{2i+1} @ W_{2i}
+            w = torch.matmul(w[1::2], w[0::2])
+    return w.to(stack.dtype)
+
+
+def _prepare(x, mixing_stack, block_d, w_window):
+    """Validate and normalize the arguments shared by the kernel and its
+    plain version.  Returns None for an empty stream (identity), else
+    ``(stack [T', N, N] front-padded, block_d)`` on ``x``'s device."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
+    n, d = x.shape
+    stack = torch.as_tensor(mixing_stack, device=x.device)
+    if stack.ndim != 3 or tuple(stack.shape[1:]) != (n, n):
+        raise ValueError(f"mixing stack {tuple(stack.shape)} vs state "
+                         f"{tuple(x.shape)}")
+    for what, dtype in (("state", x.dtype), ("mixing stack", stack.dtype)):
+        if dtype not in _DTYPES:
+            raise ValueError(f"fused_gossip takes a float32 or bfloat16 "
+                             f"{what}, got {dtype}")
+    block_d = min(operator.index(block_d), d)
+    t_steps = stack.shape[0]
+    if t_steps == 0:
+        return None
+    w_window = max(1, min(operator.index(w_window), t_steps))
+    pad = (-t_steps) % w_window
+    if pad:
+        # front identity padding, as the reference: the pad steps give
+        # cast_state(I @ cast_stack(x)), which the first real step's input
+        # cast makes indistinguishable from x
+        eye = torch.eye(n, dtype=stack.dtype, device=x.device)
+        stack = torch.cat([eye.expand(pad, n, n), stack])
+    return stack.contiguous(), block_d
+
+
+def _plain(x, stack):
+    out = x
+    for t in range(stack.shape[0]):
+        out = _dense_apply(stack[t], out, stack.dtype)
+    return out
+
+
+def fused_gossip_plain(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
+                       w_window: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of the fused kernel, on any device: per
+    step ``(W_t.float() @ x.to(stack dtype).float()).to(x.dtype)`` with TF32
+    off.  The CPU path of :func:`fused_gossip_run` and the kernel's
+    yardstick on the card; ``block_d`` and ``w_window`` change nothing."""
+    prep = _prepare(x, mixing_stack, block_d, w_window)
+    if prep is None:
+        return x
+    return _plain(x, prep[0])
+
+
+def _tile_width(lib, n: int, block_d: int) -> int:
+    """Columns per CTA (``_kernels.pick_tile``), leaving room for
+    ``_BLOCKS_PER_SM`` CTAs on one SM."""
+    return pick_tile("fused_gossip",
+                     lambda tile: lib.fused_gossip_smem_bytes(n, tile),
+                     lib.fused_gossip_smem_limit(), n, block_d,
+                     _BLOCKS_PER_SM)
+
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "fused_gossip_launch": ([_VP] * 3 + [_I, _LL] + [_I] * 4 + [_VP], _I),
+    "fused_gossip_smem_bytes": ([_I, _I], _LL),
+    "fused_gossip_smem_limit": ([], _LL),
+    "fused_gossip_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def _library():
+    from .. import _kernels
+
+    return _kernels.load("fused_gossip", _SIGNATURES)
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _launch(x, stack, block_d):
+    lib = _library()
+    n, d = x.shape
+    tile = _tile_width(lib, n, block_d)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.fused_gossip_launch(
+            x.data_ptr(), out.data_ptr(), stack.data_ptr(), n, d,
+            stack.shape[0], tile, _DTYPE_CODES[x.dtype],
+            _DTYPE_CODES[stack.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_gossip kernel launch failed: "
+                           f"{lib.fused_gossip_error_string(rc).decode()}")
+    LAUNCHES["fused_gossip"] += 1
+    return out
+
+
+def fused_gossip_run(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
+                     w_window: int = 1) -> torch.Tensor:
+    """Apply ``T`` gossip steps ``x ← cast(W_t @ x)`` in one kernel launch.
+
+    ``x``: ``[N, D]`` worker state (float32 or bfloat16).  ``mixing_stack``:
+    ``[T, N, N]`` (float32 or bfloat16) from :func:`build_mixing_stack`,
+    optionally composed.  Each step accumulates in f32 and casts back to
+    ``x.dtype``, step for step the dense backend's arithmetic.
+
+    ``block_d``: the widest column tile a CTA may take (at least 32, at most
+    128).  ``w_window``: the reference's steps per grid visit; the stack is
+    front-padded with identity matrices to a multiple of it, as the
+    reference does, and the kernel otherwise ignores it (it stages one
+    ``W_t`` at a time).  Neither changes a bit of the result.
+
+    An empty stream (``T == 0``) returns ``x`` itself.  A CPU tensor runs
+    :func:`fused_gossip_plain`; a CUDA tensor launches the kernel on the
+    current stream and raises if the launch fails.
+    """
+    prep = _prepare(x, mixing_stack, block_d, w_window)
+    if prep is None:
+        return x
+    stack, block_d = prep
+    if x.device.type == "cpu":
+        return _plain(x, stack)
+    if x.device.type == "cuda":
+        return _launch(x, stack, block_d)
+    raise ValueError(f"fused_gossip_run takes a CPU or CUDA tensor, got "
+                     f"device {x.device}")

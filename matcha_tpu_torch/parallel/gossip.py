@@ -1,23 +1,32 @@
 """Gossip averaging on a worker-stacked ``[N, ...]`` tensor.
 
 Port of ``matcha_tpu/parallel/gossip.py``: the wire-dtype seam
-(``resolve_wire_dtype``, :78) and the gather oracle (``gossip_mix``, :138).
-One gossip step with matchings ``π_j`` (involutions over workers, fixed
-points = unmatched) and per-step weights ``w_j = α·flag_j``:
+(``resolve_wire_dtype``, :78), the precision seam (``mxu_precision``,
+:101), the gather oracle (``gossip_mix``, :138) and the dense backend
+(``masked_laplacians`` :239, ``gossip_mix_dense`` :260, ``dense_gossip_fn``
+:305).  One gossip step with matchings ``π_j`` (involutions over workers,
+fixed points = unmatched) and per-step weights ``w_j = α·flag_j``:
 
     x_i ← x_i + Σ_j w_j · (x_{π_j(i)} − x_i)
 
+which the dense backend computes as one matrix product ``x ← W_t @ x``,
+``W_t = I − Σ_j w_j·L_j`` with ``L_j`` the matchings' Laplacians.
+
 An optional ``alive: f32[N]`` survivor mask realizes an edge only when both
-endpoints live (its delta is scaled by ``alive_i · alive_{π_j(i)}``), so
-every realized mixing matrix stays doubly stochastic over the survivors.
+endpoints live (its delta is scaled by ``alive_i · alive_{π_j(i)}``, or its
+Laplacian entries are), so every realized mixing matrix stays doubly
+stochastic over the survivors.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-__all__ = ["gossip_mix", "resolve_wire_dtype"]
+__all__ = ["dense_gossip_fn", "gossip_mix", "gossip_mix_dense",
+           "masked_laplacians", "mxu_precision", "resolve_wire_dtype"]
 
 
 def resolve_wire_dtype(wire_dtype):
@@ -40,6 +49,27 @@ def resolve_wire_dtype(wire_dtype):
         raise ValueError(f"unknown wire_dtype {wire_dtype!r} (f32|bf16 or a "
                          f"torch dtype)")
     return None if wire_dtype == torch.float32 else wire_dtype
+
+
+@contextlib.contextmanager
+def mxu_precision():
+    """The context every product of the dense path runs under: true f32.
+
+    The JAX seam maps a compute dtype to a TPU precision so that f32 means
+    f32.  The port's dense products always multiply f32 operands (values
+    already rounded to the compute dtype) and accumulate in f32, so one
+    rule serves every compute dtype and the context takes none: on the
+    card it turns TF32 off, whatever the caller set, and restores the
+    caller's setting after.  TF32 would round f32 operands to 10 mantissa
+    bits; bf16-rounded operands it would leave exact.
+    """
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = prev
 
 
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -75,3 +105,85 @@ def gossip_mix(x: torch.Tensor, perms, weights, alive=None,
             delta = _rows(alive * alive.index_select(0, index[j]), delta) * delta
         acc = acc + weights[j] * delta
     return x + acc
+
+
+# ---------------------------------------------------------------------------
+# Dense backend
+# ---------------------------------------------------------------------------
+
+def masked_laplacians(laplacians: torch.Tensor,
+                      alive: torch.Tensor) -> torch.Tensor:
+    """Survivor-masked Laplacian stack: edge (u, v) kept iff both alive.
+
+    ``L_j = D_j − A_j``; masking scales the adjacency by
+    ``alive_u·alive_v`` and recomputes the degree, so each masked matrix is
+    still a Laplacian (symmetric, zero row sums) and the mixing built from
+    it stays doubly stochastic.  ``alive`` may hold survival probabilities
+    as well as 0/1 (the expected masked Laplacian).
+    """
+    lap = torch.as_tensor(laplacians)
+    alive = torch.as_tensor(alive, dtype=lap.dtype, device=lap.device)
+    adj = torch.diag_embed(torch.diagonal(lap, dim1=-2, dim2=-1)) - lap
+    adj = adj * (alive[:, None] * alive[None, :])[None]
+    return torch.diag_embed(adj.sum(dim=-1)) - adj
+
+
+def _mixing_matrices(weights: torch.Tensor,
+                     laplacians: torch.Tensor) -> torch.Tensor:
+    """``f32[T, N, N]``: ``W_t = I − Σ_j weights[t, j]·L_j``.  The sum runs
+    elementwise in ``j`` order, so a step's matrix has the same bits whether
+    it is built alone (the dense step) or in a stack (the fused chain)."""
+    n = laplacians.shape[-1]
+    acc = torch.zeros((weights.shape[0], n, n), dtype=torch.float32,
+                      device=laplacians.device)
+    for j in range(laplacians.shape[0]):
+        acc = acc + weights[:, j, None, None] * laplacians[j]
+    return torch.eye(n, dtype=torch.float32, device=laplacians.device) - acc
+
+
+def _dense_apply(w: torch.Tensor, x: torch.Tensor,
+                 compute_dtype) -> torch.Tensor:
+    """``cast_x(W @ cast_c(x))``: both operands rounded to
+    ``compute_dtype``, then multiplied as f32 and accumulated in f32, the
+    sum cast once to ``x.dtype``.  Multiplying the rounded operands in f32
+    (not as two bf16 tensors, whose product PyTorch would round to bf16
+    before the cast) is what JAX's ``preferred_element_type=float32``
+    does."""
+    with mxu_precision():
+        out = torch.matmul(w.to(compute_dtype).to(torch.float32),
+                           x.to(compute_dtype).to(torch.float32))
+    return out.to(x.dtype)
+
+
+def gossip_mix_dense(x: torch.Tensor, laplacians: torch.Tensor,
+                     weights: torch.Tensor, compute_dtype=torch.float32,
+                     alive=None) -> torch.Tensor:
+    """One gossip step as a single matrix product: ``x ← W_t @ x`` with
+    ``W_t = I − Σ_j weights[j]·L_j`` built from the flag weights.
+
+    ``laplacians``: the ``[M, N, N]`` stack (used as f32 on ``x``'s
+    device).  ``compute_dtype``: the dtype both operands are rounded to
+    (bf16 is the bf16 wire); the product accumulates in f32 and is cast
+    back to ``x.dtype`` (a float64 state goes through f32, as in the JAX
+    package).  ``alive`` rebuilds the Laplacians through
+    :func:`masked_laplacians` first.
+    """
+    laplacians = torch.as_tensor(laplacians, dtype=torch.float32,
+                                 device=x.device)
+    if alive is not None:
+        laplacians = masked_laplacians(laplacians, alive)
+    weights = torch.as_tensor(weights, dtype=torch.float32, device=x.device)
+    w = _mixing_matrices(weights[None], laplacians)[0]
+    return _dense_apply(w, x, compute_dtype)
+
+
+def dense_gossip_fn(laplacians, compute_dtype=torch.float32, device=None):
+    """Build ``(x, weights[, alive]) -> x`` closing over the Laplacian stack
+    (an array or a tensor, placed on ``device`` once, as f32)."""
+    lap = torch.as_tensor(laplacians, dtype=torch.float32, device=device)
+
+    def fn(x, weights, alive=None):
+        return gossip_mix_dense(x, lap, weights, compute_dtype=compute_dtype,
+                                alive=alive)
+
+    return fn

@@ -17,9 +17,9 @@ sum ``x + acc`` back to the state dtype.
 
 ``perm_gossip_run`` takes the plain PyTorch version, ``perm_gossip_plain``
 (the same loop in the same operation order), for a tensor on the CPU only;
-a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches per instantiation, so a run can show that its gossip went through
-the kernel.
+a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` (shared with
+the port's other kernels, ``_kernels.py``) counts kernel launches per
+instantiation, so a run can show that its gossip went through the kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import operator
 import numpy as np
 import torch
 
+from .._kernels import LAUNCHES, pick_tile, reset_launch_counts
 from .gossip import resolve_wire_dtype
 
 __all__ = [
@@ -40,21 +41,11 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-#: kernel launches per instantiation, counted by the wrapper at launch
-LAUNCHES = {"perm_gossip_dbuf": 0, "perm_gossip_stream": 0}
-
-# Launch shape, chosen by timing tiles and row groups on an H100: columns
-# per CTA (widest first), rows per thread (a CTA holds about N / 16 row
-# groups, at most 1024 threads), and the CTAs a tile should leave room for
-# on one SM.
-_TILES = (128, 64, 32)
+# Launch shape, chosen by timing tiles and row groups on an H100: rows per
+# thread (a CTA holds about N / 16 row groups, at most 1024 threads), and
+# the CTAs a column tile should leave room for on one SM.
 _ROWS_PER_THREAD = 16
 _BLOCKS_PER_SM = 4
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def involution_tables(perms) -> tuple[np.ndarray, np.ndarray]:
@@ -163,42 +154,27 @@ def perm_gossip_plain(x: torch.Tensor, weights, perms, partnered, *,
 
 
 def _tile_width(lib, n: int, m: int, w_window: int, block_d: int) -> int:
-    """Columns per CTA: the widest tile ≤ ``block_d`` (at least 32) whose
-    shared memory leaves room for ``_BLOCKS_PER_SM`` CTAs on one SM; else
-    the narrowest tile, which keeps the most CTAs in flight, if it fits one
-    block at all."""
-    limit = lib.perm_gossip_smem_limit()
-    cap = max(32, block_d)
-    for tile in _TILES:
-        if tile <= cap and lib.perm_gossip_smem_bytes(
-                n, tile, w_window, m) <= limit // _BLOCKS_PER_SM:
-            return tile
-    need = lib.perm_gossip_smem_bytes(n, _TILES[-1], w_window, m)
-    if need <= limit:
-        return _TILES[-1]
-    raise ValueError(
-        f"perm_gossip: {n} workers need {need} B of shared memory at the "
-        f"narrowest tile ({_TILES[-1]} columns), more than the {limit} B a "
-        f"block may use; a large-N tiling is still to be ported (ROADMAP.md)")
+    """Columns per CTA (``_kernels.pick_tile``), leaving room for
+    ``_BLOCKS_PER_SM`` CTAs on one SM."""
+    return pick_tile(
+        "perm_gossip",
+        lambda tile: lib.perm_gossip_smem_bytes(n, tile, w_window, m),
+        lib.perm_gossip_smem_limit(), n, block_d, _BLOCKS_PER_SM)
+
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "perm_gossip_launch": ([_VP] * 5 + [_I, _LL] + [_I] * 8 + [_VP], _I),
+    "perm_gossip_smem_bytes": ([_I] * 4, _LL),
+    "perm_gossip_smem_limit": ([], _LL),
+    "perm_gossip_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def _library():
     from .. import _kernels
 
-    lib = _kernels.load("perm_gossip")
-    if not getattr(lib, "_matcha_typed", False):
-        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.perm_gossip_launch.argtypes = [vp, vp, vp, vp, vp, i, ll, i, i, i,
-                                           i, i, i, i, i, vp]
-        lib.perm_gossip_launch.restype = i
-        lib.perm_gossip_smem_bytes.argtypes = [i, i, i, i]
-        lib.perm_gossip_smem_bytes.restype = ll
-        lib.perm_gossip_smem_limit.argtypes = []
-        lib.perm_gossip_smem_limit.restype = ll
-        lib.perm_gossip_error_string.argtypes = [i]
-        lib.perm_gossip_error_string.restype = ctypes.c_char_p
-        lib._matcha_typed = True
-    return lib
+    return _kernels.load("perm_gossip", _SIGNATURES)
 
 
 _STATE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -3,7 +3,9 @@
 Port of ``matcha_tpu/train/config.py``: ``TrainConfig`` with the same fields
 and the same validation.  Fields of features the port does not have yet
 raise ``NotImplementedError`` when set to anything but their default (see
-``_UNPORTED``); ``ROADMAP.md`` lists the order in which they land.  Three
+``_UNPORTED``); ``ROADMAP.md`` lists the order in which they land.
+``gossip_backend`` takes the port's four backends, ``perm``, ``dense``,
+``fused`` and ``gather`` (``make_decen`` refuses the others).  Three
 defaults differ from the JAX package's, because the features behind them
 are not ported: ``gossip_backend`` is ``"perm"`` (``"auto"`` needs the
 planner's cost model), and ``telemetry`` and ``health`` are off.
@@ -63,11 +65,13 @@ class TrainConfig:
     compressor: str = "top_k"
     consensus_lr: float = 0.1
     compress_warmup_epochs: int = 0
-    # gossip backend: perm (the permutation-form CUDA kernel) or gather
-    # (the oracle); the JAX package's other backends are not ported yet
+    # gossip backend: perm (the permutation-form CUDA kernel), dense (one
+    # matrix product per step), fused (dense steps; chains through the
+    # fused W-stack CUDA kernel) or gather (the oracle); skip, shard_map and
+    # auto are not ported yet
     gossip_backend: str = "perm"
-    gossip_block_d: Optional[int] = None  # perm kernel column tile cap
-    gossip_w_window: int = 1  # perm steps per weight window (exact)
+    gossip_block_d: Optional[int] = None  # perm/fused kernel tile cap
+    gossip_w_window: int = 1  # perm/fused steps per window (exact)
     gossip_measured_vs_ceiling: Optional[float] = None
     gossip_measured_source: Optional[str] = None
     overlap: str = "off"  # off|1step

@@ -14,7 +14,10 @@ syncs the initial replicas, then runs the epochs.  Differences by design:
   (the host path is kept for augmentation, which is numpy).
 * The comm-split timer re-runs each epoch's gossip chain in isolation,
   through ``Communicator.run``, and charges its wall-clock to
-  ``comm_time``; it synchronizes the card before every clock read.
+  ``comm_time``; it synchronizes the card before every clock read.  A
+  backend with a ``multi_step`` (perm, fused) runs each timed chain as one
+  kernel launch; under ``fused`` that is the only place the fused W-stack
+  kernel runs, since every training step mixes with the dense product.
 
 Not ported yet (``TrainConfig`` refuses them): the Recorder and its journal,
 checkpoints, rollback recovery, faults, elastic membership, telemetry and

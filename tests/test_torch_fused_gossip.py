@@ -1,0 +1,460 @@
+"""The port's dense and fused gossip backends against the JAX package.
+
+``matcha_tpu_torch.parallel.fused_gossip_run`` on CPU tensors runs its plain
+PyTorch version (one ``torch.matmul`` per step).  It is held here against
+the JAX ``fused_gossip_run`` run through the Pallas interpreter (as
+``tests/test_pallas.py`` runs it, and as the JAX ``make_decen`` runs it off
+a TPU), and against the port's own dense backend.  The seven laws of
+``tests/test_pallas.py`` are mirrored on the port.  Inputs come from numpy
+with a fixed seed and are handed to both frameworks; both sides use the
+JAX package's schedule, so the flags and α are the same.
+
+Tolerances:
+
+* Port fused (plain) against port dense: bitwise.  Both build each step's
+  mixing matrix with the same elementwise sum and multiply the same
+  operands with the same ``torch.matmul`` call.
+* Port against JAX, f32: ``rtol=1e-5, atol=1e-6`` (``tests/test_pallas.py``
+  uses the same for fused vs dense and for composition).  The two sides sum
+  each ``W_t`` (over the M matchings) and each product (over the N
+  workers) in another order, a few f32 ulps per step on values of order 1.
+* Port against JAX, a bf16 operand pass (bf16 stack or compute dtype):
+  one step at ``rtol=1e-5, atol=1e-6`` as in f32, since the products of
+  bf16 operands are exact on both sides and only the f32 sums may differ.
+  A chain: ``2⁻⁸ · max|ref|``, half a bf16 ulp at the output's largest
+  magnitude, for a sum one f32 ulp apart that rounds a later step's bf16
+  operand (or a bf16 state) the other way.  The measured gap is 0 in every
+  such case here, over seeds 0–11 of the state (at N = 8 on a ring each
+  sum has at most three nonzero terms).
+* Composition against the step chain: ``rtol=1e-5, atol=1e-6``
+  (associativity up to f32 reordering).
+* ``w_window`` and ``block_d``: bitwise (identity front-padding is exact
+  on finite states; the tile never enters the arithmetic).
+
+The CUDA kernel itself runs only on the card: the ``cuda``-marked test
+skips on a host without one; ``chip_smoke.py`` holds the kernel against the
+plain version at the slice's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from matcha_tpu import topology as jtp
+from matcha_tpu.communicator import make_decen as jax_make_decen
+from matcha_tpu.parallel import build_mixing_stack as jax_build_mixing_stack
+from matcha_tpu.parallel import canonical_chunk as jax_canonical_chunk
+from matcha_tpu.parallel import compose_mixing_stack as jax_compose
+from matcha_tpu.parallel import fused_gossip_run as jax_fused_gossip_run
+from matcha_tpu.parallel import gossip_mix_dense as jax_gossip_mix_dense
+from matcha_tpu.parallel import masked_laplacians as jax_masked_laplacians
+from matcha_tpu.schedule import matcha_schedule as jax_matcha_schedule
+from matcha_tpu_torch.communicator import make_decen
+from matcha_tpu_torch.parallel import (
+    LAUNCHES,
+    build_mixing_stack,
+    canonical_chunk,
+    compose_mixing_stack,
+    fused_gossip_plain,
+    fused_gossip_run,
+    gossip_mix_dense,
+    masked_laplacians,
+    mxu_precision,
+)
+from matcha_tpu_torch.parallel.gossip import _dense_apply
+
+N, D = 8, 37
+ALIVE = np.array([1, 1, 0, 1, 1, 1, 0, 1], np.float32)
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
+JAX = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def sched():
+    dec = jtp.decompose(jtp.ring_graph(N), N, seed=0)
+    return jax_matcha_schedule(dec, N, iterations=24, budget=0.6, seed=0)
+
+
+def _state(seed=0, n=N, d=D):
+    return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+
+
+def _bf16_chain_bound(ref):
+    return 2.0 ** -8 * float(np.abs(_np(ref)).max())
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _lap(sched):
+    return torch.as_tensor(sched.laplacians(), dtype=torch.float32)
+
+
+def _port_run(sched, backend, x, t_steps, **kw):
+    alive = kw.pop("alive", None)
+    comm = make_decen(sched, backend, device="cpu", **kw)
+    out, _ = comm.run(torch.from_numpy(x),
+                      np.asarray(sched.flags[:t_steps], np.float32),
+                      alive=None if alive is None else torch.from_numpy(alive))
+    return out
+
+
+def _jax_run(sched, backend, x, t_steps, **kw):
+    alive = kw.pop("alive", None)
+    comm = jax_make_decen(sched, backend=backend, **kw)
+    out, _ = comm.run(jnp.asarray(x),
+                      jnp.asarray(sched.flags[:t_steps], jnp.float32),
+                      alive=None if alive is None else jnp.asarray(alive))
+    return out
+
+
+# ------------------------------------------------ the dense helpers vs JAX
+
+
+@pytest.mark.parametrize("alive", [ALIVE, np.linspace(0.2, 1.0, N,
+                                                      dtype=np.float32)],
+                         ids=["zero-one", "probabilities"])
+def test_masked_laplacians_match_jax(sched, alive):
+    port = masked_laplacians(_lap(sched), torch.from_numpy(alive))
+    ref = jax_masked_laplacians(jnp.asarray(sched.laplacians(), jnp.float32),
+                                jnp.asarray(alive))
+    # adjacency entries are 0/1 scaled by one product: every value and
+    # every degree sum is computed the same way on both sides
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(port.numpy().sum(-1), 0.0, atol=1e-6)
+    np.testing.assert_array_equal(port.numpy(),
+                                  np.swapaxes(port.numpy(), -1, -2))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_gossip_mix_dense_matches_jax(sched, compute, masked):
+    x = _state(1)
+    w = (sched.alpha * np.asarray(sched.flags[3])).astype(np.float32)
+    alive = ALIVE if masked else None
+    port = gossip_mix_dense(torch.from_numpy(x), _lap(sched),
+                            torch.from_numpy(w), compute_dtype=TORCH[compute],
+                            alive=None if alive is None
+                            else torch.from_numpy(alive))
+    ref = jax_gossip_mix_dense(jnp.asarray(x),
+                               jnp.asarray(sched.laplacians(), jnp.float32),
+                               jnp.asarray(w), compute_dtype=JAX[compute],
+                               alive=None if alive is None
+                               else jnp.asarray(alive))
+    assert port.dtype == torch.float32
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_build_mixing_stack_matches_jax(sched, dtype):
+    port = build_mixing_stack(sched.laplacians(), sched.alpha,
+                              torch.as_tensor(sched.flags), TORCH[dtype])
+    ref = jax_build_mixing_stack(sched.laplacians(), sched.alpha, sched.flags,
+                                 JAX[dtype])
+    assert port.dtype == TORCH[dtype] and tuple(port.shape) == ref.shape
+    # f32: the M-term sum in another order; bf16: one rounding of that
+    # f32 value, which a one-ulp difference can tip by one bf16 ulp
+    atol = 1e-6 if dtype == "f32" else 2.0 ** -7
+    np.testing.assert_allclose(_np(port), _np(ref), rtol=0, atol=atol)
+
+
+def test_mixing_stack_rows_sum_to_one_and_is_symmetric(sched):
+    stack = build_mixing_stack(sched.laplacians(), sched.alpha, sched.flags,
+                               torch.float32).numpy()
+    np.testing.assert_allclose(stack.sum(axis=-1), 1.0, atol=1e-5)
+    np.testing.assert_array_equal(stack, np.swapaxes(stack, -1, -2))
+
+
+@pytest.mark.parametrize("chunk", [-3, 0, 1, 2, 3, 8, 50])
+def test_canonical_chunk_matches_jax(chunk):
+    assert canonical_chunk(chunk) == jax_canonical_chunk(chunk)
+    assert canonical_chunk(np.int64(chunk)) == jax_canonical_chunk(chunk)
+
+
+def test_canonical_chunk_refuses_floats():
+    with pytest.raises(TypeError):
+        jax_canonical_chunk(4.0)
+    with pytest.raises(TypeError):
+        canonical_chunk(4.0)
+
+
+def test_dense_product_does_not_round_through_bf16():
+    # a bf16 x bf16 matmul returns bf16: its f32 sum is rounded to bf16
+    # before the cast to the f32 state.  The dense mix multiplies the
+    # bf16-rounded operands as f32 instead, as JAX's
+    # preferred_element_type=float32 does
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.normal(size=(N, N)).astype(np.float32))
+    x = torch.from_numpy(_state(5))
+    out = _dense_apply(w, x, torch.bfloat16)
+    want = torch.matmul(w.to(torch.bfloat16).float(),
+                        x.to(torch.bfloat16).float())
+    assert torch.equal(out, want)
+    rounded = torch.matmul(w.to(torch.bfloat16), x.to(torch.bfloat16)).float()
+    assert not torch.equal(out, rounded)
+
+
+def test_mxu_precision_turns_tf32_off_and_restores():
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    try:
+        for caller in (True, False):
+            matmul.allow_tf32 = caller
+            with mxu_precision():
+                assert matmul.allow_tf32 is False
+            assert matmul.allow_tf32 is caller
+        matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="inside"):
+            with mxu_precision():
+                raise RuntimeError("inside")
+        assert matmul.allow_tf32 is True
+    finally:
+        matmul.allow_tf32 = before
+
+
+# ------------------------------------------- the seven laws of test_pallas
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_fused_matches_dense_chain(sched, compute):
+    x = _state(0)
+    kw = {"compute_dtype": TORCH[compute]}
+    fused = _port_run(sched, "fused", x, 12, **kw)
+    dense = _port_run(sched, "dense", x, 12, **kw)
+    assert torch.equal(fused, dense)
+    ref = _jax_run(sched, "fused", x, 12, compute_dtype=JAX[compute])
+    if compute == "f32":
+        np.testing.assert_allclose(fused.numpy(), np.asarray(ref), **F32_TOL)
+    else:
+        np.testing.assert_allclose(fused.numpy(), np.asarray(ref), rtol=0,
+                                   atol=_bf16_chain_bound(ref))
+
+
+@pytest.mark.parametrize("state,compute", [("f32", "bf16"), ("bf16", "bf16"),
+                                           ("bf16", "f32")])
+def test_fused_mixed_dtype_bitwise_vs_dense(sched, state, compute):
+    x = torch.from_numpy(_state(2, d=33)).to(TORCH[state])
+    flags = np.asarray(sched.flags[:12], np.float32)
+    outs = [make_decen(sched, backend, device="cpu",
+                       compute_dtype=TORCH[compute]).run(x, flags)[0]
+            for backend in ("dense", "fused")]
+    assert outs[0].dtype == outs[1].dtype == x.dtype
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("block_d", [16, 32, 2048])
+def test_fused_block_boundary(sched, block_d):
+    # D = 37 is not a multiple of the tile: the ragged edge block
+    x = _state(1)
+    stack = jax_build_mixing_stack(sched.laplacians(), sched.alpha,
+                                   sched.flags[:5], jnp.float32)
+    port = fused_gossip_run(torch.from_numpy(x),
+                            torch.from_numpy(np.array(stack)),
+                            block_d=block_d)
+    ref = jax_fused_gossip_run(jnp.asarray(x), stack, block_d=16,
+                               interpret=True)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **F32_TOL)
+    steps = torch.from_numpy(x)
+    for t in range(5):
+        steps = torch.matmul(torch.from_numpy(np.array(stack[t])), steps)
+    np.testing.assert_allclose(port.numpy(), steps.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused", "gather"])
+def test_empty_flag_stream_is_identity(sched, backend):
+    x = torch.from_numpy(_state(3, d=10))
+    empty = np.zeros((0, sched.flags.shape[1]), np.float32)
+    out, _ = make_decen(sched, backend, device="cpu").run(x, empty)
+    assert out is x
+    ref, _ = jax_make_decen(sched, backend=backend).run(jnp.asarray(x.numpy()),
+                                                         empty)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 7, 24, 50])
+def test_compose_mixing_stack_chunked_parity(sched, chunk):
+    x = _state(7, d=33)
+    stack = build_mixing_stack(sched.laplacians(), sched.alpha, sched.flags,
+                               torch.float32)
+    composed = compose_mixing_stack(stack, chunk)
+    chunk2 = canonical_chunk(chunk)
+    assert composed.shape[0] == (24 if chunk2 <= 1 else -(-24 // chunk2))
+    ref = jax_compose(jnp.asarray(stack.numpy()), chunk)
+    np.testing.assert_allclose(composed.numpy(), np.asarray(ref), **F32_TOL)
+    steps = _port_run(sched, "dense", x, 24)
+    chained = _port_run(sched, "fused", x, 24, chunk=chunk)
+    np.testing.assert_allclose(chained.numpy(), steps.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("w_window", [2, 4, 5, 13, 64])
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_w_window_bitwise_matches_window1(sched, compute, w_window):
+    # 13 steps: prime, so no window but 13 and 64 divides it (front
+    # identity padding) and 64 exceeds it
+    x = _state(11)
+    kw = {"compute_dtype": TORCH[compute]}
+    base = _port_run(sched, "fused", x, 13, **kw)
+    out = _port_run(sched, "fused", x, 13, w_window=w_window, **kw)
+    assert torch.equal(base, out)
+
+
+# ------------------------------------------------- the kernel entry vs JAX
+
+
+@pytest.mark.parametrize("t_steps", [1, 13])
+@pytest.mark.parametrize("state,stack", [("f32", "f32"), ("f32", "bf16"),
+                                         ("bf16", "bf16")])
+def test_fused_gossip_run_matches_jax_kernel(sched, state, stack, t_steps):
+    x = _state(4)
+    w = jax_build_mixing_stack(sched.laplacians(), sched.alpha,
+                               sched.flags[:t_steps], JAX[stack])
+    port = fused_gossip_run(torch.from_numpy(x).to(TORCH[state]),
+                            torch.from_numpy(np.array(w.astype(jnp.float32))
+                                             ).to(TORCH[stack]))
+    ref = jax_fused_gossip_run(jnp.asarray(x, JAX[state]), w, interpret=True)
+    assert port.dtype == TORCH[state]
+    if state == stack == "f32" or t_steps == 1:
+        np.testing.assert_allclose(_np(port), _np(ref), **F32_TOL)
+    else:
+        np.testing.assert_allclose(_np(port), _np(ref), rtol=0,
+                                   atol=_bf16_chain_bound(ref))
+
+
+@pytest.mark.parametrize("alive", ["constant", "per-step"])
+@pytest.mark.parametrize("backend", ["dense", "fused"])
+def test_make_decen_masked_runs_match_jax(sched, backend, alive):
+    # the fused backend has no masked multi_step: a masked chain steps
+    # through the dense mix on both sides
+    x = _state(6)
+    mask = ALIVE if alive == "constant" else np.stack(
+        [np.roll(ALIVE, t) for t in range(9)])
+    port = _port_run(sched, backend, x, 9, alive=mask)
+    ref = _jax_run(sched, backend, x, 9, alive=mask)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), **F32_TOL)
+    if alive == "constant":  # dead workers' rows are untouched
+        dead = ALIVE == 0
+        np.testing.assert_array_equal(port.numpy()[dead], x[dead])
+
+
+@pytest.mark.parametrize("backend", ["dense", "fused"])
+def test_bf16_wire_selects_bf16_compute(sched, backend):
+    x = _state(8)
+    wire = _port_run(sched, backend, x, 7, wire_dtype="bf16")
+    compute = _port_run(sched, backend, x, 7, compute_dtype=torch.bfloat16)
+    assert torch.equal(wire, compute)
+    assert make_decen(sched, backend, device="cpu",
+                      wire_dtype="bf16").name == f"decen[{backend},wire=bfloat16]"
+    ref = _jax_run(sched, backend, x, 7, wire_dtype="bf16")
+    np.testing.assert_allclose(wire.numpy(), np.asarray(ref), rtol=0,
+                               atol=_bf16_chain_bound(ref))
+
+
+@pytest.mark.parametrize("backend", ["dense", "gather"])
+def test_kernel_knobs_warn_on_backends_that_ignore_them(sched, backend):
+    with pytest.warns(UserWarning, match="ignores them"):
+        make_decen(sched, backend, device="cpu", w_window=4)
+    with pytest.warns(UserWarning, match="ignores them"):
+        make_decen(sched, backend, device="cpu", block_d=64)
+
+
+# ------------------------------------------------------ the wrapper's rules
+
+
+def test_fused_empty_stream_returns_the_state(sched):
+    x = torch.from_numpy(_state(5))
+    empty = torch.zeros((0, N, N))
+    assert fused_gossip_run(x, empty) is x
+    assert fused_gossip_plain(x, empty) is x
+
+
+@pytest.mark.parametrize("x_dtype,stack_dtype,shape,match", [
+    (torch.float16, torch.float32, (2, N, N), "float32 or bfloat16 state"),
+    (torch.float32, torch.float64, (2, N, N), "bfloat16 mixing stack"),
+    (torch.float32, torch.float32, (2, N, N + 1), "vs state"),
+])
+def test_fused_refuses_what_the_kernel_does_not_take(x_dtype, stack_dtype,
+                                                     shape, match):
+    x = torch.zeros((N, D), dtype=x_dtype)
+    with pytest.raises(ValueError, match=match):
+        fused_gossip_run(x, torch.zeros(shape, dtype=stack_dtype))
+
+
+def test_fused_plain_path_counts_no_launch(sched):
+    before = dict(LAUNCHES)
+    _port_run(sched, "fused", _state(), 5)
+    fused_gossip_run(torch.from_numpy(_state()), torch.eye(N)[None])
+    assert LAUNCHES == before
+
+
+def test_fused_non_cpu_tensor_never_falls_back():
+    x = torch.empty((N, D), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_gossip_run(x, torch.empty((2, N, N), device="meta"))
+
+
+class _SmemOnly:
+    """The two shared-memory queries of the kernel library, with the
+    formula of ``csrc/fused_gossip.cu``'s ``smem_bytes``."""
+
+    @staticmethod
+    def fused_gossip_smem_limit():
+        return 232448
+
+    @staticmethod
+    def fused_gossip_smem_bytes(n, tile):
+        per_warp = 8 * 128 // tile
+        rows = per_warp * min(8, -(-n // per_warp))
+        return 4 * (2 * 8 * (rows + 4) + 2 * n * tile)
+
+
+@pytest.mark.parametrize("n,block_d,tile", [
+    (16, 2048, 128),   # the slice: the widest tile
+    (16, 64, 64),      # block_d caps the tile
+    (256, 2048, 32),   # N = 256: the narrowest tile, two CTAs per SM
+    (100, 2048, 128),  # two row passes of 64 at the widest tile
+    (300, 2048, 32),   # two row passes of 256 at the narrowest tile
+])
+def test_kernel_tile_choice(n, block_d, tile):
+    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
+    assert _tile_width(_SmemOnly, n, block_d) == tile
+
+
+def test_kernel_refuses_a_state_too_tall_for_shared_memory():
+    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        _tile_width(_SmemOnly, 1024, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 100, 300])
+def test_kernel_matches_plain_on_card(n):
+    # N = 100 and 300 take two row passes per step (at tiles 128 and 32);
+    # block_d = 32 gives N = 100 one pass, bitwise the same sums
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.schedule import fixed_schedule
+    from matcha_tpu_torch.topology import decompose, ring_graph
+
+    dev = torch.device("cuda")
+    ring = fixed_schedule(decompose(ring_graph(n), n, seed=0), n, 13,
+                          budget=0.5, mode="bernoulli", seed=0)
+    x = torch.from_numpy(_state(6, n=n, d=1031)).to(dev)
+    for stack_dtype in (torch.float32, torch.bfloat16):
+        stack = build_mixing_stack(ring.laplacians(), ring.alpha,
+                                   torch.as_tensor(ring.flags, device=dev),
+                                   stack_dtype)
+        for state in (x, x.to(torch.bfloat16)):
+            ref = fused_gossip_plain(state, stack)
+            base = fused_gossip_run(state, stack)
+            torch.cuda.synchronize()
+            exact = state.dtype == stack_dtype == torch.float32
+            bound = (1e-5 if exact else 2.0 ** -7) * float(ref.abs().max())
+            assert float((base.float() - ref.float()).abs().max()) <= bound
+            for kw in ({"w_window": 5}, {"block_d": 32}):
+                assert torch.equal(fused_gossip_run(state, stack, **kw), base)

@@ -1,9 +1,11 @@
 """The port's training slice against the JAX package's, and its entry rules.
 
 Slice parity: ResNet-8 on 8 workers, zoo graph 0, MATCHA budget 0.5, batch
-4, perm backend.  The port's ``make_train_step`` and the JAX package's run
-three steps from the same initial weights (the JAX package's synced init,
-carried by ``convert.py``) on the same batches.
+4, once with the perm backend and once with the fused backend (whose
+training step is the dense product ``W_t @ x``).  The port's
+``make_train_step`` and the JAX package's run three steps from the same
+initial weights (the JAX package's synced init, carried by ``convert.py``)
+on the same batches.
 
 Both sides compute the forward and backward in float64.  In float32 the
 comparison is a coin toss: one step of this network evaluates about 2.6e5
@@ -18,9 +20,11 @@ flatteners cast the parameter stack to float32 and back).  Parameters,
 batch-norm statistics, momentum, loss and disagreement agree to 1e-6
 absolute: the float32 gossip of values that differ in the last bits of
 float64 may round one float32 ulp apart (6e-8 relative), and three steps
-at a learning rate near 0.1 carry that into the parameters.  The JAX run
-is shared by the file through a module-scoped fixture (most of its cost is
-compilation).
+at a learning rate near 0.1 carry that into the parameters.  The same
+1e-6 holds for the fused backend: its dense step sums each mixing matrix
+and each 8-term product in another order than XLA, again about one
+float32 ulp.  Each backend's JAX run is shared by the file through a
+module-scoped fixture (most of its cost is compilation).
 """
 
 import ast
@@ -98,8 +102,15 @@ def _f64(tree):
     return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)
 
 
+@pytest.fixture(scope="module", params=["perm", "fused"])
+def backend(request):
+    """The slice's gossip backend: the perm kernel, or the fused backend
+    (whose training step is the dense product)."""
+    return request.param
+
+
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(backend):
     batches, bpe = _batches()
     # the host-evaluated learning rates, outside float64 mode (float32)
     lrs = [float(jax_make_lr_schedule(0.8, bpe)(t)) for t in range(STEPS)]
@@ -111,7 +122,7 @@ def jax_run():
     with jax.enable_x64(True), pytest.MonkeyPatch.context() as patch:
         patch.setattr(jax_parallel, "perm_gossip_run", streamed)
         sched = jax_build_schedule(JaxTrainConfig(**CONFIG), STEPS + 1)
-        comm = jax_make_decen(sched, backend="perm")  # interpret on the CPU
+        comm = jax_make_decen(sched, backend=backend)  # interpret on the CPU
         lr = jax_make_lr_schedule(0.8, bpe)
         opt = jax_make_optimizer(lr, 0.9, 5e-4, True)
         model = jax_select_model("resnet8", "synthetic_image",
@@ -139,9 +150,9 @@ def jax_run():
 
 
 @pytest.fixture(scope="module")
-def port_run(jax_run):
+def port_run(jax_run, backend):
     sched = build_schedule(TrainConfig(**CONFIG), STEPS + 1)
-    comm = make_decen(sched, "perm", device="cpu")
+    comm = make_decen(sched, backend, device="cpu")
     lr = make_lr_schedule(0.8, jax_run["bpe"])
     opt = make_optimizer(lr, 0.9, 5e-4, True)
     model = select_model("resnet8", "synthetic_image", num_workers=N)
@@ -199,9 +210,9 @@ def test_slice_metrics_match_jax(jax_run, port_run):
         assert got["active_matchings"] == want["active_matchings"]
 
 
-def test_train_on_cpu_returns_finite_history_with_jax_keys(jax_run):
+def test_train_on_cpu_returns_finite_history_with_jax_keys(jax_run, backend):
     before = dict(LAUNCHES)
-    cfg = TrainConfig(**CONFIG, epochs=1,
+    cfg = TrainConfig(**CONFIG, epochs=1, gossip_backend=backend,
                       dataset_kwargs={"num_train": 128, "num_test": 32})
     result = train(cfg, device="cpu")
     assert LAUNCHES == before  # the CPU path runs the plain version
@@ -217,11 +228,13 @@ def test_train_without_a_device_needs_cuda():
         pytest.skip("this host has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(TrainConfig(**CONFIG, epochs=1))
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        make_decen(build_schedule(TrainConfig(**CONFIG), 2), "perm")
+    for name in ("perm", "dense", "fused"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_decen(build_schedule(TrainConfig(**CONFIG), 2), name)
 
 
-def test_cli_parses_the_slice_flags():
+@pytest.mark.parametrize("cli_backend", ["perm", "gather", "dense", "fused"])
+def test_cli_parses_the_slice_flags(cli_backend):
     sys.path.insert(0, str(REPO))
     try:
         import train_torch
@@ -231,12 +244,14 @@ def test_cli_parses_the_slice_flags():
         ["--model", "resnet20", "--dataset", "synthetic_image",
          "--numworkers", "16", "--graphid", "4", "--budget", "0.5",
          "--no-matcha", "--bs", "32", "--lr", "0.1", "--epoch", "2",
-         "--backend", "perm", "--wire-dtype", "bf16", "--seed", "7"])
+         "--backend", cli_backend, "--wire-dtype", "bf16", "--seed", "7"])
     assert device == "cuda"
     assert (cfg.model, cfg.num_workers, cfg.graphid, cfg.matcha,
             cfg.batch_size, cfg.lr, cfg.epochs, cfg.gossip_backend,
             cfg.wire_dtype, cfg.seed) == ("resnet20", 16, 4, False, 32, 0.1,
-                                          2, "perm", "bf16", 7)
+                                          2, cli_backend, "bf16", 7)
+    with pytest.raises(SystemExit):
+        train_torch.parse_args(["--backend", "skip"])
 
 
 @pytest.mark.parametrize("field,value", [
@@ -248,11 +263,11 @@ def test_config_refuses_unported_features(field, value):
         TrainConfig(**{field: value})
 
 
-@pytest.mark.parametrize("backend", ["auto", "dense", "fused", "skip"])
-def test_unported_backends_raise_naming_the_roadmap(backend):
+@pytest.mark.parametrize("unported", ["auto", "skip"])
+def test_unported_backends_raise_naming_the_roadmap(unported):
     sched = build_schedule(TrainConfig(**CONFIG), 2)
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        make_decen(sched, backend, device="cpu")
+        make_decen(sched, unported, device="cpu")
 
 
 def test_config_validates_like_jax():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Command line of the PyTorch/CUDA port — the twin of ``train_tpu.py``.
 
-Takes the flags of the port's first slice, with ``train_tpu.py``'s names
-and defaults, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+Takes the flags the port has so far, with ``train_tpu.py``'s names and
+defaults, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch path).  Prints one JSON line per epoch.
 
 MATCHA at budget 0.5 on the paper's 16-node ER graph (zoo id 4), ResNet-20,
@@ -11,6 +11,10 @@ gossip mixed by the perm kernel::
     python train_torch.py --model resnet20 --dataset synthetic_image \\
         --graphid 4 --numworkers 16 --budget 0.5 --bs 32 --epoch 10 \\
         --backend perm --wire-dtype f32
+
+``--backend fused`` mixes each step with one dense product ``W_t @ x`` and
+runs the comm-split timer's chains through the fused W-stack kernel;
+``--backend dense`` is the dense product alone.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ def parse_args(argv=None):
     p.add_argument("--bs", type=int, default=32, help="per-worker batch size")
     p.add_argument("--lr", type=float, default=0.8)
     p.add_argument("--epoch", type=int, default=200, dest="epochs")
-    p.add_argument("--backend", default="perm", choices=["perm", "gather"],
-                   help="gossip backend (the port has perm and gather)")
+    p.add_argument("--backend", default="perm",
+                   choices=["perm", "gather", "dense", "fused"],
+                   help="gossip backend (perm|gather|dense|fused)")
     p.add_argument("--wire-dtype", default="f32", choices=["f32", "bf16"],
                    dest="wire_dtype")
     p.add_argument("--randomSeed", "--seed", type=int, default=9001,
