@@ -10,7 +10,8 @@ raises and the script exits non-zero:
    and power limit (printed raw on a line of its own).
 2. build — compiles the port's kernel sources from ``matcha_tpu_torch/csrc``
    (one ``nvcc`` each, started together) and prints ptxas' registers and
-   spills.
+   spills of every kernel instantiation: the perm kernel's two, the fused
+   kernel's FMA path and its tensor-core path, unsplit and split.
 3. parity — the perm kernel's two instantiations against their plain PyTorch version on the card, at
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
@@ -32,20 +33,26 @@ raises and the script exits non-zero:
    instantiation, which ``train()`` does not take, runs one 64-step chain
    through ``perm_gossip_run(dbuf=False)``.
 6. fused_parity — the fused W-stack kernel against its plain version: f32
-   stack on an f32 state, bf16 stack on an f32 state, bf16 stack on a bf16
-   state, T in {1, 64} at the slice's ``[16, 273258]`` (graph 4, MATCHA
-   weights); T in {1, 4, 64} (bf16) and T = 4 (f32) at ``[256, 273258]`` on
-   the 256-worker hypercube; two row passes per step at N = 100 and N = 300
-   (rings, T = 8, f32 and bf16); a ragged D and T = 0.  Bars scaled by the
-   output: f32 max |Δ| ≤ 1e-5·max|ref|, a bf16 operand pass ≤
-   2⁻⁷·max|ref| (whether it is bitwise and the share of elements that
-   differ are printed); bitwise against itself across ``w_window`` 1 vs 8
-   and two tile widths.  Then the dense mix on the card (f32 state, bf16
-   wire, and f32 with TF32 switched on by the caller) against a float64
-   product of the same rounded operands.
+   stack on an f32 state (the FMA path), bf16 stack on an f32 state and on
+   a bf16 state (the tensor-core path), T in {1, 64} at the slice's
+   ``[16, 273258]`` (graph 4, MATCHA weights); T in {1, 4, 64} (bf16) and
+   T = 4 (f32) at ``[256, 273258]`` on the 256-worker hypercube; two row
+   passes per step at N = 100 and N = 300 (rings, T = 8, f32 and bf16;
+   N = 100 is also padded to 112 rows on the tensor cores); a ragged D and
+   T = 0.  Bars scaled by the output: f32 max |Δ| ≤ 1e-5·max|ref|, a bf16
+   operand pass ≤ 2⁻⁷·max|ref| (whether it is bitwise and the share of
+   elements that differ are printed); bitwise against itself across
+   ``w_window`` 1 vs 8 and two tile widths.  Then the dense mix on the card
+   (f32 state, bf16 wire, and f32 with TF32 switched on by the caller)
+   against a float64 product of the same rounded operands.
 7. fused_timing — the fused kernel, its plain version, the library call (T
    calls of ``torch.matmul(W_t, x)``) and the bound, at ``[16, 273258]``
-   f32 for T = 1 and 64 and at ``[256, 273258]`` bf16 for T = 64.
+   for T = 1 and 64 (f32; and a bf16 stack on an f32 and a bf16 state) and
+   at ``[256, 273258]`` bf16 for T = 64, also at a 64-column tile (twice
+   the W_t reads from L2).
+   tile_sweep — the fused kernel alone on a bf16 stack at ``[16, 273258]``,
+   T = 1 to 64, f32 and bf16 state, at the tile the wrapper picks and
+   capped at 256 and 128 columns.
    fused_chain — the consensus chain at ``[256, 273258]`` bf16 through
    ``make_decen(..., "fused").run``, stepped (one launch) and with
    ``chunk=64`` (composed first), its launches counted, each held to the
@@ -55,8 +62,24 @@ raises and the script exits non-zero:
    dense product every step, the fused kernel in the comm-split timer's
    chains), 2 epochs of 4 steps: loss and disagreement finite, the fused
    kernel launched exactly once per timer chain.
-9. a ``{"kernels": [...]}`` summary line, then the ``nvidia-smi`` line.
-10. last line: ``{"ok": true, "device": {...}}``.
+9. split_probe — the split-step probe (K4, ``probes/split_probe.py``) on
+   its full-width ``[256, 273258]`` bf16 inputs: the split schedule
+   bitwise equal to the unsplit one at T = 1, 8, 16, 32 and 64, where the
+   state is still normal (max|out| printed); both held to the plain
+   version within one bf16 ulp of the output at T ≤ 8, and deeper within
+   one ulp or twice the plain version's own spread (its sums taken in
+   another order), whichever is larger, since the probe's random W_t do
+   not contract rounding differences; every step of the T = 64 chain
+   within one ulp of the plain step on the same input, the chain bitwise
+   equal to its 64 one-step launches; one step on an f32 state against a
+   float64 product; then max|out| of the T = 2000
+   output and the probe's own record at T = 2000
+   (``main(["--reps", "3"])``), its launches counted.
+   split_timing — both schedules, the plain version (T = 64 only), the
+   library call (T bf16 ``torch.matmul`` calls) and the bound at T = 64
+   and T = 2000.
+10. a ``{"kernels": [...]}`` summary line, then the ``nvidia-smi`` line.
+11. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -64,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -115,6 +139,7 @@ SLICE_D = 273258  # ResNet-20 parameters per worker
 SOURCE = "matcha_tpu_torch/csrc/perm_gossip.cu"
 FUSED_SOURCE = "matcha_tpu_torch/csrc/fused_gossip.cu"
 FUSED_REPLACES = "matcha_tpu/parallel/pallas_gossip.py:182"
+SPLIT_REPLACES = "benchmarks/split_probe.py:86"
 KERNELS = {
     "perm_gossip_dbuf": {"dbuf": True,
                          "replaces": "matcha_tpu/parallel/pallas_gossip.py:340"},
@@ -383,6 +408,12 @@ def fused_bar(out_ref, x, stack) -> float:
     return (1e-5 if exact else 2.0 ** -7) * float(out_ref.float().abs().max())
 
 
+def fused_path(stack) -> str:
+    """The fused kernel's path for a stack: FP32 FMA for f32, the tensor
+    cores for bf16."""
+    return "tensor_core" if stack.dtype == torch.bfloat16 else "fma"
+
+
 def phase_fused_parity(dev, tables, big_tables):
     """The fused kernel against its plain version (rounding bars scaled by
     the output) and against itself (bitwise across w_window and tile
@@ -414,7 +445,7 @@ def phase_fused_parity(dev, tables, big_tables):
                           lambda n=n, s=dtype: ring_stack(n, 8, s, dev)))
     cases.append(("ragged D=1031 T=13 f32/f32", state(16, 1031, dev),
                   lambda: mixing_stack(sched, 13, f32, dev)))
-    rows, worst = [], 0.0
+    rows, worst = [], {"fma": 0.0, "tensor_core": 0.0}
     for label, x, make_stack in cases:
         stack = make_stack()
         ref = fused_gossip_plain(x, stack)
@@ -422,8 +453,9 @@ def phase_fused_parity(dev, tables, big_tables):
         torch.cuda.synchronize()
         bar = fused_bar(ref, x, stack)
         err = max_err(out, ref)
-        worst = max(worst, err)
-        row = {"case": label, "max_abs_err": err, "bar": bar,
+        path = fused_path(stack)
+        worst[path] = max(worst[path], err)
+        row = {"case": label, "path": path, "max_abs_err": err, "bar": bar,
                "max_abs_ref": float(ref.float().abs().max()),
                "bitwise": same_bits(out, ref),
                "differ_share": float((out != ref).float().mean())}
@@ -478,24 +510,38 @@ def phase_fused_timing(dev, tables, big_tables):
     sched, big = tables[0], big_tables[0]
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    for label, sch, n, t_steps, dtype in (
-            ("slice T=1 f32", sched, 16, 1, f32),
-            ("slice T=64 f32", sched, 16, 64, f32),
-            ("hypercube N=256 T=64 bf16", big, 256, 64, bf16)):
-        x = state(n, SLICE_D, dev).to(dtype)
+    # (label, schedule, N, T, state dtype, stack dtype, block_d): the
+    # 64-column tile at N = 256 reads W_t from L2 twice as often as the
+    # default 128-column one
+    for label, sch, n, t_steps, x_dtype, dtype, block_d in (
+            ("slice T=1 f32", sched, 16, 1, f32, f32, 2048),
+            ("slice T=64 f32", sched, 16, 64, f32, f32, 2048),
+            ("slice T=1 f32 state, bf16 stack", sched, 16, 1, f32, bf16,
+             2048),
+            ("slice T=64 f32 state, bf16 stack", sched, 16, 64, f32, bf16,
+             2048),
+            ("slice T=1 bf16", sched, 16, 1, bf16, bf16, 2048),
+            ("slice T=64 bf16", sched, 16, 64, bf16, bf16, 2048),
+            ("hypercube N=256 T=64 bf16", big, 256, 64, bf16, bf16, 2048),
+            ("hypercube N=256 T=64 bf16, tile 64", big, 256, 64, bf16, bf16,
+             64)):
+        x = state(n, SLICE_D, dev).to(x_dtype)
         stack = mixing_stack(sch, t_steps, dtype, dev)
 
         def library(x=x, stack=stack):
-            out = x
+            out = x.to(stack.dtype)
             for t in range(stack.shape[0]):
                 out = torch.matmul(stack[t], out)
             return out
 
+        def kernel(x=x, stack=stack, block_d=block_d):
+            return fused_gossip_run(x, stack, block_d=block_d)
+
         row = {"shape": label, "N": n, "D": SLICE_D, "T": t_steps,
-               "dtype": str(dtype),
-               "ms": time_ms(lambda: fused_gossip_run(x, stack), flush),
-               "device_ms": device_ms(lambda: fused_gossip_run(x, stack),
-                                      "fused_gossip_kernel"),
+               "dtype": str(dtype), "state_dtype": str(x_dtype),
+               "path": fused_path(stack), "block_d": block_d,
+               "ms": time_ms(kernel, flush),
+               "device_ms": device_ms(kernel, "gossip_kernel"),
                "plain_ms": time_ms(lambda: fused_gossip_plain(x, stack),
                                    flush),
                "library_ms": time_ms(library, flush)}
@@ -504,6 +550,32 @@ def phase_fused_timing(dev, tables, big_tables):
         emit({"phase": "fused_timing", **row})
         del x, stack
 
+    return rows
+
+
+def phase_tile_sweep(dev, tables):
+    """The fused kernel's time on a bf16 stack at the slice's width,
+    ``[16, 273258]``, for T = 1 to 64 on an f32 and a bf16 state, with
+    ``block_d`` 2048 (the tile the wrapper picks for T), 256 and 128: the
+    measurement behind the wrapper's rule for the wide tiles at N ≤ 16.
+    It calls only ``fused_gossip_run``, so it also runs against an older
+    checkout of the package (PERF.md says how)."""
+    flush = L2Flush(dev)
+    sched = tables[0]
+    x16 = state(16, SLICE_D, dev)
+    rows = []
+    for t_steps in (1, 2, 4, 8, 16, 32, 64):
+        stack = mixing_stack(sched, t_steps, torch.bfloat16, dev)
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x = x16.to(x_dtype)
+            row = {"T": t_steps, "state_dtype": str(x_dtype)}
+            for block_d in (2048, 256, 128):
+                row[f"block_d={block_d} ms"] = time_ms(
+                    lambda: fused_gossip_run(x, stack, block_d=block_d),
+                    flush)
+            rows.append(row)
+    emit({"phase": "tile_sweep", "N": 16, "D": SLICE_D,
+          "stack_dtype": "torch.bfloat16", "rows": rows})
     return rows
 
 
@@ -766,6 +838,269 @@ def phase_stream_chain(dev, tables):
     return launches
 
 
+def subnormal_share(x: torch.Tensor) -> dict:
+    """Shares of zeros and of subnormals (nonzero, below 2⁻¹²⁶, bf16 and
+    f32 alike) in ``x``."""
+    a = x.float().abs()
+    return {"zero_share": float((a == 0).float().mean()),
+            "subnormal_share": float(((a > 0) & (a < 2.0 ** -126))
+                                     .float().mean())}
+
+
+# launches of the probe's main(): its two equality runs, then one warm-up
+# and --reps timed runs of each schedule
+def probe_launches(reps: int) -> int:
+    return 2 + 2 * (1 + reps)
+
+
+def reversed_plain(x, stack):
+    """The plain version with the workers in reverse order: the same
+    products, each output's sum over k taken in another order."""
+    return fused_gossip_plain(x.flip(0), stack.flip(1).flip(2)).flip(0)
+
+
+def phase_split_probe(dev):
+    """K4 on the probe's full-width inputs: split against unsplit bitwise
+    at T = 1, 8, 16, 32 and 64, where the state is normal; both against the
+    plain version, to one bf16 ulp up to T = 8 and deeper also next to the
+    chain's own spread (the plain version against itself with each sum
+    taken in another order); every step of the T = 64 chain to one ulp
+    (the chain equals its 64 one-step launches bitwise); one step in f32
+    against a float64 product; then the T = 2000 output's magnitude and
+    the probe's own record (its launches counted)."""
+    from matcha_tpu_torch.probes import split_probe as sp
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x, stack = sp.make_inputs(256, SLICE_D, 64, gen)
+    reset_launch_counts()
+    made, rows, worst = 0, [], 0.0
+    for t_steps in (1, 8, 16, 32, 64):
+        s = stack[:t_steps]
+        w_window = min(t_steps, sp.W_WINDOW)
+        base = sp.split_gossip_run(x, s, split=False, w_window=w_window)
+        split = sp.split_gossip_run(x, s, split=True, w_window=w_window)
+        made += 2
+        torch.cuda.synchronize()
+        ref = sp.split_gossip_plain(x, s)
+        spread = max_err(reversed_plain(x, s), ref)
+        # one bf16 ulp at the output's largest magnitude up to T = 8;
+        # deeper, one ulp or twice the chain's own spread, whichever is
+        # larger: the probe's random W_t do not contract rounding
+        # differences the way a gossip chain does.  The stepped check below
+        # holds every step of the T = 64 chain to one ulp.
+        bar = fused_bar(ref, x, s)
+        if t_steps > 8:
+            bar = max(bar, 2.0 * spread)
+        row = {"T": t_steps, "bitwise": same_bits(split, base),
+               "max_abs_out": float(base.float().abs().max()),
+               **subnormal_share(base), "bar": bar,
+               "one_ulp_bar": fused_bar(ref, x, s),
+               "plain_vs_reordered_plain_max_abs_err": spread,
+               "kernel_vs_plain_differ_share": float(
+                   (base != ref).float().mean())}
+        if not row["bitwise"]:
+            raise AssertionError(f"split_gossip T={t_steps}: split and "
+                                 f"unsplit schedules differ")
+        for name, out in (("unsplit", base), ("split", split)):
+            err = max_err(out, ref)
+            worst = max(worst, err)
+            row[f"{name}_vs_plain_max_abs_err"] = err
+            if not err <= bar:
+                raise AssertionError(f"split_gossip {name} T={t_steps}: "
+                                     f"max |Δ| {err} > {bar}")
+        rows.append(row)
+        del base, split, ref
+    # each step of the T = 64 chain to one bf16 ulp: the chain equals 64
+    # one-step launches bitwise (the state is bf16 between steps either
+    # way), and each launch is held to the plain step on the same input
+    chain = sp.split_gossip_run(x, stack, split=False)
+    cur, step_worst = x, 0.0
+    for t in range(stack.shape[0]):
+        w_t = stack[t:t + 1]
+        nxt = sp.split_gossip_run(cur, w_t, split=False, w_window=1)
+        ref = sp.split_gossip_plain(cur, w_t)
+        err, bar = max_err(nxt, ref), fused_bar(ref, cur, w_t)
+        if not err <= bar:
+            raise AssertionError(f"split_gossip step {t} of 64: max |Δ| "
+                                 f"{err} > one bf16 ulp {bar}")
+        step_worst = max(step_worst, err / bar)
+        cur = nxt
+    made += 1 + stack.shape[0]
+    if not same_bits(cur, chain):
+        raise AssertionError("split_gossip: the T = 64 chain differs from "
+                             "its 64 one-step launches")
+    stepped = {"steps": stack.shape[0], "chain_equals_steps": True,
+               "worst_step_err_over_one_ulp_bar": step_worst}
+    del chain, cur, nxt, ref
+    # one step on an f32 state: the tensor cores' f32 sum and cuBLAS's
+    # against a float64 product of the same bf16 operands
+    xf = x.float()
+    exact = torch.matmul(stack[0].double(), xf.double())
+    scale = float(exact.abs().max())
+    one = sp.split_gossip_run(xf, stack[:1], split=False, w_window=1)
+    made += 1
+    one_step = {"kernel_vs_f64_max_abs_err": max_err(one, exact),
+                "plain_vs_f64_max_abs_err": max_err(
+                    sp.split_gossip_plain(xf, stack[:1]), exact),
+                "max_abs_ref": scale}
+    del xf, exact, one
+    if LAUNCHES["split_gossip"] != made:
+        raise AssertionError(f"split_gossip launched {LAUNCHES} for {made} "
+                             f"calls")
+    emit({"phase": "split_probe", "N": 256, "D": SLICE_D, "cases": rows,
+          "one_step_f32": one_step, "stepped_T64": stepped,
+          "split_vs_unsplit": "bitwise",
+          "launches": made})
+    del x, stack
+
+    # the probe's own inputs (seed 0, as main's default): how much of the
+    # state is left after its 2000 steps
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, stack = sp.make_inputs(sp.N, sp.D, sp.T, gen)
+    out = sp.split_gossip_run(x, stack, split=False)
+    emit({"phase": "split_probe", "T": sp.T,
+          "max_abs_out": float(out.float().abs().max()),
+          **subnormal_share(out)})
+    del x, stack, out
+    reps = 3
+    reset_launch_counts()
+    rec = sp.main(["--reps", str(reps)])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["split_gossip"] != probe_launches(reps):
+        raise AssertionError(f"the probe launched {launches}, expected "
+                             f"split_gossip = {probe_launches(reps)}")
+    return {"launches": launches, "record": rec, "max_abs_err": worst}
+
+
+def phase_split_timing(dev):
+    """Both schedules of K4, the plain version (T = 64 only: at T = 2000 it
+    repeats the arithmetic step by step for seconds), the library call (T
+    bf16 ``torch.matmul`` calls) and the bound, at T = 64 and 2000."""
+    from matcha_tpu_torch.probes import split_probe as sp
+
+    flush = L2Flush(dev)
+    rows = []
+    for t_steps, runs in ((64, 20), (sp.T, 3)):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x, stack = sp.make_inputs(256, SLICE_D, t_steps, gen)
+
+        def library(x=x, stack=stack):
+            out = x
+            for t in range(stack.shape[0]):
+                out = torch.matmul(stack[t], out)
+            return out
+
+        row = {"shape": f"probe [256, {SLICE_D}] bf16 T={t_steps}",
+               "N": 256, "D": SLICE_D, "T": t_steps}
+        for name, split in (("unsplit", False), ("split", True)):
+            row[f"{name}_ms"] = time_ms(
+                lambda: sp.split_gossip_run(x, stack, split=split), flush,
+                runs)
+        row["ratio_split_over_unsplit_time"] = row["split_ms"] / row[
+            "unsplit_ms"]
+        row["plain_ms"] = (time_ms(lambda: sp.split_gossip_plain(x, stack),
+                                   flush, runs) if t_steps == 64 else None)
+        row["library_ms"] = time_ms(library, flush, runs)
+        row["bound_ms"], row["bound_by"] = fused_bound(x, stack)
+        rows.append(row)
+        emit({"phase": "split_timing", **row})
+        del x, stack
+    return rows
+
+
+def ptxas_kernels(text: str) -> list:
+    """Registers and spills of each kernel in ``nvcc -Xptxas -v`` output."""
+    rows = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            rows.append({"kernel": m.group(1)})
+            continue
+        if not rows:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[-1]["spill_stores"] = int(m.group(1))
+            rows[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
+def kernels_line(r) -> list:
+    """The kernels summary from the phases' results ``r``."""
+    main_shape = {"perm_gossip_dbuf": r["timing"][0],    # T=1, the mix
+                  "perm_gossip_stream": r["timing"][1]}  # T=64, the chain
+    kernels = []
+    for name, spec in KERNELS.items():
+        row = main_shape[name]
+        launches = (r["slice"] if name == "perm_gossip_dbuf"
+                    else r["stream_chain"])[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": spec["replaces"], "launches": launches,
+            "bitwise": True, "max_abs_err": r["parity"][name],
+            "shape": row["shape"], "ms": row[f"{name}_ms"],
+            "kernel_ms": row[f"{name}_ms"],
+            "device_ms": row[f"{name}_device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "timings": [{"shape": t["shape"], "ms": t[f"{name}_ms"],
+                         "device_ms": t[f"{name}_device_ms"],
+                         "plain_ms": t["plain_ms"],
+                         "library_ms": t["library_ms"],
+                         "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"]} for t in r["timing"]],
+        })
+    fused_rows = r["fused_timing"]
+    keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    # the FMA path on the fused slice's timer chains (an f32 stack, T=64
+    # at the slice's state); the tensor cores in chain (b) (bf16, N=256)
+    for path, main_label, launches, by_path in (
+            ("fma", "slice T=64 f32", r["fused_slice"]["fused_gossip"],
+             {"train() fused, timer chains":
+              r["fused_slice"]["fused_gossip"]}),
+            ("tensor_core", "hypercube N=256 T=64 bf16",
+             r["fused_chain"]["fused_gossip"],
+             {"Communicator.run chain (b), stepped and chunk=64":
+              r["fused_chain"]["fused_gossip"]})):
+        main = next(t for t in fused_rows if t["shape"] == main_label)
+        kernels.append({
+            "name": "fused_gossip", "path": path, "route": "cuda",
+            "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
+            "launches": launches, "launches_by_path": by_path,
+            "bitwise": False, "max_abs_err": r["fused_parity"][path],
+            **{k: main[k] for k in keys},
+            "timings": [{k: t[k] for k in keys} for t in fused_rows
+                        if t["path"] == path],
+        })
+    split_rows = r["split_timing"]
+    main = split_rows[0]  # T=64, where the plain version is timed too
+    kernels.append({
+        "name": "split_gossip", "path": "tensor_core, split schedule",
+        "route": "cuda", "source": FUSED_SOURCE, "replaces": SPLIT_REPLACES,
+        "launches": r["split_probe"]["launches"]["split_gossip"],
+        "launches_by_path": {"python -m matcha_tpu_torch.probes.split_probe "
+                             "(main, --reps 3)":
+                             r["split_probe"]["launches"]["split_gossip"]},
+        "bitwise": False, "split_vs_unsplit": "bitwise",
+        "max_abs_err": r["split_probe"]["max_abs_err"],
+        "shape": main["shape"], "ms": main["split_ms"],
+        "unsplit_ms": main["unsplit_ms"], "device_ms": None,
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "probe_record": r["split_probe"]["record"],
+        "timings": [{k: t[k] for k in ("shape", "split_ms", "unsplit_ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")} for t in split_rows],
+    })
+    return kernels
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -783,67 +1118,25 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [SOURCE, FUSED_SOURCE],
           "cached": {k: r["cached"] for k, r in reports.items()},
-          "ptxas": {k: [line.strip() for line in r["ptxas"].splitlines()
-                        if "registers" in line or "spill" in line][:24]
-                    for k, r in reports.items()}})
+          "kernels": {k: ptxas_kernels(r["ptxas"])
+                      for k, r in reports.items()}})
 
     tables, big_tables = slice_tables(dev), hypercube_tables(dev)
-    worst = phase_parity(dev, tables, big_tables)
-    timings = phase_timing(dev, tables, big_tables)
-    slice_launches = phase_slice(dev)
+    results = {}
+    results["parity"] = phase_parity(dev, tables, big_tables)
+    results["timing"] = phase_timing(dev, tables, big_tables)
+    results["slice"] = phase_slice(dev)
     phase_profile(dev)
     phase_agreement(dev)
-    stream_launches = phase_stream_chain(dev, tables)
-    fused_worst = phase_fused_parity(dev, tables, big_tables)
-    fused_rows = phase_fused_timing(dev, tables, big_tables)
-    chain_launches = phase_fused_chain(dev, big_tables)
-    fused_launches = phase_fused_slice(dev)
-
-    main_shape = {"perm_gossip_dbuf": timings[0],    # T=1, the training mix
-                  "perm_gossip_stream": timings[1]}  # T=64, the chain path
-    kernels = []
-    for name, spec in KERNELS.items():
-        row = main_shape[name]
-        launches = (slice_launches if name == "perm_gossip_dbuf"
-                    else stream_launches)[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": spec["replaces"], "launches": launches,
-            "bitwise": True, "max_abs_err": worst[name],
-            "shape": row["shape"], "ms": row[f"{name}_ms"],
-            "kernel_ms": row[f"{name}_ms"],
-            "device_ms": row[f"{name}_device_ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-            "timings": [{"shape": r["shape"], "ms": r[f"{name}_ms"],
-                         "device_ms": r[f"{name}_device_ms"],
-                         "plain_ms": r["plain_ms"],
-                         "library_ms": r["library_ms"],
-                         "bound_ms": r["bound_ms"],
-                         "bound_by": r["bound_by"]} for r in timings],
-        })
-    fused_main = fused_rows[1]  # T=64 on the slice's state, a chain
-    kernels.append({
-        "name": "fused_gossip", "route": "cuda", "source": FUSED_SOURCE,
-        "replaces": FUSED_REPLACES,
-        "launches": fused_launches["fused_gossip"]
-        + chain_launches["fused_gossip"],
-        "launches_by_path": {"train() fused, timer chains":
-                             fused_launches["fused_gossip"],
-                             "Communicator.run chains at N=256":
-                             chain_launches["fused_gossip"]},
-        "bitwise": False, "max_abs_err": fused_worst,
-        "shape": fused_main["shape"], "ms": fused_main["ms"],
-        "device_ms": fused_main["device_ms"],
-        "plain_ms": fused_main["plain_ms"],
-        "bound_ms": fused_main["bound_ms"],
-        "bound_by": fused_main["bound_by"],
-        "library_ms": fused_main["library_ms"],
-        "timings": [{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
-                                       "library_ms", "bound_ms", "bound_by")}
-                    for r in fused_rows],
-    })
-    emit({"kernels": kernels})
+    results["stream_chain"] = phase_stream_chain(dev, tables)
+    results["fused_parity"] = phase_fused_parity(dev, tables, big_tables)
+    results["fused_timing"] = phase_fused_timing(dev, tables, big_tables)
+    phase_tile_sweep(dev, tables)
+    results["fused_chain"] = phase_fused_chain(dev, big_tables)
+    results["fused_slice"] = phase_fused_slice(dev)
+    results["split_probe"] = phase_split_probe(dev)
+    results["split_timing"] = phase_split_timing(dev)
+    emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,7 @@ _LOADED: dict = {}
 
 #: kernel launches, counted by each wrapper where it launches its kernel
 LAUNCHES = {"perm_gossip_dbuf": 0, "perm_gossip_stream": 0,
-            "fused_gossip": 0}
+            "fused_gossip": 0, "split_gossip": 0}
 
 
 def reset_launch_counts() -> None:
@@ -127,20 +127,22 @@ TILES = (128, 64, 32)
 
 
 def pick_tile(kernel: str, smem_bytes, limit: int, n: int, block_d: int,
-              blocks_per_sm: int) -> int:
-    """Columns per CTA for an ``[n, D]`` state: the widest of ``TILES`` that
-    is ≤ ``block_d`` (at least 32) and whose shared memory,
+              blocks_per_sm: int, tiles=TILES) -> int:
+    """Columns per CTA for an ``[n, D]`` state: the widest of ``tiles``
+    (widest first) that is ≤ ``block_d`` and whose shared memory,
     ``smem_bytes(tile)``, leaves room for ``blocks_per_sm`` CTAs on one SM
     (``limit`` is what one block may use); else the narrowest tile, which
-    keeps the most CTAs in flight, if it fits one block at all."""
-    cap = max(TILES[-1], block_d)
-    for tile in TILES:
-        if tile <= cap and smem_bytes(tile) <= limit // blocks_per_sm:
+    keeps the most CTAs in flight, if it fits one block at all.  A tile
+    whose ``smem_bytes`` is negative is one the kernel does not take at
+    this ``n``, and is skipped."""
+    tiles = [t for t in tiles if smem_bytes(t) >= 0]
+    for tile in tiles:
+        if tile <= block_d and smem_bytes(tile) <= limit // blocks_per_sm:
             return tile
-    need = smem_bytes(TILES[-1])
+    need = smem_bytes(tiles[-1])
     if need <= limit:
-        return TILES[-1]
+        return tiles[-1]
     raise ValueError(
         f"{kernel}: {n} workers need {need} B of shared memory at the "
-        f"narrowest tile ({TILES[-1]} columns), more than the {limit} B a "
+        f"narrowest tile ({tiles[-1]} columns), more than the {limit} B a "
         f"block may use; a large-N tiling is still to be ported (ROADMAP.md)")

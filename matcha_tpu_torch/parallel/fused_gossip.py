@@ -5,7 +5,7 @@ Port of the fused half of ``matcha_tpu/parallel/pallas_gossip.py``:
 ``build_mixing_stack`` (:77), ``canonical_chunk`` (:95),
 ``compose_mixing_stack`` (:107) and ``fused_gossip_run`` (:182).  The
 Pallas kernel behind ``fused_gossip_run`` (``_make_kernel`` :156) becomes
-the hand-written CUDA kernel ``csrc/fused_gossip.cu``: one CTA per column
+the hand-written CUDA source ``csrc/fused_gossip.cu``: one CTA per column
 tile keeps its ``[N, tile]`` block in shared memory for all T steps while
 the ``[T, N, N]`` stack streams past it.
 
@@ -14,10 +14,21 @@ state is rounded to the stack's dtype at each step's input and the f32 sum
 to the state's dtype at its output, exactly as the per-step dense backend
 (``gossip.gossip_mix_dense``) does, so a chain equals stepping through it.
 
+The stack's dtype picks the kernel's path:
+
+* float32 stack — FP32 FMA on CUDA cores (never TF32, which would change
+  the result); held to the plain version within f32 rounding.
+* bfloat16 stack — the tensor cores (``mma.sync`` on bf16 operands, f32
+  accumulators), the state tile held in shared memory as bf16; held to the
+  plain version within one bf16 ulp of the output.  The split-step probe
+  (``probes/split_probe.py``, K4) runs the same mainloop with its split
+  schedule.
+
 ``fused_gossip_run`` takes the plain PyTorch version, ``fused_gossip_plain``
 (one ``torch.matmul`` per step, TF32 off), for a tensor on the CPU only; a
-CUDA tensor launches the kernel or raises.  ``LAUNCHES["fused_gossip"]``
-counts kernel launches.
+CUDA tensor launches the kernel of its path or raises: a bf16 stack never
+falls back to the FMA path.  ``LAUNCHES["fused_gossip"]`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -36,13 +47,34 @@ __all__ = [
     "compose_mixing_stack",
     "fused_gossip_plain",
     "fused_gossip_run",
+    "kernel_path",
+    "kernel_tile",
+    "launch_kernel",
+    "prepare_stack",
 ]
+
+# The kernel's paths (``fused_gossip_smem_bytes``' ``path``): FP32 FMA for
+# an f32 stack, the tensor cores for a bf16 stack, unsplit or split.
+FMA, TENSOR_CORE, SPLIT = 0, 1, 2
 
 # Launch shape: the CTAs a column tile should leave room for on one SM.  A
 # wider tile re-reads the stack from L2 fewer times ((D/tile)·T·N²
-# elements in all); two CTAs per SM let one load its W chunk while the
-# other multiplies.
-_BLOCKS_PER_SM = 2
+# elements in all).  On the FMA path two CTAs per SM let one load its W
+# chunk while the other multiplies; on the tensor cores one CTA keeps two
+# W chunks in flight itself, and N = 256 takes the 128-column tile.
+_BLOCKS_PER_SM = {FMA: 2, TENSOR_CORE: 1, SPLIT: 1}
+# Tiles each path may take, widest first; the library says which of them
+# it takes at a given N (the tensor cores take 256 and 512 only for N ≤ 16,
+# whose one m16 row tile puts all 8 warps along the columns).
+_TILES = {FMA: (128, 64, 32), TENSOR_CORE: (512, 256, 128, 64, 32),
+          SPLIT: (512, 256, 128, 64, 32)}
+# The steps a chain needs before a tile that wide pays.  A wider tile
+# leaves fewer CTAs to read W_t from L2 every step, which bounds a long
+# chain; a short one is bound by loading and storing the state, which
+# goes faster over more, narrower CTAs.  Measured on an H100 at N = 16
+# (PERF.md): 128 columns are fastest up to T = 4, 256 at T = 8 and 16,
+# 512 from T = 32.
+_WIDE_TILE_MIN_STEPS = {256: 8, 512: 32}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -95,7 +127,7 @@ def compose_mixing_stack(stack: torch.Tensor, chunk: int) -> torch.Tensor:
     return w.to(stack.dtype)
 
 
-def _prepare(x, mixing_stack, block_d, w_window):
+def prepare_stack(x, mixing_stack, block_d, w_window):
     """Validate and normalize the arguments shared by the kernel and its
     plain version.  Returns None for an empty stream (identity), else
     ``(stack [T', N, N] front-padded, block_d)`` on ``x``'s device."""
@@ -138,25 +170,29 @@ def fused_gossip_plain(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     step ``(W_t.float() @ x.to(stack dtype).float()).to(x.dtype)`` with TF32
     off.  The CPU path of :func:`fused_gossip_run` and the kernel's
     yardstick on the card; ``block_d`` and ``w_window`` change nothing."""
-    prep = _prepare(x, mixing_stack, block_d, w_window)
+    prep = prepare_stack(x, mixing_stack, block_d, w_window)
     if prep is None:
         return x
     return _plain(x, prep[0])
 
 
-def _tile_width(lib, n: int, block_d: int) -> int:
-    """Columns per CTA (``_kernels.pick_tile``), leaving room for
-    ``_BLOCKS_PER_SM`` CTAs on one SM."""
-    return pick_tile("fused_gossip",
-                     lambda tile: lib.fused_gossip_smem_bytes(n, tile),
+def _tile_width(lib, n: int, block_d: int, path: int = FMA,
+                t_steps: int = 1) -> int:
+    """Columns per CTA of ``path`` for a ``t_steps`` chain
+    (``_kernels.pick_tile``), leaving room for ``_BLOCKS_PER_SM[path]``
+    CTAs on one SM."""
+    tiles = tuple(t for t in _TILES[path]
+                  if t_steps >= _WIDE_TILE_MIN_STEPS.get(t, 0))
+    return pick_tile("split_gossip" if path == SPLIT else "fused_gossip",
+                     lambda tile: lib.fused_gossip_smem_bytes(n, tile, path),
                      lib.fused_gossip_smem_limit(), n, block_d,
-                     _BLOCKS_PER_SM)
+                     _BLOCKS_PER_SM[path], tiles)
 
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "fused_gossip_launch": ([_VP] * 3 + [_I, _LL] + [_I] * 4 + [_VP], _I),
-    "fused_gossip_smem_bytes": ([_I, _I], _LL),
+    "fused_gossip_launch": ([_VP] * 3 + [_I, _LL] + [_I] * 5 + [_VP], _I),
+    "fused_gossip_smem_bytes": ([_I, _I, _I], _LL),
     "fused_gossip_smem_limit": ([], _LL),
     "fused_gossip_error_string": ([_I], ctypes.c_char_p),
 }
@@ -171,10 +207,39 @@ def _library():
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(x, stack, block_d):
+def kernel_path(stack_dtype, split: bool = False) -> int:
+    """The kernel path a stack of ``stack_dtype`` takes: FMA for float32,
+    the tensor cores for bfloat16 (``split`` picks the split schedule,
+    which only a bfloat16 stack has)."""
+    if stack_dtype == torch.bfloat16:
+        return SPLIT if split else TENSOR_CORE
+    if split:
+        raise ValueError("the split schedule runs on the tensor cores: it "
+                         "takes a bfloat16 mixing stack")
+    return FMA
+
+
+def kernel_tile(n: int, block_d: int, path: int, t_steps: int) -> int:
+    """The column tile the kernel takes on ``path`` for ``t_steps`` steps
+    of an ``[n, D]`` state when ``block_d`` caps it; loads the library."""
+    return _tile_width(_library(), n, block_d, path, t_steps)
+
+
+def launch_kernel(x, stack, tile: int, *, split: bool = False,
+                  counter: str = "fused_gossip") -> torch.Tensor:
+    """Launch the kernel on CUDA tensors at ``tile`` columns (from
+    :func:`kernel_tile`): the FMA path for an f32 stack, the tensor cores
+    for a bf16 stack (its ``[T, N, N]`` zero-padded to a multiple of 16
+    first), with the split schedule when ``split``.  ``stack`` is
+    :func:`prepare_stack`'s.  Counts the launch in ``LAUNCHES[counter]``:
+    the calling wrapper's name.  Raises if the launch fails."""
     lib = _library()
     n, d = x.shape
-    tile = _tile_width(lib, n, block_d)
+    path = kernel_path(stack.dtype, split)
+    pad = (-n) % 16 if path != FMA else 0
+    if pad:
+        stack = torch.nn.functional.pad(stack, (0, pad, 0, pad))
+    stack = stack.contiguous()
     x = x.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -182,11 +247,11 @@ def _launch(x, stack, block_d):
         rc = lib.fused_gossip_launch(
             x.data_ptr(), out.data_ptr(), stack.data_ptr(), n, d,
             stack.shape[0], tile, _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[stack.dtype], stream)
+            _DTYPE_CODES[stack.dtype], int(split), stream)
     if rc != 0:
         raise RuntimeError(f"fused_gossip kernel launch failed: "
                            f"{lib.fused_gossip_error_string(rc).decode()}")
-    LAUNCHES["fused_gossip"] += 1
+    LAUNCHES[counter] += 1
     return out
 
 
@@ -199,23 +264,31 @@ def fused_gossip_run(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     optionally composed.  Each step accumulates in f32 and casts back to
     ``x.dtype``, step for step the dense backend's arithmetic.
 
-    ``block_d``: the widest column tile a CTA may take (at least 32, at most
-    128).  ``w_window``: the reference's steps per grid visit; the stack is
-    front-padded with identity matrices to a multiple of it, as the
-    reference does, and the kernel otherwise ignores it (it stages one
-    ``W_t`` at a time).  Neither changes a bit of the result.
+    ``block_d``: the widest column tile a CTA may take (the kernel's tiles
+    are 32, 64 and 128 columns, and 128, 256 and 512 on the tensor cores
+    for N ≤ 16, where 256 needs T ≥ 8 and 512 T ≥ 32; below the
+    narrowest, the narrowest).  ``w_window``: the reference's steps per
+    grid visit; the stack is front-padded with identity matrices to a
+    multiple of it, as the reference does, and the kernel otherwise ignores
+    it (it stages one ``W_t`` at a time).  Neither changes a bit of the
+    result.
 
     An empty stream (``T == 0``) returns ``x`` itself.  A CPU tensor runs
-    :func:`fused_gossip_plain`; a CUDA tensor launches the kernel on the
-    current stream and raises if the launch fails.
+    :func:`fused_gossip_plain`.  A CUDA tensor launches the kernel on the
+    current stream and raises if the launch fails: an f32 stack runs FP32
+    FMA on CUDA cores, a bf16 stack the tensor cores (bf16 operands, f32
+    accumulation, the state tile held as bf16 between steps), with no
+    fallback from one path to the other.
     """
-    prep = _prepare(x, mixing_stack, block_d, w_window)
+    prep = prepare_stack(x, mixing_stack, block_d, w_window)
     if prep is None:
         return x
     stack, block_d = prep
     if x.device.type == "cpu":
         return _plain(x, stack)
     if x.device.type == "cuda":
-        return _launch(x, stack, block_d)
+        tile = kernel_tile(x.shape[0], block_d, kernel_path(stack.dtype),
+                           stack.shape[0])
+        return launch_kernel(x, stack, tile)
     raise ValueError(f"fused_gossip_run takes a CPU or CUDA tensor, got "
                      f"device {x.device}")

@@ -400,17 +400,29 @@ def test_fused_non_cpu_tensor_never_falls_back():
 
 class _SmemOnly:
     """The two shared-memory queries of the kernel library, with the
-    formula of ``csrc/fused_gossip.cu``'s ``smem_bytes``."""
+    formulas of ``csrc/fused_gossip.cu``'s ``fp32::smem_bytes`` (path 0)
+    and ``tc::smem_bytes`` (path 1 unsplit, 2 split)."""
 
     @staticmethod
     def fused_gossip_smem_limit():
         return 232448
 
     @staticmethod
-    def fused_gossip_smem_bytes(n, tile):
-        per_warp = 8 * 128 // tile
-        rows = per_warp * min(8, -(-n // per_warp))
-        return 4 * (2 * 8 * (rows + 4) + 2 * n * tile)
+    def fused_gossip_smem_bytes(n, tile, path=0):
+        if path == 0:
+            if tile not in (32, 64, 128):
+                return -1
+            per_warp = 8 * 128 // tile
+            rows = per_warp * min(8, -(-n // per_warp))
+            return 4 * (2 * 8 * (rows + 4) + 2 * n * tile)
+        npad = -(-n // 16) * 16
+        wm = 1 if npad <= 16 else 4      # warps along the rows
+        if tile not in [8 // wm * 8 * nt for nt in (2, 4, 8)]:
+            return -1
+        m = -(-npad // 64)
+        mt = 1 if wm == 1 or m <= 1 else (2 if m == 2 else 4)
+        ring = 3 * 16 * wm * mt * 32  # 3 slots of [16·WM·MT rows x 32 k]
+        return 2 * ((2 if path == 2 else 1) * ring + 2 * npad * tile)
 
 
 @pytest.mark.parametrize("n,block_d,tile", [
@@ -429,6 +441,43 @@ def test_kernel_refuses_a_state_too_tall_for_shared_memory():
     from matcha_tpu_torch.parallel.fused_gossip import _tile_width
     with pytest.raises(ValueError, match="ROADMAP.md"):
         _tile_width(_SmemOnly, 1024, 2048)
+
+
+@pytest.mark.parametrize("n,block_d,path,t_steps,tile", [
+    (256, 2048, 1, 64, 128),   # chain (b): 160 KB, one CTA per SM
+    (256, 2048, 2, 2000, 128),  # the probe's split schedule: two rings
+    (256, 64, 1, 64, 64),      # block_d caps the tile
+    (16, 2048, 1, 64, 512),    # the slice's width: all warps on columns
+    (8, 2048, 2, 32, 512),     # padded to 16 rows, split
+    (16, 2048, 1, 16, 256),    # 512 columns need T >= 32
+    (16, 2048, 1, 4, 128),     # 256 columns need T >= 8
+    (16, 256, 1, 64, 256),     # block_d caps the wide tiles too
+    (16, 64, 1, 64, 128),      # below the narrowest tile of N <= 16
+    (32, 2048, 1, 64, 128),    # two m16 row tiles: 4 warps on the rows
+    (400, 2048, 2, 64, 64),    # 400 rows, two rings: 128 columns too many
+    (1024, 2048, 1, 64, 32),   # the narrowest tile
+])
+def test_tensor_core_tile_choice(n, block_d, path, t_steps, tile):
+    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
+    assert _tile_width(_SmemOnly, n, block_d, path, t_steps) == tile
+
+
+@pytest.mark.parametrize("path,name", [(1, "fused_gossip"),
+                                       (2, "split_gossip")])
+def test_tensor_core_refuses_a_state_too_tall(path, name):
+    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
+    with pytest.raises(ValueError, match=f"{name}: 2048 workers"):
+        _tile_width(_SmemOnly, 2048, 2048, path)
+
+
+def test_bf16_stack_takes_the_tensor_cores():
+    from matcha_tpu_torch.parallel.fused_gossip import (
+        FMA, SPLIT, TENSOR_CORE, kernel_path)
+    assert kernel_path(torch.float32) == FMA
+    assert kernel_path(torch.bfloat16) == TENSOR_CORE
+    assert kernel_path(torch.bfloat16, split=True) == SPLIT
+    with pytest.raises(ValueError, match="bfloat16 mixing stack"):
+        kernel_path(torch.float32, split=True)
 
 
 @pytest.mark.cuda

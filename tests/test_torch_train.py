@@ -312,6 +312,7 @@ def test_port_imports_with_jax_blocked():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in (REPO / "matcha_tpu_torch").rglob("*.py"))
+    assert "matcha_tpu_torch.probes.split_probe" in modules
     code = f"""
 import importlib, importlib.abc, sys
 BANNED = {BANNED!r}
