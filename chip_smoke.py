@@ -16,13 +16,21 @@ raises and the script exits non-zero:
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
    w_window in {1, 8}, dbuf on and off, f32 and bf16 wire, with and without
-   a 0/1 alive mask; plus a bf16 state, a state holding a NaN and an inf,
-   and N=256 on a hypercube at T=64.  Bitwise.
-4. timing — kernel, plain version and the dense yardstick (T calls of
+   a 0/1 alive mask; an odd D (1,031) in both state dtypes and both wires;
+   plus a bf16 state, a state holding a NaN and an inf, a NaN that only an
+   inactive matching reaches, values near the f32 limit (a difference that
+   overflows, and a slab whose image leaves the range where terms may be
+   skipped and comes back), N=2 and N=1 (rows past N masked), N=256 on a
+   hypercube at T=64, and N=4096 on a hypercube at T=1 and 8 (and at T=8
+   with gates of 0, 0.5 and 1).  Bitwise.
+4. timing — kernel (CUDA events, and ``device_ms`` from the profiler),
+   plain version and the dense yardstick (T calls of
    ``torch.matmul(W_t, x)``, the JAX package's dense backend; the port
-   never calls it), CUDA events, median of 20 runs with the L2 cache
-   flushed before each; and the bound from the card's bandwidth and FP32
-   peak.
+   never calls it), median of 20 runs with the L2 cache flushed before
+   each (for ``device_ms`` too); and the bound from the card's bandwidth
+   and FP32 peak.  Shapes:
+   the slice at T=1 and 64, N=256 at T=64, N=4096 at T=1 and 64 (plain
+   and library at T=1 only, 3 runs).
 5. slice — ``train()`` at full width: ResNet-20, 16 workers, graph 4,
    MATCHA budget 0.5, batch 32, perm backend, f32 wire, 2 epochs of 4
    steps.  Loss and disagreement finite; the kernel's launch count equals
@@ -93,6 +101,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from matcha_tpu_torch import _kernels
@@ -173,7 +182,7 @@ def slice_tables(dev):
 
 
 def hypercube_tables(dev, n: int = 256):
-    """A 256-worker hypercube, each matching active with probability 0.5
+    """An n-worker hypercube, each matching active with probability 0.5
     (the fixed Bernoulli schedule: MATCHA's solver takes minutes of host
     time at this N and changes nothing the kernel sees but the weights)."""
     dec = decompose(hypercube_graph(n), n, seed=SEED)
@@ -217,20 +226,25 @@ def time_ms(fn, flush, runs: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, runs: int = 20):
-    """Mean device time of ``kernel`` per call from ``torch.profiler``
-    (launch gaps excluded), or None when the trace holds no device time."""
+def device_ms(fn, kernel: str, flush, runs: int = 20):
+    """Mean device time of one launch of ``kernel`` (each ``fn`` launches
+    it once) from ``torch.profiler`` (launch gaps excluded), the L2 cache
+    flushed before each call as for ``time_ms``, or None when the trace
+    holds no device time.  The mean is over the launches the trace
+    recorded: the profiler can drop a record now and then."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(runs):
+            flush()
             fn()
         torch.cuda.synchronize()
-    total = sum(getattr(e, "device_time_total", 0.0)
-                for e in prof.key_averages() if kernel in e.key)
-    return total / runs / 1e3 if total else None
+    found = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", 0.0) for e in found)
+    count = sum(e.count for e in found)
+    return total / count / 1e3 if total else None
 
 
 def bound(x, weights, perms, gate):
@@ -284,10 +298,24 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
         b.masked_fill(nan_b, 0).view(as_int)))
 
 
-def phase_parity(dev, tables, big_tables):
+def inactive_partner(sched, perms, step: int = 0):
+    """``(i, p)``: a worker and its partner in a matching that is inactive
+    at ``step``, where ``p`` is no partner of ``i`` in an active one."""
+    flags = sched.flags[step]
+    pm = perms.cpu().numpy()
+    for j in np.flatnonzero(flags == 0):
+        for i in range(pm.shape[1]):
+            p = int(pm[j, i])
+            active = {int(pm[k, i]) for k in np.flatnonzero(flags)}
+            if p != i and p not in active:
+                return i, p
+    raise AssertionError("no matching is inactive at that step")
+
+
+def phase_parity(dev, tables, big_tables, huge_tables):
     """Each instantiation against the plain version, bitwise, at the
-    slice's shapes; then a bf16 state, a state with a NaN and an inf, and
-    N=256."""
+    slice's shapes; then a bf16 state, an odd D, states with a NaN, an inf
+    and values near the f32 limit, N = 256, and N = 4096."""
     sched, perms, partnered = tables
     worst = {name: 0.0 for name in KERNELS}
     cases = 0
@@ -295,7 +323,7 @@ def phase_parity(dev, tables, big_tables):
     def check(x, w, p, part, label, **kw):
         nonlocal cases
         ref = perm_gossip_plain(x, w, p, part, **kw)
-        outs = []
+        first = None
         for name, spec in KERNELS.items():
             for w_window in (1, 8):
                 out = perm_gossip_run(x, w, p, part, w_window=w_window,
@@ -308,10 +336,13 @@ def phase_parity(dev, tables, big_tables):
                     raise AssertionError(
                         f"{name} {label} w_window={w_window}: not bitwise "
                         f"equal to the plain version (max abs err {err})")
-                outs.append(out)
+                if first is None:
+                    first = out
+                elif not same_bits(out, first):
+                    raise AssertionError(f"{label}: dbuf on and off disagree")
+                del out
                 cases += 1
-        if not all(same_bits(o, outs[0]) for o in outs):
-            raise AssertionError(f"{label}: dbuf on and off disagree")
+        return ref
 
     x = state(16, SLICE_D, dev)
     alive = torch.ones(16, device=dev)
@@ -324,26 +355,78 @@ def phase_parity(dev, tables, big_tables):
                 check(x, w, perms, partnered,
                       f"T={t_steps} wire={wire} alive={mask is not None}",
                       alive=mask, wire_dtype=wire)
+            # an odd D: every row's pairs unaligned, scalar edges
+            for dtype in (torch.float32, torch.bfloat16):
+                check(state(16, 1031, dev).to(dtype), w, perms, partnered,
+                      f"D=1031 {dtype} T={t_steps} wire={wire}",
+                      wire_dtype=wire)
     check(x.to(torch.bfloat16), w, perms, partnered, "bf16 state T=64")
     bad = x.clone()
     bad[3, 100], bad[7, 500] = float("nan"), float("inf")
     check(bad, w, perms, partnered, "NaN/inf state T=64")
+    # a NaN that only an inactive matching reaches (the plain version
+    # spreads it as 0 * NaN); a pair whose difference overflows although
+    # both values are finite (|v| >= 2^127: no term may be skipped), and a
+    # lone value near the limit that mixes down, so its slab's image is
+    # out of range in early steps and in range later
+    i, p = inactive_partner(sched, perms)
+    w1 = torch.as_tensor(sched.alpha * sched.flags[:1], dtype=torch.float32,
+                         device=dev)
+    edge = x.clone()
+    edge[p, 7] = float("nan")
+    out = check(edge, w1, perms, partnered, "NaN via an inactive matching")
+    if not bool(torch.isnan(out[i, 7])):
+        raise AssertionError("the plain version no longer spreads 0 * NaN")
+    edge = x.clone()
+    edge[i, 300], edge[p, 300] = 3.0e38, -3.0e38
+    edge[5, 9000] = 3.0e38
+    w8 = torch.as_tensor(sched.alpha * sched.flags[:8], dtype=torch.float32,
+                         device=dev)
+    check(edge, w8, perms, partnered, "f32 limit T=8")
+    check(edge, w8, perms, partnered, "f32 limit T=8 bf16 wire",
+          wire_dtype="bf16")
     big, bperms, bpart = big_tables
     wb = torch.as_tensor(big.alpha * big.flags, dtype=torch.float32,
                          device=dev)
     check(state(256, SLICE_D, dev), wb, bperms, bpart, "N=256 T=64")
+    # N = 2 and 1: four rows a thread, those past N masked
+    pair, pperms, ppart = hypercube_tables(dev, 2)
+    wp = torch.as_tensor(pair.alpha * pair.flags[:8], dtype=torch.float32,
+                         device=dev)
+    check(state(2, 1031, dev), wp, pperms, ppart, "N=2 D=1031 T=8")
+    alone = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    check(state(1, 1030, dev), wp, alone, alone.float(), "N=1 T=8")
+    huge, hperms, hpart = huge_tables
+    xh = state(4096, SLICE_D, dev)
+    for t_steps in (1, 8):
+        wh = torch.as_tensor(huge.alpha * huge.flags[:t_steps],
+                             dtype=torch.float32, device=dev)
+        check(xh, wh, hperms, hpart, f"N=4096 T={t_steps}")
+    # gates other than 0 and 1: the uint16 tables cannot hold them, so the
+    # kernel reads them from device memory
+    weak = torch.ones(4096, device=dev)
+    weak[::7], weak[::11] = 0.5, 0.0
+    check(xh, wh, hperms, hpart, "N=4096 T=8 alive in {0, 0.5, 1}",
+          alive=weak)
+    del xh
     emit({"phase": "parity", "cases": cases, "bitwise": True,
           "max_abs_err": worst})
     return worst
 
 
-def phase_timing(dev, tables, big_tables):
+def phase_timing(dev, tables, big_tables, huge_tables):
+    """Kernel (CUDA events and the profiler's device time), plain version,
+    library call and bound at the slice's shapes, N = 256, and N = 4096
+    (plain and library at T = 1 only)."""
     flush = L2Flush(dev)
     sched, perms, partnered = tables
     big, bperms, bpart = big_tables
+    huge, hperms, hpart = huge_tables
     shapes = [("slice T=1", sched, perms, partnered, 16, 1),
               ("slice T=64", sched, perms, partnered, 16, 64),
-              ("hypercube N=256 T=64", big, bperms, bpart, 256, 64)]
+              ("hypercube N=256 T=64", big, bperms, bpart, 256, 64),
+              ("hypercube N=4096 T=1", huge, hperms, hpart, 4096, 1),
+              ("hypercube N=4096 T=64", huge, hperms, hpart, 4096, 64)]
     rows = []
     for label, sch, p, part, n, t_steps in shapes:
         x = state(n, SLICE_D, dev)
@@ -354,14 +437,19 @@ def phase_timing(dev, tables, big_tables):
         for name, spec in KERNELS.items():
             run = lambda: perm_gossip_run(x, w, p, part, dbuf=spec["dbuf"])
             row[f"{name}_ms"] = time_ms(run, flush)
-            row[f"{name}_device_ms"] = device_ms(run, "perm_gossip_kernel")
-        row["plain_ms"] = time_ms(
-            lambda: perm_gossip_plain(x, w, p, part), flush)
-        row["library_ms"] = time_ms(dense_yardstick(sch, w, x), flush)
+            row[f"{name}_device_ms"] = device_ms(run, "perm_gossip_kernel",
+                                                 flush)
+        slow = n == 4096 and t_steps > 1
+        row["plain_ms"] = None if slow else time_ms(
+            lambda: perm_gossip_plain(x, w, p, part), flush,
+            runs=3 if n == 4096 else 20)
+        row["library_ms"] = None if slow else time_ms(
+            dense_yardstick(sch, w, x), flush, runs=3 if n == 4096 else 20)
         row["bound_ms"], row["bound_by"] = bound(x, w, p, part)
         rows.append(row)
         emit({"phase": "timing", **row})
         del x
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -541,7 +629,7 @@ def phase_fused_timing(dev, tables, big_tables):
                "dtype": str(dtype), "state_dtype": str(x_dtype),
                "path": fused_path(stack), "block_d": block_d,
                "ms": time_ms(kernel, flush),
-               "device_ms": device_ms(kernel, "gossip_kernel"),
+               "device_ms": device_ms(kernel, "gossip_kernel", flush),
                "plain_ms": time_ms(lambda: fused_gossip_plain(x, stack),
                                    flush),
                "library_ms": time_ms(library, flush)}
@@ -1122,9 +1210,10 @@ def main():
                       for k, r in reports.items()}})
 
     tables, big_tables = slice_tables(dev), hypercube_tables(dev)
+    huge_tables = hypercube_tables(dev, 4096)
     results = {}
-    results["parity"] = phase_parity(dev, tables, big_tables)
-    results["timing"] = phase_timing(dev, tables, big_tables)
+    results["parity"] = phase_parity(dev, tables, big_tables, huge_tables)
+    results["timing"] = phase_timing(dev, tables, big_tables, huge_tables)
     results["slice"] = phase_slice(dev)
     phase_profile(dev)
     phase_agreement(dev)

@@ -7,7 +7,7 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 PyTorch's headers, so a build takes seconds.  The library's file name
 carries a hash of its source and flags, so an edited source never loads a
 stale build.  ``build_all`` compiles several sources at once, one ``nvcc``
-each.  ``pick_tile`` is the column-tile rule every wrapper launches by.
+each.  ``pick_tile`` is the column-tile rule the fused wrappers launch by.
 
 ``LAUNCHES`` holds one count per kernel; each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its gossip

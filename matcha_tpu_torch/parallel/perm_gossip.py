@@ -25,12 +25,14 @@ instantiation, so a run can show that its gossip went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .._kernels import LAUNCHES, pick_tile, reset_launch_counts
+from .._kernels import LAUNCHES, reset_launch_counts
 from .gossip import resolve_wire_dtype
 
 __all__ = [
@@ -41,11 +43,30 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-# Launch shape, chosen by timing tiles and row groups on an H100: rows per
-# thread (a CTA holds about N / 16 row groups, at most 1024 threads), and
-# the CTAs a column tile should leave room for on one SM.
-_ROWS_PER_THREAD = 16
-_BLOCKS_PER_SM = 4
+# Launch shape.  A persistent grid of CTAs (the kernel's cap per SM) walks
+# the column slabs [N, cols]; each thread holds up to ``rows`` rows of two
+# adjacent columns in registers.  Widest slab first (a row's table entry
+# is read once per step and matching, whatever the slab's width); four
+# rows per thread, eight where four would need more than a CTA's threads
+# (rows past N are masked, so four take N < 4 too).  The tables go to
+# shared memory as int2 up to _TABLE_SMEM_BYTES, else as one uint16 per
+# entry (uint16 fits at N = 4096); the CTA's shared memory leaves room for
+# as many CTAs on one SM as the SM's registers allow at 64 a thread (two
+# at most), else for one.  Each choice was timed against its alternative
+# on an H100 (``probes/perm_bench.py ab``, PERF.md).
+_COLS = (64, 32, 16, 8, 4, 2)
+_ROWS = (4, 8)
+_THREADS_AT_64_REGISTERS = 65536 // 64  # per SM
+_TABLE_SMEM_BYTES = 32 << 10
+TABLES_WIDE, TABLES_COMPACT = 1, 2
+
+
+class LaunchShape(NamedTuple):
+    cols: int     # columns per slab (two per thread)
+    rows: int     # rows per thread at most (the kernel's R)
+    threads: int  # threads per CTA
+    nbuf: int     # wire-image buffers: 2 (one barrier per step) or 1
+    tables: int   # TABLES_WIDE or TABLES_COMPACT
 
 
 def involution_tables(perms) -> tuple[np.ndarray, np.ndarray]:
@@ -153,20 +174,47 @@ def perm_gossip_plain(x: torch.Tensor, weights, perms, partnered, *,
     return _plain(x, w, p, gate, wire)
 
 
-def _tile_width(lib, n: int, m: int, w_window: int, block_d: int) -> int:
-    """Columns per CTA (``_kernels.pick_tile``), leaving room for
-    ``_BLOCKS_PER_SM`` CTAs on one SM."""
-    return pick_tile(
-        "perm_gossip",
-        lambda tile: lib.perm_gossip_smem_bytes(n, tile, w_window, m),
-        lib.perm_gossip_smem_limit(), n, block_d, _BLOCKS_PER_SM)
+@functools.lru_cache(maxsize=None)
+def _launch_shape(lib, n: int, m: int, w_window: int, block_d: int,
+                  wire_bf16: bool) -> LaunchShape:
+    """The kernel's launch shape for an ``[n, D]`` state with ``m``
+    matchings: a pure function of its arguments and the library's limits
+    (``perm_gossip_smem_bytes``, ``perm_gossip_smem_limit``,
+    ``perm_gossip_max_threads``), kept per arguments.  ``block_d`` caps the
+    slab's width.  Raises ``ValueError`` naming ROADMAP.md for an ``n`` no
+    shape takes."""
+    limit = lib.perm_gossip_smem_limit()
+    max_threads = lib.perm_gossip_max_threads()
+    tables = TABLES_WIDE if 8 * m * n <= _TABLE_SMEM_BYTES else TABLES_COMPACT
+    for fit in (2, 1):
+        for cols in _COLS:
+            if cols > max(block_d, _COLS[-1]):
+                continue
+            lanes = cols // 2
+            rows = next((r for r in _ROWS
+                         if lanes * -(-n // r) <= max_threads), None)
+            if rows is None:
+                continue
+            threads = lanes * -(-n // rows)
+            share = min(fit, max(1, _THREADS_AT_64_REGISTERS // threads))
+            for nbuf in (2, 1):
+                smem = lib.perm_gossip_smem_bytes(
+                    n, cols, w_window, m, int(wire_bf16), nbuf, tables)
+                if smem <= limit // share:
+                    return LaunchShape(cols, rows, threads, nbuf, tables)
+    raise ValueError(
+        f"perm_gossip: {n} workers with {m} matchings fit no launch shape: "
+        f"a CTA holds at most {max_threads} threads of {_ROWS[-1]} rows, "
+        f"and its wire image and tables at most {limit} B of shared "
+        f"memory; a taller state needs a tiling across CTAs (ROADMAP.md)")
 
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "perm_gossip_launch": ([_VP] * 5 + [_I, _LL] + [_I] * 8 + [_VP], _I),
-    "perm_gossip_smem_bytes": ([_I] * 4, _LL),
+    "perm_gossip_launch": ([_VP] * 5 + [_I, _LL] + [_I] * 11 + [_VP], _I),
+    "perm_gossip_smem_bytes": ([_I] * 7, _LL),
     "perm_gossip_smem_limit": ([], _LL),
+    "perm_gossip_max_threads": ([], _LL),
     "perm_gossip_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -190,16 +238,17 @@ def _launch(x, weights, perms, gate, w_window, block_d, wire, dbuf):
     lib = _library()
     n, d = x.shape
     t_padded, m = weights.shape
-    tile = _tile_width(lib, n, m, w_window, block_d)
-    groups = min(-(-n // _ROWS_PER_THREAD), 1024 // tile)
+    shape = _launch_shape(lib, n, m, w_window, block_d, wire is not None)
     x = x.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.perm_gossip_launch(
             x.data_ptr(), out.data_ptr(), weights.data_ptr(), perms.data_ptr(),
-            gate.data_ptr(), n, d, t_padded, m, w_window, tile, tile * groups,
-            _STATE_CODES[x.dtype], 0 if wire is None else 1, int(dbuf), stream)
+            gate.data_ptr(), n, d, t_padded, m, w_window, shape.cols,
+            shape.rows, shape.threads, _STATE_CODES[x.dtype],
+            0 if wire is None else 1, int(dbuf), shape.nbuf, shape.tables,
+            stream)
     if rc != 0:
         raise RuntimeError(f"perm_gossip kernel launch failed: "
                            f"{lib.perm_gossip_error_string(rc).decode()}")
@@ -220,8 +269,10 @@ def perm_gossip_run(x: torch.Tensor, weights, perms, partnered, *,
     alive[π_j]``.  ``wire_dtype``: ``"f32"``/``"bf16"`` (quantize the
     exchanged image once per step; accumulation is always f32).
     ``w_window``: steps per weight window (front-padded with zero rows when
-    ``T % w_window != 0``); ``block_d``: the widest column tile a CTA may
-    take (at least 32, at most 128).  Neither changes the arithmetic.
+    ``T % w_window != 0``); ``block_d``: the widest column slab a CTA may
+    take (the kernel takes 2 to 64 columns).  Neither changes the
+    arithmetic.  The kernel takes N up to 4096 with up to 24 matchings,
+    up to 8192 with up to 10 (``_launch_shape``).
     ``dbuf``: prefetch the next weight window (``perm_gossip_dbuf``) or
     load each synchronously (``perm_gossip_stream``).
 

@@ -5,4 +5,7 @@ run as ``python -m matcha_tpu_torch.probes.<name>``.
 halves, so one half's cast overlaps the other half's products, speed up a
 step of the fused W-stack chain (K4, the port of
 ``benchmarks/split_probe.py``)?
+
+``perm_bench`` — is this tree's perm kernel (K1/K2) faster than another
+tree's at the same shapes (``ab``)?
 """

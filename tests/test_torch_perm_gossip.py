@@ -21,8 +21,10 @@ Tolerances:
   2⁻⁸·max|x| per step.
 
 The CUDA kernel itself runs only on the card: ``test_kernel_bitwise_on_card``
-is marked ``cuda`` and skips on a host without one; ``chip_smoke.py`` holds
-the kernel against the plain version at the training slice's shapes.
+and ``test_kernel_smem_formula_matches_library`` are marked ``cuda`` and skip
+on a host without one; ``chip_smoke.py`` holds the kernel against the plain
+version at the training slice's shapes.  The launch rule is pinned here
+through a stand-in for the library's shared-memory queries.
 """
 
 import numpy as np
@@ -36,6 +38,7 @@ from matcha_tpu.parallel import collectives as jax_collectives
 from matcha_tpu.parallel import gossip_mix as jax_gossip_mix
 from matcha_tpu.parallel import involution_tables as jax_involution_tables
 from matcha_tpu.parallel import perm_gossip_run as jax_perm_gossip_run
+from matcha_tpu.schedule import fixed_schedule as jax_fixed_schedule
 from matcha_tpu.schedule import matcha_schedule as jax_matcha_schedule
 from matcha_tpu_torch.parallel import (
     LAUNCHES,
@@ -254,52 +257,139 @@ def test_involution_tables_match_jax(sched):
         np.testing.assert_array_equal(a, b)
 
 
+def _hypercube(n, t_steps, seed=0):
+    """Tables and MATCHA-style weights of an ``n``-worker hypercube, each
+    matching active with probability 0.5 (JAX package's schedule)."""
+    dec = jtp.decompose(jtp.hypercube_graph(n), n, seed=seed)
+    sched = jax_fixed_schedule(dec, n, t_steps, budget=0.5,
+                               mode="bernoulli", seed=seed)
+    return sched, involution_tables(sched.perms)
+
+
+@pytest.mark.parametrize("n", [512, 1024])
+def test_perm_large_n_matches_jax_kernel(n):
+    # the tables' large-N path: N·M entries well past what fits a CTA as
+    # int2, held to the reference at a narrow D
+    sched, tabs = _hypercube(n, 3)
+    x, w = _state(9, n=n, d=6), _weights(sched, 3)
+    port = _port(x, w, tabs)
+    ref = _jax(x, w, tabs, block_d=6)
+    np.testing.assert_allclose(port, ref, rtol=0, atol=_per_step_ulps(x, 3))
+    # and bitwise against the port's gather oracle, step by step
+    chain = torch.from_numpy(x)
+    for t in range(3):
+        chain = gossip_mix(chain, sched.perms, torch.from_numpy(w[t]))
+    np.testing.assert_array_equal(port, chain.numpy())
+
+
 @pytest.mark.cuda
 def test_kernel_bitwise_on_card(sched, tables):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
-    x, w = _state(6, d=1031), _weights(sched, 13)
     dev = torch.device("cuda")
-    args = [torch.from_numpy(w).to(dev)] + [torch.as_tensor(t, device=dev)
-                                            for t in tables]
-    xd = torch.from_numpy(x).to(dev)
     alive = torch.from_numpy(ALIVE).to(dev)
-    for wire in (None, "bf16"):
-        for mask in (None, alive):
-            ref = perm_gossip_plain(xd, *args, alive=mask, wire_dtype=wire)
-            for dbuf in (True, False):
-                for w_window in (1, 5):
-                    out = perm_gossip_run(xd, *args, alive=mask,
-                                          wire_dtype=wire, dbuf=dbuf,
-                                          w_window=w_window)
-                    torch.cuda.synchronize()
-                    assert torch.equal(out, ref)
+
+    def held(x, w, tabs, masks):
+        args = [torch.from_numpy(w).to(dev)] + [torch.as_tensor(t, device=dev)
+                                                for t in tabs]
+        xd = torch.from_numpy(x).to(dev)
+        for wire in (None, "bf16"):
+            for mask in masks:
+                ref = perm_gossip_plain(xd, *args, alive=mask,
+                                        wire_dtype=wire)
+                for dbuf in (True, False):
+                    for w_window in (1, 5):
+                        out = perm_gossip_run(xd, *args, alive=mask,
+                                              wire_dtype=wire, dbuf=dbuf,
+                                              w_window=w_window)
+                        torch.cuda.synchronize()
+                        assert torch.equal(out, ref)
+
+    w = _weights(sched, 13)
+    # odd D: scalar edges; D = 2 (mod 4): pairs 8-byte but not 16-byte
+    # aligned on odd rows
+    for d in (1031, 1030):
+        held(_state(6, d=d), w, tables, (None, alive))
+    # N = 1 and 2: four rows a thread, those past N masked
+    pair, pair_tables = _hypercube(2, 8)
+    held(_state(6, n=2, d=1031), _weights(pair, 8), pair_tables, (None,))
+    held(_state(6, n=1, d=1030), _weights(pair, 8)[:, :1],
+         involution_tables(np.zeros((1, 1), np.int64)), (None,))
+    big, big_tables = _hypercube(4096, 8)
+    weak = torch.ones(4096, device=dev)  # gates the uint16 tables lack
+    weak[::7], weak[::11] = 0.5, 0.0
+    held(_state(6, n=4096, d=1030), _weights(big, 8), big_tables,
+         (None, weak))
+
+
+@pytest.mark.cuda
+def test_kernel_smem_formula_matches_library():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the library builds there")
+    from matcha_tpu_torch.parallel.perm_gossip import _library
+    lib = _library()
+    assert lib.perm_gossip_smem_limit() == _SmemOnly.perm_gossip_smem_limit()
+    assert (lib.perm_gossip_max_threads()
+            == _SmemOnly.perm_gossip_max_threads())
+    for args in [(16, 64, 1, 8, 0, 2, 1), (256, 64, 8, 10, 1, 1, 1),
+                 (4096, 4, 1, 15, 0, 1, 2), (8192, 2, 3, 10, 1, 2, 2),
+                 (7, 6, 5, 3, 1, 1, 2)]:
+        assert (lib.perm_gossip_smem_bytes(*args)
+                == _SmemOnly.perm_gossip_smem_bytes(*args))
+
+
+def _align16(b):
+    return -(-b // 16) * 16
 
 
 class _SmemOnly:
-    """The two shared-memory queries of the kernel library, with the
-    formula of ``csrc/perm_gossip.cu``'s ``smem_bytes``."""
+    """The shared-memory queries of the kernel library, with the formulas
+    of ``csrc/perm_gossip.cu`` (``smem_bytes``, ``table_bytes``): the wire
+    image, two weight windows, and the tables (int2 or uint16 per entry)."""
 
     @staticmethod
     def perm_gossip_smem_limit():
         return 232448
 
     @staticmethod
-    def perm_gossip_smem_bytes(n, tile, w_window, m):
-        return 4 * (2 * n * tile + 2 * w_window * m) + 16 * m * n + 4 * n
+    def perm_gossip_max_threads():
+        return 1024
+
+    @staticmethod
+    def perm_gossip_smem_bytes(n, cols, w_window, m, wire_bf16, nbuf, tables):
+        image = _align16(nbuf * n * cols * (2 if wire_bf16 else 4))
+        weights = _align16(4 * 2 * w_window * m)
+        table = 8 * m * n if tables == 1 else _align16(2 * m * n)
+        return image + weights + table
 
 
-@pytest.mark.parametrize("n,m,block_d,tile", [
-    (16, 8, 2048, 128),   # the slice: the widest tile
-    (16, 8, 64, 64),      # block_d caps the tile
-    (256, 10, 2048, 32),  # large N: the narrowest tile, more CTAs per SM
+@pytest.mark.parametrize("n,m,block_d,wire,shape", [
+    # the slice: 64-column slabs, 4 rows a thread, tables as int2
+    (16, 8, 2048, False, (64, 4, 128, 2, 1)),
+    (16, 8, 32, True, (32, 4, 64, 2, 1)),      # block_d caps the slab
+    # N < 4: four rows a thread, those past N masked
+    (1, 1, 2048, False, (64, 4, 32, 2, 1)),
+    (2, 1, 2048, True, (64, 4, 32, 2, 1)),
+    # N = 256: 8 rows a thread, one 1024-thread CTA per SM, two images
+    (256, 10, 2048, False, (64, 8, 1024, 2, 1)),
+    # N = 4096: 4 columns, the tables as uint16; at M = 15 (the repo's
+    # decomposition of the hypercube) one f32 image, two bf16 ones
+    (4096, 15, 2048, False, (4, 8, 1024, 1, 2)),
+    (4096, 15, 2048, True, (4, 8, 1024, 2, 2)),
+    (4096, 12, 2048, False, (4, 8, 1024, 2, 2)),
 ])
-def test_kernel_tile_choice(n, m, block_d, tile):
-    from matcha_tpu_torch.parallel.perm_gossip import _tile_width
-    assert _tile_width(_SmemOnly, n, m, 1, block_d) == tile
+def test_kernel_tile_choice(n, m, block_d, wire, shape):
+    from matcha_tpu_torch.parallel.perm_gossip import _launch_shape
+    assert tuple(_launch_shape(_SmemOnly, n, m, 1, block_d, wire)) == shape
 
 
-def test_kernel_refuses_a_state_too_tall_for_shared_memory():
-    from matcha_tpu_torch.parallel.perm_gossip import _tile_width
+@pytest.mark.parametrize("taken,refused", [
+    ((8192, 1), (8193, 1)),     # 1024 threads of 8 rows, one column pair
+    ((8192, 10), (8192, 11)),   # the tables no longer fit beside the image
+    ((4096, 24), (4096, 25)),
+])
+def test_kernel_refuses_a_state_too_tall_for_shared_memory(taken, refused):
+    from matcha_tpu_torch.parallel.perm_gossip import _launch_shape
+    assert _launch_shape(_SmemOnly, *taken, 1, 2048, False).cols == 2
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        _tile_width(_SmemOnly, 4096, 12, 1, 2048)
+        _launch_shape(_SmemOnly, *refused, 1, 2048, False)
