@@ -10,8 +10,10 @@ raises and the script exits non-zero:
    and power limit (printed raw on a line of its own).
 2. build — compiles the port's kernel sources from ``matcha_tpu_torch/csrc``
    (one ``nvcc`` each, started together) and prints ptxas' registers and
-   spills of every kernel instantiation: the perm kernel's two, the fused
-   kernel's FMA path and its tensor-core path, unsplit and split.
+   spills of every kernel instantiation: the perm kernel's, the fused
+   kernel's FMA paths (columns in registers, tile in shared memory) and
+   tensor-core paths (chained in registers; in shared memory, unsplit and
+   split).
 3. parity — the perm kernel's two instantiations against their plain PyTorch version on the card, at
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
@@ -40,36 +42,41 @@ raises and the script exits non-zero:
    run on the card and on the CPU must agree.  Then the streamed-window
    instantiation, which ``train()`` does not take, runs one 64-step chain
    through ``perm_gossip_run(dbuf=False)``.
-6. fused_parity — the fused W-stack kernel against its plain version: f32
-   stack on an f32 state (the FMA path), bf16 stack on an f32 state and on
-   a bf16 state (the tensor-core path), T in {1, 64} at the slice's
-   ``[16, 273258]`` (graph 4, MATCHA weights); T in {1, 4, 64} (bf16) and
-   T = 4 (f32) at ``[256, 273258]`` on the 256-worker hypercube; two row
-   passes per step at N = 100 and N = 300 (rings, T = 8, f32 and bf16;
-   N = 100 is also padded to 112 rows on the tensor cores); a ragged D and
-   T = 0.  Bars scaled by the output: f32 max |Δ| ≤ 1e-5·max|ref|, a bf16
-   operand pass ≤ 2⁻⁷·max|ref| (whether it is bitwise and the share of
-   elements that differ are printed); bitwise against itself across
-   ``w_window`` 1 vs 8 and two tile widths.  Then the dense mix on the card
-   (f32 state, bf16 wire, and f32 with TF32 switched on by the caller)
-   against a float64 product of the same rounded operands.
-7. fused_timing — the fused kernel, its plain version, the library call (T
-   calls of ``torch.matmul(W_t, x)``) and the bound, at ``[16, 273258]``
-   for T = 1 and 64 (f32; and a bf16 stack on an f32 and a bf16 state) and
-   at ``[256, 273258]`` bf16 for T = 64, also at a 64-column tile (twice
-   the W_t reads from L2).
-   tile_sweep — the fused kernel alone on a bf16 stack at ``[16, 273258]``,
-   T = 1 to 64, f32 and bf16 state, at the tile the wrapper picks and
-   capped at 256 and 128 columns.
-   fused_chain — the consensus chain at ``[256, 273258]`` bf16 through
-   ``make_decen(..., "fused").run``, stepped (one launch) and with
-   ``chunk=64`` (composed first), its launches counted, each held to the
-   plain version on its own stack; then the same in f32, where the two
-   chains are also held to each other (f32 bar), with all four times.
+6. fused_parity — the fused W-stack kernel against its plain version on
+   every path: an f32 stack (FMA: ``fma_regs`` up to 16 workers, ``fma``
+   above) and a bf16 stack on an f32 and a bf16 state (tensor cores:
+   ``tc_regs`` up to 16 workers, ``tensor_core`` above).  T in {1, 4, 64}
+   at the slice's ``[16, 273258]`` (graph 4, MATCHA weights), and that
+   stack composed four steps at a time (no W_t symmetric); N = 1 and 3
+   (D = 1,031), N = 17 and a ragged D at N = 16 in every dtype pair;
+   T in {1, 4, 64} (bf16) and T = 4 (f32) at ``[256, 273258]`` on the
+   256-worker hypercube; two row passes per step at N = 100 and N = 300
+   (rings, T = 8, f32 and bf16; N = 100 is also padded to 112 rows on the
+   tensor cores); T = 0.  Bars scaled by the output: f32 max |Δ| ≤
+   1e-5·max|ref|, a bf16 operand pass ≤ 2⁻⁷·max|ref| (whether it is
+   bitwise and the share of elements that differ are printed); each
+   register path against the shared-memory path of its stack dtype
+   (bitwise required on f32; printed on bf16); bitwise against itself
+   across ``w_window`` 1 vs 8 and ``block_d`` 32.  Then the dense mix on
+   the card (f32 state, bf16 wire, and f32 with TF32 switched on by the
+   caller) against a float64 product of the same rounded operands.
+7. fused_timing — the fused kernel (CUDA events and the profiler's device
+   time), its plain version, the library call (T calls of
+   ``torch.matmul(W_t, x)``, by events and by device time) and the bound,
+   at ``[16, 273258]`` for T = 1, 4 and 64 (f32; a bf16 stack on an f32
+   and a bf16 state; at T = 1 also the device time of one copy of the
+   state, a practical floor) and at ``[256, 273258]`` for T = 64 (bf16,
+   also at a 64-column tile, twice the W_t reads from L2; and f32).
+   fused_chain — consensus chains through ``make_decen(..., "fused").run``:
+   ``[256, 273258]`` in bf16 and f32, stepped (one launch) and with
+   ``chunk=64`` (composed first), and ``[16, 273258]`` in bf16, stepped;
+   their launches counted by path, each held to the plain version on its
+   own stack, the two f32 chains also to each other (f32 bar), and the
+   times of the four at N = 256.
 8. fused_slice — ``train()`` at full width with the fused backend (the
    dense product every step, the fused kernel in the comm-split timer's
    chains), 2 epochs of 4 steps: loss and disagreement finite, the fused
-   kernel launched exactly once per timer chain.
+   kernel launched exactly once per timer chain, on its register FMA path.
 9. split_probe — the split-step probe (K4, ``probes/split_probe.py``) on
    its full-width ``[256, 273258]`` bf16 inputs: the split schedule
    bitwise equal to the unsplit one at T = 1, 8, 16, 32 and 64, where the
@@ -86,7 +93,8 @@ raises and the script exits non-zero:
    split_timing — both schedules, the plain version (T = 64 only), the
    library call (T bf16 ``torch.matmul`` calls) and the bound at T = 64
    and T = 2000.
-10. a ``{"kernels": [...]}`` summary line, then the ``nvidia-smi`` line.
+10. a ``{"kernels": [...]}`` summary line (perm ×2, fused_gossip per path
+    ×4, split_gossip), then the ``nvidia-smi`` line.
 11. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -106,6 +114,7 @@ import torch
 
 from matcha_tpu_torch import _kernels
 from matcha_tpu_torch.communicator import make_decen
+from matcha_tpu_torch.parallel import fused_gossip as fg
 from matcha_tpu_torch.parallel import (
     LAUNCHES,
     build_mixing_stack,
@@ -149,6 +158,9 @@ SOURCE = "matcha_tpu_torch/csrc/perm_gossip.cu"
 FUSED_SOURCE = "matcha_tpu_torch/csrc/fused_gossip.cu"
 FUSED_REPLACES = "matcha_tpu/parallel/pallas_gossip.py:182"
 SPLIT_REPLACES = "benchmarks/split_probe.py:86"
+# the fused kernel's paths, as fused_gossip.PATH_NAMES names them (the
+# split schedule is K4's)
+FUSED_PATHS = ("fma_regs", "fma", "tc_regs", "tensor_core")
 KERNELS = {
     "perm_gossip_dbuf": {"dbuf": True,
                          "replaces": "matcha_tpu/parallel/pallas_gossip.py:340"},
@@ -496,27 +508,69 @@ def fused_bar(out_ref, x, stack) -> float:
     return (1e-5 if exact else 2.0 ** -7) * float(out_ref.float().abs().max())
 
 
-def fused_path(stack) -> str:
-    """The fused kernel's path for a stack: FP32 FMA for f32, the tensor
-    cores for bf16."""
-    return "tensor_core" if stack.dtype == torch.bfloat16 else "fma"
+def fused_path(x, stack) -> str:
+    """The fused kernel's path for a state and stack: FP32 FMA for f32
+    (``fma_regs`` up to 16 workers, ``fma`` above), the tensor cores for
+    bf16 (``tc_regs`` up to 16 workers, ``tensor_core`` above)."""
+    return fg.PATH_NAMES[fg.kernel_path(stack.dtype, x.shape[0])]
+
+
+def smem_path_run(x, stack):
+    """One launch of the shared-memory path of the stack's dtype (FMA or
+    the tensor cores), whatever N: what a register path is held to."""
+    path = fg.TENSOR_CORE if stack.dtype == torch.bfloat16 else fg.FMA
+    prep, _ = fg.prepare_stack(x, stack, 2048, 1)
+    return fg.launch_kernel(x, prep, fg.kernel_shape(x.shape[0], 2048, path,
+                                                     prep.shape[0]))
+
+
+def scalar_stack(t_steps: int, dtype, dev):
+    """A one-worker stream: random scalar weights in [0.5, 1)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    return (0.5 + 0.5 * torch.rand(t_steps, 1, 1, generator=g,
+                                   device=dev)).to(dtype)
 
 
 def phase_fused_parity(dev, tables, big_tables):
     """The fused kernel against its plain version (rounding bars scaled by
     the output) and against itself (bitwise across w_window and tile
-    width); then the dense mix's precision on the card."""
+    width); each register path against the shared-memory path of its
+    stack dtype (bitwise required for f32); then the dense mix's precision
+    on the card."""
     sched, big = tables[0], big_tables[0]
     f32, bf16 = torch.float32, torch.bfloat16
     x16 = state(16, SLICE_D, dev)
     cases = []
-    for t_steps in (1, 64):
+    for t_steps in (1, 4, 64):
         for state_dtype, stack_dtype in ((f32, f32), (f32, bf16),
                                          (bf16, bf16)):
             cases.append((f"slice T={t_steps} state={state_dtype} "
                           f"stack={stack_dtype}", x16.to(state_dtype),
                           lambda t=t_steps, s=stack_dtype:
                           mixing_stack(sched, t, s, dev)))
+    # W_t that are not symmetric: the slice's stack composed four steps at
+    # a time, so a transposed W_t would show
+    for state_dtype, stack_dtype in ((f32, f32), (f32, bf16), (bf16, bf16)):
+        cases.append((f"slice composed chunk=4 T=16 state={state_dtype} "
+                      f"stack={stack_dtype}", x16.to(state_dtype),
+                      lambda s=stack_dtype: compose_mixing_stack(
+                          mixing_stack(sched, 64, f32, dev), 4).to(s)))
+    # the register paths' edges: N = 1 and 3 (rows and k padded), N = 17
+    # (the shared-memory paths again), an odd D in every dtype pair
+    for state_dtype, stack_dtype in ((f32, f32), (f32, bf16), (bf16, bf16)):
+        tag = f"state={state_dtype} stack={stack_dtype}"
+        cases.append((f"N=1 D=1031 T=8 {tag}",
+                      state(1, 1031, dev).to(state_dtype),
+                      lambda s=stack_dtype: scalar_stack(8, s, dev)))
+        cases.append((f"ring N=3 D=1031 T=8 {tag}",
+                      state(3, 1031, dev).to(state_dtype),
+                      lambda s=stack_dtype: ring_stack(3, 8, s, dev)))
+        cases.append((f"ring N=17 T=8 {tag}",
+                      state(17, SLICE_D, dev).to(state_dtype),
+                      lambda s=stack_dtype: ring_stack(17, 8, s, dev)))
+        cases.append((f"ragged D=1031 T=13 {tag}",
+                      state(16, 1031, dev).to(state_dtype),
+                      lambda s=stack_dtype: mixing_stack(sched, 13, s, dev)))
     # N = 256 (tile 32, one pass of 256 rows): T = 1 and 4 before the
     # hypercube reaches consensus, and T = 64, chain (b)'s length
     x256 = state(256, SLICE_D, dev)
@@ -531,9 +585,7 @@ def phase_fused_parity(dev, tables, big_tables):
             cases.append((f"ring N={n} T=8 {dtype}/{dtype} (2 passes)",
                           state(n, SLICE_D, dev).to(dtype),
                           lambda n=n, s=dtype: ring_stack(n, 8, s, dev)))
-    cases.append(("ragged D=1031 T=13 f32/f32", state(16, 1031, dev),
-                  lambda: mixing_stack(sched, 13, f32, dev)))
-    rows, worst = [], {"fma": 0.0, "tensor_core": 0.0}
+    rows, worst = [], {name: 0.0 for name in FUSED_PATHS}
     for label, x, make_stack in cases:
         stack = make_stack()
         ref = fused_gossip_plain(x, stack)
@@ -541,7 +593,7 @@ def phase_fused_parity(dev, tables, big_tables):
         torch.cuda.synchronize()
         bar = fused_bar(ref, x, stack)
         err = max_err(out, ref)
-        path = fused_path(stack)
+        path = fused_path(x, stack)
         worst[path] = max(worst[path], err)
         row = {"case": label, "path": path, "max_abs_err": err, "bar": bar,
                "max_abs_ref": float(ref.float().abs().max()),
@@ -549,6 +601,15 @@ def phase_fused_parity(dev, tables, big_tables):
                "differ_share": float((out != ref).float().mean())}
         if not err <= bar:
             raise AssertionError(f"fused {label}: max |Δ| {err} > {bar}")
+        if path in ("fma_regs", "tc_regs"):
+            smem = smem_path_run(x, stack)
+            row["bitwise_vs_smem_path"] = same_bits(out, smem)
+            row["differ_share_vs_smem_path"] = float(
+                (out != smem).float().mean())
+            if path == "fma_regs" and not row["bitwise_vs_smem_path"]:
+                raise AssertionError(f"fused {label}: the register FMA path "
+                                     f"differs from the shared-memory one")
+            del smem
         for kw in ({"w_window": 8}, {"block_d": 32}):
             again = fused_gossip_run(x, stack, **kw)
             if not same_bits(again, out):
@@ -593,28 +654,54 @@ def phase_fused_parity(dev, tables, big_tables):
     return worst
 
 
+def calls_device_ms(fn, flush, runs: int = 20):
+    """Mean device time of one call of ``fn`` (all its kernels, the L2
+    flush before each call excluded) from ``torch.profiler``, or None when
+    the trace holds no device time: the library call's counterpart of
+    ``device_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0)
+                for e in prof.key_averages() if "Fill" not in e.key)
+    return total / runs / 1e3 if total else None
+
+
 def phase_fused_timing(dev, tables, big_tables):
+    """Kernel (CUDA events and the profiler's device time), plain version,
+    library call (T calls of ``torch.matmul(W_t, x)``, by events and by
+    device time) and bound at the slice's ``[16, 273258]`` (T = 1, 4 and
+    64; f32, a bf16 stack on an f32 state, and bf16: the register paths),
+    and at ``[256, 273258]`` T = 64 (bf16, also at a 64-column tile, and
+    f32: the shared-memory paths)."""
     flush = L2Flush(dev)
     sched, big = tables[0], big_tables[0]
     f32, bf16 = torch.float32, torch.bfloat16
-    rows = []
-    # (label, schedule, N, T, state dtype, stack dtype, block_d): the
-    # 64-column tile at N = 256 reads W_t from L2 twice as often as the
+    shapes = []
+    for t_steps in (1, 4, 64):
+        for label, x_dtype, dtype in (("f32", f32, f32),
+                                      ("f32 state, bf16 stack", f32, bf16),
+                                      ("bf16", bf16, bf16)):
+            shapes.append((f"slice T={t_steps} {label}", sched, 16, t_steps,
+                           x_dtype, dtype, 2048))
+    # the 64-column tile at N = 256 reads W_t from L2 twice as often as the
     # default 128-column one
-    for label, sch, n, t_steps, x_dtype, dtype, block_d in (
-            ("slice T=1 f32", sched, 16, 1, f32, f32, 2048),
-            ("slice T=64 f32", sched, 16, 64, f32, f32, 2048),
-            ("slice T=1 f32 state, bf16 stack", sched, 16, 1, f32, bf16,
-             2048),
-            ("slice T=64 f32 state, bf16 stack", sched, 16, 64, f32, bf16,
-             2048),
-            ("slice T=1 bf16", sched, 16, 1, bf16, bf16, 2048),
-            ("slice T=64 bf16", sched, 16, 64, bf16, bf16, 2048),
-            ("hypercube N=256 T=64 bf16", big, 256, 64, bf16, bf16, 2048),
-            ("hypercube N=256 T=64 bf16, tile 64", big, 256, 64, bf16, bf16,
-             64)):
+    shapes += [("hypercube N=256 T=64 bf16", big, 256, 64, bf16, bf16, 2048),
+               ("hypercube N=256 T=64 bf16, tile 64", big, 256, 64, bf16,
+                bf16, 64),
+               ("hypercube N=256 T=64 f32", big, 256, 64, f32, f32, 2048)]
+    rows = []
+    for label, sch, n, t_steps, x_dtype, dtype, block_d in shapes:
         x = state(n, SLICE_D, dev).to(x_dtype)
         stack = mixing_stack(sch, t_steps, dtype, dev)
+        # the FMA path at N = 256 takes about 0.1 s a call
+        runs = 5 if dtype == f32 and n == 256 else 20
 
         def library(x=x, stack=stack):
             out = x.to(stack.dtype)
@@ -627,13 +714,18 @@ def phase_fused_timing(dev, tables, big_tables):
 
         row = {"shape": label, "N": n, "D": SLICE_D, "T": t_steps,
                "dtype": str(dtype), "state_dtype": str(x_dtype),
-               "path": fused_path(stack), "block_d": block_d,
-               "ms": time_ms(kernel, flush),
-               "device_ms": device_ms(kernel, "gossip_kernel", flush),
+               "path": fused_path(x, stack), "block_d": block_d,
+               "ms": time_ms(kernel, flush, runs),
+               "device_ms": device_ms(kernel, "gossip_kernel", flush, runs),
                "plain_ms": time_ms(lambda: fused_gossip_plain(x, stack),
-                                   flush),
-               "library_ms": time_ms(library, flush)}
+                                   flush, runs),
+               "library_ms": time_ms(library, flush, runs),
+               "library_device_ms": calls_device_ms(library, flush, runs)}
         row["bound_ms"], row["bound_by"] = fused_bound(x, stack)
+        if n == 16 and t_steps == 1:
+            # a practical floor beside the bound: one copy of the state
+            row["state_copy_device_ms"] = calls_device_ms(x.clone, flush,
+                                                          runs)
         rows.append(row)
         emit({"phase": "fused_timing", **row})
         del x, stack
@@ -641,85 +733,73 @@ def phase_fused_timing(dev, tables, big_tables):
     return rows
 
 
-def phase_tile_sweep(dev, tables):
-    """The fused kernel's time on a bf16 stack at the slice's width,
-    ``[16, 273258]``, for T = 1 to 64 on an f32 and a bf16 state, with
-    ``block_d`` 2048 (the tile the wrapper picks for T), 256 and 128: the
-    measurement behind the wrapper's rule for the wide tiles at N ≤ 16.
-    It calls only ``fused_gossip_run``, so it also runs against an older
-    checkout of the package (PERF.md says how)."""
+def phase_fused_chain(dev, tables, big_tables):
+    """Consensus chains through ``make_decen(..., "fused").run``: at the
+    bench shape, ``[256, 273258]``, in bf16 (the shared-memory tensor
+    cores) and f32 (the shared-memory FMA path), each stepped (one launch
+    for the 64-step stream) and with ``chunk=64`` (the stack composed
+    first, one launch); and at the slice's ``[16, 273258]`` in bf16,
+    stepped (the tensor cores chained in registers).  The launch counts,
+    by path, are read right after these five runs.  Each chain is held to
+    the plain version on its own stack (the fused bar); the two f32 chains
+    at N = 256 must also agree to the f32 bar (in bf16 the composed stack
+    is rounded once and the stepped state 64 times: their gap is printed,
+    not held).  Then the times of the four chains at N = 256."""
     flush = L2Flush(dev)
-    sched = tables[0]
-    x16 = state(16, SLICE_D, dev)
-    rows = []
-    for t_steps in (1, 2, 4, 8, 16, 32, 64):
-        stack = mixing_stack(sched, t_steps, torch.bfloat16, dev)
-        for x_dtype in (torch.float32, torch.bfloat16):
-            x = x16.to(x_dtype)
-            row = {"T": t_steps, "state_dtype": str(x_dtype)}
-            for block_d in (2048, 256, 128):
-                row[f"block_d={block_d} ms"] = time_ms(
-                    lambda: fused_gossip_run(x, stack, block_d=block_d),
-                    flush)
-            rows.append(row)
-    emit({"phase": "tile_sweep", "N": 16, "D": SLICE_D,
-          "stack_dtype": "torch.bfloat16", "rows": rows})
-    return rows
-
-
-def phase_fused_chain(dev, big_tables):
-    """The consensus chain at the bench shape, ``[256, 273258]`` bf16
-    through ``make_decen(..., "fused").run``: stepped (one launch for the
-    64-step stream) and with ``chunk=64`` (the stack composed first, one
-    launch).  The launch counts are read right after these two runs.  Each
-    chain is held to the plain version on its own stack (the fused bar).
-    Then the same two chains in f32, where composed and stepped must also
-    agree to the f32 bar (in bf16 the composed stack is rounded once and
-    the stepped state 64 times: their gap is printed, not held), and the
-    times of all four."""
-    flush = L2Flush(dev)
-    big = big_tables[0]
-    flags = big.flags[:64]
-    lap = torch.as_tensor(big.laplacians(), dtype=torch.float32, device=dev)
-    flags_t = torch.as_tensor(flags, dtype=torch.float32, device=dev)
-    chain = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    sched, big = tables[0], big_tables[0]
+    bf16, f32 = torch.bfloat16, torch.float32
+    runs = {}
+    for dtype in (bf16, f32):
         x = state(256, SLICE_D, dev).to(dtype)
-        comms = {chunk: make_decen(big, "fused", device=dev,
-                                   compute_dtype=dtype, chunk=chunk)
-                 for chunk in (1, 64)}
-        if dtype == torch.bfloat16:
-            reset_launch_counts()
-        outs = {chunk: comm.run(x, flags)[0] for chunk, comm in comms.items()}
-        torch.cuda.synchronize()
-        if dtype == torch.bfloat16:
-            launches = dict(LAUNCHES)
-        stack = build_mixing_stack(lap, big.alpha, flags_t, dtype)
-        for chunk, out in outs.items():
-            ref = fused_gossip_plain(x, compose_mixing_stack(stack, chunk))
-            bar = fused_bar(ref, x, stack)
-            err = max_err(out, ref)
-            chain[f"{dtype} chunk={chunk} vs plain max_abs_err"] = err
-            chain[f"{dtype} chunk={chunk} vs plain bar"] = bar
-            if not err <= bar:
-                raise AssertionError(f"{dtype} chain chunk={chunk}: {err} > "
-                                     f"{bar} against the plain version")
-            del ref
-        err = max_err(outs[64], outs[1])
-        chain[f"{dtype} chunk=64 vs step max_abs_err"] = err
-        if dtype == torch.float32:
-            bar = fused_bar(outs[1], x, stack)
-            chain[f"{dtype} chunk=64 vs step bar"] = bar
+        for chunk in (1, 64):
+            comm = make_decen(big, "fused", device=dev, compute_dtype=dtype,
+                              chunk=chunk)
+            runs[f"N=256 {dtype} chunk={chunk}"] = (big, x, chunk, comm)
+    runs["slice N=16 bf16 chunk=1"] = (
+        sched, state(16, SLICE_D, dev).to(bf16), 1,
+        make_decen(sched, "fused", device=dev, compute_dtype=bf16))
+    reset_launch_counts()
+    outs = {label: comm.run(x, sch.flags[:64])[0]
+            for label, (sch, x, chunk, comm) in runs.items()}
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    chain = {}
+    for label, (sch, x, chunk, comm) in runs.items():
+        flags = torch.as_tensor(sch.flags[:64], dtype=f32, device=dev)
+        stack = build_mixing_stack(sch.laplacians(), sch.alpha, flags,
+                                   x.dtype)
+        ref = fused_gossip_plain(x, compose_mixing_stack(stack, chunk))
+        bar = fused_bar(ref, x, stack)
+        err = max_err(outs[label], ref)
+        chain[f"{label} vs plain max_abs_err"] = err
+        chain[f"{label} vs plain bar"] = bar
+        if not err <= bar:
+            raise AssertionError(f"{label} chain: {err} > {bar} against the "
+                                 f"plain version")
+        if label == f"N=256 {f32} chunk=64":
+            err = max_err(outs[label], outs[f"N=256 {f32} chunk=1"])
+            bar = fused_bar(outs[f"N=256 {f32} chunk=1"], x, stack)
+            chain[f"{f32} chunk=64 vs step max_abs_err"] = err
+            chain[f"{f32} chunk=64 vs step bar"] = bar
             if not err <= bar:
                 raise AssertionError(f"f32 chain: chunk=64 vs stepped {err} "
                                      f"> {bar}")
-        del stack
-        for chunk, comm in comms.items():
-            chain[f"{dtype} chunk={chunk} ms"] = time_ms(
-                lambda: comm.run(x, flags), flush)
-        del x, outs
-    if launches["fused_gossip"] != 2:
-        raise AssertionError(f"the two bf16 chains launched {launches}")
+        if label == f"N=256 {bf16} chunk=64":
+            chain[f"{bf16} chunk=64 vs step max_abs_err"] = max_err(
+                outs[label], outs[f"N=256 {bf16} chunk=1"])
+        del stack, ref
+    del outs
+    want = {"fused_gossip": 5, "fused_gossip/tensor_core": 2,
+            "fused_gossip/fma": 2, "fused_gossip/tc_regs": 1}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"the five chains launched {launches}, "
+                             f"expected {want}")
+    for label, (sch, x, chunk, comm) in runs.items():
+        if label.startswith("N=256"):
+            chain[f"{label} ms"] = time_ms(
+                lambda: comm.run(x, sch.flags[:64]), flush,
+                5 if x.dtype == f32 and chunk == 1 else 20)
+    del runs
     emit({"phase": "fused_chain", "N": 256, "D": SLICE_D, "T": 64,
           "launches": launches, **chain})
     return launches
@@ -743,9 +823,11 @@ def phase_fused_slice(dev):
             if not math.isfinite(h[key]):
                 raise AssertionError(f"fused epoch {h['epoch']}: {key} = "
                                      f"{h[key]}")
-    if launches["fused_gossip"] != expected or launches["perm_gossip_dbuf"]:
+    if (launches["fused_gossip"] != expected or launches["perm_gossip_dbuf"]
+            or launches["fused_gossip/fma_regs"] != expected):
         raise AssertionError(f"fused slice launches {launches}, expected "
-                             f"fused_gossip = {expected} (timer chains)")
+                             f"fused_gossip = fused_gossip/fma_regs = "
+                             f"{expected} (timer chains)")
     emit({"phase": "fused_slice", "model": "resnet20", "workers": 16,
           "graphid": 4, "budget": 0.5, "batch": 32, "backend": "fused",
           "steps_per_epoch": bpe, "launches": launches,
@@ -1144,23 +1226,34 @@ def kernels_line(r) -> list:
                          "bound_by": t["bound_by"]} for t in r["timing"]],
         })
     fused_rows = r["fused_timing"]
-    keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")
-    # the FMA path on the fused slice's timer chains (an f32 stack, T=64
-    # at the slice's state); the tensor cores in chain (b) (bf16, N=256)
-    for path, main_label, launches, by_path in (
-            ("fma", "slice T=64 f32", r["fused_slice"]["fused_gossip"],
-             {"train() fused, timer chains":
-              r["fused_slice"]["fused_gossip"]}),
+    keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by")
+    # each path of K3 on the entry point that runs it, and its time at that
+    # entry point's shape: the register FMA path in the fused slice's timer
+    # chains (an f32 stack, T = 4 at the slice's state), the shared-memory
+    # FMA path and tensor cores in chain (b) (f32 and bf16, N = 256), the
+    # tensor cores chained in registers in the slice-width bf16 chain
+    chain_runs = "Communicator.run chain (b), stepped and chunk=64"
+    for path, main_label, by_path in (
+            ("fma_regs", "slice T=4 f32",
+             {"train() fused, timer chains": r["fused_slice"]}),
+            ("fma", "hypercube N=256 T=64 f32", {chain_runs: r["fused_chain"]}),
+            ("tc_regs", "slice T=64 bf16",
+             {"Communicator.run, slice-width bf16 chain": r["fused_chain"]}),
             ("tensor_core", "hypercube N=256 T=64 bf16",
-             r["fused_chain"]["fused_gossip"],
-             {"Communicator.run chain (b), stepped and chunk=64":
-              r["fused_chain"]["fused_gossip"]})):
+             {chain_runs: r["fused_chain"]})):
+        counter = f"fused_gossip/{path}"
+        launches = sum(run[counter] for run in by_path.values())
+        if launches < 1:
+            raise AssertionError(f"fused_gossip {path}: no launch on its "
+                                 f"main path")
         main = next(t for t in fused_rows if t["shape"] == main_label)
         kernels.append({
             "name": "fused_gossip", "path": path, "route": "cuda",
             "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
-            "launches": launches, "launches_by_path": by_path,
+            "launches": launches,
+            "launches_by_path": {k: run[counter]
+                                 for k, run in by_path.items()},
             "bitwise": False, "max_abs_err": r["fused_parity"][path],
             **{k: main[k] for k in keys},
             "timings": [{k: t[k] for k in keys} for t in fused_rows
@@ -1220,8 +1313,7 @@ def main():
     results["stream_chain"] = phase_stream_chain(dev, tables)
     results["fused_parity"] = phase_fused_parity(dev, tables, big_tables)
     results["fused_timing"] = phase_fused_timing(dev, tables, big_tables)
-    phase_tile_sweep(dev, tables)
-    results["fused_chain"] = phase_fused_chain(dev, big_tables)
+    results["fused_chain"] = phase_fused_chain(dev, tables, big_tables)
     results["fused_slice"] = phase_fused_slice(dev)
     results["split_probe"] = phase_split_probe(dev)
     results["split_timing"] = phase_split_timing(dev)

@@ -43,9 +43,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOADED: dict = {}
 
-#: kernel launches, counted by each wrapper where it launches its kernel
+#: kernel launches, counted by each wrapper where it launches its kernel;
+#: the fused wrappers also count each path ("fused_gossip/<path>")
 LAUNCHES = {"perm_gossip_dbuf": 0, "perm_gossip_stream": 0,
-            "fused_gossip": 0, "split_gossip": 0}
+            "fused_gossip": 0, "split_gossip": 0,
+            "fused_gossip/fma_regs": 0, "fused_gossip/fma": 0,
+            "fused_gossip/tc_regs": 0, "fused_gossip/tensor_core": 0,
+            "split_gossip/tensor_core": 0, "split_gossip/split": 0}
 
 
 def reset_launch_counts() -> None:

@@ -14,27 +14,51 @@
 // step's input and state() rounds the f32 sum to the state dtype at its
 // output, as the TPU kernel casts (:164-176).  The wrapper front-pads the
 // stack with identity matrices to a multiple of w_window (:221-225); the
-// kernels stage one W_t at a time, so w_window changes no bit here.  K4 is
-// the same arithmetic on a bf16 state and stack; its split schedule only
-// changes which threads wait for which.
+// kernels never see w_window, so it changes no bit here.  K4 is the same
+// arithmetic on a bf16 state and stack; its split schedule only changes
+// which threads wait for which.  Column c of W_t @ x reads only column c
+// of x, so a column's whole chain runs in one CTA (the TPU kernel's
+// sequential step axis becomes a loop; Hopper CTAs run in no order).
 //
-// Two paths, picked by the stack's dtype:
+// Five paths.  The wrapper picks one from N and the stack's dtype alone
+// (the state's dtype never changes the path), and never retries another:
 //
-// * f32 stack: FP32 FMA on CUDA cores (fused_gossip_kernel), never TF32,
-//   which would change the result.  One CTA per column tile [N, tile]
-//   loops over all T steps (the TPU kernel's sequential step axis becomes
-//   this loop).  The tile sits in shared memory twice, "cur" and "next", as
-//   f32: step t+1 reads every row of step t's result, so the write cannot
-//   go in place.  Each thread accumulates an 8-row x 4-column register
-//   block; a warp's lanes form RL = 128/tile row groups of 32/RL column
-//   lanes, so per k a thread reads 8 W values as two float4 loads and 4
-//   state values, then does 32 FMAs (__fmaf_rn: the port builds with
-//   --fmad=false, which leaves the intrinsic alone).  Each step walks the
-//   rows in passes of warps*RL*8 rows.  W_t streams through shared memory
-//   in chunks of 8 k values, read along k into registers one chunk ahead
-//   and stored transposed, one barrier per chunk.
-//
-// * bf16 stack: tensor cores (tc_gossip_kernel),
+// * FMA with the columns in registers (fma_regs_gossip_kernel): an f32
+//   stack and N <= 16.  A thread owns one pair of columns of all N rows,
+//   padded to NR = 8 or 16, in registers for all T steps, plus a second
+//   register copy for the step's sums: device memory is read once and
+//   written once, with no barrier between steps.  W_t is staged transposed
+//   in shared memory (wsm[t][k][i] = W_t[i, k]), so each k is NR/4
+//   broadcast LDS.128 feeding 2*NR FMAs.  The sums are the unbroken chain
+//   acc = __fmaf_rn(W[i,k], x[k], acc) from +0, k = 0 .. N-1 in order, as
+//   on the shared-memory FMA path, so both give the same bits.
+// * Tensor cores chained in registers (tc_regs_gossip_kernel): a bf16
+//   stack and N <= 16 (padded to 16).  A warp runs the transposed product
+//   x^T <- x^T W_t^T with mma.sync.m16n8k16 (A = 16 columns x 16 workers
+//   of the state, B = W_t^T as two n8 tiles); the two accumulators of a
+//   step, rounded to bf16 pairs, are the next step's A fragment with no
+//   shuffle, so a warp carries its 32 columns through all T steps in
+//   registers, with no barrier.  The state enters through a per-warp
+//   staging buffer filled by cp.async one item ahead (ldmatrix.trans
+//   reads the A fragments out of it) and the last step's f32 sums leave
+//   through it, so device memory sees whole rows of the warp's columns.
+//   The stack is staged permuted, one LDS.128 of B fragments per lane and
+//   step.
+// Both register paths run a persistent grid (as many CTAs as fit the
+// card), which walks the columns round-robin.
+// * FMA in shared memory (fused_gossip_kernel): an f32 stack and N > 16.
+//   One CTA per column tile [N, tile] loops over all T steps.  The tile
+//   sits in shared memory twice, "cur" and "next", as f32: step t+1 reads
+//   every row of step t's result, so the write cannot go in place.  Each
+//   thread accumulates an 8-row x 4-column register block; a warp's lanes
+//   form RL = 128/tile row groups of 32/RL column lanes, so per k a thread
+//   reads 8 W values as two float4 loads and 4 state values, then does 32
+//   FMAs.  Each step walks the rows in passes of warps*RL*8 rows.  W_t
+//   streams through shared memory in chunks of 8 k values, read along k
+//   into registers one chunk ahead and stored transposed, one barrier per
+//   chunk.
+// * Tensor cores in shared memory (tc_gossip_kernel): a bf16 stack and
+//   N > 16, unsplit (K3) or split (K4, any N).
 //   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 fed by ldmatrix, f32
 //   accumulators in registers.  Every step rounds its input to bf16, so the
 //   state tile is held in shared memory as bf16 (cur and next, half the
@@ -43,12 +67,9 @@
 //   to device memory in the state's dtype.  A CTA has 8 warps, 4 along the
 //   rows and 2 along the columns; a warp owns MT m16 tiles (MT = 1, 2 or 4
 //   by N) times tile/16 columns, and a step walks the rows in passes of
-//   64*MT.  Where N pads to 16 rows, one m16 tile, the 8 warps all lie
-//   along the columns instead (tiles of 128, 256 or 512 columns), so no
-//   warp idles and fewer, wider CTAs read W_t.  W_t streams in chunks of
-//   [pass rows x 32 k] (two mma k steps) through a 3-slot ring filled by
-//   cp.async, two chunks in flight, the next one requested behind each
-//   chunk's products.  The state tile and
+//   64*MT.  W_t streams in chunks of [pass rows x 32 k] (two mma k steps)
+//   through a 3-slot ring filled by cp.async, two chunks in flight, the
+//   next one requested behind each chunk's products.  The state tile and
 //   the W chunks are XOR-swizzled in 16-byte granules so ldmatrix reads
 //   without bank conflicts.  N is zero-padded to a multiple of 16 in rows
 //   and in k (the wrapper pads the stack; padded state rows stay zero and
@@ -57,51 +78,60 @@
 //     - unsplit (K3 on a bf16 stack): the CTA loads each W chunk once and
 //       meets at one CTA-wide barrier per chunk (32 k values);
 //     - split (K4): the two column halves of the tile belong to the two
-//       halves of the warps (a column of W_t @ x reads only that column of
-//       x).  Each half stages its own W chunks in its own ring and meets
-//       only at its own named barrier (bar.sync 1 or 2, 128 threads), so
-//       half 0 can cast and store step t while half 1 is still in its
-//       products.  It reads every W_t from L2 twice as often.
+//       halves of the warps.  Each half stages its own W chunks in its own
+//       ring and meets only at its own named barrier (bar.sync 1 or 2, 128
+//       threads), so half 0 can cast and store step t while half 1 is
+//       still in its products.  It reads every W_t from L2 twice as often.
 //   Both schedules run each output element through the same mma sequence
 //   (k chunks in order, the element at the same place of its m16n8 tile),
-//   so split equals unsplit bitwise, and the tile width and the warps'
-//   layout change no bit either.  The tensor cores' f32 sum need not round
-//   like a chain of FMAs, so this path is held against the plain PyTorch
-//   version to one bf16 ulp of the output, not bitwise.
+//   so split equals unsplit bitwise, and the tile width changes no bit
+//   either.  The tensor cores' f32 sum need not round like a chain of
+//   FMAs, so the bf16 paths are held against the plain PyTorch version to
+//   one bf16 ulp of the output, not bitwise.
 //
 // What bounds it (H100 SXM: 67 TFLOP/s FP32, 989 TFLOP/s bf16 dense, 3.35
 // TB/s).  The work is 2*N^2*D*T operations; device memory is read and
 // written once per element of x (2*N*D*bytes) whatever T is, plus the
-// stack once.  For an f32 stack the FP32 rate bounds it.  For a bf16 stack
-// the tensor-core rate is the bound (2.29 TFLOP at N = 256, D = 273,258,
-// T = 64: 2.32 ms).  Each CTA re-reads the whole W_t from L2 every step,
-// (D/tile)*T*N^2*2 B in all (17.9 GB at tile 128, N = 256, T = 64; twice
-// that with SPLIT) -- the counterpart of the TPU kernel's
-// (D/block_d)*T*N^2 (:17) -- so the wrapper takes the widest tile that
-// fits the SM (two CTAs per SM on the FMA path, one on the tensor cores,
-// whose 8 warps carry two W chunks in flight).  Measured on an H100
-// (PERF.md), neither the tensor cores nor that L2 stream binds this
-// mainloop at N = 256: it reaches a fifth of the tensor-core rate, and a
-// 64-column tile, which reads W_t twice as often but fits two CTAs per SM,
-// is faster.  Latency does, a barrier every 32 k values with 8 warps to
-// hide it.  At small N a pass gives each barrier little work, so the
-// kernel asks for two or three CTAs per SM there (__launch_bounds__),
-// which caps its registers.  At N <= 16 every CTA reads the same 512 B of
-// W_t each step; the wide tiles of the one-row-of-warps layout have
-// fewer CTAs read it, which is faster for a long chain (256 columns from
-// T = 8, 512 from T = 32, measured), while a short one goes faster over
-// more, narrower CTAs.  The wrapper picks the tile from T.
+// stack once.  At N = 16, D = 273,258 a short chain is bound by those bytes
+// (10.4 us at T = 1 for an f32 state), which the register paths move once
+// with no barrier in the way and the stack a few KB of shared memory.  A
+// long f32 chain is bound by the FP32 rate (0.134 ms at T = 64), where the
+// register path spends NR/4 LDS.128 per 2*NR FMAs; a long bf16 chain by
+// the tensor cores (9 us at T = 64), where the register path spends an
+// LDS.128, 4 mma and 8 packs per 32 columns and step.  Measured on an H100
+// (PERF.md), both register paths sit at about twice the byte bound at
+// T = 1, limited by how a load, the arithmetic and the store of a column
+// group follow each other.  On the shared-memory paths each CTA
+// re-reads the whole W_t from L2 every step, (D/tile)*T*N^2*2 B in all
+// (17.9 GB at tile 128, N = 256, T = 64; twice that with SPLIT) -- the
+// counterpart of the TPU kernel's (D/block_d)*T*N^2 (:17) -- so the
+// wrapper takes the widest tile that fits the SM (two CTAs per SM on the
+// FMA path, one on the tensor cores, whose 8 warps carry two W chunks in
+// flight).  Measured on an H100 (PERF.md), neither the tensor cores nor
+// that L2 stream binds the shared-memory mainloop at N = 256: it reaches
+// a fifth of the tensor-core rate, and a 64-column tile, which reads W_t
+// twice as often but fits two CTAs per SM, is faster.  Latency does, a
+// barrier every 32 k values with 8 warps to hide it; at small N the
+// kernel asks for two or three CTAs per SM (__launch_bounds__), which
+// caps its registers.
 //
 // Shared memory: FMA 4*(2*8*(rows+4) + 2*N*tile) B, rows = 8*RL*min(8,
 // ceil(N/(8*RL))); tensor cores 2*(rings*3*R*32 + 2*Npad*tile) B, R the
-// rows of a pass (16*WM*MT), one ring unsplit, two split.  A CTA may use
-// 227 KB, so N is bounded (at tile 32 about 840 on the FMA path, 1,400 on
-// the tensor cores and 1,000 split); the wrapper rejects a larger N.
+// rows of a pass (64*MT), one ring unsplit, two split.  A CTA may use 227
+// KB, so N is bounded (at tile 32 about 840 on the FMA path, 1,400 on the
+// tensor cores and 1,000 split); the wrapper rejects a larger N.  The
+// register paths: the staged stack, at most 64 KB (window steps of
+// 4*NR^2 or 512 B), plus two 2,304 B staging buffers per warp on the
+// tensor cores.  Their grid comes from the occupancy API once per kernel,
+// device and shared memory, and is kept (card_ctas): a launch sets no
+// attribute after the first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -113,8 +143,14 @@ struct Dtype;
 template <>
 struct Dtype<float> {
   __device__ static float load(const float* p) { return *p; }
+  __device__ static float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
   __device__ static float round(float v) { return v; }
   __device__ static void store(float* p, float v) { *p = v; }
+  __device__ static void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
 };
 
 template <>
@@ -122,13 +158,45 @@ struct Dtype<__nv_bfloat16> {
   __device__ static float load(const __nv_bfloat16* p) {
     return __bfloat162float(*p);
   }
+  __device__ static float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
   __device__ static float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
   __device__ static void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16_rn(v);
   }
+  __device__ static void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
 };
+
+// Columns (col, col + 1) of row r as f32, zero past d: one pair access
+// where `vec` says every row's pair is aligned (even d), else scalars.
+template <typename StateT>
+__device__ __forceinline__ float2 load_pair(const StateT* __restrict__ x,
+                                            long long r, long long d,
+                                            long long col, int vec) {
+  const StateT* p = x + r * d + col;
+  if (vec && col + 1 < d) return Dtype<StateT>::load2(p);
+  return make_float2(col < d ? Dtype<StateT>::load(p) : 0.0f,
+                     col + 1 < d ? Dtype<StateT>::load(p + 1) : 0.0f);
+}
+
+template <typename StateT>
+__device__ __forceinline__ void store_pair(StateT* __restrict__ out,
+                                           long long r, long long d,
+                                           long long col, int vec, float a,
+                                           float b) {
+  StateT* p = out + r * d + col;
+  if (vec && col + 1 < d) {
+    Dtype<StateT>::store2(p, a, b);
+    return;
+  }
+  if (col < d) Dtype<StateT>::store(p, a);
+  if (col + 1 < d) Dtype<StateT>::store(p + 1, b);
+}
 
 // ------------------------------------------------ FMA path (f32 stack)
 
@@ -350,30 +418,24 @@ constexpr int kStages = 3;   // W chunk slots per ring
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
 
-// warps along the rows: 4, or 1 when the padded N is a single m16 tile,
-// so that all 8 warps hold columns instead of 6 of them idling
-__host__ __device__ inline int warps_m(int n) {
-  return pad16(n) <= 16 ? 1 : 4;
-}
+constexpr int kWarpsM = 4;  // warps along the rows; 2 along the columns
 
-// m16 tiles per warp: a pass of 16*WM*MT rows, MT = 1, 2 or 4
+// m16 tiles per warp: a pass of 16*kWarpsM*MT rows, MT = 1, 2 or 4
 __host__ __device__ inline int m_tiles(int n) {
-  if (warps_m(n) == 1) return 1;
   const int m = (pad16(n) + 63) / 64;
   return m <= 1 ? 1 : (m == 2 ? 2 : 4);
 }
 
-// A warp holds NT = 2, 4 or 8 n8 tiles of columns, so a tile is 8/WM
-// warps x 8 x NT columns: 32, 64 or 128 with 4 warps along the rows, 128,
-// 256 or 512 with 1.  Returns NT, or 0 for a tile this N does not take.
-__host__ __device__ inline int n_tiles(int n, int tile) {
-  const int per_nt = kWarps / warps_m(n) * 8;
+// A warp holds NT = 2, 4 or 8 n8 tiles of columns, so a tile is 2 warps x
+// 8 x NT columns: 32, 64 or 128.  Returns NT, or 0 for a tile not taken.
+__host__ __device__ inline int n_tiles(int tile) {
+  constexpr int per_nt = kWarps / kWarpsM * 8;
   const int nt = tile / per_nt;
   return tile % per_nt == 0 && (nt == 2 || nt == 4 || nt == 8) ? nt : 0;
 }
 
 __host__ __device__ inline size_t smem_bytes(int n, int tile, bool split) {
-  const size_t ring = static_cast<size_t>(kStages) * 16 * warps_m(n) *
+  const size_t ring = static_cast<size_t>(kStages) * 16 * kWarpsM *
                       m_tiles(n) * kStageK;
   return sizeof(bf16) * ((split ? 2 : 1) * ring +
                          2 * static_cast<size_t>(pad16(n)) * tile);
@@ -456,11 +518,12 @@ __device__ __forceinline__ int w_idx(int r, int g) {
 
 // CTAs an SM should hold: a short pass (small N) leaves the CTA's warps
 // little work per barrier, so more CTAs hide its latency
-template <int WM, int MT, int NT, bool SPLIT>
+template <int MT, int NT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, MT == 4 ? 1 : (MT == 2 ? 2 : 3))
     tc_gossip_kernel(const void* __restrict__ x, void* __restrict__ out,
                      const bf16* __restrict__ stack, int n, long long d,
                      int t_steps, int state_bf16) {
+  constexpr int WM = kWarpsM;
   constexpr int WN = kWarps / WM;              // warps along the columns
   constexpr int TILE = WN * 8 * NT;
   constexpr int kPassRows = WM * MT * 16;
@@ -636,12 +699,12 @@ __global__ void __launch_bounds__(kThreads, MT == 4 ? 1 : (MT == 2 ? 2 : 3))
   cp_async_wait<0>();
 }
 
-template <int WM, int MT, int NT, bool SPLIT>
+template <int MT, int NT, bool SPLIT>
 cudaError_t launch(const void* x, void* out, const void* stack, int n,
                    long long d, int t_steps, int state_bf16,
                    cudaStream_t stream) {
-  auto kernel = tc_gossip_kernel<WM, MT, NT, SPLIT>;
-  constexpr int tile = kWarps / WM * 8 * NT;
+  auto kernel = tc_gossip_kernel<MT, NT, SPLIT>;
+  constexpr int tile = kWarps / kWarpsM * 8 * NT;
   const size_t smem = smem_bytes(n, tile, SPLIT);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -653,20 +716,20 @@ cudaError_t launch(const void* x, void* out, const void* stack, int n,
   return cudaGetLastError();
 }
 
-template <int WM, int MT, bool SPLIT>
+template <int MT, bool SPLIT>
 cudaError_t dispatch_nt(int tile, const void* x, void* out,
                         const void* stack, int n, long long d, int t_steps,
                         int state_bf16, cudaStream_t s) {
-  switch (n_tiles(n, tile)) {
+  switch (n_tiles(tile)) {
     case 2:
-      return launch<WM, MT, 2, SPLIT>(x, out, stack, n, d, t_steps,
-                                      state_bf16, s);
+      return launch<MT, 2, SPLIT>(x, out, stack, n, d, t_steps, state_bf16,
+                                  s);
     case 4:
-      return launch<WM, MT, 4, SPLIT>(x, out, stack, n, d, t_steps,
-                                      state_bf16, s);
+      return launch<MT, 4, SPLIT>(x, out, stack, n, d, t_steps, state_bf16,
+                                  s);
     default:
-      return launch<WM, MT, 8, SPLIT>(x, out, stack, n, d, t_steps,
-                                      state_bf16, s);
+      return launch<MT, 8, SPLIT>(x, out, stack, n, d, t_steps, state_bf16,
+                                  s);
   }
 }
 
@@ -674,48 +737,485 @@ template <bool SPLIT>
 cudaError_t dispatch(int tile, const void* x, void* out, const void* stack,
                      int n, long long d, int t_steps, int state_bf16,
                      cudaStream_t s) {
-  if (warps_m(n) == 1) {
-    return dispatch_nt<1, 1, SPLIT>(tile, x, out, stack, n, d, t_steps,
-                                    state_bf16, s);
-  }
   switch (m_tiles(n)) {
     case 1:
-      return dispatch_nt<4, 1, SPLIT>(tile, x, out, stack, n, d, t_steps,
-                                      state_bf16, s);
+      return dispatch_nt<1, SPLIT>(tile, x, out, stack, n, d, t_steps,
+                                   state_bf16, s);
     case 2:
-      return dispatch_nt<4, 2, SPLIT>(tile, x, out, stack, n, d, t_steps,
-                                      state_bf16, s);
+      return dispatch_nt<2, SPLIT>(tile, x, out, stack, n, d, t_steps,
+                                   state_bf16, s);
     default:
-      return dispatch_nt<4, 4, SPLIT>(tile, x, out, stack, n, d, t_steps,
-                                      state_bf16, s);
+      return dispatch_nt<4, SPLIT>(tile, x, out, stack, n, d, t_steps,
+                                   state_bf16, s);
   }
 }
 
 }  // namespace tc
 
-// path: 0 = FMA (f32 stack), 1 = tensor cores unsplit, 2 = tensor cores
-// split.  Whether `path` takes `tile` columns at this n.
-bool path_takes_tile(int n, int tile, int path) {
-  return path == 0 ? (tile == 32 || tile == 64 || tile == 128)
-                   : tc::n_tiles(n, tile) != 0;
+// ----------------------------------------- register paths (N <= 16)
+
+// Both register paths stage W in shared memory up to kStageBytes at a
+// time: the whole stack when it fits (loaded once per CTA), else windows
+// of `window` steps, loaded behind a CTA barrier for every column group.
+constexpr int kStageBytes = 64 * 1024;
+constexpr int kRegThreads = 256;
+constexpr int kRegMaxCtasPerSm = 8;
+
+// BYTES (4 or 8) from global `src` to shared `dst`, or zeros where `valid`
+// is false (src-size 0: nothing is read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   tc::smem_u32(dst)),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
+}
+
+namespace fregs {  // f32 stack: FP32 FMA, the columns' rows in registers
+
+constexpr int kMaxRows = 16;  // N_REG_F32
+constexpr int kCtaCols = 2 * kRegThreads;  // a thread holds a column pair
+
+__host__ __device__ inline size_t step_bytes(int rows) {
+  return sizeof(float) * static_cast<size_t>(rows) * rows;
+}
+
+// A thread owns a column pair of all NR rows (rows past n are never read
+// or stored): the pair of lane l of warp w sits at column 64w + 2l of the
+// CTA's kCtaCols, so a warp's access to a row is 256 contiguous bytes
+// (f32).  The CTA walks its column groups blockIdx.x, blockIdx.x +
+// gridDim.x, ...  W_t sits in shared memory transposed, wsm[t][k][i] =
+// W_t[i, k], so the NR coefficients of one k are NR/4 broadcast LDS.128
+// feeding 2*NR FMAs.  Each sum is the unbroken chain acc = fma(W[i,k],
+// x[k], acc), acc = +0, k = 0 .. n-1 in order: the shared-memory FMA
+// path's order, so the two paths give the same bits.
+template <typename StateT, int NR>
+__global__ void __launch_bounds__(kRegThreads, 2)
+    fma_regs_gossip_kernel(const StateT* __restrict__ x,
+                           StateT* __restrict__ out,
+                           const float* __restrict__ stack, int n,
+                           long long d, int t_steps, int window, int vec) {
+  static_assert(NR % 4 == 0, "W columns are read as float4");
+  extern __shared__ __align__(16) float wsm[];  // [window][NR k][NR i]
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const long long groups = (d + kCtaCols - 1) / kCtaCols;
+  const bool resident = window >= t_steps;
+  auto stage = [&](int t0, int len) {
+    // i fastest: the shared-memory stores are conflict-free
+    for (int e = threadIdx.x; e < len * NR * NR; e += kRegThreads) {
+      const int s = e / (NR * NR), k = (e / NR) % NR, i = e % NR;
+      wsm[e] = i < n && k < n
+                   ? stack[(static_cast<size_t>(t0 + s) * n + i) * n + k]
+                   : 0.0f;
+    }
+  };
+  if (resident) {
+    stage(0, t_steps);
+    __syncthreads();
+  }
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long col = g * kCtaCols + 64 * warp + 2 * lane;
+    float xs[NR][2];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const float2 v = i < n ? load_pair(x, i, d, col, vec)
+                             : make_float2(0.0f, 0.0f);
+      xs[i][0] = v.x;
+      xs[i][1] = v.y;
+    }
+    for (int t0 = 0; t0 < t_steps; t0 += window) {
+      const int len = min(window, t_steps - t0);
+      if (!resident) {
+        __syncthreads();  // every thread is done with the last window
+        stage(t0, len);
+        __syncthreads();
+      }
+      for (int s = 0; s < len; ++s) {
+        const float* w = wsm + s * NR * NR;
+        float acc[NR][2];
+#pragma unroll
+        for (int i = 0; i < NR; ++i) acc[i][0] = acc[i][1] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NR; ++k) {
+          if (k >= n) break;
+          float wv[NR];
+#pragma unroll
+          for (int q = 0; q < NR / 4; ++q) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(w + k * NR + 4 * q);
+            wv[4 * q] = v.x;
+            wv[4 * q + 1] = v.y;
+            wv[4 * q + 2] = v.z;
+            wv[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float v = xs[k][c];
+#pragma unroll
+            for (int i = 0; i < NR; ++i) {
+              acc[i][c] = __fmaf_rn(wv[i], v, acc[i][c]);
+            }
+          }
+        }
+        // rows past n hold garbage from here on; no k >= n is ever read
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          xs[i][0] = Dtype<StateT>::round(acc[i][0]);
+          xs[i][1] = Dtype<StateT>::round(acc[i][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      if (i >= n) break;
+      store_pair(out, i, d, col, vec, xs[i][0], xs[i][1]);
+    }
+  }
+}
+
+}  // namespace fregs
+
+namespace tcregs {  // bf16 stack, N <= 16: tensor cores, chained in registers
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxRows = 16;               // N_REG_TC: one k16 / two n8
+constexpr int kWarps = kRegThreads / 32;
+constexpr int kCT = 2;                     // m16 column tiles per warp
+constexpr int kWarpCols = 16 * kCT;        // a warp's item
+constexpr int kCtaCols = kWarps * kWarpCols;
+constexpr int kStride = kWarpCols + 4;     // f32 per staging row: 144 B
+constexpr int kStageFloats = 16 * kStride;  // one staging buffer
+constexpr int kStepWords = 128;            // W_t's 16x16 bf16 as 32-bit
+constexpr int kPairs = kWarpCols / 2;      // column pairs of a row
+constexpr int kRowsPerPass = 32 / kPairs;  // rows a warp moves at once
+static_assert(32 % kPairs == 0, "a row's pairs fill whole lanes");
+
+__host__ __device__ inline size_t step_bytes() { return 4 * kStepWords; }
+
+// the staged stack, then two staging buffers per warp
+__host__ __device__ inline size_t smem_bytes(int window) {
+  return step_bytes() * window + sizeof(float) * 2 * kWarps * kStageFloats;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One item's [16 workers][kWarpCols] of the state into a staging buffer
+// as it lies in device memory (f32 rows of kStride floats, bf16 rows of
+// 2*kStride values): pairs by cp.async where `vec`, else scalars loaded
+// and stored by the lanes; rows past n and columns past d are zero.
+template <typename StateT>
+__device__ __forceinline__ void stage_in(const StateT* __restrict__ x,
+                                         StateT* buf, int n, long long d,
+                                         long long c0, bool valid, int vec,
+                                         int lane) {
+  constexpr int kRow = sizeof(float) * kStride / sizeof(StateT);
+  const int prow = lane / kPairs, pcol = 2 * (lane % kPairs);
+  const long long col = c0 + pcol;
+#pragma unroll
+  for (int it = 0; it < 16 / kRowsPerPass; ++it) {
+    const int r = it * kRowsPerPass + prow;
+    StateT* dst = buf + r * kRow + pcol;
+    const bool in = valid && r < n;
+    if (vec) {
+      cp_async_zfill<2 * sizeof(StateT)>(dst, in && col < d ? x + r * d + col
+                                                            : x,
+                                         in && col < d);
+    } else {
+      const float2 v = in ? load_pair(x, r, d, col, 0)
+                          : make_float2(0.0f, 0.0f);
+      dst[0] = static_cast<StateT>(v.x);
+      dst[1] = static_cast<StateT>(v.y);
+    }
+  }
+}
+
+// The A fragments of the staged item, rounded to bf16 (the stack dtype):
+// ldmatrix.trans of a bf16 buffer (matrix mq = lane/8 at k = 8*(mq/2) +
+// lane%8, m = 8*(mq%2)), or the same elements read from an f32 buffer and
+// packed.
+__device__ __forceinline__ void a_fragments(const bf16* buf,
+                                            uint32_t (&a)[kCT][4], int lane) {
+  const int mrow = lane % 8, mq = lane / 8;
+#pragma unroll
+  for (int c = 0; c < kCT; ++c) {
+    tc::ldsm_x4_trans(a[c], buf + ((mq >> 1) * 8 + mrow) * 2 * kStride +
+                                16 * c + (mq & 1) * 8);
+  }
+}
+
+__device__ __forceinline__ void a_fragments(const float* buf,
+                                            uint32_t (&a)[kCT][4], int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int c = 0; c < kCT; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 2 * t + 8 * (q >> 1), m = 16 * c + g + 8 * (q & 1);
+      a[c][q] = pack_bf16(buf[k * kStride + m], buf[(k + 1) * kStride + m]);
+    }
+  }
+}
+
+// The transposed product x^T <- x^T W_t^T, one mma.m16n8k16 per n8 tile:
+// A (m16 x k16) is x^T, m = 16 columns of the state, k = the workers; B
+// (k16 x n8) is W_t^T, two n8 tiles of workers.  With g = lane/4 and
+// t = lane%4, the accumulator of n8 tile j holds (m = g, n = 8j+2t, +1)
+// and (m = g+8, same n), and the A fragment wants (m = g, k = 2t, +1),
+// (m = g+8, k = 2t, +1), (m = g, k = 2t+8, +1), (m = g+8, k = 2t+8, +1):
+// the two tiles' accumulators, rounded to bf16 pairs, ARE the next step's
+// A fragment, with no shuffle (FlashAttention's P.V reuse).  A warp thus
+// carries kCT m16 tiles of columns through all T steps in registers, with
+// no barrier.  B's fragment (k = 2t, +1; n = g) is two consecutive bf16 of
+// row g of W_t, so the stack is staged permuted: for every step, lane l's
+// four words {b0, b1 of tile 0, b0, b1 of tile 1} lie at words 4l..4l+3,
+// one conflict-free LDS.128.
+//
+// Work and pipeline.  An item is one warp's kWarpCols columns; warp w of
+// CTA b takes items b + gridDim.x*w, then every 8*gridDim.x further, so a
+// last, partial round is spread over all SMs.  The state enters through
+// one of two staging buffers per warp, filled by cp.async as it lies in
+// device memory (rows of D = 273,258 are 8- (f32) or 4-byte (bf16)
+// aligned, not 16, so pairs), one item ahead: the next item's loads are in
+// flight while this one is multiplied and stored.  The last step's f32
+// sums go back through the buffer just read, so device memory sees whole
+// rows of the warp's columns.  Workers past n (the stack is zero-padded
+// to 16) are zeroed every step, so a NaN or an inf in the state cannot
+// reach a real row through a 0 * inf.
+template <typename StateT>
+__global__ void __launch_bounds__(kRegThreads)
+    tc_regs_gossip_kernel(const StateT* __restrict__ x,
+                          StateT* __restrict__ out,
+                          const uint32_t* __restrict__ stack, int n,
+                          long long d, int t_steps, int window, int vec) {
+  extern __shared__ __align__(16) uint4 smem_tc[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  uint4* frag = smem_tc;  // [window][32 lanes]
+  float* bufs = reinterpret_cast<float*>(frag + window * 32) +
+                warp * 2 * kStageFloats;
+  const long long items = (d + kWarpCols - 1) / kWarpCols;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  const long long first = static_cast<long long>(warp) * gridDim.x +
+                          blockIdx.x;
+  // rounds are uniform across the CTA (its barriers); warp 0 has the most
+  const long long rounds = (items - blockIdx.x + stride - 1) / stride;
+  const bool resident = window >= t_steps;
+  auto fill = [&](int t0, int len) {
+    uint32_t* dst = reinterpret_cast<uint32_t*>(frag);
+    for (int e = threadIdx.x; e < len * kStepWords; e += kRegThreads) {
+      const int s = e / kStepWords, wi = e % kStepWords;
+      const int r = wi / 8, w = wi % 8;  // row r of W_t, k = 2w, 2w+1
+      const int ln = (r % 8) * 4 + (w % 4), slot = (r / 8) * 2 + w / 4;
+      dst[s * kStepWords + ln * 4 + slot] =
+          stack[static_cast<size_t>(t0 + s) * kStepWords + wi];
+    }
+  };
+  auto buf_of = [&](long long r) {
+    return reinterpret_cast<StateT*>(bufs + (r & 1) * kStageFloats);
+  };
+  auto load = [&](long long r) {
+    const long long it = first + r * stride;
+    if (r < rounds) {
+      stage_in(x, buf_of(r), n, d, it * kWarpCols, it < items, vec, lane);
+    }
+    tc::cp_async_commit();  // one group per round, empty past the end
+  };
+  load(0);
+  load(1);
+  if (resident) {  // behind the first items' loads
+    fill(0, t_steps);
+    __syncthreads();
+  }
+  const int gq = lane / 4, tq = lane % 4;
+  const int prow = lane / kPairs, pcol = 2 * (lane % kPairs);
+  for (long long r = 0; r < rounds; ++r) {
+    const long long it = first + r * stride;
+    const long long c0 = it * kWarpCols;
+    float* buf = reinterpret_cast<float*>(buf_of(r));
+    tc::cp_async_wait<1>();  // this round's item has landed
+    __syncwarp();
+    uint32_t a[kCT][4];
+    a_fragments(buf_of(r), a, lane);
+    float acc[kCT][2][4];
+    for (int t0 = 0; t0 < t_steps; t0 += window) {
+      const int len = min(window, t_steps - t0);
+      if (!resident) {
+        __syncthreads();
+        fill(t0, len);
+        __syncthreads();
+      }
+      for (int s = 0; s < len; ++s) {
+        const uint4 b = frag[s * 32 + lane];
+#pragma unroll
+        for (int c = 0; c < kCT; ++c) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.0f;
+          }
+          tc::mma(acc[c][0], a[c], b.x, b.y);
+          tc::mma(acc[c][1], a[c], b.z, b.w);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int w0 = 8 * j + 2 * tq;  // this lane's two workers
+            if (w0 >= n) acc[c][j][0] = acc[c][j][2] = 0.0f;
+            if (w0 + 1 >= n) acc[c][j][1] = acc[c][j][3] = 0.0f;
+          }
+          a[c][0] = pack_bf16(acc[c][0][0], acc[c][0][1]);
+          a[c][1] = pack_bf16(acc[c][0][2], acc[c][0][3]);
+          a[c][2] = pack_bf16(acc[c][1][0], acc[c][1][1]);
+          a[c][3] = pack_bf16(acc[c][1][2], acc[c][1][3]);
+        }
+      }
+    }
+    // the last step's f32 sums, [worker][column], then whole rows out
+    __syncwarp();  // every lane has read its fragments from the buffer
+#pragma unroll
+    for (int c = 0; c < kCT; ++c) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int w0 = 8 * j + 2 * tq, m = 16 * c + gq;
+        buf[w0 * kStride + m] = acc[c][j][0];
+        buf[(w0 + 1) * kStride + m] = acc[c][j][1];
+        buf[w0 * kStride + m + 8] = acc[c][j][2];
+        buf[(w0 + 1) * kStride + m + 8] = acc[c][j][3];
+      }
+    }
+    __syncwarp();
+    if (it < items) {
+#pragma unroll
+      for (int i = 0; i < 16 / kRowsPerPass; ++i) {
+        const int row = i * kRowsPerPass + prow;
+        if (row < n) {
+          const float2 o =
+              *reinterpret_cast<const float2*>(buf + row * kStride + pcol);
+          store_pair(out, row, d, c0 + pcol, vec, o.x, o.y);
+        }
+      }
+    }
+    __syncwarp();  // the buffer is read before the item two ahead lands
+    load(r + 2);
+  }
+  tc::cp_async_wait<0>();
+}
+
+}  // namespace tcregs
+
+// A register path's grid: CTAs of one configuration resident on the whole
+// card at once (at most kRegMaxCtasPerSm per SM), from the occupancy API,
+// kept per kernel, device and shared memory.  The kernel's shared-memory
+// attribute is only ever raised, so every kept configuration stays
+// launchable.
+struct Grid {
+  const void* kernel;
+  int device;
+  size_t smem;
+  long long ctas;
+};
+
+std::mutex grid_mutex;
+std::vector<Grid> grids;
+
+long long card_ctas(const void* kernel, size_t smem) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  std::lock_guard<std::mutex> lock(grid_mutex);
+  size_t allowed = 48 * 1024;  // needs no attribute
+  for (const Grid& g : grids) {
+    if (g.kernel != kernel || g.device != device) continue;
+    if (g.smem == smem) return g.ctas;
+    allowed = g.smem > allowed ? g.smem : allowed;
+  }
+  int blocks = 0, sms = 0;
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        kRegThreads, smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  const long long ctas =
+      static_cast<long long>(sms) *
+      (blocks < kRegMaxCtasPerSm ? blocks : kRegMaxCtasPerSm);
+  grids.push_back({kernel, device, smem, ctas});
+  return ctas;
+}
+
+// Launch a register-path kernel on min(work items, the card's fill) CTAs.
+cudaError_t launch_regs(const void* kernel, long long items, size_t smem,
+                        void** args, cudaStream_t stream) {
+  const long long fill = card_ctas(kernel, smem);
+  if (fill < 0) return static_cast<cudaError_t>(-fill);
+  if (fill == 0) return cudaErrorInvalidConfiguration;
+  const unsigned blocks = static_cast<unsigned>(items < fill ? items : fill);
+  cudaError_t err = cudaLaunchKernel(kernel, dim3(blocks), dim3(kRegThreads),
+                                     args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// A kernel as the runtime's launch API takes it.
+template <typename Kernel>
+const void* entry(Kernel* kernel) {
+  return (const void*)kernel;
+}
+
+template <typename StateT>
+const void* pick_fma_regs(int rows) {
+  return rows == 8 ? entry(fregs::fma_regs_gossip_kernel<StateT, 8>)
+                   : entry(fregs::fma_regs_gossip_kernel<StateT, 16>);
+}
+
+// Paths: 0 = FMA (f32 stack, shared memory), 1 = tensor cores unsplit, 2 =
+// tensor cores split, 3 = FMA with the columns in registers (f32 stack,
+// n <= 16), 4 = tensor cores chained in registers (bf16 stack, n <= 16).
+enum Path { kFma = 0, kTc = 1, kSplit = 2, kFmaRegs = 3, kTcRegs = 4 };
+
+// Whether a shared-memory `path` takes `tile` columns.
+bool path_takes_tile(int tile, int path) {
+  return path == kFma ? (tile == 32 || tile == 64 || tile == 128)
+                      : tc::n_tiles(tile) != 0;
 }
 
 size_t path_smem_bytes(int n, int tile, int path) {
-  return path == 0 ? fp32::smem_bytes(n, tile)
-                   : tc::smem_bytes(n, tile, path == 2);
+  return path == kFma ? fp32::smem_bytes(n, tile)
+                      : tc::smem_bytes(n, tile, path == kSplit);
+}
+
+// Whether a register path takes this launch shape.
+bool regs_take(int n, int path, int tile, int rows, int window) {
+  if (window < 1) return false;
+  if (path == kFmaRegs) {
+    return (rows == 8 || rows == fregs::kMaxRows) && n <= rows &&
+           tile == fregs::kCtaCols &&
+           fregs::step_bytes(rows) * window <= kStageBytes;
+  }
+  return n <= tcregs::kMaxRows && rows == tcregs::kMaxRows &&
+         tile == tcregs::kCtaCols &&
+         tcregs::step_bytes() * window <= kStageBytes;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one CTA of `path` needs at `tile` columns, in bytes (the
-// wrapper picks the tile), or -1 if `path` does not take that tile at this
-// n.  path: 0 = FMA (f32 stack; tiles 32, 64, 128), 1 = tensor cores, 2 =
-// tensor cores with the split schedule (tiles 32, 64, 128; 128, 256, 512
-// when n <= 16).
+// Shared memory one CTA of a shared-memory `path` (0, 1 or 2) needs at
+// `tile` columns, in bytes (the wrapper picks the tile), or -1 if `path`
+// does not take that tile.  Tiles: 32, 64 and 128 on every path.
 long long fused_gossip_smem_bytes(int n, int tile, int path) {
-  if (n < 1 || path < 0 || path > 2 || !path_takes_tile(n, tile, path)) {
+  if (n < 1 || path < kFma || path > kSplit || !path_takes_tile(tile, path)) {
     return -1;
   }
   return static_cast<long long>(path_smem_bytes(n, tile, path));
@@ -723,36 +1223,76 @@ long long fused_gossip_smem_bytes(int n, int tile, int path) {
 
 long long fused_gossip_smem_limit() { return kMaxSharedBytes; }
 
-// Run t_steps steps of x[n, d] <- stack[t] @ x into out[n, d] on `stream`,
-// one CTA per `tile` columns (a tile fused_gossip_smem_bytes takes).
-// state_dtype / stack_dtype: 0 = float32, 1 = bfloat16.  A float32 stack
-// is [t_steps, n, n] and runs on the FMA path; a bfloat16 stack is
-// [t_steps, npad, npad], npad = n rounded up to a multiple of 16 and
-// zero-padded, and runs on the tensor cores, with the split schedule when
-// `split` is 1.  Returns cudaGetLastError() after the launch (0 =
+// The largest n a register path (3 or 4) takes, else -1.
+long long fused_gossip_reg_max_n(int path) {
+  return path == kFmaRegs ? fregs::kMaxRows
+                          : (path == kTcRegs ? tcregs::kMaxRows : -1);
+}
+
+// Shared memory the register paths may give to the staged stack, in bytes.
+long long fused_gossip_stage_bytes() { return kStageBytes; }
+
+// Run t_steps steps of x[n, d] <- stack[t] @ x into out[n, d] on `stream`
+// along `path` (see Path).  An f32 stack (paths 0, 3) is [t_steps, n, n];
+// a bf16 stack (paths 1, 2, 4) is [t_steps, npad, npad], npad = n rounded
+// up to a multiple of 16, zero-padded.  Paths 0-2 take one CTA per `tile`
+// columns (a tile fused_gossip_smem_bytes takes); rows and window
+// are unused.  The register paths take a persistent grid: `tile` columns
+// per CTA and round (path 3: 512; path 4: 256), `rows` the rows a thread
+// holds (path 3: 8 or 16, >= n; path 4: 16), and `window` the steps of the
+// stack staged at a time (at most fused_gossip_stage_bytes).  state_dtype: 0 = float32, 1 =
+// bfloat16.  Returns cudaGetLastError() after the launch (0 =
 // cudaSuccess), or cudaErrorInvalidValue for arguments the kernels do not
 // take.
 int fused_gossip_launch(const void* x, void* out, const void* stack, int n,
-                        long long d, int t_steps, int tile, int state_dtype,
-                        int stack_dtype, int split, void* stream) {
-  const int path = stack_dtype == 0 ? 0 : (split ? 2 : 1);
-  if (n < 1 || d < 1 || t_steps < 1 ||
-      (state_dtype != 0 && state_dtype != 1) ||
-      (stack_dtype != 0 && stack_dtype != 1) || (split != 0 && split != 1) ||
-      (split && stack_dtype != 1) || !path_takes_tile(n, tile, path) ||
-      path_smem_bytes(n, tile, path) > kMaxSharedBytes) {
+                        long long d, int t_steps, int path, int tile,
+                        int rows, int window, int state_dtype,
+                        void* stream) {
+  if (n < 1 || d < 1 || t_steps < 1 || path < kFma || path > kTcRegs ||
+      (state_dtype != 0 && state_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (path == 0) {
+  if (path == kFmaRegs || path == kTcRegs) {
+    if (!regs_take(n, path, tile, rows, window)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    window = window < t_steps ? window : t_steps;
+    // pairs move as one access where every row's pair is aligned: even d
+    // and base pointers aligned to a pair
+    const size_t pair = state_dtype == 0 ? 8 : 4;
+    int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % pair == 0 &&
+              reinterpret_cast<uintptr_t>(out) % pair == 0;
+    void* args[] = {&x, &out, &stack, &n, &d, &t_steps, &window, &vec};
+    const long long items = (d + tile - 1) / tile;
+    if (path == kFmaRegs) {
+      const void* kernel = state_dtype == 0
+                               ? pick_fma_regs<float>(rows)
+                               : pick_fma_regs<__nv_bfloat16>(rows);
+      err = launch_regs(kernel, items, fregs::step_bytes(rows) * window,
+                        args, s);
+    } else {
+      const void* kernel =
+          state_dtype == 0
+              ? entry(tcregs::tc_regs_gossip_kernel<float>)
+              : entry(tcregs::tc_regs_gossip_kernel<__nv_bfloat16>);
+      err = launch_regs(kernel, items, tcregs::smem_bytes(window), args, s);
+    }
+    return static_cast<int>(err);
+  }
+  if (!path_takes_tile(tile, path) ||
+      path_smem_bytes(n, tile, path) > kMaxSharedBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (path == kFma) {
     err = state_dtype == 0
               ? fp32::dispatch<float>(tile, x, out, stack, n, d, t_steps, s)
               : fp32::dispatch<__nv_bfloat16>(tile, x, out, stack, n, d,
                                              t_steps, s);
-  } else if (split) {
-    err = tc::dispatch<true>(tile, x, out, stack, n, d, t_steps,
-                             state_dtype, s);
+  } else if (path == kSplit) {
+    err = tc::dispatch<true>(tile, x, out, stack, n, d, t_steps, state_dtype,
+                             s);
   } else {
     err = tc::dispatch<false>(tile, x, out, stack, n, d, t_steps,
                               state_dtype, s);

@@ -5,36 +5,42 @@ Port of the fused half of ``matcha_tpu/parallel/pallas_gossip.py``:
 ``build_mixing_stack`` (:77), ``canonical_chunk`` (:95),
 ``compose_mixing_stack`` (:107) and ``fused_gossip_run`` (:182).  The
 Pallas kernel behind ``fused_gossip_run`` (``_make_kernel`` :156) becomes
-the hand-written CUDA source ``csrc/fused_gossip.cu``: one CTA per column
-tile keeps its ``[N, tile]`` block in shared memory for all T steps while
-the ``[T, N, N]`` stack streams past it.
+the hand-written CUDA source ``csrc/fused_gossip.cu``: a column's whole
+chain runs in one CTA, its state on chip for all T steps while the
+``[T, N, N]`` stack streams past it.
 
 Per step: ``x ← cast_state(W_t @ cast_stack(x))``, f32 accumulation.  The
 state is rounded to the stack's dtype at each step's input and the f32 sum
 to the state's dtype at its output, exactly as the per-step dense backend
 (``gossip.gossip_mix_dense``) does, so a chain equals stepping through it.
 
-The stack's dtype picks the kernel's path:
+The stack's dtype and N pick the kernel's path (:func:`kernel_path`):
 
 * float32 stack — FP32 FMA on CUDA cores (never TF32, which would change
-  the result); held to the plain version within f32 rounding.
+  the result): for N ≤ ``N_REG_F32`` each thread holds its columns of all
+  N rows in registers (``FMA_REGS``), above that the tile sits in shared
+  memory (``FMA``).  Both sum in the same order and give the same bits;
+  held to the plain version within f32 rounding.
 * bfloat16 stack — the tensor cores (``mma.sync`` on bf16 operands, f32
-  accumulators), the state tile held in shared memory as bf16; held to the
-  plain version within one bf16 ulp of the output.  The split-step probe
-  (``probes/split_probe.py``, K4) runs the same mainloop with its split
-  schedule.
+  accumulators): for N ≤ ``N_REG_TC`` a warp chains the steps' products in
+  registers (``TC_REGS``), above that the state tile is held in shared
+  memory as bf16 (``TENSOR_CORE``); held to the plain version within one
+  bf16 ulp of the output.  The split-step probe (``probes/split_probe.py``,
+  K4) runs the shared-memory mainloop with its split schedule (``SPLIT``).
 
 ``fused_gossip_run`` takes the plain PyTorch version, ``fused_gossip_plain``
 (one ``torch.matmul`` per step, TF32 off), for a tensor on the CPU only; a
-CUDA tensor launches the kernel of its path or raises: a bf16 stack never
-falls back to the FMA path.  ``LAUNCHES["fused_gossip"]`` counts kernel
-launches.
+CUDA tensor launches the kernel of its path or raises: no path falls back
+to another.  ``LAUNCHES["fused_gossip"]`` counts kernel launches, and
+``LAUNCHES["fused_gossip/<path name>"]`` those of each path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
+from typing import NamedTuple
 
 import torch
 
@@ -42,39 +48,38 @@ from .._kernels import LAUNCHES, pick_tile
 from .gossip import _dense_apply, _mixing_matrices, mxu_precision
 
 __all__ = [
+    "LaunchShape",
     "build_mixing_stack",
     "canonical_chunk",
     "compose_mixing_stack",
     "fused_gossip_plain",
     "fused_gossip_run",
     "kernel_path",
-    "kernel_tile",
+    "kernel_shape",
     "launch_kernel",
     "prepare_stack",
 ]
 
-# The kernel's paths (``fused_gossip_smem_bytes``' ``path``): FP32 FMA for
-# an f32 stack, the tensor cores for a bf16 stack, unsplit or split.
-FMA, TENSOR_CORE, SPLIT = 0, 1, 2
+# The kernel's paths (``fused_gossip_launch``'s ``path``): FP32 FMA for an
+# f32 stack, the tensor cores for a bf16 stack (unsplit or split), each in
+# shared memory or, at small N, with the columns in registers.
+FMA, TENSOR_CORE, SPLIT, FMA_REGS, TC_REGS = 0, 1, 2, 3, 4
+PATH_NAMES = {FMA: "fma", TENSOR_CORE: "tensor_core", SPLIT: "split",
+              FMA_REGS: "fma_regs", TC_REGS: "tc_regs"}
+#: The largest N each register path takes (``fused_gossip_reg_max_n``).
+N_REG_F32, N_REG_TC = 16, 16
 
-# Launch shape: the CTAs a column tile should leave room for on one SM.  A
-# wider tile re-reads the stack from L2 fewer times ((D/tile)·T·N²
+# Shared-memory paths: the CTAs a column tile should leave room for on one
+# SM.  A wider tile re-reads the stack from L2 fewer times ((D/tile)·T·N²
 # elements in all).  On the FMA path two CTAs per SM let one load its W
 # chunk while the other multiplies; on the tensor cores one CTA keeps two
 # W chunks in flight itself, and N = 256 takes the 128-column tile.
 _BLOCKS_PER_SM = {FMA: 2, TENSOR_CORE: 1, SPLIT: 1}
-# Tiles each path may take, widest first; the library says which of them
-# it takes at a given N (the tensor cores take 256 and 512 only for N ≤ 16,
-# whose one m16 row tile puts all 8 warps along the columns).
-_TILES = {FMA: (128, 64, 32), TENSOR_CORE: (512, 256, 128, 64, 32),
-          SPLIT: (512, 256, 128, 64, 32)}
-# The steps a chain needs before a tile that wide pays.  A wider tile
-# leaves fewer CTAs to read W_t from L2 every step, which bounds a long
-# chain; a short one is bound by loading and storing the state, which
-# goes faster over more, narrower CTAs.  Measured on an H100 at N = 16
-# (PERF.md): 128 columns are fastest up to T = 4, 256 at T = 8 and 16,
-# 512 from T = 32.
-_WIDE_TILE_MIN_STEPS = {256: 8, 512: 32}
+# Register paths: the rows a thread may hold (FMA_REGS pads N up to one of
+# them), and the columns a CTA takes per round of its grid: 256 threads of
+# one column pair (FMA_REGS), 8 warps of two m16 tiles (TC_REGS).
+_REG_ROWS = (8, 16)
+_REG_COLS = {FMA_REGS: 512, TC_REGS: 256}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -176,24 +181,59 @@ def fused_gossip_plain(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     return _plain(x, prep[0])
 
 
-def _tile_width(lib, n: int, block_d: int, path: int = FMA,
-                t_steps: int = 1) -> int:
-    """Columns per CTA of ``path`` for a ``t_steps`` chain
-    (``_kernels.pick_tile``), leaving room for ``_BLOCKS_PER_SM[path]``
-    CTAs on one SM."""
-    tiles = tuple(t for t in _TILES[path]
-                  if t_steps >= _WIDE_TILE_MIN_STEPS.get(t, 0))
+def _tile_width(lib, n: int, block_d: int, path: int = FMA) -> int:
+    """Columns per CTA of a shared-memory ``path`` (``_kernels.pick_tile``:
+    128, 64 or 32), leaving room for ``_BLOCKS_PER_SM[path]`` CTAs on one
+    SM."""
     return pick_tile("split_gossip" if path == SPLIT else "fused_gossip",
                      lambda tile: lib.fused_gossip_smem_bytes(n, tile, path),
                      lib.fused_gossip_smem_limit(), n, block_d,
-                     _BLOCKS_PER_SM[path], tiles)
+                     _BLOCKS_PER_SM[path])
+
+
+class LaunchShape(NamedTuple):
+    """How one launch cuts the work (``fused_gossip_launch``'s arguments).
+    ``tile``: columns per CTA (per round on the register paths, whose grid
+    is persistent).  ``rows``: rows a thread holds (FMA_REGS: N padded to
+    8 or 16; TC_REGS: 16).  ``window``: steps of the stack staged in shared
+    memory at a time (the whole stack where it fits).  0 where the path
+    has no such choice."""
+
+    path: int
+    tile: int
+    rows: int = 0
+    window: int = 0
+
+
+def _launch_shape(lib, n: int, block_d: int, path: int,
+                  t_steps: int) -> LaunchShape:
+    """The launch shape of ``path`` for ``t_steps`` steps of an ``[n, D]``
+    state; ``block_d`` caps the shared-memory paths' tile only (a register
+    path's columns per CTA are fixed)."""
+    if path == FMA_REGS:
+        if n > lib.fused_gossip_reg_max_n(path):
+            raise ValueError(f"fused_gossip: the register FMA path takes "
+                             f"N <= {N_REG_F32}, got {n}")
+        rows = next(r for r in _REG_ROWS if r >= n)
+        return LaunchShape(path, _REG_COLS[path], rows,
+                           min(t_steps, lib.fused_gossip_stage_bytes()
+                               // (4 * rows * rows)))
+    if path == TC_REGS:
+        if n > lib.fused_gossip_reg_max_n(path):
+            raise ValueError(f"fused_gossip: the register tensor-core path "
+                             f"takes N <= {N_REG_TC}, got {n}")
+        return LaunchShape(path, _REG_COLS[path], 16,
+                           min(t_steps, lib.fused_gossip_stage_bytes() // 512))
+    return LaunchShape(path, _tile_width(lib, n, block_d, path))
 
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "fused_gossip_launch": ([_VP] * 3 + [_I, _LL] + [_I] * 5 + [_VP], _I),
+    "fused_gossip_launch": ([_VP] * 3 + [_I, _LL] + [_I] * 6 + [_VP], _I),
     "fused_gossip_smem_bytes": ([_I, _I, _I], _LL),
     "fused_gossip_smem_limit": ([], _LL),
+    "fused_gossip_reg_max_n": ([_I], _LL),
+    "fused_gossip_stage_bytes": ([], _LL),
     "fused_gossip_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -207,36 +247,43 @@ def _library():
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_path(stack_dtype, split: bool = False) -> int:
-    """The kernel path a stack of ``stack_dtype`` takes: FMA for float32,
-    the tensor cores for bfloat16 (``split`` picks the split schedule,
-    which only a bfloat16 stack has)."""
+def kernel_path(stack_dtype, n: int, split: bool = False) -> int:
+    """The kernel path a stack of ``stack_dtype`` takes for ``n`` workers:
+    float32 runs FP32 FMA, with the columns in registers up to
+    ``N_REG_F32`` workers; bfloat16 runs the tensor cores, chained in
+    registers up to ``N_REG_TC`` workers.  ``split`` picks K4's split
+    schedule, which only the shared-memory tensor-core mainloop has (at
+    any N).  The state's dtype never changes the path."""
     if stack_dtype == torch.bfloat16:
-        return SPLIT if split else TENSOR_CORE
+        if split:
+            return SPLIT
+        return TC_REGS if n <= N_REG_TC else TENSOR_CORE
     if split:
         raise ValueError("the split schedule runs on the tensor cores: it "
                          "takes a bfloat16 mixing stack")
-    return FMA
+    return FMA_REGS if n <= N_REG_F32 else FMA
 
 
-def kernel_tile(n: int, block_d: int, path: int, t_steps: int) -> int:
-    """The column tile the kernel takes on ``path`` for ``t_steps`` steps
-    of an ``[n, D]`` state when ``block_d`` caps it; loads the library."""
-    return _tile_width(_library(), n, block_d, path, t_steps)
+@functools.lru_cache(maxsize=256)
+def kernel_shape(n: int, block_d: int, path: int,
+                 t_steps: int) -> LaunchShape:
+    """The launch shape ``path`` takes for ``t_steps`` steps of an
+    ``[n, D]`` state when ``block_d`` caps a shared-memory tile; loads the
+    library."""
+    return _launch_shape(_library(), n, block_d, path, t_steps)
 
 
-def launch_kernel(x, stack, tile: int, *, split: bool = False,
+def launch_kernel(x, stack, shape: LaunchShape, *,
                   counter: str = "fused_gossip") -> torch.Tensor:
-    """Launch the kernel on CUDA tensors at ``tile`` columns (from
-    :func:`kernel_tile`): the FMA path for an f32 stack, the tensor cores
-    for a bf16 stack (its ``[T, N, N]`` zero-padded to a multiple of 16
-    first), with the split schedule when ``split``.  ``stack`` is
-    :func:`prepare_stack`'s.  Counts the launch in ``LAUNCHES[counter]``:
-    the calling wrapper's name.  Raises if the launch fails."""
+    """Launch the kernel on CUDA tensors along ``shape.path`` (from
+    :func:`kernel_shape`).  A bf16 stack's ``[T, N, N]`` is zero-padded to
+    a multiple of 16 first.  ``stack`` is :func:`prepare_stack`'s.  Counts
+    the launch in ``LAUNCHES[counter]`` (the calling wrapper's name) and
+    ``LAUNCHES[counter + "/" + path name]``.  Raises if the launch
+    fails."""
     lib = _library()
     n, d = x.shape
-    path = kernel_path(stack.dtype, split)
-    pad = (-n) % 16 if path != FMA else 0
+    pad = (-n) % 16 if stack.dtype == torch.bfloat16 else 0
     if pad:
         stack = torch.nn.functional.pad(stack, (0, pad, 0, pad))
     stack = stack.contiguous()
@@ -246,12 +293,13 @@ def launch_kernel(x, stack, tile: int, *, split: bool = False,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fused_gossip_launch(
             x.data_ptr(), out.data_ptr(), stack.data_ptr(), n, d,
-            stack.shape[0], tile, _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[stack.dtype], int(split), stream)
+            stack.shape[0], shape.path, shape.tile, shape.rows, shape.window,
+            _DTYPE_CODES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"fused_gossip kernel launch failed: "
                            f"{lib.fused_gossip_error_string(rc).decode()}")
     LAUNCHES[counter] += 1
+    LAUNCHES[f"{counter}/{PATH_NAMES[shape.path]}"] += 1
     return out
 
 
@@ -264,21 +312,20 @@ def fused_gossip_run(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     optionally composed.  Each step accumulates in f32 and casts back to
     ``x.dtype``, step for step the dense backend's arithmetic.
 
-    ``block_d``: the widest column tile a CTA may take (the kernel's tiles
-    are 32, 64 and 128 columns, and 128, 256 and 512 on the tensor cores
-    for N ≤ 16, where 256 needs T ≥ 8 and 512 T ≥ 32; below the
-    narrowest, the narrowest).  ``w_window``: the reference's steps per
-    grid visit; the stack is front-padded with identity matrices to a
+    ``block_d``: the widest column tile a shared-memory CTA may take
+    (32, 64 or 128 columns; below the narrowest, the narrowest); the
+    register paths of N ≤ 32 (f32 stack) and N ≤ 16 (bf16 stack) take
+    fixed column groups and ignore it.  ``w_window``: the reference's steps
+    per grid visit; the stack is front-padded with identity matrices to a
     multiple of it, as the reference does, and the kernel otherwise ignores
-    it (it stages one ``W_t`` at a time).  Neither changes a bit of the
-    result.
+    it.  Neither changes a bit of the result.
 
     An empty stream (``T == 0``) returns ``x`` itself.  A CPU tensor runs
-    :func:`fused_gossip_plain`.  A CUDA tensor launches the kernel on the
-    current stream and raises if the launch fails: an f32 stack runs FP32
-    FMA on CUDA cores, a bf16 stack the tensor cores (bf16 operands, f32
-    accumulation, the state tile held as bf16 between steps), with no
-    fallback from one path to the other.
+    :func:`fused_gossip_plain`.  A CUDA tensor launches the kernel of
+    :func:`kernel_path` on the current stream and raises if the launch
+    fails: an f32 stack runs FP32 FMA on CUDA cores, a bf16 stack the
+    tensor cores (bf16 operands, f32 accumulation, the state rounded to
+    bf16 between steps), with no fallback from one path to another.
     """
     prep = prepare_stack(x, mixing_stack, block_d, w_window)
     if prep is None:
@@ -287,8 +334,9 @@ def fused_gossip_run(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     if x.device.type == "cpu":
         return _plain(x, stack)
     if x.device.type == "cuda":
-        tile = kernel_tile(x.shape[0], block_d, kernel_path(stack.dtype),
-                           stack.shape[0])
-        return launch_kernel(x, stack, tile)
+        n = x.shape[0]
+        shape = kernel_shape(n, block_d, kernel_path(stack.dtype, n),
+                             stack.shape[0])
+        return launch_kernel(x, stack, shape)
     raise ValueError(f"fused_gossip_run takes a CPU or CUDA tensor, got "
                      f"device {x.device}")

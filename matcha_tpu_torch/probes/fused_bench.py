@@ -1,0 +1,167 @@
+"""The fused kernel (K3, and K4's split schedule) on the card: another
+tree's kernel against this one.
+
+    python -m matcha_tpu_torch.probes.fused_bench ab --old DIR [--rounds 3]
+
+``ab`` loads the ``matcha_tpu_torch`` package found in ``DIR`` (an unpacked
+``git archive`` of an earlier commit, or a copy of this tree with one
+choice changed) beside this one (``perm_bench.load_package``), builds both
+kernel libraries, and at each shape times the two trees'
+``fused_gossip_run`` in turns (old, new, new, old; ``--rounds`` times) with
+CUDA events, the L2 cache flushed before each call (``perm_bench.time_ms``),
+and each side's host time per call (``perm_bench.host_us``).  Where both
+sides run an f32 stack (FP32 FMA, summed in one order on every path) the
+outputs must be bitwise equal; on a bf16 stack whether they are, and the
+share of elements that differ, is printed.
+
+Shapes, all at D = 273,258 (ResNet-20): the training slice's ``[16, D]``
+(zoo graph 4, its MATCHA schedule at budget 0.5) at T = 1, 4 (the
+comm-split timer's chains) and 64, for an f32 state and stack, an f32
+state with a bf16 stack, and a bf16 state and stack (N = 16 is where both
+register paths stop); a ring's stack at the next N, 17, in f32 and bf16
+(the shared-memory paths) at T = 1 and 64; ``[256, D]`` bf16 at T = 64 on
+the 256-worker hypercube (chain (b)); and K4, the split probe's schedule,
+on its own ``[256, D]`` inputs at T = 64.  Every result is one JSON line on stdout;
+the card's name and power limit come first.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from ..parallel import build_mixing_stack, fused_gossip
+from ..schedule import fixed_schedule, matcha_schedule
+from ..topology import decompose, hypercube_graph, ring_graph, select_graph
+from . import split_probe
+from .perm_bench import host_us, load_package, time_ms
+
+__all__ = ["ab", "main", "shapes"]
+
+SEED = 9001
+D = 273258
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _stack(sched, t_steps, dtype, dev):
+    flags = torch.as_tensor(sched.flags[:t_steps], dtype=torch.float32,
+                            device=dev)
+    return build_mixing_stack(sched.laplacians(), sched.alpha, flags, dtype)
+
+
+def shapes(dev):
+    """``(label, x, stack, kind)`` of every shape, on ``dev``; ``kind`` is
+    "fused" (``fused_gossip_run``) or "split" (K4)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    slice_sched = matcha_schedule(select_graph(4), 16, 64, budget=0.5,
+                                  seed=SEED)
+    x16 = torch.randn(16, D, generator=g, device=dev)
+    out = []
+    for t_steps in (1, 4, 64):
+        for state, stack in ((F32, F32), (F32, BF16), (BF16, BF16)):
+            out.append((f"slice N=16 T={t_steps} state={state} "
+                        f"stack={stack}", x16.to(state),
+                        _stack(slice_sched, t_steps, stack, dev), "fused"))
+    for n, dtype in ((17, F32), (17, BF16)):
+        ring = fixed_schedule(decompose(ring_graph(n), n, seed=SEED), n, 64,
+                              budget=0.5, mode="bernoulli", seed=SEED)
+        x = torch.randn(n, D, generator=g, device=dev).to(dtype)
+        for t_steps in (1, 64):
+            out.append((f"ring N={n} T={t_steps} {dtype}", x,
+                        _stack(ring, t_steps, dtype, dev), "fused"))
+    cube = fixed_schedule(decompose(hypercube_graph(256), 256, seed=SEED),
+                          256, 64, budget=0.5, mode="bernoulli", seed=SEED)
+    out.append(("hypercube N=256 T=64 bf16",
+                torch.randn(256, D, generator=g, device=dev).to(BF16),
+                _stack(cube, 64, BF16, dev), "fused"))
+    x, stack = split_probe.make_inputs(256, D, 64, g)
+    out.append(("K4 split probe N=256 T=64", x, stack, "split"))
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    as_int = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(as_int), b.view(as_int))
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def ab(old_root, rounds: int = 3) -> list:
+    dev = torch.device("cuda")
+    alias = load_package(old_root).__name__
+    old = {"fused": importlib.import_module(
+               f"{alias}.parallel.fused_gossip").fused_gossip_run,
+           "split": importlib.import_module(
+               f"{alias}.probes.split_probe").split_gossip_run}
+    new = {"fused": fused_gossip.fused_gossip_run,
+           "split": split_probe.split_gossip_run}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for label, x, stack, kind in shapes(dev):
+        kw = {"split": True} if kind == "split" else {}
+
+        def new_fn():
+            return new[kind](x, stack, **kw)
+
+        def old_fn():
+            return old[kind](x, stack, **kw)
+
+        new_out, old_out = new_fn(), old_fn()
+        torch.cuda.synchronize()
+        n = x.shape[0]
+        row = {"shape": label, "N": n, "T": stack.shape[0],
+               "state": str(x.dtype), "stack": str(stack.dtype),
+               "new_path": fused_gossip.PATH_NAMES[
+                   fused_gossip.kernel_path(stack.dtype, n,
+                                            split=kind == "split")],
+               "bitwise_equal": _same_bits(new_out, old_out),
+               "differ_share": float((new_out != old_out).float().mean()),
+               "old_ms": [], "new_ms": [], "old_host_us": [],
+               "new_host_us": []}
+        del new_out, old_out
+        if stack.dtype == F32 and not row["bitwise_equal"]:
+            raise AssertionError(f"{label}: old and new FMA paths disagree")
+        for _ in range(rounds):
+            for side, fn in (("old", old_fn), ("new", new_fn),
+                             ("new", new_fn), ("old", old_fn)):
+                row[f"{side}_ms"].append(time_ms(fn, flush))
+                row[f"{side}_host_us"].append(host_us(fn))
+        for side in ("old", "new"):
+            row[f"{side}_median_ms"] = statistics.median(row[f"{side}_ms"])
+            row[f"{side}_median_host_us"] = statistics.median(
+                row[f"{side}_host_us"])
+        row["old_over_new"] = row["old_median_ms"] / row["new_median_ms"]
+        _emit({"phase": "fused_ab", **row})
+        rows.append(row)
+    return rows
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m "
+                                 "matcha_tpu_torch.probes.fused_bench")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    a = sub.add_parser("ab", help="an older tree's fused kernel against "
+                                  "this one, in turns")
+    a.add_argument("--old", required=True,
+                   help="directory holding the older matcha_tpu_torch")
+    a.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("fused_bench needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    _emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    ab(args.old, args.rounds)
+
+
+if __name__ == "__main__":
+    main()

@@ -35,8 +35,9 @@ import torch
 
 from ..parallel.fused_gossip import (
     SPLIT,
+    TENSOR_CORE,
     fused_gossip_plain,
-    kernel_tile,
+    kernel_shape,
     launch_kernel,
     prepare_stack,
 )
@@ -101,9 +102,11 @@ def _run(x, stack, split, block_d, w_window):
     if x.device.type == "cpu":
         return split_gossip_plain(x, stack), None
     if x.device.type == "cuda":
-        tile = kernel_tile(x.shape[0], block_d, SPLIT, stack.shape[0])
-        return launch_kernel(x, stack, tile, split=split,
-                             counter="split_gossip"), tile
+        shape = kernel_shape(x.shape[0], block_d, SPLIT, stack.shape[0])
+        if not split:  # the unsplit schedule at the split one's tile
+            shape = shape._replace(path=TENSOR_CORE)
+        return launch_kernel(x, stack, shape,
+                             counter="split_gossip"), shape.tile
     raise ValueError(f"split_gossip_run takes a CPU or CUDA tensor, got "
                      f"device {x.device}")
 

@@ -399,29 +399,36 @@ def test_fused_non_cpu_tensor_never_falls_back():
 
 
 class _SmemOnly:
-    """The two shared-memory queries of the kernel library, with the
-    formulas of ``csrc/fused_gossip.cu``'s ``fp32::smem_bytes`` (path 0)
-    and ``tc::smem_bytes`` (path 1 unsplit, 2 split)."""
+    """The launch-shape queries of the kernel library, with the formulas
+    of ``csrc/fused_gossip.cu``: ``fp32::smem_bytes`` (path 0),
+    ``tc::smem_bytes`` (path 1 unsplit, 2 split), the register paths'
+    largest N (``fused_gossip_reg_max_n``: 16 on paths 3 and 4)
+    and the shared memory they stage the stack in (64 KB)."""
 
     @staticmethod
     def fused_gossip_smem_limit():
         return 232448
 
     @staticmethod
+    def fused_gossip_reg_max_n(path):
+        return {3: 16, 4: 16}.get(path, -1)
+
+    @staticmethod
+    def fused_gossip_stage_bytes():
+        return 64 * 1024
+
+    @staticmethod
     def fused_gossip_smem_bytes(n, tile, path=0):
+        if path not in (0, 1, 2) or tile not in (32, 64, 128):
+            return -1
         if path == 0:
-            if tile not in (32, 64, 128):
-                return -1
             per_warp = 8 * 128 // tile
             rows = per_warp * min(8, -(-n // per_warp))
             return 4 * (2 * 8 * (rows + 4) + 2 * n * tile)
         npad = -(-n // 16) * 16
-        wm = 1 if npad <= 16 else 4      # warps along the rows
-        if tile not in [8 // wm * 8 * nt for nt in (2, 4, 8)]:
-            return -1
         m = -(-npad // 64)
-        mt = 1 if wm == 1 or m <= 1 else (2 if m == 2 else 4)
-        ring = 3 * 16 * wm * mt * 32  # 3 slots of [16·WM·MT rows x 32 k]
+        mt = 1 if m <= 1 else (2 if m == 2 else 4)
+        ring = 3 * 16 * 4 * mt * 32  # 3 slots of [64·MT rows x 32 k]
         return 2 * ((2 if path == 2 else 1) * ring + 2 * npad * tile)
 
 
@@ -447,19 +454,14 @@ def test_kernel_refuses_a_state_too_tall_for_shared_memory():
     (256, 2048, 1, 64, 128),   # chain (b): 160 KB, one CTA per SM
     (256, 2048, 2, 2000, 128),  # the probe's split schedule: two rings
     (256, 64, 1, 64, 64),      # block_d caps the tile
-    (16, 2048, 1, 64, 512),    # the slice's width: all warps on columns
-    (8, 2048, 2, 32, 512),     # padded to 16 rows, split
-    (16, 2048, 1, 16, 256),    # 512 columns need T >= 32
-    (16, 2048, 1, 4, 128),     # 256 columns need T >= 8
-    (16, 256, 1, 64, 256),     # block_d caps the wide tiles too
-    (16, 64, 1, 64, 128),      # below the narrowest tile of N <= 16
+    (8, 2048, 2, 32, 128),     # padded to 16 rows, split: 4 warps on rows
     (32, 2048, 1, 64, 128),    # two m16 row tiles: 4 warps on the rows
     (400, 2048, 2, 64, 64),    # 400 rows, two rings: 128 columns too many
     (1024, 2048, 1, 64, 32),   # the narrowest tile
 ])
 def test_tensor_core_tile_choice(n, block_d, path, t_steps, tile):
-    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
-    assert _tile_width(_SmemOnly, n, block_d, path, t_steps) == tile
+    from matcha_tpu_torch.parallel.fused_gossip import _launch_shape
+    assert _launch_shape(_SmemOnly, n, block_d, path, t_steps).tile == tile
 
 
 @pytest.mark.parametrize("path,name", [(1, "fused_gossip"),
@@ -472,12 +474,14 @@ def test_tensor_core_refuses_a_state_too_tall(path, name):
 
 def test_bf16_stack_takes_the_tensor_cores():
     from matcha_tpu_torch.parallel.fused_gossip import (
-        FMA, SPLIT, TENSOR_CORE, kernel_path)
-    assert kernel_path(torch.float32) == FMA
-    assert kernel_path(torch.bfloat16) == TENSOR_CORE
-    assert kernel_path(torch.bfloat16, split=True) == SPLIT
-    with pytest.raises(ValueError, match="bfloat16 mixing stack"):
-        kernel_path(torch.float32, split=True)
+        FMA, SPLIT, TC_REGS, TENSOR_CORE, kernel_path)
+    assert kernel_path(torch.float32, 256) == FMA
+    assert kernel_path(torch.bfloat16, 256) == TENSOR_CORE
+    assert kernel_path(torch.bfloat16, 16) == TC_REGS
+    for n in (16, 256):
+        assert kernel_path(torch.bfloat16, n, split=True) == SPLIT
+        with pytest.raises(ValueError, match="bfloat16 mixing stack"):
+            kernel_path(torch.float32, n, split=True)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,408 @@
+"""The fused kernel's register paths (small N) from the CPU.
+
+The CUDA kernels run only on the card (``chip_smoke.py`` holds them
+against the plain version there).  What the CPU can check:
+
+1. ``fused_gossip_run`` on CPU tensors (its plain version) against the JAX
+   ``fused_gossip_run`` through the Pallas interpreter, at the N values
+   where the register paths start and stop: N = 1, 2, 3, 15, 16, 17, 32 and
+   33, every state/stack dtype pair, T = 1 and 5, an odd D.  The stacks
+   are products of two mixing matrices, so no ``W_t`` is symmetric: a
+   transposed ``W_t`` would show.
+2. The path rule: which path and launch shape ``kernel_path`` and
+   ``_launch_shape`` give for N, dtype and T, through a stand-in for the
+   library's queries, at N = 1, 16, each register path's limit and the
+   limit plus one.
+3. A numpy model of the tensor-core register path's layouts
+   (``csrc/fused_gossip.cu``, ``tcregs``): the ``mma.m16n8k16`` fragments
+   as the PTX ISA assigns them to lanes, ``ldmatrix.trans`` from the
+   staging buffer, the permuted stack, the output staging, and the
+   modelled chain against the plain version.
+
+Tolerances: f32 state and stack, or one step on an f32 state, against JAX
+``rtol=1e-5, atol=1e-6`` (f32 sums in another order, as
+``tests/test_torch_fused_gossip.py``).  Otherwise a bf16 operand pass:
+``2⁻⁷ · max|ref|``, one bf16 ulp at the output's largest magnitude, the
+bar ``chip_smoke.py`` holds the kernel to (a sum one f32 ulp apart may
+round a bf16 value the other way, and dense 33-worker sums give it room).
+The modelled chain is held to the same bar.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from matcha_tpu.parallel import fused_gossip_run as jax_fused_gossip_run
+from matcha_tpu_torch.parallel import fused_gossip_plain, fused_gossip_run
+from matcha_tpu_torch.parallel.fused_gossip import (
+    FMA,
+    FMA_REGS,
+    N_REG_F32,
+    N_REG_TC,
+    SPLIT,
+    TC_REGS,
+    TENSOR_CORE,
+    LaunchShape,
+    _launch_shape,
+    kernel_path,
+)
+
+D = 37  # odd: every row's pairs unaligned on the card
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+TORCH = {"f32": torch.float32, "bf16": torch.bfloat16}
+JAX = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+
+
+def _mixing(rng, n):
+    """``I − α·L`` of a random graph on ``n`` workers (α = 1/(deg + 1)):
+    symmetric, rows summing to one."""
+    adj = np.triu(rng.random((n, n)) < 0.5, 1)
+    adj = (adj | adj.T).astype(np.float32)
+    lap = np.diag(adj.sum(1)) - adj
+    return np.eye(n, dtype=np.float32) - lap / (adj.sum(1).max() + 1)
+
+
+def _stack(n, t_steps, seed=0):
+    """``[T, n, n]``: each ``W_t`` the product of two mixing matrices,
+    which is not symmetric."""
+    rng = np.random.default_rng(seed)
+    return np.stack([_mixing(rng, n) @ _mixing(rng, n)
+                     for _ in range(t_steps)]).astype(np.float32)
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _bf16(a):
+    """Round an f32 array to bf16 values (round to nearest even)."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+# --------------------------------------------- 1. the port against JAX
+
+
+@pytest.mark.parametrize("t_steps", [1, 5])
+@pytest.mark.parametrize("state,stack", [("f32", "f32"), ("f32", "bf16"),
+                                         ("bf16", "bf16")])
+@pytest.mark.parametrize("n", [1, 2, 3, 15, 16, 17, 32, 33])
+def test_small_n_matches_jax_kernel(n, state, stack, t_steps):
+    x = np.random.default_rng(n).normal(size=(n, D)).astype(np.float32)
+    w = jnp.asarray(_stack(n, t_steps, seed=n), JAX[stack])
+    port = fused_gossip_run(torch.from_numpy(x).to(TORCH[state]),
+                            torch.tensor(_np(w)).to(TORCH[stack]))
+    ref = jax_fused_gossip_run(jnp.asarray(x, JAX[state]), w, interpret=True)
+    assert port.dtype == TORCH[state] and tuple(port.shape) == (n, D)
+    if state == stack == "f32" or (state == "f32" and t_steps == 1):
+        np.testing.assert_allclose(_np(port), _np(ref), **F32_TOL)
+    else:
+        np.testing.assert_allclose(_np(port), _np(ref), rtol=0,
+                                   atol=2.0 ** -7 * np.abs(_np(ref)).max())
+
+
+# ---------------------------------------------------- 2. the path rule
+
+
+class _Lib:
+    """The library's launch-shape queries, with the formulas of
+    ``csrc/fused_gossip.cu``: the register paths' largest N, the 64 KB
+    they stage the stack in, and the shared-memory paths' bytes (128-column
+    tiles and below; ``tests/test_torch_fused_gossip.py`` pins those)."""
+
+    @staticmethod
+    def fused_gossip_reg_max_n(path):
+        return {FMA_REGS: 16, TC_REGS: 16}.get(path, -1)
+
+    @staticmethod
+    def fused_gossip_stage_bytes():
+        return 64 * 1024
+
+    @staticmethod
+    def fused_gossip_smem_limit():
+        return 232448
+
+    @staticmethod
+    def fused_gossip_smem_bytes(n, tile, path):
+        if path not in (FMA, TENSOR_CORE, SPLIT) or tile not in (32, 64, 128):
+            return -1
+        if path == FMA:
+            per_warp = 8 * 128 // tile
+            rows = per_warp * min(8, -(-n // per_warp))
+            return 4 * (2 * 8 * (rows + 4) + 2 * n * tile)
+        npad = -(-n // 16) * 16
+        m = -(-npad // 64)
+        mt = 1 if m <= 1 else (2 if m == 2 else 4)
+        return 2 * ((2 if path == SPLIT else 1) * 3 * 64 * mt * 32
+                    + 2 * npad * tile)
+
+
+def test_register_limits_are_the_library_s():
+    assert (N_REG_F32, N_REG_TC) == (_Lib.fused_gossip_reg_max_n(FMA_REGS),
+                                     _Lib.fused_gossip_reg_max_n(TC_REGS))
+
+
+@pytest.mark.parametrize("stack,n,t_steps,want", [
+    # f32 stack: N padded to 8 or 16 rows, 512 columns a CTA and round, the
+    # whole stack staged where it takes at most 64 KB
+    ("f32", 1, 1, LaunchShape(FMA_REGS, 512, 8, 1)),
+    ("f32", 1, 64, LaunchShape(FMA_REGS, 512, 8, 64)),
+    ("f32", 8, 2000, LaunchShape(FMA_REGS, 512, 8, 256)),
+    ("f32", 9, 4, LaunchShape(FMA_REGS, 512, 16, 4)),
+    ("f32", 16, 1, LaunchShape(FMA_REGS, 512, 16, 1)),
+    ("f32", 16, 64, LaunchShape(FMA_REGS, 512, 16, 64)),
+    ("f32", 16, 2000, LaunchShape(FMA_REGS, 512, 16, 64)),
+    ("f32", 17, 64, LaunchShape(FMA, 128)),
+    # bf16 stack: one m16 tile of workers, 512 B of B fragments a step
+    ("bf16", 1, 1, LaunchShape(TC_REGS, 256, 16, 1)),
+    ("bf16", 16, 64, LaunchShape(TC_REGS, 256, 16, 64)),
+    ("bf16", 16, 2000, LaunchShape(TC_REGS, 256, 16, 128)),
+    ("bf16", 17, 64, LaunchShape(TENSOR_CORE, 128)),
+])
+def test_path_rule(stack, n, t_steps, want):
+    # the state's dtype is no argument: it never changes the path or shape
+    path = kernel_path(TORCH[stack], n)
+    assert path == want.path
+    assert _launch_shape(_Lib, n, 2048, path, t_steps) == want
+
+
+@pytest.mark.parametrize("path,n", [(FMA_REGS, N_REG_F32 + 1),
+                                    (TC_REGS, N_REG_TC + 1)])
+def test_register_path_refuses_past_its_limit(path, n):
+    with pytest.raises(ValueError, match=f"got {n}"):
+        _launch_shape(_Lib, n, 2048, path, 1)
+
+
+@pytest.mark.cuda
+def test_register_limits_and_stage_are_the_card_library_s():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the paths there")
+    from matcha_tpu_torch.parallel.fused_gossip import _library
+    lib = _library()
+    for path in (FMA_REGS, TC_REGS, FMA, TENSOR_CORE, SPLIT):
+        assert lib.fused_gossip_reg_max_n(path) == \
+            _Lib.fused_gossip_reg_max_n(path)
+    assert lib.fused_gossip_stage_bytes() == _Lib.fused_gossip_stage_bytes()
+
+
+def test_block_d_caps_only_the_shared_memory_tiles():
+    assert _launch_shape(_Lib, 16, 32, FMA_REGS, 1).tile == 512
+    assert _launch_shape(_Lib, 16, 32, TC_REGS, 1).tile == 256
+    assert _launch_shape(_Lib, 33, 32, FMA, 1).tile == 32
+
+
+# ------------------------------- 3. the tensor-core register path's layouts
+
+# mma.m16n8k16 with g = lane // 4, t = lane % 4 (PTX ISA, bf16 operands):
+# register r of A holds the pair (row, col), (row, col + 1) below, of D
+# element e the (row, col) below; B's b0 holds (k = 2t, 2t+1; n = g) and b1
+# (k = 2t+8, 2t+9; n = g).
+A_AT = [lambda g, t: (g, 2 * t), lambda g, t: (g + 8, 2 * t),
+        lambda g, t: (g, 2 * t + 8), lambda g, t: (g + 8, 2 * t + 8)]
+D_AT = [lambda g, t: (g, 2 * t), lambda g, t: (g, 2 * t + 1),
+        lambda g, t: (g + 8, 2 * t), lambda g, t: (g + 8, 2 * t + 1)]
+STRIDE = 36  # the staging buffer's f32 per row (tcregs::kStride, kCT = 2)
+
+
+def a_fragments(a):
+    """Lane -> 4 registers, each a (low, high) pair, of A [16 m][16 k]."""
+    out = []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        out.append([(a[r, c], a[r, c + 1])
+                    for r, c in (f(g, t) for f in A_AT)])
+    return out
+
+
+def b_fragments(w, j):
+    """Lane -> (b0, b1) of n8 tile j of B = W^T, each a (low, high) pair:
+    B[k][n] = W[n][k]."""
+    out = []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        row = w[g + 8 * j]
+        out.append(((row[2 * t], row[2 * t + 1]),
+                    (row[2 * t + 8], row[2 * t + 9])))
+    return out
+
+
+def mma(a_frag, b_frag):
+    """D = A·B from the lanes' fragments (f64 sums rounded to f32), as
+    lane -> the 4 D elements it holds."""
+    a = np.zeros((16, 16))
+    b = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for f, pair in zip(A_AT, a_frag[lane]):
+            r, c = f(g, t)
+            a[r, c], a[r, c + 1] = pair
+        b[2 * t:2 * t + 2, g] = b_frag[lane][0]
+        b[2 * t + 8:2 * t + 10, g] = b_frag[lane][1]
+    d = (a @ b).astype(np.float32)
+    return [[d[f(*divmod(lane, 4))] for f in D_AT] for lane in range(32)]
+
+
+def next_a(d0, d1):
+    """The kernel's packing: the two n8 tiles' accumulators as the next
+    A fragment (tcregs: a[0] = d0[0:2], a[1] = d0[2:4], a[2] = d1[0:2],
+    a[3] = d1[2:4])."""
+    return [[(d0[l][0], d0[l][1]), (d0[l][2], d0[l][3]),
+             (d1[l][0], d1[l][1]), (d1[l][2], d1[l][3])] for l in range(32)]
+
+
+def ldmatrix_x4_trans(buf, row_addr):
+    """``ldmatrix.sync.aligned.m8n8.x4.trans.b16``: lanes 8q..8q+7 give the
+    8 rows (16 bytes, as [row, first column] of ``buf``) of matrix q;
+    register q of lane i gets (row 2(i%4), col i/4) and (row 2(i%4)+1,
+    col i/4) of it."""
+    out = [[None] * 4 for _ in range(32)]
+    for q in range(4):
+        rows = [row_addr(8 * q + r) for r in range(8)]
+        for i in range(32):
+            g, t = divmod(i, 4)
+            (r0, c0), (r1, c1) = rows[2 * t], rows[2 * t + 1]
+            out[i][q] = (buf[r0, c0 + g], buf[r1, c1 + g])
+    return out
+
+
+def staging_a(x_tile):
+    """The kernel's A fragments of tile c = 0 of a [16 workers][32 cols]
+    staging buffer: matrix mq = lane/8 at k = 8·(mq/2) + lane%8,
+    m = 8·(mq%2)."""
+    def addr(lane):
+        mq, mrow = divmod(lane, 8)
+        return ((mq >> 1) * 8 + mrow, (mq & 1) * 8)
+    return ldmatrix_x4_trans(x_tile, addr)
+
+
+def permuted_stack(w):
+    """The kernel's fill: word wi = r·8 + w of W_t (row r, k = 2w, 2w+1)
+    goes to lane (r%8)·4 + w%4, slot (r/8)·2 + w/4."""
+    words = [[None] * 4 for _ in range(32)]
+    for r in range(16):
+        for w8 in range(8):
+            lane = (r % 8) * 4 + w8 % 4
+            slot = (r // 8) * 2 + w8 // 4
+            words[lane][slot] = (w[r, 2 * w8], w[r, 2 * w8 + 1])
+    return words
+
+
+def test_accumulators_are_the_next_a_fragment():
+    # D's element (m, n) lands where the next step's A wants (m, k = n)
+    d = np.arange(256, dtype=np.float64).reshape(16, 16)  # [m][n]
+    d0 = [[d[f(*divmod(l, 4))] for f in D_AT] for l in range(32)]
+    d1 = [[d[r, c + 8] for r, c in (f(*divmod(l, 4)) for f in D_AT)]
+          for l in range(32)]
+    assert next_a(d0, d1) == a_fragments(d)
+
+
+def test_ldmatrix_trans_of_the_staging_buffer_is_the_a_fragment():
+    x = np.arange(16 * 32, dtype=np.float64).reshape(16, 32)  # [k][col]
+    assert staging_a(x) == a_fragments(x[:, :16].T)
+
+
+def test_permuted_stack_is_one_load_of_b_fragments_per_lane():
+    w = np.arange(256, dtype=np.float64).reshape(16, 16)
+    words = permuted_stack(w)
+    for lane in range(32):
+        assert words[lane][0:2] == list(b_fragments(w, 0)[lane])
+        assert words[lane][2:4] == list(b_fragments(w, 1)[lane])
+
+
+def test_output_staging_is_the_product_in_the_state_s_layout():
+    rng = np.random.default_rng(3)
+    xt = rng.normal(size=(16, 16))  # [m][k] = x^T
+    w = rng.normal(size=(16, 16))
+    d0 = mma(a_fragments(xt), b_fragments(w, 0))
+    d1 = mma(a_fragments(xt), b_fragments(w, 1))
+    stage = np.full((16, STRIDE), np.nan)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j, dj in enumerate((d0, d1)):
+            w0 = 8 * j + 2 * t
+            stage[w0, g], stage[w0 + 1, g] = dj[lane][0], dj[lane][1]
+            stage[w0, g + 8], stage[w0 + 1, g + 8] = dj[lane][2], dj[lane][3]
+    np.testing.assert_allclose(stage[:, :16], (w @ xt.T).astype(np.float32),
+                               rtol=1e-6)
+
+
+def test_staging_accesses_are_free_of_bank_conflicts():
+    # ldmatrix: the 8 rows of one matrix in 8 distinct 16-byte granules of
+    # the 128 bytes the banks span (a row is 144 bytes)
+    for q in range(4):
+        granules = {(((q >> 1) * 8 + r) * STRIDE * 4 + (q & 1) * 16) % 128
+                    // 16 for r in range(8)}
+        assert len(granules) == 8
+    # the accumulators' f32 stores: 32 lanes, 32 banks, for each element
+    for e in range(4):
+        banks = set()
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            w0 = 2 * t + (e & 1)
+            banks.add((w0 * STRIDE + g + 8 * (e >> 1)) % 32)
+        assert len(banks) == 32
+
+
+def _modelled_chain(x, stack, state):
+    """The tensor-core register path on one 16-column tile, through the
+    fragments: bf16 A from the staging buffer, the padded workers zeroed
+    every step, the last step's f32 sums rounded to the state dtype."""
+    n = x.shape[0]
+    pad = np.zeros((16, 32), np.float32)
+    pad[:n, :x.shape[1]] = x
+    a = staging_a(_bf16(pad).astype(np.float64))
+    for w in stack:
+        wp = np.zeros((16, 16))
+        wp[:n, :n] = _bf16(w)
+        d = [mma(a, b_fragments(wp, j)) for j in (0, 1)]
+        for lane in range(32):
+            t = lane % 4
+            for j in (0, 1):
+                w0 = 8 * j + 2 * t
+                for e in range(4):
+                    if w0 + (e & 1) >= n:
+                        d[j][lane][e] = 0.0
+        a = [[tuple(_bf16(np.array(p)).astype(np.float64)) for p in regs]
+             for regs in next_a(*d)]
+    out = np.zeros((16, 16), np.float32)  # [worker][column]
+    for lane in range(32):
+        for j in (0, 1):
+            for e, f in enumerate(D_AT):
+                m, c = f(*divmod(lane, 4))
+                out[8 * j + c, m] = d[j][lane][e]
+    out = out[:n, :x.shape[1]]
+    return _bf16(out) if state == "bf16" else out
+
+
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+@pytest.mark.parametrize("n,t_steps", [(1, 3), (3, 5), (16, 1), (16, 5)])
+def test_modelled_chain_matches_the_plain_version(n, t_steps, state):
+    rng = np.random.default_rng(n + t_steps)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    if state == "bf16":
+        x = _bf16(x)
+    stack = _stack(n, t_steps, seed=n)
+    ref = fused_gossip_plain(torch.from_numpy(x).to(TORCH[state]),
+                             torch.from_numpy(stack).to(torch.bfloat16))
+    got = _modelled_chain(x, stack, state)
+    np.testing.assert_allclose(got, _np(ref), rtol=0,
+                               atol=2.0 ** -7 * np.abs(_np(ref)).max())
+
+
+def test_modelled_chain_keeps_an_inf_out_of_the_padded_workers():
+    # 0 * inf is NaN: without the per-step zeroing a padded worker's sum
+    # in the inf's column would be NaN and carry it into every real row on
+    # the next step.  With every W_t entry positive the plain version keeps
+    # that column at +inf.
+    x = np.ones((3, 16), np.float32)
+    x[1, 4] = np.inf
+    stack = np.stack([0.5 * np.eye(3) + 0.5 / 3] * 3).astype(np.float32)
+    got = _modelled_chain(x, stack, "f32")
+    ref = _np(fused_gossip_plain(torch.from_numpy(x),
+                                 torch.from_numpy(stack).to(torch.bfloat16)))
+    assert np.isposinf(ref[:, 4]).all()
+    assert np.isfinite(np.delete(ref, 4, 1)).all()
+    np.testing.assert_array_equal(got, ref)
