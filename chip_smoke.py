@@ -11,9 +11,10 @@ raises and the script exits non-zero:
 2. build — compiles the port's kernel sources from ``matcha_tpu_torch/csrc``
    (one ``nvcc`` each, started together) and prints ptxas' registers and
    spills of every kernel instantiation: the perm kernel's, the fused
-   kernel's FMA paths (columns in registers, tile in shared memory) and
-   tensor-core paths (chained in registers; in shared memory, unsplit and
-   split).
+   kernel's FMA paths (columns in registers, the chain with its tile in
+   shared memory, one launch per step) and tensor-core paths (chained in
+   registers; in shared memory, unsplit and split; one launch per step),
+   and the perm kernel's per-step path.
 3. parity — the perm kernel's two instantiations against their plain PyTorch version on the card, at
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
@@ -43,18 +44,22 @@ raises and the script exits non-zero:
    instantiation, which ``train()`` does not take, runs one 64-step chain
    through ``perm_gossip_run(dbuf=False)``.
 6. fused_parity — the fused W-stack kernel against its plain version on
-   every path: an f32 stack (FMA: ``fma_regs`` up to 16 workers, ``fma``
-   above) and a bf16 stack on an f32 and a bf16 state (tensor cores:
-   ``tc_regs`` up to 16 workers, ``tensor_core`` above).  T in {1, 4, 64}
+   every path: an f32 stack (FMA: ``fma_regs`` up to 16 workers, the
+   ``fma`` chain to 256, ``fma_step`` above; each held bitwise to the
+   other FMA path that takes its N) and a bf16 stack on an f32 and a bf16
+   state (tensor cores: ``tc_regs`` up to 16 workers, ``tensor_core`` to
+   1024, ``tc_step`` above).  T in {1, 4, 64}
    at the slice's ``[16, 273258]`` (graph 4, MATCHA weights), and that
    stack composed four steps at a time (no W_t symmetric); N = 1 and 3
    (D = 1,031), N = 17 and a ragged D at N = 16 in every dtype pair;
    T in {1, 4, 64} (bf16) and T = 4 (f32) at ``[256, 273258]`` on the
-   256-worker hypercube; two row passes per step at N = 100 and N = 300
-   (rings, T = 8, f32 and bf16; N = 100 is also padded to 112 rows on the
-   tensor cores); T = 0.  Bars scaled by the output: f32 max |Δ| ≤
-   1e-5·max|ref|, a bf16 operand pass ≤ 2⁻⁷·max|ref| (whether it is
-   bitwise and the share of elements that differ are printed); each
+   256-worker hypercube; the FMA chain's shapes at N = 32, 64 and 256 (D =
+   1,031, hypercube stacks composed two steps at a time, T = 1, 4 and 32,
+   and uncomposed at T = 64); N = 100 and N = 300 (rings, T = 8, f32 and
+   bf16; N = 100 is also padded to 112 rows on the tensor cores); T = 0.
+   Bars scaled by the output: f32 max |Δ| ≤ 1e-5·max|ref|, a bf16
+   operand pass ≤ 2⁻⁷·max|ref| (whether it is bitwise and the share of
+   elements that differ are printed); each
    register path against the shared-memory path of its stack dtype
    (bitwise required on f32; printed on bf16); bitwise against itself
    across ``w_window`` 1 vs 8 and ``block_d`` 32.  Then the dense mix on
@@ -77,7 +82,24 @@ raises and the script exits non-zero:
    dense product every step, the fused kernel in the comm-split timer's
    chains), 2 epochs of 4 steps: loss and disagreement finite, the fused
    kernel launched exactly once per timer chain, on its register FMA path.
-9. split_probe — the split-step probe (K4, ``probes/split_probe.py``) on
+9. fused_large — K3 above the shared-memory paths' old caps (843 workers
+   on the FMA path, 1,424 on the tensor cores) at D = 4,099: f32 and
+   bf16 stacks at N = 1024 (T = 8) and 4095 (T = 1) against the plain
+   version (the fused bars); the per-step paths bitwise against the
+   on-chip ones where both take N (FMA at 256, tensor cores at 1024); and
+   ``make_decen(..., "fused").run`` at N = 1024 (f32: ``fma_step``; bf16:
+   ``tensor_core``) and 2048 (bf16: ``tc_step``), launches counted by
+   path.  fused_sweep — the f32 stack at full width across N = 17, 32,
+   64, 128 and 256 (T = 64, the FMA chain) and 512 and 1024 (T = 8, one
+   launch per step), and N = 4095, T = 1 in f32 and bf16: kernel, plain
+   version, library call and bound.  perm_large — the perm kernel's
+   per-step path (no slab fits a CTA) at D = 32,768 on the 16,384-worker
+   hypercube and a 4096-worker ER graph of mean degree 30 (more matchings
+   than the slab tables hold), T = 1 and 4, both instantiations and
+   wires, bitwise; ``make_decen(..., "perm").run`` on both, launches by
+   path; times of the ER graph at full width and the hypercube at D =
+   32,768 (T = 1).
+10. split_probe — the split-step probe (K4, ``probes/split_probe.py``) on
    its full-width ``[256, 273258]`` bf16 inputs: the split schedule
    bitwise equal to the unsplit one at T = 1, 8, 16, 32 and 64, where the
    state is still normal (max|out| printed); both held to the plain
@@ -93,9 +115,10 @@ raises and the script exits non-zero:
    split_timing — both schedules, the plain version (T = 64 only), the
    library call (T bf16 ``torch.matmul`` calls) and the bound at T = 64
    and T = 2000.
-10. a ``{"kernels": [...]}`` summary line (perm ×2, fused_gossip per path
-    ×4, split_gossip), then the ``nvidia-smi`` line.
-11. last line: ``{"ok": true, "device": {...}}``.
+11. a ``{"kernels": [...]}`` summary line (perm ×2 and its per-step
+    path, fused_gossip per path ×6, split_gossip), then the
+    ``nvidia-smi`` line.
+12. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -130,6 +153,7 @@ from matcha_tpu_torch.parallel import (
 from matcha_tpu_torch.schedule import fixed_schedule, matcha_schedule
 from matcha_tpu_torch.topology import (
     decompose,
+    erdos_renyi_graph,
     hypercube_graph,
     matching_laplacians,
     ring_graph,
@@ -160,7 +184,8 @@ FUSED_REPLACES = "matcha_tpu/parallel/pallas_gossip.py:182"
 SPLIT_REPLACES = "benchmarks/split_probe.py:86"
 # the fused kernel's paths, as fused_gossip.PATH_NAMES names them (the
 # split schedule is K4's)
-FUSED_PATHS = ("fma_regs", "fma", "tc_regs", "tensor_core")
+FUSED_PATHS = ("fma_regs", "fma", "tc_regs", "tensor_core", "fma_step",
+               "tc_step")
 KERNELS = {
     "perm_gossip_dbuf": {"dbuf": True,
                          "replaces": "matcha_tpu/parallel/pallas_gossip.py:340"},
@@ -515,13 +540,20 @@ def fused_path(x, stack) -> str:
     return fg.PATH_NAMES[fg.kernel_path(stack.dtype, x.shape[0])]
 
 
-def smem_path_run(x, stack):
-    """One launch of the shared-memory path of the stack's dtype (FMA or
-    the tensor cores), whatever N: what a register path is held to."""
-    path = fg.TENSOR_CORE if stack.dtype == torch.bfloat16 else fg.FMA
+def forced_run(x, stack, path):
+    """One launch of ``path`` whatever the path rule would take at this N
+    (the C side refuses a shape the path cannot take)."""
     prep, _ = fg.prepare_stack(x, stack, 2048, 1)
     return fg.launch_kernel(x, prep, fg.kernel_shape(x.shape[0], 2048, path,
                                                      prep.shape[0]))
+
+
+def smem_path_run(x, stack):
+    """One launch of the shared-memory path of the stack's dtype (the FMA
+    chain or the tensor cores), whatever N: what a register path is held
+    to."""
+    return forced_run(x, stack, fg.TENSOR_CORE if stack.dtype == torch.bfloat16
+                      else fg.FMA)
 
 
 def scalar_stack(t_steps: int, dtype, dev):
@@ -578,8 +610,20 @@ def phase_fused_parity(dev, tables, big_tables):
         cases.append((f"hypercube N=256 T={t_steps} {dtype}/{dtype}",
                       x256.to(dtype),
                       lambda t=t_steps, s=dtype: mixing_stack(big, t, s, dev)))
-    # two row passes per step: N = 100 at tile 128 (passes of 64 rows; the
-    # 32-column tile below sums it in one pass), N = 300 at tile 32
+    # the FMA chain's launch shapes (32, 64 and 256 rows of sums) on
+    # composed hypercube stacks (no W_t symmetric), an odd D, T = 1 to 64
+    for n in (32, 64, 256):
+        cube = hypercube_tables(dev, n)[0]
+        for t_steps in (1, 4, 32):
+            cases.append((f"hypercube N={n} composed chunk=2 D=1031 "
+                          f"T={t_steps} f32/f32", state(n, 1031, dev),
+                          lambda c=cube, t=t_steps: compose_mixing_stack(
+                              mixing_stack(c, 64, f32, dev), 2)[:t]))
+        cases.append((f"hypercube N={n} D=1031 T=64 f32/f32",
+                      state(n, 1031, dev),
+                      lambda c=cube: mixing_stack(c, 64, f32, dev)))
+    # N = 100 (the tensor cores: two row passes of 64, or one at the
+    # 32-column tile) and N = 300 (tile 32; the FMA path one step a launch)
     for n in (100, 300):
         for dtype in (f32, bf16):
             cases.append((f"ring N={n} T=8 {dtype}/{dtype} (2 passes)",
@@ -601,6 +645,17 @@ def phase_fused_parity(dev, tables, big_tables):
                "differ_share": float((out != ref).float().mean())}
         if not err <= bar:
             raise AssertionError(f"fused {label}: max |Δ| {err} > {bar}")
+        if path in ("fma", "fma_step"):
+            # every FMA path sums each element in one order: the register
+            # path (N <= 16) and the per-step path give the chain's bits
+            other = (fg.FMA_STEP if path == "fma" else fg.FMA
+                     if x.shape[0] <= fg.N_CHAIN_F32 else None)
+            if other is not None:
+                row["bitwise_vs_" + fg.PATH_NAMES[other]] = same_bits(
+                    out, forced_run(x, stack, other))
+                if not row["bitwise_vs_" + fg.PATH_NAMES[other]]:
+                    raise AssertionError(f"fused {label}: {path} differs "
+                                         f"from {fg.PATH_NAMES[other]}")
         if path in ("fma_regs", "tc_regs"):
             smem = smem_path_run(x, stack)
             row["bitwise_vs_smem_path"] = same_bits(out, smem)
@@ -673,6 +728,17 @@ def calls_device_ms(fn, flush, runs: int = 20):
     return total / runs / 1e3 if total else None
 
 
+def path_device_ms(fn, path: str, flush, runs: int):
+    """The profiler's device time of one call of ``fn`` on a fused path:
+    per recorded launch of each of its kernels (the FMA chain launches
+    the stack's transposed copy too), summed; None when the trace holds
+    none of them."""
+    names = (("fma_chain_kernel", "transpose_stack") if path == "fma"
+             else ("gossip_kernel",))
+    times = [device_ms(fn, name, flush, runs) for name in names]
+    return None if None in times else sum(times)
+
+
 def phase_fused_timing(dev, tables, big_tables):
     """Kernel (CUDA events and the profiler's device time), plain version,
     library call (T calls of ``torch.matmul(W_t, x)``, by events and by
@@ -716,7 +782,8 @@ def phase_fused_timing(dev, tables, big_tables):
                "dtype": str(dtype), "state_dtype": str(x_dtype),
                "path": fused_path(x, stack), "block_d": block_d,
                "ms": time_ms(kernel, flush, runs),
-               "device_ms": device_ms(kernel, "gossip_kernel", flush, runs),
+               "device_ms": path_device_ms(kernel, fused_path(x, stack),
+                                           flush, runs),
                "plain_ms": time_ms(lambda: fused_gossip_plain(x, stack),
                                    flush, runs),
                "library_ms": time_ms(library, flush, runs),
@@ -837,6 +904,260 @@ def phase_fused_slice(dev):
           "loss": [h["loss"] for h in hist],
           "disagreement": [h["disagreement"] for h in hist]})
     return launches
+
+
+LARGE_D = 4099  # an odd width near 4,099: the plain version at large N
+
+
+def random_stack(n: int, t_steps: int, dtype, dev):
+    """``[T, n, n]``, ``W_t = 0.5·I + U(0, 0.5/n)``: rows summing near one,
+    no ``W_t`` symmetric, nothing a graph's decomposition has to make at
+    N = 4095."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    eye = torch.eye(n, device=dev)
+    return (0.5 * eye + torch.rand(t_steps, n, n, generator=g, device=dev)
+            * (0.5 / n)).to(dtype)
+
+
+def phase_fused_large(dev):
+    """K3 above the shared-memory paths' old caps (843 workers on the FMA
+    path, 1,424 on the tensor cores) at D = 4,099: f32 and bf16 stacks at
+    N = 1024 (T = 8, hypercube) and N = 4095 (T = 1) against the plain
+    version (the fused bars); the per-step paths bitwise against the
+    on-chip ones at an N both take (FMA at 256, tensor cores at 1024); then
+    ``make_decen(..., "fused").run`` at N = 1024 (f32 and bf16) and 2048
+    (bf16), the launches counted by path."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {"fma_step": 0.0, "tc_step": 0.0, "tensor_core": 0.0}
+    rows = []
+    cube = {n: hypercube_tables(dev, n)[0] for n in (256, 1024, 2048)}
+    cases = []
+    for state_dtype, stack_dtype in ((f32, f32), (f32, bf16), (bf16, bf16)):
+        cases.append((1024, 8, state_dtype, stack_dtype,
+                      lambda s=stack_dtype: mixing_stack(cube[1024], 8, s,
+                                                         dev)))
+        cases.append((4095, 1, state_dtype, stack_dtype,
+                      lambda s=stack_dtype: random_stack(4095, 1, s, dev)))
+    for n, t_steps, state_dtype, stack_dtype, make_stack in cases:
+        x = state(n, LARGE_D, dev).to(state_dtype)
+        stack = make_stack()
+        out = fused_gossip_run(x, stack)
+        ref = fused_gossip_plain(x, stack)
+        torch.cuda.synchronize()
+        path, err, bar = fused_path(x, stack), max_err(out, ref), \
+            fused_bar(ref, x, stack)
+        worst[path] = max(worst[path], err)
+        rows.append({"N": n, "T": t_steps, "state": str(state_dtype),
+                     "stack": str(stack_dtype), "path": path,
+                     "max_abs_err": err, "bar": bar,
+                     "bitwise_vs_plain": same_bits(out, ref)})
+        if not err <= bar:
+            raise AssertionError(f"fused N={n} {stack_dtype}: max |Δ| {err} "
+                                 f"> {bar}")
+        del x, stack, out, ref
+    # the per-step paths against the on-chip ones, bitwise
+    same = {}
+    for n, path, other, dtype in ((256, fg.FMA_STEP, fg.FMA, f32),
+                                  (1024, fg.TC_STEP, fg.TENSOR_CORE, bf16)):
+        for state_dtype in (f32, dtype):
+            x = state(n, LARGE_D, dev).to(state_dtype)
+            stack = compose_mixing_stack(mixing_stack(cube[n], 16, f32, dev),
+                                         2).to(dtype)
+            a, b = forced_run(x, stack, path), forced_run(x, stack, other)
+            key = (f"{fg.PATH_NAMES[path]} vs {fg.PATH_NAMES[other]} N={n} "
+                   f"state={state_dtype}")
+            same[key] = same_bits(a, b)
+            if not same[key]:
+                raise AssertionError(f"{key}: not bitwise equal")
+    # the entry point: make_decen's fused chains
+    runs = {"f32 N=1024": (cube[1024], f32), "bf16 N=1024": (cube[1024], bf16),
+            "bf16 N=2048": (cube[2048], bf16)}
+    inputs = {label: state(sch.num_workers, LARGE_D, dev).to(dtype)
+              for label, (sch, dtype) in runs.items()}
+    comms = {label: make_decen(sch, "fused", device=dev, compute_dtype=dtype)
+             for label, (sch, dtype) in runs.items()}
+    reset_launch_counts()
+    outs = {label: comms[label].run(inputs[label], sch.flags[:8])[0]
+            for label, (sch, dtype) in runs.items()}
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    want = {"fused_gossip": 3, "fused_gossip/fma_step": 1,
+            "fused_gossip/tensor_core": 1, "fused_gossip/tc_step": 1}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"the fused chains at N = 1024 and 2048 "
+                             f"launched {launches}, expected {want}")
+    chains = {}
+    for label, (sch, dtype) in runs.items():
+        x = inputs[label]
+        stack = mixing_stack(sch, 8, dtype, dev)
+        ref = fused_gossip_plain(x, stack)
+        err, bar = max_err(outs[label], ref), fused_bar(ref, x, stack)
+        chains[label] = {"path": fused_path(x, stack), "max_abs_err": err,
+                         "bar": bar}
+        if not err <= bar:
+            raise AssertionError(f"make_decen fused {label}: {err} > {bar}")
+    del inputs, outs, comms
+    emit({"phase": "fused_large", "D": LARGE_D, "cases": rows,
+          "per_step_vs_on_chip": same, "make_decen_run": chains,
+          "launches": launches})
+    return {"worst": worst, "launches": launches}
+
+
+def phase_fused_sweep(dev):
+    """K3 with an f32 stack across N at full width (hypercubes; N = 17 a
+    ring): T = 64 up to 256 workers (the FMA chain), T = 8 above (one
+    launch per step); then N = 4095, T = 1, in f32 and bf16.  Kernel,
+    plain version and library call (T ``torch.matmul`` calls) by CUDA
+    events, the L2 flushed before each; 5 runs, 3 where a call takes tens
+    of milliseconds or more."""
+    flush = L2Flush(dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = []
+    for n in (17, 32, 64, 128, 256, 512, 1024):
+        t_steps = 64 if n <= 256 else 8
+        sch = (fixed_schedule(decompose(ring_graph(n), n, seed=SEED), n, 64,
+                              budget=0.5, mode="bernoulli", seed=SEED)
+               if n == 17 else hypercube_tables(dev, n)[0])
+        shapes.append((f"sweep N={n} T={t_steps} f32", n, t_steps, f32,
+                       lambda s=sch, t=t_steps: mixing_stack(s, t, f32, dev)))
+    for dtype in (f32, bf16):
+        shapes.append((f"N=4095 T=1 {'f32' if dtype == f32 else 'bf16'}",
+                       4095, 1, dtype,
+                       lambda d=dtype: random_stack(4095, 1, d, dev)))
+    rows = []
+    for label, n, t_steps, dtype, make_stack in shapes:
+        x = state(n, SLICE_D, dev)
+        stack = make_stack()
+        runs = 3 if n >= 128 else 5
+
+        def library(x=x, stack=stack):
+            out = x.to(stack.dtype)
+            for t in range(stack.shape[0]):
+                out = torch.matmul(stack[t], out)
+            return out
+
+        row = {"shape": label, "N": n, "D": SLICE_D, "T": t_steps,
+               "dtype": str(dtype), "path": fused_path(x, stack),
+               "ms": time_ms(lambda: fused_gossip_run(x, stack), flush, runs),
+               "plain_ms": time_ms(lambda: fused_gossip_plain(x, stack),
+                                   flush, runs),
+               "library_ms": time_ms(library, flush, runs), "runs": runs}
+        row["bound_ms"], row["bound_by"] = fused_bound(x, stack)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        emit({"phase": "fused_sweep", **row})
+        del x, stack
+        torch.cuda.empty_cache()
+    return rows
+
+
+def perm_yardstick(weights, perms, gate, x):
+    """``T`` calls of ``torch.matmul(W_t, x)`` with ``W_t = I − Σ_j
+    w[t,j]·L_j`` built on the card from the tables (the Laplacians of
+    16,384 workers would not fit the host as dense matrices); the stack is
+    built outside the timing."""
+    t_steps, m = weights.shape
+    n = perms.shape[1]
+    rows = torch.arange(n, device=x.device)
+    stack = torch.zeros(t_steps, n, n, device=x.device)
+    for t in range(t_steps):
+        coef = weights[t][:, None] * gate  # [M, N]; zero where unpartnered
+        stack[t].index_put_((rows.repeat(m), perms.long().reshape(-1)),
+                            coef.reshape(-1), accumulate=True)
+        stack[t][rows, rows] += 1.0 - coef.sum(0)
+
+    def run():
+        out = x
+        for t in range(t_steps):
+            out = torch.matmul(stack[t], out)
+        return out
+
+    return run
+
+
+def er_tables(dev, n: int = 4096, degree: float = 30.0):
+    """A connected Erdős–Rényi graph of mean degree ``degree`` on ``n``
+    workers, coloured (Misra–Gries: more matchings than the slab kernel's
+    tables hold at 4096 workers), each matching active with probability
+    0.5."""
+    edges = erdos_renyi_graph(n, degree / (n - 1), seed=SEED)
+    return _tables(fixed_schedule(decompose(edges, n, seed=SEED), n, 64,
+                                  budget=0.5, mode="bernoulli", seed=SEED),
+                   dev)
+
+
+def phase_perm_large(dev):
+    """K1 where no slab fits a CTA: the per-step path, at D = 32,768, on
+    the 16,384-worker hypercube and a 4096-worker ER graph of mean degree
+    30, T = 1 and 4, both instantiations and both wires, bitwise against
+    the plain version; then ``make_decen(..., "perm").run`` on both (T =
+    4), launches counted by path; then times: the ER graph at full width
+    (T = 1) and the hypercube at D = 32,768 (T = 1), 3 runs each."""
+    flush = L2Flush(dev)
+    graphs = {"hypercube N=16384": hypercube_tables(dev, 16384),
+              "ER N=4096": er_tables(dev)}
+    cases = 0
+    for label, (sch, p, part) in graphs.items():
+        x = state(sch.num_workers, 32768, dev)
+        for t_steps in (1, 4):
+            w = torch.as_tensor(sch.alpha * sch.flags[:t_steps],
+                                dtype=torch.float32, device=dev)
+            for wire in (None, "bf16"):
+                ref = perm_gossip_plain(x, w, p, part, wire_dtype=wire)
+                for dbuf in (True, False):
+                    out = perm_gossip_run(x, w, p, part, wire_dtype=wire,
+                                          dbuf=dbuf)
+                    torch.cuda.synchronize()
+                    if not same_bits(out, ref):
+                        raise AssertionError(f"perm {label} T={t_steps} "
+                                             f"wire={wire} dbuf={dbuf}: not "
+                                             f"bitwise equal to the plain "
+                                             f"version")
+                    cases += 1
+                del ref, out
+        del x
+    reset_launch_counts()
+    outs = {}
+    for label, (sch, p, part) in graphs.items():
+        x = state(sch.num_workers, 32768, dev)
+        outs[label] = (x, make_decen(sch, "perm", device=dev).run(
+            x, sch.flags[:4])[0])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["perm_gossip/step"] != 2 or launches["perm_gossip_dbuf"] != 2:
+        raise AssertionError(f"make_decen perm runs launched {launches}, "
+                             f"expected perm_gossip/step = 2")
+    for label, (sch, p, part) in graphs.items():
+        x, out = outs[label]
+        w = torch.as_tensor(sch.alpha * sch.flags[:4], dtype=torch.float32,
+                            device=dev)
+        if not same_bits(out, perm_gossip_plain(x, w, p, part)):
+            raise AssertionError(f"make_decen perm {label}: not bitwise")
+    del outs
+    rows = []
+    for label, d in (("ER N=4096", SLICE_D), ("hypercube N=16384", 32768)):
+        sch, p, part = graphs[label]
+        x = state(sch.num_workers, d, dev)
+        w = torch.as_tensor(sch.alpha * sch.flags[:1], dtype=torch.float32,
+                            device=dev)
+        row = {"shape": f"{label} D={d} T=1", "N": sch.num_workers, "D": d,
+               "T": 1, "M": int(p.shape[0]),
+               "ms": time_ms(lambda: perm_gossip_run(x, w, p, part), flush,
+                             3),
+               "plain_ms": time_ms(lambda: perm_gossip_plain(x, w, p, part),
+                                   flush, 3),
+               "library_ms": time_ms(perm_yardstick(w, p, part, x), flush,
+                                     3)}
+        row["bound_ms"], row["bound_by"] = bound(x, w, p, part)
+        rows.append(row)
+        emit({"phase": "perm_large_timing", **row})
+        del x
+        torch.cuda.empty_cache()
+    emit({"phase": "perm_large", "D": 32768, "cases": cases,
+          "bitwise": True, "M": {k: int(v[1].shape[0])
+                                 for k, v in graphs.items()},
+          "launches": launches})
+    return {"launches": launches, "timing": rows}
 
 
 def timer_chains(steps_per_epoch: int, sample_steps: int = 32) -> int:
@@ -1259,6 +1580,51 @@ def kernels_line(r) -> list:
             "timings": [{k: t[k] for k in keys} for t in fused_rows
                         if t["path"] == path],
         })
+    # the per-step paths on their entry points: make_decen's fused chains
+    # at N = 1024 (f32) and 2048 (bf16), times from the sweep
+    large = r["fused_large"]
+    sweep = r["fused_sweep"]
+    for path, main_label, entry in (
+            ("fma_step", "sweep N=1024 T=8 f32",
+             "Communicator.run, fused f32 chain at N = 1024"),
+            ("tc_step", "N=4095 T=1 bf16",
+             "Communicator.run, fused bf16 chain at N = 2048")):
+        counter = f"fused_gossip/{path}"
+        launches = large["launches"][counter]
+        if launches < 1:
+            raise AssertionError(f"fused_gossip {path}: no launch on its "
+                                 f"main path")
+        main = next(t for t in sweep if t["shape"] == main_label)
+        kernels.append({
+            "name": "fused_gossip", "path": path, "route": "cuda",
+            "source": FUSED_SOURCE, "replaces": FUSED_REPLACES,
+            "launches": launches, "launches_by_path": {entry: launches},
+            "bitwise": False,
+            "max_abs_err": max(r["fused_parity"].get(path, 0.0),
+                               large["worst"].get(path, 0.0)),
+            "shape": main["shape"], "ms": main["ms"], "device_ms": None,
+            "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "timings": [{k: t[k] for k in ("shape", "ms", "plain_ms",
+                                            "library_ms", "bound_ms",
+                                            "bound_by")}
+                        for t in sweep if t["path"] == path]})
+    # the perm kernel's per-step path: make_decen's perm chains past the
+    # slab kernel's reach
+    perm = r["perm_large"]
+    main = perm["timing"][0]
+    kernels.append({
+        "name": "perm_gossip_dbuf", "path": "step", "route": "cuda",
+        "source": SOURCE, "replaces": KERNELS["perm_gossip_dbuf"]["replaces"],
+        "launches": perm["launches"]["perm_gossip/step"],
+        "launches_by_path": {"Communicator.run, perm chains at N = 16384 "
+                             "and 4096 (M >= 25)":
+                             perm["launches"]["perm_gossip/step"]},
+        "bitwise": True, "max_abs_err": 0.0, "shape": main["shape"],
+        "ms": main["ms"], "device_ms": None, "plain_ms": main["plain_ms"],
+        "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "timings": perm["timing"]})
     split_rows = r["split_timing"]
     main = split_rows[0]  # T=64, where the plain version is timed too
     kernels.append({
@@ -1315,6 +1681,9 @@ def main():
     results["fused_timing"] = phase_fused_timing(dev, tables, big_tables)
     results["fused_chain"] = phase_fused_chain(dev, tables, big_tables)
     results["fused_slice"] = phase_fused_slice(dev)
+    results["fused_large"] = phase_fused_large(dev)
+    results["fused_sweep"] = phase_fused_sweep(dev)
+    results["perm_large"] = phase_perm_large(dev)
     results["split_probe"] = phase_split_probe(dev)
     results["split_timing"] = phase_split_timing(dev)
     emit({"kernels": kernels_line(results)})

@@ -7,7 +7,8 @@ compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 PyTorch's headers, so a build takes seconds.  The library's file name
 carries a hash of its source and flags, so an edited source never loads a
 stale build.  ``build_all`` compiles several sources at once, one ``nvcc``
-each.  ``pick_tile`` is the column-tile rule the fused wrappers launch by.
+each.  ``pick_tile`` is the column-tile rule of the tensor cores'
+shared-memory mainloop.
 
 ``LAUNCHES`` holds one count per kernel; each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its gossip
@@ -44,11 +45,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOADED: dict = {}
 
 #: kernel launches, counted by each wrapper where it launches its kernel;
-#: the fused wrappers also count each path ("fused_gossip/<path>")
+#: the fused and perm wrappers also count each path ("fused_gossip/<path>",
+#: "perm_gossip/<path>")
 LAUNCHES = {"perm_gossip_dbuf": 0, "perm_gossip_stream": 0,
             "fused_gossip": 0, "split_gossip": 0,
             "fused_gossip/fma_regs": 0, "fused_gossip/fma": 0,
             "fused_gossip/tc_regs": 0, "fused_gossip/tensor_core": 0,
+            "fused_gossip/fma_step": 0, "fused_gossip/tc_step": 0,
+            "perm_gossip/slab": 0, "perm_gossip/step": 0,
             "split_gossip/tensor_core": 0, "split_gossip/split": 0}
 
 
@@ -149,4 +153,5 @@ def pick_tile(kernel: str, smem_bytes, limit: int, n: int, block_d: int,
     raise ValueError(
         f"{kernel}: {n} workers need {need} B of shared memory at the "
         f"narrowest tile ({tiles[-1]} columns), more than the {limit} B a "
-        f"block may use; a large-N tiling is still to be ported (ROADMAP.md)")
+        f"block may use (the split probe's schedule keeps this cap, "
+        f"ROADMAP.md; fused_gossip_run takes such N one step at a time)")

@@ -96,6 +96,15 @@ def make_decen(
 
     multi_step = multi_step_masked = None
     if backend == "gather":
+        if perms.shape[1] >= 64:
+            warnings.warn(
+                f"gossip_backend='gather' walks the full state once per "
+                f"matching and is the slowest backend at N={perms.shape[1]}. "
+                f"Use backend='dense' or 'fused' (one card); 'gather' "
+                f"remains for small-N debugging and oracle tests.",
+                stacklevel=2,
+            )
+
         def mix(x, w, alive=None):
             return gossip_mix(x, perms, w, alive, wire_dtype=wire)
     elif backend in ("dense", "fused"):

@@ -1,5 +1,6 @@
 // Fused W-stack gossip on Hopper (sm_90a): T steps of x <- W_t @ x on a
-// worker-stacked state x[N, D], the state kept on chip for the whole chain.
+// worker-stacked state x[N, D], the state kept on chip for the whole chain
+// (one launch per step at large N, the state in device memory).
 //
 // Replaces the TPU kernels
 //   K3  matcha_tpu/parallel/pallas_gossip.py: fused_gossip_run (:182)
@@ -20,7 +21,7 @@
 // of x, so a column's whole chain runs in one CTA (the TPU kernel's
 // sequential step axis becomes a loop; Hopper CTAs run in no order).
 //
-// Five paths.  The wrapper picks one from N and the stack's dtype alone
+// Seven paths.  The wrapper picks one from N and the stack's dtype alone
 // (the state's dtype never changes the path), and never retries another:
 //
 // * FMA with the columns in registers (fma_regs_gossip_kernel): an f32
@@ -31,7 +32,7 @@
 //   in shared memory (wsm[t][k][i] = W_t[i, k]), so each k is NR/4
 //   broadcast LDS.128 feeding 2*NR FMAs.  The sums are the unbroken chain
 //   acc = __fmaf_rn(W[i,k], x[k], acc) from +0, k = 0 .. N-1 in order, as
-//   on the shared-memory FMA path, so both give the same bits.
+//   on the other FMA paths, so all give the same bits.
 // * Tensor cores chained in registers (tc_regs_gossip_kernel): a bf16
 //   stack and N <= 16 (padded to 16).  A warp runs the transposed product
 //   x^T <- x^T W_t^T with mma.sync.m16n8k16 (A = 16 columns x 16 workers
@@ -46,19 +47,30 @@
 //   step.
 // Both register paths run a persistent grid (as many CTAs as fit the
 // card), which walks the columns round-robin.
-// * FMA in shared memory (fused_gossip_kernel): an f32 stack and N > 16.
-//   One CTA per column tile [N, tile] loops over all T steps.  The tile
-//   sits in shared memory twice, "cur" and "next", as f32: step t+1 reads
-//   every row of step t's result, so the write cannot go in place.  Each
-//   thread accumulates an 8-row x 4-column register block; a warp's lanes
-//   form RL = 128/tile row groups of 32/RL column lanes, so per k a thread
-//   reads 8 W values as two float4 loads and 4 state values, then does 32
-//   FMAs.  Each step walks the rows in passes of warps*RL*8 rows.  W_t
-//   streams through shared memory in chunks of 8 k values, read along k
-//   into registers one chunk ahead and stored transposed, one barrier per
-//   chunk.
+// * The FMA chain (fma_chain_kernel): an f32 stack and 16 < N <= 256.
+//   One CTA of 256 threads per column tile [N, tile] runs all T steps.  A
+//   thread sums an 8 x 8 register block (rows 8g..8g+7, columns {4l..,
+//   tile/2+4l..}), so the CTA holds 16,384 sums: one whole step of
+//   R = 32, 64, 128 or 256 rows (>= N) by tile = 512, 256, 128 or 64
+//   columns.  The
+//   state tile therefore sits in shared memory once, as f32: when every
+//   thread has read it (one barrier) the step's sums overwrite it in place.
+//   Per k a thread reads W as two LDS.128 (broadcast in a quarter warp) and
+//   the state as two LDS.128 (8 consecutive granules a quarter warp), then
+//   does 64 FMAs.  W_t^T comes from a transposed copy of the stack
+//   (transpose_stack, once per chain, [t][k][R] with rows past N zero) in
+//   stages of 16 k values (32 where R <= 64) through a 3-stage ring filled
+//   by cp.async two stages ahead, one barrier per stage.
+// * FMA one launch per step (fma_step_kernel): an f32 stack and N > 256.
+//   The state stays in device memory, ping-ponging two buffers; each step
+//   is a tiled product of [128 x 128] output tiles (16 x 16 threads of the
+//   same 8 x 8 blocks), W_t^T (the transposed copy) and the state staged in
+//   8-k stages through registers into shared memory.  No split-K.
+// Every FMA path sums each element as the unbroken chain acc = fma(W[i,k],
+// x[k], acc) from +0, k = 0 .. N-1 in order, never multiplying a padded k,
+// so all three give the same bits.
 // * Tensor cores in shared memory (tc_gossip_kernel): a bf16 stack and
-//   N > 16, unsplit (K3) or split (K4, any N).
+//   16 < N <= 1024, unsplit (K3), or split (K4).
 //   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 fed by ldmatrix, f32
 //   accumulators in registers.  Every step rounds its input to bf16, so the
 //   state tile is held in shared memory as bf16 (cur and next, half the
@@ -88,6 +100,11 @@
 //   either.  The tensor cores' f32 sum need not round like a chain of
 //   FMAs, so the bf16 paths are held against the plain PyTorch version to
 //   one bf16 ulp of the output, not bitwise.
+// * Tensor cores one launch per step (tc_step_kernel): a bf16 stack and
+//   N > 1024.  The state stays in device memory; each step is a tiled
+//   product of [128 x 64] output tiles whose W and state chunks (32 k) go
+//   through the mainloop's swizzled layouts and the same ldmatrix/mma
+//   sequence per element, so it equals the shared-memory path bitwise.
 //
 // What bounds it (H100 SXM: 67 TFLOP/s FP32, 989 TFLOP/s bf16 dense, 3.35
 // TB/s).  The work is 2*N^2*D*T operations; device memory is read and
@@ -95,31 +112,29 @@
 // stack once.  At N = 16, D = 273,258 a short chain is bound by those bytes
 // (10.4 us at T = 1 for an f32 state), which the register paths move once
 // with no barrier in the way and the stack a few KB of shared memory.  A
-// long f32 chain is bound by the FP32 rate (0.134 ms at T = 64), where the
-// register path spends NR/4 LDS.128 per 2*NR FMAs; a long bf16 chain by
-// the tensor cores (9 us at T = 64), where the register path spends an
-// LDS.128, 4 mma and 8 packs per 32 columns and step.  Measured on an H100
-// (PERF.md), both register paths sit at about twice the byte bound at
-// T = 1, limited by how a load, the arithmetic and the store of a column
-// group follow each other.  On the shared-memory paths each CTA
-// re-reads the whole W_t from L2 every step, (D/tile)*T*N^2*2 B in all
-// (17.9 GB at tile 128, N = 256, T = 64; twice that with SPLIT) -- the
-// counterpart of the TPU kernel's (D/block_d)*T*N^2 (:17) -- so the
-// wrapper takes the widest tile that fits the SM (two CTAs per SM on the
-// FMA path, one on the tensor cores, whose 8 warps carry two W chunks in
-// flight).  Measured on an H100 (PERF.md), neither the tensor cores nor
-// that L2 stream binds the shared-memory mainloop at N = 256: it reaches
-// a fifth of the tensor-core rate, and a 64-column tile, which reads W_t
-// twice as often but fits two CTAs per SM, is faster.  Latency does, a
-// barrier every 32 k values with 8 warps to hide it; at small N the
-// kernel asks for two or three CTAs per SM (__launch_bounds__), which
-// caps its registers.
+// long f32 chain is bound by the FP32 rate (0.134 ms at T = 64, 34.2 ms at
+// N = 256), where the register path spends NR/4 LDS.128 per 2*NR FMAs and
+// the FMA chain 4 LDS.128 per 64; a long bf16 chain by the tensor cores,
+// where the register path spends an LDS.128, 4 mma and 8 packs per 32
+// columns and step.  On the shared-memory paths each CTA re-reads the
+// whole W_t from L2 every step, (D/tile)*T*N^2 elements in all -- the
+// counterpart of the TPU kernel's (D/block_d)*T*N^2 (:17) -- so the wider
+// the tile the better: the FMA chain takes the widest its 16,384 register
+// sums allow.  The per-step paths add a read and a write of the state per
+// step (2*N*D*bytes, 0.33 ms at N = 512 in f32) to a product of 2*N^2*D
+// operations (2.1 ms), which the card overlaps across CTAs.  Measured
+// times: PERF.md.
 //
-// Shared memory: FMA 4*(2*8*(rows+4) + 2*N*tile) B, rows = 8*RL*min(8,
-// ceil(N/(8*RL))); tensor cores 2*(rings*3*R*32 + 2*Npad*tile) B, R the
-// rows of a pass (64*MT), one ring unsplit, two split.  A CTA may use 227
-// KB, so N is bounded (at tile 32 about 840 on the FMA path, 1,400 on the
-// tensor cores and 1,000 split); the wrapper rejects a larger N.  The
+// Shared memory: the FMA chain 4*(N*tile + 3*K*R) B, K = 32 for R <= 64
+// else 16 (at most 112 KB: two CTAs per SM); the per-step FMA kernel 16
+// KB, the per-step tensor cores 24 KB (static); the tensor cores'
+// mainloop 2*(rings*3*R*32 + 2*Npad*tile) B, R the rows of a pass (64*MT),
+// one ring unsplit, two split.  A CTA may
+// use 227 KB, so that mainloop is bounded (at tile 32 about 1,424 workers,
+// 1,000 split); the wrapper sends N > 1024 one step at a time, and the
+// split probe keeps its cap.  Device memory the wrapper allocates per call
+// (fused_gossip_scratch_bytes): the transposed f32 stack (FMA chain and
+// per-step FMA) and the states between steps (per-step paths).  The
 // register paths: the staged stack, at most 64 KB (window steps of
 // 4*NR^2 or 512 B), plus two 2,304 B staging buffers per warp on the
 // tensor cores.  Their grid comes from the occupancy API once per kernel,
@@ -198,207 +213,324 @@ __device__ __forceinline__ void store_pair(StateT* __restrict__ out,
   if (col + 1 < d) Dtype<StateT>::store(p + 1, b);
 }
 
-// ------------------------------------------------ FMA path (f32 stack)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// ------------------------------------------------ FMA paths (f32 stack)
 
 namespace fp32 {
 
-constexpr int kRowsPerThread = 8;  // rows of a thread's register block
-constexpr int kColsPerThread = 4;  // columns of a thread's register block
-constexpr int kChunk = 8;          // k values of W_t staged at a time
-constexpr int kPad = 4;  // floats after each k of the chunk: 4-way, not
-                         // 32-way, bank conflicts on the transposing store
-constexpr int kMaxWarps = 8;
+constexpr int kThreads = 256;
+constexpr int kBlock = 8;                                // 8 x 8 per thread
+constexpr int kOutputs = kThreads * kBlock * kBlock;     // 16,384 per CTA
+// k values of W_t^T per ring stage of the chain: 32 where a step has at
+// most 64 rows of sums (fewer barriers per step at small N), else 16
+// (three stages and the state tile then leave room for two CTAs per SM)
+__host__ __device__ constexpr int stage_k(int rows) {
+  return rows <= 64 ? 32 : 16;
+}
+constexpr int kStages = 3;   // ring stages (chain)
+constexpr int kStepRows = 128, kStepCols = 128;  // a step CTA's tile
+constexpr int kStepK = 8;    // k values per stage (step)
 
-// row groups per warp for a tile width: 32/rl column lanes x 4 columns
-__host__ __device__ inline int row_groups(int tile) { return 128 / tile; }
+// The chain's launch shape: `tile` columns (512, 256, 128 or 64) and
+// kOutputs / tile rows (32, 64, 128 or 256), the rows of one step's sums.
+__host__ __device__ inline int chain_rows(int tile) { return kOutputs / tile; }
 
-__host__ __device__ inline int warps_for(int n, int tile) {
-  const int per_warp = kRowsPerThread * row_groups(tile);
-  const int w = (n + per_warp - 1) / per_warp;
-  return w < kMaxWarps ? w : kMaxWarps;
+__host__ __device__ inline bool chain_takes(int n, int tile) {
+  return (tile == 64 || tile == 128 || tile == 256 || tile == 512) &&
+         n <= chain_rows(tile);
 }
 
-__host__ __device__ inline size_t smem_bytes(int n, int tile) {
-  const size_t rows = static_cast<size_t>(warps_for(n, tile)) *
-                      kRowsPerThread * row_groups(tile);
-  return sizeof(float) *
-         (2 * kChunk * (rows + kPad) + 2 * static_cast<size_t>(n) * tile);
+__host__ __device__ inline size_t chain_smem_bytes(int n, int tile) {
+  return sizeof(float) * (static_cast<size_t>(n) * tile +
+                          static_cast<size_t>(kStages) *
+                              stage_k(chain_rows(tile)) * chain_rows(tile));
 }
 
-// One chunk of W_t (kChunk k values of the pass's rows): each of a CTA's
-// threads loads `loads` values into registers, a warp reading consecutive
-// k of one row (coalesced); `stash_chunk` stores them down the columns of
-// the transposed chunk in shared memory.
-template <int LOADS>
-__device__ __forceinline__ void fetch_chunk(const float* __restrict__ w,
-                                            int n, int row0, int k0,
-                                            float (&reg)[LOADS]) {
-#pragma unroll
-  for (int l = 0; l < LOADS; ++l) {
-    const int e = threadIdx.x + l * blockDim.x;
-    const int i = row0 + e / kChunk;
-    const int k = k0 + e % kChunk;
-    reg[l] = (i < n && k < n) ? w[static_cast<size_t>(i) * n + k] : 0.0f;
-  }
+__host__ __device__ inline int step_ldw(int n) {
+  return (n + kStepRows - 1) / kStepRows * kStepRows;
 }
 
-template <int LOADS>
-__device__ __forceinline__ void stash_chunk(const float (&reg)[LOADS],
-                                            float* buf, int wstride) {
-#pragma unroll
-  for (int l = 0; l < LOADS; ++l) {
-    const int e = threadIdx.x + l * blockDim.x;
-    buf[(e % kChunk) * wstride + e / kChunk] = reg[l];
-  }
-}
-
-template <typename StateT, int RL>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-    fused_gossip_kernel(const StateT* __restrict__ x, StateT* __restrict__ out,
-                        const float* __restrict__ stack, int n, long long d,
-                        int t_steps) {
-  constexpr int kLanes = 32 / RL;                   // column lanes
-  constexpr int kTile = kLanes * kColsPerThread;    // 128 / 64 / 32
-  constexpr int kLoads = kChunk * kRowsPerThread * RL / 32;
-  extern __shared__ __align__(16) float smem[];
-  const int cl = threadIdx.x % kLanes;              // column lane
-  const int rg = threadIdx.x / kLanes;              // row group in the CTA
-  const int rows = (blockDim.x / kLanes) * kRowsPerThread;  // per pass
-  const int wstride = rows + kPad;
-  const int wsize = kChunk * wstride;
-  float* wsm = smem;                                // [2][kChunk][wstride]
-  float* cur = wsm + 2 * wsize;                     // [n][kTile]
-  float* nxt = cur + static_cast<size_t>(n) * kTile;  // [n][kTile]
-  const long long col0 = static_cast<long long>(blockIdx.x) * kTile;
-
-  // The chain is a flat sequence of chunks q = ((t * passes) + p) * kchunks
-  // + c: step t, row pass p, k chunk c.  Chunk q+1 waits in shared memory
-  // and chunk q+2 in registers while chunk q is multiplied; (ft, fp, fc)
-  // is the position of the next chunk to fetch.
-  const int passes = (n + rows - 1) / rows;
-  const int kchunks = (n + kChunk - 1) / kChunk;
-  const long long q_total = static_cast<long long>(t_steps) * passes * kchunks;
-  int ft = 0, fp = 0, fc = 0;
-  auto fetch = [&](float (&reg)[kLoads]) {
-    if (ft == t_steps) return;
-    fetch_chunk(stack + static_cast<size_t>(ft) * n * n, n, fp * rows,
-                fc * kChunk, reg);
-    if (++fc == kchunks) {
-      fc = 0;
-      if (++fp == passes) {
-        fp = 0;
-        ++ft;
+// wt[t][k][i] = w[t][i][k] for i < n, 0 for n <= i < ldw (k < n): the
+// stack transposed once per chain, each k a contiguous row of ldw floats,
+// so a ring stage is a straight 16-byte copy already in the [k][rows]
+// layout the register blocks read.  32 x 32 tiles through shared memory
+// (padded against bank conflicts), coalesced on both sides.
+__global__ void transpose_stack(const float* __restrict__ w,
+                                float* __restrict__ wt, int n, int ldw,
+                                int t_steps) {
+  __shared__ float tile[32][33];
+  const int i0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  for (int t = blockIdx.z; t < t_steps; t += gridDim.z) {
+    const float* src = w + static_cast<size_t>(t) * n * n;
+    float* dst = wt + static_cast<size_t>(t) * n * ldw;
+    for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+      const int i = i0 + r, k = k0 + threadIdx.x;
+      tile[r][threadIdx.x] =
+          i < n && k < n ? src[static_cast<size_t>(i) * n + k] : 0.0f;
+    }
+    __syncthreads();
+    for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+      const int k = k0 + r, i = i0 + threadIdx.x;
+      if (k < n && i < ldw) {
+        dst[static_cast<size_t>(k) * ldw + i] = tile[threadIdx.x][r];
       }
     }
-  };
-
-  float pre[kLoads];
-  fetch(pre);
-  stash_chunk(pre, wsm, wstride);
-  fetch(pre);
-  for (int e = threadIdx.x; e < n * kTile; e += blockDim.x) {
-    const int r = e / kTile;
-    const long long col = col0 + e % kTile;
-    cur[e] = col < d ? Dtype<StateT>::load(x + r * d + col) : 0.0f;
-  }
-  __syncthreads();
-
-  float acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[r][j] = 0.0f;
-  }
-  int t = 0, p = 0, c = 0;
-  for (long long q = 0; q < q_total; ++q) {
-    const int k0 = c * kChunk;
-    const int klen = min(kChunk, n - k0);
-    const float* wk = wsm + (q & 1) * wsize + rg * kRowsPerThread;
-    const float* ck = cur + static_cast<size_t>(k0) * kTile + cl;
-#pragma unroll 4
-    for (int kk = 0; kk < klen; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(wk + kk * wstride);
-      const float4 b = *reinterpret_cast<const float4*>(wk + kk * wstride + 4);
-      const float wv[kRowsPerThread] = {a.x, a.y, a.z, a.w,
-                                        b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        const float v = ck[kk * kTile + kLanes * j];
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          acc[r][j] = __fmaf_rn(wv[r], v, acc[r][j]);
-        }
-      }
-    }
-    if (++c == kchunks) {  // the pass's rows are summed: write them
-      c = 0;
-      const bool last = t + 1 == t_steps;
-#pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const int i = p * rows + rg * kRowsPerThread + r;
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) {
-          const float s = Dtype<StateT>::round(acc[r][j]);
-          acc[r][j] = 0.0f;
-          if (i >= n) continue;
-          if (last) {
-            const long long col = col0 + cl + kLanes * j;
-            if (col < d) Dtype<StateT>::store(out + i * d + col, s);
-          } else {
-            nxt[i * kTile + cl + kLanes * j] = s;
-          }
-        }
-      }
-      if (++p == passes) {  // the step is done: its result is the input
-        p = 0;
-        ++t;
-        float* done = cur;
-        cur = nxt;
-        nxt = done;
-      }
-    }
-    // the other buffer was last read in chunk q-1, before the last barrier
-    if (q + 1 < q_total) {
-      stash_chunk(pre, wsm + ((q + 1) & 1) * wsize, wstride);
-    }
-    fetch(pre);
-    // chunk q+1 is stored, the rows written in this chunk are visible to
-    // the next step, and cur is read no more before the step after
-    // overwrites it
     __syncthreads();
   }
 }
 
-template <typename StateT, int RL>
-cudaError_t launch(const void* x, void* out, const void* stack, int n,
-                   long long d, int t_steps, cudaStream_t stream) {
-  auto kernel = fused_gossip_kernel<StateT, RL>;
-  constexpr int tile = 128 / RL;
-  const size_t smem = smem_bytes(n, tile);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// One k of a thread's 8 x 8 block: rows 8g .. 8g+7 of W^T row `wk` (wk
+// points at 8g) and columns {4l.., HC+4l..} of state row `xk` (xk points
+// at 4l): 4 LDS.128, 64 FMAs, each the next link of its element's chain
+// acc = fma(W[i,k], x[k], acc).
+template <int HC>
+__device__ __forceinline__ void fma_k(float (&acc)[kBlock][kBlock],
+                                      const float* wk, const float* xk) {
+  const float4 w0 = *reinterpret_cast<const float4*>(wk);
+  const float4 w1 = *reinterpret_cast<const float4*>(wk + 4);
+  const float4 x0 = *reinterpret_cast<const float4*>(xk);
+  const float4 x1 = *reinterpret_cast<const float4*>(xk + HC);
+  const float wv[kBlock] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  const float xv[kBlock] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+  for (int r = 0; r < kBlock; ++r) {
+#pragma unroll
+    for (int c = 0; c < kBlock; ++c) {
+      acc[r][c] = __fmaf_rn(wv[r], xv[c], acc[r][c]);
+    }
   }
-  const unsigned blocks = static_cast<unsigned>((d + tile - 1) / tile);
-  kernel<<<blocks, warps_for(n, tile) * 32, smem, stream>>>(
-      static_cast<const StateT*>(x), static_cast<StateT*>(out),
-      static_cast<const float*>(stack), n, d, t_steps);
-  return cudaGetLastError();
 }
 
-template <typename StateT>
-cudaError_t dispatch(int tile, const void* x, void* out, const void* stack,
-                     int n, long long d, int t_steps, cudaStream_t s) {
-  switch (tile) {
-    case 32:
-      return launch<StateT, 4>(x, out, stack, n, d, t_steps, s);
-    case 64:
-      return launch<StateT, 2>(x, out, stack, n, d, t_steps, s);
-    default:
-      return launch<StateT, 1>(x, out, stack, n, d, t_steps, s);
+// The thread's 8 x 8 block to device memory: rows row0 + 8g + r, columns
+// col0 + {4l.., HC+4l..}, as pairs where `vec`.
+template <typename StateT, int HC>
+__device__ __forceinline__ void store_block(StateT* __restrict__ out,
+                                            const float (&acc)[kBlock][kBlock],
+                                            int n, long long d, int row0,
+                                            long long col0, int g, int l,
+                                            int vec) {
+#pragma unroll
+  for (int r = 0; r < kBlock; ++r) {
+    const int i = row0 + 8 * g + r;
+    if (i >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long col = col0 + h * HC + 4 * l;
+      store_pair(out, i, d, col, vec, acc[r][4 * h], acc[r][4 * h + 1]);
+      store_pair(out, i, d, col + 2, vec, acc[r][4 * h + 2],
+                 acc[r][4 * h + 3]);
+    }
   }
+}
+
+// The chain: one CTA per column tile [n, TILE] runs all T steps.  RG row
+// groups of 8 rows (8*RG >= n) by CL = 256/RG column lanes of 8 columns
+// (a quarter warp reads one W granule pair, broadcast, and 8 consecutive
+// state granules, so neither read has a bank conflict):
+// one step's N x TILE sums are the 256 threads' 8 x 8 blocks, all in
+// registers, so the state tile sits in shared memory ONCE and is
+// overwritten in place behind one barrier when every thread has read it.
+// W_t^T streams through a 3-stage ring of kStageK k values filled by
+// cp.async two stages ahead, one barrier per stage.
+template <typename StateT, int RG>
+__global__ void __launch_bounds__(kThreads, 2)
+    fma_chain_kernel(const StateT* __restrict__ x, StateT* __restrict__ out,
+                     const float* __restrict__ wt, int n, long long d,
+                     int t_steps, int vec) {
+  constexpr int CL = kThreads / RG;
+  constexpr int kRows = kBlock * RG;  // = wt's ldw
+  constexpr int kTile = kBlock * CL;
+  constexpr int kStageK = stage_k(kRows);
+  constexpr int kSlot = kStageK * kRows;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                    // [kStages][kStageK][kRows]
+  float* st = ring + kStages * kSlot;    // [n][kTile]
+  const int l = threadIdx.x % CL, g = threadIdx.x / CL;
+  const long long col0 = static_cast<long long>(blockIdx.x) * kTile;
+  const int kchunks = (n + kStageK - 1) / kStageK;
+  // a thread whose 8 rows all lie past n sums nothing (whole warps where
+  // the tile is 256 columns or wider)
+  const bool idle = 8 * g >= n;
+  const long long q_total = static_cast<long long>(t_steps) * kchunks;
+
+  long long fq = 0;  // the next stage to fetch: step fq / kchunks
+  auto fetch = [&]() {
+    if (fq < q_total) {
+      const int c = static_cast<int>(fq % kchunks);
+      const int k0 = c * kStageK;
+      const int granules = min(kStageK, n - k0) * kRows / 4;
+      const float* src =
+          wt + (static_cast<size_t>(fq / kchunks) * n + k0) * kRows;
+      float* dst = ring + static_cast<int>(fq % kStages) * kSlot;
+      for (int q = threadIdx.x; q < granules; q += kThreads) {
+        cp_async16(dst + 4 * q, src + 4 * q);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+    ++fq;
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch();
+  for (int e = threadIdx.x; e < n * kTile; e += kThreads) {
+    const long long col = col0 + e % kTile;
+    st[e] = col < d ? Dtype<StateT>::load(x + (e / kTile) * d + col) : 0.0f;
+  }
+
+  float acc[kBlock][kBlock];
+#pragma unroll
+  for (int r = 0; r < kBlock; ++r) {
+#pragma unroll
+    for (int c = 0; c < kBlock; ++c) acc[r][c] = 0.0f;
+  }
+  int t = 0, c = 0;
+  for (long long q = 0; q < q_total; ++q) {
+    cp_async_wait<kStages - 2>();  // this thread's part of stage q
+    // all of stage q landed; the slot of stage q-1 is free; the state
+    // (loaded, or written back by the last step) is visible
+    __syncthreads();
+    fetch();  // stage q+2, into the slot of stage q-1
+    const int k0 = c * kStageK;
+    const int klen = min(kStageK, n - k0);
+    const float* w = ring + static_cast<int>(q % kStages) * kSlot + 8 * g;
+    const float* xs = st + static_cast<size_t>(k0) * kTile + 4 * l;
+    if (idle) {
+    } else if (klen == kStageK) {
+#pragma unroll
+      for (int kk = 0; kk < kStageK; ++kk) {
+        fma_k<kTile / 2>(acc, w + kk * kRows, xs + kk * kTile);
+      }
+    } else {
+#pragma unroll 4
+      for (int kk = 0; kk < klen; ++kk) {
+        fma_k<kTile / 2>(acc, w + kk * kRows, xs + kk * kTile);
+      }
+    }
+    if (++c < kchunks) continue;
+    c = 0;
+    if (++t == t_steps) {
+      store_block<StateT, kTile / 2>(out, acc, n, d, 0, col0, g, l, vec);
+      break;
+    }
+    __syncthreads();  // every thread has read the whole state: overwrite
+#pragma unroll
+    for (int r = 0; r < kBlock; ++r) {
+      const int i = 8 * g + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = make_float4(Dtype<StateT>::round(acc[r][4 * h]),
+                                     Dtype<StateT>::round(acc[r][4 * h + 1]),
+                                     Dtype<StateT>::round(acc[r][4 * h + 2]),
+                                     Dtype<StateT>::round(acc[r][4 * h + 3]));
+        // rows past n are never stored (their W rows are zero, but a zero
+        // times an inf is NaN) and never read
+        if (i < n) {
+          *reinterpret_cast<float4*>(st + static_cast<size_t>(i) * kTile +
+                                     h * (kTile / 2) + 4 * l) = v;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][4 * h + j] = 0.0f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// One step of the large-N path: dst = state(W_t @ src) for a [128 x 128]
+// output tile per CTA, 16 x 16 threads of 8 x 8 blocks; W_t^T (the
+// transposed copy, [k][ldw]) and src both stream through shared memory in
+// stages of kStepK k values, loaded into registers one stage ahead and
+// stored behind the current stage's products (one barrier per stage).  k
+// runs 0 .. n-1 in order, so every element is the chain's sum bitwise.
+template <typename StateT>
+__global__ void __launch_bounds__(kThreads, 2)
+    fma_step_kernel(const StateT* __restrict__ src, StateT* __restrict__ dst,
+                    const float* __restrict__ wt, int n, int ldw,
+                    long long d, int vec) {
+  constexpr int CL = 16;
+  __shared__ __align__(16) float ws[2][kStepK][kStepRows];
+  __shared__ __align__(16) float xs[2][kStepK][kStepCols];
+  const int l = threadIdx.x % CL, g = threadIdx.x / CL;
+  // column tiles fastest (blockIdx.x): a W_t^T row tile stays in L2 for
+  // the CTAs in flight (row tiles fastest measured 1.2-1.3x slower)
+  const int row0 = blockIdx.y * kStepRows;
+  const long long col0 = static_cast<long long>(blockIdx.x) * kStepCols;
+  const int kchunks = (n + kStepK - 1) / kStepK;
+  // this thread's loads: float4s of W^T (k = tid/32 + 8j, rows
+  // 4*(tid%32)), and state values (column tid%128, k = tid/128 + 2j)
+  constexpr int kWLoads = kStepK * kStepRows / 4 / kThreads;
+  constexpr int kXLoads = kStepK * kStepCols / kThreads;
+  const int wk = threadIdx.x / 32, wr = 4 * (threadIdx.x % 32);
+  const int xc = threadIdx.x % kStepCols, xk = threadIdx.x / kStepCols;
+  const long long col = col0 + xc;
+  const bool idle = row0 + 8 * g >= n;
+  float4 wreg[kWLoads];
+  float xreg[kXLoads];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      const int k = k0 + wk + 8 * j;
+      wreg[j] = k < n ? *reinterpret_cast<const float4*>(
+                            wt + static_cast<size_t>(k) * ldw + row0 + wr)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int j = 0; j < kXLoads; ++j) {
+      const int k = k0 + xk + 2 * j;
+      xreg[j] = k < n && col < d ? Dtype<StateT>::load(src + k * d + col)
+                                 : 0.0f;
+    }
+  };
+  auto stash = [&](int b) {
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      *reinterpret_cast<float4*>(&ws[b][wk + 8 * j][wr]) = wreg[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kXLoads; ++j) xs[b][xk + 2 * j][xc] = xreg[j];
+  };
+  float acc[kBlock][kBlock];
+#pragma unroll
+  for (int r = 0; r < kBlock; ++r) {
+#pragma unroll
+    for (int c = 0; c < kBlock; ++c) acc[r][c] = 0.0f;
+  }
+  load(0);
+  stash(0);
+  __syncthreads();
+  for (int c = 0; c < kchunks; ++c) {
+    const bool more = c + 1 < kchunks;
+    if (more) load((c + 1) * kStepK);
+    const int klen = min(kStepK, n - c * kStepK);
+    const int b = c & 1;
+    if (!idle) {
+#pragma unroll 4
+      for (int kk = 0; kk < klen; ++kk) {
+        fma_k<kStepCols / 2>(acc, &ws[b][kk][8 * g], &xs[b][kk][4 * l]);
+      }
+    }
+    // the other buffer was last read in stage c-1, before the last barrier
+    if (more) stash(b ^ 1);
+    __syncthreads();
+  }
+  store_block<StateT, kStepCols / 2>(dst, acc, n, d, row0, col0, g, l, vec);
 }
 
 }  // namespace fp32
@@ -439,25 +571,6 @@ __host__ __device__ inline size_t smem_bytes(int n, int tile, bool split) {
                       m_tiles(n) * kStageK;
   return sizeof(bf16) * ((split ? 2 : 1) * ring +
                          2 * static_cast<size_t>(pad16(n)) * tile);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // the CTA's barrier (unsplit) or the half's named barrier (split); ids 1
@@ -750,6 +863,135 @@ cudaError_t dispatch(int tile, const void* x, void* out, const void* stack,
   }
 }
 
+// One step of the large-N path on the tensor cores: dst = state(W_t @
+// src) for a [128 rows x 64 columns] output tile per CTA.  8 warps, 4 along
+// the rows (two m16 tiles each) and 2 along the columns (four n8 tiles
+// each).  W_t (the zero-padded bf16 stack) and src, rounded to bf16, both
+// stream through shared memory in chunks of 32 k, loaded into registers one
+// chunk ahead and stored behind the current chunk's products, in the
+// shared-memory mainloop's swizzled layouts (w_idx, state_idx).  Each
+// output element runs the mainloop's mma sequence: acc from 0, the k16
+// steps in order, k < npad; so this path equals tc_gossip_kernel bitwise.
+constexpr int kStepRows = 128, kStepCols = 64;
+
+template <typename StateT>
+__global__ void __launch_bounds__(kThreads, 2)
+    tc_step_kernel(const StateT* __restrict__ src, StateT* __restrict__ dst,
+                   const bf16* __restrict__ w, int n, long long d) {
+  constexpr int MT = 2, NT = 4;
+  __shared__ __align__(128) bf16 ws[2][kStepRows * kStageK];
+  __shared__ __align__(128) bf16 xs[2][kStageK * kStepCols];
+  const int npad = pad16(n);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  // row tiles fastest: the CTAs in flight share their columns of the
+  // state, read from device memory once (measured 1.12x faster than column
+  // tiles fastest at N = 4095, where the bf16 stack fits L2)
+  const int row_tiles = (npad + kStepRows - 1) / kStepRows;
+  const int row0 = static_cast<int>(blockIdx.x % row_tiles) * kStepRows;
+  const long long col0 =
+      static_cast<long long>(blockIdx.x / row_tiles) * kStepCols;
+  const int kchunks = (npad + kStageK - 1) / kStageK;
+  // loads: two 16-byte granules of W (row gi/4, granule gi%4), and eight
+  // state values (column tid%64, k = tid/64 + 4j)
+  uint4 wreg[2];
+  float xreg[8];
+  const int xc = threadIdx.x % kStepCols, xk = threadIdx.x / kStepCols;
+  const long long col = col0 + xc;
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int gi = threadIdx.x + j * kThreads;
+      const int r = row0 + gi / 4, k = k0 + (gi % 4) * 8;
+      wreg[j] = r < npad && k < npad
+                    ? *reinterpret_cast<const uint4*>(
+                          w + static_cast<size_t>(r) * npad + k)
+                    : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + xk + 4 * j;
+      xreg[j] = k < n && col < d ? Dtype<StateT>::load(src + k * d + col)
+                                 : 0.0f;
+    }
+  };
+  auto stash = [&](int b) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int gi = threadIdx.x + j * kThreads;
+      *reinterpret_cast<uint4*>(ws[b] + w_idx(gi / 4, gi % 4)) = wreg[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      xs[b][state_idx<kStepCols>(xk + 4 * j, xc)] =
+          __float2bfloat16_rn(xreg[j]);
+    }
+  };
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0f;
+    }
+  }
+  const int a_row = lane & 15, a_gran = lane >> 4;
+  const int a_swz = (a_row >> 1) & 3;
+  const int b_k = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int b_col = wn * NT * 8 + (lane >> 4) * 8;
+  const int m_row0 = wm * MT * 16;
+  load(0);
+  stash(0);
+  __syncthreads();
+  for (int c = 0; c < kchunks; ++c) {
+    const bool more = c + 1 < kchunks;
+    if (more) load((c + 1) * kStageK);
+    const bf16* wb = ws[c & 1];
+    const bf16* xb = xs[c & 1];
+#pragma unroll
+    for (int s = 0; s < kStageK / kK; ++s) {
+      if (c * kStageK + s * kK >= npad) break;
+      uint32_t b[NT / 2][4];
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        ldsm_x4_trans(b[j], xb + state_idx<kStepCols>(s * kK + b_k,
+                                                      b_col + j * 16));
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        uint32_t a[4];
+        ldsm_x4(a, wb + (m_row0 + i * 16 + a_row) * kStageK +
+                       (((2 * s + a_gran) ^ a_swz) << 3));
+#pragma unroll
+        for (int j = 0; j < NT / 2; ++j) {
+          mma(acc[i][2 * j], a, b[j][0], b[j][1]);
+          mma(acc[i][2 * j + 1], a, b[j][2], b[j][3]);
+        }
+      }
+    }
+    // the other buffers were last read in chunk c-1, before the barrier
+    if (more) stash((c & 1) ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const long long gc = col0 + wn * NT * 8 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row0 + m_row0 + i * 16 + (lane >> 2) + 8 * hh;
+        if (r >= n) continue;
+        if (gc < d) Dtype<StateT>::store(dst + r * d + gc, acc[i][j][2 * hh]);
+        if (gc + 1 < d) {
+          Dtype<StateT>::store(dst + r * d + gc + 1, acc[i][j][2 * hh + 1]);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace tc
 
 // ----------------------------------------- register paths (N <= 16)
@@ -767,7 +1009,7 @@ template <int BYTES>
 __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
                                                bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                   tc::smem_u32(dst)),
+                   smem_u32(dst)),
                "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
 }
 
@@ -1023,7 +1265,7 @@ __global__ void __launch_bounds__(kRegThreads)
     if (r < rounds) {
       stage_in(x, buf_of(r), n, d, it * kWarpCols, it < items, vec, lane);
     }
-    tc::cp_async_commit();  // one group per round, empty past the end
+    cp_async_commit();  // one group per round, empty past the end
   };
   load(0);
   load(1);
@@ -1037,7 +1279,7 @@ __global__ void __launch_bounds__(kRegThreads)
     const long long it = first + r * stride;
     const long long c0 = it * kWarpCols;
     float* buf = reinterpret_cast<float*>(buf_of(r));
-    tc::cp_async_wait<1>();  // this round's item has landed
+    cp_async_wait<1>();  // this round's item has landed
     __syncwarp();
     uint32_t a[kCT][4];
     a_fragments(buf_of(r), a, lane);
@@ -1101,7 +1343,7 @@ __global__ void __launch_bounds__(kRegThreads)
     __syncwarp();  // the buffer is read before the item two ahead lands
     load(r + 2);
   }
-  tc::cp_async_wait<0>();
+  cp_async_wait<0>();
 }
 
 }  // namespace tcregs
@@ -1178,19 +1420,24 @@ const void* pick_fma_regs(int rows) {
                    : entry(fregs::fma_regs_gossip_kernel<StateT, 16>);
 }
 
-// Paths: 0 = FMA (f32 stack, shared memory), 1 = tensor cores unsplit, 2 =
-// tensor cores split, 3 = FMA with the columns in registers (f32 stack,
-// n <= 16), 4 = tensor cores chained in registers (bf16 stack, n <= 16).
-enum Path { kFma = 0, kTc = 1, kSplit = 2, kFmaRegs = 3, kTcRegs = 4 };
+// Paths: 0 = FMA chain (f32 stack, 16 < n <= 256, one state tile in
+// shared memory), 1 = tensor cores unsplit, 2 = tensor cores split, 3 =
+// FMA with the columns in registers (f32 stack, n <= 16), 4 = tensor cores
+// chained in registers (bf16 stack, n <= 16), 5 = FMA one launch per step
+// (f32 stack, large n), 6 = tensor cores one launch per step (bf16 stack,
+// large n).
+enum Path {
+  kFma = 0, kTc = 1, kSplit = 2, kFmaRegs = 3, kTcRegs = 4, kFmaStep = 5,
+  kTcStep = 6
+};
 
-// Whether a shared-memory `path` takes `tile` columns.
-bool path_takes_tile(int tile, int path) {
-  return path == kFma ? (tile == 32 || tile == 64 || tile == 128)
-                      : tc::n_tiles(tile) != 0;
+// Whether a shared-memory `path` (0-2) takes `tile` columns at n.
+bool path_takes_tile(int n, int tile, int path) {
+  return path == kFma ? fp32::chain_takes(n, tile) : tc::n_tiles(tile) != 0;
 }
 
 size_t path_smem_bytes(int n, int tile, int path) {
-  return path == kFma ? fp32::smem_bytes(n, tile)
+  return path == kFma ? fp32::chain_smem_bytes(n, tile)
                       : tc::smem_bytes(n, tile, path == kSplit);
 }
 
@@ -1207,15 +1454,135 @@ bool regs_take(int n, int path, int tile, int rows, int window) {
          tcregs::step_bytes() * window <= kStageBytes;
 }
 
+size_t align256(size_t b) { return (b + 255) & ~static_cast<size_t>(255); }
+
+// Scratch in device memory: the f32 stack transposed ([t][k][ldw], paths
+// 0 and 5), then, on the per-step paths, the states between steps (two
+// where t >= 3, one where t == 2).
+size_t wt_bytes(int n, int t_steps, int ldw) {
+  return align256(sizeof(float) * static_cast<size_t>(t_steps) * n * ldw);
+}
+
+size_t state_buffers(int t_steps) {
+  return t_steps >= 3 ? 2 : (t_steps == 2 ? 1 : 0);
+}
+
+long long scratch_bytes(int n, long long d, int t_steps, int path, int tile,
+                        int state_dtype) {
+  const size_t state =
+      align256((state_dtype == 0 ? 4 : 2) * static_cast<size_t>(n) * d);
+  switch (path) {
+    case kFma:
+      return static_cast<long long>(
+          wt_bytes(n, t_steps, fp32::chain_rows(tile)));
+    case kFmaStep:
+      return static_cast<long long>(wt_bytes(n, t_steps, fp32::step_ldw(n)) +
+                                    state_buffers(t_steps) * state);
+    case kTcStep:
+      return static_cast<long long>(state_buffers(t_steps) * state);
+    default:
+      return 0;
+  }
+}
+
+cudaError_t transpose(const float* stack, float* wt, int n, int ldw,
+                      int t_steps, cudaStream_t s) {
+  const dim3 grid((ldw + 31) / 32, (n + 31) / 32,
+                  t_steps < 65535 ? t_steps : 65535);
+  fp32::transpose_stack<<<grid, dim3(32, 8), 0, s>>>(stack, wt, n, ldw,
+                                                     t_steps);
+  return cudaGetLastError();
+}
+
+template <typename StateT, int RG>
+cudaError_t launch_chain(const void* x, void* out, const float* wt, int n,
+                         long long d, int t_steps, int vec, cudaStream_t s) {
+  auto kernel = fp32::fma_chain_kernel<StateT, RG>;
+  constexpr int tile = fp32::kBlock * fp32::kThreads / RG;
+  const size_t smem = fp32::chain_smem_bytes(n, tile);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((d + tile - 1) / tile);
+  kernel<<<blocks, fp32::kThreads, smem, s>>>(
+      static_cast<const StateT*>(x), static_cast<StateT*>(out), wt, n, d,
+      t_steps, vec);
+  return cudaGetLastError();
+}
+
+template <typename StateT>
+cudaError_t chain(int tile, const void* x, void* out, const float* wt, int n,
+                  long long d, int t_steps, int vec, cudaStream_t s) {
+  switch (tile) {
+    case 512:
+      return launch_chain<StateT, 4>(x, out, wt, n, d, t_steps, vec, s);
+    case 256:
+      return launch_chain<StateT, 8>(x, out, wt, n, d, t_steps, vec, s);
+    case 128:
+      return launch_chain<StateT, 16>(x, out, wt, n, d, t_steps, vec, s);
+    default:
+      return launch_chain<StateT, 32>(x, out, wt, n, d, t_steps, vec, s);
+  }
+}
+
+// The per-step paths: step t reads x (t = 0) or the buffer step t-1
+// wrote, and writes out (the last step) or buffer t % 2.
+template <typename StateT>
+cudaError_t steps(int path, const void* x, void* out, const void* stack,
+                  unsigned char* scratch, int n, long long d, int t_steps,
+                  int vec, cudaStream_t s) {
+  const StateT* src = static_cast<const StateT*>(x);
+  StateT* bufs[2];
+  const float* wt = reinterpret_cast<const float*>(scratch);
+  const int ldw = fp32::step_ldw(n);
+  size_t at = path == kFmaStep ? wt_bytes(n, t_steps, ldw) : 0;
+  const size_t state = align256(sizeof(StateT) * static_cast<size_t>(n) * d);
+  for (int b = 0; b < 2; ++b) bufs[b] =
+      reinterpret_cast<StateT*>(scratch + at + b * state);
+  if (path == kFmaStep) {
+    cudaError_t err = transpose(static_cast<const float*>(stack),
+                                reinterpret_cast<float*>(scratch), n, ldw,
+                                t_steps, s);
+    if (err != cudaSuccess) return err;
+  }
+  for (int t = 0; t < t_steps; ++t) {
+    StateT* dst = t + 1 == t_steps ? static_cast<StateT*>(out) : bufs[t % 2];
+    if (path == kFmaStep) {
+      const dim3 grid(static_cast<unsigned>((d + fp32::kStepCols - 1) /
+                                            fp32::kStepCols),
+                      (n + fp32::kStepRows - 1) / fp32::kStepRows);
+      fp32::fma_step_kernel<StateT><<<grid, fp32::kThreads, 0, s>>>(
+          src, dst, wt + static_cast<size_t>(t) * n * ldw, n, ldw, d, vec);
+    } else {
+      const int npad = tc::pad16(n);
+      const unsigned grid = static_cast<unsigned>(
+          (d + tc::kStepCols - 1) / tc::kStepCols *
+          ((npad + tc::kStepRows - 1) / tc::kStepRows));
+      tc::tc_step_kernel<StateT><<<grid, tc::kThreads, 0, s>>>(
+          src, dst,
+          static_cast<const tc::bf16*>(stack) +
+              static_cast<size_t>(t) * npad * npad,
+          n, d);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src = dst;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared memory one CTA of a shared-memory `path` (0, 1 or 2) needs at
-// `tile` columns, in bytes (the wrapper picks the tile), or -1 if `path`
-// does not take that tile.  Tiles: 32, 64 and 128 on every path.
+// `tile` columns, in bytes, or -1 if `path` does not take that tile at n.
+// Tiles: 64, 128, 256 and 512 on path 0 (n <= 16384 / tile); 32, 64 and 128 on
+// paths 1 and 2 (the wrapper picks the tile).
 long long fused_gossip_smem_bytes(int n, int tile, int path) {
-  if (n < 1 || path < kFma || path > kSplit || !path_takes_tile(tile, path)) {
+  if (n < 1 || path < kFma || path > kSplit ||
+      !path_takes_tile(n, tile, path)) {
     return -1;
   }
   return static_cast<long long>(path_smem_bytes(n, tile, path));
@@ -1232,38 +1599,64 @@ long long fused_gossip_reg_max_n(int path) {
 // Shared memory the register paths may give to the staged stack, in bytes.
 long long fused_gossip_stage_bytes() { return kStageBytes; }
 
+// Device memory a launch of `path` needs as `scratch`, in bytes (0 where
+// it needs none): the transposed f32 stack (paths 0 and 5) and the states
+// between steps (paths 5 and 6).
+long long fused_gossip_scratch_bytes(int n, long long d, int t_steps,
+                                     int path, int tile, int state_dtype) {
+  if (n < 1 || d < 1 || t_steps < 1) return -1;
+  return scratch_bytes(n, d, t_steps, path, tile, state_dtype);
+}
+
 // Run t_steps steps of x[n, d] <- stack[t] @ x into out[n, d] on `stream`
-// along `path` (see Path).  An f32 stack (paths 0, 3) is [t_steps, n, n];
-// a bf16 stack (paths 1, 2, 4) is [t_steps, npad, npad], npad = n rounded
-// up to a multiple of 16, zero-padded.  Paths 0-2 take one CTA per `tile`
-// columns (a tile fused_gossip_smem_bytes takes); rows and window
-// are unused.  The register paths take a persistent grid: `tile` columns
-// per CTA and round (path 3: 512; path 4: 256), `rows` the rows a thread
-// holds (path 3: 8 or 16, >= n; path 4: 16), and `window` the steps of the
-// stack staged at a time (at most fused_gossip_stage_bytes).  state_dtype: 0 = float32, 1 =
-// bfloat16.  Returns cudaGetLastError() after the launch (0 =
-// cudaSuccess), or cudaErrorInvalidValue for arguments the kernels do not
-// take.
-int fused_gossip_launch(const void* x, void* out, const void* stack, int n,
-                        long long d, int t_steps, int path, int tile,
-                        int rows, int window, int state_dtype,
-                        void* stream) {
-  if (n < 1 || d < 1 || t_steps < 1 || path < kFma || path > kTcRegs ||
+// along `path` (see Path).  An f32 stack (paths 0, 3, 5) is [t_steps, n,
+// n]; a bf16 stack (paths 1, 2, 4, 6) is [t_steps, npad, npad], npad = n
+// rounded up to a multiple of 16, zero-padded.  Path 0 takes `tile` = 64,
+// 128, 256 or 512 columns per CTA with 16384 / tile >= n rows; paths 1-2 one
+// CTA per `tile` columns (a tile fused_gossip_smem_bytes takes); rows and
+// window are unused there.  The register paths take a persistent grid:
+// `tile` columns per CTA and round (path 3: 512; path 4: 256), `rows` the
+// rows a thread holds (path 3: 8 or 16, >= n; path 4: 16), and `window`
+// the steps of the stack staged at a time (at most
+// fused_gossip_stage_bytes).  Paths 5 and 6 launch one kernel per step
+// (tile, rows and window unused).  `scratch` holds
+// fused_gossip_scratch_bytes of device memory (paths 0, 5 and 6).
+// state_dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError()
+// after the launches (0 = cudaSuccess), or cudaErrorInvalidValue for
+// arguments the kernels do not take.
+int fused_gossip_launch(const void* x, void* out, const void* stack,
+                        void* scratch, int n, long long d, int t_steps,
+                        int path, int tile, int rows, int window,
+                        int state_dtype, void* stream) {
+  if (n < 1 || d < 1 || t_steps < 1 || path < kFma || path > kTcStep ||
       (state_dtype != 0 && state_dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
+  // pairs move as one access where every row's pair is aligned: even d
+  // and base pointers aligned to a pair
+  const size_t pair = state_dtype == 0 ? 8 : 4;
+  int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % pair == 0 &&
+            reinterpret_cast<uintptr_t>(out) % pair == 0;
   cudaError_t err;
+  if (path == kFmaStep || path == kTcStep) {
+    if (scratch == nullptr && t_steps >= 2) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // intermediate states are [n, d] buffers of scratch (aligned): pairs
+    // there are aligned exactly where they are in x and out
+    auto* buf = static_cast<unsigned char*>(scratch);
+    err = state_dtype == 0
+              ? steps<float>(path, x, out, stack, buf, n, d, t_steps, vec, s)
+              : steps<__nv_bfloat16>(path, x, out, stack, buf, n, d, t_steps,
+                                     vec, s);
+    return static_cast<int>(err);
+  }
   if (path == kFmaRegs || path == kTcRegs) {
     if (!regs_take(n, path, tile, rows, window)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     window = window < t_steps ? window : t_steps;
-    // pairs move as one access where every row's pair is aligned: even d
-    // and base pointers aligned to a pair
-    const size_t pair = state_dtype == 0 ? 8 : 4;
-    int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % pair == 0 &&
-              reinterpret_cast<uintptr_t>(out) % pair == 0;
     void* args[] = {&x, &out, &stack, &n, &d, &t_steps, &window, &vec};
     const long long items = (d + tile - 1) / tile;
     if (path == kFmaRegs) {
@@ -1281,15 +1674,20 @@ int fused_gossip_launch(const void* x, void* out, const void* stack, int n,
     }
     return static_cast<int>(err);
   }
-  if (!path_takes_tile(tile, path) ||
+  if (!path_takes_tile(n, tile, path) ||
       path_smem_bytes(n, tile, path) > kMaxSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (path == kFma) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    float* wt = static_cast<float*>(scratch);
+    err = transpose(static_cast<const float*>(stack), wt, n,
+                    fp32::chain_rows(tile), t_steps, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
     err = state_dtype == 0
-              ? fp32::dispatch<float>(tile, x, out, stack, n, d, t_steps, s)
-              : fp32::dispatch<__nv_bfloat16>(tile, x, out, stack, n, d,
-                                             t_steps, s);
+              ? chain<float>(tile, x, out, wt, n, d, t_steps, vec, s)
+              : chain<__nv_bfloat16>(tile, x, out, wt, n, d, t_steps, vec,
+                                     s);
   } else if (path == kSplit) {
     err = tc::dispatch<true>(tile, x, out, stack, n, d, t_steps, state_dtype,
                              s);

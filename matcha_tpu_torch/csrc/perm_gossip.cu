@@ -511,9 +511,179 @@ long long card_ctas(KernelFn kernel, int threads, size_t smem) {
   return ctas;
 }
 
+// ------------------------------------------------- the per-step path
+//
+// Where no slab shape fits a CTA (N above 8192, or too many matchings for
+// the tables beside the image), the state stays in device memory: one
+// launch per step, ping-ponging two state buffers, each thread one column
+// pair of one row at a time, gathering its partners' pairs straight from
+// device memory (every lane of a CTA reads the same partner row, so the
+// reads are coalesced).  The arithmetic is the slab kernel's, operation
+// for operation: the wire image, the coefficient w_j * gate[j,i] once per
+// row, f32 accumulation in j order, unfused.  Zero terms are skipped
+// exactly as there, where every value of the step's wire image is below
+// 2^127: a flag per step, cleared by any CTA that writes (or, for step 0,
+// scans) a value at or above it.
+
+constexpr int kStepThreads = 256;
+constexpr int kStepCols = 2 * kStepThreads;  // a column pair a thread
+constexpr int kMaxGridY = 65535;
+
+template <typename StateT, bool WIRE_BF16>
+__global__ void __launch_bounds__(kStepThreads)
+    tame_scan(const StateT* __restrict__ x, long long total,
+              int* __restrict__ tame) {
+  bool ok = true;
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    ok = ok && fabsf(Wire<WIRE_BF16>::round(StateIO<StateT>::load(x + e))) <
+                   kTame;
+  }
+  if (!__syncthreads_and(ok) && threadIdx.x == 0) atomicAnd(tame, 0);
+}
+
+template <typename StateT, bool WIRE_BF16>
+__global__ void __launch_bounds__(kStepThreads)
+    perm_step_kernel(const StateT* __restrict__ src, StateT* __restrict__ dst,
+                     const float* __restrict__ w,
+                     const int* __restrict__ perms,
+                     const float* __restrict__ gate, int n, long long d,
+                     int m, const int* __restrict__ tame_in,
+                     int* __restrict__ tame_out, int vec) {
+  const bool skip = *tame_in != 0;
+  const long long col =
+      static_cast<long long>(blockIdx.x) * kStepCols + 2 * threadIdx.x;
+  bool ok = true;
+  for (int i = blockIdx.y; i < n; i += gridDim.y) {
+    float xs[1][2];
+    load_slab<StateT, 1>(src, xs, i, 0, n, d, col, vec);
+    const float xw0 = Wire<WIRE_BF16>::round(xs[0][0]);
+    const float xw1 = Wire<WIRE_BF16>::round(xs[0][1]);
+    float acc0 = 0.0f, acc1 = 0.0f;
+    for (int j = 0; j < m; ++j) {
+      const int k = j * n + i;
+      const float coef = __fmul_rn(w[j], gate[k]);
+      if (skip && coef == 0.0f) continue;  // uniform across the CTA
+      float pv[1][2];
+      load_slab<StateT, 1>(src, pv, perms[k], 0, n, d, col, vec);
+      acc0 = __fadd_rn(acc0, __fmul_rn(coef, __fsub_rn(
+                                 Wire<WIRE_BF16>::round(pv[0][0]), xw0)));
+      acc1 = __fadd_rn(acc1, __fmul_rn(coef, __fsub_rn(
+                                 Wire<WIRE_BF16>::round(pv[0][1]), xw1)));
+    }
+    xs[0][0] = StateIO<StateT>::round(__fadd_rn(xs[0][0], acc0));
+    xs[0][1] = StateIO<StateT>::round(__fadd_rn(xs[0][1], acc1));
+    store_slab<StateT, 1>(dst, xs, i, 0, n, d, col, vec);
+    ok = ok && (col >= d || fabsf(Wire<WIRE_BF16>::round(xs[0][0])) < kTame)
+            && (col + 1 >= d ||
+                fabsf(Wire<WIRE_BF16>::round(xs[0][1])) < kTame);
+  }
+  if (tame_out != nullptr && !__syncthreads_and(ok) && threadIdx.x == 0) {
+    atomicAnd(tame_out, 0);
+  }
+}
+
+size_t align256(size_t b) { return (b + 255) & ~static_cast<size_t>(255); }
+
+// Scratch: one tameness flag per step and one for the output, then the
+// states between steps (two where t >= 3, one where t == 2).
+size_t step_scratch_bytes(int n, long long d, int t_steps, int state_dtype) {
+  const size_t state =
+      align256((state_dtype == 0 ? 4 : 2) * static_cast<size_t>(n) * d);
+  const size_t bufs = t_steps >= 3 ? 2 : (t_steps == 2 ? 1 : 0);
+  return align256(sizeof(int) * (static_cast<size_t>(t_steps) + 1)) +
+         bufs * state;
+}
+
+template <typename StateT, bool WIRE_BF16>
+cudaError_t run_steps(const void* x, void* out, const float* weights,
+                      const int* perms, const float* gate,
+                      unsigned char* scratch, int n, long long d, int t_steps,
+                      int m, int vec, cudaStream_t s) {
+  int* tame = reinterpret_cast<int*>(scratch);
+  const size_t flags =
+      align256(sizeof(int) * (static_cast<size_t>(t_steps) + 1));
+  const size_t state = align256(sizeof(StateT) * static_cast<size_t>(n) * d);
+  StateT* bufs[2] = {reinterpret_cast<StateT*>(scratch + flags),
+                     reinterpret_cast<StateT*>(scratch + flags + state)};
+  // every flag nonzero ("tame") until a CTA clears it
+  cudaError_t err = cudaMemsetAsync(tame, 1, flags, s);
+  if (err != cudaSuccess) return err;
+  const StateT* src = static_cast<const StateT*>(x);
+  const long long total = static_cast<long long>(n) * d;
+  const long long scan_blocks = (total + kStepThreads - 1) / kStepThreads;
+  tame_scan<StateT, WIRE_BF16>
+      <<<static_cast<unsigned>(scan_blocks < 4096 ? scan_blocks : 4096),
+         kStepThreads, 0, s>>>(src, total, tame);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((d + kStepCols - 1) / kStepCols),
+                  n < kMaxGridY ? n : kMaxGridY);
+  for (int t = 0; t < t_steps; ++t) {
+    const bool last = t + 1 == t_steps;
+    StateT* dst = last ? static_cast<StateT*>(out) : bufs[t % 2];
+    perm_step_kernel<StateT, WIRE_BF16><<<grid, kStepThreads, 0, s>>>(
+        src, dst, weights + static_cast<size_t>(t) * m, perms, gate, n, d, m,
+        tame + t, last ? nullptr : tame + t + 1, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src = dst;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Device memory the per-step path needs as `scratch`, in bytes.
+long long perm_gossip_step_scratch_bytes(int n, long long d, int t_steps,
+                                         int state_dtype) {
+  if (n < 1 || d < 1 || t_steps < 1) return -1;
+  return static_cast<long long>(step_scratch_bytes(n, d, t_steps,
+                                                   state_dtype));
+}
+
+// The per-step path: t_padded launches of one step each on x[n, d] into
+// out[n, d], the state between steps in `scratch`
+// (perm_gossip_step_scratch_bytes).  Any n and m.  Returns
+// cudaGetLastError() after the launches (0 = cudaSuccess), or
+// cudaErrorInvalidValue for arguments it does not take.
+int perm_gossip_step_launch(const void* x, void* out, const void* weights,
+                            const void* perms, const void* gate,
+                            void* scratch, int n, long long d, int t_padded,
+                            int m, int state_dtype, int wire_dtype,
+                            void* stream) {
+  if (n < 1 || d < 1 || t_padded < 1 || m < 1 || scratch == nullptr ||
+      (state_dtype != 0 && state_dtype != 1) ||
+      (wire_dtype != 0 && wire_dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t pair = state_dtype == 0 ? 8 : 4;
+  int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % pair == 0 &&
+            reinterpret_cast<uintptr_t>(out) % pair == 0;
+  auto* buf = static_cast<unsigned char*>(scratch);
+  const float* w = static_cast<const float*>(weights);
+  const int* p = static_cast<const int*>(perms);
+  const float* g = static_cast<const float*>(gate);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (state_dtype == 0) {
+    err = wire_dtype ? run_steps<float, true>(x, out, w, p, g, buf, n, d,
+                                              t_padded, m, vec, s)
+                     : run_steps<float, false>(x, out, w, p, g, buf, n, d,
+                                               t_padded, m, vec, s);
+  } else {
+    err = wire_dtype
+              ? run_steps<__nv_bfloat16, true>(x, out, w, p, g, buf, n, d,
+                                               t_padded, m, vec, s)
+              : run_steps<__nv_bfloat16, false>(x, out, w, p, g, buf, n, d,
+                                                t_padded, m, vec, s);
+  }
+  return static_cast<int>(err);
+}
+
 
 // Shared memory one CTA needs, in bytes (the wrapper picks the shape).
 long long perm_gossip_smem_bytes(int n, int cols, int w_window, int m,

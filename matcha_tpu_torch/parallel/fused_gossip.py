@@ -18,21 +18,29 @@ The stack's dtype and N pick the kernel's path (:func:`kernel_path`):
 
 * float32 stack — FP32 FMA on CUDA cores (never TF32, which would change
   the result): for N ≤ ``N_REG_F32`` each thread holds its columns of all
-  N rows in registers (``FMA_REGS``), above that the tile sits in shared
-  memory (``FMA``).  Both sum in the same order and give the same bits;
-  held to the plain version within f32 rounding.
+  N rows in registers (``FMA_REGS``); up to ``N_CHAIN_F32`` one step's
+  sums fit the CTA's registers and the state tile sits in shared memory
+  once (``FMA``); above that one launch per step, the state in device
+  memory (``FMA_STEP``).  All three sum in the same order and give the
+  same bits; held to the plain version within f32 rounding.
 * bfloat16 stack — the tensor cores (``mma.sync`` on bf16 operands, f32
   accumulators): for N ≤ ``N_REG_TC`` a warp chains the steps' products in
-  registers (``TC_REGS``), above that the state tile is held in shared
-  memory as bf16 (``TENSOR_CORE``); held to the plain version within one
-  bf16 ulp of the output.  The split-step probe (``probes/split_probe.py``,
-  K4) runs the shared-memory mainloop with its split schedule (``SPLIT``).
+  registers (``TC_REGS``); up to ``N_SMEM_TC`` the state tile is held in
+  shared memory as bf16 (``TENSOR_CORE``); above that one launch per step
+  (``TC_STEP``), bitwise equal to ``TENSOR_CORE``; held to the plain
+  version within one bf16 ulp of the output.  The split-step probe
+  (``probes/split_probe.py``, K4) runs the shared-memory mainloop with its
+  split schedule (``SPLIT``).
 
 ``fused_gossip_run`` takes the plain PyTorch version, ``fused_gossip_plain``
 (one ``torch.matmul`` per step, TF32 off), for a tensor on the CPU only; a
 CUDA tensor launches the kernel of its path or raises: no path falls back
 to another.  ``LAUNCHES["fused_gossip"]`` counts kernel launches, and
-``LAUNCHES["fused_gossip/<path name>"]`` those of each path.
+``LAUNCHES["fused_gossip/<path name>"]`` those of each path (a per-step
+path's call counts once, whatever its T launches).  A per-step path (and
+the FMA chain, for its transposed copy of the stack) takes scratch in
+device memory from PyTorch's allocator; where the card cannot hold it, the
+allocation raises.
 """
 
 from __future__ import annotations
@@ -61,20 +69,33 @@ __all__ = [
 ]
 
 # The kernel's paths (``fused_gossip_launch``'s ``path``): FP32 FMA for an
-# f32 stack, the tensor cores for a bf16 stack (unsplit or split), each in
-# shared memory or, at small N, with the columns in registers.
-FMA, TENSOR_CORE, SPLIT, FMA_REGS, TC_REGS = 0, 1, 2, 3, 4
+# f32 stack, the tensor cores for a bf16 stack (unsplit or split); at small
+# N with the columns in registers, in the middle with the state tile in
+# shared memory, at large N one launch per step.
+FMA, TENSOR_CORE, SPLIT, FMA_REGS, TC_REGS, FMA_STEP, TC_STEP = range(7)
 PATH_NAMES = {FMA: "fma", TENSOR_CORE: "tensor_core", SPLIT: "split",
-              FMA_REGS: "fma_regs", TC_REGS: "tc_regs"}
+              FMA_REGS: "fma_regs", TC_REGS: "tc_regs", FMA_STEP: "fma_step",
+              TC_STEP: "tc_step"}
 #: The largest N each register path takes (``fused_gossip_reg_max_n``).
 N_REG_F32, N_REG_TC = 16, 16
+#: The largest N of the FMA chain (one step's N x tile sums in the CTA's
+#: registers: 256 threads of 8 x 8) and of the shared-memory tensor cores
+#: (whose tile-32 state fits shared memory to 1,424 workers).
+N_CHAIN_F32, N_SMEM_TC = 256, 1024
 
-# Shared-memory paths: the CTAs a column tile should leave room for on one
-# SM.  A wider tile re-reads the stack from L2 fewer times ((D/tile)·T·N²
-# elements in all).  On the FMA path two CTAs per SM let one load its W
-# chunk while the other multiplies; on the tensor cores one CTA keeps two
-# W chunks in flight itself, and N = 256 takes the 128-column tile.
-_BLOCKS_PER_SM = {FMA: 2, TENSOR_CORE: 1, SPLIT: 1}
+# The FMA chain: 256 threads of an 8 x 8 block hold 16,384 sums, so its
+# tile is 16384 / rows columns for rows = 32, 64, 128 or 256 >= N: the
+# widest (the fewest re-reads of the stack from L2, (D/tile)·T·N²
+# elements in all) unless ``block_d`` caps it.
+_CHAIN_OUTPUTS = 16384
+_CHAIN_TILES = (512, 256, 128, 64)
+# The tensor cores' shared-memory mainloop: the CTAs a column tile should
+# leave room for on one SM (one CTA keeps two W chunks in flight itself,
+# and N = 256 takes the 128-column tile).
+_BLOCKS_PER_SM = {TENSOR_CORE: 1, SPLIT: 1}
+# The per-step paths' columns per CTA (their output tiles are 128 x 128
+# and 128 x 64).
+_STEP_COLS = {FMA_STEP: 128, TC_STEP: 64}
 # Register paths: the rows a thread may hold (FMA_REGS pads N up to one of
 # them), and the columns a CTA takes per round of its grid: 256 threads of
 # one column pair (FMA_REGS), 8 warps of two m16 tiles (TC_REGS).
@@ -181,10 +202,10 @@ def fused_gossip_plain(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     return _plain(x, prep[0])
 
 
-def _tile_width(lib, n: int, block_d: int, path: int = FMA) -> int:
-    """Columns per CTA of a shared-memory ``path`` (``_kernels.pick_tile``:
-    128, 64 or 32), leaving room for ``_BLOCKS_PER_SM[path]`` CTAs on one
-    SM."""
+def _tile_width(lib, n: int, block_d: int, path: int = TENSOR_CORE) -> int:
+    """Columns per CTA of the tensor cores' shared-memory mainloop
+    (``_kernels.pick_tile``: 128, 64 or 32), leaving room for
+    ``_BLOCKS_PER_SM[path]`` CTAs on one SM."""
     return pick_tile("split_gossip" if path == SPLIT else "fused_gossip",
                      lambda tile: lib.fused_gossip_smem_bytes(n, tile, path),
                      lib.fused_gossip_smem_limit(), n, block_d,
@@ -195,7 +216,8 @@ class LaunchShape(NamedTuple):
     """How one launch cuts the work (``fused_gossip_launch``'s arguments).
     ``tile``: columns per CTA (per round on the register paths, whose grid
     is persistent).  ``rows``: rows a thread holds (FMA_REGS: N padded to
-    8 or 16; TC_REGS: 16).  ``window``: steps of the stack staged in shared
+    8 or 16; TC_REGS: 16), or the FMA chain's rows of sums (16384 /
+    tile).  ``window``: steps of the stack staged in shared
     memory at a time (the whole stack where it fits).  0 where the path
     has no such choice."""
 
@@ -209,7 +231,17 @@ def _launch_shape(lib, n: int, block_d: int, path: int,
                   t_steps: int) -> LaunchShape:
     """The launch shape of ``path`` for ``t_steps`` steps of an ``[n, D]``
     state; ``block_d`` caps the shared-memory paths' tile only (a register
-    path's columns per CTA are fixed)."""
+    or per-step path's columns per CTA are fixed)."""
+    if path == FMA:
+        if n > N_CHAIN_F32:
+            raise ValueError(f"fused_gossip: the FMA chain holds a step's "
+                             f"sums in registers for N <= {N_CHAIN_F32}, "
+                             f"got {n}")
+        tiles = [t for t in _CHAIN_TILES if _CHAIN_OUTPUTS // t >= n]
+        tile = next((t for t in tiles if t <= block_d), tiles[-1])
+        return LaunchShape(path, tile, _CHAIN_OUTPUTS // tile)
+    if path in _STEP_COLS:
+        return LaunchShape(path, _STEP_COLS[path])
     if path == FMA_REGS:
         if n > lib.fused_gossip_reg_max_n(path):
             raise ValueError(f"fused_gossip: the register FMA path takes "
@@ -229,7 +261,8 @@ def _launch_shape(lib, n: int, block_d: int, path: int,
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "fused_gossip_launch": ([_VP] * 3 + [_I, _LL] + [_I] * 6 + [_VP], _I),
+    "fused_gossip_launch": ([_VP] * 4 + [_I, _LL] + [_I] * 6 + [_VP], _I),
+    "fused_gossip_scratch_bytes": ([_I, _LL, _I, _I, _I, _I], _LL),
     "fused_gossip_smem_bytes": ([_I, _I, _I], _LL),
     "fused_gossip_smem_limit": ([], _LL),
     "fused_gossip_reg_max_n": ([_I], _LL),
@@ -250,18 +283,25 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def kernel_path(stack_dtype, n: int, split: bool = False) -> int:
     """The kernel path a stack of ``stack_dtype`` takes for ``n`` workers:
     float32 runs FP32 FMA, with the columns in registers up to
-    ``N_REG_F32`` workers; bfloat16 runs the tensor cores, chained in
-    registers up to ``N_REG_TC`` workers.  ``split`` picks K4's split
-    schedule, which only the shared-memory tensor-core mainloop has (at
-    any N).  The state's dtype never changes the path."""
+    ``N_REG_F32`` workers, the state tile in shared memory up to
+    ``N_CHAIN_F32``, one launch per step above; bfloat16 runs the tensor
+    cores, chained in registers up to ``N_REG_TC`` workers, the state tile
+    in shared memory up to ``N_SMEM_TC``, one launch per step above.
+    ``split`` picks K4's split schedule, which only the shared-memory
+    tensor-core mainloop has.  The state's dtype never changes the
+    path."""
     if stack_dtype == torch.bfloat16:
         if split:
             return SPLIT
-        return TC_REGS if n <= N_REG_TC else TENSOR_CORE
+        if n <= N_REG_TC:
+            return TC_REGS
+        return TENSOR_CORE if n <= N_SMEM_TC else TC_STEP
     if split:
         raise ValueError("the split schedule runs on the tensor cores: it "
                          "takes a bfloat16 mixing stack")
-    return FMA_REGS if n <= N_REG_F32 else FMA
+    if n <= N_REG_F32:
+        return FMA_REGS
+    return FMA if n <= N_CHAIN_F32 else FMA_STEP
 
 
 @functools.lru_cache(maxsize=256)
@@ -289,12 +329,20 @@ def launch_kernel(x, stack, shape: LaunchShape, *,
     stack = stack.contiguous()
     x = x.contiguous()
     out = torch.empty_like(x)
+    t_steps = stack.shape[0]
+    state_code = _DTYPE_CODES[x.dtype]
+    scratch = None
+    nbytes = lib.fused_gossip_scratch_bytes(n, d, t_steps, shape.path,
+                                            shape.tile, state_code)
+    if nbytes > 0:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.fused_gossip_launch(
-            x.data_ptr(), out.data_ptr(), stack.data_ptr(), n, d,
-            stack.shape[0], shape.path, shape.tile, shape.rows, shape.window,
-            _DTYPE_CODES[x.dtype], stream)
+            x.data_ptr(), out.data_ptr(), stack.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), n, d, t_steps,
+            shape.path, shape.tile, shape.rows, shape.window, state_code,
+            stream)
     if rc != 0:
         raise RuntimeError(f"fused_gossip kernel launch failed: "
                            f"{lib.fused_gossip_error_string(rc).decode()}")
@@ -313,19 +361,23 @@ def fused_gossip_run(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     ``x.dtype``, step for step the dense backend's arithmetic.
 
     ``block_d``: the widest column tile a shared-memory CTA may take
-    (32, 64 or 128 columns; below the narrowest, the narrowest); the
-    register paths of N ≤ 32 (f32 stack) and N ≤ 16 (bf16 stack) take
-    fixed column groups and ignore it.  ``w_window``: the reference's steps
-    per grid visit; the stack is front-padded with identity matrices to a
-    multiple of it, as the reference does, and the kernel otherwise ignores
-    it.  Neither changes a bit of the result.
+    (64, 128, 256 or 512 columns on the FMA chain, 32, 64 or 128 on the
+    tensor cores; below the narrowest, the narrowest); the register paths
+    of N ≤ ``N_REG_F32`` (16, f32 stack) and N ≤ ``N_REG_TC`` (16, bf16
+    stack) and the per-step paths take fixed column groups and ignore it.
+    ``w_window``: the reference's steps per grid visit; the stack is
+    front-padded with identity matrices to a multiple of it, as the
+    reference does, and the kernel otherwise ignores it.  Neither changes
+    a bit of the result.
 
     An empty stream (``T == 0``) returns ``x`` itself.  A CPU tensor runs
     :func:`fused_gossip_plain`.  A CUDA tensor launches the kernel of
     :func:`kernel_path` on the current stream and raises if the launch
     fails: an f32 stack runs FP32 FMA on CUDA cores, a bf16 stack the
     tensor cores (bf16 operands, f32 accumulation, the state rounded to
-    bf16 between steps), with no fallback from one path to another.
+    bf16 between steps), with no fallback from one path to another.  The
+    path depends on N alone and takes every N (above ``N_CHAIN_F32``
+    and ``N_SMEM_TC``, one launch per step).
     """
     prep = prepare_stack(x, mixing_stack, block_d, w_window)
     if prep is None:

@@ -10,7 +10,11 @@ one hand-written CUDA kernel, ``csrc/perm_gossip.cu``, instantiated twice:
   weight window with ``cp.async`` into a 2-slot shared buffer;
 * ``perm_gossip_stream`` (``dbuf=False``) loads each window synchronously.
 
-Both compute the same chain bitwise.  Per step, with ``w`` the α-scaled flag
+Where no slab fits a CTA (N above 8192, or more matchings than the tables
+beside the image allow), the same source's per-step path runs instead:
+one launch per step, the state in device memory (``_launch_shape`` picks
+it by shape alone; it never retries after a failed launch).  All compute
+the same chain bitwise.  Per step, with ``w`` the α-scaled flag
 row: quantize the state to the wire dtype once, then for every matching
 accumulate ``(w_j·gate_j)·(x̃[π_j] − x̃)`` in f32 in ``j`` order and cast the
 sum ``x + acc`` back to the state dtype.
@@ -19,7 +23,10 @@ sum ``x + acc`` back to the state dtype.
 (the same loop in the same operation order), for a tensor on the CPU only;
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` (shared with
 the port's other kernels, ``_kernels.py``) counts kernel launches per
-instantiation, so a run can show that its gossip went through the kernel.
+instantiation (``perm_gossip_dbuf`` / ``perm_gossip_stream`` by ``dbuf``)
+and per path (``perm_gossip/slab``, ``perm_gossip/step``, the latter once
+per call whatever its T launches), so a run can show that its gossip went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -67,6 +74,11 @@ class LaunchShape(NamedTuple):
     threads: int  # threads per CTA
     nbuf: int     # wire-image buffers: 2 (one barrier per step) or 1
     tables: int   # TABLES_WIDE or TABLES_COMPACT
+
+
+#: The per-step path: one launch per step, CTAs of 256 threads of one
+#: column pair of one row, no image or tables in shared memory.
+STEP = LaunchShape(cols=512, rows=1, threads=256, nbuf=0, tables=0)
 
 
 def involution_tables(perms) -> tuple[np.ndarray, np.ndarray]:
@@ -181,8 +193,8 @@ def _launch_shape(lib, n: int, m: int, w_window: int, block_d: int,
     matchings: a pure function of its arguments and the library's limits
     (``perm_gossip_smem_bytes``, ``perm_gossip_smem_limit``,
     ``perm_gossip_max_threads``), kept per arguments.  ``block_d`` caps the
-    slab's width.  Raises ``ValueError`` naming ROADMAP.md for an ``n`` no
-    shape takes."""
+    slab's width.  Where no slab shape takes ``n`` and ``m``: ``STEP``, the
+    per-step path in device memory."""
     limit = lib.perm_gossip_smem_limit()
     max_threads = lib.perm_gossip_max_threads()
     tables = TABLES_WIDE if 8 * m * n <= _TABLE_SMEM_BYTES else TABLES_COMPACT
@@ -202,11 +214,7 @@ def _launch_shape(lib, n: int, m: int, w_window: int, block_d: int,
                     n, cols, w_window, m, int(wire_bf16), nbuf, tables)
                 if smem <= limit // share:
                     return LaunchShape(cols, rows, threads, nbuf, tables)
-    raise ValueError(
-        f"perm_gossip: {n} workers with {m} matchings fit no launch shape: "
-        f"a CTA holds at most {max_threads} threads of {_ROWS[-1]} rows, "
-        f"and its wire image and tables at most {limit} B of shared "
-        f"memory; a taller state needs a tiling across CTAs (ROADMAP.md)")
+    return STEP
 
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -216,6 +224,9 @@ _SIGNATURES = {
     "perm_gossip_smem_limit": ([], _LL),
     "perm_gossip_max_threads": ([], _LL),
     "perm_gossip_error_string": ([_I], ctypes.c_char_p),
+    "perm_gossip_step_launch": ([_VP] * 6 + [_I, _LL] + [_I] * 4 + [_VP],
+                                _I),
+    "perm_gossip_step_scratch_bytes": ([_I, _LL, _I, _I], _LL),
 }
 
 
@@ -241,6 +252,24 @@ def _launch(x, weights, perms, gate, w_window, block_d, wire, dbuf):
     shape = _launch_shape(lib, n, m, w_window, block_d, wire is not None)
     x = x.contiguous()
     out = torch.empty_like(x)
+    counter = "perm_gossip_dbuf" if dbuf else "perm_gossip_stream"
+    if shape == STEP:
+        nbytes = lib.perm_gossip_step_scratch_bytes(n, d, t_padded,
+                                                    _STATE_CODES[x.dtype])
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.perm_gossip_step_launch(
+                x.data_ptr(), out.data_ptr(), weights.data_ptr(),
+                perms.data_ptr(), gate.data_ptr(), scratch.data_ptr(), n, d,
+                t_padded, m, _STATE_CODES[x.dtype],
+                0 if wire is None else 1, stream)
+        if rc != 0:
+            raise RuntimeError(f"perm_gossip step kernel launch failed: "
+                               f"{lib.perm_gossip_error_string(rc).decode()}")
+        LAUNCHES[counter] += 1
+        LAUNCHES["perm_gossip/step"] += 1
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.perm_gossip_launch(
@@ -252,7 +281,8 @@ def _launch(x, weights, perms, gate, w_window, block_d, wire, dbuf):
     if rc != 0:
         raise RuntimeError(f"perm_gossip kernel launch failed: "
                            f"{lib.perm_gossip_error_string(rc).decode()}")
-    LAUNCHES["perm_gossip_dbuf" if dbuf else "perm_gossip_stream"] += 1
+    LAUNCHES[counter] += 1
+    LAUNCHES["perm_gossip/slab"] += 1
     return out
 
 
@@ -271,8 +301,10 @@ def perm_gossip_run(x: torch.Tensor, weights, perms, partnered, *,
     ``w_window``: steps per weight window (front-padded with zero rows when
     ``T % w_window != 0``); ``block_d``: the widest column slab a CTA may
     take (the kernel takes 2 to 64 columns).  Neither changes the
-    arithmetic.  The kernel takes N up to 4096 with up to 24 matchings,
-    up to 8192 with up to 10 (``_launch_shape``).
+    arithmetic.  The slab kernel takes N up to 4096 with up to 24
+    matchings, up to 8192 with up to 10 (``_launch_shape``); any other
+    shape runs the per-step path (the state in device memory), with the
+    same bits.
     ``dbuf``: prefetch the next weight window (``perm_gossip_dbuf``) or
     load each synchronously (``perm_gossip_stream``).
 

@@ -2,6 +2,7 @@
 tree's kernel against this one.
 
     python -m matcha_tpu_torch.probes.fused_bench ab --old DIR [--rounds 3]
+        [--only SUBSTRING ...]
 
 ``ab`` loads the ``matcha_tpu_torch`` package found in ``DIR`` (an unpacked
 ``git archive`` of an earlier commit, or a copy of this tree with one
@@ -20,9 +21,14 @@ comm-split timer's chains) and 64, for an f32 state and stack, an f32
 state with a bf16 stack, and a bf16 state and stack (N = 16 is where both
 register paths stop); a ring's stack at the next N, 17, in f32 and bf16
 (the shared-memory paths) at T = 1 and 64; ``[256, D]`` bf16 at T = 64 on
-the 256-worker hypercube (chain (b)); and K4, the split probe's schedule,
-on its own ``[256, D]`` inputs at T = 64.  Every result is one JSON line on stdout;
-the card's name and power limit come first.  Needs a CUDA card.
+the 256-worker hypercube (chain (b)); K4, the split probe's schedule, on
+its own ``[256, D]`` inputs at T = 64; and the f32 sweep of the FMA paths
+on hypercubes, N = 32, 64, 128 and 256 at T = 64, 512 and 1024 at T = 8.
+``--only`` keeps the shapes whose label holds one of its substrings.  A
+side that refuses a shape (an older tree's cap) is recorded as
+"refused" and the other side is timed alone.  Every result is one JSON
+line on stdout; the card's name and power limit come first.  Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -55,9 +61,22 @@ def _stack(sched, t_steps, dtype, dev):
     return build_mixing_stack(sched.laplacians(), sched.alpha, flags, dtype)
 
 
-def shapes(dev):
-    """``(label, x, stack, kind)`` of every shape, on ``dev``; ``kind`` is
-    "fused" (``fused_gossip_run``) or "split" (K4)."""
+def _cube(n):
+    return fixed_schedule(decompose(hypercube_graph(n), n, seed=SEED), n, 64,
+                          budget=0.5, mode="bernoulli", seed=SEED)
+
+
+def shapes(dev, only=()):
+    """``(label, x, stack, kind)`` of every shape whose label holds one of
+    ``only`` (all where it is empty), on ``dev``; ``kind`` is "fused"
+    (``fused_gossip_run``) or "split" (K4)."""
+    for label, make in _makers(dev):
+        if not only or any(o in label for o in only):
+            yield (label, *make())
+
+
+def _makers(dev):
+    """``(label, make)``: ``make()`` returns ``(x, stack, kind)``."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     slice_sched = matcha_schedule(select_graph(4), 16, 64, budget=0.5,
                                   seed=SEED)
@@ -66,22 +85,28 @@ def shapes(dev):
     for t_steps in (1, 4, 64):
         for state, stack in ((F32, F32), (F32, BF16), (BF16, BF16)):
             out.append((f"slice N=16 T={t_steps} state={state} "
-                        f"stack={stack}", x16.to(state),
-                        _stack(slice_sched, t_steps, stack, dev), "fused"))
+                        f"stack={stack}",
+                        lambda t=t_steps, s=state, k=stack: (
+                            x16.to(s), _stack(slice_sched, t, k, dev),
+                            "fused")))
     for n, dtype in ((17, F32), (17, BF16)):
         ring = fixed_schedule(decompose(ring_graph(n), n, seed=SEED), n, 64,
                               budget=0.5, mode="bernoulli", seed=SEED)
         x = torch.randn(n, D, generator=g, device=dev).to(dtype)
         for t_steps in (1, 64):
-            out.append((f"ring N={n} T={t_steps} {dtype}", x,
-                        _stack(ring, t_steps, dtype, dev), "fused"))
-    cube = fixed_schedule(decompose(hypercube_graph(256), 256, seed=SEED),
-                          256, 64, budget=0.5, mode="bernoulli", seed=SEED)
-    out.append(("hypercube N=256 T=64 bf16",
-                torch.randn(256, D, generator=g, device=dev).to(BF16),
-                _stack(cube, 64, BF16, dev), "fused"))
-    x, stack = split_probe.make_inputs(256, D, 64, g)
-    out.append(("K4 split probe N=256 T=64", x, stack, "split"))
+            out.append((f"ring N={n} T={t_steps} {dtype}",
+                         lambda x=x, r=ring, t=t_steps, k=dtype: (
+                             x, _stack(r, t, k, dev), "fused")))
+    out.append(("hypercube N=256 T=64 bf16", lambda: (
+        torch.randn(256, D, generator=g, device=dev).to(BF16),
+        _stack(_cube(256), 64, BF16, dev), "fused")))
+    out.append(("K4 split probe N=256 T=64",
+                lambda: (*split_probe.make_inputs(256, D, 64, g), "split")))
+    for n in (32, 64, 128, 256, 512, 1024):
+        t_steps = 64 if n <= 256 else 8
+        out.append((f"hypercube N={n} T={t_steps} f32", lambda n=n, t=t_steps: (
+            torch.randn(n, D, generator=g, device=dev),
+            _stack(_cube(n), t, F32, dev), "fused")))
     return out
 
 
@@ -94,7 +119,7 @@ def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ab(old_root, rounds: int = 3) -> list:
+def ab(old_root, rounds: int = 3, only=()) -> list:
     dev = torch.device("cuda")
     alias = load_package(old_root).__name__
     old = {"fused": importlib.import_module(
@@ -105,7 +130,7 @@ def ab(old_root, rounds: int = 3) -> list:
            "split": split_probe.split_gossip_run}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    for label, x, stack, kind in shapes(dev):
+    for label, x, stack, kind in shapes(dev, only):
         kw = {"split": True} if kind == "split" else {}
 
         def new_fn():
@@ -114,31 +139,41 @@ def ab(old_root, rounds: int = 3) -> list:
         def old_fn():
             return old[kind](x, stack, **kw)
 
-        new_out, old_out = new_fn(), old_fn()
-        torch.cuda.synchronize()
         n = x.shape[0]
         row = {"shape": label, "N": n, "T": stack.shape[0],
                "state": str(x.dtype), "stack": str(stack.dtype),
                "new_path": fused_gossip.PATH_NAMES[
                    fused_gossip.kernel_path(stack.dtype, n,
                                             split=kind == "split")],
-               "bitwise_equal": _same_bits(new_out, old_out),
-               "differ_share": float((new_out != old_out).float().mean()),
                "old_ms": [], "new_ms": [], "old_host_us": [],
                "new_host_us": []}
+        new_out = new_fn()
+        try:
+            old_out = old_fn()
+        except ValueError as e:  # the older tree's cap
+            old_out, row["old"] = None, f"refused: {e}"
+        torch.cuda.synchronize()
+        sides = ("old", "new", "new", "old")
+        if old_out is None:
+            sides = ("new",)
+        else:
+            row["bitwise_equal"] = _same_bits(new_out, old_out)
+            row["differ_share"] = float((new_out != old_out).float().mean())
+            if stack.dtype == F32 and not row["bitwise_equal"]:
+                raise AssertionError(f"{label}: old and new FMA paths "
+                                     f"disagree")
         del new_out, old_out
-        if stack.dtype == F32 and not row["bitwise_equal"]:
-            raise AssertionError(f"{label}: old and new FMA paths disagree")
+        fns = {"old": old_fn, "new": new_fn}
         for _ in range(rounds):
-            for side, fn in (("old", old_fn), ("new", new_fn),
-                             ("new", new_fn), ("old", old_fn)):
-                row[f"{side}_ms"].append(time_ms(fn, flush))
-                row[f"{side}_host_us"].append(host_us(fn))
-        for side in ("old", "new"):
+            for side in sides:
+                row[f"{side}_ms"].append(time_ms(fns[side], flush))
+                row[f"{side}_host_us"].append(host_us(fns[side]))
+        for side in set(sides):
             row[f"{side}_median_ms"] = statistics.median(row[f"{side}_ms"])
             row[f"{side}_median_host_us"] = statistics.median(
                 row[f"{side}_host_us"])
-        row["old_over_new"] = row["old_median_ms"] / row["new_median_ms"]
+        if "old_median_ms" in row:
+            row["old_over_new"] = row["old_median_ms"] / row["new_median_ms"]
         _emit({"phase": "fused_ab", **row})
         rows.append(row)
     return rows
@@ -153,6 +188,9 @@ def main(argv=None) -> None:
     a.add_argument("--old", required=True,
                    help="directory holding the older matcha_tpu_torch")
     a.add_argument("--rounds", type=int, default=3)
+    a.add_argument("--only", nargs="*", default=(),
+                   help="time only the shapes whose label holds one of "
+                        "these substrings")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("fused_bench needs a CUDA card")
@@ -160,7 +198,7 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     _emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
-    ab(args.old, args.rounds)
+    ab(args.old, args.rounds, tuple(args.only))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ from typing import List
 
 import numpy as np
 
+from ..topology import native_np
 from ..topology import (
     DecomposedGraph,
     matching_laplacians,
@@ -38,13 +39,16 @@ def sample_flags(
     """i.i.d. Bernoulli(probs[j]) activation flags, ``uint8[iterations, M]``.
 
     Parity with ``MatchaProcessor.set_flags`` (graph_manager.py:298-309),
-    including the NaN/negative clamp to probability 0.  Only the numpy
-    sampler is ported; the JAX package's ``"native"`` counter-based stream
-    needs its C++ library.
+    including the NaN/negative clamp to probability 0.
+
+    ``sampler="native"`` is the JAX package's counter-based stream
+    (splitmix64 keyed by ``(seed, t, j)``, ``native_np.sample_flag_stream``):
+    the flags its C++ library gives.
     """
+    if sampler == "native":
+        return native_np.sample_flag_stream(probs, iterations, seed)
     if sampler != "numpy":
-        raise KeyError(f"unknown flag sampler '{sampler}' (the port has "
-                       f"only 'numpy')")
+        raise KeyError(f"unknown flag sampler '{sampler}'")
     p = np.asarray(probs, dtype=np.float64).copy()
     p[~np.isfinite(p)] = 0.0
     p = np.clip(p, 0.0, 1.0)

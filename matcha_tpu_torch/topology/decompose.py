@@ -1,16 +1,21 @@
 """Matching decomposition of a base communication graph.
 
-Port of ``matcha_tpu/topology/decompose.py``: the pure-Python paths only.
-The JAX package can hand ``color`` and ``greedy`` to a native C++ library;
-the port has no native library, so both run the Python greedy pass (the
-JAX package's own fallback when its library is unavailable).
+Port of ``matcha_tpu/topology/decompose.py``.  The JAX package hands
+``color`` and ``greedy`` to its native C++ library; the port runs the same
+algorithms in Python (``native_np``), so a graph gets the matchings the
+JAX package gives it when its library loads.
+
+``color`` (the default above 64 nodes)
+    Misra–Gries edge colouring: at most Δ+1 matchings.
 
 ``decompose_extract``
     Repeatedly pull a *maximum-cardinality* matching out of the remaining
     graph (networkx blossom algorithm, imported on first use).
 
-``decompose_greedy``
-    Degree-descending greedy maximal matchings, seeded tie-breaking.
+``greedy``
+    Degree-descending greedy maximal matchings with a splitmix64-seeded
+    tie-break (``decompose_greedy`` is the JAX package's Python twin, which
+    it runs only without its library).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from . import native_np
 from .graphs import DecomposedGraph, Edge, validate_decomposition
 
 __all__ = [
@@ -118,19 +124,42 @@ def decompose(
     ``method``:
       * ``"extract"`` — repeated maximum matchings (blossom); few matchings
                         but slow on large graphs.
-      * ``"greedy"``  — degree-descending greedy passes.
-      * ``"color"``   — the JAX package's native edge coloring; the port
-                        runs the greedy pass instead (the JAX package does
-                        the same when its native library is unavailable).
+      * ``"greedy"``  — degree-descending greedy passes, seeded by
+                        splitmix64 (``native_np.greedy_decompose``).
+      * ``"color"``   — Misra–Gries edge coloring, ≤ Δ+1 matchings
+                        (``native_np.mg_edge_color``).
       * ``"auto"``    — extract for small graphs, color for large ones.
+
+    ``color`` and ``greedy`` return what the JAX package's native library
+    returns; where that library reports a failure, the JAX package falls
+    back to :func:`decompose_greedy`, and so does the port.
     """
     if method == "auto":
         method = "extract" if size <= 64 else "color"
     if method == "extract":
         return decompose_extract(edges, size, seed)
-    if method in ("color", "greedy"):
+    if method not in ("color", "greedy"):
+        raise KeyError(f"unknown decomposition method '{method}'")
+    if method == "color":
+        edges = _dedup(edges)
+    try:
+        ids, count = (native_np.mg_edge_color(size, edges)
+                      if method == "color"
+                      else native_np.greedy_decompose(size, edges, seed))
+    except RuntimeError:
         return decompose_greedy(edges, size, seed)
-    raise KeyError(f"unknown decomposition method '{method}'")
+    result = _groups(edges, ids, count)
+    validate_decomposition(result, size, base_edges=_dedup(edges))
+    return result
+
+
+def _groups(edges, ids, count: int) -> DecomposedGraph:
+    """Edges grouped by matching id, each group sorted, empty ids dropped
+    (the JAX package's ``native._groups``)."""
+    out: DecomposedGraph = [[] for _ in range(count)]
+    for (u, v), j in zip(edges, ids):
+        out[int(j)].append((min(u, v), max(u, v)))
+    return [sorted(g) for g in out if g]
 
 
 # ---------------------------------------------------------------------------

@@ -363,6 +363,27 @@ def test_kernel_knobs_warn_on_backends_that_ignore_them(sched, backend):
         make_decen(sched, backend, device="cpu", block_d=64)
 
 
+@pytest.mark.parametrize("n,warns", [(63, False), (64, True)])
+def test_gather_warns_from_64_workers_on_both_sides(n, warns):
+    import warnings
+
+    from matcha_tpu.schedule import fixed_schedule as jax_fixed_schedule
+    from matcha_tpu_torch.schedule import fixed_schedule
+    from matcha_tpu_torch.topology import decompose_greedy, ring_graph
+
+    dec = decompose_greedy(ring_graph(n), n)
+    for build, sch in ((make_decen, fixed_schedule(dec, n, 4)),
+                       (jax_make_decen, jax_fixed_schedule(dec, n, 4))):
+        kw = {"device": "cpu"} if build is make_decen else {}
+        if warns:
+            with pytest.warns(UserWarning, match="gather"):
+                build(sch, backend="gather", **kw)
+        else:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                build(sch, backend="gather", **kw)
+
+
 # ------------------------------------------------------ the wrapper's rules
 
 
@@ -400,7 +421,7 @@ def test_fused_non_cpu_tensor_never_falls_back():
 
 class _SmemOnly:
     """The launch-shape queries of the kernel library, with the formulas
-    of ``csrc/fused_gossip.cu``: ``fp32::smem_bytes`` (path 0),
+    of ``csrc/fused_gossip.cu``: ``fp32::chain_smem_bytes`` (path 0),
     ``tc::smem_bytes`` (path 1 unsplit, 2 split), the register paths'
     largest N (``fused_gossip_reg_max_n``: 16 on paths 3 and 4)
     and the shared memory they stage the stack in (64 KB)."""
@@ -419,12 +440,13 @@ class _SmemOnly:
 
     @staticmethod
     def fused_gossip_smem_bytes(n, tile, path=0):
-        if path not in (0, 1, 2) or tile not in (32, 64, 128):
+        if path == 0:  # the FMA chain: one [n, tile] state, a W^T ring
+            if tile not in (64, 128, 256, 512) or n > 16384 // tile:
+                return -1
+            rows = 16384 // tile
+            return 4 * (n * tile + 3 * (32 if rows <= 64 else 16) * rows)
+        if path not in (1, 2) or tile not in (32, 64, 128):
             return -1
-        if path == 0:
-            per_warp = 8 * 128 // tile
-            rows = per_warp * min(8, -(-n // per_warp))
-            return 4 * (2 * 8 * (rows + 4) + 2 * n * tile)
         npad = -(-n // 16) * 16
         m = -(-npad // 64)
         mt = 1 if m <= 1 else (2 if m == 2 else 4)
@@ -433,21 +455,30 @@ class _SmemOnly:
 
 
 @pytest.mark.parametrize("n,block_d,tile", [
-    (16, 2048, 128),   # the slice: the widest tile
+    (16, 2048, 512),   # the chain's widest tile: 32 rows of sums
+    (33, 2048, 256),   # 64 rows of sums, 256 columns
     (16, 64, 64),      # block_d caps the tile
-    (256, 2048, 32),   # N = 256: the narrowest tile, two CTAs per SM
-    (100, 2048, 128),  # two row passes of 64 at the widest tile
-    (300, 2048, 32),   # two row passes of 256 at the narrowest tile
+    (256, 2048, 64),   # N = 256: 256 rows of sums, 64 columns
+    (100, 2048, 128),  # 128 rows of sums, 128 columns
+    (300, 2048, 128),  # above the chain: one launch per step, 128 columns
 ])
 def test_kernel_tile_choice(n, block_d, tile):
-    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
-    assert _tile_width(_SmemOnly, n, block_d) == tile
+    from matcha_tpu_torch.parallel.fused_gossip import (_launch_shape,
+                                                        kernel_path)
+    path = kernel_path(torch.float32, max(n, 17))
+    assert _launch_shape(_SmemOnly, n, block_d, path, 64).tile == tile
 
 
 def test_kernel_refuses_a_state_too_tall_for_shared_memory():
-    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        _tile_width(_SmemOnly, 1024, 2048)
+    # the chain holds one step's sums in registers up to 256 workers; a
+    # taller f32 state runs one launch per step, its state in device memory
+    from matcha_tpu_torch.parallel.fused_gossip import (
+        FMA, FMA_STEP, LaunchShape, _launch_shape, kernel_path)
+    with pytest.raises(ValueError, match="N <= 256, got 1024"):
+        _launch_shape(_SmemOnly, 1024, 2048, FMA, 64)
+    assert kernel_path(torch.float32, 1024) == FMA_STEP
+    assert _launch_shape(_SmemOnly, 1024, 2048, FMA_STEP, 64) == \
+        LaunchShape(FMA_STEP, 128)
 
 
 @pytest.mark.parametrize("n,block_d,path,t_steps,tile", [
@@ -467,9 +498,13 @@ def test_tensor_core_tile_choice(n, block_d, path, t_steps, tile):
 @pytest.mark.parametrize("path,name", [(1, "fused_gossip"),
                                        (2, "split_gossip")])
 def test_tensor_core_refuses_a_state_too_tall(path, name):
-    from matcha_tpu_torch.parallel.fused_gossip import _tile_width
+    # the shared-memory mainloop's cap stays; only the split probe (K4)
+    # reaches it: the fused path rule sends such N one step at a time
+    from matcha_tpu_torch.parallel.fused_gossip import (TC_STEP, _tile_width,
+                                                        kernel_path)
     with pytest.raises(ValueError, match=f"{name}: 2048 workers"):
         _tile_width(_SmemOnly, 2048, 2048, path)
+    assert kernel_path(torch.bfloat16, 2048) == TC_STEP
 
 
 def test_bf16_stack_takes_the_tensor_cores():
@@ -511,3 +546,35 @@ def test_kernel_matches_plain_on_card(n):
             assert float((base.float() - ref.float()).abs().max()) <= bound
             for kw in ({"w_window": 5}, {"block_d": 32}):
                 assert torch.equal(fused_gossip_run(state, stack, **kw), base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_chain_at_1024_workers_on_card(dtype):
+    # above the shared-memory paths' old caps: make_decen's fused chain
+    # runs a hand-written kernel one step at a time, against its plain
+    # version
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.parallel.fused_gossip import PATH_NAMES, kernel_path
+    from matcha_tpu_torch.schedule import fixed_schedule
+    from matcha_tpu_torch.topology import decompose, hypercube_graph
+
+    n, dev = 1024, torch.device("cuda")
+    cube = fixed_schedule(decompose(hypercube_graph(n), n), n, 8,
+                          budget=0.5, mode="bernoulli", seed=0)
+    x = torch.from_numpy(_state(6, n=n, d=1031)).to(dev).to(dtype)
+    counter = f"fused_gossip/{PATH_NAMES[kernel_path(dtype, n)]}"
+    before = LAUNCHES[counter]
+    out, _ = make_decen(cube, "fused", device=dev,
+                        compute_dtype=dtype).run(x, cube.flags)
+    torch.cuda.synchronize()
+    assert LAUNCHES[counter] == before + 1
+    stack = build_mixing_stack(cube.laplacians(), cube.alpha,
+                               torch.as_tensor(cube.flags, device=dev), dtype)
+    ref = fused_gossip_plain(x, stack)
+    # the plain version's products are the library's, whose sums may run
+    # in another order: the bars of chip_smoke.py
+    bound = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * float(
+        ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= bound

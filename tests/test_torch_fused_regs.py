@@ -12,7 +12,10 @@ against the plain version there).  What the CPU can check:
 2. The path rule: which path and launch shape ``kernel_path`` and
    ``_launch_shape`` give for N, dtype and T, through a stand-in for the
    library's queries, at N = 1, 16, each register path's limit and the
-   limit plus one.
+   limit plus one; and up to 4,095 workers (the JAX planner's fused
+   range), across the shared-memory paths' old caps, where every N takes
+   a path and none raises.  Beside it, the plain version at N = 900 (above
+   the old FMA cap) against the JAX kernel.
 3. A numpy model of the tensor-core register path's layouts
    (``csrc/fused_gossip.cu``, ``tcregs``): the ``mma.m16n8k16`` fragments
    as the PTX ISA assigns them to lanes, ``ldmatrix.trans`` from the
@@ -39,10 +42,14 @@ from matcha_tpu_torch.parallel import fused_gossip_plain, fused_gossip_run
 from matcha_tpu_torch.parallel.fused_gossip import (
     FMA,
     FMA_REGS,
+    FMA_STEP,
+    N_CHAIN_F32,
     N_REG_F32,
     N_REG_TC,
+    N_SMEM_TC,
     SPLIT,
     TC_REGS,
+    TC_STEP,
     TENSOR_CORE,
     LaunchShape,
     _launch_shape,
@@ -104,6 +111,25 @@ def test_small_n_matches_jax_kernel(n, state, stack, t_steps):
                                    atol=2.0 ** -7 * np.abs(_np(ref)).max())
 
 
+@pytest.mark.parametrize("state,stack", [("f32", "f32"), ("f32", "bf16"),
+                                         ("bf16", "bf16")])
+def test_large_n_matches_jax_kernel(state, stack):
+    # N = 900: above the old shared-memory FMA path's cap (843 workers),
+    # which the JAX kernel never had; the card runs it one step a launch
+    n, t_steps = 900, 2
+    x = np.random.default_rng(n).normal(size=(n, D)).astype(np.float32)
+    w = jnp.asarray(_stack(n, t_steps, seed=n), JAX[stack])
+    port = fused_gossip_run(torch.from_numpy(x).to(TORCH[state]),
+                            torch.tensor(_np(w)).to(TORCH[stack]))
+    ref = jax_fused_gossip_run(jnp.asarray(x, JAX[state]), w, interpret=True)
+    assert port.dtype == TORCH[state] and tuple(port.shape) == (n, D)
+    if state == stack == "f32":
+        np.testing.assert_allclose(_np(port), _np(ref), **F32_TOL)
+    else:
+        np.testing.assert_allclose(_np(port), _np(ref), rtol=0,
+                                   atol=2.0 ** -7 * np.abs(_np(ref)).max())
+
+
 # ---------------------------------------------------- 2. the path rule
 
 
@@ -127,12 +153,13 @@ class _Lib:
 
     @staticmethod
     def fused_gossip_smem_bytes(n, tile, path):
-        if path not in (FMA, TENSOR_CORE, SPLIT) or tile not in (32, 64, 128):
+        if path == FMA:  # the chain: 16,384 sums, a 3-stage ring of W^T
+            if tile not in (64, 128, 256, 512) or n > 16384 // tile:
+                return -1
+            rows = 16384 // tile
+            return 4 * (n * tile + 3 * (32 if rows <= 64 else 16) * rows)
+        if path not in (TENSOR_CORE, SPLIT) or tile not in (32, 64, 128):
             return -1
-        if path == FMA:
-            per_warp = 8 * 128 // tile
-            rows = per_warp * min(8, -(-n // per_warp))
-            return 4 * (2 * 8 * (rows + 4) + 2 * n * tile)
         npad = -(-n // 16) * 16
         m = -(-npad // 64)
         mt = 1 if m <= 1 else (2 if m == 2 else 4)
@@ -155,7 +182,7 @@ def test_register_limits_are_the_library_s():
     ("f32", 16, 1, LaunchShape(FMA_REGS, 512, 16, 1)),
     ("f32", 16, 64, LaunchShape(FMA_REGS, 512, 16, 64)),
     ("f32", 16, 2000, LaunchShape(FMA_REGS, 512, 16, 64)),
-    ("f32", 17, 64, LaunchShape(FMA, 128)),
+    ("f32", 17, 64, LaunchShape(FMA, 512, 32)),
     # bf16 stack: one m16 tile of workers, 512 B of B fragments a step
     ("bf16", 1, 1, LaunchShape(TC_REGS, 256, 16, 1)),
     ("bf16", 16, 64, LaunchShape(TC_REGS, 256, 16, 64)),
@@ -188,10 +215,42 @@ def test_register_limits_and_stage_are_the_card_library_s():
     assert lib.fused_gossip_stage_bytes() == _Lib.fused_gossip_stage_bytes()
 
 
+# The shared-memory paths' caps before the per-step paths: the old FMA path
+# (two f32 tiles of 32 columns and its W chunks) took N <= 843; the
+# tensor cores' tile-32 state fits shared memory to N = 1,424.
+OLD_FMA_CAP = 843
+TC_SMEM_CAP = max(n for n in range(1024, 2048)
+                  if 0 <= _Lib.fused_gossip_smem_bytes(n, 32, TENSOR_CORE)
+                  <= _Lib.fused_gossip_smem_limit())
+
+
+@pytest.mark.parametrize("n", [17, 255, 256, 257, 1024, 4095,
+                               OLD_FMA_CAP, OLD_FMA_CAP + 1,
+                               TC_SMEM_CAP, TC_SMEM_CAP + 1])
+@pytest.mark.parametrize("stack", ["f32", "bf16"])
+def test_every_n_takes_a_path(stack, n):
+    path = kernel_path(TORCH[stack], n)
+    if stack == "f32":
+        assert path == (FMA if n <= N_CHAIN_F32 else FMA_STEP)
+    else:
+        assert path == (TENSOR_CORE if n <= N_SMEM_TC else TC_STEP)
+    for t_steps in (1, 8, 64):
+        shape = _launch_shape(_Lib, n, 2048, path, t_steps)
+        assert shape.path == path and shape.tile > 0
+    if path == TENSOR_CORE:  # its tile fits shared memory at this N
+        assert 0 <= _Lib.fused_gossip_smem_bytes(n, shape.tile, path) \
+            <= _Lib.fused_gossip_smem_limit()
+
+
+def test_tc_smem_cap_is_above_the_path_rule_s():
+    assert TC_SMEM_CAP == 1424 and N_SMEM_TC < TC_SMEM_CAP
+
+
 def test_block_d_caps_only_the_shared_memory_tiles():
     assert _launch_shape(_Lib, 16, 32, FMA_REGS, 1).tile == 512
     assert _launch_shape(_Lib, 16, 32, TC_REGS, 1).tile == 256
-    assert _launch_shape(_Lib, 33, 32, FMA, 1).tile == 32
+    # the FMA chain's narrowest tile is 64 columns (256 rows)
+    assert _launch_shape(_Lib, 33, 32, FMA, 1) == LaunchShape(FMA, 64, 256)
 
 
 # ------------------------------- 3. the tensor-core register path's layouts

@@ -389,7 +389,48 @@ def test_kernel_tile_choice(n, m, block_d, wire, shape):
     ((4096, 24), (4096, 25)),
 ])
 def test_kernel_refuses_a_state_too_tall_for_shared_memory(taken, refused):
-    from matcha_tpu_torch.parallel.perm_gossip import _launch_shape
+    # the slab kernel refuses the taller shape; the per-step path (the
+    # state in device memory) takes it instead of a ValueError
+    from matcha_tpu_torch.parallel.perm_gossip import STEP, _launch_shape
     assert _launch_shape(_SmemOnly, *taken, 1, 2048, False).cols == 2
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        _launch_shape(_SmemOnly, *refused, 1, 2048, False)
+    assert _launch_shape(_SmemOnly, *refused, 1, 2048, False) == STEP
+
+
+@pytest.mark.parametrize("n,m,wire", [(8193, 14, False), (16384, 14, False),
+                                      (16384, 14, True), (4096, 25, False)])
+def test_every_shape_takes_a_path(n, m, wire):
+    # past the slab kernel's reach (N above 8192, or 25 matchings at 4096)
+    # the per-step path takes the shape; nothing raises
+    from matcha_tpu_torch.parallel.perm_gossip import STEP, _launch_shape
+    for w_window in (1, 8):
+        assert _launch_shape(_SmemOnly, n, m, w_window, 2048, wire) == STEP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("hypercube", 16384),
+                                    ("erdos_renyi", 4096)])
+def test_step_path_bitwise_on_card(kind, n):
+    # the per-step path: N above 8192 (M = 14), and a 4096-worker graph of
+    # mean degree 30 coloured into more matchings than the slab tables hold
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.schedule import fixed_schedule
+    from matcha_tpu_torch.topology import (decompose, erdos_renyi_graph,
+                                           hypercube_graph)
+    edges = (hypercube_graph(n) if kind == "hypercube"
+             else erdos_renyi_graph(n, 30 / (n - 1), seed=1))
+    sched = fixed_schedule(decompose(edges, n), n, 3, budget=0.5,
+                           mode="bernoulli", seed=1)
+    dev = torch.device("cuda")
+    args = [torch.as_tensor(sched.alpha * sched.flags, dtype=torch.float32,
+                            device=dev)]
+    args += [torch.as_tensor(t, device=dev)
+             for t in involution_tables(sched.perms)]
+    x = torch.from_numpy(_state(6, n=n, d=257)).to(dev)
+    for wire in (None, "bf16"):
+        ref = perm_gossip_plain(x, *args, wire_dtype=wire)
+        before = LAUNCHES["perm_gossip/step"]
+        out = perm_gossip_run(x, *args, wire_dtype=wire)
+        torch.cuda.synchronize()
+        assert LAUNCHES["perm_gossip/step"] == before + 1
+        assert torch.equal(out, ref)

@@ -90,8 +90,8 @@ def test_slice_schedule_alpha_and_activity():
 
 
 def test_greedy_decomposition_matches_jax_python_path():
-    # above 64 nodes ``decompose`` colors natively in the JAX package; the
-    # port runs the greedy pass, which is the JAX package's Python greedy
+    # the Python greedy pass, the JAX package's fallback without its
+    # native library; above 64 nodes ``decompose`` colors (Misra–Gries)
     edges = jtp.hypercube_graph(128)
     assert ptp.decompose_greedy(edges, 128, seed=3) == \
         jtp.decompose_greedy(edges, 128, seed=3)
@@ -116,4 +116,8 @@ def test_sample_flags_matches_jax():
     np.testing.assert_array_equal(psch.sample_flags(probs, 301, seed=5),
                                   jsch.sample_flags(probs, 301, seed=5))
     with pytest.raises(KeyError):
-        psch.sample_flags(probs, 3, seed=0, sampler="native")
+        psch.sample_flags(probs, 3, seed=0, sampler="philox")
+    # the JAX package's native stream is ported too (held to the native
+    # library's digests in tests/test_torch_native_np.py)
+    assert psch.sample_flags(probs, 3, seed=0, sampler="native").shape \
+        == (3, 6)
