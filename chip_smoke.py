@@ -14,7 +14,8 @@ raises and the script exits non-zero:
    kernel's FMA paths (columns in registers, the chain with its tile in
    shared memory, one launch per step) and tensor-core paths (chained in
    registers; in shared memory, unsplit and split; one launch per step),
-   and the perm kernel's per-step path.
+   and the perm kernel's per-step path; a spill store in a per-step kernel
+   of the fused source fails the run.
 3. parity — the perm kernel's two instantiations against their plain PyTorch version on the card, at
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
@@ -85,14 +86,19 @@ raises and the script exits non-zero:
 9. fused_large — K3 above the shared-memory paths' old caps (843 workers
    on the FMA path, 1,424 on the tensor cores) at D = 4,099: f32 and
    bf16 stacks at N = 1024 (T = 8) and 4095 (T = 1) against the plain
-   version (the fused bars); the per-step paths bitwise against the
-   on-chip ones where both take N (FMA at 256, tensor cores at 1024); and
+   version (the fused bars; an f32 stack bitwise); the per-step paths
+   bitwise against the on-chip ones where both take N (FMA at 256, tensor
+   cores at 1024), and at ragged N (FMA at 200 against the chain and 257
+   against the plain version, tensor cores at 1025 and 1040) with D =
+   1,031 and 4,098, both state dtypes; and
    ``make_decen(..., "fused").run`` at N = 1024 (f32: ``fma_step``; bf16:
    ``tensor_core``) and 2048 (bf16: ``tc_step``), launches counted by
    path.  fused_sweep — the f32 stack at full width across N = 17, 32,
    64, 128 and 256 (T = 64, the FMA chain) and 512 and 1024 (T = 8, one
    launch per step), and N = 4095, T = 1 in f32 and bf16: kernel, plain
-   version, library call and bound.  perm_large — the perm kernel's
+   version, library call and bound; the per-step rows also the
+   profiler's device time per call and per step launch, and the step
+   kernels' spill stores.  perm_large — the perm kernel's
    per-step path (no slab fits a CTA) at D = 32,768 on the 16,384-worker
    hypercube and a 4096-worker ER graph of mean degree 30 (more matchings
    than the slab tables hold), T = 1 and 4, both instantiations and
@@ -923,8 +929,11 @@ def phase_fused_large(dev):
     """K3 above the shared-memory paths' old caps (843 workers on the FMA
     path, 1,424 on the tensor cores) at D = 4,099: f32 and bf16 stacks at
     N = 1024 (T = 8, hypercube) and N = 4095 (T = 1) against the plain
-    version (the fused bars); the per-step paths bitwise against the
-    on-chip ones at an N both take (FMA at 256, tensor cores at 1024); then
+    version (the fused bars; an f32 stack bitwise); the per-step paths
+    bitwise against the on-chip ones at an N both take (FMA at 256, tensor
+    cores at 1024), and at ragged N and D (fma_step at 200 against the
+    chain and 257 against the plain version, tc_step at 1025 and 1040
+    against tensor_core; D = 1,031 and 4,098; both state dtypes); then
     ``make_decen(..., "fused").run`` at N = 1024 (f32 and bf16) and 2048
     (bf16), the launches counted by path."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -954,6 +963,10 @@ def phase_fused_large(dev):
         if not err <= bar:
             raise AssertionError(f"fused N={n} {stack_dtype}: max |Δ| {err} "
                                  f"> {bar}")
+        # the FMA chain per element is the plain version's product here
+        if stack_dtype == f32 and not rows[-1]["bitwise_vs_plain"]:
+            raise AssertionError(f"fma_step N={n}: not bitwise equal to the "
+                                 f"plain version")
         del x, stack, out, ref
     # the per-step paths against the on-chip ones, bitwise
     same = {}
@@ -969,6 +982,30 @@ def phase_fused_large(dev):
             same[key] = same_bits(a, b)
             if not same[key]:
                 raise AssertionError(f"{key}: not bitwise equal")
+    # ragged N and rows of every alignment: D = 1,031 (odd: no pair
+    # aligned) and 4,098 (f32 rows only 8-byte aligned); fma_step forced
+    # at N = 200 against the chain and at N = 257 (the chain takes no N
+    # above 256) against the plain version, tc_step at N = 1025 and 1040
+    # (padded to 1040 rows) against tensor_core; both state dtypes, T = 3
+    for d in (1031, 4098):
+        for state_dtype in (f32, bf16):
+            for n, path, other in ((200, fg.FMA_STEP, fg.FMA),
+                                   (257, fg.FMA_STEP, None),
+                                   (1025, fg.TC_STEP, fg.TENSOR_CORE),
+                                   (1040, fg.TC_STEP, fg.TENSOR_CORE)):
+                x = state(n, d, dev).to(state_dtype)
+                stack = random_stack(n, 3, f32 if path == fg.FMA_STEP
+                                     else bf16, dev)
+                a = forced_run(x, stack, path)
+                b = (fused_gossip_plain(x, stack) if other is None
+                     else forced_run(x, stack, other))
+                key = (f"{fg.PATH_NAMES[path]} vs "
+                       f"{fg.PATH_NAMES.get(other, 'plain')} N={n} D={d} "
+                       f"state={state_dtype}")
+                same[key] = same_bits(a, b)
+                if not same[key]:
+                    raise AssertionError(f"{key}: not bitwise equal")
+                del x, stack, a, b
     # the entry point: make_decen's fused chains
     runs = {"f32 N=1024": (cube[1024], f32), "bf16 N=1024": (cube[1024], bf16),
             "bf16 N=2048": (cube[2048], bf16)}
@@ -1003,13 +1040,33 @@ def phase_fused_large(dev):
     return {"worst": worst, "launches": launches}
 
 
-def phase_fused_sweep(dev):
+# the per-step paths' kernels: the step kernel, and what runs before the
+# first step (the transposed f32 stack; the state cast to bf16, or a bf16
+# state widened to f32)
+STEP_KERNELS = {"fma_step": ("fma_step_kernel", "transpose_stack",
+                             "cast_rows"),
+                "tc_step": ("tc_step_kernel", "cast_rows")}
+
+
+def step_spills(ptxas: dict) -> dict:
+    """Bytes of spill stores of each per-step path's kernels (the most over
+    their instantiations), from the build's ptxas lines."""
+    rows = ptxas["fused_gossip"]
+    return {path: max(r.get("spill_stores", 0) for r in rows
+                      if any(k in r["kernel"] for k in names))
+            for path, names in STEP_KERNELS.items()}
+
+
+def phase_fused_sweep(dev, spills):
     """K3 with an f32 stack across N at full width (hypercubes; N = 17 a
     ring): T = 64 up to 256 workers (the FMA chain), T = 8 above (one
     launch per step); then N = 4095, T = 1, in f32 and bf16.  Kernel,
     plain version and library call (T ``torch.matmul`` calls) by CUDA
     events, the L2 flushed before each; 5 runs, 3 where a call takes tens
-    of milliseconds or more."""
+    of milliseconds or more.  The per-step rows also carry the profiler's
+    device time of one launch of the step kernel and of a call (T step
+    launches and the kernels that run once before them), and the step
+    kernels' spill stores (``spills``, from ptxas)."""
     flush = L2Flush(dev)
     f32, bf16 = torch.float32, torch.bfloat16
     shapes = []
@@ -1044,6 +1101,22 @@ def phase_fused_sweep(dev):
                "library_ms": time_ms(library, flush, runs), "runs": runs}
         row["bound_ms"], row["bound_by"] = fused_bound(x, stack)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if row["path"] in STEP_KERNELS:
+            def kernel(x=x, stack=stack):
+                return fused_gossip_run(x, stack)
+
+            # per launch of each of the path's kernels (a mean over the
+            # launches the trace recorded, so a dropped record does not
+            # count as time saved): T step launches and one of each kernel
+            # that runs before the first step
+            step, *first = STEP_KERNELS[row["path"]]
+            per_launch = device_ms(kernel, step, flush, runs)
+            once = [device_ms(kernel, name, flush, runs) for name in first]
+            row["device_ms_per_launch"] = per_launch
+            row["device_ms"] = (None if per_launch is None else
+                                t_steps * per_launch + sum(
+                                    m for m in once if m is not None))
+            row["spill_stores"] = spills.get(row["path"])
         rows.append(row)
         emit({"phase": "fused_sweep", **row})
         del x, stack
@@ -1602,12 +1675,16 @@ def kernels_line(r) -> list:
             "bitwise": False,
             "max_abs_err": max(r["fused_parity"].get(path, 0.0),
                                large["worst"].get(path, 0.0)),
-            "shape": main["shape"], "ms": main["ms"], "device_ms": None,
+            "shape": main["shape"], "ms": main["ms"],
+            "device_ms": main["device_ms"],
+            "device_ms_per_launch": main["device_ms_per_launch"],
+            "spill_stores": main["spill_stores"],
             "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "timings": [{k: t[k] for k in ("shape", "ms", "plain_ms",
-                                            "library_ms", "bound_ms",
-                                            "bound_by")}
+            "timings": [{k: t[k] for k in ("shape", "ms", "device_ms",
+                                            "device_ms_per_launch",
+                                            "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")}
                         for t in sweep if t["path"] == path]})
     # the perm kernel's per-step path: make_decen's perm chains past the
     # slab kernel's reach
@@ -1662,11 +1739,16 @@ def main():
 
     t0 = time.perf_counter()
     reports = _kernels.build_all(["perm_gossip", "fused_gossip"])
+    ptxas = {k: ptxas_kernels(r["ptxas"]) for k, r in reports.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": [SOURCE, FUSED_SOURCE],
           "cached": {k: r["cached"] for k, r in reports.items()},
-          "kernels": {k: ptxas_kernels(r["ptxas"])
-                      for k, r in reports.items()}})
+          "kernels": ptxas})
+    # the per-step kernels were redesigned to fit their registers: a spill
+    # fails the run (a cached build printed nothing to read)
+    spills = {} if reports["fused_gossip"]["cached"] else step_spills(ptxas)
+    if any(spills.values()):
+        raise AssertionError(f"per-step kernels spill registers: {spills}")
 
     tables, big_tables = slice_tables(dev), hypercube_tables(dev)
     huge_tables = hypercube_tables(dev, 4096)
@@ -1682,7 +1764,7 @@ def main():
     results["fused_chain"] = phase_fused_chain(dev, tables, big_tables)
     results["fused_slice"] = phase_fused_slice(dev)
     results["fused_large"] = phase_fused_large(dev)
-    results["fused_sweep"] = phase_fused_sweep(dev)
+    results["fused_sweep"] = phase_fused_sweep(dev, spills)
     results["perm_large"] = phase_perm_large(dev)
     results["split_probe"] = phase_split_probe(dev)
     results["split_timing"] = phase_split_timing(dev)

@@ -62,10 +62,13 @@
 //   stages of 16 k values (32 where R <= 64) through a 3-stage ring filled
 //   by cp.async two stages ahead, one barrier per stage.
 // * FMA one launch per step (fma_step_kernel): an f32 stack and N > 256.
-//   The state stays in device memory, ping-ponging two buffers; each step
-//   is a tiled product of [128 x 128] output tiles (16 x 16 threads of the
-//   same 8 x 8 blocks), W_t^T (the transposed copy) and the state staged in
-//   8-k stages through registers into shared memory.  No split-K.
+//   The state stays in device memory, ping-ponging two f32 buffers (a bf16
+//   state is widened first, exactly); each step is a tiled product of
+//   [128 x 256] output tiles, one CTA of 16 x 16 threads of 8 x 16 blocks
+//   per SM (128 sums a thread, up to 255 registers), W_t^T (the
+//   transposed copy) and the state streamed by cp.async, with no register
+//   staging, through a 3-stage ring of 32-k stages (144 KB), one barrier
+//   per stage.  No split-K.
 // Every FMA path sums each element as the unbroken chain acc = fma(W[i,k],
 // x[k], acc) from +0, k = 0 .. N-1 in order, never multiplying a padded k,
 // so all three give the same bits.
@@ -101,10 +104,14 @@
 //   FMAs, so the bf16 paths are held against the plain PyTorch version to
 //   one bf16 ulp of the output, not bitwise.
 // * Tensor cores one launch per step (tc_step_kernel): a bf16 stack and
-//   N > 1024.  The state stays in device memory; each step is a tiled
-//   product of [128 x 64] output tiles whose W and state chunks (32 k) go
-//   through the mainloop's swizzled layouts and the same ldmatrix/mma
-//   sequence per element, so it equals the shared-memory path bitwise.
+//   N > 1024.  The state is cast to bf16 once into the wrapper's scratch
+//   (rows padded to a multiple of 256 columns, so every copy is 16 bytes)
+//   and stays there between steps; each step is a tiled product of
+//   [128 x 256] output tiles on wgmma (two warpgroups of m64n256k16, both
+//   operands from 128-byte-swizzled shared memory, a 3-stage ring of 64-k
+//   stages).  wgmma sums each element's k16 products in the mainloop's
+//   order with the mma.sync bits, so it equals the shared-memory path
+//   bitwise.
 //
 // What bounds it (H100 SXM: 67 TFLOP/s FP32, 989 TFLOP/s bf16 dense, 3.35
 // TB/s).  The work is 2*N^2*D*T operations; device memory is read and
@@ -122,19 +129,24 @@
 // the tile the better: the FMA chain takes the widest its 16,384 register
 // sums allow.  The per-step paths add a read and a write of the state per
 // step (2*N*D*bytes, 0.33 ms at N = 512 in f32) to a product of 2*N^2*D
-// operations (2.1 ms), which the card overlaps across CTAs.  Measured
-// times: PERF.md.
+// operations (2.1 ms at the FP32 rate), which the card overlaps across
+// CTAs; at N = 4095 an f32 step is 137 ms of FP32 operations and a bf16
+// step 9.3 ms of tensor-core operations.  The per-step FMA kernel spends
+// 6 LDS.128 per 128 FMAs.  Measured times: PERF.md.
 //
 // Shared memory: the FMA chain 4*(N*tile + 3*K*R) B, K = 32 for R <= 64
-// else 16 (at most 112 KB: two CTAs per SM); the per-step FMA kernel 16
-// KB, the per-step tensor cores 24 KB (static); the tensor cores'
-// mainloop 2*(rings*3*R*32 + 2*Npad*tile) B, R the rows of a pass (64*MT),
-// one ring unsplit, two split.  A CTA may
-// use 227 KB, so that mainloop is bounded (at tile 32 about 1,424 workers,
-// 1,000 split); the wrapper sends N > 1024 one step at a time, and the
-// split probe keeps its cap.  Device memory the wrapper allocates per call
+// else 16 (at most 112 KB: two CTAs per SM); the per-step FMA kernel 144
+// KB (3 stages of 32 x (128 + 256) floats), the per-step tensor cores 145
+// KB (3 stages of 64 x (128 + 256) bf16 and 1 KB to align the ring); the
+// tensor cores' mainloop 2*(rings*3*R*32 + 2*Npad*tile) B, R the rows of
+// a pass (64*MT), one ring unsplit, two split.  A CTA may use 227 KB, so
+// that mainloop is bounded (at tile 32 about 1,424 workers, 1,000
+// split); the wrapper sends N > 1024 one step at a time, and the split
+// probe keeps its cap.  Device memory the wrapper allocates per call
 // (fused_gossip_scratch_bytes): the transposed f32 stack (FMA chain and
-// per-step FMA) and the states between steps (per-step paths).  The
+// per-step FMA) and the states the per-step paths read and write between
+// steps (f32 [N][D] for FMA, bf16 [Npad][D rounded up to 256] for the
+// tensor cores).  The
 // register paths: the staged stack, at most 64 KB (window steps of
 // 4*NR^2 or 512 B), plus two 2,304 B staging buffers per warp on the
 // tensor cores.  Their grid comes from the occupancy API once per kernel,
@@ -187,16 +199,39 @@ struct Dtype<__nv_bfloat16> {
   }
 };
 
-// Columns (col, col + 1) of row r as f32, zero past d: one pair access
-// where `vec` says every row's pair is aligned (even d), else scalars.
+// Columns (col, col + 1) of row r (rows ld apart) as f32, zero past d:
+// one pair access where `vec` says every row's pair is aligned (even ld
+// and an aligned base), else scalars.
+template <typename StateT>
+__device__ __forceinline__ float2 load_pair(const StateT* __restrict__ x,
+                                            long long r, long long ld,
+                                            long long d, long long col,
+                                            int vec) {
+  const StateT* p = x + r * ld + col;
+  if (vec && col + 1 < d) return Dtype<StateT>::load2(p);
+  return make_float2(col < d ? Dtype<StateT>::load(p) : 0.0f,
+                     col + 1 < d ? Dtype<StateT>::load(p + 1) : 0.0f);
+}
+
 template <typename StateT>
 __device__ __forceinline__ float2 load_pair(const StateT* __restrict__ x,
                                             long long r, long long d,
                                             long long col, int vec) {
-  const StateT* p = x + r * d + col;
-  if (vec && col + 1 < d) return Dtype<StateT>::load2(p);
-  return make_float2(col < d ? Dtype<StateT>::load(p) : 0.0f,
-                     col + 1 < d ? Dtype<StateT>::load(p + 1) : 0.0f);
+  return load_pair(x, r, d, d, col, vec);
+}
+
+template <typename StateT>
+__device__ __forceinline__ void store_pair(StateT* __restrict__ out,
+                                           long long r, long long ld,
+                                           long long d, long long col,
+                                           int vec, float a, float b) {
+  StateT* p = out + r * ld + col;
+  if (vec && col + 1 < d) {
+    Dtype<StateT>::store2(p, a, b);
+    return;
+  }
+  if (col < d) Dtype<StateT>::store(p, a);
+  if (col + 1 < d) Dtype<StateT>::store(p + 1, b);
 }
 
 template <typename StateT>
@@ -204,13 +239,7 @@ __device__ __forceinline__ void store_pair(StateT* __restrict__ out,
                                            long long r, long long d,
                                            long long col, int vec, float a,
                                            float b) {
-  StateT* p = out + r * d + col;
-  if (vec && col + 1 < d) {
-    Dtype<StateT>::store2(p, a, b);
-    return;
-  }
-  if (col < d) Dtype<StateT>::store(p, a);
-  if (col + 1 < d) Dtype<StateT>::store(p + 1, b);
+  store_pair(out, r, d, d, col, vec, a, b);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -232,6 +261,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
+// BYTES (4 or 8) from global `src` to shared `dst`, or zeros where `valid`
+// is false (src-size 0: nothing is read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
+}
+
+// A per-step path's first input: the state rounded to bf16 (tensor cores)
+// or widened to f32 (FMA, a bf16 state) into the wrapper's scratch:
+// y[r][c] = x[r][c] for r < n, c < d, rows ld_x and ld_y apart, as pairs
+// where each side's pairs are aligned.  One thread a column pair; the
+// grid's rows stride over the state's.
+template <typename InT, typename OutT>
+__global__ void cast_rows(const InT* __restrict__ x, long long ld_x,
+                          int vec_x, OutT* __restrict__ y, long long ld_y,
+                          int vec_y, int n, long long d) {
+  const long long col =
+      2 * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (col >= d) return;
+  for (int r = blockIdx.y; r < n; r += gridDim.y) {
+    const float2 v = load_pair(x, r, ld_x, d, col, vec_x);
+    store_pair(y, r, ld_y, d, col, vec_y, v.x, v.y);
+  }
+}
+
 // ------------------------------------------------ FMA paths (f32 stack)
 
 namespace fp32 {
@@ -246,8 +303,12 @@ __host__ __device__ constexpr int stage_k(int rows) {
   return rows <= 64 ? 32 : 16;
 }
 constexpr int kStages = 3;   // ring stages (chain)
-constexpr int kStepRows = 128, kStepCols = 128;  // a step CTA's tile
-constexpr int kStepK = 8;    // k values per stage (step)
+// The per-step kernel: a [kStepRows x kStepCols] output tile per CTA, 16
+// row groups of 8 rows by 16 column lanes of kStepTn = 16 columns (one CTA
+// of 256 threads per SM, up to 255 registers: 128 sums a thread), and a
+// ring of kStepStages stages of kStepK k values in dynamic shared memory
+constexpr int kStepRows = 128, kStepCols = 256, kStepTn = 16;
+constexpr int kStepK = 32, kStepStages = 3;
 
 // The chain's launch shape: `tile` columns (512, 256, 128 or 64) and
 // kOutputs / tile rows (32, 64, 128 or 256), the rows of one step's sums.
@@ -267,6 +328,9 @@ __host__ __device__ inline size_t chain_smem_bytes(int n, int tile) {
 __host__ __device__ inline int step_ldw(int n) {
   return (n + kStepRows - 1) / kStepRows * kStepRows;
 }
+
+constexpr size_t kStepSmemBytes =
+    sizeof(float) * kStepStages * kStepK * (kStepRows + kStepCols);
 
 // wt[t][k][i] = w[t][i][k] for i < n, 0 for n <= i < ldw (k < n): the
 // stack transposed once per chain, each k a contiguous row of ldw floats,
@@ -453,87 +517,220 @@ __global__ void __launch_bounds__(kThreads, 2)
   cp_async_wait<0>();
 }
 
-// One step of the large-N path: dst = state(W_t @ src) for a [128 x 128]
-// output tile per CTA, 16 x 16 threads of 8 x 8 blocks; W_t^T (the
-// transposed copy, [k][ldw]) and src both stream through shared memory in
-// stages of kStepK k values, loaded into registers one stage ahead and
-// stored behind the current stage's products (one barrier per stage).  k
-// runs 0 .. n-1 in order, so every element is the chain's sum bitwise.
-template <typename StateT>
-__global__ void __launch_bounds__(kThreads, 2)
-    fma_step_kernel(const StateT* __restrict__ src, StateT* __restrict__ dst,
-                    const float* __restrict__ wt, int n, int ldw,
-                    long long d, int vec) {
-  constexpr int CL = 16;
-  __shared__ __align__(16) float ws[2][kStepK][kStepRows];
-  __shared__ __align__(16) float xs[2][kStepK][kStepCols];
-  const int l = threadIdx.x % CL, g = threadIdx.x / CL;
-  // column tiles fastest (blockIdx.x): a W_t^T row tile stays in L2 for
-  // the CTAs in flight (row tiles fastest measured 1.2-1.3x slower)
-  const int row0 = blockIdx.y * kStepRows;
-  const long long col0 = static_cast<long long>(blockIdx.x) * kStepCols;
-  const int kchunks = (n + kStepK - 1) / kStepK;
-  // this thread's loads: float4s of W^T (k = tid/32 + 8j, rows
-  // 4*(tid%32)), and state values (column tid%128, k = tid/128 + 2j)
-  constexpr int kWLoads = kStepK * kStepRows / 4 / kThreads;
-  constexpr int kXLoads = kStepK * kStepCols / kThreads;
-  const int wk = threadIdx.x / 32, wr = 4 * (threadIdx.x % 32);
-  const int xc = threadIdx.x % kStepCols, xk = threadIdx.x / kStepCols;
-  const long long col = col0 + xc;
-  const bool idle = row0 + 8 * g >= n;
-  float4 wreg[kWLoads];
-  float xreg[kXLoads];
-  auto load = [&](int k0) {
+// One k of a per-step thread's 8 x 16 block: rows 8g .. 8g+7 of W^T row
+// `wk` (wk points at 8g) and columns {4l + 64q : q < 4} (+0..3) of state
+// row `xk` (xk points at 4l): 6 LDS.128, 128 FMAs, each the next link of
+// its element's chain acc = fma(W[i,k], x[k], acc).
+__device__ __forceinline__ void fma_step_k(float (&acc)[kBlock][kStepTn],
+                                           const float* wk, const float* xk) {
+  const float4 w0 = *reinterpret_cast<const float4*>(wk);
+  const float4 w1 = *reinterpret_cast<const float4*>(wk + 4);
+  const float wv[kBlock] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  float xv[kStepTn];
 #pragma unroll
-    for (int j = 0; j < kWLoads; ++j) {
-      const int k = k0 + wk + 8 * j;
-      wreg[j] = k < n ? *reinterpret_cast<const float4*>(
-                            wt + static_cast<size_t>(k) * ldw + row0 + wr)
-                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-#pragma unroll
-    for (int j = 0; j < kXLoads; ++j) {
-      const int k = k0 + xk + 2 * j;
-      xreg[j] = k < n && col < d ? Dtype<StateT>::load(src + k * d + col)
-                                 : 0.0f;
-    }
-  };
-  auto stash = [&](int b) {
-#pragma unroll
-    for (int j = 0; j < kWLoads; ++j) {
-      *reinterpret_cast<float4*>(&ws[b][wk + 8 * j][wr]) = wreg[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kXLoads; ++j) xs[b][xk + 2 * j][xc] = xreg[j];
-  };
-  float acc[kBlock][kBlock];
+  for (int q = 0; q < kStepTn / 4; ++q) {
+    const float4 v = *reinterpret_cast<const float4*>(xk + 64 * q);
+    xv[4 * q] = v.x;
+    xv[4 * q + 1] = v.y;
+    xv[4 * q + 2] = v.z;
+    xv[4 * q + 3] = v.w;
+  }
 #pragma unroll
   for (int r = 0; r < kBlock; ++r) {
 #pragma unroll
-    for (int c = 0; c < kBlock; ++c) acc[r][c] = 0.0f;
+    for (int c = 0; c < kStepTn; ++c) {
+      acc[r][c] = __fmaf_rn(wv[r], xv[c], acc[r][c]);
+    }
   }
-  load(0);
-  stash(0);
-  __syncthreads();
-  for (int c = 0; c < kchunks; ++c) {
-    const bool more = c + 1 < kchunks;
-    if (more) load((c + 1) * kStepK);
-    const int klen = min(kStepK, n - c * kStepK);
-    const int b = c & 1;
-    if (!idle) {
-#pragma unroll 4
-      for (int kk = 0; kk < klen; ++kk) {
-        fma_k<kStepCols / 2>(acc, &ws[b][kk][8 * g], &xs[b][kk][4 * l]);
+}
+
+// One step of the large-N path: dst = W_t @ src for a [128 x 256] output
+// tile per CTA, 16 x 16 threads of 8 x 16 blocks (rows 8g.., columns
+// {4l + 64q}).  src is an f32 state (a bf16 state is widened first, which
+// is exact), rows ld_src floats apart; dst takes OutT, rows ld_dst apart,
+// and ROUND rounds each sum to bf16 first (an intermediate step of a bf16
+// state, kept in f32 for the next step).  W_t^T (the transposed copy,
+// [k][ldw]) and src stream through a ring of 3 stages of 32 k values in
+// dynamic shared memory, filled by cp.async two stages ahead with no
+// register staging: W^T as 16-byte copies, the state as 8-byte copies
+// where its rows' pairs are aligned (src_vec) and 4-byte ones otherwise
+// (an f32 row of even D is only 8-byte aligned: no 16-byte copy, and no
+// TMA, takes it), zeros past d.  One barrier per stage.  In a whole
+// stage each thread copies the same granules of every stage, so its two
+// source pointers only step by 32 rows.  The row tiles go fastest, so the
+// CTAs in flight share their column slabs of the state.  k runs 0 .. n-1
+// in order and never past n, so every element is the chain's sum
+// bitwise; rows past n are summed but never stored.
+template <typename OutT, bool ROUND>
+__global__ void __launch_bounds__(kThreads, 1)
+    fma_step_kernel(const float* __restrict__ src, long long ld_src,
+                    int src_vec, OutT* __restrict__ dst, long long ld_dst,
+                    int dst_vec, const float* __restrict__ wt, int n, int ldw,
+                    long long d) {
+  constexpr int CL = 16;                   // column lanes
+  constexpr int BM = kStepRows, BN = kStepCols, KB = kStepK;
+  constexpr int S = kStepStages;
+  constexpr int kWSlot = KB * BM;          // floats of a W^T stage
+  constexpr int kXSlot = KB * BN;          // floats of a state stage
+  static_assert(kThreads == CL * BM / kBlock && BN == CL * kStepTn,
+                "16 x 16 threads of 8 x 16 blocks");
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;              // [S][KB][BM]
+  float* xs = smem + S * kWSlot;  // [S][KB][BN]
+  const int l = threadIdx.x % CL, g = threadIdx.x / CL;
+
+  const int row_tiles = (n + BM - 1) / BM;
+  const int row0 = static_cast<int>(blockIdx.x % row_tiles) * BM;
+  const long long col0 = static_cast<long long>(blockIdx.x / row_tiles) * BN;
+
+  const int kchunks = (n + KB - 1) / KB;
+  // a whole stage: thread t copies W^T granule (w_kk + j*kWStep, w_r) and
+  // state pair (x_kk + j*kXStep, x_cc) of every stage
+  constexpr int kWCopies = KB * BM / 4 / kThreads;
+  constexpr int kXPairs = KB * BN / 2 / kThreads;
+  constexpr int kWStep = kThreads / (BM / 4), kXStep = kThreads / (BN / 2);
+  static_assert(kWCopies * kWStep == KB && kXPairs * kXStep == KB,
+                "a stage is whole granules a thread");
+  const int w_kk = threadIdx.x / (BM / 4), w_r = 4 * (threadIdx.x % (BM / 4));
+  const int x_kk = threadIdx.x / (BN / 2), x_cc = 2 * (threadIdx.x % (BN / 2));
+  const bool x_in = col0 + x_cc < d;
+  const float* w_at = wt + static_cast<size_t>(w_kk) * ldw + row0 + w_r;
+  const float* x_at = src + x_kk * ld_src + (x_in ? col0 + x_cc : 0);
+  const long long w_step = static_cast<long long>(kWStep) * ldw;
+  const long long x_step = kXStep * ld_src;
+  auto fetch = [&](int c) {
+    if (c < kchunks) {
+      const int k0 = c * KB;
+      const int klen = min(KB, n - k0);
+      float* wdst = ws + (c % S) * kWSlot;
+      float* xdst = xs + (c % S) * kXSlot;
+      if (klen == KB && src_vec) {
+        const float* wp = w_at + static_cast<long long>(k0) * ldw;
+        const float* xp = x_at + k0 * ld_src;
+        float* wd = wdst + w_kk * BM + w_r;
+        float* xd = xdst + x_kk * BN + x_cc;
+#pragma unroll
+        for (int j = 0; j < kWCopies; ++j) {
+          cp_async16(wd + j * kWStep * BM, wp + j * w_step);
+        }
+#pragma unroll
+        for (int j = 0; j < kXPairs; ++j) {
+          cp_async_zfill<8>(xd + j * kXStep * BN, xp + j * x_step, x_in);
+        }
+      } else {  // the last stage (klen < KB), or rows not pair-aligned
+        const float* wsrc = wt + static_cast<size_t>(k0) * ldw + row0;
+        const float* xsrc = src + k0 * ld_src;
+        for (int q = threadIdx.x; q < klen * (BM / 4); q += kThreads) {
+          const int kk = q / (BM / 4), r = 4 * (q % (BM / 4));
+          cp_async16(wdst + kk * BM + r,
+                     wsrc + static_cast<size_t>(kk) * ldw + r);
+        }
+        if (src_vec) {
+          for (int q = threadIdx.x; q < klen * (BN / 2); q += kThreads) {
+            const int kk = q / (BN / 2), cc = 2 * (q % (BN / 2));
+            const bool in = col0 + cc < d;
+            cp_async_zfill<8>(xdst + kk * BN + cc,
+                              xsrc + kk * ld_src + (in ? col0 + cc : 0), in);
+          }
+        } else {
+          for (int q = threadIdx.x; q < klen * BN; q += kThreads) {
+            const int kk = q / BN, cc = q % BN;
+            const bool in = col0 + cc < d;
+            cp_async_zfill<4>(xdst + kk * BN + cc,
+                              xsrc + kk * ld_src + (in ? col0 + cc : 0), in);
+          }
+        }
       }
     }
-    // the other buffer was last read in stage c-1, before the last barrier
-    if (more) stash(b ^ 1);
-    __syncthreads();
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[kBlock][kStepTn];
+#pragma unroll
+  for (int r = 0; r < kBlock; ++r) {
+#pragma unroll
+    for (int c = 0; c < kStepTn; ++c) acc[r][c] = 0.0f;
   }
-  store_block<StateT, kStepCols / 2>(dst, acc, n, d, row0, col0, g, l, vec);
+  // a thread whose 8 rows all lie past n sums nothing
+  const bool idle = row0 + 8 * g >= n;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) fetch(s);
+  for (int c = 0; c < kchunks; ++c) {
+    cp_async_wait<S - 2>();  // this thread's part of stage c landed
+    __syncthreads();         // all of stage c; the slot of stage c-1 is free
+    fetch(c + S - 1);
+    const float* w = ws + (c % S) * kWSlot + 8 * g;
+    const float* x = xs + (c % S) * kXSlot + 4 * l;
+    const int klen = min(KB, n - c * KB);
+    if (idle) {
+    } else if (klen == KB) {
+#pragma unroll
+      for (int kk = 0; kk < KB; ++kk) {
+        fma_step_k(acc, w + kk * BM, x + kk * BN);
+      }
+    } else {
+#pragma unroll 1
+      for (int kk = 0; kk < klen; ++kk) {
+        fma_step_k(acc, w + kk * BM, x + kk * BN);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < kBlock; ++r) {
+    const int i = row0 + 8 * g + r;
+    if (i >= n) continue;
+#pragma unroll
+    for (int c = 0; c < kStepTn; c += 2) {
+      const long long col = col0 + 64 * (c / 4) + 4 * l + c % 4;
+      float a = acc[r][c], b = acc[r][c + 1];
+      if (ROUND) {
+        a = Dtype<__nv_bfloat16>::round(a);
+        b = Dtype<__nv_bfloat16>::round(b);
+      }
+      store_pair(dst, i, ld_dst, d, col, dst_vec, a, b);
+    }
+  }
 }
 
 }  // namespace fp32
+
+// ---------------------------------------------- wgmma (sm_90a) helpers
+
+// A shared-memory matrix descriptor with 128-byte swizzling: start address,
+// the byte offsets between core-matrix groups along the leading (lbo) and
+// the stride (sbo) dimension, layout type 1 (128B swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo,
+                                               int sbo) {
+  return ((static_cast<uint64_t>(smem_u32(p)) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d += A (64 x 16, K-major) * B (16 x 256, N-major: tnspB = 1), f32
+// accumulation, both from shared memory (descriptors da, db).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 // --------------------------------------- tensor-core path (bf16 stack)
 
@@ -863,131 +1060,146 @@ cudaError_t dispatch(int tile, const void* x, void* out, const void* stack,
   }
 }
 
-// One step of the large-N path on the tensor cores: dst = state(W_t @
-// src) for a [128 rows x 64 columns] output tile per CTA.  8 warps, 4 along
-// the rows (two m16 tiles each) and 2 along the columns (four n8 tiles
-// each).  W_t (the zero-padded bf16 stack) and src, rounded to bf16, both
-// stream through shared memory in chunks of 32 k, loaded into registers one
-// chunk ahead and stored behind the current chunk's products, in the
-// shared-memory mainloop's swizzled layouts (w_idx, state_idx).  Each
-// output element runs the mainloop's mma sequence: acc from 0, the k16
-// steps in order, k < npad; so this path equals tc_gossip_kernel bitwise.
-constexpr int kStepRows = 128, kStepCols = 64;
+// One step of the large-N path on the tensor cores: dst = W_t @ src for
+// a [128 rows x 256 columns] output tile per CTA, on wgmma.  Two
+// warpgroups each run m64n256k16 on their 64 rows, both operands read by
+// the tensor cores from shared memory, the f32 sums in registers (128 a
+// thread).  src is the state already rounded to bf16 in the wrapper's
+// scratch ([npad][ldx], ldx a multiple of the tile width, rows past n
+// zero): the first step's is cast by cast_rows, every other step's is
+// written by the step before, rounded as the next step rounds its input.
+// So the mainloop moves only 16-byte cp.async copies of W_t (the
+// zero-padded bf16 stack) and of src, in stages of 64 k through a ring of
+// 3 stages (48 KB each) in dynamic shared memory, two stages ahead, one
+// barrier and 4 wgmma per warpgroup a stage.  W_t's stage is K-major and
+// the state's N-major, both in wgmma's 128-byte-swizzled layouts (the
+// 16-byte granules of each 128-byte row XORed with the row's low 3 bits),
+// each stage on a 1024-byte boundary.  Each output element's k16 products
+// are summed from 0 in k order, k < npad: wgmma gives the bits the
+// mainloop's mma.sync gives (checked on the card for m64n64k16 and for
+// this kernel against tc_gossip_kernel), so this path equals the
+// shared-memory path bitwise.  The row tiles go fastest: the CTAs in
+// flight share their columns of the state, read from device memory once,
+// while the bf16 stack (33.5 MB at N = 4095) stays in L2.  dst takes
+// OutT, rows ld_dst apart (the caller's out for the last step, masked past
+// n and d; the next step's bf16 src otherwise).
+constexpr int kStepRows = 128, kStepCols = 256;
+constexpr int kStepK = 64, kStepStages = 3;
+// the ring, and room to start it on a 1024-byte boundary
+constexpr size_t kStepSmemBytes =
+    sizeof(bf16) * kStepStages * kStepK * (kStepRows + kStepCols) + 1024;
 
-template <typename StateT>
-__global__ void __launch_bounds__(kThreads, 2)
-    tc_step_kernel(const StateT* __restrict__ src, StateT* __restrict__ dst,
+__host__ __device__ inline long long step_ldx(long long d) {
+  return (d + kStepCols - 1) / kStepCols * kStepCols;
+}
+
+// Element (r, k) of a [kStepRows][kStepK] W stage (K-major, 128-byte rows):
+// the 8 granules of a row XORed with the row's low 3 bits.
+__device__ __forceinline__ int step_w_idx(int r, int k) {
+  return r * kStepK + ((((k >> 3) ^ r) & 7) << 3) + (k & 7);
+}
+
+// Element (k, c) of a [kStepK][kStepCols] state stage (N-major): 64-column
+// segments of kStepK rows of 128 B (8 KB each), the granules of a row
+// XORed with k's low 3 bits.
+__device__ __forceinline__ int step_x_idx(int k, int c) {
+  return (c >> 6) * (kStepK * 64) + k * 64 + ((((c >> 3) ^ k) & 7) << 3) +
+         (c & 7);
+}
+
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+    tc_step_kernel(const bf16* __restrict__ src, long long ldx,
+                   OutT* __restrict__ dst, long long ld_dst, int dst_vec,
                    const bf16* __restrict__ w, int n, long long d) {
-  constexpr int MT = 2, NT = 4;
-  __shared__ __align__(128) bf16 ws[2][kStepRows * kStageK];
-  __shared__ __align__(128) bf16 xs[2][kStageK * kStepCols];
+  constexpr int ROWS = kStepRows, COLS = kStepCols, S = kStepStages;
+  constexpr int kWSlot = ROWS * kStepK;  // bf16 of a W stage (16 KB)
+  constexpr int kXSlot = kStepK * COLS;  // bf16 of a state stage (32 KB)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // 128-byte swizzling repeats every 1024 B: stages start on a multiple
+  bf16* ws = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  bf16* xs = ws + S * kWSlot;
   const int npad = pad16(n);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
-  // row tiles fastest: the CTAs in flight share their columns of the
-  // state, read from device memory once (measured 1.12x faster than column
-  // tiles fastest at N = 4095, where the bf16 stack fits L2)
-  const int row_tiles = (npad + kStepRows - 1) / kStepRows;
-  const int row0 = static_cast<int>(blockIdx.x % row_tiles) * kStepRows;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int row_tiles = (npad + ROWS - 1) / ROWS;
+  const int row0 = static_cast<int>(blockIdx.x % row_tiles) * ROWS;
   const long long col0 =
-      static_cast<long long>(blockIdx.x / row_tiles) * kStepCols;
-  const int kchunks = (npad + kStageK - 1) / kStageK;
-  // loads: two 16-byte granules of W (row gi/4, granule gi%4), and eight
-  // state values (column tid%64, k = tid/64 + 4j)
-  uint4 wreg[2];
-  float xreg[8];
-  const int xc = threadIdx.x % kStepCols, xk = threadIdx.x / kStepCols;
-  const long long col = col0 + xc;
-  auto load = [&](int k0) {
+      static_cast<long long>(blockIdx.x / row_tiles) * COLS;
+  const int kchunks = (npad + kStepK - 1) / kStepK;
+  // a warpgroup whose 64 rows all lie past npad has no products (rows past
+  // npad in a live warpgroup read stage rows never loaded: their sums are
+  // never stored, and no other row reads them)
+  const bool live = row0 + 64 * wg < npad;
+
+  auto fetch = [&](int c) {
+    if (c < kchunks) {
+      const int k0 = c * kStepK;
+      const int klen = min(kStepK, npad - k0);  // a multiple of 16
+      bf16* wdst = ws + (c % S) * kWSlot;
+      bf16* xdst = xs + (c % S) * kXSlot;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int gi = threadIdx.x + j * kThreads;
-      const int r = row0 + gi / 4, k = k0 + (gi % 4) * 8;
-      wreg[j] = r < npad && k < npad
-                    ? *reinterpret_cast<const uint4*>(
-                          w + static_cast<size_t>(r) * npad + k)
-                    : make_uint4(0, 0, 0, 0);
-    }
+      for (int j = 0; j < ROWS * kStepK / 8 / kThreads; ++j) {
+        const int q = threadIdx.x + j * kThreads;
+        const int r = q / (kStepK / 8), k = 8 * (q % (kStepK / 8));
+        if (row0 + r < npad && k < klen) {
+          cp_async16(wdst + step_w_idx(r, k),
+                     w + static_cast<size_t>(row0 + r) * npad + k0 + k);
+        }
+      }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + xk + 4 * j;
-      xreg[j] = k < n && col < d ? Dtype<StateT>::load(src + k * d + col)
-                                 : 0.0f;
+      for (int j = 0; j < kStepK * COLS / 8 / kThreads; ++j) {
+        const int q = threadIdx.x + j * kThreads;
+        const int k = q / (COLS / 8), cc = 8 * (q % (COLS / 8));
+        if (k < klen) {
+          cp_async16(xdst + step_x_idx(k, cc),
+                     src + static_cast<size_t>(k0 + k) * ldx + col0 + cc);
+        }
+      }
     }
+    cp_async_commit();  // an empty group past the end keeps the count
   };
-  auto stash = [&](int b) {
+
+  float acc[128];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int gi = threadIdx.x + j * kThreads;
-      *reinterpret_cast<uint4*>(ws[b] + w_idx(gi / 4, gi % 4)) = wreg[j];
-    }
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      xs[b][state_idx<kStepCols>(xk + 4 * j, xc)] =
-          __float2bfloat16_rn(xreg[j]);
-    }
-  };
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0f;
-    }
-  }
-  const int a_row = lane & 15, a_gran = lane >> 4;
-  const int a_swz = (a_row >> 1) & 3;
-  const int b_k = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int b_col = wn * NT * 8 + (lane >> 4) * 8;
-  const int m_row0 = wm * MT * 16;
-  load(0);
-  stash(0);
-  __syncthreads();
+  for (int s = 0; s < S - 1; ++s) fetch(s);
   for (int c = 0; c < kchunks; ++c) {
-    const bool more = c + 1 < kchunks;
-    if (more) load((c + 1) * kStageK);
-    const bf16* wb = ws[c & 1];
-    const bf16* xb = xs[c & 1];
+    cp_async_wait<S - 2>();  // this thread's part of stage c landed
+    // the tensor cores read through the async proxy what cp.async wrote
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // all of stage c; stage c-1's products are done
+    fetch(c + S - 1);
+    if (live) {
+      const bf16* wb = ws + (c % S) * kWSlot + 64 * wg * kStepK;
+      const bf16* xb = xs + (c % S) * kXSlot;
+      wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < kStageK / kK; ++s) {
-      if (c * kStageK + s * kK >= npad) break;
-      uint32_t b[NT / 2][4];
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        ldsm_x4_trans(b[j], xb + state_idx<kStepCols>(s * kK + b_k,
-                                                      b_col + j * 16));
+      for (int s = 0; s < kStepK / kK; ++s) {
+        if (c * kStepK + s * kK >= npad) break;
+        // A: 8-row groups 1024 B apart, a k16 block 32 B on in the
+        // swizzled rows; B: 64-column segments 8 KB apart, 8-k groups
+        // 1024 B apart, a k16 block 2 KB on
+        wgmma_m64n256k16(acc, sw128_desc(wb + s * kK, 16, 1024),
+                         sw128_desc(xb + s * kK * 64, kStepK * 128, 1024));
       }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t a[4];
-        ldsm_x4(a, wb + (m_row0 + i * 16 + a_row) * kStageK +
-                       (((2 * s + a_gran) ^ a_swz) << 3));
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          mma(acc[i][2 * j], a, b[j][0], b[j][1]);
-          mma(acc[i][2 * j + 1], a, b[j][2], b[j][3]);
-        }
-      }
+      wgmma_commit();
+      wgmma_wait<0>();  // the slot is refilled after the next barrier
     }
-    // the other buffers were last read in chunk c-1, before the barrier
-    if (more) stash((c & 1) ^ 1);
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  // accumulator i of a thread: n8 block i/4, row 16*warp + lane/4 (+8 for
+  // i%4 >= 2), columns 2*(lane%4) + i%2 -- the m16n8 fragment of each n8
+  // block, as mma.sync lays it out
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const long long gc = col0 + wn * NT * 8 + j * 8 + 2 * (lane & 3);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = row0 + m_row0 + i * 16 + (lane >> 2) + 8 * hh;
-        if (r >= n) continue;
-        if (gc < d) Dtype<StateT>::store(dst + r * d + gc, acc[i][j][2 * hh]);
-        if (gc + 1 < d) {
-          Dtype<StateT>::store(dst + r * d + gc + 1, acc[i][j][2 * hh + 1]);
-        }
-      }
+  for (int i = 0; i < 128; i += 2) {
+    const int r =
+        row0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * ((i >> 1) & 1);
+    const long long col = col0 + 8 * (i >> 2) + 2 * (lane & 3);
+    if (r < n) {
+      store_pair(dst, r, ld_dst, d, col, dst_vec, acc[i], acc[i + 1]);
     }
   }
 }
@@ -1002,16 +1214,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 constexpr int kStageBytes = 64 * 1024;
 constexpr int kRegThreads = 256;
 constexpr int kRegMaxCtasPerSm = 8;
-
-// BYTES (4 or 8) from global `src` to shared `dst`, or zeros where `valid`
-// is false (src-size 0: nothing is read)
-template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
-                                               bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0));
-}
 
 namespace fregs {  // f32 stack: FP32 FMA, the columns' rows in registers
 
@@ -1457,29 +1659,40 @@ bool regs_take(int n, int path, int tile, int rows, int window) {
 size_t align256(size_t b) { return (b + 255) & ~static_cast<size_t>(255); }
 
 // Scratch in device memory: the f32 stack transposed ([t][k][ldw], paths
-// 0 and 5), then, on the per-step paths, the states between steps (two
-// where t >= 3, one where t == 2).
+// 0 and 5), then, on the per-step paths, the states they read and write
+// between steps.  Path 5 keeps them as f32 [n][d] (a bf16 state is widened
+// for step 0 and rounded to bf16 values between steps): min(t, 2) buffers
+// for a bf16 state, min(t - 1, 2) for an f32 one, which step 0 reads in
+// place.  Path 6 keeps them as bf16 [npad][ldx], rows past n zero (step
+// 0's input cast, then the states between steps): min(t, 2).
 size_t wt_bytes(int n, int t_steps, int ldw) {
   return align256(sizeof(float) * static_cast<size_t>(t_steps) * n * ldw);
 }
 
-size_t state_buffers(int t_steps) {
-  return t_steps >= 3 ? 2 : (t_steps == 2 ? 1 : 0);
+int step_buffers(int path, int t_steps, int state_dtype) {
+  const int b = path == kFmaStep && state_dtype == 0 ? t_steps - 1 : t_steps;
+  return b < 2 ? b : 2;
+}
+
+size_t step_buffer_bytes(int path, int n, long long d) {
+  return path == kFmaStep
+             ? align256(sizeof(float) * static_cast<size_t>(n) * d)
+             : align256(sizeof(tc::bf16) * static_cast<size_t>(tc::pad16(n)) *
+                        tc::step_ldx(d));
 }
 
 long long scratch_bytes(int n, long long d, int t_steps, int path, int tile,
                         int state_dtype) {
-  const size_t state =
-      align256((state_dtype == 0 ? 4 : 2) * static_cast<size_t>(n) * d);
   switch (path) {
     case kFma:
       return static_cast<long long>(
           wt_bytes(n, t_steps, fp32::chain_rows(tile)));
     case kFmaStep:
-      return static_cast<long long>(wt_bytes(n, t_steps, fp32::step_ldw(n)) +
-                                    state_buffers(t_steps) * state);
     case kTcStep:
-      return static_cast<long long>(state_buffers(t_steps) * state);
+      return static_cast<long long>(
+          (path == kFmaStep ? wt_bytes(n, t_steps, fp32::step_ldw(n)) : 0) +
+          step_buffers(path, t_steps, state_dtype) *
+              step_buffer_bytes(path, n, d));
     default:
       return 0;
   }
@@ -1526,48 +1739,141 @@ cudaError_t chain(int tile, const void* x, void* out, const float* wt, int n,
   }
 }
 
-// The per-step paths: step t reads x (t = 0) or the buffer step t-1
-// wrote, and writes out (the last step) or buffer t % 2.
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// A per-step path's first input, x[n, d] (pairs aligned where vec_x),
+// cast to y (rows ld_y apart, pairs aligned where vec_y).
+template <typename InT, typename OutT>
+cudaError_t cast(const InT* x, int vec_x, OutT* y, long long ld_y, int vec_y,
+                 int n, long long d, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>((d + 511) / 512),
+                  n < 1024 ? n : 1024);
+  cast_rows<InT, OutT><<<grid, 256, 0, s>>>(x, d, vec_x, y, ld_y, vec_y, n,
+                                            d);
+  return cudaGetLastError();
+}
+
+// One step of path 5.
+template <typename OutT, bool ROUND>
+cudaError_t fma_step(const float* src, int src_vec, OutT* dst, int dst_vec,
+                     const float* wt, int n, int ldw, long long d,
+                     cudaStream_t s) {
+  auto kernel = fp32::fma_step_kernel<OutT, ROUND>;
+  constexpr size_t smem = fp32::kStepSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>((n + fp32::kStepRows - 1) / fp32::kStepRows) *
+      ((d + fp32::kStepCols - 1) / fp32::kStepCols);
+  kernel<<<static_cast<unsigned>(blocks), fp32::kThreads, smem, s>>>(
+      src, d, src_vec, dst, d, dst_vec, wt, n, ldw, d);
+  return cudaGetLastError();
+}
+
+// Path 5: step t reads x (t = 0; a bf16 state widened to f32 first) or
+// the buffer step t-1 wrote, and writes out (the last step) or the other
+// buffer.
 template <typename StateT>
-cudaError_t steps(int path, const void* x, void* out, const void* stack,
-                  unsigned char* scratch, int n, long long d, int t_steps,
-                  int vec, cudaStream_t s) {
-  const StateT* src = static_cast<const StateT*>(x);
-  StateT* bufs[2];
-  const float* wt = reinterpret_cast<const float*>(scratch);
+cudaError_t fma_steps(const StateT* x, StateT* out, const float* stack,
+                      unsigned char* scratch, int n, long long d,
+                      int t_steps, cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(StateT) == 2;
   const int ldw = fp32::step_ldw(n);
-  size_t at = path == kFmaStep ? wt_bytes(n, t_steps, ldw) : 0;
-  const size_t state = align256(sizeof(StateT) * static_cast<size_t>(n) * d);
-  for (int b = 0; b < 2; ++b) bufs[b] =
-      reinterpret_cast<StateT*>(scratch + at + b * state);
-  if (path == kFmaStep) {
-    cudaError_t err = transpose(static_cast<const float*>(stack),
-                                reinterpret_cast<float*>(scratch), n, ldw,
-                                t_steps, s);
+  float* wt = reinterpret_cast<float*>(scratch);
+  const size_t at = wt_bytes(n, t_steps, ldw);
+  const size_t state = step_buffer_bytes(kFmaStep, n, d);
+  float* bufs[2] = {reinterpret_cast<float*>(scratch + at),
+                    reinterpret_cast<float*>(scratch + at + state)};
+  cudaError_t err = transpose(stack, wt, n, ldw, t_steps, s);
+  if (err != cudaSuccess) return err;
+  const int even = d % 2 == 0;
+  const float* src = reinterpret_cast<const float*>(x);
+  int src_vec = even && aligned(x, 2 * sizeof(StateT));
+  int b = 0;
+  if (kBf16) {
+    err = cast(x, src_vec, bufs[0], d, even, n, d, s);
     if (err != cudaSuccess) return err;
+    src = bufs[0];
+    src_vec = even;
+    b = 1;
   }
   for (int t = 0; t < t_steps; ++t) {
-    StateT* dst = t + 1 == t_steps ? static_cast<StateT*>(out) : bufs[t % 2];
-    if (path == kFmaStep) {
-      const dim3 grid(static_cast<unsigned>((d + fp32::kStepCols - 1) /
-                                            fp32::kStepCols),
-                      (n + fp32::kStepRows - 1) / fp32::kStepRows);
-      fp32::fma_step_kernel<StateT><<<grid, fp32::kThreads, 0, s>>>(
-          src, dst, wt + static_cast<size_t>(t) * n * ldw, n, ldw, d, vec);
-    } else {
-      const int npad = tc::pad16(n);
-      const unsigned grid = static_cast<unsigned>(
-          (d + tc::kStepCols - 1) / tc::kStepCols *
-          ((npad + tc::kStepRows - 1) / tc::kStepRows));
-      tc::tc_step_kernel<StateT><<<grid, tc::kThreads, 0, s>>>(
-          src, dst,
-          static_cast<const tc::bf16*>(stack) +
-              static_cast<size_t>(t) * npad * npad,
-          n, d);
+    const float* w = wt + static_cast<size_t>(t) * n * ldw;
+    if (t + 1 == t_steps) {
+      return fma_step<StateT, false>(src, src_vec, out,
+                                     even && aligned(out, 2 * sizeof(StateT)),
+                                     w, n, ldw, d, s);
     }
-    cudaError_t err = cudaGetLastError();
+    err = fma_step<float, kBf16>(src, src_vec, bufs[b], even, w, n, ldw, d,
+                                 s);
     if (err != cudaSuccess) return err;
-    src = dst;
+    src = bufs[b];
+    src_vec = even;
+    b ^= 1;
+  }
+  return cudaSuccess;
+}
+
+// One step of path 6.
+template <typename OutT>
+cudaError_t tc_step(const tc::bf16* src, long long ldx, OutT* dst,
+                    long long ld_dst, int dst_vec, const tc::bf16* w, int n,
+                    long long d, cudaStream_t s) {
+  auto kernel = tc::tc_step_kernel<OutT>;
+  constexpr size_t smem = tc::kStepSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>((tc::pad16(n) + tc::kStepRows - 1) /
+                             tc::kStepRows) *
+      (ldx / tc::kStepCols);
+  kernel<<<static_cast<unsigned>(blocks), tc::kThreads, smem, s>>>(
+      src, ldx, dst, ld_dst, dst_vec, w, n, d);
+  return cudaGetLastError();
+}
+
+// Path 6: the state cast to bf16 into buffer 0, then step t reads the
+// buffer step t-1 wrote (rounded to bf16, as step t rounds its input) and
+// writes out (the last step) or the other buffer.
+template <typename StateT>
+cudaError_t tc_steps(const StateT* x, StateT* out, const tc::bf16* stack,
+                     unsigned char* scratch, int n, long long d, int t_steps,
+                     cudaStream_t s) {
+  const int npad = tc::pad16(n);
+  const long long ldx = tc::step_ldx(d);
+  const size_t state = step_buffer_bytes(kTcStep, n, d);
+  tc::bf16* bufs[2] = {reinterpret_cast<tc::bf16*>(scratch),
+                       reinterpret_cast<tc::bf16*>(scratch + state)};
+  cudaError_t err = cudaSuccess;
+  for (int b = 0; b < step_buffers(kTcStep, t_steps, 0); ++b) {
+    if (npad > n) {  // the padded rows: zero k values of every step
+      err = cudaMemsetAsync(bufs[b] + static_cast<size_t>(n) * ldx, 0,
+                            sizeof(tc::bf16) * (npad - n) * ldx, s);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  const int even = d % 2 == 0;
+  err = cast(x, even && aligned(x, 2 * sizeof(StateT)), bufs[0], ldx, 1, n,
+             d, s);
+  if (err != cudaSuccess) return err;
+  int b = 1;
+  for (int t = 0; t < t_steps; ++t) {
+    const tc::bf16* src = bufs[b ^ 1];
+    const tc::bf16* w = stack + static_cast<size_t>(t) * npad * npad;
+    if (t + 1 == t_steps) {
+      return tc_step<StateT>(src, ldx, out, d,
+                             even && aligned(out, 2 * sizeof(StateT)), w, n,
+                             d, s);
+    }
+    err = tc_step<tc::bf16>(src, ldx, bufs[b], ldx, 1, w, n, d, s);
+    if (err != cudaSuccess) return err;
+    b ^= 1;
   }
   return cudaSuccess;
 }
@@ -1598,6 +1904,12 @@ long long fused_gossip_reg_max_n(int path) {
 
 // Shared memory the register paths may give to the staged stack, in bytes.
 long long fused_gossip_stage_bytes() { return kStageBytes; }
+
+// The columns of a per-step path's (5 or 6) output tile, else -1.
+long long fused_gossip_step_tile(int path) {
+  return path == kFmaStep ? fp32::kStepCols
+                          : (path == kTcStep ? tc::kStepCols : -1);
+}
 
 // Device memory a launch of `path` needs as `scratch`, in bytes (0 where
 // it needs none): the transposed f32 stack (paths 0 and 5) and the states
@@ -1640,16 +1952,26 @@ int fused_gossip_launch(const void* x, void* out, const void* stack,
             reinterpret_cast<uintptr_t>(out) % pair == 0;
   cudaError_t err;
   if (path == kFmaStep || path == kTcStep) {
-    if (scratch == nullptr && t_steps >= 2) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    // intermediate states are [n, d] buffers of scratch (aligned): pairs
-    // there are aligned exactly where they are in x and out
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     auto* buf = static_cast<unsigned char*>(scratch);
-    err = state_dtype == 0
-              ? steps<float>(path, x, out, stack, buf, n, d, t_steps, vec, s)
-              : steps<__nv_bfloat16>(path, x, out, stack, buf, n, d, t_steps,
-                                     vec, s);
+    using bf16 = __nv_bfloat16;
+    if (path == kFmaStep) {
+      const auto* w = static_cast<const float*>(stack);
+      err = state_dtype == 0
+                ? fma_steps(static_cast<const float*>(x),
+                            static_cast<float*>(out), w, buf, n, d, t_steps,
+                            s)
+                : fma_steps(static_cast<const bf16*>(x),
+                            static_cast<bf16*>(out), w, buf, n, d, t_steps,
+                            s);
+    } else {
+      const auto* w = static_cast<const bf16*>(stack);
+      err = state_dtype == 0
+                ? tc_steps(static_cast<const float*>(x),
+                           static_cast<float*>(out), w, buf, n, d, t_steps, s)
+                : tc_steps(static_cast<const bf16*>(x), static_cast<bf16*>(out),
+                           w, buf, n, d, t_steps, s);
+    }
     return static_cast<int>(err);
   }
   if (path == kFmaRegs || path == kTcRegs) {

@@ -93,9 +93,9 @@ _CHAIN_TILES = (512, 256, 128, 64)
 # leave room for on one SM (one CTA keeps two W chunks in flight itself,
 # and N = 256 takes the 128-column tile).
 _BLOCKS_PER_SM = {TENSOR_CORE: 1, SPLIT: 1}
-# The per-step paths' columns per CTA (their output tiles are 128 x 128
-# and 128 x 64).
-_STEP_COLS = {FMA_STEP: 128, TC_STEP: 64}
+# The per-step paths (FMA_STEP, TC_STEP): the columns of a CTA's output
+# tile come from the library (``fused_gossip_step_tile``).
+_STEP_PATHS = (FMA_STEP, TC_STEP)
 # Register paths: the rows a thread may hold (FMA_REGS pads N up to one of
 # them), and the columns a CTA takes per round of its grid: 256 threads of
 # one column pair (FMA_REGS), 8 warps of two m16 tiles (TC_REGS).
@@ -240,8 +240,8 @@ def _launch_shape(lib, n: int, block_d: int, path: int,
         tiles = [t for t in _CHAIN_TILES if _CHAIN_OUTPUTS // t >= n]
         tile = next((t for t in tiles if t <= block_d), tiles[-1])
         return LaunchShape(path, tile, _CHAIN_OUTPUTS // tile)
-    if path in _STEP_COLS:
-        return LaunchShape(path, _STEP_COLS[path])
+    if path in _STEP_PATHS:
+        return LaunchShape(path, lib.fused_gossip_step_tile(path))
     if path == FMA_REGS:
         if n > lib.fused_gossip_reg_max_n(path):
             raise ValueError(f"fused_gossip: the register FMA path takes "
@@ -267,6 +267,7 @@ _SIGNATURES = {
     "fused_gossip_smem_limit": ([], _LL),
     "fused_gossip_reg_max_n": ([_I], _LL),
     "fused_gossip_stage_bytes": ([], _LL),
+    "fused_gossip_step_tile": ([_I], _LL),
     "fused_gossip_error_string": ([_I], ctypes.c_char_p),
 }
 

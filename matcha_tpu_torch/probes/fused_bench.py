@@ -10,10 +10,11 @@ choice changed) beside this one (``perm_bench.load_package``), builds both
 kernel libraries, and at each shape times the two trees'
 ``fused_gossip_run`` in turns (old, new, new, old; ``--rounds`` times) with
 CUDA events, the L2 cache flushed before each call (``perm_bench.time_ms``),
-and each side's host time per call (``perm_bench.host_us``).  Where both
-sides run an f32 stack (FP32 FMA, summed in one order on every path) the
-outputs must be bitwise equal; on a bf16 stack whether they are, and the
-share of elements that differ, is printed.
+and each side's host time per call (``perm_bench.host_us``).  The two
+outputs must be bitwise equal (every path sums each element in one fixed
+order: an FMA chain, or the tensor cores' k16 sequence); any bit that
+differs raises, after the row with the share of elements that differ is
+printed.
 
 Shapes, all at D = 273,258 (ResNet-20): the training slice's ``[16, D]``
 (zoo graph 4, its MATCHA schedule at budget 0.5) at T = 1, 4 (the
@@ -22,8 +23,12 @@ state with a bf16 stack, and a bf16 state and stack (N = 16 is where both
 register paths stop); a ring's stack at the next N, 17, in f32 and bf16
 (the shared-memory paths) at T = 1 and 64; ``[256, D]`` bf16 at T = 64 on
 the 256-worker hypercube (chain (b)); K4, the split probe's schedule, on
-its own ``[256, D]`` inputs at T = 64; and the f32 sweep of the FMA paths
-on hypercubes, N = 32, 64, 128 and 256 at T = 64, 512 and 1024 at T = 8.
+its own ``[256, D]`` inputs at T = 64; the f32 sweep of the FMA paths
+on hypercubes, N = 32, 64, 128 and 256 at T = 64, 512 and 1024 at T = 8
+(``fma_step`` above 256); ``tc_step`` on the 2048-worker hypercube, bf16,
+T = 8; and the per-step paths at the end of the reference's fused range,
+N = 4095, T = 1 on an f32 state (``W_t = 0.5·I + U(0, 0.5/N)``), with an
+f32 stack (``fma_step``) and a bf16 one (``tc_step``).
 ``--only`` keeps the shapes whose label holds one of its substrings.  A
 side that refuses a shape (an older tree's cap) is recorded as
 "refused" and the other side is timed alone.  Every result is one JSON
@@ -107,7 +112,22 @@ def _makers(dev):
         out.append((f"hypercube N={n} T={t_steps} f32", lambda n=n, t=t_steps: (
             torch.randn(n, D, generator=g, device=dev),
             _stack(_cube(n), t, F32, dev), "fused")))
+    out.append(("hypercube N=2048 T=8 bf16", lambda: (
+        torch.randn(2048, D, generator=g, device=dev).to(BF16),
+        _stack(_cube(2048), 8, BF16, dev), "fused")))
+    for dtype in (F32, BF16):
+        out.append((f"N=4095 T=1 f32 state, {dtype} stack", lambda k=dtype: (
+            torch.randn(4095, D, generator=g, device=dev),
+            _random_stack(4095, 1, k, g, dev), "fused")))
     return out
+
+
+def _random_stack(n, t_steps, dtype, g, dev):
+    """``[T, n, n]``, ``W_t = 0.5·I + U(0, 0.5/n)``: rows summing near one,
+    no ``W_t`` symmetric."""
+    eye = torch.eye(n, device=dev)
+    return (0.5 * eye + torch.rand(t_steps, n, n, generator=g, device=dev)
+            * (0.5 / n)).to(dtype)
 
 
 def _same_bits(a, b) -> bool:
@@ -159,9 +179,9 @@ def ab(old_root, rounds: int = 3, only=()) -> list:
         else:
             row["bitwise_equal"] = _same_bits(new_out, old_out)
             row["differ_share"] = float((new_out != old_out).float().mean())
-            if stack.dtype == F32 and not row["bitwise_equal"]:
-                raise AssertionError(f"{label}: old and new FMA paths "
-                                     f"disagree")
+            if not row["bitwise_equal"]:
+                _emit({"phase": "fused_ab", **row})
+                raise AssertionError(f"{label}: old and new outputs differ")
         del new_out, old_out
         fns = {"old": old_fn, "new": new_fn}
         for _ in range(rounds):

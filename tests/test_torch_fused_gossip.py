@@ -423,8 +423,33 @@ class _SmemOnly:
     """The launch-shape queries of the kernel library, with the formulas
     of ``csrc/fused_gossip.cu``: ``fp32::chain_smem_bytes`` (path 0),
     ``tc::smem_bytes`` (path 1 unsplit, 2 split), the register paths'
-    largest N (``fused_gossip_reg_max_n``: 16 on paths 3 and 4)
-    and the shared memory they stage the stack in (64 KB)."""
+    largest N (``fused_gossip_reg_max_n``: 16 on paths 3 and 4), the
+    shared memory they stage the stack in (64 KB), the per-step paths'
+    output tile (``fused_gossip_step_tile``: 256 columns on paths 5 and
+    6) and the device memory a launch takes as scratch
+    (``fused_gossip_scratch_bytes``)."""
+
+    @staticmethod
+    def fused_gossip_step_tile(path):
+        return {5: 256, 6: 256}.get(path, -1)
+
+    @staticmethod
+    def fused_gossip_scratch_bytes(n, d, t_steps, path, tile, state_dtype):
+        def align(b):
+            return -(-b // 256) * 256
+
+        def wt(ldw):  # the f32 stack transposed, [t][k][ldw]
+            return align(4 * t_steps * n * ldw)
+
+        if path == 0:
+            return wt(16384 // tile)
+        if path == 5:  # f32 states between steps; a bf16 state widened
+            bufs = min(2, t_steps - (1 if state_dtype == 0 else 0))
+            return wt(-(-n // 128) * 128) + bufs * align(4 * n * d)
+        if path == 6:  # bf16 [npad][ldx]: the cast input and the steps'
+            npad, ldx = -(-n // 16) * 16, -(-d // 256) * 256
+            return min(2, t_steps) * align(2 * npad * ldx)
+        return 0
 
     @staticmethod
     def fused_gossip_smem_limit():
@@ -460,7 +485,7 @@ class _SmemOnly:
     (16, 64, 64),      # block_d caps the tile
     (256, 2048, 64),   # N = 256: 256 rows of sums, 64 columns
     (100, 2048, 128),  # 128 rows of sums, 128 columns
-    (300, 2048, 128),  # above the chain: one launch per step, 128 columns
+    (300, 2048, 256),  # above the chain: one launch per step, 256 columns
 ])
 def test_kernel_tile_choice(n, block_d, tile):
     from matcha_tpu_torch.parallel.fused_gossip import (_launch_shape,
@@ -478,7 +503,44 @@ def test_kernel_refuses_a_state_too_tall_for_shared_memory():
         _launch_shape(_SmemOnly, 1024, 2048, FMA, 64)
     assert kernel_path(torch.float32, 1024) == FMA_STEP
     assert _launch_shape(_SmemOnly, 1024, 2048, FMA_STEP, 64) == \
-        LaunchShape(FMA_STEP, 128)
+        LaunchShape(FMA_STEP, 256)
+
+
+@pytest.mark.parametrize("n,block_d,t_steps", [(257, 2048, 1), (1024, 64, 8),
+                                               (4095, 32, 1)])
+@pytest.mark.parametrize("path", [5, 6])
+def test_per_step_tile_is_the_library_s(n, block_d, t_steps, path):
+    # a per-step path's tile is the kernel's constant, which block_d does
+    # not cap: the wrapper asks the library for it
+    from matcha_tpu_torch.parallel.fused_gossip import (LaunchShape,
+                                                        _launch_shape)
+    assert _launch_shape(_SmemOnly, n, block_d, path, t_steps) == \
+        LaunchShape(path, _SmemOnly.fused_gossip_step_tile(path))
+
+
+# (n, d, t, path, state dtype code, bytes): the FMA per-step path takes the
+# transposed f32 stack (ldw = n rounded up to 128) and min(T - 1, 2) f32
+# states (an f32 state's first step reads it in place) or min(T, 2) (a
+# bf16 state is widened to f32 first); the tensor cores min(T, 2) bf16
+# states of npad rows by D rounded up to 256 columns (the first step's
+# input is the state cast to bf16)
+SCRATCH = [
+    (300, 1031, 1, 5, 0, 4 * 300 * 384),
+    (300, 1031, 2, 5, 0, 4 * 300 * 384 * 2 + 1237248),
+    (300, 1031, 8, 5, 0, 4 * 300 * 384 * 8 + 2 * 1237248),
+    (300, 1031, 1, 5, 1, 4 * 300 * 384 + 1237248),
+    (300, 1031, 2, 5, 1, 4 * 300 * 384 * 2 + 2 * 1237248),
+    (1025, 4098, 1, 6, 0, 2 * 1040 * 4352),
+    (1025, 4098, 1, 6, 1, 2 * 1040 * 4352),
+    (1025, 4098, 3, 6, 0, 2 * 2 * 1040 * 4352),
+    (4095, 273258, 1, 6, 0, 2 * 4096 * 273408),
+]
+
+
+@pytest.mark.parametrize("n,d,t_steps,path,state_dtype,nbytes", SCRATCH)
+def test_per_step_scratch_bytes(n, d, t_steps, path, state_dtype, nbytes):
+    assert _SmemOnly.fused_gossip_scratch_bytes(
+        n, d, t_steps, path, 256, state_dtype) == nbytes
 
 
 @pytest.mark.parametrize("n,block_d,path,t_steps,tile", [
@@ -578,3 +640,98 @@ def test_fused_chain_at_1024_workers_on_card(dtype):
     bound = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * float(
         ref.float().abs().max())
     assert float((out.float() - ref.float()).abs().max()) <= bound
+
+
+def _forced_run(x, stack, path):
+    """One launch of ``path`` whatever N the path rule would give it."""
+    from matcha_tpu_torch.parallel import fused_gossip as fg
+    prep, _ = fg.prepare_stack(x, stack, 2048, 1)
+    return fg.launch_kernel(x, prep, fg.kernel_shape(x.shape[0], 2048, path,
+                                                     prep.shape[0]))
+
+
+def _same_bits(a, b):
+    as_int = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(as_int), b.view(as_int))
+
+
+def _random_stack(n, t_steps, dtype, dev, seed=0):
+    """``W_t = 0.5·I + U(0, 0.5/n)``: no ``W_t`` symmetric."""
+    rng = np.random.default_rng(seed)
+    w = 0.5 * np.eye(n, dtype=np.float32) + rng.random(
+        (t_steps, n, n), dtype=np.float32) * np.float32(0.5 / n)
+    return torch.from_numpy(w).to(dev).to(dtype)
+
+
+# D = 1,031 (odd: no f32 pair aligned) and 4,098 (≡ 2 mod 4: f32 rows only
+# 8-byte aligned)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1031, 4098])
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+@pytest.mark.parametrize("n,other", [(200, "fma"), (257, "plain")])
+def test_fma_step_bitwise_on_card(n, other, state, d):
+    # the per-step FMA path forced below its range against the chain, and
+    # just above the chain's range against the plain version: the same
+    # chain of fmas per element, so the same bits
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.parallel.fused_gossip import FMA, FMA_STEP
+    dev = torch.device("cuda")
+    x = torch.from_numpy(_state(3, n=n, d=d)).to(dev).to(TORCH[state])
+    stack = _random_stack(n, 3, torch.float32, dev)
+    out = _forced_run(x, stack, FMA_STEP)
+    ref = (_forced_run(x, stack, FMA) if other == "fma"
+           else fused_gossip_plain(x, stack))
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1031, 4098])
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1025, 1040])
+def test_tc_step_bitwise_vs_tensor_core_on_card(n, state, d):
+    # each element runs the shared-memory mainloop's mma sequence
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.parallel.fused_gossip import TC_STEP, TENSOR_CORE
+    dev = torch.device("cuda")
+    x = torch.from_numpy(_state(4, n=n, d=d)).to(dev).to(TORCH[state])
+    stack = _random_stack(n, 3, torch.bfloat16, dev)
+    out = _forced_run(x, stack, TC_STEP)
+    ref = _forced_run(x, stack, TENSOR_CORE)
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+@pytest.mark.parametrize("stack_dtype", ["f32", "bf16"])
+def test_per_step_paths_at_4095_workers_on_card(stack_dtype, state):
+    # the reference's fused range ends below 4096 workers: both per-step
+    # paths within chip_smoke.py's bars of the plain version
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    n, dev = 4095, torch.device("cuda")
+    x = torch.from_numpy(_state(5, n=n, d=37)).to(dev).to(TORCH[state])
+    stack = _random_stack(n, 2, TORCH[stack_dtype], dev)
+    out = fused_gossip_run(x, stack)
+    ref = fused_gossip_plain(x, stack)
+    torch.cuda.synchronize()
+    exact = state == stack_dtype == "f32"
+    bound = (1e-5 if exact else 2.0 ** -7) * float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_step_queries_are_the_card_library_s():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.parallel.fused_gossip import _library
+    lib = _library()
+    for path in range(7):
+        assert lib.fused_gossip_step_tile(path) == \
+            _SmemOnly.fused_gossip_step_tile(path)
+    for n, d, t_steps, path, state_dtype, nbytes in SCRATCH:
+        assert lib.fused_gossip_scratch_bytes(n, d, t_steps, path, 256,
+                                              state_dtype) == nbytes

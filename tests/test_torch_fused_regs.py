@@ -136,8 +136,9 @@ def test_large_n_matches_jax_kernel(state, stack):
 class _Lib:
     """The library's launch-shape queries, with the formulas of
     ``csrc/fused_gossip.cu``: the register paths' largest N, the 64 KB
-    they stage the stack in, and the shared-memory paths' bytes (128-column
-    tiles and below; ``tests/test_torch_fused_gossip.py`` pins those)."""
+    they stage the stack in, the per-step paths' 256-column tiles, and the
+    shared-memory paths' bytes (128-column tiles and below;
+    ``tests/test_torch_fused_gossip.py`` pins those)."""
 
     @staticmethod
     def fused_gossip_reg_max_n(path):
@@ -146,6 +147,10 @@ class _Lib:
     @staticmethod
     def fused_gossip_stage_bytes():
         return 64 * 1024
+
+    @staticmethod
+    def fused_gossip_step_tile(path):
+        return {FMA_STEP: 256, TC_STEP: 256}.get(path, -1)
 
     @staticmethod
     def fused_gossip_smem_limit():
@@ -465,3 +470,106 @@ def test_modelled_chain_keeps_an_inf_out_of_the_padded_workers():
     assert np.isposinf(ref[:, 4]).all()
     assert np.isfinite(np.delete(ref, 4, 1)).all()
     np.testing.assert_array_equal(got, ref)
+
+
+# ----------------------------------------- 4. the per-step kernels' maps
+
+# Copies of the index maps of csrc/fused_gossip.cu's per-step kernels
+# (fp32::fma_step_kernel, tc::tc_step_kernel), which only the card runs:
+# the tiles must cover every output element once, the grid every tile
+# once, and the tensor cores' stages must be wgmma's 128-byte-swizzled
+# layouts, in which 8 rows of one 16-byte granule fall in 8 bank groups.
+STEP_ROWS, STEP_COLS, TC_STEP_K = 128, 256, 64
+
+
+def step_w_idx(r, k):
+    """tc::step_w_idx: element (r, k) of a [128][64] bf16 W stage."""
+    return r * TC_STEP_K + ((((k >> 3) ^ r) & 7) << 3) + (k & 7)
+
+
+def step_x_idx(k, c):
+    """tc::step_x_idx: element (k, c) of a [64][256] bf16 state stage."""
+    return ((c >> 6) * (TC_STEP_K * 64) + k * 64
+            + ((((c >> 3) ^ k) & 7) << 3) + (c & 7))
+
+
+def sw128(byte):
+    """The 128-byte swizzle wgmma applies to a byte address of a stage
+    that starts on a 1024-byte boundary: 16-byte granule bits 4-6 XOR
+    bits 7-9."""
+    return byte ^ (((byte >> 7) & 7) << 4)
+
+
+def step_tile(b, row_tiles):
+    """Both per-step kernels' grids: block b -> (row tile, column tile),
+    the row tiles fastest."""
+    return b % row_tiles, b // row_tiles
+
+
+@pytest.mark.parametrize("idx,rows,cols", [(step_w_idx, 128, 64),
+                                           (step_x_idx, 64, 256)])
+def test_tc_step_stages_are_swizzled_without_bank_conflicts(idx, rows, cols):
+    at = np.array([[idx(r, c) for c in range(cols)] for r in range(rows)])
+    assert sorted(at.ravel()) == list(range(rows * cols))  # a permutation
+    # every granule of 8 stays whole and 16-byte aligned
+    assert (at[:, ::8] % 8 == 0).all()
+    assert (np.diff(at.reshape(rows, cols // 8, 8), axis=2) == 1).all()
+    # 8 consecutive rows (8-aligned) of one granule: the W stage's rows or
+    # the state stage's k
+    for r0 in range(0, rows, 8):
+        for c0 in range(0, cols, 8):
+            banks = {(at[r0 + i, c0] * 2 // 16) % 8 for i in range(8)}
+            assert len(banks) == 8
+
+
+def test_tc_step_stages_are_wgmma_s_canonical_layouts():
+    # W_t, K-major: row r of 64 k is 128 B at r*128 (8-row groups 1024 B
+    # apart, the descriptor's stride); the state, N-major: the 64-column
+    # segment s, row k is 128 B at s*8192 + k*128 (segments 8 KB apart,
+    # 8-k groups 1024 B apart).  Each element sits where the swizzle puts
+    # its unswizzled address.
+    for r in range(128):
+        for k in range(64):
+            assert 2 * step_w_idx(r, k) == sw128(r * 128 + 2 * k)
+    for k in range(64):
+        for c in range(256):
+            plain = (c // 64) * 8192 + k * 128 + 2 * (c % 64)
+            assert 2 * step_x_idx(k, c) == sw128(plain)
+
+
+@pytest.mark.parametrize("n,d", [(4095, 273258 // 100), (257, 4098),
+                                 (1024, 1031), (300, 256), (1040, 700)])
+def test_per_step_grid_covers_every_tile_once(n, d):
+    row_tiles, col_tiles = -(-n // STEP_ROWS), -(-d // STEP_COLS)
+    tiles = [step_tile(b, row_tiles) for b in range(row_tiles * col_tiles)]
+    assert sorted(tiles) == [(r, c) for r in range(row_tiles)
+                             for c in range(col_tiles)]
+    assert [t[0] for t in tiles[:row_tiles]] == list(range(row_tiles))
+
+
+def test_fma_step_threads_cover_the_tile_once():
+    # thread (g, l) of 16 x 16 sums rows 8g..8g+7 by columns 4l + 64q + j
+    cover = np.zeros((STEP_ROWS, STEP_COLS), int)
+    for g in range(16):
+        for l in range(16):
+            for r in range(8):
+                for q in range(4):
+                    for j in range(4):
+                        cover[8 * g + r, 64 * q + 4 * l + j] += 1
+    assert (cover == 1).all()
+
+
+def test_tc_step_warpgroups_cover_the_tile_once_on_the_mma_grid():
+    # two warpgroups of m64n256: accumulator i of lane `lane` of warp w is
+    # n8 block i // 4 of the m16n8 fragment (D_AT) at rows 64*wg + 16*w;
+    # every element keeps its place in its m16n8 tile, as in the mainloop
+    cover = np.zeros((STEP_ROWS, STEP_COLS), int)
+    for wg in range(2):
+        for w in range(4):
+            for lane in range(32):
+                for i in range(128):
+                    r, c = D_AT[i % 4](*divmod(lane, 4))
+                    r0, c0 = 64 * wg + 16 * w, 8 * (i // 4)
+                    assert r0 % 16 == 0 and c0 % 8 == 0
+                    cover[r0 + r, c0 + c] += 1
+    assert (cover == 1).all()
