@@ -15,7 +15,8 @@ raises and the script exits non-zero:
    shared memory, one launch per step) and tensor-core paths (chained in
    registers; in shared memory, unsplit and split; one launch per step),
    and the perm kernel's per-step path; a spill store in a per-step kernel
-   of the fused source fails the run.
+   of the fused source or in the tensor cores' shared-memory mainloop
+   fails the run.
 3. parity — the perm kernel's two instantiations against their plain PyTorch version on the card, at
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
@@ -89,8 +90,9 @@ raises and the script exits non-zero:
    version (the fused bars; an f32 stack bitwise); the per-step paths
    bitwise against the on-chip ones where both take N (FMA at 256, tensor
    cores at 1024), and at ragged N (FMA at 200 against the chain and 257
-   against the plain version, tensor cores at 1025 and 1040) with D =
-   1,031 and 4,098, both state dtypes; and
+   against the plain version, tensor cores at 1025 and 1040), and
+   ``tensor_core`` against ``tc_step`` at N = 17, 64, 256, 1000 and 1024,
+   with D = 1,031 and 4,098, both state dtypes; and
    ``make_decen(..., "fused").run`` at N = 1024 (f32: ``fma_step``; bf16:
    ``tensor_core``) and 2048 (bf16: ``tc_step``), launches counted by
    path.  fused_sweep — the f32 stack at full width across N = 17, 32,
@@ -118,9 +120,9 @@ raises and the script exits non-zero:
    float64 product; then max|out| of the T = 2000
    output and the probe's own record at T = 2000
    (``main(["--reps", "3"])``), its launches counted.
-   split_timing — both schedules, the plain version (T = 64 only), the
-   library call (T bf16 ``torch.matmul`` calls) and the bound at T = 64
-   and T = 2000.
+   split_timing — both schedules (CUDA events and the profiler's device
+   time), the plain version (T = 64 only), the library call (T bf16
+   ``torch.matmul`` calls) and the bound at T = 64 and T = 2000.
 11. a ``{"kernels": [...]}`` summary line (perm ×2 and its per-step
     path, fused_gossip per path ×6, split_gossip), then the
     ``nvidia-smi`` line.
@@ -933,7 +935,8 @@ def phase_fused_large(dev):
     bitwise against the on-chip ones at an N both take (FMA at 256, tensor
     cores at 1024), and at ragged N and D (fma_step at 200 against the
     chain and 257 against the plain version, tc_step at 1025 and 1040
-    against tensor_core; D = 1,031 and 4,098; both state dtypes); then
+    against tensor_core, tensor_core against tc_step at N = 17, 64, 256,
+    1000 and 1024; D = 1,031 and 4,098; both state dtypes); then
     ``make_decen(..., "fused").run`` at N = 1024 (f32 and bf16) and 2048
     (bf16), the launches counted by path."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -986,13 +989,18 @@ def phase_fused_large(dev):
     # aligned) and 4,098 (f32 rows only 8-byte aligned); fma_step forced
     # at N = 200 against the chain and at N = 257 (the chain takes no N
     # above 256) against the plain version, tc_step at N = 1025 and 1040
-    # (padded to 1040 rows) against tensor_core; both state dtypes, T = 3
+    # (padded to 1040 rows) against tensor_core, and tensor_core (wgmma fed
+    # by TMA) against tc_step (wgmma, the parent mainloop's bits) across
+    # its range, N = 17, 64, 256, 1000 and 1024; both state dtypes, T = 3
+    tc_pairs = tuple((n, fg.TENSOR_CORE, fg.TC_STEP)
+                     for n in (17, 64, 256, 1000, 1024))
     for d in (1031, 4098):
         for state_dtype in (f32, bf16):
             for n, path, other in ((200, fg.FMA_STEP, fg.FMA),
                                    (257, fg.FMA_STEP, None),
                                    (1025, fg.TC_STEP, fg.TENSOR_CORE),
-                                   (1040, fg.TC_STEP, fg.TENSOR_CORE)):
+                                   (1040, fg.TC_STEP, fg.TENSOR_CORE),
+                                   *tc_pairs):
                 x = state(n, d, dev).to(state_dtype)
                 stack = random_stack(n, 3, f32 if path == fg.FMA_STEP
                                      else bf16, dev)
@@ -1046,15 +1054,20 @@ def phase_fused_large(dev):
 STEP_KERNELS = {"fma_step": ("fma_step_kernel", "transpose_stack",
                              "cast_rows"),
                 "tc_step": ("tc_step_kernel", "cast_rows")}
+# the tensor cores' shared-memory mainloop (tensor_core and K4's split
+# schedule), every instantiation; its spill stores fail the build phase too
+MAINLOOP_KERNEL = "tc_gossip_kernel"
 
 
 def step_spills(ptxas: dict) -> dict:
-    """Bytes of spill stores of each per-step path's kernels (the most over
-    their instantiations), from the build's ptxas lines."""
+    """Bytes of spill stores of each per-step path's kernels and of the
+    shared-memory mainloop (the most over their instantiations), from the
+    build's ptxas lines."""
     rows = ptxas["fused_gossip"]
+    kernels = {**STEP_KERNELS, "tensor_core": (MAINLOOP_KERNEL,)}
     return {path: max(r.get("spill_stores", 0) for r in rows
                       if any(k in r["kernel"] for k in names))
-            for path, names in STEP_KERNELS.items()}
+            for path, names in kernels.items()}
 
 
 def phase_fused_sweep(dev, spills):
@@ -1561,6 +1574,9 @@ def phase_split_timing(dev):
             row[f"{name}_ms"] = time_ms(
                 lambda: sp.split_gossip_run(x, stack, split=split), flush,
                 runs)
+            row[f"{name}_device_ms"] = device_ms(
+                lambda: sp.split_gossip_run(x, stack, split=split),
+                MAINLOOP_KERNEL, flush, runs)
         row["ratio_split_over_unsplit_time"] = row["split_ms"] / row[
             "unsplit_ms"]
         row["plain_ms"] = (time_ms(lambda: sp.split_gossip_plain(x, stack),
@@ -1649,6 +1665,7 @@ def kernels_line(r) -> list:
             "launches_by_path": {k: run[counter]
                                  for k, run in by_path.items()},
             "bitwise": False, "max_abs_err": r["fused_parity"][path],
+            "spill_stores": r["spills"].get(path),
             **{k: main[k] for k in keys},
             "timings": [{k: t[k] for k in keys} for t in fused_rows
                         if t["path"] == path],
@@ -1714,11 +1731,14 @@ def kernels_line(r) -> list:
         "bitwise": False, "split_vs_unsplit": "bitwise",
         "max_abs_err": r["split_probe"]["max_abs_err"],
         "shape": main["shape"], "ms": main["split_ms"],
-        "unsplit_ms": main["unsplit_ms"], "device_ms": None,
+        "unsplit_ms": main["unsplit_ms"], "device_ms": main["split_device_ms"],
+        "unsplit_device_ms": main["unsplit_device_ms"],
+        "spill_stores": r["spills"].get("tensor_core"),
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
         "probe_record": r["split_probe"]["record"],
         "timings": [{k: t[k] for k in ("shape", "split_ms", "unsplit_ms",
+                                       "split_device_ms", "unsplit_device_ms",
                                        "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")} for t in split_rows],
     })
@@ -1744,11 +1764,12 @@ def main():
           "sources": [SOURCE, FUSED_SOURCE],
           "cached": {k: r["cached"] for k, r in reports.items()},
           "kernels": ptxas})
-    # the per-step kernels were redesigned to fit their registers: a spill
-    # fails the run (a cached build printed nothing to read)
+    # the per-step kernels and the shared-memory tensor-core mainloop were
+    # redesigned to fit their registers: a spill fails the run (a cached
+    # build printed nothing to read)
     spills = {} if reports["fused_gossip"]["cached"] else step_spills(ptxas)
     if any(spills.values()):
-        raise AssertionError(f"per-step kernels spill registers: {spills}")
+        raise AssertionError(f"fused kernels spill registers: {spills}")
 
     tables, big_tables = slice_tables(dev), hypercube_tables(dev)
     huge_tables = hypercube_tables(dev, 4096)
@@ -1765,6 +1786,7 @@ def main():
     results["fused_slice"] = phase_fused_slice(dev)
     results["fused_large"] = phase_fused_large(dev)
     results["fused_sweep"] = phase_fused_sweep(dev, spills)
+    results["spills"] = spills
     results["perm_large"] = phase_perm_large(dev)
     results["split_probe"] = phase_split_probe(dev)
     results["split_timing"] = phase_split_timing(dev)

@@ -131,7 +131,7 @@ def load(name: str, signatures=None) -> ctypes.CDLL:
     return lib
 
 
-TILES = (128, 64, 32)
+TILES = (256, 128, 64, 32)
 
 
 def pick_tile(kernel: str, smem_bytes, limit: int, n: int, block_d: int,

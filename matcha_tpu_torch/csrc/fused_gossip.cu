@@ -73,36 +73,45 @@
 // x[k], acc) from +0, k = 0 .. N-1 in order, never multiplying a padded k,
 // so all three give the same bits.
 // * Tensor cores in shared memory (tc_gossip_kernel): a bf16 stack and
-//   16 < N <= 1024, unsplit (K3), or split (K4).
-//   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 fed by ldmatrix, f32
-//   accumulators in registers.  Every step rounds its input to bf16, so the
-//   state tile is held in shared memory as bf16 (cur and next, half the
-//   bytes of f32: N = 256 takes a 128-column tile in 128 KB); only the last
-//   step needs the f32 sum, and it writes it from the accumulators straight
-//   to device memory in the state's dtype.  A CTA has 8 warps, 4 along the
-//   rows and 2 along the columns; a warp owns MT m16 tiles (MT = 1, 2 or 4
-//   by N) times tile/16 columns, and a step walks the rows in passes of
-//   64*MT.  W_t streams in chunks of [pass rows x 32 k] (two mma k steps)
-//   through a 3-slot ring filled by cp.async, two chunks in flight, the
-//   next one requested behind each chunk's products.  The state tile and
-//   the W chunks are XOR-swizzled in 16-byte granules so ldmatrix reads
-//   without bank conflicts.  N is zero-padded to a multiple of 16 in rows
-//   and in k (the wrapper pads the stack; padded state rows stay zero and
-//   are never written), and the ragged last column tile is zero-filled on
-//   load and masked on store.  The template flag SPLIT is the schedule:
-//     - unsplit (K3 on a bf16 stack): the CTA loads each W chunk once and
-//       meets at one CTA-wide barrier per chunk (32 k values);
-//     - split (K4): the two column halves of the tile belong to the two
-//       halves of the warps.  Each half stages its own W chunks in its own
-//       ring and meets only at its own named barrier (bar.sync 1 or 2, 128
-//       threads), so half 0 can cast and store step t while half 1 is
-//       still in its products.  It reads every W_t from L2 twice as often.
-//   Both schedules run each output element through the same mma sequence
-//   (k chunks in order, the element at the same place of its m16n8 tile),
-//   so split equals unsplit bitwise, and the tile width changes no bit
-//   either.  The tensor cores' f32 sum need not round like a chain of
-//   FMAs, so the bf16 paths are held against the plain PyTorch version to
-//   one bf16 ulp of the output, not bitwise.
+//   16 < N <= 1024, unsplit (K3), or split (K4).  Redesigned for Hopper:
+//   a producer and two consumer warpgroups.  The producer's first warp
+//   loads W_t by TMA from a 3-D tensor map over the zero-padded stack
+//   ([t][npad][npad], boxes of 64 k by the rows of a pass, 128-byte
+//   swizzled, zero-filled past npad) into a ring of 2 to 4 stages, with a
+//   full and an empty mbarrier per stage; the rest of the warpgroup hands
+//   its registers to the consumers by setmaxnreg (232 a consumer thread).
+//   The consumers run wgmma.m64nNk16 with both operands in shared memory
+//   and the f32 sums in registers.  Every step rounds its input to bf16,
+//   so the state tile lives in shared memory as bf16 for all T steps,
+//   N-major in segments of a warpgroup's columns (64, or 32 and 16 where
+//   it owns fewer, with the 128-, 64- or 32-byte swizzle), which makes it
+//   wgmma's B operand as it stands: one buffer updated in place where a
+//   step is one pass of rows, two otherwise.  A pass's sums become the next
+//   step's state in the epilogue, a 4-byte store of a thread's two columns
+//   (fence.proxy.async before the tensor cores read them), and the last
+//   step writes the state's dtype to device memory, masked past n and d.
+//   How the two warpgroups share a tile:
+//     - unsplit (K3), tile 128, 64 or 32: warpgroup w owns rows [128w,
+//       128w + 128) of each pass of 256 rows and all the tile's columns
+//       (two m64 x tile products per k16 on one B); both read one ring
+//       and meet at a 256-thread barrier per step.  Tile 256 (64 < N <=
+//       128) and tile 128 at N <= 64: warpgroup w owns half the columns of
+//       every row, one ring, and meets only at its own barrier; at N <= 64
+//       the producer is a single warp and three CTAs share an SM.
+//     - split (K4): warpgroup w owns column half w of a pass of 128 rows,
+//       with its own ring (filled by producer lane w) and mbarriers, and
+//       never waits on the other.  It reads every W_t from L2 twice as
+//       often.
+//   Every element's k16 products are summed from +0 in k order, k < npad,
+//   as the parent's mma.sync mainloop and tc_step_kernel sum them, so
+//   split equals unsplit bitwise, the tile width changes no bit, and this
+//   path equals tc_step bitwise (chip_smoke.py holds both).  N is
+//   zero-padded to a multiple of 16 in rows and in k (the wrapper pads the
+//   stack; padded state rows are written as zero each step), and the
+//   ragged last column tile is zero-filled on load and masked on store.
+//   The tensor cores' f32 sum need not round like a chain of FMAs, so the
+//   bf16 paths are held against the plain PyTorch version to one bf16 ulp
+//   of the output, not bitwise.
 // * Tensor cores one launch per step (tc_step_kernel): a bf16 stack and
 //   N > 1024.  The state is cast to bf16 once into the wrapper's scratch
 //   (rows padded to a multiple of 256 columns, so every copy is 16 bytes)
@@ -110,8 +119,7 @@
 //   [128 x 256] output tiles on wgmma (two warpgroups of m64n256k16, both
 //   operands from 128-byte-swizzled shared memory, a 3-stage ring of 64-k
 //   stages).  wgmma sums each element's k16 products in the mainloop's
-//   order with the mma.sync bits, so it equals the shared-memory path
-//   bitwise.
+//   order, so it equals the shared-memory path bitwise.
 //
 // What bounds it (H100 SXM: 67 TFLOP/s FP32, 989 TFLOP/s bf16 dense, 3.35
 // TB/s).  The work is 2*N^2*D*T operations; device memory is read and
@@ -127,9 +135,21 @@
 // whole W_t from L2 every step, (D/tile)*T*N^2 elements in all -- the
 // counterpart of the TPU kernel's (D/block_d)*T*N^2 (:17) -- so the wider
 // the tile the better: the FMA chain takes the widest its 16,384 register
-// sums allow.  The per-step paths add a read and a write of the state per
-// step (2*N*D*bytes, 0.33 ms at N = 512 in f32) to a product of 2*N^2*D
-// operations (2.1 ms at the FP32 rate), which the card overlaps across
+// sums allow, the tensor cores' mainloop 128 columns at N = 256 (its 128
+// sums a consumer thread), where (D/128)*T*N^2*2 B = 17.9 GB of L2 reads
+// at T = 64 would take about 7.7 TB/s to keep pace with the tensor-core
+// bound.  Measured, L2 did not bind it (a cluster of two CTAs sharing
+// each stage by TMA multicast was slower: PERF.md); what does is a chain of
+// latencies per step -- the stage's products, then the epilogue and the
+// step's barrier with the tensor cores idle -- and shared memory, which
+// serves both the TMA writes (32 B/clk at N = 256) and wgmma's operand
+// reads (96 B/clk for m64n128k16) from its 128 B/clk.  So the design keeps
+// the epilogue short (no branch per element, one 4-byte store a pair) and
+// free of anything that makes ptxas serialize the wgmma (a wgmma under a
+// thread-dependent test, stmatrix in the loop).  The per-step paths add a
+// read and a write of the state per step (2*N*D*bytes, 0.33 ms at N = 512
+// in f32) to a product of 2*N^2*D operations (2.1 ms at the FP32 rate),
+// which the card overlaps across
 // CTAs; at N = 4095 an f32 step is 137 ms of FP32 operations and a bf16
 // step 9.3 ms of tensor-core operations.  The per-step FMA kernel spends
 // 6 LDS.128 per 128 FMAs.  Measured times: PERF.md.
@@ -138,11 +158,13 @@
 // else 16 (at most 112 KB: two CTAs per SM); the per-step FMA kernel 144
 // KB (3 stages of 32 x (128 + 256) floats), the per-step tensor cores 145
 // KB (3 stages of 64 x (128 + 256) bf16 and 1 KB to align the ring); the
-// tensor cores' mainloop 2*(rings*3*R*32 + 2*Npad*tile) B, R the rows of
-// a pass (64*MT), one ring unsplit, two split.  A CTA may use 227 KB, so
-// that mainloop is bounded (at tile 32 about 1,424 workers, 1,000
-// split); the wrapper sends N > 1024 one step at a time, and the split
-// probe keeps its cap.  Device memory the wrapper allocates per call
+// tensor cores' mainloop (tc::layout) 1,152 + bufs*2*Npad*tile +
+// rings*stages*R*128 B, R the rows of a pass (256 unsplit at tile <= 128,
+// 64 at tile 128 where N <= 64, 128 otherwise), one ring unsplit, two
+// split, 2 to 4 stages.  A CTA may use 227 KB, so that mainloop is
+// bounded (at tile 32, 1,280 workers on either schedule); the wrapper
+// sends N > 1024 one step at a time, and the split probe keeps its cap.
+// Device memory the wrapper allocates per call
 // (fused_gossip_scratch_bytes): the transposed f32 stack (FMA chain and
 // per-step FMA) and the states the per-step paths read and write between
 // steps (f32 [N][D] for FMA, bf16 [Npad][D rounded up to 256] for the
@@ -153,6 +175,7 @@
 // device and shared memory, and is kept (card_ctas): a launch sets no
 // attribute after the first.
 
+#include <cuda.h>  // CUtensorMap and its enums (no -lcuda: see encode_tiled)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -697,14 +720,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------- wgmma (sm_90a) helpers
 
-// A shared-memory matrix descriptor with 128-byte swizzling: start address,
-// the byte offsets between core-matrix groups along the leading (lbo) and
-// the stride (sbo) dimension, layout type 1 (128B swizzle) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo,
-                                               int sbo) {
+// A shared-memory matrix descriptor: start address, the byte offsets
+// between core-matrix groups along the leading (lbo) and the stride (sbo)
+// dimension, the layout type in bits 62-63 (1: 128-byte swizzle, 2: 64,
+// 3: 32); sw128_desc the 128-byte one.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo,
+                                              int sbo, uint64_t type) {
   return ((static_cast<uint64_t>(smem_u32(p)) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (type << 62);
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, int lbo,
+                                               int sbo) {
+  return smem_desc(p, lbo, sbo, 1);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -738,325 +767,615 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kHalfThreads = kThreads / 2;  // the split schedule's halves
-constexpr int kK = 16;       // k values of one mma
-constexpr int kStageK = 32;  // k values per W chunk: two mma k steps
-constexpr int kStages = 3;   // W chunk slots per ring
+constexpr int kThreads = 256;  // the per-step kernel: two warpgroups
+constexpr int kK = 16;         // k values of one tensor-core product
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
 
-constexpr int kWarpsM = 4;  // warps along the rows; 2 along the columns
+// ------------------------------------- the mainloop in shared memory
 
-// m16 tiles per warp: a pass of 16*kWarpsM*MT rows, MT = 1, 2 or 4
-__host__ __device__ inline int m_tiles(int n) {
-  const int m = (pad16(n) + 63) / 64;
-  return m <= 1 ? 1 : (m == 2 ? 2 : 4);
+// Two consumer warpgroups and a producer: one warp where three CTAs share
+// an SM (MB = 1), else a whole warpgroup, which gives its registers to the
+// consumers by setmaxnreg.  An SM quadrant holds 64 KB of registers for
+// the warps it runs: with three warps of a CTA on one quadrant, ptxas
+// allows 168 registers a thread; the consumers of the 128 x 128 tile want
+// more (128 sums and the epilogue), 232 once the producer warpgroup keeps
+// 40.
+constexpr int kConsumers = 256;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+template <int MB>
+constexpr int main_threads() {
+  return kConsumers + (MB == 1 ? 32 : 128);
 }
 
-// A warp holds NT = 2, 4 or 8 n8 tiles of columns, so a tile is 2 warps x
-// 8 x NT columns: 32, 64 or 128.  Returns NT, or 0 for a tile not taken.
-__host__ __device__ inline int n_tiles(int tile) {
-  constexpr int per_nt = kWarps / kWarpsM * 8;
-  const int nt = tile / per_nt;
-  return tile % per_nt == 0 && (nt == 2 || nt == 4 || nt == 8) ? nt : 0;
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-__host__ __device__ inline size_t smem_bytes(int n, int tile, bool split) {
-  const size_t ring = static_cast<size_t>(kStages) * 16 * kWarpsM *
-                      m_tiles(n) * kStageK;
-  return sizeof(bf16) * ((split ? 2 : 1) * ring +
-                         2 * static_cast<size_t>(pad16(n)) * tile);
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
-// the CTA's barrier (unsplit) or the half's named barrier (split); ids 1
-// and 2, as __syncthreads takes 0
-template <bool SPLIT>
-__device__ __forceinline__ void meet(int half) {
-  if (SPLIT) {
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(kHalfThreads)
-                 : "memory");
+constexpr int kChunkK = 64;      // k values of a W stage: one 128-byte row
+constexpr int kRowBytes = 128;   // a W stage row (64 bf16)
+constexpr int kMaxStages = 4;    // W stages per ring, at most
+constexpr int kMinStages = 2;    // fewer would leave no load in flight
+constexpr size_t kAlignSlack = 1024;  // to start the ring on a 1024-B boundary
+constexpr size_t kBarrierBytes = 128;  // the rings' full and empty mbarriers
+
+// How a CTA's [rows x tile] output is cut between the two consumer
+// warpgroups.  Unsplit by rows (K3 at tile <= 128): warpgroup w owns rows
+// [w*64*mb, (w+1)*64*mb) of each pass of 128*mb rows and all tile columns
+// (nw = tile).  By columns (K3 at tile 256, where 64 < N <= 128; K4's
+// split schedule at every tile): warpgroup w owns columns [w*nw,
+// (w+1)*nw) of all 64*mb rows of a pass (nw = tile / 2).  A warpgroup runs mb
+// m64 x nw x k16 products per k16.  Where N <= 64 fits one m64 block, the
+// tile is 128 columns by columns (mb = 1, nw = 64): 32 sums a thread leave
+// room for three CTAs per SM, which a short chain's loads and stores want.
+struct Plan {
+  int mb, nw, rows;  // m64 blocks per warpgroup, its columns, rows a pass
+  bool cols;
+};
+
+__host__ __device__ inline bool plan(int n, int tile, bool split, Plan* p) {
+  if (split) {
+    if (tile != 128 && tile != 64 && tile != 32) return false;
+    *p = {2, tile / 2, 128, true};
+  } else if (tile == 256) {
+    if (pad16(n) <= 64) return false;
+    *p = Plan{2, 128, 128, true};
+  } else if (tile == 128 && pad16(n) <= 64) {  // one m64 block a pass
+    *p = Plan{1, 64, 64, true};
   } else {
-    __syncthreads();
+    if (tile != 128 && tile != 64 && tile != 32) return false;
+    *p = {2, tile, 256, false};
+  }
+  return true;
+}
+
+// Shared memory of one CTA: the ring(s) of W stages ([rows of a pass] x
+// 64 k, 128 B a row), then the state tile(s) (bf16, npad x tile), then the
+// mbarriers.  One state buffer, updated in place, where a step is
+// one pass; two (read one, write the other) where it takes more.  As many
+// stages as fit, up to kMaxStages, and at least kMinStages: a tile whose
+// total then passes the 227 KB a block may use is not launched.
+struct Layout {
+  int stages, bufs;
+  size_t total;
+};
+
+__host__ __device__ inline bool layout(int n, int tile, bool split,
+                                       Layout* l) {
+  Plan p;
+  if (n < 1 || !plan(n, tile, split, &p)) return false;
+  const int npad = pad16(n);
+  const size_t ring = (split ? 2 : 1) * static_cast<size_t>(p.rows) *
+                      kRowBytes;  // a stage of each ring
+  l->bufs = npad > p.rows ? 2 : 1;
+  const size_t fixed = kAlignSlack + kBarrierBytes +
+                       l->bufs * sizeof(bf16) * static_cast<size_t>(npad) *
+                           tile;
+  const size_t fit =
+      fixed < static_cast<size_t>(kMaxSharedBytes)
+          ? (kMaxSharedBytes - fixed) / ring
+          : 0;
+  l->stages = fit < kMinStages ? kMinStages
+                               : (fit > kMaxStages ? kMaxStages
+                                                   : static_cast<int>(fit));
+  l->total = fixed + l->stages * ring;
+  return true;
+}
+
+// The state tile, held N-major as wgmma's B operand: segments of SW
+// columns (64 where a warpgroup owns 64 columns or more, else its NW), each
+// npad rows (k) of 2*SW bytes, in the swizzle of that row width (128, 64 or
+// 32 bytes: the 16-byte granules of a row XORed with address bits 7 and
+// up), so a warpgroup's B operand is whole segments and a thread's two
+// columns of one row are one 4-byte store.
+template <int NW>
+struct StateLayout {
+  static constexpr int kSw = NW < 64 ? NW : 64;  // columns of a segment
+  static constexpr int kRow = 2 * kSw;           // bytes of a segment row
+  static constexpr int kMask = kSw == 64 ? 7 : (kSw == 32 ? 3 : 1);
+  // wgmma's layout type: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
+  static constexpr uint64_t kType = kSw == 64 ? 1 : (kSw == 32 ? 2 : 3);
+  static_assert(NW % kSw == 0 && kSw >= 16, "whole segments of 16 or more");
+
+  // element (k, c) of a tile of npad rows
+  __device__ static int idx(int k, int c, int npad) {
+    int b = (c / kSw) * npad * kRow + k * kRow + (c % kSw) * 2;
+    b ^= ((b >> 7) & kMask) << 4;
+    return b >> 1;
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.  A wait
+// that outlasts kWaitPolls polls (each may suspend the thread for a
+// while; tens of seconds in all) is a fault: it traps instead of hanging
+// the card.
+constexpr uint32_t kWaitPolls = 1u << 28;
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == kWaitPolls) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// The box of W at (k0, row0, t) into shared memory, its bytes counted on
+// `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int k0, int row0, int t,
+                                         uint64_t* bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(t),
+      "r"(smem_u32(bar))
+      : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// Plain stores to shared memory, made visible to the tensor cores' reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d += a (16x16, row) * b (16x8, col), f32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Barrier `id` among `count` threads (0 is __syncthreads').
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// Element (k, c) of the [Npad][TILE] bf16 state tile.  The 16-byte
-// granule c/8 is XORed with bits of the row, so the 8 rows of one
-// ldmatrix (consecutive k, one granule) fall in 8 distinct bank groups.
-template <int TILE>
-__device__ __forceinline__ int state_idx(int k, int c) {
-  constexpr int kGranules = TILE / 8;
-  constexpr int kMask = kGranules < 8 ? kGranules - 1 : 7;
-  constexpr int kShift = kGranules < 8 ? 1 : 0;  // TILE 32: rows 2 apart
-  return k * TILE + (((c >> 3) ^ ((k >> kShift) & kMask)) << 3) + (c & 7);
-}
+// d += A (64 x 16, K-major) * B (16 x N, N-major: tnspB = 1), both from
+// swizzled shared memory (descriptors da, db), f32 accumulation.
+template <int N>
+struct WgmmaKN;
 
-// Element (r, g*8) of a [rows][32] W chunk: the four 16-byte granules of
-// a row are XORed with bits 1-2 of the row, so an ldmatrix's 8 rows (one
-// granule) hit 8 bank groups.
-__device__ __forceinline__ int w_idx(int r, int g) {
-  return r * kStageK + ((g ^ ((r >> 1) & 3)) << 3);
-}
+template <>
+struct WgmmaKN<16> {
+  __device__ __forceinline__ static void run(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
 
-// CTAs an SM should hold: a short pass (small N) leaves the CTA's warps
-// little work per barrier, so more CTAs hide its latency
-template <int MT, int NT, bool SPLIT>
-__global__ void __launch_bounds__(kThreads, MT == 4 ? 1 : (MT == 2 ? 2 : 3))
-    tc_gossip_kernel(const void* __restrict__ x, void* __restrict__ out,
-                     const bf16* __restrict__ stack, int n, long long d,
-                     int t_steps, int state_bf16) {
-  constexpr int WM = kWarpsM;
-  constexpr int WN = kWarps / WM;              // warps along the columns
-  constexpr int TILE = WN * 8 * NT;
-  constexpr int kPassRows = WM * MT * 16;
-  constexpr int kSlot = kPassRows * kStageK;  // bf16 per W chunk
-  constexpr int kRingThreads = SPLIT ? kHalfThreads : kThreads;
-  constexpr int kRowStep = kRingThreads / 4;  // rows a fetch round copies
-  static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
-  static_assert(WN % 2 == 0, "each split half holds whole warp columns");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+template <>
+struct WgmmaKN<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
 
+template <>
+struct WgmmaKN<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaKN<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// The chain on a [rows x tile] column tile, one CTA per tile: a producer
+// warp loads W_t by TMA into a ring of [rows of a pass] x 64-k stages (full
+// and empty mbarriers), two consumer warpgroups run wgmma on them with the
+// state tile, held as bf16 in shared memory for all T steps, as the B
+// operand.  The f32 sums stay in registers (MB * NW / 2 a thread) until a
+// pass's rows are summed; then they become the next step's state (bf16,
+// into the other buffer, or in place when a step is one pass) or, on the
+// last step, the output in the state's dtype.
+template <int MB, int NW, bool COLS, bool SPLIT>
+__global__ void __launch_bounds__(main_threads<MB>(), MB == 1 ? 3 : 1)
+    tc_gossip_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const void* __restrict__ x, void* __restrict__ out,
+                     int n, long long d, int t_steps, int state_bf16,
+                     int vec, int stages, int bufs, int box_rows) {
+  using SL = StateLayout<NW>;
+  constexpr int TILE = COLS ? 2 * NW : NW;
+  constexpr int P = COLS ? 64 * MB : 128 * MB;  // rows of a pass
+  constexpr int kRings = SPLIT ? 2 : 1;
+  constexpr int kStageBytes = P * kRowBytes;
+  // the warps that release a ring's stage: both warpgroups, or one
+  constexpr int kReleases = SPLIT ? 4 : 8;
+  static_assert(!SPLIT || COLS, "a split warpgroup owns a column half");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // 128-byte swizzling repeats every 1024 B: stages and state segments
+  // start on a multiple
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int npad = pad16(n);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = warp % WM;                  // row block of the warp
-  const int wn = warp / WM;                  // column block of the warp
-  const int half = warp / (kWarps / 2);      // column half: wn / (WN / 2)
-  const int rt = SPLIT ? threadIdx.x % kHalfThreads : threadIdx.x;
-  bf16* ring = smem + (SPLIT ? half * kStages * kSlot : 0);
-  bf16* cur = smem + (SPLIT ? 2 : 1) * kStages * kSlot;   // [npad][TILE]
-  bf16* nxt = cur + static_cast<size_t>(npad) * TILE;    // [npad][TILE]
+  const int kchunks = (npad + kChunkK - 1) / kChunkK;
+  const int passes = (npad + P - 1) / P;
+  const int state_elems = npad * TILE;
+  bf16* state0 = reinterpret_cast<bf16*>(ring + kRings * stages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(state0 + bufs * state_elems);
+  uint64_t* empty = full + kRings * stages;
   const long long col0 = static_cast<long long>(blockIdx.x) * TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // The chain is a flat sequence of chunks q = ((t * passes) + p) *
-  // kchunks + c: step t, row pass p, 32-k chunk c.  (ft, fp, fc) is the
-  // next chunk to fetch.  A thread copies 16-byte granule f_gran of rows
-  // f_row, f_row + kRowStep, ...; the swizzle is the same for all of them.
-  const int passes = (npad + kPassRows - 1) / kPassRows;
-  const int kchunks = (npad + kStageK - 1) / kStageK;
-  const long long q_total =
-      static_cast<long long>(t_steps) * passes * kchunks;
-  const int f_row = rt >> 2, f_gran = rt & 3;
-  const int f_dst = w_idx(f_row, f_gran);
-  int ft = 0, fp = 0, fc = 0;
-  auto fetch = [&](int slot) {
-    if (ft < t_steps) {
-      const int row0 = fp * kPassRows;
-      const int rows = min(kPassRows, npad - row0);
-      const int k = fc * kStageK + f_gran * 8;
-      if (k < npad) {  // the second half of the last chunk may not exist
-        const bf16* src = stack +
-                          (static_cast<size_t>(ft) * npad + row0 + f_row) *
-                              npad + k;
-        bf16* dst = ring + slot * kSlot + f_dst;
-        for (int r = f_row; r < rows; r += kRowStep) {
-          cp_async16(dst, src);
-          src += static_cast<size_t>(kRowStep) * npad;
-          dst += kRowStep * kStageK;
-        }
-      }
-      if (++fc == kchunks) {
-        fc = 0;
-        if (++fp == passes) {
-          fp = 0;
-          ++ft;
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRings * stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kReleases);
     }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) fetch(s);
-  // the state tile, rounded to bf16; padded rows and ragged columns are
-  // zero in both buffers, and padded rows are never written again
-  for (int e = threadIdx.x; e < npad * TILE; e += kThreads) {
-    const int r = e / TILE, c = e % TILE;
-    const long long col = col0 + c;
-    float v = 0.0f;
-    if (r < n && col < d) {
-      const long long at = r * d + col;
-      v = state_bf16 ? __bfloat162float(static_cast<const bf16*>(x)[at])
-                     : static_cast<const float*>(x)[at];
-    }
-    cur[state_idx<TILE>(r, c)] = __float2bfloat16_rn(v);
-    if (r >= n) nxt[state_idx<TILE>(r, c)] = __float2bfloat16_rn(0.0f);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0f;
-    }
-  }
-  // this lane's ldmatrix rows: A (W chunk) row lane%16, granule lane/16
-  // of the 16-k step (its swizzle depends on the row's bits 1-2 only); B
-  // (state) matrix lane/8 of an x4: k offset (lane/8 % 2)*8 + lane%8, n8
-  // tile offset lane/16
-  const int a_row = lane & 15, a_gran = lane >> 4;
-  const int a_swz = (a_row >> 1) & 3;
-  const int b_k = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int b_col = wn * NT * 8 + (lane >> 4) * 8;
-  const int m_row0 = wm * MT * 16;  // the warp's first row in a pass
-
-  int t = 0, p = 0, c = 0;
-  for (long long q = 0; q < q_total; ++q) {
-    cp_async_wait<kStages - 2>();  // this thread's part of chunk q landed
-    meet<SPLIT>(half);             // all of chunk q; slot q-1 is free
-    const bf16* w = ring + static_cast<int>(q % kStages) * kSlot;
-#pragma unroll
-    for (int s = 0; s < kStageK / kK; ++s) {
-      const int k0 = c * kStageK + s * kK;
-      if (k0 >= npad) break;
-      uint32_t b[NT / 2][4];
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        ldsm_x4_trans(b[j], cur + state_idx<TILE>(k0 + b_k, b_col + j * 16));
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (p * kPassRows + m_row0 + i * 16 >= npad) continue;
-        uint32_t a[4];
-        ldsm_x4(a, w + (m_row0 + i * 16 + a_row) * kStageK +
-                       (((2 * s + a_gran) ^ a_swz) << 3));
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-          mma(acc[i][2 * j], a, b[j][0], b[j][1]);
-          mma(acc[i][2 * j + 1], a, b[j][2], b[j][3]);
-        }
-      }
-    }
-    // refill the slot read in chunk q-1, behind this chunk's products
-    fetch(static_cast<int>((q + kStages - 1) % kStages));
-    if (++c == kchunks) {  // the pass's rows are summed: write them
-      c = 0;
-      const bool last = t + 1 == t_steps;
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int col = wn * NT * 8 + j * 8 + 2 * (lane & 3);
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int r = p * kPassRows + m_row0 + i * 16 + (lane >> 2) +
-                          8 * hh;
-            const float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
-            acc[i][j][2 * hh] = 0.0f;
-            acc[i][j][2 * hh + 1] = 0.0f;
-            if (r >= n) continue;
-            if (last) {
-              const long long gc = col0 + col;
-              const long long at = r * d + gc;
-              if (state_bf16) {
-                bf16* o = static_cast<bf16*>(out);
-                if (gc < d) o[at] = __float2bfloat16_rn(v0);
-                if (gc + 1 < d) o[at + 1] = __float2bfloat16_rn(v1);
-              } else {
-                float* o = static_cast<float*>(out);
-                if (gc < d) o[at] = v0;
-                if (gc + 1 < d) o[at + 1] = v1;
-              }
-            } else {
-              *reinterpret_cast<__nv_bfloat162*>(
-                  nxt + state_idx<TILE>(r, col)) =
-                  __floats2bfloat162_rn(v0, v1);
+  if (warp >= kConsumers / 32) {
+    // The producer: lane r of its first warp fills ring r with the flat
+    // sequence of chunks (step t, pass p, 64-k chunk c), W_t's rows
+    // [p*P, p*P + box_rows) by k [64c, 64c + 64); TMA zero-fills what
+    // lies past npad.
+    if constexpr (MB != 1) setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane < kRings) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&wmap))
+                   : "memory");
+      const uint32_t bytes = static_cast<uint32_t>(box_rows) * kRowBytes;
+      unsigned char* mine = ring + lane * stages * kStageBytes;
+      uint64_t* f = full + lane * stages;
+      uint64_t* e = empty + lane * stages;
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < t_steps; ++t) {
+        for (int p = 0; p < passes; ++p) {
+          for (int c = 0; c < kchunks; ++c) {
+            mbar_wait(e + slot, phase ^ 1);  // the round before was read
+            mbar_expect_tx(f + slot, bytes);
+            tma_load(mine + slot * kStageBytes, &wmap, c * kChunkK, p * P, t,
+                     f + slot);
+            if (++slot == stages) {
+              slot = 0;
+              phase ^= 1;
             }
           }
         }
       }
-      if (++p == passes) {  // the step is done: its result is the input
-        p = 0;
-        ++t;
-        bf16* done = cur;
-        cur = nxt;
-        nxt = done;
+    }
+    return;
+  }
+  if constexpr (MB != 1) setmaxnreg_inc<kConsumerRegs>();
+
+  // The consumers.  Warpgroup wg takes this ring, these rows of a pass and
+  // these columns of the tile.
+  const int wg = threadIdx.x / 128, wwarp = warp % 4;
+  const int rg = SPLIT ? wg : 0;
+  const int row_off = COLS ? 0 : wg * 64 * MB;
+  const int col_off = COLS ? wg * NW : 0;
+  unsigned char* my_ring = ring + rg * stages * kStageBytes;
+  uint64_t* f = full + rg * stages;
+  uint64_t* e = empty + rg * stages;
+  // a step's state writes meet the next step's reads: within the warpgroup
+  // where it owns its columns, else across both
+  auto meet = [&]() {
+    if (COLS) {
+      bar_sync(2 + wg, 128);
+    } else {
+      bar_sync(1, kConsumers);
+    }
+  };
+
+  // the state tile, rounded to bf16: a thread moves columns (c, c+1) of a
+  // row, one pair load where pairs are aligned (vec), kBatch of them in
+  // flight; rows past n and columns past d are zero
+  bf16* cur = state0;
+  bf16* nxt = bufs == 2 ? state0 + state_elems : state0;
+  constexpr int kBatch = 8;
+  constexpr int kColPairs = TILE / 2;
+  const int pairs = npad * kColPairs;
+  for (int e0 = threadIdx.x; e0 < pairs; e0 += kBatch * kConsumers) {
+    float2 v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e2 = e0 + b * kConsumers;
+      const int r = e2 / kColPairs;
+      const long long col = col0 + 2 * (e2 % kColPairs);
+      v[b] = make_float2(0.0f, 0.0f);
+      if (e2 < pairs && r < n) {
+        v[b] = state_bf16
+                   ? load_pair(static_cast<const bf16*>(x), r, d, col, vec)
+                   : load_pair(static_cast<const float*>(x), r, d, col, vec);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e2 = e0 + b * kConsumers;
+      if (e2 < pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            cur + SL::idx(e2 / kColPairs, 2 * (e2 % kColPairs), npad)) =
+            __floats2bfloat162_rn(v[b].x, v[b].y);
       }
     }
   }
-  cp_async_wait<0>();
-}
+  fence_async_smem();
+  bar_sync(1, kConsumers);
 
-template <int MT, int NT, bool SPLIT>
-cudaError_t launch(const void* x, void* out, const void* stack, int n,
-                   long long d, int t_steps, int state_bf16,
-                   cudaStream_t stream) {
-  auto kernel = tc_gossip_kernel<MT, NT, SPLIT>;
-  constexpr int tile = kWarps / kWarpsM * 8 * NT;
-  const size_t smem = smem_bytes(n, tile, SPLIT);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((d + tile - 1) / tile);
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      x, out, static_cast<const bf16*>(stack), n, d, t_steps, state_bf16);
-  return cudaGetLastError();
-}
-
-template <int MT, bool SPLIT>
-cudaError_t dispatch_nt(int tile, const void* x, void* out,
-                        const void* stack, int n, long long d, int t_steps,
-                        int state_bf16, cudaStream_t s) {
-  switch (n_tiles(tile)) {
-    case 2:
-      return launch<MT, 2, SPLIT>(x, out, stack, n, d, t_steps, state_bf16,
-                                  s);
-    case 4:
-      return launch<MT, 4, SPLIT>(x, out, stack, n, d, t_steps, state_bf16,
-                                  s);
-    default:
-      return launch<MT, 8, SPLIT>(x, out, stack, n, d, t_steps, state_bf16,
-                                  s);
+  float acc[MB][NW / 2];
+#pragma unroll
+  for (int m = 0; m < MB; ++m) {
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[m][i] = 0.0f;
+  }
+  const int g = lane >> 2, t4 = lane & 3;
+  // B: this warpgroup's segments of the state, 8-row (k) groups 8 rows
+  // apart, segments npad rows apart
+  const int seg_bytes = npad * SL::kRow;
+  const int seg0 = (col_off / SL::kSw) * seg_bytes;
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int t = 0; t < t_steps; ++t) {
+    const bool last = t + 1 == t_steps;
+    for (int p = 0; p < passes; ++p) {
+      const int row0 = p * P + row_off;  // the warpgroup's first row
+      int prev = -1;
+      for (int c = 0; c < kchunks; ++c) {
+        mbar_wait(f + slot, phase);
+        const unsigned char* ws =
+            my_ring + slot * kStageBytes + row_off * kRowBytes;
+        const unsigned char* xs = reinterpret_cast<const unsigned char*>(cur) +
+                                  seg0 + c * kChunkK * SL::kRow;
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kChunkK / kK; ++s) {
+          if (c * kChunkK + s * kK < npad) {
+            const uint64_t db = smem_desc(xs + s * kK * SL::kRow, seg_bytes,
+                                          8 * SL::kRow, SL::kType);
+#pragma unroll
+            for (int m = 0; m < MB; ++m) {
+              // A: 8-row groups 1024 B apart, a k16 block 32 B on in the
+              // swizzled rows.  An m64 block past npad has nothing to sum;
+              // where the warpgroup's rows depend on the thread (by rows),
+              // ptxas would serialize every wgmma behind such a test, so
+              // there the block's discarded sums are taken.
+              if (!COLS || row0 + m * 64 < npad) {
+                WgmmaKN<NW>::run(
+                    acc[m],
+                    sw128_desc(ws + m * 64 * kRowBytes + s * 32, 16, 1024),
+                    db);
+              }
+            }
+          }
+        }
+        wgmma_commit();
+        if (prev >= 0) {  // the chunk before is summed: free its stage
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(e + prev);
+        }
+        prev = slot;
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(e + prev);
+      // in place: every product of the step has read the state first
+      if (!last && bufs == 1) meet();
+      // accumulator v of a warp: n8 block v/4 of the m16n8 fragment at
+      // rows 16*wwarp + g (+8 for v%4 >= 2), columns 2*t4 + v%2
+#pragma unroll
+      for (int m = 0; m < MB; ++m) {
+        const int i0 = row0 + m * 64 + 16 * wwarp;  // the warp's 16 rows
+        if (last) {
+#pragma unroll
+          for (int v = 0; v < NW / 2; v += 2) {
+            const int i = i0 + g + 8 * ((v >> 1) & 1);
+            const long long col = col0 + col_off + 8 * (v >> 2) + 2 * t4;
+            const float a0 = acc[m][v], a1 = acc[m][v + 1];
+            if (i >= n) continue;
+            if (state_bf16) {
+              store_pair(static_cast<bf16*>(out), i, d, d, col, vec, a0, a1);
+            } else {
+              store_pair(static_cast<float*>(out), i, d, d, col, vec, a0, a1);
+            }
+          }
+        } else {
+          // the next state, padded rows zero: row i0 + g (+8) of 8-column
+          // group v/4, whose granule's swizzle is fixed by g
+          const bool live = (!COLS || row0 + m * 64 < npad) && i0 < npad;
+          const bool lo = i0 + g < n, hi = i0 + g + 8 < n;
+          const int swz = ((g * SL::kRow) >> 7) & SL::kMask;
+          unsigned char* base = reinterpret_cast<unsigned char*>(nxt) +
+                                (col_off / SL::kSw) * seg_bytes +
+                                (i0 + g) * SL::kRow + 4 * t4;
+#pragma unroll
+          for (int v = 0; v < NW / 2; v += 2) {
+            const int grp = v >> 2, h = (v >> 1) & 1;
+            const bool keep = h ? hi : lo;
+            const __nv_bfloat162 pair = __floats2bfloat162_rn(
+                keep ? acc[m][v] : 0.0f, keep ? acc[m][v + 1] : 0.0f);
+            unsigned char* at =
+                base + (grp * 8 / SL::kSw) * seg_bytes + 8 * h * SL::kRow +
+                ((((grp * 8) % SL::kSw) / 8 ^ swz) << 4);
+            if (live) *reinterpret_cast<__nv_bfloat162*>(at) = pair;
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < NW / 2; ++v) acc[m][v] = 0.0f;
+      }
+    }
+    if (!last) {  // the step's state is written: it is the next one's input
+      fence_async_smem();
+      meet();
+      bf16* done = cur;
+      cur = nxt;
+      nxt = done;
+    }
   }
 }
 
-template <bool SPLIT>
-cudaError_t dispatch(int tile, const void* x, void* out, const void* stack,
-                     int n, long long d, int t_steps, int state_bf16,
-                     cudaStream_t s) {
-  switch (m_tiles(n)) {
-    case 1:
-      return dispatch_nt<1, SPLIT>(tile, x, out, stack, n, d, t_steps,
-                                   state_bf16, s);
-    case 2:
-      return dispatch_nt<2, SPLIT>(tile, x, out, stack, n, d, t_steps,
-                                   state_bf16, s);
+// The tensor map over the zero-padded bf16 stack, [t][npad][npad]: a box is
+// 64 k of `box_rows` rows of one step, 128-byte swizzled.  Three dimensions,
+// so a box's rows past npad are zero-filled and never the next step's.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so the
+// library links no -lcuda; null if the driver does not have it
+EncodeTiled encode_tiled() {
+  static std::once_flag once;
+  static EncodeTiled fn = nullptr;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  });
+  return fn;
+}
+
+cudaError_t stack_map(CUtensorMap* map, const void* stack, int npad,
+                      int t_steps, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(npad),
+                              static_cast<cuuint64_t>(npad),
+                              static_cast<cuuint64_t>(t_steps)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(npad) * sizeof(bf16),
+      static_cast<cuuint64_t>(npad) * npad * sizeof(bf16)};
+  const cuuint32_t box[3] = {kChunkK, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(stack),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int MB, int NW, bool COLS, bool SPLIT>
+cudaError_t launch(const CUtensorMap& map, const Layout& l, int tile,
+                   int box_rows, const void* x, void* out, int n, long long d,
+                   int t_steps, int state_bf16, int vec, cudaStream_t stream) {
+  auto kernel = tc_gossip_kernel<MB, NW, COLS, SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(l.total));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>((d + tile - 1) / tile);
+  kernel<<<blocks, main_threads<MB>(), l.total, stream>>>(
+      map, x, out, n, d, t_steps, state_bf16, vec, l.stages, l.bufs,
+      box_rows);
+  return cudaGetLastError();
+}
+
+// Paths 1 (unsplit) and 2 (split) at `tile` columns per CTA.
+cudaError_t dispatch(bool split, int tile, const void* x, void* out,
+                     const void* stack, int n, long long d, int t_steps,
+                     int state_bf16, int vec, cudaStream_t s) {
+  Plan p;
+  Layout l;
+  if (!plan(n, tile, split, &p) || !layout(n, tile, split, &l) ||
+      reinterpret_cast<uintptr_t>(stack) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int npad = pad16(n);
+  const int box_rows = npad < p.rows ? npad : p.rows;
+  CUtensorMap map;
+  cudaError_t err = stack_map(&map, stack, npad, t_steps, box_rows);
+  if (err != cudaSuccess) return err;
+  if (split) {
+    switch (tile) {
+      case 128:
+        return launch<2, 64, true, true>(map, l, tile, box_rows, x, out, n, d,
+                                         t_steps, state_bf16, vec, s);
+      case 64:
+        return launch<2, 32, true, true>(map, l, tile, box_rows, x, out, n, d,
+                                         t_steps, state_bf16, vec, s);
+      default:
+        return launch<2, 16, true, true>(map, l, tile, box_rows, x, out, n, d,
+                                         t_steps, state_bf16, vec, s);
+    }
+  }
+  switch (tile) {
+    case 256:
+      return launch<2, 128, true, false>(map, l, tile, box_rows, x, out, n, d,
+                                         t_steps, state_bf16, vec, s);
+    case 128:
+      return p.cols
+                 ? launch<1, 64, true, false>(map, l, tile, box_rows, x, out,
+                                              n, d, t_steps, state_bf16, vec,
+                                              s)
+                 : launch<2, 128, false, false>(map, l, tile, box_rows, x,
+                                                out, n, d, t_steps,
+                                                state_bf16, vec, s);
+    case 64:
+      return launch<2, 64, false, false>(map, l, tile, box_rows, x, out, n, d,
+                                         t_steps, state_bf16, vec, s);
     default:
-      return dispatch_nt<4, SPLIT>(tile, x, out, stack, n, d, t_steps,
-                                   state_bf16, s);
+      return launch<2, 32, false, false>(map, l, tile, box_rows, x, out, n, d,
+                                         t_steps, state_bf16, vec, s);
   }
 }
 
@@ -1075,10 +1394,10 @@ cudaError_t dispatch(int tile, const void* x, void* out, const void* stack,
 // the state's N-major, both in wgmma's 128-byte-swizzled layouts (the
 // 16-byte granules of each 128-byte row XORed with the row's low 3 bits),
 // each stage on a 1024-byte boundary.  Each output element's k16 products
-// are summed from 0 in k order, k < npad: wgmma gives the bits the
-// mainloop's mma.sync gives (checked on the card for m64n64k16 and for
-// this kernel against tc_gossip_kernel), so this path equals the
-// shared-memory path bitwise.  The row tiles go fastest: the CTAs in
+// are summed from 0 in k order, k < npad, as in tc_gossip_kernel's
+// mainloop, so this path equals the shared-memory path bitwise (wgmma
+// gives the bits mma.sync gave; chip_smoke.py holds the two paths
+// bitwise).  The row tiles go fastest: the CTAs in
 // flight share their columns of the state, read from device memory once,
 // while the bf16 stack (33.5 MB at N = 4095) stays in L2.  dst takes
 // OutT, rows ld_dst apart (the caller's out for the last step, masked past
@@ -1324,6 +1643,25 @@ namespace tcregs {  // bf16 stack, N <= 16: tensor cores, chained in registers
 
 using bf16 = __nv_bfloat16;
 
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), f32 accumulation
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 constexpr int kMaxRows = 16;               // N_REG_TC: one k16 / two n8
 constexpr int kWarps = kRegThreads / 32;
 constexpr int kCT = 2;                     // m16 column tiles per warp
@@ -1387,7 +1725,7 @@ __device__ __forceinline__ void a_fragments(const bf16* buf,
   const int mrow = lane % 8, mq = lane / 8;
 #pragma unroll
   for (int c = 0; c < kCT; ++c) {
-    tc::ldsm_x4_trans(a[c], buf + ((mq >> 1) * 8 + mrow) * 2 * kStride +
+    ldsm_x4_trans(a[c], buf + ((mq >> 1) * 8 + mrow) * 2 * kStride +
                                 16 * c + (mq & 1) * 8);
   }
 }
@@ -1502,8 +1840,8 @@ __global__ void __launch_bounds__(kRegThreads)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.0f;
           }
-          tc::mma(acc[c][0], a[c], b.x, b.y);
-          tc::mma(acc[c][1], a[c], b.z, b.w);
+          mma(acc[c][0], a[c], b.x, b.y);
+          mma(acc[c][1], a[c], b.z, b.w);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int w0 = 8 * j + 2 * tq;  // this lane's two workers
@@ -1635,12 +1973,16 @@ enum Path {
 
 // Whether a shared-memory `path` (0-2) takes `tile` columns at n.
 bool path_takes_tile(int n, int tile, int path) {
-  return path == kFma ? fp32::chain_takes(n, tile) : tc::n_tiles(tile) != 0;
+  tc::Plan p;
+  return path == kFma ? fp32::chain_takes(n, tile)
+                      : tc::plan(n, tile, path == kSplit, &p);
 }
 
 size_t path_smem_bytes(int n, int tile, int path) {
+  tc::Layout l;
   return path == kFma ? fp32::chain_smem_bytes(n, tile)
-                      : tc::smem_bytes(n, tile, path == kSplit);
+         : tc::layout(n, tile, path == kSplit, &l) ? l.total
+                                                    : 0;
 }
 
 // Whether a register path takes this launch shape.
@@ -1884,8 +2226,9 @@ extern "C" {
 
 // Shared memory one CTA of a shared-memory `path` (0, 1 or 2) needs at
 // `tile` columns, in bytes, or -1 if `path` does not take that tile at n.
-// Tiles: 64, 128, 256 and 512 on path 0 (n <= 16384 / tile); 32, 64 and 128 on
-// paths 1 and 2 (the wrapper picks the tile).
+// Tiles: 64, 128, 256 and 512 on path 0 (n <= 16384 / tile); 32, 64, 128
+// and 256 on path 1, 32, 64 and 128 on path 2 (the wrapper picks the tile;
+// a tile whose bytes pass fused_gossip_smem_limit is not launched).
 long long fused_gossip_smem_bytes(int n, int tile, int path) {
   if (n < 1 || path < kFma || path > kSplit ||
       !path_takes_tile(n, tile, path)) {
@@ -2010,12 +2353,9 @@ int fused_gossip_launch(const void* x, void* out, const void* stack,
               ? chain<float>(tile, x, out, wt, n, d, t_steps, vec, s)
               : chain<__nv_bfloat16>(tile, x, out, wt, n, d, t_steps, vec,
                                      s);
-  } else if (path == kSplit) {
-    err = tc::dispatch<true>(tile, x, out, stack, n, d, t_steps, state_dtype,
-                             s);
   } else {
-    err = tc::dispatch<false>(tile, x, out, stack, n, d, t_steps,
-                              state_dtype, s);
+    err = tc::dispatch(path == kSplit, tile, x, out, stack, n, d, t_steps,
+                       state_dtype, vec, s);
   }
   return static_cast<int>(err);
 }

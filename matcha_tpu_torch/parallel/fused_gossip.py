@@ -23,12 +23,13 @@ The stack's dtype and N pick the kernel's path (:func:`kernel_path`):
   once (``FMA``); above that one launch per step, the state in device
   memory (``FMA_STEP``).  All three sum in the same order and give the
   same bits; held to the plain version within f32 rounding.
-* bfloat16 stack — the tensor cores (``mma.sync`` on bf16 operands, f32
-  accumulators): for N ≤ ``N_REG_TC`` a warp chains the steps' products in
-  registers (``TC_REGS``); up to ``N_SMEM_TC`` the state tile is held in
-  shared memory as bf16 (``TENSOR_CORE``); above that one launch per step
-  (``TC_STEP``), bitwise equal to ``TENSOR_CORE``; held to the plain
-  version within one bf16 ulp of the output.  The split-step probe
+* bfloat16 stack — the tensor cores (bf16 operands, f32 accumulators): for
+  N ≤ ``N_REG_TC`` a warp chains the steps' products in registers
+  (``mma.sync``, ``TC_REGS``); up to ``N_SMEM_TC`` the state tile is held
+  in shared memory as bf16 while a producer warp streams ``W_t`` by TMA to
+  two ``wgmma`` warpgroups (``TENSOR_CORE``); above that one launch per
+  step on ``wgmma`` (``TC_STEP``), bitwise equal to ``TENSOR_CORE``; held
+  to the plain version within one bf16 ulp of the output.  The split-step probe
   (``probes/split_probe.py``, K4) runs the shared-memory mainloop with its
   split schedule (``SPLIT``).
 
@@ -80,7 +81,8 @@ PATH_NAMES = {FMA: "fma", TENSOR_CORE: "tensor_core", SPLIT: "split",
 N_REG_F32, N_REG_TC = 16, 16
 #: The largest N of the FMA chain (one step's N x tile sums in the CTA's
 #: registers: 256 threads of 8 x 8) and of the shared-memory tensor cores
-#: (whose tile-32 state fits shared memory to 1,424 workers).
+#: (whose tile-32 state and two W stages fit shared memory to 1,280
+#: workers).
 N_CHAIN_F32, N_SMEM_TC = 256, 1024
 
 # The FMA chain: 256 threads of an 8 x 8 block hold 16,384 sums, so its
@@ -90,8 +92,8 @@ N_CHAIN_F32, N_SMEM_TC = 256, 1024
 _CHAIN_OUTPUTS = 16384
 _CHAIN_TILES = (512, 256, 128, 64)
 # The tensor cores' shared-memory mainloop: the CTAs a column tile should
-# leave room for on one SM (one CTA keeps two W chunks in flight itself,
-# and N = 256 takes the 128-column tile).
+# leave room for on one SM (one CTA keeps up to four W stages in flight
+# itself, and N = 256 takes the 128-column tile).
 _BLOCKS_PER_SM = {TENSOR_CORE: 1, SPLIT: 1}
 # The per-step paths (FMA_STEP, TC_STEP): the columns of a CTA's output
 # tile come from the library (``fused_gossip_step_tile``).
@@ -204,8 +206,8 @@ def fused_gossip_plain(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
 
 def _tile_width(lib, n: int, block_d: int, path: int = TENSOR_CORE) -> int:
     """Columns per CTA of the tensor cores' shared-memory mainloop
-    (``_kernels.pick_tile``: 128, 64 or 32), leaving room for
-    ``_BLOCKS_PER_SM[path]`` CTAs on one SM."""
+    (``_kernels.pick_tile``: 256 (unsplit only), 128, 64 or 32), leaving
+    room for ``_BLOCKS_PER_SM[path]`` CTAs on one SM."""
     return pick_tile("split_gossip" if path == SPLIT else "fused_gossip",
                      lambda tile: lib.fused_gossip_smem_bytes(n, tile, path),
                      lib.fused_gossip_smem_limit(), n, block_d,
@@ -328,6 +330,8 @@ def launch_kernel(x, stack, shape: LaunchShape, *,
     if pad:
         stack = torch.nn.functional.pad(stack, (0, pad, 0, pad))
     stack = stack.contiguous()
+    if stack.data_ptr() % 16:  # TMA reads the bf16 stack from 16-byte steps
+        stack = stack.clone()
     x = x.contiguous()
     out = torch.empty_like(x)
     t_steps = stack.shape[0]
@@ -362,8 +366,8 @@ def fused_gossip_run(x: torch.Tensor, mixing_stack, *, block_d: int = 2048,
     ``x.dtype``, step for step the dense backend's arithmetic.
 
     ``block_d``: the widest column tile a shared-memory CTA may take
-    (64, 128, 256 or 512 columns on the FMA chain, 32, 64 or 128 on the
-    tensor cores; below the narrowest, the narrowest); the register paths
+    (64, 128, 256 or 512 columns on the FMA chain, 32, 64, 128 or 256 on
+    the tensor cores; below the narrowest, the narrowest); the register paths
     of N ≤ ``N_REG_F32`` (16, f32 stack) and N ≤ ``N_REG_TC`` (16, bf16
     stack) and the per-step paths take fixed column groups and ignore it.
     ``w_window``: the reference's steps per grid visit; the stack is

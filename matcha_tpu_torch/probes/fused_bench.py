@@ -1,8 +1,8 @@
 """The fused kernel (K3, and K4's split schedule) on the card: another
 tree's kernel against this one.
 
-    python -m matcha_tpu_torch.probes.fused_bench ab --old DIR [--rounds 3]
-        [--only SUBSTRING ...]
+    python -m matcha_tpu_torch.probes.fused_bench ab --old DIR [DIR ...]
+        [--rounds 3] [--only SUBSTRING ...]
 
 ``ab`` loads the ``matcha_tpu_torch`` package found in ``DIR`` (an unpacked
 ``git archive`` of an earlier commit, or a copy of this tree with one
@@ -14,7 +14,8 @@ and each side's host time per call (``perm_bench.host_us``).  The two
 outputs must be bitwise equal (every path sums each element in one fixed
 order: an FMA chain, or the tensor cores' k16 sequence); any bit that
 differs raises, after the row with the share of elements that differ is
-printed.
+printed.  Several ``DIR`` are compared with this tree one after another,
+each row naming its ``old_tree``.
 
 Shapes, all at D = 273,258 (ResNet-20): the training slice's ``[16, D]``
 (zoo graph 4, its MATCHA schedule at budget 0.5) at T = 1, 4 (the
@@ -22,7 +23,9 @@ comm-split timer's chains) and 64, for an f32 state and stack, an f32
 state with a bf16 stack, and a bf16 state and stack (N = 16 is where both
 register paths stop); a ring's stack at the next N, 17, in f32 and bf16
 (the shared-memory paths) at T = 1 and 64; ``[256, D]`` bf16 at T = 64 on
-the 256-worker hypercube (chain (b)); K4, the split probe's schedule, on
+the 256-worker hypercube (chain (b)), and the ends of the bf16
+shared-memory path's range, N = 64 (T = 64) and 1024 (T = 8), on
+hypercubes; K4, the split probe's schedule, on
 its own ``[256, D]`` inputs at T = 64; the f32 sweep of the FMA paths
 on hypercubes, N = 32, 64, 128 and 256 at T = 64, 512 and 1024 at T = 8
 (``fma_step`` above 256); ``tc_step`` on the 2048-worker hypercube, bf16,
@@ -102,9 +105,13 @@ def _makers(dev):
             out.append((f"ring N={n} T={t_steps} {dtype}",
                          lambda x=x, r=ring, t=t_steps, k=dtype: (
                              x, _stack(r, t, k, dev), "fused")))
-    out.append(("hypercube N=256 T=64 bf16", lambda: (
-        torch.randn(256, D, generator=g, device=dev).to(BF16),
-        _stack(_cube(256), 64, BF16, dev), "fused")))
+    # the bf16 shared-memory path (tensor_core): chain (b), and its range's
+    # ends
+    for n, t_steps in ((256, 64), (64, 64), (1024, 8)):
+        out.append((f"hypercube N={n} T={t_steps} bf16",
+                    lambda n=n, t=t_steps: (
+                        torch.randn(n, D, generator=g, device=dev).to(BF16),
+                        _stack(_cube(n), t, BF16, dev), "fused")))
     out.append(("K4 split probe N=256 T=64",
                 lambda: (*split_probe.make_inputs(256, D, 64, g), "split")))
     for n in (32, 64, 128, 256, 512, 1024):
@@ -139,9 +146,10 @@ def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ab(old_root, rounds: int = 3, only=()) -> list:
+def ab(old_root, rounds: int = 3, only=(),
+       alias: str = "matcha_tpu_torch_old") -> list:
     dev = torch.device("cuda")
-    alias = load_package(old_root).__name__
+    alias = load_package(old_root, alias).__name__
     old = {"fused": importlib.import_module(
                f"{alias}.parallel.fused_gossip").fused_gossip_run,
            "split": importlib.import_module(
@@ -160,7 +168,8 @@ def ab(old_root, rounds: int = 3, only=()) -> list:
             return old[kind](x, stack, **kw)
 
         n = x.shape[0]
-        row = {"shape": label, "N": n, "T": stack.shape[0],
+        row = {"shape": label, "old_tree": str(old_root), "N": n,
+               "T": stack.shape[0],
                "state": str(x.dtype), "stack": str(stack.dtype),
                "new_path": fused_gossip.PATH_NAMES[
                    fused_gossip.kernel_path(stack.dtype, n,
@@ -205,8 +214,10 @@ def main(argv=None) -> None:
     sub = ap.add_subparsers(dest="cmd", required=True)
     a = sub.add_parser("ab", help="an older tree's fused kernel against "
                                   "this one, in turns")
-    a.add_argument("--old", required=True,
-                   help="directory holding the older matcha_tpu_torch")
+    a.add_argument("--old", required=True, nargs="+",
+                   help="directories holding older (or one-change) "
+                        "matcha_tpu_torch trees, each timed against this "
+                        "one in turn")
     a.add_argument("--rounds", type=int, default=3)
     a.add_argument("--only", nargs="*", default=(),
                    help="time only the shapes whose label holds one of "
@@ -218,7 +229,9 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     _emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
-    ab(args.old, args.rounds, tuple(args.only))
+    for i, root in enumerate(args.old):
+        ab(root, args.rounds, tuple(args.only),
+           alias=f"matcha_tpu_torch_old{i}")
 
 
 if __name__ == "__main__":

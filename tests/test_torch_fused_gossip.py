@@ -470,13 +470,27 @@ class _SmemOnly:
                 return -1
             rows = 16384 // tile
             return 4 * (n * tile + 3 * (32 if rows <= 64 else 16) * rows)
-        if path not in (1, 2) or tile not in (32, 64, 128):
+        # the tensor cores (tc::layout): passes of 256 rows unsplit at
+        # tiles 32-128 (64 at tile 128 where N <= 64, which tile 256 does
+        # not take), of 128 rows split and at the unsplit tile 256; W
+        # stages of [pass rows x 64 k] (one ring, two split), as many as
+        # fit up to 4 and at least 2; the bf16 state (npad x tile), one
+        # buffer where a step is one pass, two otherwise; 1 KB to align,
+        # 128 B of mbarriers
+        split = path == 2
+        if path not in (1, 2) or tile not in ((32, 64, 128) if split
+                                               else (32, 64, 128, 256)):
             return -1
         npad = -(-n // 16) * 16
-        m = -(-npad // 64)
-        mt = 1 if m <= 1 else (2 if m == 2 else 4)
-        ring = 3 * 16 * 4 * mt * 32  # 3 slots of [64·MT rows x 32 k]
-        return 2 * ((2 if path == 2 else 1) * ring + 2 * npad * tile)
+        if not split and tile == 256 and npad <= 64:
+            return -1
+        rows = 128 if split or tile == 256 else (
+            64 if tile == 128 and npad <= 64 else 256)
+        bufs = 2 if npad > rows else 1
+        fixed = 1024 + 128 + bufs * 2 * npad * tile
+        ring = (2 if split else 1) * rows * 128  # one stage of each ring
+        stages = max(2, min(4, max(0, 232448 - fixed) // ring))
+        return fixed + stages * ring
 
 
 @pytest.mark.parametrize("n,block_d,tile", [
@@ -544,11 +558,11 @@ def test_per_step_scratch_bytes(n, d, t_steps, path, state_dtype, nbytes):
 
 
 @pytest.mark.parametrize("n,block_d,path,t_steps,tile", [
-    (256, 2048, 1, 64, 128),   # chain (b): 160 KB, one CTA per SM
+    (256, 2048, 1, 64, 128),   # chain (b): 193 KB, one CTA per SM
     (256, 2048, 2, 2000, 128),  # the probe's split schedule: two rings
     (256, 64, 1, 64, 64),      # block_d caps the tile
-    (8, 2048, 2, 32, 128),     # padded to 16 rows, split: 4 warps on rows
-    (32, 2048, 1, 64, 128),    # two m16 row tiles: 4 warps on the rows
+    (8, 2048, 2, 32, 128),     # padded to 16 rows, split: one m64 block
+    (32, 2048, 1, 64, 128),    # N <= 64: each warpgroup 64 columns
     (400, 2048, 2, 64, 64),    # 400 rows, two rings: 128 columns too many
     (1024, 2048, 1, 64, 32),   # the narrowest tile
 ])
@@ -700,6 +714,25 @@ def test_tc_step_bitwise_vs_tensor_core_on_card(n, state, d):
     stack = _random_stack(n, 3, torch.bfloat16, dev)
     out = _forced_run(x, stack, TC_STEP)
     ref = _forced_run(x, stack, TENSOR_CORE)
+    torch.cuda.synchronize()
+    assert _same_bits(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1031, 4098])
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [17, 64, 256, 1000, 1024])
+def test_tensor_core_bitwise_vs_tc_step_on_card(n, state, d):
+    # the shared-memory mainloop (wgmma fed by TMA) across its range
+    # against tc_step, which keeps the bits of the mainloop before it
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.parallel.fused_gossip import TC_STEP, TENSOR_CORE
+    dev = torch.device("cuda")
+    x = torch.from_numpy(_state(4, n=n, d=d)).to(dev).to(TORCH[state])
+    stack = _random_stack(n, 3, torch.bfloat16, dev)
+    out = _forced_run(x, stack, TENSOR_CORE)
+    ref = _forced_run(x, stack, TC_STEP)
     torch.cuda.synchronize()
     assert _same_bits(out, ref)
 

@@ -21,6 +21,10 @@ against the plain version there).  What the CPU can check:
    as the PTX ISA assigns them to lanes, ``ldmatrix.trans`` from the
    staging buffer, the permuted stack, the output staging, and the
    modelled chain against the plain version.
+4. Numpy models of the per-step kernels' tiles, grids and ``wgmma``
+   layouts, and (5.) of the shared-memory tensor-core mainloop: the TMA
+   box read back through the A descriptor, the epilogue's map onto the
+   N-major state and the B descriptor, and the ring's mbarrier phases.
 
 Tolerances: f32 state and stack, or one step on an f32 state, against JAX
 ``rtol=1e-5, atol=1e-6`` (f32 sums in another order, as
@@ -137,7 +141,7 @@ class _Lib:
     """The library's launch-shape queries, with the formulas of
     ``csrc/fused_gossip.cu``: the register paths' largest N, the 64 KB
     they stage the stack in, the per-step paths' 256-column tiles, and the
-    shared-memory paths' bytes (128-column tiles and below;
+    shared-memory paths' bytes (256-column tiles and below;
     ``tests/test_torch_fused_gossip.py`` pins those)."""
 
     @staticmethod
@@ -163,13 +167,22 @@ class _Lib:
                 return -1
             rows = 16384 // tile
             return 4 * (n * tile + 3 * (32 if rows <= 64 else 16) * rows)
-        if path not in (TENSOR_CORE, SPLIT) or tile not in (32, 64, 128):
+        split = path == SPLIT
+        if path not in (TENSOR_CORE, SPLIT) or tile not in (
+                (32, 64, 128) if split else (32, 64, 128, 256)):
             return -1
+        # tc::layout: [pass rows x 64 k] W stages, 2 to 4 a ring; the bf16
+        # state (npad x tile), twice where a step takes two passes
         npad = -(-n // 16) * 16
-        m = -(-npad // 64)
-        mt = 1 if m <= 1 else (2 if m == 2 else 4)
-        return 2 * ((2 if path == SPLIT else 1) * 3 * 64 * mt * 32
-                    + 2 * npad * tile)
+        if not split and tile == 256 and npad <= 64:
+            return -1
+        rows = 128 if split or tile == 256 else (
+            64 if tile == 128 and npad <= 64 else 256)
+        bufs = 2 if npad > rows else 1
+        fixed = 1024 + 128 + bufs * 2 * npad * tile
+        ring = (2 if split else 1) * rows * 128
+        stages = max(2, min(4, max(0, 232448 - fixed) // ring))
+        return fixed + stages * ring
 
 
 def test_register_limits_are_the_library_s():
@@ -222,7 +235,8 @@ def test_register_limits_and_stage_are_the_card_library_s():
 
 # The shared-memory paths' caps before the per-step paths: the old FMA path
 # (two f32 tiles of 32 columns and its W chunks) took N <= 843; the
-# tensor cores' tile-32 state fits shared memory to N = 1,424.
+# tensor cores' two tile-32 states and two W stages fit shared memory to
+# N = 1,280.
 OLD_FMA_CAP = 843
 TC_SMEM_CAP = max(n for n in range(1024, 2048)
                   if 0 <= _Lib.fused_gossip_smem_bytes(n, 32, TENSOR_CORE)
@@ -248,7 +262,7 @@ def test_every_n_takes_a_path(stack, n):
 
 
 def test_tc_smem_cap_is_above_the_path_rule_s():
-    assert TC_SMEM_CAP == 1424 and N_SMEM_TC < TC_SMEM_CAP
+    assert TC_SMEM_CAP == 1280 and N_SMEM_TC < TC_SMEM_CAP
 
 
 def test_block_d_caps_only_the_shared_memory_tiles():
@@ -573,3 +587,271 @@ def test_tc_step_warpgroups_cover_the_tile_once_on_the_mma_grid():
                     assert r0 % 16 == 0 and c0 % 8 == 0
                     cover[r0 + r, c0 + c] += 1
     assert (cover == 1).all()
+
+
+# ------------------- 5. the shared-memory mainloop's layouts and its ring
+
+# Copies of csrc/fused_gossip.cu's tc::plan, tc::layout, StateLayout and
+# the index maps of tc_gossip_kernel (TENSOR_CORE and SPLIT), which only
+# the card runs: the TMA box of W_t is the K-major stage wgmma's A reads,
+# the epilogue writes every element of the next state once where the B
+# descriptor reads it, and the ring's full and empty mbarriers hand each
+# slot over in order.
+
+def tc_plan(n, tile, split):
+    """tc::plan: (m64 blocks a warpgroup, its columns, rows a pass, by
+    columns), or None for a tile the path does not take at n."""
+    npad = -(-n // 16) * 16
+    if split:
+        return (2, tile // 2, 128, True) if tile in (128, 64, 32) else None
+    if tile == 256:
+        return None if npad <= 64 else (2, 128, 128, True)
+    if tile == 128 and npad <= 64:
+        return (1, 64, 64, True)
+    return (2, tile, 256, False) if tile in (32, 64, 128) else None
+
+
+def tc_stages(n, tile, split):
+    """tc::layout's W stages a ring: as many as fit, 2 to 4."""
+    _, _, rows, _ = tc_plan(n, tile, split)
+    npad = -(-n // 16) * 16
+    bufs = 2 if npad > rows else 1
+    fixed = 1024 + 128 + bufs * 2 * npad * tile
+    ring = (2 if split else 1) * rows * 128
+    return max(2, min(4, max(0, 232448 - fixed) // ring))
+
+
+def swizzle(byte, row_bytes):
+    """wgmma's (and TMA's) swizzle of a byte address in rows of 128, 64 or
+    32 bytes: the 16-byte granule bits XOR address bits 7 and up."""
+    mask = {128: 7, 64: 3, 32: 1}[row_bytes]
+    return byte ^ (((byte >> 7) & mask) << 4)
+
+
+def state_byte(k, c, npad, sw):
+    """StateLayout<NW>::idx in bytes: segments of sw columns, each npad
+    rows (k) of 2*sw bytes."""
+    return swizzle((c // sw) * npad * 2 * sw + k * 2 * sw + (c % sw) * 2,
+                   2 * sw)
+
+
+@pytest.mark.parametrize("n", [17, 32, 256, 1000])
+@pytest.mark.parametrize("rows", [64, 128, 256])
+def test_tma_box_is_the_k_major_stage_wgmma_reads(n, rows):
+    # the 3-D box {64 k, box rows, 1} at (64c, p*rows, t), 128-byte
+    # swizzled into a stage on a 1024-byte boundary, read back through
+    # sw128_desc (8-row groups 1024 B apart, a k16 block 32 B on): W_t's
+    # rows of the pass, zero past npad in rows and in k, never step t+1's
+    rng = np.random.default_rng(n)
+    npad = -(-n // 16) * 16
+    t_steps = 2
+    stack = np.zeros((t_steps, npad, npad))
+    stack[:, :n, :n] = rng.random((t_steps, n, n)) + 1.0
+    box = min(rows, npad)
+    r = np.arange(box)[:, None]
+    kk = np.arange(64)[None, :]
+    m = np.arange(64)[:, None]
+    kq = np.arange(16)[None, :]
+    for t in range(t_steps):
+        for p in range(-(-npad // rows)):
+            for c in range(-(-npad // 64)):
+                stage = np.full(rows * 64, np.nan)  # rows past the box: stale
+                rr, kc = p * rows + r, 64 * c + kk
+                inside = (rr < npad) & (kc < npad)
+                vals = np.where(inside, stack[t, np.minimum(rr, npad - 1),
+                                              np.minimum(kc, npad - 1)], 0.0)
+                stage[swizzle(r * 128 + 2 * kk, 128) // 2] = vals
+                for block in range(rows // 64):
+                    for s in range(4):
+                        if 64 * c + 16 * s >= npad:  # the kernel's k16 test
+                            continue
+                        at = (block * 64 * 128 + s * 32 + (m // 8) * 1024
+                              + (m % 8) * 128 + 2 * kq)
+                        a = stage[swizzle(at, 128) // 2]
+                        i = p * rows + block * 64 + m
+                        k = 64 * c + 16 * s + kq
+                        want = np.where(i < npad, stack[t, np.minimum(
+                            i, npad - 1), k], 0.0)
+                        live = (block * 64 + m < box).repeat(16, 1)
+                        np.testing.assert_array_equal(a[live], want[live])
+                        # a row the box holds past npad reads zero
+                        assert (a[live & (i >= npad)] == 0).all()
+
+
+SCHEDULES = [(17, 128, False), (64, 128, False), (100, 256, False),
+             (256, 128, False), (256, 64, False), (1000, 32, False),
+             (8, 128, True), (256, 128, True), (400, 64, True),
+             (1000, 32, True)]
+
+
+@pytest.mark.parametrize("n,tile,split", SCHEDULES)
+def test_epilogue_writes_every_state_element_once(n, tile, split):
+    # a consumer thread's accumulator v of m64 block m in pass p goes to
+    # the byte the kernel computes (its row base, the 8-column group's
+    # segment, h*8 rows, the granule XOR fixed by g); over a step every
+    # element of the npad x tile state is written once, where StateLayout
+    # puts it and the N-major B descriptor (segments npad rows apart, 8-row
+    # groups 8 rows apart) reads it
+    mb, nw, rows, cols = tc_plan(n, tile, split)
+    npad = -(-n // 16) * 16
+    sw = min(64, nw)
+    row_bytes = 2 * sw
+    seg_bytes = npad * row_bytes
+    written = {}
+    for p in range(-(-npad // rows)):
+        for wg in range(2):
+            row_off = 0 if cols else wg * 64 * mb
+            col_off = wg * nw if cols else 0
+            row0 = p * rows + row_off
+            for m in range(mb):
+                for wwarp in range(4):
+                    i0 = row0 + m * 64 + 16 * wwarp
+                    live = (not cols or row0 + m * 64 < npad) and i0 < npad
+                    for lane in range(32):
+                        g, t4 = divmod(lane, 4)
+                        swz = ((g * row_bytes) >> 7) & {64: 7, 32: 3,
+                                                        16: 1}[sw]
+                        base = ((col_off // sw) * seg_bytes
+                                + (i0 + g) * row_bytes + 4 * t4)
+                        for v in range(0, nw // 2, 2):
+                            grp, h = v >> 2, (v >> 1) & 1
+                            at = (base + (grp * 8 // sw) * seg_bytes
+                                  + 8 * h * row_bytes
+                                  + (((grp * 8) % sw // 8) ^ swz) * 16)
+                            i = i0 + g + 8 * h
+                            c = col_off + 8 * grp + 2 * t4
+                            assert at == state_byte(i, c, npad, sw)
+                            if live:
+                                for e in (0, 1):
+                                    written.setdefault(at + 2 * e, []).append(
+                                        (i, c + e))
+    assert all(len(w) == 1 for w in written.values())
+    assert sorted(w[0] for w in written.values()) == [
+        (i, c) for i in range(npad) for c in range(tile)]
+    assert max(written) < npad * tile * 2
+    # the B descriptor of warpgroup wg at k0 reads element (k0 + kk, nn)
+    for wg in range(2):
+        col_off = wg * nw if cols else 0
+        for k0 in range(0, npad, 16):
+            kk = np.arange(16)[:, None]
+            nn = np.arange(nw)[None, :]
+            start = (col_off // sw) * seg_bytes + k0 * row_bytes
+            at = swizzle(start + (nn // sw) * seg_bytes + (kk // 8) * 8
+                         * row_bytes + (kk % 8) * row_bytes + 2 * (nn % sw),
+                         row_bytes)
+            want = state_byte(k0 + kk, col_off + nn, npad, sw)
+            np.testing.assert_array_equal(at, want)
+
+
+class _MBarrier:
+    """An mbarrier: a phase completes when its arrivals and its
+    transaction bytes are all in; try_wait.parity(P) passes while the
+    current phase's parity is not P."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.done = count, count, 0, 0
+
+    def arrive(self, expect_tx=0):
+        self.pending -= 1
+        self.tx += expect_tx
+        self._complete()
+
+    def land(self, nbytes):
+        self.tx -= nbytes
+        self._complete()
+
+    def _complete(self):
+        if self.pending == 0 and self.tx == 0:
+            self.done += 1
+            self.pending = self.count
+
+    def passes(self, parity, phase_wanted):
+        ok = (self.done & 1) != parity
+        if ok:  # the phase the waiter wants, never one a round later
+            assert self.done == phase_wanted + 1
+        return ok
+
+
+def _ring_run(n, tile, split, t_steps, seed):
+    """The kernel's producer lane(s) and consumer warps on the ring(s),
+    scheduled in a random order: returns the chunks each consumer warp
+    read, in order, and checks that no slot is refilled while a warp
+    still reads it."""
+    mb, nw, rows, cols = tc_plan(n, tile, split)
+    npad = -(-n // 16) * 16
+    stages = tc_stages(n, tile, split)
+    passes, kchunks = -(-npad // rows), -(-npad // 64)
+    chunks = t_steps * passes * kchunks
+    rings = 2 if split else 1
+    warps = 4 if split else 8  # the warps that release a ring's stage
+    full = [[_MBarrier(1) for _ in range(stages)] for _ in range(rings)]
+    empty = [[_MBarrier(warps) for _ in range(stages)] for _ in range(rings)]
+    slot_holds = [[None] * stages for _ in range(rings)]
+    reading = [[set() for _ in range(stages)] for _ in range(rings)]
+    in_flight = []  # (ring, slot, chunk): TMA loads not yet landed
+    read = {}
+
+    def producer(rg):
+        for q in range(chunks):
+            s, rnd = q % stages, q // stages
+            while not empty[rg][s].passes((rnd & 1) ^ 1, rnd - 1):
+                yield
+            assert not reading[rg][s]  # every warp released the slot
+            slot_holds[rg][s] = None
+            full[rg][s].arrive(expect_tx=rows * 128)
+            in_flight.append((rg, s, q))
+            yield
+
+    def consumer(w):
+        rg = w // 4 if split else 0
+        prev = None
+        for q in range(chunks):
+            s, rnd = q % stages, q // stages
+            while not full[rg][s].passes(rnd & 1, rnd):
+                yield
+            assert slot_holds[rg][s] == q  # this round's load landed
+            reading[rg][s].add(w)
+            read.setdefault(w, []).append(q)
+            yield
+            if prev is not None:  # wgmma_wait<1>: chunk q-1 is summed
+                reading[rg][prev].discard(w)
+                empty[rg][prev].arrive()
+            prev = s
+            if (q + 1) % kchunks == 0:  # the pass ends: wait<0>
+                reading[rg][s].discard(w)
+                empty[rg][s].arrive()
+                prev = None
+            yield
+
+    rng = np.random.default_rng(seed)
+    actors = [producer(r) for r in range(rings)] + [consumer(w)
+                                                    for w in range(8)]
+    steps = 0
+    while actors or in_flight:
+        steps += 1
+        assert steps < 400 * (chunks + 10), "the ring deadlocked"
+        if in_flight and (not actors or rng.random() < 0.3):
+            rg, s, q = in_flight.pop(rng.integers(len(in_flight)))
+            slot_holds[rg][s] = q
+            full[rg][s].land(rows * 128)
+            continue
+        a = actors[rng.integers(len(actors))]
+        try:
+            next(a)
+        except StopIteration:
+            actors.remove(a)
+    return read, chunks
+
+
+@pytest.mark.parametrize("t_steps", [1, 2, 64])
+@pytest.mark.parametrize("n,tile,split", [(17, 128, False), (100, 256, False),
+                                          (256, 128, False), (300, 128, False),
+                                          (1024, 32, False), (17, 128, True),
+                                          (256, 128, True), (1000, 32, True)])
+def test_ring_fills_and_releases_each_slot_in_order(n, tile, split, t_steps):
+    # the flat chunk sequence (step, pass, 64-k chunk) through 2-4 slots:
+    # each consumer warp reads every chunk once, in order, a slot only
+    # after its load landed and never after it was refilled, and no wait
+    # passes on a phase a round ahead of the one it wants
+    read, chunks = _ring_run(n, tile, split, t_steps, seed=n + t_steps)
+    assert all(read[w] == list(range(chunks)) for w in range(8))
