@@ -10,13 +10,13 @@ raises and the script exits non-zero:
    and power limit (printed raw on a line of its own).
 2. build — compiles the port's kernel sources from ``matcha_tpu_torch/csrc``
    (one ``nvcc`` each, started together) and prints ptxas' registers and
-   spills of every kernel instantiation: the perm kernel's, the fused
-   kernel's FMA paths (columns in registers, the chain with its tile in
-   shared memory, one launch per step) and tensor-core paths (chained in
-   registers; in shared memory, unsplit and split; one launch per step),
-   and the perm kernel's per-step path; a spill store in a per-step kernel
-   of the fused source or in the tensor cores' shared-memory mainloop
-   fails the run.
+   spills of every kernel instantiation: the perm kernel's (slabs and
+   the band path), the fused kernel's FMA paths (columns in registers,
+   the chain with its tile in shared memory, one launch per step) and
+   tensor-core paths (chained in registers; in shared memory, unsplit and
+   split; one launch per step); a spill store in a per-step kernel of the
+   fused source, in the tensor cores' shared-memory mainloop or in the
+   perm band kernel fails the run.
 3. parity — the perm kernel's two instantiations against their plain PyTorch version on the card, at
    the shapes of the slice (N=16 workers, the M=8 matchings of zoo graph 4,
    D=273,258 ResNet-20 parameters, MATCHA weights): T in {1, 64},
@@ -26,16 +26,26 @@ raises and the script exits non-zero:
    inactive matching reaches, values near the f32 limit (a difference that
    overflows, and a slab whose image leaves the range where terms may be
    skipped and comes back), N=2 and N=1 (rows past N masked), N=256 on a
-   hypercube at T=64, and N=4096 on a hypercube at T=1 and 8 (and at T=8
-   with gates of 0, 0.5 and 1).  Bitwise.
+   hypercube at T=64, and N=4096 on a hypercube at T=1 (the band path)
+   and 8 (and at T=8 with gates of 0, 0.5 and 1).  Bitwise.
 4. timing — kernel (CUDA events, and ``device_ms`` from the profiler),
    plain version and the dense yardstick (T calls of
    ``torch.matmul(W_t, x)``, the JAX package's dense backend; the port
    never calls it), median of 20 runs with the L2 cache flushed before
    each (for ``device_ms`` too); and the bound from the card's bandwidth
    and FP32 peak.  Shapes:
-   the slice at T=1 and 64, N=256 at T=64, N=4096 at T=1 and 64 (plain
-   and library at T=1 only, 3 runs).
+   the slice at T=1 and 64, N=256 at T=64, N=4096 at T=1 (the band
+   path) and 64 (the slabs; plain and library at T=1 only, 3 runs).
+   perm_large — the perm kernel's band path (no slab fits a CTA) on the
+   16,384-worker hypercube and a 4096-worker ER graph of mean degree 30
+   (more matchings than the slab tables hold): times first, at T = 1 and
+   4 (the ER graph at full width, the hypercube at D = 32,768) with the
+   profiler's device time, plain version, library call and bound, and
+   the hypercube at full width, T = 4, with its peak device memory; then
+   at D = 32,768: T = 1, 2, 3, 4 and 8, an f32 state on both wires, a
+   bf16 state, an alive mask and a state holding inf and NaN, both
+   instantiations, and the 8193-worker ring at D = 1,031, bitwise;
+   ``make_decen(..., "perm").run`` on both graphs, launches by path.
 5. slice — ``train()`` at full width: ResNet-20, 16 workers, graph 4,
    MATCHA budget 0.5, batch 32, perm backend, f32 wire, 2 epochs of 4
    steps.  Loss and disagreement finite; the kernel's launch count equals
@@ -100,13 +110,7 @@ raises and the script exits non-zero:
    launch per step), and N = 4095, T = 1 in f32 and bf16: kernel, plain
    version, library call and bound; the per-step rows also the
    profiler's device time per call and per step launch, and the step
-   kernels' spill stores.  perm_large — the perm kernel's
-   per-step path (no slab fits a CTA) at D = 32,768 on the 16,384-worker
-   hypercube and a 4096-worker ER graph of mean degree 30 (more matchings
-   than the slab tables hold), T = 1 and 4, both instantiations and
-   wires, bitwise; ``make_decen(..., "perm").run`` on both, launches by
-   path; times of the ER graph at full width and the hypercube at D =
-   32,768 (T = 1).
+   kernels' spill stores.
 10. split_probe — the split-step probe (K4, ``probes/split_probe.py``) on
    its full-width ``[256, 273258]`` bf16 inputs: the split schedule
    bitwise equal to the unsplit one at T = 1, 8, 16, 32 and 64, where the
@@ -123,8 +127,8 @@ raises and the script exits non-zero:
    split_timing — both schedules (CUDA events and the profiler's device
    time), the plain version (T = 64 only), the library call (T bf16
    ``torch.matmul`` calls) and the bound at T = 64 and T = 2000.
-11. a ``{"kernels": [...]}`` summary line (perm ×2 and its per-step
-    path, fused_gossip per path ×6, split_gossip), then the
+11. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
+    fused_gossip per path ×6, split_gossip), then the
     ``nvidia-smi`` line.
 12. last line: ``{"ok": true, "device": {...}}``.
 """
@@ -276,20 +280,26 @@ def device_ms(fn, kernel: str, flush, runs: int = 20):
     it once) from ``torch.profiler`` (launch gaps excluded), the L2 cache
     flushed before each call as for ``time_ms``, or None when the trace
     holds no device time.  The mean is over the launches the trace
-    recorded: the profiler can drop a record now and then."""
+    recorded: the profiler can drop a record now and then, and a short
+    window of long kernels at times comes back with no device record at
+    all, so such a window is profiled again with twice the calls (three
+    tries)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(getattr(e, "device_time_total", 0.0) for e in found)
-    count = sum(e.count for e in found)
-    return total / count / 1e3 if total else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages() if kernel in e.key]
+        total = sum(getattr(e, "device_time_total", 0.0) for e in found)
+        if total:
+            return total / sum(e.count for e in found) / 1e3
+        runs *= 2
+    return None
 
 
 def bound(x, weights, perms, gate):
@@ -477,13 +487,19 @@ def phase_timing(dev, tables, big_tables, huge_tables):
         x = state(n, SLICE_D, dev)
         w = torch.as_tensor(sch.alpha * sch.flags[:t_steps],
                             dtype=torch.float32, device=dev)
+        # the path the launch rule took: the band path (perm_band_kernel)
+        # or the slabs (perm_gossip_kernel)
+        before = LAUNCHES["perm_gossip/band"]
+        perm_gossip_run(x, w, p, part)
+        path = "band" if LAUNCHES["perm_gossip/band"] > before else "slab"
         row = {"shape": label, "N": n, "D": SLICE_D, "T": t_steps,
-               "M": int(p.shape[0])}
+               "M": int(p.shape[0]), "path": path}
         for name, spec in KERNELS.items():
             run = lambda: perm_gossip_run(x, w, p, part, dbuf=spec["dbuf"])
             row[f"{name}_ms"] = time_ms(run, flush)
-            row[f"{name}_device_ms"] = device_ms(run, "perm_gossip_kernel",
-                                                 flush)
+            row[f"{name}_device_ms"] = device_ms(
+                run, "perm_band_kernel" if path == "band"
+                else "perm_gossip_kernel", flush)
         slow = n == 4096 and t_steps > 1
         row["plain_ms"] = None if slow else time_ms(
             lambda: perm_gossip_plain(x, w, p, part), flush,
@@ -1057,17 +1073,27 @@ STEP_KERNELS = {"fma_step": ("fma_step_kernel", "transpose_stack",
 # the tensor cores' shared-memory mainloop (tensor_core and K4's split
 # schedule), every instantiation; its spill stores fail the build phase too
 MAINLOOP_KERNEL = "tc_gossip_kernel"
+# the perm kernel's band path, every instantiation; likewise
+BAND_KERNEL = "perm_band_kernel"
 
 
-def step_spills(ptxas: dict) -> dict:
-    """Bytes of spill stores of each per-step path's kernels and of the
-    shared-memory mainloop (the most over their instantiations), from the
-    build's ptxas lines."""
-    rows = ptxas["fused_gossip"]
-    kernels = {**STEP_KERNELS, "tensor_core": (MAINLOOP_KERNEL,)}
-    return {path: max(r.get("spill_stores", 0) for r in rows
-                      if any(k in r["kernel"] for k in names))
-            for path, names in kernels.items()}
+def step_spills(ptxas: dict, reports: dict) -> dict:
+    """Bytes of spill stores of each per-step path's kernels, of the
+    shared-memory mainloop and of the perm band kernel (the most over their
+    instantiations), from the build's ptxas lines (a cached build printed
+    none)."""
+    out = {}
+    if not reports["fused_gossip"]["cached"]:
+        kernels = {**STEP_KERNELS, "tensor_core": (MAINLOOP_KERNEL,)}
+        out.update({path: max(r.get("spill_stores", 0)
+                              for r in ptxas["fused_gossip"]
+                              if any(k in r["kernel"] for k in names))
+                    for path, names in kernels.items()})
+    if not reports["perm_gossip"]["cached"]:
+        out["band"] = max(r.get("spill_stores", 0)
+                          for r in ptxas["perm_gossip"]
+                          if BAND_KERNEL in r["kernel"])
+    return out
 
 
 def phase_fused_sweep(dev, spills):
@@ -1173,35 +1199,133 @@ def er_tables(dev, n: int = 4096, degree: float = 30.0):
 
 
 def phase_perm_large(dev):
-    """K1 where no slab fits a CTA: the per-step path, at D = 32,768, on
-    the 16,384-worker hypercube and a 4096-worker ER graph of mean degree
-    30, T = 1 and 4, both instantiations and both wires, bitwise against
-    the plain version; then ``make_decen(..., "perm").run`` on both (T =
-    4), launches counted by path; then times: the ER graph at full width
-    (T = 1) and the hypercube at D = 32,768 (T = 1), 3 runs each."""
+    """K1's band path, where no slab fits a CTA, on the 16,384-worker
+    hypercube and a 4096-worker ER graph of mean degree 30 (more matchings
+    than the slab tables hold).  First the times, before the bitwise
+    checks' temporaries fill the card's memory: T = 1 and 4, the ER
+    graph at full width and the hypercube at D = 32,768, by CUDA events and
+    the profiler's device time per call, with the plain version, the
+    library call and the bound, 3 runs each; the hypercube at full width,
+    T = 4, the kernel's time and its peak device memory, and its first
+    32,768 and last 1031 columns bitwise against the plain version on those
+    columns (the plain version does not fit the whole width).  Then, at D = 32,768: T = 1, 2, 3, 4 and 8, an f32
+    state on both wires, a bf16 state, an alive mask and a state holding
+    inf and NaN, both instantiations, bitwise against the plain version;
+    the 8193-worker ring at D = 1031 (T = 1, 2, 3 and 8, both state dtypes
+    and wires), bitwise; then ``make_decen(..., "perm").run`` on both
+    graphs (T = 4), launches counted by path."""
     flush = L2Flush(dev)
     graphs = {"hypercube N=16384": hypercube_tables(dev, 16384),
               "ER N=4096": er_tables(dev)}
-    cases = 0
-    for label, (sch, p, part) in graphs.items():
-        x = state(sch.num_workers, 32768, dev)
+    torch.cuda.empty_cache()
+    rows = []
+    for label, d in (("ER N=4096", SLICE_D), ("hypercube N=16384", 32768)):
+        sch, p, part = graphs[label]
+        x = state(sch.num_workers, d, dev)
         for t_steps in (1, 4):
             w = torch.as_tensor(sch.alpha * sch.flags[:t_steps],
                                 dtype=torch.float32, device=dev)
-            for wire in (None, "bf16"):
-                ref = perm_gossip_plain(x, w, p, part, wire_dtype=wire)
+            run = lambda: perm_gossip_run(x, w, p, part)  # noqa: E731
+            row = {"shape": f"{label} D={d} T={t_steps}",
+                   "N": sch.num_workers, "D": d, "T": t_steps,
+                   "M": int(p.shape[0]), "ms": time_ms(run, flush, 3),
+                   "device_ms": device_ms(run, "perm_band_kernel", flush, 3),
+                   "plain_ms": time_ms(lambda: perm_gossip_plain(
+                       x, w, p, part), flush, 3),
+                   "library_ms": time_ms(perm_yardstick(w, p, part, x),
+                                         flush, 3)}
+            row["bound_ms"], row["bound_by"] = bound(x, w, p, part)
+            rows.append(row)
+            emit({"phase": "perm_large_timing", **row})
+        del x
+        torch.cuda.empty_cache()
+    # the full width: x, out and two band buffers
+    sch, p, part = graphs["hypercube N=16384"]
+    x = state(sch.num_workers, SLICE_D, dev)
+    w = torch.as_tensor(sch.alpha * sch.flags[:4], dtype=torch.float32,
+                        device=dev)
+    run = lambda: perm_gossip_run(x, w, p, part)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = run()
+    torch.cuda.synchronize()
+    full = {"shape": f"hypercube N=16384 D={SLICE_D} T=4",
+            "N": sch.num_workers, "D": SLICE_D, "T": 4,
+            "M": int(p.shape[0]),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "state_bytes": x.numel() * x.element_size(),
+            "finite": bool(torch.isfinite(out).all())}
+    if not full["finite"]:
+        raise AssertionError("perm full-width N=16384: non-finite output")
+    # bands are independent by column: the first 32,768 columns (128 bands)
+    # and the last 1031 (the ragged last band and the three before it)
+    # against the plain version on the same columns of x
+    for cols in (slice(0, 32768), slice(SLICE_D - 1031, SLICE_D)):
+        ref = perm_gossip_plain(x[:, cols].contiguous(), w, p, part)
+        if not same_bits(out[:, cols], ref):
+            raise AssertionError(f"perm full-width N=16384 columns "
+                                 f"{cols.start}:{cols.stop}: not bitwise "
+                                 f"equal to the plain version")
+        del ref
+    full["bitwise_columns"] = [[0, 32768], [SLICE_D - 1031, SLICE_D]]
+    del out
+    full["ms"] = time_ms(run, flush, 3)
+    full["device_ms"] = device_ms(run, "perm_band_kernel", flush, 3)
+    full["bound_ms"], full["bound_by"] = bound(x, w, p, part)
+    rows.append(full)
+    emit({"phase": "perm_large_timing", **full})
+    del x
+    torch.cuda.empty_cache()
+    cases = 0
+    for label, (sch, p, part) in graphs.items():
+        n = sch.num_workers
+        x = state(n, 32768, dev)
+        wild = x.clone()
+        wild[3, 100], wild[n - 1, -1] = float("nan"), float("inf")
+        alive = torch.ones(n, device=dev)
+        alive[::5] = 0.0
+        variants = (("f32", x, None, None), ("f32 bf16 wire", x, "bf16", None),
+                    ("bf16 state", x.to(torch.bfloat16), None, None),
+                    ("alive", x, None, alive), ("inf/NaN", wild, None, None))
+        for t_steps in (1, 2, 3, 4, 8):
+            w = torch.as_tensor(sch.alpha * sch.flags[:t_steps],
+                                dtype=torch.float32, device=dev)
+            for name, xv, wire, mask in variants:
+                ref = perm_gossip_plain(xv, w, p, part, alive=mask,
+                                        wire_dtype=wire)
                 for dbuf in (True, False):
-                    out = perm_gossip_run(x, w, p, part, wire_dtype=wire,
-                                          dbuf=dbuf)
+                    out = perm_gossip_run(xv, w, p, part, alive=mask,
+                                          wire_dtype=wire, dbuf=dbuf)
                     torch.cuda.synchronize()
                     if not same_bits(out, ref):
                         raise AssertionError(f"perm {label} T={t_steps} "
-                                             f"wire={wire} dbuf={dbuf}: not "
+                                             f"{name} dbuf={dbuf}: not "
                                              f"bitwise equal to the plain "
                                              f"version")
                     cases += 1
                 del ref, out
-        del x
+        del x, wild, variants
+    # a ragged N and an odd D: the 8193-worker ring (three matchings),
+    # D = 1031 (every band's last lane short, rows off 16 bytes)
+    ring = fixed_schedule(decompose(ring_graph(8193), 8193, seed=SEED), 8193,
+                          8, budget=0.5, mode="bernoulli", seed=SEED)
+    _, p, part = _tables(ring, dev)
+    x = state(8193, 1031, dev)
+    for t_steps in (1, 2, 3, 8):
+        w = torch.as_tensor(ring.alpha * ring.flags[:t_steps],
+                            dtype=torch.float32, device=dev)
+        for xv in (x, x.to(torch.bfloat16)):
+            for wire in (None, "bf16"):
+                ref = perm_gossip_plain(xv, w, p, part, wire_dtype=wire)
+                out = perm_gossip_run(xv, w, p, part, wire_dtype=wire)
+                torch.cuda.synchronize()
+                if not same_bits(out, ref):
+                    raise AssertionError(f"perm ring N=8193 D=1031 "
+                                         f"T={t_steps} {xv.dtype} "
+                                         f"wire={wire}: not bitwise equal "
+                                         f"to the plain version")
+                cases += 1
+    del x, ref, out
     reset_launch_counts()
     outs = {}
     for label, (sch, p, part) in graphs.items():
@@ -1210,9 +1334,9 @@ def phase_perm_large(dev):
             x, sch.flags[:4])[0])
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    if launches["perm_gossip/step"] != 2 or launches["perm_gossip_dbuf"] != 2:
+    if launches["perm_gossip/band"] != 2 or launches["perm_gossip_dbuf"] != 2:
         raise AssertionError(f"make_decen perm runs launched {launches}, "
-                             f"expected perm_gossip/step = 2")
+                             f"expected perm_gossip/band = 2")
     for label, (sch, p, part) in graphs.items():
         x, out = outs[label]
         w = torch.as_tensor(sch.alpha * sch.flags[:4], dtype=torch.float32,
@@ -1220,25 +1344,6 @@ def phase_perm_large(dev):
         if not same_bits(out, perm_gossip_plain(x, w, p, part)):
             raise AssertionError(f"make_decen perm {label}: not bitwise")
     del outs
-    rows = []
-    for label, d in (("ER N=4096", SLICE_D), ("hypercube N=16384", 32768)):
-        sch, p, part = graphs[label]
-        x = state(sch.num_workers, d, dev)
-        w = torch.as_tensor(sch.alpha * sch.flags[:1], dtype=torch.float32,
-                            device=dev)
-        row = {"shape": f"{label} D={d} T=1", "N": sch.num_workers, "D": d,
-               "T": 1, "M": int(p.shape[0]),
-               "ms": time_ms(lambda: perm_gossip_run(x, w, p, part), flush,
-                             3),
-               "plain_ms": time_ms(lambda: perm_gossip_plain(x, w, p, part),
-                                   flush, 3),
-               "library_ms": time_ms(perm_yardstick(w, p, part, x), flush,
-                                     3)}
-        row["bound_ms"], row["bound_by"] = bound(x, w, p, part)
-        rows.append(row)
-        emit({"phase": "perm_large_timing", **row})
-        del x
-        torch.cuda.empty_cache()
     emit({"phase": "perm_large", "D": 32768, "cases": cases,
           "bitwise": True, "M": {k: int(v[1].shape[0])
                                  for k, v in graphs.items()},
@@ -1628,7 +1733,8 @@ def kernels_line(r) -> list:
             "device_ms": row[f"{name}_device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "timings": [{"shape": t["shape"], "ms": t[f"{name}_ms"],
+            "timings": [{"shape": t["shape"], "path": t["path"],
+                         "ms": t[f"{name}_ms"],
                          "device_ms": t[f"{name}_device_ms"],
                          "plain_ms": t["plain_ms"],
                          "library_ms": t["library_ms"],
@@ -1703,21 +1809,22 @@ def kernels_line(r) -> list:
                                             "plain_ms", "library_ms",
                                             "bound_ms", "bound_by")}
                         for t in sweep if t["path"] == path]})
-    # the perm kernel's per-step path: make_decen's perm chains past the
-    # slab kernel's reach
+    # the perm kernel's band path: make_decen's perm chains past the slab
+    # kernel's reach; its main shape the 4096-worker ER graph, one step
     perm = r["perm_large"]
     main = perm["timing"][0]
     kernels.append({
-        "name": "perm_gossip_dbuf", "path": "step", "route": "cuda",
+        "name": "perm_gossip_dbuf", "path": "band", "route": "cuda",
         "source": SOURCE, "replaces": KERNELS["perm_gossip_dbuf"]["replaces"],
-        "launches": perm["launches"]["perm_gossip/step"],
+        "launches": perm["launches"]["perm_gossip/band"],
         "launches_by_path": {"Communicator.run, perm chains at N = 16384 "
                              "and 4096 (M >= 25)":
-                             perm["launches"]["perm_gossip/step"]},
+                             perm["launches"]["perm_gossip/band"]},
         "bitwise": True, "max_abs_err": 0.0, "shape": main["shape"],
-        "ms": main["ms"], "device_ms": None, "plain_ms": main["plain_ms"],
-        "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "spill_stores": r["spills"].get("band"),
         "timings": perm["timing"]})
     split_rows = r["split_timing"]
     main = split_rows[0]  # T=64, where the plain version is timed too
@@ -1764,18 +1871,19 @@ def main():
           "sources": [SOURCE, FUSED_SOURCE],
           "cached": {k: r["cached"] for k, r in reports.items()},
           "kernels": ptxas})
-    # the per-step kernels and the shared-memory tensor-core mainloop were
-    # redesigned to fit their registers: a spill fails the run (a cached
-    # build printed nothing to read)
-    spills = {} if reports["fused_gossip"]["cached"] else step_spills(ptxas)
+    # the per-step kernels, the shared-memory tensor-core mainloop and the
+    # perm band kernel were designed to fit their registers: a spill fails
+    # the run
+    spills = step_spills(ptxas, reports)
     if any(spills.values()):
-        raise AssertionError(f"fused kernels spill registers: {spills}")
+        raise AssertionError(f"kernels spill registers: {spills}")
 
     tables, big_tables = slice_tables(dev), hypercube_tables(dev)
     huge_tables = hypercube_tables(dev, 4096)
     results = {}
     results["parity"] = phase_parity(dev, tables, big_tables, huge_tables)
     results["timing"] = phase_timing(dev, tables, big_tables, huge_tables)
+    results["perm_large"] = phase_perm_large(dev)
     results["slice"] = phase_slice(dev)
     phase_profile(dev)
     phase_agreement(dev)
@@ -1787,7 +1895,6 @@ def main():
     results["fused_large"] = phase_fused_large(dev)
     results["fused_sweep"] = phase_fused_sweep(dev, spills)
     results["spills"] = spills
-    results["perm_large"] = phase_perm_large(dev)
     results["split_probe"] = phase_split_probe(dev)
     results["split_timing"] = phase_split_timing(dev)
     emit({"kernels": kernels_line(results)})

@@ -52,7 +52,7 @@ LAUNCHES = {"perm_gossip_dbuf": 0, "perm_gossip_stream": 0,
             "fused_gossip/fma_regs": 0, "fused_gossip/fma": 0,
             "fused_gossip/tc_regs": 0, "fused_gossip/tensor_core": 0,
             "fused_gossip/fma_step": 0, "fused_gossip/tc_step": 0,
-            "perm_gossip/slab": 0, "perm_gossip/step": 0,
+            "perm_gossip/slab": 0, "perm_gossip/band": 0,
             "split_gossip/tensor_core": 0, "split_gossip/split": 0}
 
 

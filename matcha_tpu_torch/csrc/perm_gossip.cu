@@ -80,6 +80,41 @@
 // Launch.  The grid's size comes from the occupancy API once per
 // instantiation, device, block size and shared memory, and is kept
 // (card_ctas): a training step's T = 1 launch pays only the launch itself.
+//
+// The band path.  Where no slab shape fits a CTA (N above 8192, or more
+// matchings than the tables beside the image allow), and for one step from
+// 4096 workers, where 4- and 2-column slabs serve device memory poorly
+// (perm_gossip.py's _launch_shape), the state stays in device memory and
+// the chain runs in column bands [N, cols]: the gathers move rows, never
+// columns, so a band's T-step chain needs no other band.  One persistent
+// grid, launched cooperatively so that its CTAs may wait for each other,
+// walks the bands one after another, with a grid barrier (an arrival
+// counter in scratch) between a band's steps.  cols keeps the band's two
+// [N, cols] buffers well inside the 50 MB L2, so a step's gathers are L2
+// hits and device memory sees the state read once and written once for
+// the whole chain.  At T = 1 there is no barrier: the
+// one step reads x and writes out.  From T = 2 a band is first copied from
+// x into a buffer (one barrier), and the steps ping-pong between the two
+// buffers with one barrier each, the last writing out: x's rows lie D
+// apart, so gathering from x touches a page a row, and the copy made the
+// 4096-worker ER graph's four steps 10 % faster (PERF.md).  Each warp
+// takes rows of the band (rows fastest); each lane moves 16 bytes (four
+// f32 or eight bf16 columns) where every row's start allows it, else 8 or
+// 4, else element by element.  Per window of 32 matchings the warp reads
+// its rows' [N, M] table entries {partner, gate bits} (one coalesced load
+// a row; the wrapper builds the table), forms the coefficients, and a
+// ballot gives each row its active terms; each lane then issues 32 bytes'
+// worth of partner loads (8 f32 or 4 bf16 of 16 bytes) before it sums
+// them in j order, the slab kernel's arithmetic operation for operation.
+// Zero terms are skipped as above, decided per band and step: the copy of
+// x, and the writers of each step's output, stamp the grid's flag where a
+// value of the wire image is wild, and the next step reads it after the
+// barrier.  At T = 1 the step skips optimistically while each row checks
+// its own values; the last CTA to finish a band whose x was wild computes
+// the band again without skips.  What bounds it: the gathers' L2 reads,
+// (2 + a) band rows a row and step (a: the row's active partnered terms),
+// which an H100 served at 2.5-3.9 TB/s, not device memory: 4.3-12x the
+// byte bound (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -511,179 +546,553 @@ long long card_ctas(KernelFn kernel, int threads, size_t smem) {
   return ctas;
 }
 
-// ------------------------------------------------- the per-step path
+// ------------------------------------------------- the band path
 //
-// Where no slab shape fits a CTA (N above 8192, or too many matchings for
-// the tables beside the image), the state stays in device memory: one
-// launch per step, ping-ponging two state buffers, each thread one column
-// pair of one row at a time, gathering its partners' pairs straight from
-// device memory (every lane of a CTA reads the same partner row, so the
-// reads are coalesced).  The arithmetic is the slab kernel's, operation
-// for operation: the wire image, the coefficient w_j * gate[j,i] once per
-// row, f32 accumulation in j order, unfused.  Zero terms are skipped
-// exactly as there, where every value of the step's wire image is below
-// 2^127: a flag per step, cleared by any CTA that writes (or, for step 0,
-// scans) a value at or above it.
+// Column bands of the state held in L2 for a whole chain (header comment,
+// "The band path").
 
-constexpr int kStepThreads = 256;
-constexpr int kStepCols = 2 * kStepThreads;  // a column pair a thread
-constexpr int kMaxGridY = 65535;
+constexpr int kBandThreads = 256;
+// The grid's flag words (a 128-byte line, apart from the bands' words): the
+// barrier's arrival counter, then the two stamp slots of "a value of the
+// step's input was wild" and the two of "a value of the step's output was
+// wild"
+constexpr int kGridWords = 32;
+constexpr int kArrive = 0, kSrcWild = 2, kDstWild = 4;
 
-template <typename StateT, bool WIRE_BF16>
-__global__ void __launch_bounds__(kStepThreads)
-    tame_scan(const StateT* __restrict__ x, long long total,
-              int* __restrict__ tame) {
-  bool ok = true;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    ok = ok && fabsf(Wire<WIRE_BF16>::round(StateIO<StateT>::load(x + e))) <
-                   kTame;
+// 16 bytes of a row, as raw bits: V = 16 / sizeof(StateT) columns a lane.
+struct Raw16 {
+  unsigned w[4];
+};
+
+template <typename T>
+struct Lane;
+
+template <>
+struct Lane<float> {
+  static constexpr int V = 4;
+  __device__ static float get(const Raw16& r, int e) {
+    return __uint_as_float(r.w[e]);
   }
-  if (!__syncthreads_and(ok) && threadIdx.x == 0) atomicAnd(tame, 0);
+  // v is a value of the state type already (StateIO::round)
+  __device__ static void put(Raw16& r, int e, float v) {
+    r.w[e] = __float_as_uint(v);
+  }
+  __device__ static unsigned bits(const float* p) {
+    return __ldcg(reinterpret_cast<const unsigned*>(p));
+  }
+  __device__ static void set_bits(float* p, unsigned long long v) {
+    __stcg(reinterpret_cast<unsigned*>(p), static_cast<unsigned>(v));
+  }
+};
+
+template <>
+struct Lane<__nv_bfloat16> {
+  static constexpr int V = 8;
+  __device__ static float get(const Raw16& r, int e) {
+    return __uint_as_float(((r.w[e >> 1] >> ((e & 1) * 16)) & 0xffffu)
+                           << 16);
+  }
+  __device__ static void put(Raw16& r, int e, float v) {
+    const unsigned bits = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    const int sh = (e & 1) * 16;
+    r.w[e >> 1] = (r.w[e >> 1] & ~(0xffffu << sh)) | (bits << sh);
+  }
+  __device__ static unsigned bits(const __nv_bfloat16* p) {
+    return __ldcg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static void set_bits(__nv_bfloat16* p, unsigned long long v) {
+    __stcg(reinterpret_cast<unsigned short*>(p),
+           static_cast<unsigned short>(v));
+  }
+};
+
+// A lane's V columns at p: `valid` of them exist (a ragged band's edge),
+// moved in pieces of `piece` bytes (16, 8 or 4; else element by element,
+// little-endian into the 16 bytes).
+// Loads go to L2 (.cg): the band buffers are written by other SMs within
+// the launch, so L1 could hold a stale copy, and partner rows would only
+// evict the tables from L1.
+template <typename StateT>
+__device__ __forceinline__ Raw16 load16(const StateT* p, int valid,
+                                        int piece) {
+  constexpr int V = Lane<StateT>::V;
+  Raw16 r = {{0u, 0u, 0u, 0u}};
+  if (valid >= V && piece == 16) {
+    const uint4 q = __ldcg(reinterpret_cast<const uint4*>(p));
+    r.w[0] = q.x; r.w[1] = q.y; r.w[2] = q.z; r.w[3] = q.w;
+    return r;
+  }
+  if (valid >= V && piece == 8) {
+    const uint2* s = reinterpret_cast<const uint2*>(p);
+    const uint2 a = __ldcg(s), b = __ldcg(s + 1);
+    r.w[0] = a.x; r.w[1] = a.y; r.w[2] = b.x; r.w[3] = b.y;
+    return r;
+  }
+  if (valid >= V && piece == 4) {
+    const unsigned* s = reinterpret_cast<const unsigned*>(p);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r.w[k] = __ldcg(s + k);
+    return r;
+  }
+  // element by element (a ragged band's edge, or 2-byte pieces): a loop,
+  // so that this rare path stays a branch and holds no registers of the
+  // vector paths' loads in flight
+  constexpr int kBits = 8 * sizeof(StateT);
+  unsigned long long lo = 0, hi = 0;
+#pragma unroll 1
+  for (int e = 0; e < (valid < V ? valid : V); ++e) {
+    const unsigned long long v = Lane<StateT>::bits(p + e);
+    if (e * kBits < 64) {
+      lo |= v << (e * kBits);
+    } else {
+      hi |= v << (e * kBits - 64);
+    }
+  }
+  r.w[0] = static_cast<unsigned>(lo);
+  r.w[1] = static_cast<unsigned>(lo >> 32);
+  r.w[2] = static_cast<unsigned>(hi);
+  r.w[3] = static_cast<unsigned>(hi >> 32);
+  return r;
 }
 
-template <typename StateT, bool WIRE_BF16>
-__global__ void __launch_bounds__(kStepThreads)
-    perm_step_kernel(const StateT* __restrict__ src, StateT* __restrict__ dst,
-                     const float* __restrict__ w,
-                     const int* __restrict__ perms,
-                     const float* __restrict__ gate, int n, long long d,
-                     int m, const int* __restrict__ tame_in,
-                     int* __restrict__ tame_out, int vec) {
-  const bool skip = *tame_in != 0;
-  const long long col =
-      static_cast<long long>(blockIdx.x) * kStepCols + 2 * threadIdx.x;
-  bool ok = true;
-  for (int i = blockIdx.y; i < n; i += gridDim.y) {
-    float xs[1][2];
-    load_slab<StateT, 1>(src, xs, i, 0, n, d, col, vec);
-    const float xw0 = Wire<WIRE_BF16>::round(xs[0][0]);
-    const float xw1 = Wire<WIRE_BF16>::round(xs[0][1]);
-    float acc0 = 0.0f, acc1 = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      const int k = j * n + i;
-      const float coef = __fmul_rn(w[j], gate[k]);
-      if (skip && coef == 0.0f) continue;  // uniform across the CTA
-      float pv[1][2];
-      load_slab<StateT, 1>(src, pv, perms[k], 0, n, d, col, vec);
-      acc0 = __fadd_rn(acc0, __fmul_rn(coef, __fsub_rn(
-                                 Wire<WIRE_BF16>::round(pv[0][0]), xw0)));
-      acc1 = __fadd_rn(acc1, __fmul_rn(coef, __fsub_rn(
-                                 Wire<WIRE_BF16>::round(pv[0][1]), xw1)));
-    }
-    xs[0][0] = StateIO<StateT>::round(__fadd_rn(xs[0][0], acc0));
-    xs[0][1] = StateIO<StateT>::round(__fadd_rn(xs[0][1], acc1));
-    store_slab<StateT, 1>(dst, xs, i, 0, n, d, col, vec);
-    ok = ok && (col >= d || fabsf(Wire<WIRE_BF16>::round(xs[0][0])) < kTame)
-            && (col + 1 >= d ||
-                fabsf(Wire<WIRE_BF16>::round(xs[0][1])) < kTame);
+template <typename StateT>
+__device__ __forceinline__ void store16(StateT* p, const Raw16& r, int valid,
+                                        int piece) {
+  constexpr int V = Lane<StateT>::V;
+  if (valid >= V && piece == 16) {
+    __stcg(reinterpret_cast<uint4*>(p),
+           make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]));
+    return;
   }
-  if (tame_out != nullptr && !__syncthreads_and(ok) && threadIdx.x == 0) {
-    atomicAnd(tame_out, 0);
+  if (valid >= V && piece == 8) {
+    uint2* s = reinterpret_cast<uint2*>(p);
+    __stcg(s, make_uint2(r.w[0], r.w[1]));
+    __stcg(s + 1, make_uint2(r.w[2], r.w[3]));
+    return;
+  }
+  if (valid >= V && piece == 4) {
+    unsigned* s = reinterpret_cast<unsigned*>(p);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) __stcg(s + k, r.w[k]);
+    return;
+  }
+  constexpr int kBits = 8 * sizeof(StateT);
+  const unsigned long long lo =
+      r.w[0] | static_cast<unsigned long long>(r.w[1]) << 32;
+  const unsigned long long hi =
+      r.w[2] | static_cast<unsigned long long>(r.w[3]) << 32;
+#pragma unroll 1
+  for (int e = 0; e < (valid < V ? valid : V); ++e) {
+    Lane<StateT>::set_bits(p + e, e * kBits < 64 ? lo >> (e * kBits)
+                                                 : hi >> (e * kBits - 64));
+  }
+}
+
+// How a band's rows map onto warps: a row's cols / V lanes are `lanes`
+// lanes of one warp (rw = 32 / lanes rows a warp) when they fit a warp,
+// else `segs` warps of 32 lanes.  A unit (one warp's share of a step) is
+// rw rows of one segment; units go rows-fastest.
+struct BandMap {
+  int lanes, rw, segs, rgroups;
+};
+
+__device__ __forceinline__ unsigned ld_volatile(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
+__device__ __forceinline__ void st_volatile(unsigned* p, unsigned v) {
+  *reinterpret_cast<volatile unsigned*>(p) = v;
+}
+
+// One step on one band for the units u = wr, wr + wq, ... of its rows
+// (the loop is uniform across the warp): src rows at src + i * sstride,
+// dst rows at dst + i * dstride, `width` columns.  Per window of 32
+// matchings, lane l reads entry j0 + l of each of the warp's rows from the
+// [n, m] table, forms its coefficient, and keeps it in the warp's window
+// `win` ([rw][32] in shared memory); a ballot gives each row the set of
+// its active terms, and each lane then gathers them 32 bytes' worth of
+// columns at a time (8 f32 loads of 16 bytes, 4 bf16), in j order, loads
+// first.  The arithmetic of the slab kernel, operation for operation.
+// skip: zero-coefficient terms may be skipped (the input's wire image is
+// tame).  src_wild / dst_wild: some value of the input's / output's wire
+// image is at or above 2^127 (or not finite), where asked.
+template <typename StateT, bool WIRE_BF16>
+__device__ __forceinline__ void band_step(
+    const StateT* src, long long sstride, int spiece, StateT* dst,
+    long long dstride, int dpiece, const float* __restrict__ w,
+    const int2* __restrict__ tab, int2* win, int n, int m, int width,
+    const BandMap& map, int wr, int wq, bool skip, bool check_src,
+    bool check_dst, bool& src_wild, bool& dst_wild) {
+  constexpr int V = Lane<StateT>::V;
+  constexpr int kBatch = 32 / V;  // partner loads in flight a lane
+  // a bf16 state is its own bf16 wire image
+  using W = Wire<WIRE_BF16 && sizeof(StateT) == 4>;
+  const int lane = threadIdx.x & 31;
+  const int rsub = lane / map.lanes;
+  const int lsub = lane % map.lanes;
+  const int units = map.segs * map.rgroups;
+  for (int u = wr; u < units; u += wq) {
+    const int seg = u / map.rgroups;
+    const int i0 = (u - seg * map.rgroups) * map.rw;  // the warp's first row
+    const int i = i0 + rsub;
+    const int col = (seg * map.lanes + lsub) * V;
+    // lanes past N or past the band's edge move nothing
+    const int valid = i < n ? width - col : 0;
+    Raw16 own = {{0u, 0u, 0u, 0u}};
+    if (valid > 0) own = load16<StateT>(src + i * sstride + col, valid, spiece);
+    float xs[V], xw[V], acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      xs[e] = Lane<StateT>::get(own, e);
+      xw[e] = W::round(xs[e]);
+      acc[e] = 0.0f;
+      if (check_src && e < valid && !(fabsf(xw[e]) < kTame)) src_wild = true;
+    }
+    for (int j0 = 0; j0 < m; j0 += 32) {
+      const int j = j0 + lane;
+      const float wj = j < m ? __ldg(w + j) : 0.0f;
+      unsigned mine = 0;
+      for (int r = 0; r < map.rw; ++r) {
+        const int ir = i0 + r;
+        int2 e = make_int2(0, 0);
+        bool act = false;
+        if (ir < n && j < m) {
+          e = __ldg(tab + static_cast<size_t>(ir) * m + j);
+          const float coef = __fmul_rn(wj, __int_as_float(e.y));
+          act = !skip || coef != 0.0f;
+          e.y = __float_as_int(coef);
+        }
+        win[r * 32 + lane] = e;
+        const unsigned mask = __ballot_sync(0xffffffffu, act);
+        if (r == rsub) mine = mask;
+      }
+      __syncwarp();
+      if (valid <= 0) mine = 0;
+      while (__any_sync(0xffffffffu, mine != 0u)) {
+        int jk[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          jk[k] = mine != 0u ? __ffs(mine) - 1 : -1;
+          mine &= mine - 1;
+        }
+        float coef[kBatch];
+        Raw16 pv[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (jk[k] >= 0) {
+            const int2 e = win[rsub * 32 + jk[k]];
+            coef[k] = __int_as_float(e.y);
+            pv[k] = load16<StateT>(src + e.x * sstride + col, valid, spiece);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          if (jk[k] < 0) continue;
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            acc[e] = __fadd_rn(
+                acc[e],
+                __fmul_rn(coef[k],
+                          __fsub_rn(W::round(
+                                        Lane<StateT>::get(pv[k], e)),
+                                    xw[e])));
+          }
+        }
+      }
+      __syncwarp();  // the window is read before the next one lands
+    }
+    if (valid <= 0) continue;
+    Raw16 res = {{0u, 0u, 0u, 0u}};
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float v = StateIO<StateT>::round(__fadd_rn(xs[e], acc[e]));
+      Lane<StateT>::put(res, e, v);
+      if (check_dst && e < valid &&
+          !(fabsf(W::round(v)) < kTame)) {
+        dst_wild = true;
+      }
+    }
+    store16<StateT>(dst + i * dstride + col, res, valid, dpiece);
+  }
+}
+
+// Copy this warp's units of x's band (rows at x + i * d) into the
+// contiguous band buffer `buf`; wild: some value's wire image is at or
+// above 2^127 (or not finite).
+template <typename StateT, bool WIRE_BF16>
+__device__ __forceinline__ void band_stage(const StateT* x, long long d,
+                                           int piece, StateT* buf, int cols,
+                                           int n, int width,
+                                           const BandMap& map, int wr, int wq,
+                                           bool& wild) {
+  constexpr int V = Lane<StateT>::V;
+  using W = Wire<WIRE_BF16 && sizeof(StateT) == 4>;
+  const int lane = threadIdx.x & 31;
+  const int rsub = lane / map.lanes;
+  const int lsub = lane % map.lanes;
+  const int units = map.segs * map.rgroups;
+  for (int u = wr; u < units; u += wq) {
+    const int seg = u / map.rgroups;
+    const int i = (u - seg * map.rgroups) * map.rw + rsub;
+    const int col = (seg * map.lanes + lsub) * V;
+    const int valid = i < n ? width - col : 0;
+    if (valid <= 0) continue;
+    const Raw16 v = load16<StateT>(x + i * d + col, valid, piece);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      if (e < valid && !(fabsf(W::round(Lane<StateT>::get(v, e))) < kTame)) {
+        wild = true;
+      }
+    }
+    store16<StateT>(buf + static_cast<size_t>(i) * cols + col, v, valid, 16);
+  }
+}
+
+// The grid's barrier number `epoch` (0, 1, ...): it completes when all
+// `ctas` CTAs of the grid have arrived, i.e. the arrival counter reaches
+// (epoch + 1) * ctas (it only grows, so it needs no reset; compared
+// modulo 2^32).  Returns, to every thread, bit 0: the input stamp of this
+// epoch was set, bit 1: the output stamp was.  A stamp slot is written in
+// epoch e (value e + 1) and read just after barrier e; the next write to
+// the slot comes in epoch e + 2, after barrier e + 1, which no CTA passes
+// before every CTA has read it.
+__device__ __forceinline__ unsigned grid_barrier(unsigned* gf,
+                                                  unsigned epoch,
+                                                  unsigned ctas) {
+  __shared__ unsigned seen;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(gf + kArrive, 1u);
+    const unsigned target = (epoch + 1) * ctas;
+    while (static_cast<int>(ld_volatile(gf + kArrive) - target) < 0) {
+    }
+    __threadfence();
+    const int s = epoch & 1;
+    seen = (ld_volatile(gf + kSrcWild + s) == epoch + 1 ? 1u : 0u) |
+           (ld_volatile(gf + kDstWild + s) == epoch + 1 ? 2u : 0u);
+  }
+  __syncthreads();
+  return seen;
+}
+
+// A CTA has finished its units of a band (T = 1): count it in; true, to
+// every thread, if it is the last CTA to finish the band and the
+// band's input was wild (then it recomputes the band without skips).
+__device__ __forceinline__ bool band_done(unsigned* count,
+                                          const unsigned* wild,
+                                          unsigned ctas) {
+  __shared__ unsigned redo;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(count, 1u) == ctas - 1;
+    __threadfence();
+    redo = last && ld_volatile(wild) != 0u ? 1u : 0u;
+  }
+  __syncthreads();
+  return redo != 0u;
+}
+
+// A persistent, cooperatively launched grid that walks the bands in order.
+// x and out: [n, d]; tab: [n, m] int2 {partner, gate bits}; bufs: two
+// [n, cols] buffers; flags: kGridWords, then a counter and a wild flag a
+// band (T = 1), all zero at launch.
+template <typename StateT, bool WIRE_BF16>
+__global__ void __launch_bounds__(kBandThreads, 2)
+    perm_band_kernel(const StateT* __restrict__ x, StateT* __restrict__ out,
+                     const float* __restrict__ weights,
+                     const int2* __restrict__ tab, StateT* bufs,
+                     unsigned* flags, int n, long long d, int t_steps, int m,
+                     int cols, int piece) {
+  constexpr int V = Lane<StateT>::V;
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  const unsigned ctas = gridDim.x;
+  const int wpc = blockDim.x >> 5;
+  const int wr = static_cast<int>(blockIdx.x) * wpc +
+                 static_cast<int>(threadIdx.x >> 5);
+  const int wq = static_cast<int>(ctas) * wpc;
+  BandMap map;
+  const int per_row = cols / V;
+  map.lanes = per_row < 32 ? per_row : 32;
+  map.rw = 32 / map.lanes;
+  map.segs = per_row / map.lanes;
+  map.rgroups = (n + map.rw - 1) / map.rw;
+  int2* win = reinterpret_cast<int2*>(band_smem) +
+              (threadIdx.x >> 5) * map.rw * 32;
+  const long long n_bands = (d + cols - 1) / cols;
+  unsigned* gf = flags;
+  unsigned* band_count = flags + kGridWords;
+  unsigned* band_wild = band_count + n_bands;
+  StateT* const buf0 = bufs;
+  StateT* const buf1 = buf0 + static_cast<size_t>(n) * cols;
+  unsigned epoch = 0;  // the grid's barriers so far
+  int p0 = 0;          // the buffer a band's copy of x goes to
+  for (long long band = 0; band < n_bands; ++band) {
+    const long long col0 = band * cols;
+    const int width = static_cast<int>(
+        d - col0 < cols ? d - col0 : static_cast<long long>(cols));
+    const StateT* xb = x + col0;
+    StateT* ob = out + col0;
+    bool src_wild = false, dst_wild = false;
+    if (t_steps == 1) {
+      // no barrier: skip optimistically; the last CTA to finish a band
+      // whose input was wild recomputes it without skips
+      band_step<StateT, WIRE_BF16>(xb, d, piece, ob, d, piece, weights, tab,
+                                   win, n, m, width, map, wr, wq, true, true,
+                                   false, src_wild, dst_wild);
+      if (src_wild) st_volatile(band_wild + band, 1u);
+      if (band_done(band_count + band, band_wild + band, ctas)) {
+        band_step<StateT, WIRE_BF16>(xb, d, piece, ob, d, piece, weights,
+                                     tab, win, n, m, width, map,
+                                     threadIdx.x >> 5, wpc, false, false,
+                                     false, src_wild, dst_wild);
+      }
+      continue;
+    }
+    // x's band into buf[p0] first, its wildness stamped: every step then
+    // gathers from a contiguous buffer (x's rows lie D apart, so its
+    // gathers would touch a page a row) and knows whether it may skip
+    band_stage<StateT, WIRE_BF16>(xb, d, piece, p0 ? buf1 : buf0, cols, n,
+                                  width, map, wr, wq, src_wild);
+    if (src_wild) st_volatile(gf + kSrcWild + (epoch & 1), epoch + 1);
+    unsigned seen = grid_barrier(gf, epoch++, ctas);
+    bool skip = !(seen & 1u);
+    for (int t = 0; t < t_steps; ++t) {
+      const bool last = t + 1 == t_steps;
+      const StateT* src = (p0 + t) & 1 ? buf1 : buf0;
+      StateT* dst = last ? ob : ((p0 + t + 1) & 1 ? buf1 : buf0);
+      dst_wild = false;
+      band_step<StateT, WIRE_BF16>(
+          src, cols, 16, dst, last ? d : cols, last ? piece : 16,
+          weights + static_cast<size_t>(t) * m, tab, win, n, m, width, map,
+          wr, wq, skip, false, !last, src_wild, dst_wild);
+      if (last) break;
+      if (dst_wild) st_volatile(gf + kDstWild + (epoch & 1), epoch + 1);
+      seen = grid_barrier(gf, epoch++, ctas);
+      skip = !(seen & 2u);
+    }
+    // the next band stages into the buffer this band's last step did not
+    // read
+    p0 = (p0 + t_steps) & 1;
   }
 }
 
 size_t align256(size_t b) { return (b + 255) & ~static_cast<size_t>(255); }
 
-// Scratch: one tameness flag per step and one for the output, then the
-// states between steps (two where t >= 3, one where t == 2).
-size_t step_scratch_bytes(int n, long long d, int t_steps, int state_dtype) {
-  const size_t state =
-      align256((state_dtype == 0 ? 4 : 2) * static_cast<size_t>(n) * d);
-  const size_t bufs = t_steps >= 3 ? 2 : (t_steps == 2 ? 1 : 0);
-  return align256(sizeof(int) * (static_cast<size_t>(t_steps) + 1)) +
-         bufs * state;
+int band_lanes(int state_dtype) { return state_dtype == 0 ? 4 : 8; }
+
+bool band_takes(int n, long long d, int t_steps, int m, int state_dtype,
+                int wire_dtype, int cols) {
+  const int v = band_lanes(state_dtype);
+  const int per_row = cols / v;
+  return n >= 1 && d >= 1 && t_steps >= 1 && m >= 1 &&
+         (state_dtype == 0 || state_dtype == 1) &&
+         (wire_dtype == 0 || wire_dtype == 1) && cols >= v &&
+         cols % v == 0 && (per_row & (per_row - 1)) == 0;
 }
 
-template <typename StateT, bool WIRE_BF16>
-cudaError_t run_steps(const void* x, void* out, const float* weights,
-                      const int* perms, const float* gate,
-                      unsigned char* scratch, int n, long long d, int t_steps,
-                      int m, int vec, cudaStream_t s) {
-  int* tame = reinterpret_cast<int*>(scratch);
-  const size_t flags =
-      align256(sizeof(int) * (static_cast<size_t>(t_steps) + 1));
-  const size_t state = align256(sizeof(StateT) * static_cast<size_t>(n) * d);
-  StateT* bufs[2] = {reinterpret_cast<StateT*>(scratch + flags),
-                     reinterpret_cast<StateT*>(scratch + flags + state)};
-  // every flag nonzero ("tame") until a CTA clears it
-  cudaError_t err = cudaMemsetAsync(tame, 1, flags, s);
-  if (err != cudaSuccess) return err;
-  const StateT* src = static_cast<const StateT*>(x);
-  const long long total = static_cast<long long>(n) * d;
-  const long long scan_blocks = (total + kStepThreads - 1) / kStepThreads;
-  tame_scan<StateT, WIRE_BF16>
-      <<<static_cast<unsigned>(scan_blocks < 4096 ? scan_blocks : 4096),
-         kStepThreads, 0, s>>>(src, total, tame);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((d + kStepCols - 1) / kStepCols),
-                  n < kMaxGridY ? n : kMaxGridY);
-  for (int t = 0; t < t_steps; ++t) {
-    const bool last = t + 1 == t_steps;
-    StateT* dst = last ? static_cast<StateT*>(out) : bufs[t % 2];
-    perm_step_kernel<StateT, WIRE_BF16><<<grid, kStepThreads, 0, s>>>(
-        src, dst, weights + static_cast<size_t>(t) * m, perms, gate, n, d, m,
-        tame + t, last ? nullptr : tame + t + 1, vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    src = dst;
+// The flags' bytes: kGridWords, then two words a band.
+size_t band_flag_bytes(long long d, int cols) {
+  const long long n_bands = (d + cols - 1) / cols;
+  return align256(sizeof(unsigned) *
+                  (kGridWords + 2 * static_cast<size_t>(n_bands)));
+}
+
+// Scratch: the flags, then two [n, cols] band buffers where t_steps >= 2.
+size_t band_scratch_bytes(int n, long long d, int t_steps, int state_dtype,
+                          int cols) {
+  const size_t bufs = t_steps >= 2 ? 2 * static_cast<size_t>(n) * cols *
+                                         (state_dtype == 0 ? 4 : 2)
+                                   : 0;
+  return band_flag_bytes(d, cols) + bufs;
+}
+
+// Shared memory of a CTA of the band path: each warp's table window, 32
+// entries for each of its rows.
+size_t band_smem_bytes(int state_dtype, int cols) {
+  const int per_row = cols / band_lanes(state_dtype);
+  const int rw = per_row < 32 ? 32 / per_row : 1;
+  return static_cast<size_t>(kBandThreads / 32) * rw * 32 * sizeof(int2);
+}
+
+KernelFn pick_band(int state_dtype, int wire_dtype) {
+  if (state_dtype == 0) {
+    return wire_dtype ? reinterpret_cast<KernelFn>(
+                            perm_band_kernel<float, true>)
+                      : reinterpret_cast<KernelFn>(
+                            perm_band_kernel<float, false>);
   }
-  return cudaSuccess;
+  return wire_dtype ? reinterpret_cast<KernelFn>(
+                          perm_band_kernel<__nv_bfloat16, true>)
+                    : reinterpret_cast<KernelFn>(
+                          perm_band_kernel<__nv_bfloat16, false>);
+}
+
+// The widest piece (16, 8 or 4 bytes, else one element) that every row of
+// x and out starts on.
+int row_piece(long long d, size_t elem, const void* x, const void* out) {
+  for (int p = 16; p >= 4; p /= 2) {
+    if (static_cast<size_t>(p) >= elem && (d * elem) % p == 0 &&
+        reinterpret_cast<uintptr_t>(x) % p == 0 &&
+        reinterpret_cast<uintptr_t>(out) % p == 0) {
+      return p;
+    }
+  }
+  return static_cast<int>(elem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Device memory the per-step path needs as `scratch`, in bytes.
-long long perm_gossip_step_scratch_bytes(int n, long long d, int t_steps,
-                                         int state_dtype) {
-  if (n < 1 || d < 1 || t_steps < 1) return -1;
-  return static_cast<long long>(step_scratch_bytes(n, d, t_steps,
-                                                   state_dtype));
+// Device memory the band path needs as `scratch`, in bytes, or -1 for
+// arguments it does not take.
+long long perm_gossip_band_scratch_bytes(int n, long long d, int t_steps,
+                                         int state_dtype, int cols) {
+  if (!band_takes(n, d, t_steps, 1, state_dtype, 0, cols)) return -1;
+  return static_cast<long long>(
+      band_scratch_bytes(n, d, t_steps, state_dtype, cols));
 }
 
-// The per-step path: t_padded launches of one step each on x[n, d] into
-// out[n, d], the state between steps in `scratch`
-// (perm_gossip_step_scratch_bytes).  Any n and m.  Returns
-// cudaGetLastError() after the launches (0 = cudaSuccess), or
-// cudaErrorInvalidValue for arguments it does not take.
-int perm_gossip_step_launch(const void* x, void* out, const void* weights,
-                            const void* perms, const void* gate,
-                            void* scratch, int n, long long d, int t_padded,
-                            int m, int state_dtype, int wire_dtype,
+// The band path: one cooperative launch of T = t_padded steps on x[n, d]
+// into out[n, d], in bands of `cols` columns, with the band buffers and
+// flags in `scratch`
+// (perm_gossip_band_scratch_bytes).  table: [n, m] int2 {partner, gate
+// bits}.  Any n and m.  Returns cudaGetLastError() after the launch (0 =
+// cudaSuccess), the launch's error (a refused cooperative launch
+// included), or cudaErrorInvalidValue for arguments it does not take.
+int perm_gossip_band_launch(const void* x, void* out, const void* weights,
+                            const void* table, void* scratch, int n,
+                            long long d, int t_padded, int m,
+                            int state_dtype, int wire_dtype, int cols,
                             void* stream) {
-  if (n < 1 || d < 1 || t_padded < 1 || m < 1 || scratch == nullptr ||
-      (state_dtype != 0 && state_dtype != 1) ||
-      (wire_dtype != 0 && wire_dtype != 1)) {
+  if (scratch == nullptr || !band_takes(n, d, t_padded, m, state_dtype,
+                                        wire_dtype, cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t pair = state_dtype == 0 ? 8 : 4;
-  int vec = d % 2 == 0 && reinterpret_cast<uintptr_t>(x) % pair == 0 &&
-            reinterpret_cast<uintptr_t>(out) % pair == 0;
-  auto* buf = static_cast<unsigned char*>(scratch);
-  const float* w = static_cast<const float*>(weights);
-  const int* p = static_cast<const int*>(perms);
-  const float* g = static_cast<const float*>(gate);
+  KernelFn kernel = pick_band(state_dtype, wire_dtype);
+  const size_t smem = band_smem_bytes(state_dtype, cols);
+  const long long fill = card_ctas(kernel, kBandThreads, smem);
+  if (fill < 0) return static_cast<int>(-fill);
+  if (fill == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (state_dtype == 0) {
-    err = wire_dtype ? run_steps<float, true>(x, out, w, p, g, buf, n, d,
-                                              t_padded, m, vec, s)
-                     : run_steps<float, false>(x, out, w, p, g, buf, n, d,
-                                               t_padded, m, vec, s);
-  } else {
-    err = wire_dtype
-              ? run_steps<__nv_bfloat16, true>(x, out, w, p, g, buf, n, d,
-                                               t_padded, m, vec, s)
-              : run_steps<__nv_bfloat16, false>(x, out, w, p, g, buf, n, d,
-                                                t_padded, m, vec, s);
-  }
-  return static_cast<int>(err);
+  const size_t flag_bytes = band_flag_bytes(d, cols);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, flag_bytes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t elem = state_dtype == 0 ? 4 : 2;
+  int piece = row_piece(d, elem, x, out);
+  auto* flags = static_cast<unsigned*>(scratch);
+  void* bufs = static_cast<unsigned char*>(scratch) + flag_bytes;
+  const float* w = static_cast<const float*>(weights);
+  const int2* tab = static_cast<const int2*>(table);
+  void* args[] = {&x, &out, &w, &tab, &bufs, &flags, &n, &d,
+                  &t_padded, &m, &cols, &piece};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(static_cast<unsigned>(fill)),
+                                    dim3(kBandThreads), args, smem, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
-
 
 // Shared memory one CTA needs, in bytes (the wrapper picks the shape).
 long long perm_gossip_smem_bytes(int n, int cols, int w_window, int m,

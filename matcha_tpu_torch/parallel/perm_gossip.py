@@ -11,22 +11,23 @@ one hand-written CUDA kernel, ``csrc/perm_gossip.cu``, instantiated twice:
 * ``perm_gossip_stream`` (``dbuf=False``) loads each window synchronously.
 
 Where no slab fits a CTA (N above 8192, or more matchings than the tables
-beside the image allow), the same source's per-step path runs instead:
-one launch per step, the state in device memory (``_launch_shape`` picks
-it by shape alone; it never retries after a failed launch).  All compute
-the same chain bitwise.  Per step, with ``w`` the α-scaled flag
-row: quantize the state to the wire dtype once, then for every matching
-accumulate ``(w_j·gate_j)·(x̃[π_j] − x̃)`` in f32 in ``j`` order and cast the
-sum ``x + acc`` back to the state dtype.
+beside the image allow), and for one step from 4096 workers, the same
+source's band path runs instead: one persistent, cooperatively launched
+grid that walks column bands ``[N, cols]`` of the state, each band's
+whole chain through two buffers sized to stay in L2 (``_launch_shape``
+picks the path by shape alone; it never retries after a failed launch).
+Both paths compute the same chain bitwise.  Per step, with ``w`` the
+α-scaled flag row: quantize the state to the wire dtype once, then for
+every matching accumulate ``(w_j·gate_j)·(x̃[π_j] − x̃)`` in f32 in ``j``
+order and cast the sum ``x + acc`` back to the state dtype.
 
 ``perm_gossip_run`` takes the plain PyTorch version, ``perm_gossip_plain``
 (the same loop in the same operation order), for a tensor on the CPU only;
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` (shared with
 the port's other kernels, ``_kernels.py``) counts kernel launches per
 instantiation (``perm_gossip_dbuf`` / ``perm_gossip_stream`` by ``dbuf``)
-and per path (``perm_gossip/slab``, ``perm_gossip/step``, the latter once
-per call whatever its T launches), so a run can show that its gossip went
-through the kernel.
+and per path (``perm_gossip/slab``, ``perm_gossip/band``), so a run can
+show that its gossip went through the kernel.
 """
 
 from __future__ import annotations
@@ -76,9 +77,42 @@ class LaunchShape(NamedTuple):
     tables: int   # TABLES_WIDE or TABLES_COMPACT
 
 
-#: The per-step path: one launch per step, CTAs of 256 threads of one
-#: column pair of one row, no image or tables in shared memory.
-STEP = LaunchShape(cols=512, rows=1, threads=256, nbuf=0, tables=0)
+class BandShape(NamedTuple):
+    """The band path's shape: ``cols`` columns a band."""
+    cols: int
+
+
+# The band path.  The band's two ping-pong buffers, 2 * N * cols values,
+# stay within _L2_BAND_BYTES of the H100's 50 MB L2; cols is the widest
+# power-of-two multiple of a lane's 16 bytes, up to _BAND_MAX_BYTES a row,
+# that keeps them there.  One perm_bench bands call on an H100 (PERF.md
+# § 6) timed half and twice that width at five f32 shapes: 16 MB was 2-9 %
+# slower everywhere; 64 MB 1-6 % faster at four and 8.5 % slower at the
+# 4096-worker hypercube at T = 1.
+_L2_BAND_BYTES = 32 << 20
+_BAND_MAX_BYTES = 4096
+# Where both paths take a shape: the band path for one step from this many
+# workers, the slab kernel otherwise, for every state dtype and wire.  One
+# perm_bench ab call on an H100 (PERF.md § 6): at T = 1 the band beats the
+# 4- and 2-column slabs (4096-worker hypercube, 13 matchings: 11.49
+# against 15.93 ms with an f32 state, 10.32 against 12.63 with a bf16
+# state, 12.01 against 21.85 with an f32 state on a bf16 wire; 8192-worker
+# torus, 5 matchings: 20.27 against 50.02, 10.18 against 36.13, 21.15
+# against 115.3); from T = 2 the slab kernel, whose state stays in
+# registers, wins (19.94 against 23.03 at 4096 and T = 2; 76.97 against
+# 128.6 at 8192 and T = 8, f32), whatever the matchings.
+_BAND_MIN_WORKERS = 4096
+
+
+def band_shape(n: int, state_bytes: int) -> BandShape:
+    """The band path's shape for ``n`` rows of ``state_bytes``-byte
+    values: the widest band within the L2 budget (one lane's 16 bytes a
+    row at least)."""
+    lane = 16 // state_bytes
+    cols = _BAND_MAX_BYTES // state_bytes
+    while cols > lane and 2 * n * cols * state_bytes > _L2_BAND_BYTES:
+        cols //= 2
+    return BandShape(cols)
 
 
 def involution_tables(perms) -> tuple[np.ndarray, np.ndarray]:
@@ -186,15 +220,10 @@ def perm_gossip_plain(x: torch.Tensor, weights, perms, partnered, *,
     return _plain(x, w, p, gate, wire)
 
 
-@functools.lru_cache(maxsize=None)
-def _launch_shape(lib, n: int, m: int, w_window: int, block_d: int,
-                  wire_bf16: bool) -> LaunchShape:
-    """The kernel's launch shape for an ``[n, D]`` state with ``m``
-    matchings: a pure function of its arguments and the library's limits
-    (``perm_gossip_smem_bytes``, ``perm_gossip_smem_limit``,
-    ``perm_gossip_max_threads``), kept per arguments.  ``block_d`` caps the
-    slab's width.  Where no slab shape takes ``n`` and ``m``: ``STEP``, the
-    per-step path in device memory."""
+def _slab_shape(lib, n: int, m: int, w_window: int, block_d: int,
+                wire_bf16: bool):
+    """The widest slab ``LaunchShape`` that takes ``n`` rows and ``m``
+    matchings (``block_d`` caps its width), or None."""
     limit = lib.perm_gossip_smem_limit()
     max_threads = lib.perm_gossip_max_threads()
     tables = TABLES_WIDE if 8 * m * n <= _TABLE_SMEM_BYTES else TABLES_COMPACT
@@ -214,7 +243,23 @@ def _launch_shape(lib, n: int, m: int, w_window: int, block_d: int,
                     n, cols, w_window, m, int(wire_bf16), nbuf, tables)
                 if smem <= limit // share:
                     return LaunchShape(cols, rows, threads, nbuf, tables)
-    return STEP
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_shape(lib, n: int, m: int, w_window: int, block_d: int,
+                  wire_bf16: bool, state_bytes: int = 4, steps: int = 1):
+    """The kernel's launch shape for ``steps`` steps on an ``[n, D]`` state
+    of ``state_bytes``-byte values with ``m`` matchings: a pure function
+    of its arguments and the library's limits (``perm_gossip_smem_bytes``,
+    ``perm_gossip_smem_limit``, ``perm_gossip_max_threads``), kept per
+    arguments.  The band path's ``BandShape`` for one step from
+    ``_BAND_MIN_WORKERS`` workers and wherever no slab shape takes ``n``
+    and ``m``; else a slab ``LaunchShape`` (``_slab_shape``)."""
+    slab = None
+    if steps > 1 or n < _BAND_MIN_WORKERS:
+        slab = _slab_shape(lib, n, m, w_window, block_d, wire_bf16)
+    return slab if slab is not None else band_shape(n, state_bytes)
 
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -224,9 +269,9 @@ _SIGNATURES = {
     "perm_gossip_smem_limit": ([], _LL),
     "perm_gossip_max_threads": ([], _LL),
     "perm_gossip_error_string": ([_I], ctypes.c_char_p),
-    "perm_gossip_step_launch": ([_VP] * 6 + [_I, _LL] + [_I] * 4 + [_VP],
+    "perm_gossip_band_launch": ([_VP] * 5 + [_I, _LL] + [_I] * 5 + [_VP],
                                 _I),
-    "perm_gossip_step_scratch_bytes": ([_I, _LL, _I, _I], _LL),
+    "perm_gossip_band_scratch_bytes": ([_I, _LL] + [_I] * 3, _LL),
 }
 
 
@@ -239,7 +284,10 @@ def _library():
 _STATE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _launch(x, weights, perms, gate, w_window, block_d, wire, dbuf):
+def _launch(x, weights, perms, gate, w_window, block_d, wire, dbuf,
+            shape=None):
+    """Launch the kernel on the current stream; ``shape`` (a slab
+    ``LaunchShape`` or a ``BandShape``) overrides ``_launch_shape``."""
     if x.dtype not in _STATE_CODES:
         raise ValueError(f"perm_gossip kernel takes a float32 or bfloat16 "
                          f"state, got {x.dtype}")
@@ -249,40 +297,41 @@ def _launch(x, weights, perms, gate, w_window, block_d, wire, dbuf):
     lib = _library()
     n, d = x.shape
     t_padded, m = weights.shape
-    shape = _launch_shape(lib, n, m, w_window, block_d, wire is not None)
+    state, wire_code = _STATE_CODES[x.dtype], 0 if wire is None else 1
+    if shape is None:
+        shape = _launch_shape(lib, n, m, w_window, block_d, wire is not None,
+                              x.element_size(), t_padded)
     x = x.contiguous()
     out = torch.empty_like(x)
     counter = "perm_gossip_dbuf" if dbuf else "perm_gossip_stream"
-    if shape == STEP:
-        nbytes = lib.perm_gossip_step_scratch_bytes(n, d, t_padded,
-                                                    _STATE_CODES[x.dtype])
-        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = lib.perm_gossip_step_launch(
-                x.data_ptr(), out.data_ptr(), weights.data_ptr(),
-                perms.data_ptr(), gate.data_ptr(), scratch.data_ptr(), n, d,
-                t_padded, m, _STATE_CODES[x.dtype],
-                0 if wire is None else 1, stream)
-        if rc != 0:
-            raise RuntimeError(f"perm_gossip step kernel launch failed: "
-                               f"{lib.perm_gossip_error_string(rc).decode()}")
-        LAUNCHES[counter] += 1
-        LAUNCHES["perm_gossip/step"] += 1
-        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.perm_gossip_launch(
-            x.data_ptr(), out.data_ptr(), weights.data_ptr(), perms.data_ptr(),
-            gate.data_ptr(), n, d, t_padded, m, w_window, shape.cols,
-            shape.rows, shape.threads, _STATE_CODES[x.dtype],
-            0 if wire is None else 1, int(dbuf), shape.nbuf, shape.tables,
-            stream)
+        if isinstance(shape, BandShape):
+            # a row's entries side by side: {partner, gate bits} [N, M]
+            table = torch.stack((perms, gate.view(torch.int32)),
+                                dim=-1).transpose(0, 1).contiguous()
+            nbytes = lib.perm_gossip_band_scratch_bytes(
+                n, d, t_padded, state, shape.cols)
+            if nbytes < 0:
+                raise ValueError(f"perm_gossip band path refuses {shape}")
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            rc = lib.perm_gossip_band_launch(
+                x.data_ptr(), out.data_ptr(), weights.data_ptr(),
+                table.data_ptr(), scratch.data_ptr(), n, d, t_padded, m,
+                state, wire_code, shape.cols, stream)
+            path = "band"
+        else:
+            rc = lib.perm_gossip_launch(
+                x.data_ptr(), out.data_ptr(), weights.data_ptr(),
+                perms.data_ptr(), gate.data_ptr(), n, d, t_padded, m,
+                w_window, shape.cols, shape.rows, shape.threads, state,
+                wire_code, int(dbuf), shape.nbuf, shape.tables, stream)
+            path = "slab"
     if rc != 0:
-        raise RuntimeError(f"perm_gossip kernel launch failed: "
+        raise RuntimeError(f"perm_gossip {path} kernel launch failed: "
                            f"{lib.perm_gossip_error_string(rc).decode()}")
     LAUNCHES[counter] += 1
-    LAUNCHES["perm_gossip/slab"] += 1
+    LAUNCHES[f"perm_gossip/{path}"] += 1
     return out
 
 
@@ -302,9 +351,10 @@ def perm_gossip_run(x: torch.Tensor, weights, perms, partnered, *,
     ``T % w_window != 0``); ``block_d``: the widest column slab a CTA may
     take (the kernel takes 2 to 64 columns).  Neither changes the
     arithmetic.  The slab kernel takes N up to 4096 with up to 24
-    matchings, up to 8192 with up to 10 (``_launch_shape``); any other
-    shape runs the per-step path (the state in device memory), with the
-    same bits.
+    matchings, up to 8192 with up to 10; one step from 4096 workers and
+    any shape the slabs cannot take run the band path (the state in device
+    memory, walked in column bands that stay in L2; ``block_d`` does not
+    enter it), with the same bits (``_launch_shape``).
     ``dbuf``: prefetch the next weight window (``perm_gossip_dbuf``) or
     load each synchronously (``perm_gossip_stream``).
 

@@ -1,24 +1,38 @@
 """The perm kernel (K1/K2) on the card: another tree's kernel against this
-one.
+one, and the band path's shapes against each other.
 
     python -m matcha_tpu_torch.probes.perm_bench ab --old DIR [--rounds 3]
+        [--only SUBSTRING ...]
+    python -m matcha_tpu_torch.probes.perm_bench bands [--only ...]
 
 ``ab`` loads the ``matcha_tpu_torch`` package found in ``DIR`` (an unpacked
 ``git archive`` of an earlier commit, or a copy of this tree with one
 choice changed) under another name beside this one, builds both kernels,
 and at each shape times them in turns (old, new, new, old; ``--rounds``
-times) with CUDA events, the L2 cache flushed before each call.  The two
-outputs must be bitwise equal: both kernels compute the plain version's
-arithmetic.  A shape the old kernel refuses is timed on the new one alone.
-Each side's host time per call (``perm_gossip_run`` from Python to the
-launch, the card kept busy meanwhile) is measured beside it.
+times) with CUDA events, the L2 cache flushed before each call.  Where both
+of this tree's paths take a shape (the slab kernel and the band path), each
+is also timed forced, in the same turns.  Every output must be bitwise
+equal to every other: all compute the plain version's arithmetic.  A shape
+the old kernel refuses is timed on the new one alone.  Each side's host
+time per call (``perm_gossip_run`` from Python to the launch, the card kept
+busy meanwhile) and device time per call (``torch.profiler``, the kernels
+of the perm source) are measured beside it, and the bytes the band path
+gathers through L2 at the shape are counted (``gathered_bytes``).
+
+``bands`` times the band path at each shape for ``band_shape``'s width,
+half of it and twice it (over the L2 budget), every output bitwise equal
+to the chosen shape's.
 
 Shapes: the training slice's ``[16, 273258]`` f32 state (zoo graph 4, its
 MATCHA schedule at budget 0.5) at T = 1 and 64; ``[256, 273258]`` on the
 256-worker hypercube at T = 64; ``[4096, 273258]`` on the 4096-worker
-hypercube at T = 1 (each hypercube matching active with probability 0.5).
-Every result is one JSON line on stdout; the card's name and power limit
-come first.  Needs a CUDA card.
+hypercube at T = 1, 2, 4, 8 and 64 (chain (d)); the 8192-worker 2-D torus
+(5 matchings) at T = 1 and 8; chain (d) and the torus at T = 1 also with a
+bf16 state and with an f32 state on a bf16 wire; a 4096-worker Erdős–Rényi
+graph of mean degree 30 (54 matchings) at full width, T = 1 and 4; the
+16,384-worker hypercube at D = 32,768, T = 1 and 4 (each matching active
+with probability 0.5).  Every result is one JSON line on stdout; the card's
+name and power limit come first.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,12 +50,26 @@ import torch
 
 from ..parallel import involution_tables, perm_gossip
 from ..schedule import fixed_schedule, matcha_schedule
-from ..topology import decompose, hypercube_graph, select_graph
+from ..topology import (decompose, erdos_renyi_graph, hypercube_graph,
+                        make_graph, select_graph)
 
-__all__ = ["host_us", "load_package", "main", "shapes", "time_ms"]
+__all__ = ["bands", "device_ms", "gathered_bytes", "host_us", "load_package",
+           "main", "shapes", "time_ms"]
 
 SEED = 9001
 D = 273258
+SHAPES = ("slice T=1", "slice T=64", "hypercube N=256 T=64",
+          "hypercube N=4096 T=1", "hypercube N=4096 T=2",
+          "hypercube N=4096 T=4", "hypercube N=4096 T=8",
+          "hypercube N=4096 T=64", "hypercube N=4096 T=1 state=bf16",
+          "hypercube N=4096 T=1 wire=bf16", "torus N=8192 T=1",
+          "torus N=8192 T=8", "torus N=8192 T=1 state=bf16",
+          "torus N=8192 T=1 wire=bf16", "ER N=4096 T=1", "ER N=4096 T=4",
+          "hypercube N=16384 D=32768 T=1",
+          "hypercube N=16384 D=32768 T=4")
+BAND_SHAPES = ("hypercube N=4096 T=1", "ER N=4096 T=1", "ER N=4096 T=4",
+               "hypercube N=16384 D=32768 T=1",
+               "hypercube N=16384 D=32768 T=4")
 
 
 def load_package(root, alias: str = "matcha_tpu_torch_old"):
@@ -56,37 +84,40 @@ def load_package(root, alias: str = "matcha_tpu_torch_old"):
     return module
 
 
-def shapes(dev, which=("slice T=1", "slice T=64", "hypercube N=256 T=64",
-                       "hypercube N=4096 T=1")):
-    """``(label, x, weights, perms, partnered)`` of each shape in
-    ``which``, on ``dev``, at the slice's D."""
-    out = []
+def _schedule(kind: str, n: int):
+    if kind == "slice":
+        return matcha_schedule(select_graph(4), n, 64, budget=0.5, seed=SEED)
+    edges = {"hypercube": hypercube_graph,
+             "torus": lambda n: make_graph("torus", n),
+             "ER": lambda n: erdos_renyi_graph(n, 30.0 / (n - 1), seed=SEED)
+             }[kind](n)
+    return fixed_schedule(decompose(edges, n, seed=SEED), n, 64, budget=0.5,
+                          mode="bernoulli", seed=SEED)
+
+
+def shapes(dev, which=SHAPES):
+    """Yield ``(label, x, weights, perms, partnered, wire)`` of each shape
+    in ``which`` (``"<slice|hypercube|torus|ER> [N=n] [D=d] T=t
+    [state=bf16] [wire=bf16]"``; N = 16 for the slice, D = 273,258, an f32
+    state and no wire cast unless given), on ``dev``."""
     scheds = {}
     for label in which:
-        kind, rest = label.split(" ", 1)
-        t_steps = int(rest.rsplit("T=", 1)[1])
-        if kind == "slice":
-            n = 16
-            key = (n, "slice")
-            if key not in scheds:
-                scheds[key] = matcha_schedule(select_graph(4), n, 64,
-                                              budget=0.5, seed=SEED)
-        else:
-            n = int(rest.split()[0].split("=")[1])
-            key = (n, "hypercube")
-            if key not in scheds:
-                scheds[key] = fixed_schedule(
-                    decompose(hypercube_graph(n), n, seed=SEED), n, 64,
-                    budget=0.5, mode="bernoulli", seed=SEED)
-        sched = scheds[key]
+        kind, *fields = label.split()
+        spec = dict(f.split("=") for f in fields)
+        n = int(spec.get("N", 16))
+        d = int(spec.get("D", D))
+        if (kind, n) not in scheds:
+            scheds[kind, n] = _schedule(kind, n)
+        sched = scheds[kind, n]
         perms, partnered = involution_tables(sched.perms)
         g = torch.Generator(device=dev).manual_seed(SEED)
-        x = torch.randn(n, D, generator=g, device=dev)
-        w = torch.as_tensor(sched.alpha * sched.flags[:t_steps],
+        x = torch.randn(n, d, generator=g, device=dev)
+        if spec.get("state") == "bf16":
+            x = x.to(torch.bfloat16)
+        w = torch.as_tensor(sched.alpha * sched.flags[:int(spec["T"])],
                             dtype=torch.float32, device=dev)
-        out.append((label, x, w, torch.as_tensor(perms, device=dev),
-                    torch.as_tensor(partnered, device=dev)))
-    return out
+        yield (label, x, w, torch.as_tensor(perms, device=dev),
+               torch.as_tensor(partnered, device=dev), spec.get("wire"))
 
 
 def time_ms(fn, flush, runs: int = 20) -> float:
@@ -121,59 +152,173 @@ def host_us(fn, calls: int = 20) -> float:
     return elapsed / calls * 1e6
 
 
+def device_ms(fn, flush, steps: int, runs: int = 5):
+    """Device milliseconds per call of ``fn`` from ``torch.profiler``: the
+    mean time of each perm kernel over the launches the trace recorded (it
+    can drop records), times its launches a call (``steps`` for an older
+    tree's per-step kernel, else one), the L2 flushed before each call;
+    None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        spent = getattr(e, "device_time_total", 0.0)
+        if spent and e.count and ("perm_" in e.key or "tame_scan" in e.key):
+            total += spent / e.count * (steps if "perm_step" in e.key else 1)
+    return total / 1e3 if total else None
+
+
+def gathered_bytes(x, weights, partnered) -> int:
+    """Bytes one band-path call gathers through L2, counted from the
+    schedule: each step reads every row once, writes it once and reads one
+    partner row for each active partnered term (nonzero weight and gate);
+    from T = 2 the copy of x into a band buffer adds a read and a write of
+    every row."""
+    n, d = x.shape
+    steps = weights.shape[0]
+    terms = sum(int(partnered[w != 0].sum()) for w in weights)
+    rows = 2 * n * steps + terms + (2 * n if steps > 1 else 0)
+    return rows * d * x.element_size()
+
+
 def _same_bits(a, b) -> bool:
     nan_a, nan_b = torch.isnan(a), torch.isnan(b)
-    return torch.equal(nan_a, nan_b) and torch.equal(
-        a.masked_fill(nan_a, 0).view(torch.int32),
-        b.masked_fill(nan_b, 0).view(torch.int32))
+    as_int = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(nan_a, nan_b) and torch.equal(
+        a.masked_fill(nan_a, 0).view(as_int),
+        b.masked_fill(nan_b, 0).view(as_int))
 
 
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ab(old_root, rounds: int = 3) -> list:
+def _forced(x, w, p, part, shape, wire_dtype=None):
+    """This tree's kernel on ``shape`` (a slab ``LaunchShape`` or a
+    ``BandShape``), whatever the launch rule picks."""
+    wt, pt, gate, w_window, block_d, wire = perm_gossip._prepare(
+        x, w, p, part, None, 2048, 1, wire_dtype)
+    return perm_gossip._launch(x, wt, pt, gate, w_window, block_d, wire,
+                               True, shape=shape)
+
+
+def _runs(fn, flush) -> tuple:
+    """(event runs, host calls) for a call of ``fn``: 20 each where a call
+    takes under 20 ms, else 5."""
+    return (20, 20) if time_ms(fn, flush, runs=1) < 20.0 else (5, 5)
+
+
+def _only(labels, only):
+    return [s for s in labels if not only or any(o in s for o in only)]
+
+
+def ab(old_root, rounds: int = 3, only=()) -> list:
     dev = torch.device("cuda")
     alias = load_package(old_root).__name__
     old = importlib.import_module(f"{alias}.parallel.perm_gossip")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    lib = perm_gossip._library()
     rows = []
-    for label, x, w, p, part in shapes(dev):
-        def new_fn():
-            return perm_gossip.perm_gossip_run(x, w, p, part)
-
-        def old_fn():
-            return old.perm_gossip_run(x, w, p, part)
-
-        new_out = new_fn()
-        try:
-            old_out = old_fn()
-        except ValueError as err:  # the old kernel's N limit
-            old_out, refused = None, str(err)
+    for label, x, w, p, part, wire in shapes(dev, _only(SHAPES, only)):
+        sides = {"new": lambda: perm_gossip.perm_gossip_run(
+                     x, w, p, part, wire_dtype=wire),
+                 "old": lambda: old.perm_gossip_run(
+                     x, w, p, part, wire_dtype=wire)}
+        n, m = p.shape[1], p.shape[0]
+        slab = perm_gossip._slab_shape(lib, n, m, 1, 2048, wire is not None)
+        if slab is not None:
+            band = perm_gossip.band_shape(n, x.element_size())
+            sides["slab"] = lambda: _forced(x, w, p, part, slab, wire)
+            sides["band"] = lambda: _forced(x, w, p, part, band, wire)
+        outs, refused = {}, None
+        for side, fn in sides.items():
+            try:
+                outs[side] = fn()
+            except (ValueError, RuntimeError) as err:  # the old kernel's cap
+                if side != "old":
+                    raise
+                refused = str(err)
         torch.cuda.synchronize()
-        row = {"shape": label, "N": x.shape[0], "T": w.shape[0],
-               "M": w.shape[1], "old_ms": [], "new_ms": [], "old_host_us": [],
-               "new_host_us": []}
-        if old_out is None:
+        ref = outs["new"]
+        for side, out in outs.items():
+            if not _same_bits(out, ref):
+                raise AssertionError(f"{label}: {side} and new disagree")
+        del outs
+        row = {"shape": label, "N": n, "D": x.shape[1], "T": w.shape[0],
+               "M": m, "state": str(x.dtype), "wire": wire,
+               "bitwise_equal": True,
+               "gathered_bytes": gathered_bytes(x, w, part),
+               "new_path": type(perm_gossip._launch_shape(
+                   lib, n, m, 1, 2048, wire is not None, x.element_size(),
+                   w.shape[0])).__name__}
+        timed = list(sides)
+        if refused is not None:
             row["old_refused"] = refused
-            for _ in range(rounds):
-                row["new_ms"].append(time_ms(new_fn, flush))
-                row["new_host_us"].append(host_us(new_fn))
-        else:
-            if not _same_bits(new_out, old_out):
-                raise AssertionError(f"{label}: old and new kernels disagree")
-            row["bitwise_equal"] = True
-            for _ in range(rounds):
-                for side, fn in (("old", old_fn), ("new", new_fn),
-                                 ("new", new_fn), ("old", old_fn)):
-                    row[f"{side}_ms"].append(time_ms(fn, flush))
-                    row[f"{side}_host_us"].append(host_us(fn))
-            row["old_median_ms"] = statistics.median(row["old_ms"])
-            row["old_median_host_us"] = statistics.median(row["old_host_us"])
-        row["new_median_ms"] = statistics.median(row["new_ms"])
-        row["new_median_host_us"] = statistics.median(row["new_host_us"])
+            timed.remove("old")
+        runs, calls = _runs(sides["new"], flush)
+        order = timed + timed[::-1]
+        for side in timed:
+            row[f"{side}_ms"], row[f"{side}_host_us"] = [], []
+        for _ in range(rounds):
+            for side in order:
+                row[f"{side}_ms"].append(time_ms(sides[side], flush, runs))
+                row[f"{side}_host_us"].append(host_us(sides[side], calls))
+        for side in timed:
+            row[f"{side}_median_ms"] = statistics.median(row[f"{side}_ms"])
+            row[f"{side}_median_host_us"] = statistics.median(
+                row[f"{side}_host_us"])
+            row[f"{side}_device_ms"] = device_ms(sides[side], flush,
+                                                 w.shape[0])
+        row["runs"] = runs
         _emit({"phase": "perm_ab", **row})
         rows.append(row)
+        del x, w, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _candidates(n: int, state_bytes: int) -> list:
+    """Band shapes around ``band_shape``'s choice: its width, twice it
+    (over the L2 budget) and half of it, at least one lane's 16 bytes."""
+    (cols,) = perm_gossip.band_shape(n, state_bytes)
+    lane = 16 // state_bytes
+    return [perm_gossip.BandShape(c) for c in (cols * 2, cols, cols // 2)
+            if c >= lane]
+
+
+def bands(only=()) -> list:
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for label, x, w, p, part, _ in shapes(dev, _only(BAND_SHAPES, only)):
+        n = p.shape[1]
+        chosen = perm_gossip.band_shape(n, x.element_size())
+        ref = _forced(x, w, p, part, chosen)
+        for shape in _candidates(n, x.element_size()):
+            fn = lambda: _forced(x, w, p, part, shape)  # noqa: E731
+            if not _same_bits(fn(), ref):
+                raise AssertionError(f"{label} {shape}: not bitwise equal "
+                                     f"to {chosen}")
+            runs, _ = _runs(fn, flush)
+            row = {"shape": label, "N": n, "D": x.shape[1], "T": w.shape[0],
+                   "M": p.shape[0], "cols": shape.cols,
+                   "gathered_bytes": gathered_bytes(x, w, part),
+                   "chosen": shape == chosen,
+                   "l2_bytes": 2 * n * shape.cols * x.element_size(),
+                   "ms": time_ms(fn, flush, runs),
+                   "device_ms": device_ms(fn, flush, w.shape[0]),
+                   "runs": runs}
+            _emit({"phase": "perm_bands", **row})
+            rows.append(row)
+        del x, w, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -186,6 +331,11 @@ def main(argv=None) -> None:
     a.add_argument("--old", required=True,
                    help="directory holding the older matcha_tpu_torch")
     a.add_argument("--rounds", type=int, default=3)
+    a.add_argument("--only", nargs="*", default=(),
+                   help="keep the shapes whose label holds one of these")
+    b = sub.add_parser("bands", help="the band path's widths against each "
+                                     "other")
+    b.add_argument("--only", nargs="*", default=())
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("perm_bench needs a CUDA card")
@@ -193,7 +343,10 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     _emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
-    ab(args.old, args.rounds)
+    if args.cmd == "ab":
+        ab(args.old, args.rounds, args.only)
+    else:
+        bands(args.only)
 
 
 if __name__ == "__main__":

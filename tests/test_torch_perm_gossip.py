@@ -20,11 +20,14 @@ Tolerances:
   to bf16 (relative error ≤ 2⁻⁹), so the chains may part by at most
   2⁻⁸·max|x| per step.
 
-The CUDA kernel itself runs only on the card: ``test_kernel_bitwise_on_card``
-and ``test_kernel_smem_formula_matches_library`` are marked ``cuda`` and skip
-on a host without one; ``chip_smoke.py`` holds the kernel against the plain
-version at the training slice's shapes.  The launch rule is pinned here
-through a stand-in for the library's shared-memory queries.
+The CUDA kernel itself runs only on the card: ``test_kernel_bitwise_on_card``,
+``test_kernel_smem_formula_matches_library``, ``test_step_path_bitwise_on_card``
+(the band path) and ``test_band_shapes_bitwise_on_card`` are marked ``cuda``
+and skip on a host without one; ``chip_smoke.py`` holds the kernel against
+the plain version at the training slice's shapes and the band path's.  The
+launch rule (slabs or bands) is pinned here through a stand-in for the
+library's shared-memory and scratch queries, and the band shapes' L2 budget
+and scratch formula by count.
 """
 
 import numpy as np
@@ -336,6 +339,13 @@ def test_kernel_smem_formula_matches_library():
                  (7, 6, 5, 3, 1, 1, 2)]:
         assert (lib.perm_gossip_smem_bytes(*args)
                 == _SmemOnly.perm_gossip_smem_bytes(*args))
+    for args, _ in _BAND_SCRATCH:
+        assert (lib.perm_gossip_band_scratch_bytes(*args)
+                == _SmemOnly.perm_gossip_band_scratch_bytes(*args))
+    # a band narrower than one lane's 16 bytes, or not a power-of-two
+    # number of lanes, is refused
+    assert lib.perm_gossip_band_scratch_bytes(64, 100, 2, 0, 2) == -1
+    assert lib.perm_gossip_band_scratch_bytes(64, 100, 2, 0, 12) == -1
 
 
 def _align16(b):
@@ -362,6 +372,31 @@ class _SmemOnly:
         table = 8 * m * n if tables == 1 else _align16(2 * m * n)
         return image + weights + table
 
+    @staticmethod
+    def perm_gossip_band_scratch_bytes(n, d, t_steps, state_dtype, cols):
+        """``band_scratch_bytes``: 32 flag words of the grid and two a band
+        (256-byte aligned), then two ``[n, cols]`` buffers where the chain
+        has two steps or more."""
+        n_bands = -(-d // cols)
+        flags = -(-4 * (32 + 2 * n_bands) // 256) * 256
+        bufs = (2 * n * cols * (4 if state_dtype == 0 else 2)
+                if t_steps >= 2 else 0)
+        return flags + bufs
+
+
+# (n, d, t_steps, state_dtype, cols) and the scratch counted by hand
+_BAND_SCRATCH = [
+    # 2135 bands of 128 columns: 4 * (32 + 2 * 2135) = 17,208 flag bytes,
+    # 17,408 aligned; two f32 buffers of 16,384 * 128 * 4 = 8,388,608
+    ((16384, 273258, 4, 0, 128), 17408 + 2 * 8388608),
+    ((16384, 273258, 1, 0, 128), 17408),   # T = 1: the flags alone
+    # 64 bands: 4 * (32 + 2 * 64) = 640 -> 768; two bf16 buffers of
+    # 4096 * 512 * 2 = 4,194,304
+    ((4096, 32768, 3, 1, 512), 768 + 2 * 4194304),
+    # one ragged band of 4 columns at N = 1: 4 * (32 + 2) = 136 -> 256
+    ((1, 3, 2, 0, 4), 256 + 2 * 16),
+]
+
 
 @pytest.mark.parametrize("n,m,block_d,wire,shape", [
     # the slice: 64-column slabs, 4 rows a thread, tables as int2
@@ -372,15 +407,31 @@ class _SmemOnly:
     (2, 1, 2048, True, (64, 4, 32, 2, 1)),
     # N = 256: 8 rows a thread, one 1024-thread CTA per SM, two images
     (256, 10, 2048, False, (64, 8, 1024, 2, 1)),
-    # N = 4096: 4 columns, the tables as uint16; at M = 15 (the repo's
-    # decomposition of the hypercube) one f32 image, two bf16 ones
-    (4096, 15, 2048, False, (4, 8, 1024, 1, 2)),
-    (4096, 15, 2048, True, (4, 8, 1024, 2, 2)),
-    (4096, 12, 2048, False, (4, 8, 1024, 2, 2)),
+    # N = 4096, one step: the band path (1024 f32 columns), which beats the
+    # slab kernel's 4-column slabs there (test_slab_keeps_chains)
+    (4096, 15, 2048, False, (1024,)),
+    (4096, 15, 2048, True, (1024,)),
+    (4096, 12, 2048, False, (1024,)),
 ])
 def test_kernel_tile_choice(n, m, block_d, wire, shape):
     from matcha_tpu_torch.parallel.perm_gossip import _launch_shape
     assert tuple(_launch_shape(_SmemOnly, n, m, 1, block_d, wire)) == shape
+
+
+@pytest.mark.parametrize("n,m,wire,steps,shape", [
+    # N = 4096 over more than one step: 4 columns, the tables as uint16; at
+    # M = 15 one f32 image, two bf16 ones
+    (4096, 15, False, 2, (4, 8, 1024, 1, 2)),
+    (4096, 15, True, 64, (4, 8, 1024, 2, 2)),
+    (4096, 12, False, 8, (4, 8, 1024, 2, 2)),
+    (8192, 5, False, 8, (2, 8, 1024, 2, 2)),   # the 8192-worker torus
+    # below 4096 workers the slabs take one step too
+    (2048, 11, False, 1, (8, 8, 1024, 2, 2)),
+])
+def test_slab_keeps_chains(n, m, wire, steps, shape):
+    from matcha_tpu_torch.parallel.perm_gossip import LaunchShape, _launch_shape
+    got = _launch_shape(_SmemOnly, n, m, 1, 2048, wire, 4, steps)
+    assert isinstance(got, LaunchShape) and tuple(got) == shape
 
 
 @pytest.mark.parametrize("taken,refused", [
@@ -389,37 +440,96 @@ def test_kernel_tile_choice(n, m, block_d, wire, shape):
     ((4096, 24), (4096, 25)),
 ])
 def test_kernel_refuses_a_state_too_tall_for_shared_memory(taken, refused):
-    # the slab kernel refuses the taller shape; the per-step path (the
-    # state in device memory) takes it instead of a ValueError
-    from matcha_tpu_torch.parallel.perm_gossip import STEP, _launch_shape
-    assert _launch_shape(_SmemOnly, *taken, 1, 2048, False).cols == 2
-    assert _launch_shape(_SmemOnly, *refused, 1, 2048, False) == STEP
+    # the slab kernel refuses the taller shape; the band path (the state
+    # in device memory, walked in bands that stay in L2) takes it instead
+    # of a ValueError
+    from matcha_tpu_torch.parallel.perm_gossip import (LaunchShape,
+                                                       _launch_shape,
+                                                       band_shape)
+    # a chain of steps, where the slab kernel is taken wherever it fits
+    slab = _launch_shape(_SmemOnly, *taken, 1, 2048, False, 4, 8)
+    assert isinstance(slab, LaunchShape) and slab.cols == 2
+    assert (_launch_shape(_SmemOnly, *refused, 1, 2048, False, 4, 8)
+            == band_shape(refused[0], 4))
 
 
 @pytest.mark.parametrize("n,m,wire", [(8193, 14, False), (16384, 14, False),
                                       (16384, 14, True), (4096, 25, False)])
 def test_every_shape_takes_a_path(n, m, wire):
     # past the slab kernel's reach (N above 8192, or 25 matchings at 4096)
-    # the per-step path takes the shape; nothing raises
-    from matcha_tpu_torch.parallel.perm_gossip import STEP, _launch_shape
+    # the band path takes the shape, for either state dtype; nothing raises
+    from matcha_tpu_torch.parallel.perm_gossip import (BandShape,
+                                                       _launch_shape,
+                                                       band_shape)
     for w_window in (1, 8):
-        assert _launch_shape(_SmemOnly, n, m, w_window, 2048, wire) == STEP
+        for state_bytes in (4, 2):
+            for steps in (1, 8):
+                shape = _launch_shape(_SmemOnly, n, m, w_window, 2048, wire,
+                                      state_bytes, steps)
+                assert isinstance(shape, BandShape)
+                assert shape == band_shape(n, state_bytes)
+
+
+@pytest.mark.parametrize("state_bytes", [4, 2])
+@pytest.mark.parametrize("n", [4097, 8193, 10000, 16384, 16385, 32768,
+                               50000, 65536])
+def test_band_buffers_stay_in_l2(n, state_bytes):
+    # the band's two buffers together stay within the L2 budget, and the
+    # band is the widest that does: a lane's 16 bytes times a power of
+    # two, at most _BAND_MAX_BYTES a row
+    from matcha_tpu_torch.parallel.perm_gossip import (_BAND_MAX_BYTES,
+                                                       _L2_BAND_BYTES,
+                                                       band_shape)
+    (cols,) = band_shape(n, state_bytes)
+    lane = 16 // state_bytes
+    lanes = cols // lane
+    assert cols % lane == 0 and lanes & (lanes - 1) == 0
+    assert 2 * n * cols * state_bytes <= _L2_BAND_BYTES
+    assert (cols * state_bytes == _BAND_MAX_BYTES
+            or 2 * n * 2 * cols * state_bytes > _L2_BAND_BYTES)
+    # the library takes the shape: its scratch is the flags and the buffers
+    d = 273258
+    assert (_SmemOnly.perm_gossip_band_scratch_bytes(
+        n, d, 4, 0 if state_bytes == 4 else 1, cols)
+        < 2 * n * cols * state_bytes + (1 << 20))
+
+
+@pytest.mark.parametrize("args,nbytes", _BAND_SCRATCH)
+def test_band_scratch_formula_counts_flags_and_buffers(args, nbytes):
+    # the Python mirror of band_scratch_bytes against a count by hand
+    assert _SmemOnly.perm_gossip_band_scratch_bytes(*args) == nbytes
+
+
+def _same_bits(a, b):
+    """Bitwise equality with NaN positions compared (a NaN's payload and
+    ``torch.equal``'s NaN != NaN aside)."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    as_int = torch.int32 if a.element_size() == 4 else torch.int16
+    return (a.dtype == b.dtype and torch.equal(nan_a, nan_b) and torch.equal(
+        a.masked_fill(nan_a, 0).view(as_int),
+        b.masked_fill(nan_b, 0).view(as_int)))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t_steps", [1, 2, 3, 8])
 @pytest.mark.parametrize("kind,n", [("hypercube", 16384),
-                                    ("erdos_renyi", 4096)])
-def test_step_path_bitwise_on_card(kind, n):
-    # the per-step path: N above 8192 (M = 14), and a 4096-worker graph of
-    # mean degree 30 coloured into more matchings than the slab tables hold
+                                    ("erdos_renyi", 4096),
+                                    ("erdos_renyi", 8193)])
+def test_step_path_bitwise_on_card(kind, n, t_steps):
+    # the band path: N above 8192 (the 16,384-worker hypercube, M = 14; a
+    # ragged 8193-worker graph), and a 4096-worker graph of mean degree 30
+    # coloured into more matchings than the slab tables hold; T odd and
+    # even (the buffers' ping-pong), an odd D, both wires and state dtypes,
+    # an alive mask, and inf and NaN in the state (no term skipped)
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
     from matcha_tpu_torch.schedule import fixed_schedule
     from matcha_tpu_torch.topology import (decompose, erdos_renyi_graph,
                                            hypercube_graph)
+    degree = 30 if n == 4096 else 10
     edges = (hypercube_graph(n) if kind == "hypercube"
-             else erdos_renyi_graph(n, 30 / (n - 1), seed=1))
-    sched = fixed_schedule(decompose(edges, n), n, 3, budget=0.5,
+             else erdos_renyi_graph(n, degree / (n - 1), seed=1))
+    sched = fixed_schedule(decompose(edges, n), n, t_steps, budget=0.5,
                            mode="bernoulli", seed=1)
     dev = torch.device("cuda")
     args = [torch.as_tensor(sched.alpha * sched.flags, dtype=torch.float32,
@@ -427,10 +537,45 @@ def test_step_path_bitwise_on_card(kind, n):
     args += [torch.as_tensor(t, device=dev)
              for t in involution_tables(sched.perms)]
     x = torch.from_numpy(_state(6, n=n, d=257)).to(dev)
-    for wire in (None, "bf16"):
-        ref = perm_gossip_plain(x, *args, wire_dtype=wire)
-        before = LAUNCHES["perm_gossip/step"]
-        out = perm_gossip_run(x, *args, wire_dtype=wire)
-        torch.cuda.synchronize()
-        assert LAUNCHES["perm_gossip/step"] == before + 1
-        assert torch.equal(out, ref)
+    wild = x.clone()
+    wild[3, 100], wild[n - 1, 256] = float("nan"), float("inf")
+    alive = torch.ones(n, device=dev)
+    alive[::5] = 0.0
+    cases = [(x, None, None), (x, "bf16", None), (x, None, alive),
+             (x.to(torch.bfloat16), None, None),
+             (x.to(torch.bfloat16), "bf16", alive), (wild, None, None)]
+    for state, wire, mask in cases:
+        ref = perm_gossip_plain(state, *args, alive=mask, wire_dtype=wire)
+        for dbuf in (True, False):
+            before = LAUNCHES["perm_gossip/band"]
+            out = perm_gossip_run(state, *args, alive=mask, wire_dtype=wire,
+                                  dbuf=dbuf)
+            torch.cuda.synchronize()
+            assert LAUNCHES["perm_gossip/band"] == before + 1
+            assert _same_bits(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [4, 8, 32, 128, 512, 1024])
+def test_band_shapes_bitwise_on_card(cols):
+    # any band width the library takes gives the plain version's bits:
+    # lanes of several rows in a warp (4 to 32 columns), several warps a
+    # row (1024), ragged last bands
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from matcha_tpu_torch.parallel.perm_gossip import (BandShape, _launch,
+                                                       _prepare)
+    sched, tabs = _hypercube(256, 5)
+    dev = torch.device("cuda")
+    w = torch.from_numpy(_weights(sched, 5)).to(dev)
+    tabs = [torch.as_tensor(t, device=dev) for t in tabs]
+    for d in (1031, 1030, 4096):
+        x = torch.from_numpy(_state(6, n=256, d=d)).to(dev)
+        for t_steps in (1, 2, 5):
+            ref = perm_gossip_plain(x, w[:t_steps], *tabs)
+            wt, p, gate, w_window, block_d, wire = _prepare(
+                x, w[:t_steps], *tabs, None, 2048, 1, None)
+            out = _launch(x, wt, p, gate, w_window, block_d, wire, True,
+                          shape=BandShape(cols))
+            torch.cuda.synchronize()
+            assert _same_bits(out, ref)
