@@ -127,10 +127,27 @@ raises and the script exits non-zero:
    split_timing — both schedules (CUDA events and the profiler's device
    time), the plain version (T = 64 only), the library call (T bf16
    ``torch.matmul`` calls) and the bound at T = 64 and T = 2000.
-11. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
+11. epoch_end — the end of the epoch at the slice's configuration, in a
+   temporary savePath: ``train()`` for 2 epochs with ``save`` and a
+   checkpoint every epoch (K1's launch count as in the slice phase; 16 × 8
+   Recorder CSVs of 2 rows; every ``events.jsonl`` line valid under the
+   port's ``validate_event``: ``run_start``, ``epoch`` and ``checkpoint``
+   twice); ``save_checkpoint`` then ``restore_checkpoint`` of its live
+   state, bitwise (every parameter, batch-norm and momentum buffer, the
+   step); a run resumed from the epoch-0 checkpoint in the same folder
+   (K1 launched for one epoch; epoch 1's loss, disagreement and test loss
+   within 1e-4 relative of the uninterrupted run's, both runs on cuDNN's
+   deterministic algorithms; the CSVs cut back to 2 rows, not 3).  The
+   host seconds of each Recorder flush and each checkpoint save and
+   restore, with the checkpoint's bytes.
+   communicators — one epoch each of the centralized and ``none``
+   communicators and of decen on the skip backend at the slice's width:
+   finite, no kernel launched, the centralized rows bitwise identical after
+   every step.
+12. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip), then the
     ``nvidia-smi`` line.
-12. last line: ``{"ok": true, "device": {...}}``.
+13. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -138,10 +155,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -162,6 +182,12 @@ from matcha_tpu_torch.parallel import (
     perm_gossip_run,
     reset_launch_counts,
 )
+from matcha_tpu_torch.probes.perm_bench import (
+    FP32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    bound,
+    perm_yardstick,
+)
 from matcha_tpu_torch.schedule import fixed_schedule, matcha_schedule
 from matcha_tpu_torch.topology import (
     decompose,
@@ -172,6 +198,12 @@ from matcha_tpu_torch.topology import (
     select_graph,
 )
 from matcha_tpu_torch.models import select_model
+from matcha_tpu_torch.obs.journal import read_journal, validate_event
+from matcha_tpu_torch.train.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
+)
+from matcha_tpu_torch.train.recorder import SERIES
 from matcha_tpu_torch.train import (
     TrainConfig,
     build_schedule,
@@ -182,10 +214,8 @@ from matcha_tpu_torch.train import (
     train,
 )
 
-# NVIDIA H100 SXM data sheet: HBM bandwidth, FP32 (non-tensor) peak and
-# the dense bf16 tensor-core peak
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# NVIDIA H100 SXM data sheet: the dense bf16 tensor-core peak (the HBM
+# bandwidth and the FP32 peak come with the perm kernel's bound)
 BF16_OPS_PER_S = 989e12
 
 SEED = 9001
@@ -300,28 +330,6 @@ def device_ms(fn, kernel: str, flush, runs: int = 20):
             return total / sum(e.count for e in found) / 1e3
         runs *= 2
     return None
-
-
-def bound(x, weights, perms, gate):
-    """The least time the card could take: bytes moved (state read once and
-    written once, weights and tables read once) over the HBM rate, and the
-    operations these inputs need (per active matching and gated slot: one
-    subtract, one multiply and one add per column; one add per updated row
-    and column) over the FP32 peak.  Returns (ms, "bytes"|"operations")."""
-    n, d = x.shape
-    t_steps, m = weights.shape
-    nbytes = 2 * n * d * x.element_size() + weights.numel() * 4 \
-        + perms.numel() * 4 + gate.numel() * 4
-    w = weights.detach().cpu().numpy()
-    g = gate.detach().cpu().numpy() != 0
-    ops = 0
-    for t in range(t_steps):
-        active = w[t] != 0
-        ops += 3 * int(g[active].sum()) * d
-        ops += int(g[active].any(axis=0).sum()) * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def dense_yardstick(sched, weights, x):
@@ -1163,30 +1171,6 @@ def phase_fused_sweep(dev, spills):
     return rows
 
 
-def perm_yardstick(weights, perms, gate, x):
-    """``T`` calls of ``torch.matmul(W_t, x)`` with ``W_t = I − Σ_j
-    w[t,j]·L_j`` built on the card from the tables (the Laplacians of
-    16,384 workers would not fit the host as dense matrices); the stack is
-    built outside the timing."""
-    t_steps, m = weights.shape
-    n = perms.shape[1]
-    rows = torch.arange(n, device=x.device)
-    stack = torch.zeros(t_steps, n, n, device=x.device)
-    for t in range(t_steps):
-        coef = weights[t][:, None] * gate  # [M, N]; zero where unpartnered
-        stack[t].index_put_((rows.repeat(m), perms.long().reshape(-1)),
-                            coef.reshape(-1), accumulate=True)
-        stack[t][rows, rows] += 1.0 - coef.sum(0)
-
-    def run():
-        out = x
-        for t in range(t_steps):
-            out = torch.matmul(stack[t], out)
-        return out
-
-    return run
-
-
 def er_tables(dev, n: int = 4096, degree: float = 30.0):
     """A connected Erdős–Rényi graph of mean degree ``degree`` on ``n``
     workers, coloured (Misra–Gries: more matchings than the slab kernel's
@@ -1495,6 +1479,223 @@ def phase_agreement(dev):
             raise AssertionError(f"card vs CPU {key}: {gpu[key]} vs "
                                  f"{cpu[key]}")
     emit({"phase": "agreement", "max_rel_err": worst})
+
+
+def slice_state(dev, seed: int):
+    """A fresh train state of the slice's model and optimizer on ``dev``
+    (no step taken): the template a checkpoint is restored into."""
+    cfg = slice_config(1)
+    comm = make_decen(build_schedule(cfg, 5), "perm", device=dev)
+    opt = make_optimizer(make_lr_schedule(cfg.lr, 4), cfg.momentum,
+                         cfg.weight_decay, cfg.nesterov)
+    model = select_model("resnet20", "synthetic_image", num_workers=16)
+    return init_train_state(model, 16, opt, comm, seed=seed, device=dev)[0]
+
+
+def state_tensors(state) -> dict:
+    """Every parameter, batch-norm buffer and momentum buffer, by name."""
+    out = {f"param {k}": v for k, v in state.model.named_parameters()}
+    out.update({f"buffer {k}": v for k, v in state.model.named_buffers()})
+    for k, p in state.model.named_parameters():
+        out[f"momentum {k}"] = state.optimizer.state[p]["momentum_buffer"]
+    return out
+
+
+def csv_rows(folder: str) -> dict:
+    """Rows of each Recorder CSV in ``folder``."""
+    rows = {}
+    for name in sorted(os.listdir(folder)):
+        if name.endswith(".log"):
+            with open(os.path.join(folder, name)) as f:
+                rows[name] = len(f.read().splitlines())
+    return rows
+
+
+def check_csvs(folder: str, epochs: int) -> None:
+    rows = csv_rows(folder)
+    if len(rows) != 16 * len(SERIES) or set(rows.values()) != {epochs}:
+        raise AssertionError(f"{folder}: {len(rows)} CSVs, rows "
+                             f"{sorted(set(rows.values()))}; expected "
+                             f"{16 * len(SERIES)} of {epochs} rows")
+
+
+def phase_epoch_end(dev):
+    """The end of the epoch at the slice's configuration (slice_config),
+    in a temporary savePath: a 2-epoch run with ``save`` and a checkpoint
+    every epoch (K1's launches, 16 × 8 CSVs of 2 rows, every journal line
+    valid); a ``save_checkpoint``/``restore_checkpoint`` round trip of
+    its live state, bitwise; a run resumed from the epoch-0 checkpoint in
+    the same folder, whose epoch 1 agrees with the uninterrupted run's to
+    1e-4 relative and whose CSVs hold 2 rows, not 3.  Both runs take
+    cuDNN's deterministic algorithms: its default ones sum in another order
+    from run to run, and two uninterrupted runs with them part by far more
+    than 1e-4 at epoch 1, whose test loss is in the thousands at lr 0.8
+    (printed as ``default_cudnn_spread``; ``PERF.md`` § 6).
+    Whether the resumed run's final state is bitwise the uninterrupted
+    run's is printed.
+    Prints the host seconds of each Recorder flush and each checkpoint
+    save and restore, with the checkpoint's bytes."""
+    bpe = 2048 // 16 // 32
+    spread = cudnn_spread(dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _epoch_end(dev, bpe, spread)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def cudnn_spread(dev) -> dict:
+    """The relative gap, per metric and epoch, between two uninterrupted
+    2-epoch runs of the slice on cuDNN's default algorithms."""
+    a, b = (train(slice_config(2), device=dev).history for _ in range(2))
+    return {key: [abs(x[key] - y[key]) / max(abs(y[key]), 1e-12)
+                  for x, y in zip(a, b)]
+            for key in ("loss", "disagreement", "test_loss_mean")}
+
+
+def _epoch_end(dev, bpe: int, spread: dict):
+    with tempfile.TemporaryDirectory() as root:
+        cfg = dataclasses.replace(slice_config(2), save=True, savePath=root,
+                                  checkpoint_every=1)
+        reset_launch_counts()
+        whole = train(cfg, device=dev)
+        torch.cuda.synchronize()
+        launches = LAUNCHES["perm_gossip_dbuf"]
+        expected = 2 * bpe + 2 * timer_chains(bpe)
+        if launches != expected:
+            raise AssertionError(f"perm_gossip_dbuf launched {launches} "
+                                 f"times, expected {expected}")
+        folder = whole.recorder.folder
+        check_csvs(folder, 2)
+        events = read_journal(os.path.join(folder, "events.jsonl"))
+        problems = [p for e in events for p in validate_event(e)]
+        kinds = [e["kind"] for e in events]
+        if problems or kinds != ["run_start", "epoch", "checkpoint",
+                                 "epoch", "checkpoint"]:
+            raise AssertionError(f"journal {kinds}: {problems}")
+        saves = [{"seconds": e["seconds"], "bytes": e["bytes"]}
+                 for e in events if e["kind"] == "checkpoint"]
+
+        trip = os.path.join(root, "round_trip")
+        t0 = time.perf_counter()
+        nbytes = save_checkpoint(trip, whole.state, 1)
+        save_s = time.perf_counter() - t0
+        template = slice_state(dev, SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, _ = restore_checkpoint(trip, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want, got = state_tensors(whole.state), state_tensors(restored)
+        differ = [k for k in want if k not in got
+                  or not same_bits(got[k], want[k])]
+        if differ or set(got) != set(want) \
+                or restored.step != whole.state.step:
+            raise AssertionError(f"round trip not bitwise: {differ[:4]}, "
+                                 f"step {restored.step} vs "
+                                 f"{whole.state.step}")
+        del template, restored
+
+        ckpt = os.path.join(root, f"{cfg.name}_ckpt")
+        epoch0 = os.path.join(root, "from_epoch0")
+        shutil.copytree(os.path.join(ckpt, "0"), os.path.join(epoch0, "0"))
+        for side in ("digest-0.json", "schedule-0.json"):
+            shutil.copy(os.path.join(ckpt, side), epoch0)
+        reset_launch_counts()
+        resumed = train(cfg, resume_dir=epoch0, device=dev)
+        torch.cuda.synchronize()
+        resumed_launches = LAUNCHES["perm_gossip_dbuf"]
+        if resumed_launches != bpe + timer_chains(bpe):
+            raise AssertionError(f"the resumed run launched K1 "
+                                 f"{resumed_launches} times, expected "
+                                 f"{bpe + timer_chains(bpe)} (one epoch)")
+        if [h["epoch"] for h in resumed.history] != [1]:
+            raise AssertionError(f"resumed epochs "
+                                 f"{[h['epoch'] for h in resumed.history]}")
+        rel = {}
+        for key in ("loss", "disagreement", "test_loss_mean"):
+            a, b = resumed.history[0][key], whole.history[1][key]
+            rel[key] = abs(a - b) / max(abs(b), 1e-12)
+            if not rel[key] <= 1e-4:
+                raise AssertionError(f"resumed epoch 1 {key}: {a} vs {b}")
+        check_csvs(folder, 2)
+        final = state_tensors(resumed.state)
+        same_final = all(same_bits(final[k], v) for k, v in want.items())
+        emit({"phase": "epoch_end", "launches": launches,
+              "expected_launches": expected,
+              "csvs": len(csv_rows(folder)), "journal": kinds,
+              "recorder_flush_seconds": whole.recorder.flush_seconds,
+              "checkpoint_saves": saves,
+              "round_trip": {"bytes": nbytes, "save_seconds": save_s,
+                             "restore_seconds": restore_s,
+                             "bitwise": True},
+              "resumed": {"launches": resumed_launches,
+                          "rel_err_epoch1": rel,
+                          "final_state_bitwise": same_final,
+                          "recorder_flush_seconds":
+                              resumed.recorder.flush_seconds,
+                          "journal": [e["kind"] for e in
+                                      resumed.recorder.events]},
+              "default_cudnn_spread": spread,
+              "nvidia_smi": nvidia_smi()})
+    return {"launches": launches}
+
+
+def phase_communicators(dev):
+    """One epoch each of the centralized and the ``none`` communicators and
+    of decen on the skip backend, at the slice's width: finite, no kernel
+    launched; the centralized run's rows checked bitwise identical after
+    every step (the checks stay on the card and are read once)."""
+    from matcha_tpu_torch.train import loop
+
+    bpe = 2048 // 16 // 32
+    select = loop.select_communicator
+    rows = {}
+    for label, over in (("centralized", {"communicator": "centralized"}),
+                        ("none", {"communicator": "none"}),
+                        ("skip", {"gossip_backend": "skip"})):
+        checks = []
+
+        def checked(*args, **kwargs):
+            comm = select(*args, **kwargs)
+
+            def step(flat, carry, flags_t, alive=None):
+                out, carry = comm.step(flat, carry, flags_t, alive)
+                checks.append((out == out[:1]).all())
+                return out, carry
+
+            return dataclasses.replace(comm, step=step)
+
+        loop.select_communicator = checked if label == "centralized" \
+            else select
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = train(dataclasses.replace(slice_config(1), **over),
+                           device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            loop.select_communicator = select
+        if any(LAUNCHES.values()):
+            raise AssertionError(f"{label}: kernels launched {LAUNCHES}")
+        hist = result.history[0]
+        for key in ("loss", "disagreement", "test_loss_mean"):
+            if not math.isfinite(hist[key]):
+                raise AssertionError(f"{label}: {key} = {hist[key]}")
+        row = {"loss": hist["loss"], "disagreement": hist["disagreement"],
+               "ms_per_step": hist["epoch_time"] / bpe * 1e3,
+               "comm_time": hist["comm_time"], "seconds": seconds}
+        if label == "centralized":
+            steps = len(checks)
+            if steps < bpe or not bool(torch.stack(checks).all()):
+                raise AssertionError(f"centralized rows differ after a "
+                                     f"step ({steps} steps checked)")
+            row["steps_checked"] = steps
+        rows[label] = row
+    emit({"phase": "communicators", **rows})
+    return rows
 
 
 def phase_stream_chain(dev, tables):
@@ -1897,6 +2098,8 @@ def main():
     results["spills"] = spills
     results["split_probe"] = phase_split_probe(dev)
     results["split_timing"] = phase_split_timing(dev)
+    results["epoch_end"] = phase_epoch_end(dev)
+    results["communicators"] = phase_communicators(dev)
     emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

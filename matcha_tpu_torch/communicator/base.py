@@ -6,10 +6,12 @@ functions on the ``[N, D]`` stack of all workers' flattened parameters,
     carry0      = comm.init(flat0)
     flat', c'   = comm.step(flat, carry, flags_t[, alive])
 
-with ``flags_t`` the ``f32[M]`` activation row of this step.  ``run``
-applies a whole flag stream, through ``multi_step`` (one kernel launch for
-the chain) when the backend has one.  ``run_overlapped``, ``run_pipelined``
-and ``run_elided`` are not ported yet (``ROADMAP.md``).
+with ``flags_t`` the ``f32[M]`` activation row of this step, on the state's
+device, or on the host for a communicator with ``host_flags`` (the skip
+backend branches on it).  ``run`` applies a whole flag stream, through
+``multi_step`` (one kernel launch for the chain) when the backend has one.
+``run_overlapped``, ``run_pipelined`` and ``run_elided`` are not ported
+yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ class Communicator:
     self-loops).  ``multi_step(flat, carry, flags[T, M])``, when present,
     runs a whole flag stream at once and equals stepping through it;
     ``multi_step_masked(flat, carry, flags, alive[N])`` is its twin under a
-    constant survivor mask.
+    constant survivor mask.  ``host_flags``: ``step`` takes its flag row
+    as a host (CPU) tensor, so that it can branch on it without reading
+    the device.
     """
 
     name: str
@@ -41,6 +45,12 @@ class Communicator:
     step: StepFn
     multi_step: Any = None
     multi_step_masked: Any = None
+    host_flags: bool = False
+
+    def flags_device(self, device: torch.device) -> torch.device:
+        """Where ``step`` wants its flag rows for a state on ``device``:
+        there, or on the host."""
+        return torch.device("cpu") if self.host_flags else device
 
     def run(self, flat: torch.Tensor, flags, carry: Any = None,
             alive: Any = None):
@@ -53,7 +63,8 @@ class Communicator:
         masked chains step one row at a time."""
         if carry is None:
             carry = self.init(flat)
-        flags = torch.as_tensor(flags, dtype=torch.float32, device=flat.device)
+        flags = torch.as_tensor(flags, dtype=torch.float32,
+                                device=self.flags_device(flat.device))
         if flags.shape[0] == 0:
             return flat, carry
         if alive is None:

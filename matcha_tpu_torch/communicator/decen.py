@@ -1,7 +1,7 @@
 """Decentralized gossip communicator (D-PSGD / MATCHA hot path).
 
 Port of ``matcha_tpu/communicator/decen.py``: ``make_decen`` (:77) with the
-four backends of the port so far,
+five backends of the port so far,
 
 * ``"perm"``   — the permutation-form CUDA kernel for every phase: the
                  per-step training mix is a T=1 launch, ``run`` chains are
@@ -13,12 +13,17 @@ four backends of the port so far,
                  (``run`` chains, the comm-split timer) the fused W-stack
                  CUDA kernel: one launch for the chain
                  (``parallel.fused_gossip_run``);
-* ``"gather"`` — the per-matching gather oracle (``parallel.gossip_mix``).
+* ``"gather"`` — the per-matching gather oracle (``parallel.gossip_mix``);
+* ``"skip"``   — the gather oracle with a host branch per matching
+                 (``parallel.gossip_mix_skip``): an inactive matching
+                 launches nothing.  Its flag rows stay on the host
+                 (``Communicator.host_flags``), so the branch reads no
+                 device value.
 
 The fused ``multi_step`` has no masked twin: its stack knows nothing of
 survivors, so ``Communicator.run`` steps a masked chain through the dense
 mix, as the JAX package does.  The other backends of the JAX package
-(``skip``, ``shard_map`` and ``auto``, whose choice needs the planner's
+(``shard_map``, multi-card, and ``auto``, whose choice needs the planner's
 cost model) are not ported yet and raise.
 """
 
@@ -35,6 +40,7 @@ from ..parallel import (
     dense_gossip_fn,
     fused_gossip_run,
     gossip_mix,
+    gossip_mix_skip,
     involution_tables,
     perm_gossip_run,
     resolve_wire_dtype,
@@ -45,7 +51,7 @@ from .base import Communicator
 
 __all__ = ["make_decen"]
 
-PORTED_BACKENDS = ("perm", "dense", "fused", "gather")
+PORTED_BACKENDS = ("perm", "dense", "fused", "gather", "skip")
 
 
 def make_decen(
@@ -107,6 +113,9 @@ def make_decen(
 
         def mix(x, w, alive=None):
             return gossip_mix(x, perms, w, alive, wire_dtype=wire)
+    elif backend == "skip":
+        def mix(x, w, alive=None):
+            return gossip_mix_skip(x, perms, w, alive, wire_dtype=wire)
     elif backend in ("dense", "fused"):
         laplacians = torch.as_tensor(schedule.laplacians(),
                                      dtype=torch.float32, device=dev)
@@ -148,7 +157,7 @@ def make_decen(
         raise ValueError(
             f"gossip backend '{backend}' is not ported yet: the port has "
             f"{list(PORTED_BACKENDS)}; ROADMAP.md lists the order in which "
-            f"the others ('skip', 'shard_map' and 'auto', which needs the "
+            f"the others ('shard_map' and 'auto', which needs the "
             f"planner's cost model) land")
 
     def init(flat: torch.Tensor):
@@ -161,4 +170,5 @@ def make_decen(
     return Communicator(
         name=f"decen[{backend}{wire_tag}]", init=init, step=step,
         multi_step=multi_step, multi_step_masked=multi_step_masked,
+        host_flags=backend == "skip",
     )

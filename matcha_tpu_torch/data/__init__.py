@@ -9,8 +9,10 @@ from .datasets import (
     load_npz,
     normalize,
     normalized_zero,
+    photo_patches,
     synthetic_classification,
     synthetic_images,
+    uci_digits,
 )
 from .partition import (
     partition_fractions,
@@ -31,6 +33,8 @@ __all__ = [
     "partition_indices",
     "partition_label_skew",
     "partition_uniform",
+    "photo_patches",
     "synthetic_classification",
     "synthetic_images",
+    "uci_digits",
 ]

@@ -2,10 +2,12 @@
 
 Port of ``matcha_tpu/data/datasets.py`` (a numpy copy).  Real datasets load
 from local ``.npz`` files (``x_train/y_train/x_test/y_test``, images NHWC);
-synthetic Gaussian-cluster datasets give hermetic runs and tests.  The
-``digits`` and ``photo_patches`` datasets (scikit-learn / PIL assets) and
-the JAX package's native augmentation kernel are not ported: augmentation
-keeps the numpy path, which draws the same random numbers.
+synthetic Gaussian-cluster datasets give hermetic runs and tests;
+``digits`` and ``photo_patches`` read real pixels shipped inside installed
+packages (scikit-learn, matplotlib, pygame; decoded with PIL), imported
+only when those datasets are built.  The JAX package's native augmentation
+kernel is not ported: augmentation keeps the numpy path, which draws the
+same random numbers.
 
 The loader yields batches stacked over the worker axis — ``x: [N, B, ...]``,
 ``y: [N, B]`` — the layout the worker-stacked train step consumes.
@@ -22,6 +24,8 @@ __all__ = [
     "Dataset",
     "synthetic_classification",
     "synthetic_images",
+    "uci_digits",
+    "photo_patches",
     "load_npz",
     "normalize",
     "augment_crop_flip",
@@ -96,6 +100,122 @@ def synthetic_images(
     ds = synthetic_classification(num_train, num_test, (32, 32, 3), 10, seed,
                                   separation=separation)
     return dataclasses.replace(ds, name="synthetic_image")
+
+
+def uci_digits(num_test: int = 360, seed: int = 0) -> Dataset:
+    """Real handwritten-digit pixels, offline: scikit-learn's bundled UCI
+    ML handwritten digits (1,797 8×8 grayscale images, 10 classes), the
+    JAX package's real-pixel stand-in for the reference's EMNIST/MLP
+    configuration.  Pixels are scaled to [0, 1] and standardized with the
+    fixed ``digits`` constants; the train/test split is a seeded
+    permutation, deterministic for a given ``(num_test, seed)``.  Needs
+    scikit-learn, imported here and nowhere else.
+    """
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError as e:
+        raise ImportError(
+            "dataset 'digits' needs scikit-learn (the 'sklearn' package), "
+            "which is not installed on this host") from e
+
+    d = load_digits()
+    x = (d.images.astype(np.float32) / 16.0)[..., None]  # [1797, 8, 8, 1]
+    y = d.target.astype(np.int32)
+    if not 0 < num_test < len(y):
+        raise ValueError(
+            f"num_test={num_test} must leave both splits non-empty "
+            f"(dataset has {len(y)} images)"
+        )
+    mean, std = NORMALIZATION["digits"]
+    x = (x - np.float32(mean[0])) / np.float32(std[0])
+    order = np.random.default_rng(seed).permutation(len(y))
+    test, train = order[:num_test], order[num_test:]
+    return Dataset(x[train], y[train], x[test], y[test], 10, name="digits")
+
+
+# Real photographs shipped inside installed packages (module → relative
+# path).  Each becomes one class of photo_patches; paths resolve via
+# find_spec so nothing here imports those packages.
+_PHOTO_SOURCES = (
+    ("china", "sklearn", "datasets/images/china.jpg"),
+    ("flower", "sklearn", "datasets/images/flower.jpg"),
+    ("hopper", "matplotlib", "mpl-data/sample_data/grace_hopper.jpg"),
+    ("fist", "pygame", "examples/data/fist.png"),
+    ("canyon", "pygame", "examples/data/arraydemo.bmp"),
+    ("freedom", "pygame", "docs/generated/_images/intro_freedom.jpg"),
+    ("blade", "pygame", "docs/generated/_images/intro_blade.jpg"),
+    ("room", "pygame", "docs/generated/_images/camera_background.jpg"),
+)
+
+
+def photo_patches(
+    train_per_class: int = 768,
+    test_per_class: int = 128,
+    patch: int = 32,
+    seed: int = 0,
+) -> Dataset:
+    """Real-photograph patch classification, offline: one class per real
+    photograph shipped with scikit-learn, matplotlib and pygame
+    (``_PHOTO_SOURCES``), ``patch²`` RGB crops sampled from it.  Train and
+    test crops come from disjoint, adjacent image regions (train pixels end
+    at column ``split−1``, test pixels start at ``split``).  Raw [0, 1]
+    pixels are standardized with the fixed ``photo_patches`` constants.
+
+    Sources missing from the host are skipped; ``num_classes`` is however
+    many resolve (≥ 4 required).  Deterministic for a given seed.  Needs
+    PIL to decode the photographs.
+    """
+    import importlib.util
+
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "dataset 'photo_patches' needs Pillow (the 'PIL' package), "
+            "which is not installed on this host") from e
+
+    rng = np.random.default_rng(seed)
+    xs_tr, ys_tr, xs_te, ys_te = [], [], [], []
+    label = 0
+    names = []
+    for name, module, rel in _PHOTO_SOURCES:
+        spec = importlib.util.find_spec(module)
+        if spec is None or not spec.submodule_search_locations:
+            continue
+        path = f"{spec.submodule_search_locations[0]}/{rel}"
+        try:
+            img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+        except OSError:  # a source photograph missing or unreadable
+            continue
+        h, w = img.shape[:2]
+        split = int(0.7 * w)
+        if h < patch or split - patch < 1 or w - patch < split:
+            continue
+
+        def crops(n, x_lo, x_hi):
+            ox = rng.integers(x_lo, x_hi + 1, size=n)
+            oy = rng.integers(0, h - patch + 1, size=n)
+            return np.stack([img[y : y + patch, x : x + patch]
+                             for y, x in zip(oy, ox)])
+
+        xs_tr.append(crops(train_per_class, 0, split - patch))
+        xs_te.append(crops(test_per_class, split, w - patch))
+        ys_tr.append(np.full(train_per_class, label, np.int32))
+        ys_te.append(np.full(test_per_class, label, np.int32))
+        names.append(name)
+        label += 1
+    if label < 4:
+        raise RuntimeError(
+            f"photo_patches found only {label} source photographs "
+            f"({names}); need >= 4 for a meaningful task"
+        )
+    mean, std = NORMALIZATION["photo_patches"]
+    norm = lambda x: (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return Dataset(
+        norm(np.concatenate(xs_tr)), np.concatenate(ys_tr),
+        norm(np.concatenate(xs_te)), np.concatenate(ys_te),
+        label, name="photo_patches",
+    )
 
 
 def load_npz(path: str, dataset: str = "cifar10", num_classes: int | None = None) -> Dataset:

@@ -1,13 +1,15 @@
 """Gossip primitives on worker-stacked ``[N, ...]`` tensors.  Port of the
-slice-1 and slice-2 surface of ``matcha_tpu.parallel``: the wire-dtype and
-precision seams, the gather oracle, the dense backend, the centralized
-collectives, the permutation-form kernel and the fused W-stack kernel."""
+single-card surface of ``matcha_tpu.parallel``: the wire-dtype and
+precision seams, the gather oracle and its skipping twin, the per-matching
+byte account, the dense backend, the centralized collectives, the
+permutation-form kernel and the fused W-stack kernel."""
 
 from .collectives import (
     allreduce_mean,
     broadcast_worker0,
     masked_allreduce_mean,
     masked_mean_rows,
+    worker_deviation_rows,
     worker_disagreement,
 )
 from .fused_gossip import (
@@ -21,7 +23,9 @@ from .gossip import (
     dense_gossip_fn,
     gossip_mix,
     gossip_mix_dense,
+    gossip_mix_skip,
     masked_laplacians,
+    matching_wire_bytes,
     mxu_precision,
     resolve_wire_dtype,
 )
@@ -45,14 +49,17 @@ __all__ = [
     "fused_gossip_run",
     "gossip_mix",
     "gossip_mix_dense",
+    "gossip_mix_skip",
     "involution_tables",
     "masked_allreduce_mean",
     "masked_laplacians",
     "masked_mean_rows",
+    "matching_wire_bytes",
     "mxu_precision",
     "perm_gossip_plain",
     "perm_gossip_run",
     "reset_launch_counts",
     "resolve_wire_dtype",
+    "worker_deviation_rows",
     "worker_disagreement",
 ]

@@ -1,6 +1,6 @@
 """Centralized collectives over the worker axis.
 
-Port of ``matcha_tpu/parallel/collectives.py`` (:20-80): on a ``[N, ...]``
+Port of ``matcha_tpu/parallel/collectives.py`` (:20-97): on a ``[N, ...]``
 worker tensor the global average is a mean over the leading axis.
 """
 
@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["allreduce_mean", "broadcast_worker0", "masked_mean_rows",
-           "masked_allreduce_mean", "worker_disagreement"]
+           "masked_allreduce_mean", "worker_deviation_rows",
+           "worker_disagreement"]
 
 
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -55,3 +56,18 @@ def worker_disagreement(x: torch.Tensor, alive=None) -> torch.Tensor:
                            torch.zeros_like(x))
     denom = torch.clamp(alive.sum(), min=1.0) * (x.numel() // x.shape[0])
     return torch.sqrt(torch.sum(centered * centered) / denom)
+
+
+def worker_deviation_rows(x: torch.Tensor, alive=None) -> torch.Tensor:
+    """Per-worker RMS distance from consensus, ``f32[N]``: row i's
+    ``‖x_i − x̄‖ / √D``, the per-worker decomposition of
+    :func:`worker_disagreement`.  With ``alive`` the consensus point is
+    the survivor mean and quarantined rows report 0."""
+    if alive is None:
+        centered = x - x.mean(dim=0, keepdim=True)
+    else:
+        w = _rows(alive, x)
+        centered = torch.where(w > 0, x - masked_mean_rows(x, alive)[None],
+                               torch.zeros_like(x))
+    sq = (centered * centered).reshape(x.shape[0], -1)
+    return torch.sqrt(torch.mean(sq, dim=1))

@@ -2,10 +2,12 @@
 
 Port of ``matcha_tpu/parallel/gossip.py``: the wire-dtype seam
 (``resolve_wire_dtype``, :78), the precision seam (``mxu_precision``,
-:101), the gather oracle (``gossip_mix``, :138) and the dense backend
-(``masked_laplacians`` :239, ``gossip_mix_dense`` :260, ``dense_gossip_fn``
-:305).  One gossip step with matchings ``π_j`` (involutions over workers,
-fixed points = unmatched) and per-step weights ``w_j = α·flag_j``:
+:101), the per-matching byte account (``matching_wire_bytes``, :113), the
+gather oracle (``gossip_mix``, :138), its skipping twin
+(``gossip_mix_skip``, :182) and the dense backend (``masked_laplacians``
+:239, ``gossip_mix_dense`` :260, ``dense_gossip_fn`` :305).  One gossip
+step with matchings ``π_j`` (involutions over workers, fixed points =
+unmatched) and per-step weights ``w_j = α·flag_j``:
 
     x_i ← x_i + Σ_j w_j · (x_{π_j(i)} − x_i)
 
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 __all__ = ["dense_gossip_fn", "gossip_mix", "gossip_mix_dense",
-           "masked_laplacians", "mxu_precision", "resolve_wire_dtype"]
+           "gossip_mix_skip", "masked_laplacians", "matching_wire_bytes",
+           "mxu_precision", "resolve_wire_dtype"]
 
 
 def resolve_wire_dtype(wire_dtype):
@@ -72,6 +75,16 @@ def mxu_precision():
         matmul.allow_tf32 = prev
 
 
+def matching_wire_bytes(decomposed, dim: int, wire_dtype=None) -> np.ndarray:
+    """``f64[M]`` — bytes that cross the wire when matching ``j`` fires:
+    each of its ``E_j`` edges moves both endpoint rows (``2·E_j·dim``
+    values) at the wire dtype's width (f32 unless a narrower wire)."""
+    dt = resolve_wire_dtype(wire_dtype)
+    itemsize = 4 if dt is None else dt.itemsize
+    return np.asarray([2.0 * len(m) * dim * itemsize for m in decomposed],
+                      np.float64)
+
+
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Broadcast a per-row ``[R]`` mask over the trailing dims of ``[R, ...]``."""
     return mask.reshape(mask.shape + (1,) * (x.ndim - 1))
@@ -104,6 +117,45 @@ def gossip_mix(x: torch.Tensor, perms, weights, alive=None,
         if alive is not None:
             delta = _rows(alive * alive.index_select(0, index[j]), delta) * delta
         acc = acc + weights[j] * delta
+    return x + acc
+
+
+def gossip_mix_skip(x: torch.Tensor, perms, weights, alive=None,
+                    wire_dtype=None) -> torch.Tensor:
+    """``gossip_mix`` with a host branch per matching: a matching whose
+    weight is 0 (inactive this step) is skipped and launches nothing, so
+    the MATCHA budget buys time back, not only masked-out arithmetic.
+
+    ``weights``: the ``[M]`` row, read on the host (pass a CPU tensor or
+    an array; a tensor on the card is copied to the host, which waits for
+    the card).  The active matchings are summed as ``gossip_mix`` sums
+    them, into one accumulator added to ``x`` at the end, so on finite
+    inputs the result has ``gossip_mix``'s bits (an inactive matching adds
+    an exact zero there).  The JAX package's ``lax.cond`` form adds each
+    matching to ``x`` in turn instead: the same values within f32
+    rounding.  An all-zero row returns ``x`` itself.  ``alive`` masks
+    edges inside the taken branches; the skip decision is the weight's
+    (``!= 0``, so a negative weight is applied, as masking applies it).
+    """
+    perms = np.asarray(perms)
+    if perms.ndim != 2 or perms.shape[1] != x.shape[0]:
+        raise ValueError(f"perms {perms.shape} incompatible with x "
+                         f"{tuple(x.shape)}")
+    w = torch.as_tensor(weights, dtype=torch.float32, device="cpu").tolist()
+    rows = np.arange(perms.shape[1])
+    active = [j for j in range(perms.shape[0])
+              if w[j] != 0 and not np.array_equal(perms[j], rows)]
+    if not active:
+        return x
+    wire = resolve_wire_dtype(wire_dtype)
+    xw = x if wire is None else x.to(wire).to(x.dtype)
+    index = torch.as_tensor(perms[active], dtype=torch.long, device=x.device)
+    acc = torch.zeros_like(x)
+    for k, j in enumerate(active):
+        delta = xw.index_select(0, index[k]) - xw
+        if alive is not None:
+            delta = _rows(alive * alive.index_select(0, index[k]), delta) * delta
+        acc = acc + w[j] * delta
     return x + acc
 
 

@@ -4,6 +4,7 @@ one, and the band path's shapes against each other.
     python -m matcha_tpu_torch.probes.perm_bench ab --old DIR [--rounds 3]
         [--only SUBSTRING ...]
     python -m matcha_tpu_torch.probes.perm_bench bands [--only ...]
+    python -m matcha_tpu_torch.probes.perm_bench library [--only ...]
 
 ``ab`` loads the ``matcha_tpu_torch`` package found in ``DIR`` (an unpacked
 ``git archive`` of an earlier commit, or a copy of this tree with one
@@ -22,6 +23,12 @@ gathers through L2 at the shape are counted (``gathered_bytes``).
 ``bands`` times the band path at each shape for ``band_shape``'s width,
 half of it and twice it (over the L2 budget), every output bitwise equal
 to the chosen shape's.
+
+``library`` times the kernel and the library call (``T`` calls of
+``torch.matmul(W_t, x)``, ``perm_yardstick``) and computes the bound
+(``bound``, the rule of ``chip_smoke.py``'s kernels line) at
+``LIBRARY_SHAPES``: the 8192-worker torus at T = 1 and 8 and the
+16,384-worker hypercube at full width, T = 4.
 
 Shapes: the training slice's ``[16, 273258]`` f32 state (zoo graph 4, its
 MATCHA schedule at budget 0.5) at T = 1 and 64; ``[256, 273258]`` on the
@@ -53,9 +60,13 @@ from ..schedule import fixed_schedule, matcha_schedule
 from ..topology import (decompose, erdos_renyi_graph, hypercube_graph,
                         make_graph, select_graph)
 
-__all__ = ["bands", "device_ms", "gathered_bytes", "host_us", "load_package",
-           "main", "shapes", "time_ms"]
+__all__ = ["FP32_OPS_PER_S", "HBM_BYTES_PER_S", "bands", "bound",
+           "device_ms", "gathered_bytes", "host_us", "library",
+           "load_package", "main", "perm_yardstick", "shapes", "time_ms"]
 
+# NVIDIA H100 SXM data sheet: HBM bandwidth and the FP32 (non-tensor) peak
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 SEED = 9001
 D = 273258
 SHAPES = ("slice T=1", "slice T=64", "hypercube N=256 T=64",
@@ -67,6 +78,9 @@ SHAPES = ("slice T=1", "slice T=64", "hypercube N=256 T=64",
           "torus N=8192 T=1 wire=bf16", "ER N=4096 T=1", "ER N=4096 T=4",
           "hypercube N=16384 D=32768 T=1",
           "hypercube N=16384 D=32768 T=4")
+# the K1 rows of PERF.md's table that lacked a bound or a library time
+LIBRARY_SHAPES = ("torus N=8192 T=1", "torus N=8192 T=8",
+                  "hypercube N=16384 T=4")
 BAND_SHAPES = ("hypercube N=4096 T=1", "ER N=4096 T=1", "ER N=4096 T=4",
                "hypercube N=16384 D=32768 T=1",
                "hypercube N=16384 D=32768 T=4")
@@ -186,6 +200,52 @@ def gathered_bytes(x, weights, partnered) -> int:
     terms = sum(int(partnered[w != 0].sum()) for w in weights)
     rows = 2 * n * steps + terms + (2 * n if steps > 1 else 0)
     return rows * d * x.element_size()
+
+
+def bound(x, weights, perms, gate):
+    """The least time the card could take: bytes moved (state read once and
+    written once, weights and tables read once) over the HBM rate, and the
+    operations these inputs need (per active matching and gated slot: one
+    subtract, one multiply and one add per column; one add per updated row
+    and column) over the FP32 peak.  Returns (ms, "bytes"|"operations")."""
+    n, d = x.shape
+    t_steps, m = weights.shape
+    nbytes = 2 * n * d * x.element_size() + weights.numel() * 4 \
+        + perms.numel() * 4 + gate.numel() * 4
+    w = weights.detach().cpu().numpy()
+    g = gate.detach().cpu().numpy() != 0
+    ops = 0
+    for t in range(t_steps):
+        active = w[t] != 0
+        ops += 3 * int(g[active].sum()) * d
+        ops += int(g[active].any(axis=0).sum()) * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def perm_yardstick(weights, perms, gate, x):
+    """``T`` calls of ``torch.matmul(W_t, x)`` with ``W_t = I − Σ_j
+    w[t,j]·L_j`` built on the card from the tables (the Laplacians of
+    16,384 workers would not fit the host as dense matrices); the stack is
+    built outside the timing."""
+    t_steps, m = weights.shape
+    n = perms.shape[1]
+    rows = torch.arange(n, device=x.device)
+    stack = torch.zeros(t_steps, n, n, device=x.device)
+    for t in range(t_steps):
+        coef = weights[t][:, None] * gate  # [M, N]; zero where unpartnered
+        stack[t].index_put_((rows.repeat(m), perms.long().reshape(-1)),
+                            coef.reshape(-1), accumulate=True)
+        stack[t][rows, rows] += 1.0 - coef.sum(0)
+
+    def run():
+        out = x
+        for t in range(t_steps):
+            out = torch.matmul(stack[t], out)
+        return out
+
+    return run
 
 
 def _same_bits(a, b) -> bool:
@@ -322,6 +382,31 @@ def bands(only=()) -> list:
     return rows
 
 
+def library(only=()) -> list:
+    """At each of ``LIBRARY_SHAPES``: the kernel (``perm_gossip_run``), the
+    library call (``perm_yardstick``: ``T`` calls of ``torch.matmul``, TF32
+    off) and the bound, median of 3 calls each, the L2 flushed before
+    each."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for label, x, w, p, part, _ in shapes(dev, _only(LIBRARY_SHAPES, only)):
+        row = {"shape": label, "N": p.shape[1], "D": x.shape[1],
+               "T": w.shape[0], "M": p.shape[0]}
+        row["bound_ms"], row["bound_by"] = bound(x, w, p, part)
+        row["ms"] = time_ms(lambda: perm_gossip.perm_gossip_run(x, w, p, part),
+                            flush, runs=3)
+        torch.cuda.empty_cache()
+        row["library_ms"] = time_ms(perm_yardstick(w, p, part, x), flush,
+                                    runs=3)
+        _emit({"phase": "perm_library", **row})
+        rows.append(row)
+        del x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m "
                                  "matcha_tpu_torch.probes.perm_bench")
@@ -336,6 +421,9 @@ def main(argv=None) -> None:
     b = sub.add_parser("bands", help="the band path's widths against each "
                                      "other")
     b.add_argument("--only", nargs="*", default=())
+    c = sub.add_parser("library", help="the kernel, the library call and "
+                                       "the bound at LIBRARY_SHAPES")
+    c.add_argument("--only", nargs="*", default=())
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("perm_bench needs a CUDA card")
@@ -345,6 +433,8 @@ def main(argv=None) -> None:
     _emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
     if args.cmd == "ab":
         ab(args.old, args.rounds, args.only)
+    elif args.cmd == "library":
+        library(args.only)
     else:
         bands(args.only)
 

@@ -4,8 +4,10 @@ Port of ``matcha_tpu/train/config.py``: ``TrainConfig`` with the same fields
 and the same validation.  Fields of features the port does not have yet
 raise ``NotImplementedError`` when set to anything but their default (see
 ``_UNPORTED``); ``ROADMAP.md`` lists the order in which they land.
-``gossip_backend`` takes the port's four backends, ``perm``, ``dense``,
-``fused`` and ``gather`` (``make_decen`` refuses the others).  Three
+``gossip_backend`` takes the port's five backends, ``perm``, ``dense``,
+``fused``, ``gather`` and ``skip`` (``make_decen`` refuses the others), and
+``communicator`` takes ``decen``, ``centralized`` and ``none`` (``choco``
+raises ``NotImplementedError``).  Three
 defaults differ from the JAX package's, because the features behind them
 are not ported: ``gossip_backend`` is ``"perm"`` (``"auto"`` needs the
 planner's cost model), and ``telemetry`` and ``health`` are off.
@@ -67,8 +69,9 @@ class TrainConfig:
     compress_warmup_epochs: int = 0
     # gossip backend: perm (the permutation-form CUDA kernel), dense (one
     # matrix product per step), fused (dense steps; chains through the
-    # fused W-stack CUDA kernel) or gather (the oracle); skip, shard_map and
-    # auto are not ported yet
+    # fused W-stack CUDA kernel), gather (the oracle) or skip (the oracle,
+    # inactive matchings skipped on the host); shard_map and auto are not
+    # ported yet
     gossip_backend: str = "perm"
     gossip_block_d: Optional[int] = None  # perm/fused kernel tile cap
     gossip_w_window: int = 1  # perm/fused steps per window (exact)
@@ -84,8 +87,8 @@ class TrainConfig:
     # logging / checkpointing
     save: bool = False
     savePath: str = "runs"
-    checkpoint_every: int = 0
-    resume: Optional[str] = None
+    checkpoint_every: int = 0  # epochs; 0 = disabled
+    resume: Optional[str] = None  # checkpoint dir to resume from
     eval_every: int = 1
     # test-set slice per evaluation call, per worker; 0 = auto-size
     eval_batch: int = 0
@@ -228,6 +231,10 @@ class TrainConfig:
             raise ValueError(
                 f"membership_deadline must be > 0, got "
                 f"{self.membership_deadline}")
+        if self.communicator == "choco":
+            raise NotImplementedError(
+                "communicator 'choco' is not ported yet (ROADMAP.md, Queue "
+                "1: CHOCO); the port has 'decen', 'centralized' and 'none'")
         unported = [f for f, default in _UNPORTED.items()
                     if getattr(self, f) != default]
         if unported:
@@ -240,16 +247,12 @@ class TrainConfig:
 # fields of features not ported yet, with the only value the port accepts
 _UNPORTED = {
     "plan": None,
-    "communicator": "decen",
     "compress_warmup_epochs": 0,
     "gossip_measured_vs_ceiling": None,
     "gossip_measured_source": None,
     "overlap": "off",
     "staleness": 1,
     "local_steps": 1,
-    "save": False,
-    "checkpoint_every": 0,
-    "resume": None,
     "fault_plan": None,
     "max_recoveries": 0,
     "membership_trace": None,

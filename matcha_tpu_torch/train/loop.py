@@ -1,9 +1,12 @@
 """The training loop.
 
 Port of ``matcha_tpu/train/loop.py``: ``build_schedule`` (:79),
-``build_dataset`` (:105) and ``train`` (:132) on the slice-1 path.  It
+``build_dataset`` (:105) and ``train`` (:132) on its eager path.  It
 builds topology → schedule → communicator → model → data → optimizer,
-syncs the initial replicas, then runs the epochs.  Differences by design:
+syncs the initial replicas (or restores a checkpoint), then runs the
+epochs; each epoch ends with the evaluation, the Recorder's row and event
+(CSVs flushed every 10 epochs and at the end when ``save``), and a
+checkpoint every ``checkpoint_every`` epochs.  Differences by design:
 
 * A plain Python step loop in place of the scanned epoch.  Step metrics
   accumulate on the device and are read once per epoch, together with the
@@ -18,10 +21,14 @@ syncs the initial replicas, then runs the epochs.  Differences by design:
   backend with a ``multi_step`` (perm, fused) runs each timed chain as one
   kernel launch; under ``fused`` that is the only place the fused W-stack
   kernel runs, since every training step mixes with the dense product.
+  As in the JAX package, the ``none`` communicator runs no timer.
+* A checkpoint is copied from the card to the host only at its cadence,
+  by ``torch.save`` (``train/checkpoint.py``).
 
-Not ported yet (``TrainConfig`` refuses them): the Recorder and its journal,
-checkpoints, rollback recovery, faults, elastic membership, telemetry and
-the drift monitor, overlap/staleness and local steps.
+Not ported yet (``TrainConfig`` refuses them): CHOCO, rollback recovery,
+faults, elastic membership, telemetry and the drift monitor (so the
+journal's ``predicted`` is empty, as in the JAX package with telemetry
+off), overlap/staleness and local steps.
 """
 
 from __future__ import annotations
@@ -33,20 +40,24 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..communicator import make_decen
+from ..communicator import select_communicator
 from ..data import (
     WorkerBatches,
     normalized_zero,
     partition_indices,
+    photo_patches,
     synthetic_classification,
     synthetic_images,
+    uci_digits,
 )
 from ..models import select_model
 from ..schedule import Schedule, fixed_schedule, matcha_schedule
 from ..topology import decompose, graph_size, make_graph, select_graph
 from ..utils import resolve_device, synchronize
+from .checkpoint import restore_with_fallback, save_checkpoint
 from .config import TrainConfig
 from .lr import make_lr_schedule
+from .recorder import Recorder
 from .state import (
     TrainState,
     init_train_state,
@@ -96,26 +107,36 @@ def build_dataset(config: TrainConfig):
         return synthetic_classification(seed=config.seed, **kwargs)
     if config.dataset == "synthetic_image":
         return synthetic_images(seed=config.seed, **kwargs)
-    if config.datasetRoot is not None:
-        from ..data import load_npz
+    if config.dataset == "digits":
+        return uci_digits(seed=config.seed, **kwargs)
+    if config.dataset == "photo_patches":
+        return photo_patches(seed=config.seed, **kwargs)
+    if config.datasetRoot is None:
+        raise ValueError(
+            f"dataset '{config.dataset}' needs datasetRoot pointing at an "
+            f".npz file (no dataset is downloaded)")
+    from ..data import load_npz
 
-        return load_npz(config.datasetRoot, dataset=config.dataset)
-    raise NotImplementedError(
-        f"dataset '{config.dataset}' is not ported yet: the port builds "
-        f"'synthetic' and 'synthetic_image', or loads an .npz through "
-        f"datasetRoot (ROADMAP.md)")
+    return load_npz(config.datasetRoot, dataset=config.dataset)
 
 
 @dataclasses.dataclass
 class TrainResult:
     state: TrainState
+    recorder: Recorder
     schedule: Schedule
-    history: List[Dict]  # one dict per epoch, the JAX package's keys
+    history: List[Dict]  # one dict per epoch run, the JAX package's keys
 
 
-def train(config: TrainConfig, device=None) -> TrainResult:
+def train(config: TrainConfig, resume_dir: Optional[str] = None,
+          device=None) -> TrainResult:
     """Run ``config`` on ``device`` (default: the CUDA card; a host without
-    one raises unless ``device="cpu"`` is asked for)."""
+    one raises unless ``device="cpu"`` is asked for).
+
+    ``resume_dir`` (default ``config.resume``): a checkpoint directory.
+    The newest intact generation is restored (a damaged one is quarantined
+    and journaled, and the next-oldest tried) and the run goes on from the
+    epoch after it; ``history`` then holds the epochs run here."""
     dev = resolve_device(device)
     # f32 means f32, as in the JAX package: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,10 +159,10 @@ def train(config: TrainConfig, device=None) -> TrainResult:
                                        alpha=float(config.alpha_override))
     flags = np.asarray(schedule.flags, np.float32)
 
-    communicator = make_decen(
-        schedule, config.gossip_backend, device=dev,
-        block_d=config.gossip_block_d, w_window=config.gossip_w_window,
-        wire_dtype=config.wire_dtype)
+    communicator = select_communicator(
+        config.communicator, schedule, backend=config.gossip_backend,
+        device=dev, block_d=config.gossip_block_d,
+        w_window=config.gossip_w_window, wire_dtype=config.wire_dtype)
     model = select_model(config.model, config.dataset,
                          num_classes=dataset.num_classes,
                          num_workers=config.num_workers,
@@ -159,7 +180,33 @@ def train(config: TrainConfig, device=None) -> TrainResult:
                               lr_schedule)
     evaluate = make_eval_fn(model)
     comm_timer = (_make_comm_timer(communicator, flattener, dev)
-                  if config.measure_comm_split else None)
+                  if config.measure_comm_split
+                  and config.communicator != "none" else None)
+
+    start_epoch = 0
+    recovery_notices: List[Dict] = []
+    if resume_dir is None:
+        resume_dir = config.resume
+    if resume_dir is not None:
+        state, last_epoch = restore_with_fallback(
+            resume_dir, state, schedule=schedule, notices=recovery_notices)
+        start_epoch = last_epoch + 1
+    recorder = Recorder(config, config.num_workers)
+    if config.save and start_epoch:
+        # extend the CSVs and the journal of the run being resumed, cut
+        # back to the restored epoch
+        recorder.load_previous(start_epoch)
+    for n in recovery_notices:
+        recorder.log_event("recovery", scope="checkpoint",
+                           action="quarantine", reason=n["reason"],
+                           epoch=n["step"], quarantined=n["path"])
+    if start_epoch:
+        recorder.log_event("resume", epoch=start_epoch,
+                           config=_config_snapshot(config), predicted={})
+    else:
+        recorder.log_event("run_start", config=_config_snapshot(config),
+                           predicted={})
+    ckpt_dir = f"{config.savePath}/{config.name}_ckpt"
 
     x_train = None if config.augment else torch.as_tensor(dataset.x_train,
                                                           device=dev)
@@ -168,7 +215,7 @@ def train(config: TrainConfig, device=None) -> TrainResult:
     y_test = torch.as_tensor(dataset.y_test, device=dev).long()
 
     history: List[Dict] = []
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
         synchronize(dev)
         t0 = time.perf_counter()
         dev_sums: Dict[str, torch.Tensor] = {}
@@ -214,6 +261,15 @@ def train(config: TrainConfig, device=None) -> TrainResult:
             test_loss, test_acc = _evaluate_in_batches(
                 evaluate, x_test, y_test, eval_batch)
 
+        recorder.add_epoch(
+            epoch_time=epoch_time,
+            comp_time=epoch_time - comm_time,
+            comm_time=comm_time,
+            train_acc=epoch_metrics["accuracy"],
+            train_loss=epoch_metrics["loss"],
+            test_acc=test_acc,
+            disagreement=epoch_metrics["disagreement"],
+        )
         history.append({
             "epoch": epoch,
             **epoch_metrics,
@@ -224,7 +280,20 @@ def train(config: TrainConfig, device=None) -> TrainResult:
             "comm_encode_time": comm_encode_time,
             "comm_exchange_time": comm_time - comm_encode_time,
         })
-    return TrainResult(state, schedule, history)
+
+        if config.save and recorder.epochs_recorded % 10 == 0:
+            recorder.save()
+        if config.checkpoint_every \
+                and (epoch + 1) % config.checkpoint_every == 0:
+            t0 = time.perf_counter()
+            nbytes = save_checkpoint(ckpt_dir, state, epoch,
+                                     schedule=schedule)
+            recorder.log_event("checkpoint", epoch=epoch, path=ckpt_dir,
+                               seconds=time.perf_counter() - t0,
+                               bytes=nbytes)
+    if config.save:
+        recorder.save()
+    return TrainResult(state, recorder, schedule, history)
 
 
 def _epoch_batches(loader: WorkerBatches, epoch: int,
@@ -269,7 +338,7 @@ def _make_comm_timer(communicator, flattener, dev: torch.device,
 
     def timed(state, flags_window, m: int) -> float:
         flags = torch.as_tensor(flags_window[:m], dtype=torch.float32,
-                                device=dev)
+                                device=communicator.flags_device(dev))
         chain(state, flags)  # warm-up
         synchronize(dev)
         t0 = time.perf_counter()
@@ -304,3 +373,20 @@ def _evaluate_in_batches(evaluate, x_test: torch.Tensor, y_test: torch.Tensor,
         acc_sum = acc * w if acc_sum is None else acc_sum + acc * w
     read = (torch.stack([loss_sum, acc_sum]) / float(len(x_test))).cpu().numpy()
     return read[0].astype(np.float64), read[1].astype(np.float64)
+
+
+def _config_snapshot(config: TrainConfig) -> Dict:
+    """JSON-safe view of the config for the journal's ``run_start`` and
+    ``resume`` events (the ExpDescription's structured twin), as the JAX
+    package writes it: non-scalar fields are stringified, not dropped."""
+    out: Dict = {}
+    for field in dataclasses.fields(config):
+        v = getattr(config, field.name)
+        if isinstance(v, (str, int, float, bool, type(None))):
+            out[field.name] = v
+        elif isinstance(v, (list, tuple)) and all(
+                isinstance(x, (str, int, float, bool)) for x in v):
+            out[field.name] = list(v)
+        else:
+            out[field.name] = str(v)
+    return out

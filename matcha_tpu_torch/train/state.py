@@ -116,8 +116,9 @@ def make_train_step(
     """Build ``step(state, xb, yb) -> (state, metrics)``.
 
     ``xb: [N, B, ...]`` and ``yb: int[N, B]`` on the model's device.  The
-    activation-flag stream is moved to the device once and indexed by the
-    host cursor ``state.step``.  ``metrics``: ``loss``, ``accuracy`` and
+    activation-flag stream is moved to the device once (kept on the host
+    for a communicator with ``host_flags``) and indexed by the host cursor
+    ``state.step``.  ``metrics``: ``loss``, ``accuracy`` and
     ``disagreement`` as 0-d device tensors (no host read here), ``lr`` and
     ``active_matchings`` as host floats.
     """
@@ -126,7 +127,7 @@ def make_train_step(
 
     def step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor):
         model, opt = state.model, state.optimizer
-        dev = xb.device
+        dev = communicator.flags_device(xb.device)
         if dev not in flags_dev:
             flags_dev[dev] = torch.as_tensor(flags_host, device=dev)
         model.train()

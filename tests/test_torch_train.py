@@ -233,7 +233,8 @@ def test_train_without_a_device_needs_cuda():
             make_decen(build_schedule(TrainConfig(**CONFIG), 2), name)
 
 
-@pytest.mark.parametrize("cli_backend", ["perm", "gather", "dense", "fused"])
+@pytest.mark.parametrize("cli_backend", ["perm", "gather", "dense", "fused",
+                                         "skip"])
 def test_cli_parses_the_slice_flags(cli_backend):
     sys.path.insert(0, str(REPO))
     try:
@@ -251,11 +252,34 @@ def test_cli_parses_the_slice_flags(cli_backend):
             cfg.wire_dtype, cfg.seed) == ("resnet20", 16, 4, False, 32, 0.1,
                                           2, cli_backend, "bf16", 7)
     with pytest.raises(SystemExit):
-        train_torch.parse_args(["--backend", "skip"])
+        train_torch.parse_args(["--backend", "shard_map"])
+
+
+def test_cli_parses_the_epoch_end_flags():
+    sys.path.insert(0, str(REPO))
+    try:
+        import train_torch
+    finally:
+        sys.path.remove(str(REPO))
+    cfg, device = train_torch.parse_args(
+        ["--model", "mlp", "--dataset", "digits", "--graphid", "5",
+         "--name", "ring", "--save", "--savePath", "out",
+         "--checkpoint-every", "2", "--resume", "out/ring_ckpt",
+         "--communicator", "centralized", "--device", "cpu"])
+    assert (cfg.dataset, cfg.name, cfg.save, cfg.savePath,
+            cfg.checkpoint_every, cfg.resume, cfg.communicator, device) == (
+        "digits", "ring", True, "out", 2, "out/ring_ckpt", "centralized",
+        "cpu")
+    cfg, _ = train_torch.parse_args([])
+    assert (cfg.save, cfg.checkpoint_every, cfg.resume,
+            cfg.communicator) == (False, 0, None, "decen")
+    for bad in (["--communicator", "choco"], ["--dataset", "cifar10"]):
+        with pytest.raises(SystemExit):
+            train_torch.parse_args(bad)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("save", True), ("overlap", "1step"), ("fault_plan", {}),
+    ("max_recoveries", 1), ("overlap", "1step"), ("fault_plan", {}),
     ("membership_trace", {}), ("communicator", "choco"), ("telemetry", True),
 ])
 def test_config_refuses_unported_features(field, value):
@@ -263,7 +287,7 @@ def test_config_refuses_unported_features(field, value):
         TrainConfig(**{field: value})
 
 
-@pytest.mark.parametrize("unported", ["auto", "skip"])
+@pytest.mark.parametrize("unported", ["auto", "shard_map"])
 def test_unported_backends_raise_naming_the_roadmap(unported):
     sched = build_schedule(TrainConfig(**CONFIG), 2)
     with pytest.raises(ValueError, match="ROADMAP.md"):
@@ -307,6 +331,11 @@ def test_port_imports_nothing_of_jax():
     assert not bad, bad
 
 
+# packages the card's host lacks: the port imports none of them at import
+# time (digits and photo_patches import sklearn and PIL when built)
+ABSENT_ON_CARD_HOST = ("sklearn", "PIL", "matplotlib", "pygame", "orbax")
+
+
 def test_port_imports_with_jax_blocked():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
@@ -315,7 +344,7 @@ def test_port_imports_with_jax_blocked():
     assert "matcha_tpu_torch.probes.split_probe" in modules
     code = f"""
 import importlib, importlib.abc, sys
-BANNED = {BANNED!r}
+BANNED = {BANNED + ABSENT_ON_CARD_HOST!r}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BANNED:
@@ -325,6 +354,14 @@ for name in {modules!r} + ["train_torch", "chip_smoke"]:
     importlib.import_module(name)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked
+from matcha_tpu_torch.data import photo_patches, uci_digits
+for build, package in ((uci_digits, "sklearn"), (photo_patches, "PIL")):
+    try:
+        build()
+    except ImportError as e:
+        assert package in str(e), e
+    else:
+        raise AssertionError(build.__name__ + " built without " + package)
 print("ok", len({modules!r}))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -14,7 +14,23 @@ gossip mixed by the perm kernel::
 
 ``--backend fused`` mixes each step with one dense product ``W_t @ x`` and
 runs the comm-split timer's chains through the fused W-stack kernel;
-``--backend dense`` is the dense product alone.
+``--backend dense`` is the dense product alone; ``--backend skip`` is the
+gather oracle with inactive matchings skipped on the host.
+``--communicator centralized`` averages all workers every step (the
+AllReduce baseline), ``--communicator none`` never mixes.
+
+``--save`` writes the Recorder's CSVs and the run journal
+(``events.jsonl``) under ``{savePath}/{name}_{model}/``;
+``--checkpoint-every K`` writes a checkpoint to ``{savePath}/{name}_ckpt``
+every K epochs, and ``--resume DIR`` goes on from the newest one in DIR::
+
+    python train_torch.py --model mlp --dataset digits --graphid 5 \
+        --numworkers 8 --epoch 4 --save --checkpoint-every 1
+    python train_torch.py --model mlp --dataset digits --graphid 5 \
+        --numworkers 8 --epoch 8 --save --resume runs/experiment_ckpt
+
+``digits`` and ``photo_patches`` need scikit-learn and PIL (and read
+photographs shipped with matplotlib and pygame).
 """
 
 from __future__ import annotations
@@ -31,7 +47,8 @@ def parse_args(argv=None):
     p.add_argument("--model", default="resnet20",
                    help="resnet<depth>, res or mlp")
     p.add_argument("--dataset", default="synthetic",
-                   help="synthetic | synthetic_image")
+                   choices=["synthetic", "synthetic_image", "digits",
+                            "photo_patches"])
     p.add_argument("--numworkers", type=int, default=8)
     p.add_argument("--graphid", type=int, default=0,
                    help="zoo graph id (0-5); -1 uses --topology")
@@ -44,12 +61,23 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.8)
     p.add_argument("--epoch", type=int, default=200, dest="epochs")
     p.add_argument("--backend", default="perm",
-                   choices=["perm", "gather", "dense", "fused"],
-                   help="gossip backend (perm|gather|dense|fused)")
+                   choices=["perm", "gather", "dense", "fused", "skip"],
+                   help="gossip backend of the decen communicator")
+    p.add_argument("--communicator", default="decen",
+                   choices=["decen", "centralized", "none"])
     p.add_argument("--wire-dtype", default="f32", choices=["f32", "bf16"],
                    dest="wire_dtype")
     p.add_argument("--randomSeed", "--seed", type=int, default=9001,
                    dest="seed")
+    p.add_argument("--name", default="experiment")
+    p.add_argument("--save", action="store_true",
+                   help="write the Recorder's CSVs and the run journal")
+    p.add_argument("--savePath", default="runs")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   dest="checkpoint_every",
+                   help="epochs between checkpoints (0: none)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint directory to resume from")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
     cfg = TrainConfig(
@@ -57,8 +85,10 @@ def parse_args(argv=None):
         graphid=None if args.graphid < 0 else args.graphid,
         topology=args.topology, matcha=args.matcha, budget=args.budget,
         batch_size=args.bs, lr=args.lr, epochs=args.epochs,
-        gossip_backend=args.backend, wire_dtype=args.wire_dtype,
-        seed=args.seed)
+        gossip_backend=args.backend, communicator=args.communicator,
+        wire_dtype=args.wire_dtype, seed=args.seed, name=args.name,
+        save=args.save, savePath=args.savePath,
+        checkpoint_every=args.checkpoint_every, resume=args.resume)
     return cfg, args.device
 
 
