@@ -136,18 +136,38 @@ raises and the script exits non-zero:
    state, bitwise (every parameter, batch-norm and momentum buffer, the
    step); a run resumed from the epoch-0 checkpoint in the same folder
    (K1 launched for one epoch; epoch 1's loss, disagreement and test loss
-   within 1e-4 relative of the uninterrupted run's, both runs on cuDNN's
-   deterministic algorithms; the CSVs cut back to 2 rows, not 3).  The
-   host seconds of each Recorder flush and each checkpoint save and
-   restore, with the checkpoint's bytes.
+   within 1e-4 relative of the uninterrupted run's and its final state
+   bitwise, on ``train()``'s own deterministic cuDNN; the CSVs cut back
+   to 2 rows, not 3).  The host seconds of each Recorder flush and each
+   checkpoint save and restore, with the checkpoint's bytes; and the
+   spread of two uninterrupted runs on cuDNN's default algorithms.
    communicators — one epoch each of the centralized and ``none``
    communicators and of decen on the skip backend at the slice's width:
    finite, no kernel launched, the centralized rows bitwise identical after
    every step.
-12. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
-    fused_gossip per path ×6, split_gossip), then the
-    ``nvidia-smi`` line.
-13. last line: ``{"ok": true, "device": {...}}``.
+12. determinism — what ``train()``'s deterministic cuDNN costs: the
+   slice's steady step on the default and the deterministic algorithms,
+   alternated, 5 rounds of 20 steps each way.
+   choco — CHOCO at BASELINE.json config 4's shape (ResNet-20, 64 workers
+   on a generated Erdős–Rényi graph, MATCHA budget 0.5, batch 32, top-k
+   at ratio 0.9) through ``train()``, 2 epochs of 4 steps with a
+   checkpoint every epoch: finite, ``comm_encode_time > 0``, the run
+   resumed from epoch 0 bitwise the uninterrupted one (the ``{x̂, s}``
+   carry included), a small run on the card against the CPU (1e-4); then
+   one ``make_choco`` step at ``[64, 273258]`` (events, the profiler's
+   top-k / scatter / rest split, the byte bound) and one step each of
+   ``random_k``, ``top_k_q8`` (k distinct indices a row) and a bf16 wire.
+   models — VGG-16 (8 workers, zoo graph 0), WRN-28-10 (16 workers, zoo
+   graph 4, 100 classes) and the ImageNet ResNet-50 (4 workers, 224×224,
+   1,000 classes) through ``train()`` on the perm backend, one epoch of 2
+   steps (K1 launched 4 times each); each model's second step and peak
+   memory, also on cuDNN's default algorithms, WRN-28-10 also with
+   ``remat`` and with ``grad_chunk=4``; K1 at
+   each model's D, T = 1, against its byte bound.
+13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
+    fused_gossip per path ×6, split_gossip; K1's launches by entry point,
+    the models' runs included), then the ``nvidia-smi`` line.
+14. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1397,17 +1417,12 @@ STEP_PARTS = (
 )
 
 
-def phase_profile(dev, steps: int = 20, profiled: int = 5):
-    """The slice's training step in steady state, outside ``train()``'s
-    epoch bookkeeping: ``steps`` steps on the host clock after 3 warm-up
-    steps, then ``profiled`` steps under ``torch.profiler``, whose kernels
-    are summed by part of the step.  One seeded batch on the card stands in
-    for the loader.  The card's idle share is 1 − (union of the kernels'
-    intervals) / wall time of the profiled steps."""
-    from torch.profiler import ProfilerActivity, profile
-
+def slice_stepper(dev, iterations: int):
+    """The slice's model, optimizer and perm communicator on the card, its
+    step function and one seeded batch standing in for the loader:
+    ``(state, step, xb, yb)``."""
     cfg = slice_config(1)
-    sched = build_schedule(cfg, 3 + steps + profiled)
+    sched = build_schedule(cfg, iterations)
     comm = make_decen(sched, "perm", device=dev)
     opt = make_optimizer(make_lr_schedule(cfg.lr, 4))
     model = select_model("resnet20", "synthetic_image", num_workers=16)
@@ -1417,6 +1432,19 @@ def phase_profile(dev, steps: int = 20, profiled: int = 5):
     g = torch.Generator(device=dev).manual_seed(SEED)
     xb = torch.randn(16, 32, 32, 32, 3, generator=g, device=dev)
     yb = torch.randint(0, 10, (16, 32), generator=g, device=dev)
+    return state, step, xb, yb
+
+
+def phase_profile(dev, steps: int = 20, profiled: int = 5):
+    """The slice's training step in steady state, outside ``train()``'s
+    epoch bookkeeping: ``steps`` steps on the host clock after 3 warm-up
+    steps, then ``profiled`` steps under ``torch.profiler``, whose kernels
+    are summed by part of the step.  One seeded batch on the card stands in
+    for the loader.  The card's idle share is 1 − (union of the kernels'
+    intervals) / wall time of the profiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, xb, yb = slice_stepper(dev, 3 + steps + profiled)
     for _ in range(3):
         state, _ = step(state, xb, yb)
     torch.cuda.synchronize()
@@ -1526,29 +1554,39 @@ def phase_epoch_end(dev):
     valid); a ``save_checkpoint``/``restore_checkpoint`` round trip of
     its live state, bitwise; a run resumed from the epoch-0 checkpoint in
     the same folder, whose epoch 1 agrees with the uninterrupted run's to
-    1e-4 relative and whose CSVs hold 2 rows, not 3.  Both runs take
-    cuDNN's deterministic algorithms: its default ones sum in another order
-    from run to run, and two uninterrupted runs with them part by far more
-    than 1e-4 at epoch 1, whose test loss is in the thousands at lr 0.8
-    (printed as ``default_cudnn_spread``; ``PERF.md`` § 6).
-    Whether the resumed run's final state is bitwise the uninterrupted
-    run's is printed.
+    1e-4 relative, whose final state (parameters, batch-norm and momentum
+    buffers) is bitwise the uninterrupted run's, and whose CSVs hold 2
+    rows, not 3.  ``train()`` alone makes the runs reproducible: it
+    selects cuDNN's deterministic algorithms.  Its default ones sum in
+    another order from run to run, and two uninterrupted runs with them
+    part by far more than 1e-4 at epoch 1, whose test loss is in the
+    thousands at lr 0.8 (printed as ``default_cudnn_spread``).
     Prints the host seconds of each Recorder flush and each checkpoint
     save and restore, with the checkpoint's bytes."""
     bpe = 2048 // 16 // 32
-    spread = cudnn_spread(dev)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        return _epoch_end(dev, bpe, spread)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    return _epoch_end(dev, bpe, cudnn_spread(dev))
 
 
 def cudnn_spread(dev) -> dict:
     """The relative gap, per metric and epoch, between two uninterrupted
-    2-epoch runs of the slice on cuDNN's default algorithms."""
-    a, b = (train(slice_config(2), device=dev).history for _ in range(2))
+    2-epoch runs of the slice on cuDNN's default algorithms.  ``train()``
+    selects the deterministic ones itself (``loop._reproducible_numerics``),
+    so for these two runs that switch is replaced by one that sets the
+    defaults (deterministic and benchmark mode off)."""
+    from matcha_tpu_torch.train import loop
+
+    reproducible = loop._reproducible_numerics
+
+    def defaults():
+        reproducible()
+        torch.backends.cudnn.deterministic = False
+
+    loop._reproducible_numerics = defaults
+    try:
+        a, b = (train(slice_config(2), device=dev).history for _ in range(2))
+    finally:
+        loop._reproducible_numerics = reproducible
+        reproducible()
     return {key: [abs(x[key] - y[key]) / max(abs(y[key]), 1e-12)
                   for x, y in zip(a, b)]
             for key in ("loss", "disagreement", "test_loss_mean")}
@@ -1621,7 +1659,11 @@ def _epoch_end(dev, bpe: int, spread: dict):
                 raise AssertionError(f"resumed epoch 1 {key}: {a} vs {b}")
         check_csvs(folder, 2)
         final = state_tensors(resumed.state)
-        same_final = all(same_bits(final[k], v) for k, v in want.items())
+        differ = [k for k, v in want.items() if not same_bits(final[k], v)]
+        if differ:
+            raise AssertionError(f"the resumed run's final state is not "
+                                 f"bitwise the uninterrupted run's: "
+                                 f"{differ[:4]}")
         emit({"phase": "epoch_end", "launches": launches,
               "expected_launches": expected,
               "csvs": len(csv_rows(folder)), "journal": kinds,
@@ -1632,7 +1674,7 @@ def _epoch_end(dev, bpe: int, spread: dict):
                              "bitwise": True},
               "resumed": {"launches": resumed_launches,
                           "rel_err_epoch1": rel,
-                          "final_state_bitwise": same_final,
+                          "final_state_bitwise": True,
                           "recorder_flush_seconds":
                               resumed.recorder.flush_seconds,
                           "journal": [e["kind"] for e in
@@ -1695,6 +1737,367 @@ def phase_communicators(dev):
             row["steps_checked"] = steps
         rows[label] = row
     emit({"phase": "communicators", **rows})
+    return rows
+
+
+def phase_determinism(dev, steps: int = 20, rounds: int = 5):
+    """What ``train()``'s deterministic cuDNN costs: the slice's steady
+    step (``slice_stepper``) on cuDNN's default algorithms and on its
+    deterministic ones, benchmark mode off both ways, in turns (the default
+    first in even rounds, the deterministic first in odd ones): ``rounds``
+    rounds of ``steps`` steps each way, each run after 3 warm-up steps,
+    host clock around a synchronize.  Leaves the deterministic choice
+    set, as ``train()`` does."""
+    state, step, xb, yb = slice_stepper(dev, 2 * rounds * (steps + 3) + 1)
+    ms = {"default": [], "deterministic": []}
+    order = [("default", False), ("deterministic", True)]
+    torch.backends.cudnn.benchmark = False
+    try:
+        for r in range(rounds):
+            for label, det in order if r % 2 == 0 else order[::-1]:
+                torch.backends.cudnn.deterministic = det
+                for _ in range(3):
+                    state, _ = step(state, xb, yb)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    state, _ = step(state, xb, yb)
+                torch.cuda.synchronize()
+                ms[label].append((time.perf_counter() - t0) / steps * 1e3)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    median = {k: statistics.median(v) for k, v in ms.items()}
+    emit({"phase": "determinism", "steps": steps, "rounds": rounds,
+          "ms_per_step": ms, "median_ms_per_step": median,
+          "deterministic_over_default":
+              median["deterministic"] / median["default"],
+          "nvidia_smi": nvidia_smi()})
+    return median
+
+
+def choco_config(epochs: int, **over) -> TrainConfig:
+    """BASELINE.json config 4's shape: ResNet-20 on CIFAR-shaped synthetic
+    images, 64 workers on a generated Erdős–Rényi graph, MATCHA budget
+    0.5, batch 32, CHOCO with top-k at ratio 0.9; 4 steps an epoch."""
+    kwargs = dict(model="resnet20", dataset="synthetic_image",
+                  num_workers=64, graphid=None, topology="erdos_renyi",
+                  matcha=True, budget=0.5, batch_size=32,
+                  communicator="choco", compressor="top_k",
+                  compress_ratio=0.9, epochs=epochs, seed=SEED,
+                  dataset_kwargs={"num_train": 64 * 32 * 4,
+                                  "num_test": 256})
+    kwargs.update(over)
+    return TrainConfig(**kwargs)
+
+
+def carry_tensors(state) -> dict:
+    """``state_tensors`` with the communicator's carry."""
+    out = state_tensors(state)
+    out.update({f"carry {k}": v for k, v in state.comm_carry.items()})
+    return out
+
+
+def distinct_rows(idx: torch.Tensor) -> bool:
+    """Every row of ``idx`` holds distinct indices."""
+    ordered = idx.sort(dim=1).values
+    return bool((ordered[:, 1:] != ordered[:, :-1]).all())
+
+
+# kernel-name fragments of each part of a CHOCO step, checked in order
+CHOCO_PARTS = (("top-k", ("topk", "sort", "radix", "bitonic", "select")),
+               ("scatter", ("scatter",)))
+
+
+def phase_choco(dev):
+    """CHOCO at config 4's shape through ``train()``: 2 epochs of 4 steps
+    with ``save`` and a checkpoint every epoch in a temporary savePath
+    (finite loss and disagreement, ``comm_encode_time > 0``); the run
+    resumed from the epoch-0 checkpoint, bitwise the uninterrupted one
+    (parameters, batch-norm and momentum buffers, the ``{x̂, s}`` carry,
+    the cursor); a small run on the card against the same run on the CPU
+    (ResNet-8, 8 workers, zoo graph 0: 1e-4 relative, as ``agreement``).
+    Then one ``make_choco(...).step`` at ``[64, 273258]``: CUDA events
+    (median of 20, L2 flushed), the profiler's split of 5 steps into
+    top-k / scatter / rest (L2 not flushed), and the byte bound (x, x̂
+    and s read and written once); one step each of ``random_k``,
+    ``top_k_q8`` (finite, k distinct indices a row) and a bf16 wire."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tpu_torch.communicator import make_choco
+    from matcha_tpu_torch.ops import select_compressor, top_k_ratio_size
+
+    bpe = 4
+    with tempfile.TemporaryDirectory() as root:
+        cfg = choco_config(2, save=True, savePath=root, checkpoint_every=1)
+        t0 = time.perf_counter()
+        whole = train(cfg, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for h in whole.history:
+            for key in ("loss", "disagreement", "test_loss_mean"):
+                if not math.isfinite(h[key]):
+                    raise AssertionError(f"choco epoch {h['epoch']}: {key} "
+                                         f"= {h[key]}")
+            if not h["comm_encode_time"] > 0:
+                raise AssertionError(f"choco epoch {h['epoch']}: "
+                                     f"comm_encode_time "
+                                     f"{h['comm_encode_time']}")
+        ckpt = os.path.join(root, f"{cfg.name}_ckpt")
+        epoch0 = os.path.join(root, "from_epoch0")
+        shutil.copytree(os.path.join(ckpt, "0"), os.path.join(epoch0, "0"))
+        for side in ("digest-0.json", "schedule-0.json"):
+            shutil.copy(os.path.join(ckpt, side), epoch0)
+        resumed = train(cfg, resume_dir=epoch0, device=dev)
+        torch.cuda.synchronize()
+    if [h["epoch"] for h in resumed.history] != [1]:
+        raise AssertionError(f"choco resumed epochs "
+                             f"{[h['epoch'] for h in resumed.history]}")
+    want, got = carry_tensors(whole.state), carry_tensors(resumed.state)
+    differ = [k for k in want if k not in got
+              or not same_bits(got[k], want[k])]
+    if differ or set(got) != set(want) \
+            or resumed.state.step != whole.state.step:
+        raise AssertionError(f"choco resume not bitwise: {differ[:4]}, "
+                             f"step {resumed.state.step} vs "
+                             f"{whole.state.step}")
+    for key in ("loss", "disagreement", "test_loss_mean"):
+        if resumed.history[0][key] != whole.history[1][key]:
+            raise AssertionError(f"choco resumed epoch 1 {key}")
+    sched, hist = whole.schedule, whole.history
+    del whole, resumed
+    torch.cuda.empty_cache()
+
+    small = choco_config(1, model="resnet8", num_workers=8, graphid=0,
+                         topology="ring", batch_size=4,
+                         dataset_kwargs={"num_train": 64, "num_test": 32})
+    gpu = train(small, device=dev).history[0]
+    cpu = train(small, device="cpu").history[0]
+    agree = {}
+    for key in ("loss", "disagreement", "test_loss_mean"):
+        agree[key] = abs(gpu[key] - cpu[key]) / max(abs(cpu[key]), 1e-12)
+        if agree[key] > 1e-4:
+            raise AssertionError(f"choco card vs CPU {key}: {gpu[key]} vs "
+                                 f"{cpu[key]}")
+
+    n, d, ratio = sched.num_workers, SLICE_D, 0.9
+    k = top_k_ratio_size(d, ratio)
+    flush = L2Flush(dev)
+    x = state(n, d, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    carry = {"x_hat": x + 0.01 * torch.randn(n, d, generator=g, device=dev),
+             "s": x.clone()}
+    row = next(t for t in range(sched.iterations) if sched.flags[t].any())
+    flags_t = torch.as_tensor(sched.flags[row], dtype=torch.float32,
+                              device=dev)
+    comm = make_choco(sched, ratio=ratio, device=dev)
+    run = lambda: comm.step(x, carry, flags_t)  # noqa: E731
+    step_ms = time_ms(run, flush)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        part = next((label for label, keys in CHOCO_PARTS
+                     if any(k in e.name.lower() for k in keys)), "rest")
+        parts[part] = parts.get(part, 0.0) \
+            + e.time_range.elapsed_us() / 1e3 / 5
+    bound_ms = 6 * n * d * 4 / HBM_BYTES_PER_S * 1e3
+    topk_ms = time_ms(lambda: torch.topk(x.abs(), k, dim=-1, sorted=False),
+                      flush)
+    others = {}
+    for label, kw in (("random_k", {"compressor": "random_k"}),
+                      ("top_k_q8", {"compressor": "top_k_q8"}),
+                      ("wire_bf16", {"wire_dtype": "bf16"})):
+        other = make_choco(sched, ratio=ratio, seed=SEED, device=dev, **kw)
+        c = dict(carry)
+        if "key" in other.init(x):
+            c["key"] = other.init(x)["key"]
+        out, new = other.step(x, c, flags_t)
+        if not all(bool(torch.isfinite(t).all())
+                   for t in (out, new["x_hat"], new["s"])):
+            raise AssertionError(f"choco {label}: a non-finite value")
+        entry = {"ms": time_ms(lambda: other.step(x, c, flags_t), flush)}
+        if label != "wire_bf16":
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            _, idx = select_compressor(label)(x - carry["x_hat"], ratio, gen)
+            if tuple(idx.shape) != (n, k) or not distinct_rows(idx):
+                raise AssertionError(f"choco {label}: indices "
+                                     f"{tuple(idx.shape)} not k={k} "
+                                     f"distinct a row")
+            entry["distinct_k"] = k
+        others[label] = entry
+    result = {"phase": "choco", "workers": n, "D": d, "k": k,
+              "matchings": int(sched.perms.shape[0]),
+              "alpha": float(sched.alpha), "train_seconds": seconds,
+              "ms_per_step": [h["epoch_time"] / bpe * 1e3 for h in hist],
+              "comm_ms_per_step": [h["comm_time"] / bpe * 1e3
+                                   for h in hist],
+              "comm_encode_ms_per_step": [h["comm_encode_time"] / bpe * 1e3
+                                          for h in hist],
+              "loss": [h["loss"] for h in hist],
+              "disagreement": [h["disagreement"] for h in hist],
+              "resume_bitwise": True, "card_vs_cpu_rel_err": agree,
+              "step_ms": step_ms, "step_parts_ms": parts,
+              "topk_alone_ms": topk_ms, "bound_ms": bound_ms,
+              "bound_by": "bytes", "others": others,
+              "nvidia_smi": nvidia_smi()}
+    emit(result)
+    return result
+
+
+def imagenet_npz(path: str, images: int, tests: int) -> str:
+    """A seeded ImageNet-shaped ``.npz`` (224×224×3 uint8 pixels, labels in
+    1,000 classes with class 999 present, so ``load_npz`` counts 1,000)."""
+    rng = np.random.default_rng(SEED)
+    y = rng.integers(0, 1000, images + tests).astype(np.int32)
+    y[0] = 999
+    np.savez(path, x_train=rng.integers(0, 256, (images, 224, 224, 3),
+                                        dtype=np.uint8),
+             y_train=y[:images],
+             x_test=rng.integers(0, 256, (tests, 224, 224, 3),
+                                 dtype=np.uint8),
+             y_test=y[images:])
+    return path
+
+
+def model_cells(root: str) -> list:
+    """(label, TrainConfig, classes, input shape) of the reference's other
+    models at their full widths, one epoch of 2 steps on the perm backend:
+    VGG-16 on 8 workers, zoo graph 0 (config 2); WRN-28-10 on 16 workers,
+    zoo graph 4 (the paper's ER graph), 100 classes at the CIFAR shape
+    (config 3); the ImageNet ResNet-50 at 224×224×3, 1,000 classes, on 4
+    workers of a ring (config 5's model; its 256 workers do not fit one
+    card), batch 8."""
+    common = dict(matcha=True, budget=0.5, gossip_backend="perm", epochs=1,
+                  seed=SEED)
+    return [
+        ("vgg16", TrainConfig(
+            model="vgg16", dataset="synthetic_image", num_workers=8,
+            graphid=0, batch_size=32,
+            dataset_kwargs={"num_train": 8 * 32 * 2, "num_test": 32},
+            **common), 10, (32, 32, 3)),
+        ("wrn-28-10", TrainConfig(
+            model="wrn", dataset="synthetic", num_workers=16, graphid=4,
+            batch_size=32,
+            dataset_kwargs={"num_train": 16 * 32 * 2, "num_test": 32,
+                            "shape": (32, 32, 3), "num_classes": 100},
+            **common), 100, (32, 32, 3)),
+        ("resnet50-imagenet", TrainConfig(
+            model="resnet50", dataset="imagenet",
+            datasetRoot=imagenet_npz(os.path.join(root, "imagenet.npz"),
+                                     4 * 8 * 2, 16),
+            num_workers=4, graphid=None, topology="ring", batch_size=8,
+            **common), 1000, (224, 224, 3)),
+    ]
+
+
+def model_step(dev, cfg, classes, shape, remat=False, grad_chunk=None,
+               deterministic=True):
+    """Two training steps of ``cfg``'s model on one seeded batch, through
+    ``make_train_step`` with the perm communicator of its schedule: the
+    second step's ms (host clock around a synchronize), the peak device
+    memory over both, and ``(schedule, D)`` for K1's timing.
+    ``deterministic`` off runs the steps on cuDNN's default algorithms
+    (``train()`` takes the deterministic ones)."""
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        return _model_step(dev, cfg, classes, shape, remat, grad_chunk)
+    finally:
+        torch.backends.cudnn.deterministic = True
+
+
+def _model_step(dev, cfg, classes, shape, remat, grad_chunk):
+    n, b = cfg.num_workers, cfg.batch_size
+    sched = build_schedule(cfg, 3)
+    comm = make_decen(sched, "perm", device=dev)
+    model = select_model(cfg.model, cfg.dataset, num_classes=classes,
+                         num_workers=n, input_shape=shape, remat=remat)
+    opt = make_optimizer(make_lr_schedule(0.1, 2))
+    st, flattener = init_train_state(model, n, opt, comm, seed=SEED,
+                                     device=dev)
+    step = make_train_step(opt, comm, flattener, sched.flags,
+                           grad_chunk=grad_chunk)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xb = torch.randn((n, b) + tuple(shape), generator=g, device=dev)
+    yb = torch.randint(0, classes, (n, b), generator=g, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, _ = step(st, xb, yb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, metrics = step(st, xb, yb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    loss = float(metrics["loss"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"{cfg.model}: loss {loss}")
+    row = {"ms_second_step": ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": loss}
+    return row, sched, flattener.dim
+
+
+def phase_models(dev):
+    """The reference's other models through ``train()`` on the perm
+    backend (``model_cells``): finite, and K1 launched once a step and
+    twice for the comm-split timer, as in the slice phase.  Then each
+    model's step (``model_step``: ms of the second step, peak memory),
+    WRN-28-10 with ``remat`` off and on and with ``grad_chunk=4`` against
+    none, and each also on cuDNN's default algorithms; and K1 at the model's D, T = 1 (the per-step mix): the
+    profiler's device time (L2 flushed) against its byte bound."""
+    flush = L2Flush(dev)
+    rows = {}
+    with tempfile.TemporaryDirectory() as root:
+        for label, cfg, classes, shape in model_cells(root):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = train(cfg, device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            hist = result.history[0]
+            launches = LAUNCHES["perm_gossip_dbuf"]
+            expected = 2 + timer_chains(2)
+            if launches != expected:
+                raise AssertionError(f"{label}: K1 launched {launches} "
+                                     f"times, expected {expected}")
+            for key in ("loss", "disagreement", "test_loss_mean"):
+                if not math.isfinite(hist[key]):
+                    raise AssertionError(f"{label}: {key} = {hist[key]}")
+            del result
+            torch.cuda.empty_cache()
+            variants = [("plain", {}),
+                        ("plain, cuDNN default", {"deterministic": False})]
+            if label == "wrn-28-10":
+                variants += [("remat", {"remat": True}),
+                             ("grad_chunk=4", {"grad_chunk": 4})]
+            steps = {}
+            for name, kw in variants:
+                steps[name], sched, d = model_step(dev, cfg, classes, shape,
+                                                   **kw)
+                torch.cuda.empty_cache()
+            sched, perms, partnered = _tables(sched, dev)
+            x = state(cfg.num_workers, d, dev)
+            w = torch.as_tensor(sched.alpha * sched.flags[:1],
+                                dtype=torch.float32, device=dev)
+            run = lambda: perm_gossip_run(x, w, perms, partnered)  # noqa
+            k1_bound, bound_by = bound(x, w, perms, partnered)
+            rows[label] = {
+                "workers": cfg.num_workers, "batch": cfg.batch_size,
+                "D": d, "train_seconds": seconds, "launches": launches,
+                "expected_launches": expected, "loss": hist["loss"],
+                "disagreement": hist["disagreement"], "steps": steps,
+                "k1_ms": time_ms(run, flush),
+                "k1_device_ms": device_ms(run, "perm_gossip_kernel", flush),
+                "k1_bound_ms": k1_bound, "k1_bound_by": bound_by}
+            emit({"phase": "models", "model": label, **rows[label]})
+            del x
+            torch.cuda.empty_cache()
+    emit({"phase": "models_done", "nvidia_smi": nvidia_smi()})
     return rows
 
 
@@ -1921,13 +2324,20 @@ def kernels_line(r) -> list:
     main_shape = {"perm_gossip_dbuf": r["timing"][0],    # T=1, the mix
                   "perm_gossip_stream": r["timing"][1]}  # T=64, the chain
     kernels = []
+    # K1's slab path on train()'s per-step mix: the slice, then the
+    # reference's other models at their widths
+    by_path = {"perm_gossip_dbuf": {"train() slice": r["slice"][
+        "perm_gossip_dbuf"], **{f"train() {label}": row["launches"]
+                                for label, row in r["models"].items()}},
+               "perm_gossip_stream": {"stream chain": r["stream_chain"][
+                   "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
         row = main_shape[name]
-        launches = (r["slice"] if name == "perm_gossip_dbuf"
-                    else r["stream_chain"])[name]
+        launches = sum(by_path[name].values())
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": spec["replaces"], "launches": launches,
+            "launches_by_path": by_path[name],
             "bitwise": True, "max_abs_err": r["parity"][name],
             "shape": row["shape"], "ms": row[f"{name}_ms"],
             "kernel_ms": row[f"{name}_ms"],
@@ -2100,6 +2510,9 @@ def main():
     results["split_timing"] = phase_split_timing(dev)
     results["epoch_end"] = phase_epoch_end(dev)
     results["communicators"] = phase_communicators(dev)
+    results["determinism"] = phase_determinism(dev)
+    results["choco"] = phase_choco(dev)
+    results["models"] = phase_models(dev)
     emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

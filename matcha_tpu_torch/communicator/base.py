@@ -37,7 +37,9 @@ class Communicator:
     ``multi_step_masked(flat, carry, flags, alive[N])`` is its twin under a
     constant survivor mask.  ``host_flags``: ``step`` takes its flag row
     as a host (CPU) tensor, so that it can branch on it without reading
-    the device.
+    the device.  ``encode_probe(flat, x_hat) -> x_hat'``, when present
+    (CHOCO), is the compress path alone, which the comm-split timer chains
+    to measure the encode share of the exchange.
     """
 
     name: str
@@ -46,6 +48,7 @@ class Communicator:
     multi_step: Any = None
     multi_step_masked: Any = None
     host_flags: bool = False
+    encode_probe: Any = None
 
     def flags_device(self, device: torch.device) -> torch.device:
         """Where ``step`` wants its flag rows for a state on ``device``:

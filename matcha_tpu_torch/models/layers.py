@@ -13,17 +13,22 @@ Initialization matches flax's defaults in distribution (parameter values
 cannot match: ``jax.random`` and ``torch.Generator`` give other numbers):
 kernels are LeCun-normal, truncated at two standard deviations, biases
 zero, batch-norm scale one.
+
+``remat`` is flax's ``nn.remat`` on this layout: ``torch.utils.checkpoint``
+(non-reentrant), whose recompute leaves the running statistics alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["WorkerBatchNorm2d", "WorkerConv2d", "WorkerDense"]
+__all__ = ["WorkerBatchNorm2d", "WorkerConv2d", "WorkerDense", "remat"]
 
 # flax's truncated-normal correction: the standard deviation of a unit
 # normal truncated to [-2, 2]
@@ -63,17 +68,20 @@ class WorkerConv2d(nn.Module):
 class WorkerBatchNorm2d(nn.Module):
     """``N`` batch norms over worker-major channels, with flax's statistics.
 
-    Flax keeps a *biased* running variance, ``new = 0.9·old + 0.1·batch``;
-    ``torch.nn.BatchNorm2d`` would store the unbiased one.  So the running
-    buffers are updated here, from the biased batch statistics, and the
-    normalization itself is ``F.batch_norm`` on the batch statistics (train)
-    or on the buffers (eval).
+    Flax keeps a *biased* running variance, ``new = m·old + (1−m)·batch``
+    with flax's ``momentum`` m (0.9 by default; torch's convention would
+    call that 0.1); ``torch.nn.BatchNorm2d`` would store the unbiased one.
+    So the running buffers are updated here, from the biased batch
+    statistics, and the normalization itself is ``F.batch_norm`` on the
+    batch statistics (train) or on the buffers (eval).  ``update_stats``
+    off (``remat``'s recompute) skips the update.
     """
 
     def __init__(self, num_workers: int, channels: int, momentum: float = 0.9,
                  eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(num_workers, channels))
         self.bias = nn.Parameter(torch.zeros(num_workers, channels))
         self.register_buffer("running_mean", torch.zeros(num_workers, channels))
@@ -92,6 +100,12 @@ class WorkerBatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean.reshape(-1),
                                 self.running_var.reshape(-1), weight, bias,
                                 training=False, eps=self.eps)
+        if self.update_stats:
+            self._update_running_stats(x)
+        return F.batch_norm(x, None, None, weight, bias, training=True,
+                            eps=self.eps)
+
+    def _update_running_stats(self, x: torch.Tensor) -> None:
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             m = self.momentum
@@ -101,8 +115,6 @@ class WorkerBatchNorm2d(nn.Module):
             self.running_var.copy_(
                 (self.running_var.reshape(-1) * m + var * (1.0 - m))
                 .reshape(self.running_var.shape))
-        return F.batch_norm(x, None, None, weight, bias, training=True,
-                            eps=self.eps)
 
 
 class WorkerDense(nn.Module):
@@ -133,3 +145,30 @@ def init_workers(model: nn.Module, seed: int) -> None:
         g = torch.Generator().manual_seed(int(seed) + worker)
         for layer in layers:
             layer.init_worker(worker, g)
+
+
+@contextlib.contextmanager
+def _frozen_stats(module: nn.Module):
+    """The batch norms of ``module`` skip their running-statistic update."""
+    norms = [m for m in module.modules() if isinstance(m, WorkerBatchNorm2d)]
+    for bn in norms:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in norms:
+            bn.update_stats = True
+
+
+def remat(module: nn.Module, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass instead
+    of kept (``torch.utils.checkpoint``, non-reentrant).  The recompute runs
+    the forward again; the batch norms of ``module`` skip their update
+    there, as flax's ``nn.remat`` drops the recompute's mutation, so the
+    running statistics move once a step.  Without autograd (eval) ``fn``
+    just runs."""
+    if not (module.training and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _frozen_stats(module)))

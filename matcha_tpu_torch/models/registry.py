@@ -1,8 +1,12 @@
 """Model registry with the JAX package's selection semantics.
 
-Port of ``matcha_tpu/models/registry.py`` for the models this slice ports:
-``resnet<depth>`` (CIFAR layout), the reference alias ``res`` and ``mlp``.
-VGG, WideResNet and the ImageNet ResNet are not ported yet.  The port's
+Port of ``matcha_tpu/models/registry.py``, after ``util.select_model``
+(the reference's ``util.py:256-273``): ``res`` is ResNet-50 on cifar10,
+ResNet-18 on the other datasets and the ImageNet ResNet-18 on imagenet;
+``resnet<depth>`` takes the ImageNet layout on imagenet and the CIFAR one
+elsewhere; ``VGG``/``vgg`` is VGG-16, ``vgg<depth>`` sets the depth;
+``wrn`` is WideResNet-28-10, ``wrn-<depth>-<k>`` sets both; ``mlp``.  The
+class count follows the dataset unless given (quirk Q6 fixed).  The port's
 models are built for a number of stacked workers and an input shape, since
 a torch module fixes its widths at construction (flax infers them at init).
 """
@@ -15,7 +19,9 @@ from typing import Tuple
 import torch.nn as nn
 
 from .mlp import MLP
-from .resnet import ResNet
+from .resnet import ResNet, ResNetImageNet
+from .vgg import VGG
+from .wrn import WideResNet
 
 __all__ = ["available_models", "dataset_input_shape", "dataset_num_classes",
            "select_model"]
@@ -58,33 +64,44 @@ def select_model(
     *,
     num_workers: int = 1,
     input_shape: Tuple[int, ...] | None = None,
+    remat: bool = False,
 ) -> nn.Module:
     """Build a model by registry name for ``num_workers`` stacked workers.
 
     ``input_shape`` is one example's NHWC shape (default: the dataset's).
-    """
+    ``remat`` recomputes the conv models' blocks (VGG: pool-to-pool
+    segments) in the backward pass; the MLP ignores it, as in the JAX
+    package."""
     classes = num_classes if num_classes is not None else dataset_num_classes(dataset)
     shape = tuple(input_shape) if input_shape is not None \
         else dataset_input_shape(dataset)
+    conv = dict(num_classes=classes, num_workers=num_workers, remat=remat)
     lname = name.lower()
     if name == "res" or lname.startswith("resnet"):
-        if dataset == "imagenet":
-            raise NotImplementedError(
-                "the 4-stage ImageNet ResNet is not ported yet (ROADMAP.md)")
         if name == "res":  # reference depth policy (util.py:258-265)
             depth = 50 if dataset == "cifar10" else 18
         else:
             depth = int(lname[len("resnet"):])
-        return ResNet(depth=depth, num_classes=classes,
-                      num_workers=num_workers, in_channels=shape[-1])
+        # imagenet gets the 4-stage 7x7-stem layout, CIFAR the 3-stage one
+        layout = ResNetImageNet if dataset == "imagenet" else ResNet
+        return layout(depth=depth, in_channels=shape[-1], **conv)
+    if name == "VGG" or lname == "vgg":
+        return VGG(depth=16, input_shape=shape, **conv)
+    if lname.startswith("vgg"):
+        return VGG(depth=int(lname[len("vgg"):]), input_shape=shape, **conv)
+    if lname == "wrn":
+        return WideResNet(depth=28, widen_factor=10, in_channels=shape[-1],
+                          **conv)
+    if lname.startswith("wrn-"):
+        depth, widen = lname[len("wrn-"):].split("-")
+        return WideResNet(depth=int(depth), widen_factor=int(widen),
+                          in_channels=shape[-1], **conv)
     if lname == "mlp":
         return MLP(num_classes=classes, num_workers=num_workers,
                    in_features=math.prod(shape))
-    if lname.startswith(("vgg", "wrn")):
-        raise NotImplementedError(
-            f"model '{name}' is not ported yet (ROADMAP.md)")
     raise KeyError(f"unknown model '{name}'; have {available_models()}")
 
 
 def available_models():
-    return ["res", "resnet<depth>", "mlp"]
+    return ["res", "resnet<depth>", "VGG", "vgg<depth>", "wrn", "wrn-<d>-<k>",
+            "mlp"]

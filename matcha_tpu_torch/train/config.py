@@ -6,10 +6,9 @@ raise ``NotImplementedError`` when set to anything but their default (see
 ``_UNPORTED``); ``ROADMAP.md`` lists the order in which they land.
 ``gossip_backend`` takes the port's five backends, ``perm``, ``dense``,
 ``fused``, ``gather`` and ``skip`` (``make_decen`` refuses the others), and
-``communicator`` takes ``decen``, ``centralized`` and ``none`` (``choco``
-raises ``NotImplementedError``).  Three
-defaults differ from the JAX package's, because the features behind them
-are not ported: ``gossip_backend`` is ``"perm"`` (``"auto"`` needs the
+``communicator`` takes ``decen``, ``choco``, ``centralized`` and ``none``.
+Three defaults differ from the JAX package's, because the features behind
+them are not ported: ``gossip_backend`` is ``"perm"`` (``"auto"`` needs the
 planner's cost model), and ``telemetry`` and ``health`` are off.
 """
 
@@ -18,10 +17,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from ..ops import COMPRESSOR_NAMES
+
 __all__ = ["TrainConfig"]
 
-# the JAX package's message compressors (matcha_tpu.ops.COMPRESSOR_NAMES)
-COMPRESSOR_NAMES = ("top_k", "random_k", "top_k_q8", "top_k_approx")
 
 @dataclasses.dataclass
 class TrainConfig:
@@ -231,10 +230,6 @@ class TrainConfig:
             raise ValueError(
                 f"membership_deadline must be > 0, got "
                 f"{self.membership_deadline}")
-        if self.communicator == "choco":
-            raise NotImplementedError(
-                "communicator 'choco' is not ported yet (ROADMAP.md, Queue "
-                "1: CHOCO); the port has 'decen', 'centralized' and 'none'")
         unported = [f for f, default in _UNPORTED.items()
                     if getattr(self, f) != default]
         if unported:
@@ -247,7 +242,6 @@ class TrainConfig:
 # fields of features not ported yet, with the only value the port accepts
 _UNPORTED = {
     "plan": None,
-    "compress_warmup_epochs": 0,
     "gossip_measured_vs_ceiling": None,
     "gossip_measured_source": None,
     "overlap": "off",
@@ -260,8 +254,6 @@ _UNPORTED = {
     "telemetry": False,
     "health": False,
     "trace_dir": None,
-    "remat": False,
-    "grad_chunk": None,
     "scan_chunk": None,
     "devices": None,
 }

@@ -21,14 +21,20 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   backend with a ``multi_step`` (perm, fused) runs each timed chain as one
   kernel launch; under ``fused`` that is the only place the fused W-stack
   kernel runs, since every training step mixes with the dense product.
-  As in the JAX package, the ``none`` communicator runs no timer.
+  CHOCO's compress path is timed alone too (``comm_encode_time``).  As in
+  the JAX package, the ``none`` communicator runs no timer.
+* CHOCO's compression warmup (``compress_warmup_epochs``): each distinct
+  ramped ratio gets its own communicator, step and timer, built at its
+  first epoch; the ``{x̂, s}`` carry crosses the stages unchanged.
 * A checkpoint is copied from the card to the host only at its cadence,
   by ``torch.save`` (``train/checkpoint.py``).
+* cuDNN runs its deterministic algorithms, so a run on the card is
+  reproducible and a resumed run equals the uninterrupted one bitwise.
 
-Not ported yet (``TrainConfig`` refuses them): CHOCO, rollback recovery,
-faults, elastic membership, telemetry and the drift monitor (so the
-journal's ``predicted`` is empty, as in the JAX package with telemetry
-off), overlap/staleness and local steps.
+Not ported yet (``TrainConfig`` refuses them): rollback recovery, faults,
+elastic membership, telemetry and the drift monitor (so the journal's
+``predicted`` is empty, as in the JAX package with telemetry off),
+overlap/staleness and local steps.
 """
 
 from __future__ import annotations
@@ -128,6 +134,17 @@ class TrainResult:
     history: List[Dict]  # one dict per epoch run, the JAX package's keys
 
 
+def _reproducible_numerics() -> None:
+    """f32 means f32, as in the JAX package: no TF32 in matmuls or convs.
+    And a run is reproducible, as the JAX package's runs are: cuDNN takes
+    its deterministic algorithms and does not benchmark for the fastest
+    (their cost per step: ``PERF.md`` § 5)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def train(config: TrainConfig, resume_dir: Optional[str] = None,
           device=None) -> TrainResult:
     """Run ``config`` on ``device`` (default: the CUDA card; a host without
@@ -138,9 +155,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     and journaled, and the next-oldest tried) and the run goes on from the
     epoch after it; ``history`` then holds the epochs run here."""
     dev = resolve_device(device)
-    # f32 means f32, as in the JAX package: no TF32 in matmuls or convs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _reproducible_numerics()
 
     dataset = build_dataset(config)
     parts = partition_indices(
@@ -159,14 +174,20 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                                        alpha=float(config.alpha_override))
     flags = np.asarray(schedule.flags, np.float32)
 
-    communicator = select_communicator(
-        config.communicator, schedule, backend=config.gossip_backend,
-        device=dev, block_d=config.gossip_block_d,
-        w_window=config.gossip_w_window, wire_dtype=config.wire_dtype)
+    def make_comm(ratio: float):
+        return select_communicator(
+            config.communicator, schedule, ratio=ratio,
+            consensus_lr=config.consensus_lr, backend=config.gossip_backend,
+            compressor=config.compressor, seed=config.seed, device=dev,
+            block_d=config.gossip_block_d, w_window=config.gossip_w_window,
+            wire_dtype=config.wire_dtype)
+
+    communicator = make_comm(config.compress_ratio)
     model = select_model(config.model, config.dataset,
                          num_classes=dataset.num_classes,
                          num_workers=config.num_workers,
-                         input_shape=dataset.x_train.shape[1:])
+                         input_shape=dataset.x_train.shape[1:],
+                         remat=config.remat)
     lr_schedule = make_lr_schedule(
         config.lr, bpe, base_lr=config.base_lr, warmup=config.warmup,
         warmup_epochs=config.warmup_epochs, decay_epochs=config.decay_epochs,
@@ -176,12 +197,28 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     state, flattener = init_train_state(
         model, config.num_workers, optimizer, communicator, seed=config.seed,
         sync_init=config.sync_init, device=dev)
-    step_fn = make_train_step(optimizer, communicator, flattener, flags,
-                              lr_schedule)
     evaluate = make_eval_fn(model)
-    comm_timer = (_make_comm_timer(communicator, flattener, dev)
-                  if config.measure_comm_split
-                  and config.communicator != "none" else None)
+
+    def make_stage(comm):
+        """(step, comm-split timer) over ``comm``."""
+        step = make_train_step(optimizer, comm, flattener, flags, lr_schedule,
+                               grad_chunk=config.grad_chunk)
+        timer = (_make_comm_timer(comm, flattener, dev)
+                 if config.measure_comm_split
+                 and config.communicator != "none" else None)
+        return step, timer
+
+    # CHOCO's compression warmup: epochs below compress_warmup_epochs run
+    # at a linearly ramped drop ratio (0 at epoch 0, dense-rate consensus
+    # while the replicas are far apart); each distinct ratio is its own
+    # stage, and the {x̂, s} carry crosses the stages unchanged
+    def effective_ratio(epoch: int) -> float:
+        w = config.compress_warmup_epochs
+        if not w or epoch >= w:
+            return config.compress_ratio
+        return config.compress_ratio * (epoch / w)
+
+    stages = {config.compress_ratio: make_stage(communicator)}
 
     start_epoch = 0
     recovery_notices: List[Dict] = []
@@ -216,6 +253,10 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
 
     history: List[Dict] = []
     for epoch in range(start_epoch, config.epochs):
+        ratio = effective_ratio(epoch)
+        if ratio not in stages:
+            stages[ratio] = make_stage(make_comm(ratio))
+        step_fn, comm_timer = stages[ratio]
         synchronize(dev)
         t0 = time.perf_counter()
         dev_sums: Dict[str, torch.Tensor] = {}
@@ -328,34 +369,51 @@ def _make_comm_timer(communicator, flattener, dev: torch.device,
     lengths (k and 2k) are timed and the difference isolates the per-step
     rate from the fixed launch overhead, paid once per chain.  Estimate:
     ``t(n) ≈ t_2k + marginal·(n−2k)``; an epoch of at most 2k steps is
-    timed whole.  Every timed chain runs once to warm up first.  Returns
-    ``{"comm_time", "comm_encode_time"}`` (encode 0.0: no compression)."""
+    timed whole.  Every timed chain runs once to warm up first.
+
+    A communicator with an ``encode_probe`` (CHOCO) also has its compress
+    path timed alone, chained on CHOCO's own ``x̂`` update, as the
+    reference's encode-vs-sendrecv split (communicator.py:184-196).
+    Returns ``{"comm_time", "comm_encode_time"}`` (encode 0.0 for an
+    uncompressed exchange)."""
 
     def chain(state, flags):
         flat = flattener.flatten(state.params)
         out, _ = communicator.run(flat, flags, state.comm_carry)
         return out
 
-    def timed(state, flags_window, m: int) -> float:
-        flags = torch.as_tensor(flags_window[:m], dtype=torch.float32,
-                                device=communicator.flags_device(dev))
-        chain(state, flags)  # warm-up
-        synchronize(dev)
-        t0 = time.perf_counter()
-        chain(state, flags)
-        synchronize(dev)
-        return time.perf_counter() - t0
+    def encode_chain(state, flags):
+        flat = flattener.flatten(state.params)
+        probe = torch.zeros_like(flat)
+        for _ in range(flags.shape[0]):
+            probe = communicator.encode_probe(flat, probe)
+        return probe
 
-    def timer(state, flags_window) -> Dict[str, float]:
+    def extrapolate(fn, state, flags_window) -> float:
+        def timed(m: int) -> float:
+            flags = torch.as_tensor(flags_window[:m], dtype=torch.float32,
+                                    device=communicator.flags_device(dev))
+            fn(state, flags)  # warm-up
+            synchronize(dev)
+            t0 = time.perf_counter()
+            fn(state, flags)
+            synchronize(dev)
+            return time.perf_counter() - t0
+
         n = len(flags_window)
         k = min(sample_steps, max(n // 2, 1))
         if n <= 2 * k:
-            comm = timed(state, flags_window, n)
-        else:
-            t1 = timed(state, flags_window, k)
-            t2 = timed(state, flags_window, 2 * k)
-            comm = t2 + max(t2 - t1, 0.0) / k * (n - 2 * k)
-        return {"comm_time": comm, "comm_encode_time": 0.0}
+            return timed(n)
+        t1, t2 = timed(k), timed(2 * k)
+        return t2 + max(t2 - t1, 0.0) / k * (n - 2 * k)
+
+    def timer(state, flags_window) -> Dict[str, float]:
+        out = {"comm_time": extrapolate(chain, state, flags_window),
+               "comm_encode_time": 0.0}
+        if communicator.encode_probe is not None:
+            out["comm_encode_time"] = extrapolate(encode_chain, state,
+                                                  flags_window)
+        return out
 
     return timer
 

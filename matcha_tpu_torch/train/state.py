@@ -3,7 +3,7 @@
 Port of ``matcha_tpu/train/state.py`` on its eager path (no overlap,
 faults, elastic membership, run control, telemetry or local-step elision):
 ``make_optimizer`` (:100), ``init_train_state`` (:114), ``make_train_step``
-(:167) and ``make_eval_fn`` (:672).
+(:167, with ``grad_chunk``) and ``make_eval_fn`` (:672).
 
 The JAX step vmaps a per-worker loss over the worker axis.  The port's
 model holds all workers stacked, so one forward/backward serves them all:
@@ -19,6 +19,7 @@ parameters, optimizer momentum, the step cursor) and returns it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional
 
@@ -106,12 +107,33 @@ def init_train_state(model: nn.Module, num_workers: int,
     return state, flattener
 
 
+@contextlib.contextmanager
+def _worker_slab(model: nn.Module, lo: int, hi: int):
+    """Within the block, every parameter and buffer of ``model`` reads as
+    its worker rows ``lo:hi`` — views of the full tensors, so gradients and
+    running-statistic updates land in them.  The layers read their worker
+    count from their weights, so the model then runs those workers alone."""
+    swapped = []
+    for module in model.modules():
+        for store in (module._parameters, module._buffers):
+            for name, tensor in store.items():
+                if tensor is not None:
+                    swapped.append((store, name, tensor))
+                    store[name] = tensor[lo:hi]
+    try:
+        yield
+    finally:
+        for store, name, tensor in swapped:
+            store[name] = tensor
+
+
 def make_train_step(
     optimizer: OptimizerSpec,
     communicator: Communicator,
     flattener: WorkerFlattener,
     flags: np.ndarray,
     lr_schedule: Optional[Callable] = None,
+    grad_chunk: Optional[int] = None,
 ):
     """Build ``step(state, xb, yb) -> (state, metrics)``.
 
@@ -121,9 +143,44 @@ def make_train_step(
     ``state.step``.  ``metrics``: ``loss``, ``accuracy`` and
     ``disagreement`` as 0-d device tensors (no host read here), ``lr`` and
     ``active_matchings`` as host floats.
+
+    ``grad_chunk``: workers whose forward/backward runs at once.  ``None``
+    runs all N together; ``c < N`` runs N/c slabs of c workers in turn, one
+    backward each, so only c·B images' activations are live at a time.
+    Workers are independent until the gossip, so the result is the same up
+    to the order of cuDNN's sums (its algorithms may differ by group
+    count).
     """
     flags_host = np.asarray(flags, np.float32)  # [T, M]
     flags_dev = {}  # device -> tensor, placed at first use
+    n = flattener.num_workers
+    if grad_chunk is not None and not 1 <= grad_chunk <= n:
+        raise ValueError(f"grad_chunk {grad_chunk} must be in [1, {n}]")
+    if grad_chunk is not None and n % grad_chunk:
+        raise ValueError(f"grad_chunk {grad_chunk} must divide num_workers "
+                         f"{n}")
+    slabs = [(0, n)] if grad_chunk is None else [
+        (lo, lo + grad_chunk) for lo in range(0, n, grad_chunk)]
+
+    def forward_backward(model: nn.Module, xb, yb):
+        """Per-worker losses ``[N]`` and logits, detached; the gradients
+        accumulate in the parameters' ``.grad``."""
+        if len(slabs) == 1:
+            logits = model(xb)
+            losses = cross_entropy_loss(logits, yb)  # [N]
+            # the sum of the per-worker means: each worker gets exactly the
+            # gradient of its own loss
+            losses.sum().backward()
+            return losses.detach(), logits.detach()
+        losses, logits = [], []
+        for lo, hi in slabs:
+            with _worker_slab(model, lo, hi):
+                out = model(xb[lo:hi])
+                loss = cross_entropy_loss(out, yb[lo:hi])
+                loss.sum().backward()
+            losses.append(loss.detach())
+            logits.append(out.detach())
+        return torch.cat(losses), torch.cat(logits)
 
     def step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor):
         model, opt = state.model, state.optimizer
@@ -131,10 +188,8 @@ def make_train_step(
         if dev not in flags_dev:
             flags_dev[dev] = torch.as_tensor(flags_host, device=dev)
         model.train()
-        logits = model(xb)
-        losses = cross_entropy_loss(logits, yb)  # [N]
         opt.zero_grad(set_to_none=True)
-        losses.sum().backward()
+        losses, logits = forward_backward(model, xb, yb)
         lr = float(optimizer.lr_schedule(state.step))
         for group in opt.param_groups:
             group["lr"] = lr
@@ -148,8 +203,8 @@ def make_train_step(
                 flat, state.comm_carry, flags_dev[dev][t])
             flattener.unflatten_into(flat, params)
             metrics = {
-                "loss": losses.detach().mean(),
-                "accuracy": top_k_accuracy(logits.detach(), yb).mean(),
+                "loss": losses.mean(),
+                "accuracy": top_k_accuracy(logits, yb).mean(),
                 "disagreement": worker_disagreement(flat),
                 "lr": float(lr_schedule(state.step)) if lr_schedule else 0.0,
                 "active_matchings": float(flags_host[t].sum()),

@@ -196,8 +196,12 @@ def test_select_communicator_names_and_refusals():
     assert select_communicator("none").name == "none"
     with pytest.warns(UserWarning, match="block_d"):
         select_communicator("none", block_d=64)
+    assert select_communicator("choco", port,
+                               device="cpu").name == "choco[r0.9]"
+    with pytest.raises(ValueError, match="skip"):
+        select_communicator("choco", port, backend="skip", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_communicator("choco", port)
+        select_communicator("choco", port, backend="shard_map", device="cpu")
     with pytest.raises(KeyError):
         select_communicator("gossip")
 

@@ -146,12 +146,16 @@ def test_select_model_shapes(name):
 
 
 def test_select_model_refuses_unported_models():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_model("vgg16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_model("resnet18", "imagenet")
+    # every model of the JAX registry is ported; what it refuses, the port
+    # refuses: a name outside the registry, a depth outside a family
     with pytest.raises(KeyError):
         select_model("transformer")
+    with pytest.raises(ValueError):
+        select_model("vgg12")
+    with pytest.raises(ValueError):
+        select_model("resnet20", "imagenet")  # 6n+2 is CIFAR-only
+    with pytest.raises(ValueError):
+        select_model("wrn-12-2")  # not 6n+4
 
 
 def test_metrics_match_jax():

@@ -273,14 +273,15 @@ def test_cli_parses_the_epoch_end_flags():
     cfg, _ = train_torch.parse_args([])
     assert (cfg.save, cfg.checkpoint_every, cfg.resume,
             cfg.communicator) == (False, 0, None, "decen")
-    for bad in (["--communicator", "choco"], ["--dataset", "cifar10"]):
+    for bad in (["--communicator", "gossip"], ["--dataset", "cifar10"],
+                ["--compress", "--communicator", "centralized"]):
         with pytest.raises(SystemExit):
             train_torch.parse_args(bad)
 
 
 @pytest.mark.parametrize("field,value", [
     ("max_recoveries", 1), ("overlap", "1step"), ("fault_plan", {}),
-    ("membership_trace", {}), ("communicator", "choco"), ("telemetry", True),
+    ("membership_trace", {}), ("local_steps", 2), ("telemetry", True),
 ])
 def test_config_refuses_unported_features(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -19,6 +19,19 @@ gather oracle with inactive matchings skipped on the host.
 ``--communicator centralized`` averages all workers every step (the
 AllReduce baseline), ``--communicator none`` never mixes.
 
+CHOCO-SGD (``--compress``, or ``--communicator choco``) gossips compressed
+differences; ``--ratio 0.9`` keeps the top 10 % by magnitude, and
+``--compress-warmup-epochs`` ramps the ratio up from 0::
+
+    python train_torch.py --model resnet20 --dataset synthetic_image \
+        --graphid -1 --topology erdos_renyi --numworkers 64 --budget 0.5 \
+        --compress --ratio 0.9 --compressor top_k --consensus-lr 0.1
+
+``--model`` takes ``resnet<depth>``, ``res``, ``VGG``/``vgg<depth>``,
+``wrn``/``wrn-<depth>-<k>`` and ``mlp``; ``--remat`` recomputes each block
+in the backward pass, and ``--grad-chunk C`` runs the forward/backward in
+slabs of C workers (both trade time for memory, not the result).
+
 ``--save`` writes the Recorder's CSVs and the run journal
 (``events.jsonl``) under ``{savePath}/{name}_{model}/``;
 ``--checkpoint-every K`` writes a checkpoint to ``{savePath}/{name}_ckpt``
@@ -38,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 
+from matcha_tpu_torch.ops import COMPRESSOR_NAMES
 from matcha_tpu_torch.train import TrainConfig, train
 
 
@@ -45,7 +59,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", default="resnet20",
-                   help="resnet<depth>, res or mlp")
+                   help="resnet<depth>, res, VGG, vgg<depth>, wrn, "
+                        "wrn-<depth>-<k> or mlp")
     p.add_argument("--dataset", default="synthetic",
                    choices=["synthetic", "synthetic_image", "digits",
                             "photo_patches"])
@@ -64,7 +79,27 @@ def parse_args(argv=None):
                    choices=["perm", "gather", "dense", "fused", "skip"],
                    help="gossip backend of the decen communicator")
     p.add_argument("--communicator", default="decen",
-                   choices=["decen", "centralized", "none"])
+                   choices=["decen", "choco", "centralized", "none"])
+    p.add_argument("--compress", action="store_true",
+                   help="CHOCO-SGD: gossip compressed differences (the same "
+                        "as --communicator choco)")
+    p.add_argument("--ratio", type=float, default=0.9,
+                   help="CHOCO compression ratio (keep the top 1-ratio)")
+    p.add_argument("--compressor", default="top_k",
+                   choices=list(COMPRESSOR_NAMES),
+                   help="CHOCO message compressor")
+    p.add_argument("--consensus-lr", type=float, default=0.1,
+                   dest="consensus_lr", help="CHOCO's consensus step gamma")
+    p.add_argument("--compress-warmup-epochs", type=int, default=0,
+                   dest="compress_warmup_epochs",
+                   help="ramp the CHOCO ratio from 0 to --ratio over this "
+                        "many epochs (0: off)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's activations in the backward "
+                        "pass (same result, less memory)")
+    p.add_argument("--grad-chunk", type=int, default=0, dest="grad_chunk",
+                   help="run the forward/backward in slabs of this many "
+                        "workers (0: all at once)")
     p.add_argument("--wire-dtype", default="f32", choices=["f32", "bf16"],
                    dest="wire_dtype")
     p.add_argument("--randomSeed", "--seed", type=int, default=9001,
@@ -80,12 +115,22 @@ def parse_args(argv=None):
                    help="checkpoint directory to resume from")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
+    communicator = args.communicator
+    if args.compress:
+        if communicator not in ("decen", "choco"):
+            p.error(f"--compress and --communicator {communicator} are "
+                    f"mutually exclusive")
+        communicator = "choco"
     cfg = TrainConfig(
         model=args.model, dataset=args.dataset, num_workers=args.numworkers,
         graphid=None if args.graphid < 0 else args.graphid,
         topology=args.topology, matcha=args.matcha, budget=args.budget,
         batch_size=args.bs, lr=args.lr, epochs=args.epochs,
-        gossip_backend=args.backend, communicator=args.communicator,
+        gossip_backend=args.backend, communicator=communicator,
+        compress_ratio=args.ratio, compressor=args.compressor,
+        consensus_lr=args.consensus_lr,
+        compress_warmup_epochs=args.compress_warmup_epochs,
+        remat=args.remat, grad_chunk=args.grad_chunk or None,
         wire_dtype=args.wire_dtype, seed=args.seed, name=args.name,
         save=args.save, savePath=args.savePath,
         checkpoint_every=args.checkpoint_every, resume=args.resume)
