@@ -163,10 +163,24 @@ raises and the script exits non-zero:
    steps (K1 launched 4 times each); each model's second step and peak
    memory, also on cuDNN's default algorithms, WRN-28-10 also with
    ``remat`` and with ``grad_chunk=4``; K1 at
-   each model's D, T = 1, against its byte bound.
+   each model's D, T = 1, against its byte bound, its plain version and
+   the library call (one ``torch.matmul(W, x)``).
+   pipeline — the pipelined gossip schedule at the slice's width
+   (``phase_pipeline``): ``train()`` with ``overlap="1step"``, staleness
+   2 and 4, and staleness 2 with ``local_steps=2`` (finite; K1 launched
+   once per issued step plus the timer's chains, so half as often under
+   ``local_steps=2``; the final drain keeps the worker mean to f32
+   rounding); ``run_pipelined(staleness=1)`` bitwise ``run_overlapped``
+   and ``run_elided(flags, 2)`` bitwise ``run(flags[::2])`` at
+   ``[16, 273258]`` through K1, the drained ``run_overlapped`` within
+   T ulps of ``run``; a staleness-2 run resumed from its epoch-0
+   checkpoint bitwise the uninterrupted one, ring included, and resumed
+   at staleness 4 and eagerly; ms per step of eager, ``1step``,
+   ``staleness=2`` and ``local_steps=2`` in alternated rounds.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
-    the models' runs included), then the ``nvidia-smi`` line.
+    the models' and the pipelined runs included), then the ``nvidia-smi``
+    line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -218,6 +232,7 @@ from matcha_tpu_torch.topology import (
     select_graph,
 )
 from matcha_tpu_torch.models import select_model
+from matcha_tpu_torch.ops import WorkerFlattener
 from matcha_tpu_torch.obs.journal import read_journal, validate_event
 from matcha_tpu_torch.train.checkpoint import (
     restore_checkpoint,
@@ -350,6 +365,34 @@ def device_ms(fn, kernel: str, flush, runs: int = 20):
             return total / sum(e.count for e in found) / 1e3
         runs *= 2
     return None
+
+
+def single_call_device_ms(fn, kernel: str, flush, runs: int):
+    """Where ``device_ms`` found no record: one call per profiler session,
+    ``runs`` sessions, the kernel's records read from the raw events (not
+    ``key_averages``).  Returns ``(mean ms or None, census)``, the census
+    listing what the sessions' traces held on the device: the count of
+    records and the names of the first few."""
+    from torch.profiler import ProfilerActivity, profile
+
+    times, seen = [], {}
+    for _ in range(runs):
+        flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            seen[e.name[:60]] = seen.get(e.name[:60], 0) + 1
+            if kernel in e.name:
+                times.append(e.time_range.elapsed_us() / 1e3)
+    census = {"sessions": runs, "device_records": sum(seen.values()),
+              "names": sorted(seen.items(), key=lambda kv: -kv[1])[:6],
+              "kernel_records": len(times)}
+    return (statistics.mean(times) if times else None), census
 
 
 def dense_yardstick(sched, weights, x):
@@ -2048,8 +2091,11 @@ def phase_models(dev):
     twice for the comm-split timer, as in the slice phase.  Then each
     model's step (``model_step``: ms of the second step, peak memory),
     WRN-28-10 with ``remat`` off and on and with ``grad_chunk=4`` against
-    none, and each also on cuDNN's default algorithms; and K1 at the model's D, T = 1 (the per-step mix): the
-    profiler's device time (L2 flushed) against its byte bound."""
+    none, and each also on cuDNN's default algorithms; and K1 at the
+    model's D, T = 1 (the per-step mix): the profiler's device time (L2
+    flushed) against its byte bound, with its plain version and the
+    library call (``perm_yardstick``: one ``torch.matmul(W_t, x)``), 5
+    runs each."""
     flush = L2Flush(dev)
     rows = {}
     with tempfile.TemporaryDirectory() as root:
@@ -2086,6 +2132,11 @@ def phase_models(dev):
                                 dtype=torch.float32, device=dev)
             run = lambda: perm_gossip_run(x, w, perms, partnered)  # noqa
             k1_bound, bound_by = bound(x, w, perms, partnered)
+            plain_ms = time_ms(lambda: perm_gossip_plain(x, w, perms,
+                                                         partnered),
+                               flush, runs=5)
+            library_ms = time_ms(perm_yardstick(w, perms, partnered, x),
+                                 flush, runs=5)
             rows[label] = {
                 "workers": cfg.num_workers, "batch": cfg.batch_size,
                 "D": d, "train_seconds": seconds, "launches": launches,
@@ -2093,12 +2144,287 @@ def phase_models(dev):
                 "disagreement": hist["disagreement"], "steps": steps,
                 "k1_ms": time_ms(run, flush),
                 "k1_device_ms": device_ms(run, "perm_gossip_kernel", flush),
+                "k1_plain_ms": plain_ms, "k1_library_ms": library_ms,
                 "k1_bound_ms": k1_bound, "k1_bound_by": bound_by}
             emit({"phase": "models", "model": label, **rows[label]})
             del x
             torch.cuda.empty_cache()
     emit({"phase": "models_done", "nvidia_smi": nvidia_smi()})
     return rows
+
+
+PIPELINES = (("1step", {"overlap": "1step"}),
+             ("staleness=2", {"overlap": "1step", "staleness": 2}),
+             ("staleness=4", {"overlap": "1step", "staleness": 4}),
+             ("staleness=2, local_steps=2",
+              {"overlap": "1step", "staleness": 2, "local_steps": 2}))
+TIMED_PIPELINES = (("eager", {}), ("1step", {"overlap": "1step"}),
+                   ("staleness=2", {"overlap": "1step", "staleness": 2}),
+                   ("local_steps=2", {"local_steps": 2}))
+
+
+def flat_params(state) -> torch.Tensor:
+    """The ``[N, D]`` parameter stack in the flattener's order (the order
+    of the pending deltas' columns)."""
+    params = state.params
+    return WorkerFlattener(params).flatten(params)
+
+
+class PendingWatch:
+    """Wraps ``loop._drain_mix_pending`` and ``loop._reconcile_mix_pending``
+    for the runs in its block and records, around each, the worker mean of
+    the parameters and the column means of the in-flight deltas: a drain
+    moves the worker mean by their sum, which is 0 up to f32 rounding.
+    ``check(per_delta)`` raises where the mean after differs from the mean
+    before plus those column means, or where they are not 0, by more than
+    ``per_delta`` times the largest parameter per delta in flight, and
+    returns the worst ratio."""
+
+    def __init__(self):
+        from matcha_tpu_torch.train import loop
+
+        self.loop, self.records = loop, []
+
+    def _wrap(self, name):
+        inner = getattr(self.loop, name)
+
+        def wrapped(state, *args, **kwargs):
+            pend = state.mix_pending
+            delta_mean = (None if not isinstance(pend, torch.Tensor) else
+                          pend.reshape(pend.shape[0], -1, flat_params(state)
+                                       .shape[1]).sum(1).mean(0))
+            before = flat_params(state).mean(0)
+            out = inner(state, *args, **kwargs)
+            if delta_mean is not None:
+                after = flat_params(out)
+                self.records.append((name, before, delta_mean,
+                                     after.mean(0),
+                                     float(after.abs().max()),
+                                     pend.shape[1] if pend.ndim == 3 else 1))
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.loop, name) for name in
+                      ("_drain_mix_pending", "_reconcile_mix_pending")}
+        for name in self.saved:
+            setattr(self.loop, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.loop, name, fn)
+
+    def check(self, per_delta: float = 1e-6) -> float:
+        worst = 0.0
+        for name, before, delta_mean, after, scale, k in self.records:
+            bar = per_delta * k * scale
+            drift = float((after - before - delta_mean).abs().max())
+            pending = float(delta_mean.abs().max())
+            if drift > bar or pending > bar:
+                raise AssertionError(
+                    f"{name}: the worker mean after differs by {drift} from "
+                    f"the mean before plus the deltas' column means "
+                    f"({pending}), bar {bar}")
+            worst = max(worst, drift / scale, pending / scale)
+        return worst
+
+
+def pipeline_run(dev, label: str, over: dict, **kw):
+    """``train()`` of the slice, 2 epochs, with the pipeline ``over`` and
+    the other fields ``kw``: finite, K1 launched once per issued
+    (unthinned) step plus the timer's chains, returned drained.  Returns
+    ``(result, row)``."""
+    bpe = 2048 // 16 // 32
+    cfg = dataclasses.replace(slice_config(2), **over, **kw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    first = cfg.epochs - len(result.history)
+    issued = sum(1 for t in range(first * bpe, cfg.epochs * bpe)
+                 if t % cfg.local_steps == 0)
+    expected = issued + len(result.history) * timer_chains(bpe)
+    launches = LAUNCHES["perm_gossip_dbuf"]
+    if launches != expected:
+        raise AssertionError(f"{label}: K1 launched {launches} times, "
+                             f"expected {expected} (issued steps + timer "
+                             f"chains)")
+    for h in result.history:
+        for key in ("loss", "disagreement", "test_loss_mean"):
+            if not math.isfinite(h[key]):
+                raise AssertionError(f"{label}: epoch {h['epoch']} {key} = "
+                                     f"{h[key]}")
+    if not bool(torch.isfinite(flat_params(result.state)).all()):
+        raise AssertionError(f"{label}: final parameters not finite")
+    pend = result.state.mix_pending
+    if isinstance(pend, torch.Tensor) and bool(pend.any()):
+        raise AssertionError(f"{label}: train() returned an undrained "
+                             f"pipeline")
+    return result, {"launches": launches, "expected_launches": expected,
+                    "issued_steps": issued, "seconds": seconds,
+                    "ms_per_step": [h["epoch_time"] / bpe * 1e3
+                                    for h in result.history],
+                    "loss": [h["loss"] for h in result.history],
+                    "disagreement": [h["disagreement"]
+                                     for h in result.history]}
+
+
+def phase_pipeline(dev, tables, rounds: int = 3):
+    """The pipelined schedule at the slice's width (``slice_config``: 2
+    epochs of 4 steps, perm backend, f32 wire):
+
+    1. ``train()`` with ``overlap="1step"``, ``staleness`` 2 and 4, and
+       ``staleness=2, local_steps=2`` (``pipeline_run``: finite, K1 launched
+       once per issued step plus the timer's chains, returned drained);
+       the final drain moves the worker mean by the column means of the
+       in-flight deltas, and those are 0 up to f32 rounding
+       (``PendingWatch``: 1e-6 of the largest parameter per delta).
+    2. The consensus laws through K1 at ``[16, 273258]``, 16 steps of the
+       slice's schedule: ``run_pipelined(staleness=1)`` bitwise
+       ``run_overlapped``, ``run_elided(flags, 2)`` bitwise ``run`` on the
+       compacted stream (8 one-step launches against one launch of 8
+       steps), and the drained ``run_overlapped`` within T·2⁻²³·max|ref|
+       of ``run`` (about an ulp a step); K1's launches of each chain.
+    3. Resume: the ``staleness=2`` run checkpoints every epoch; a run
+       resumed from its epoch-0 checkpoint ends bitwise equal to it (every
+       parameter, batch-norm and momentum buffer), and its epoch-1
+       checkpoint holds the same ring, bit for bit.  The same checkpoint
+       resumed with ``staleness=4`` and with ``overlap="off"``: finite,
+       and the reconcile's drain keeps the worker mean (as in 1).
+    4. ms per step of the second epoch for eager, ``1step``,
+       ``staleness=2`` and ``local_steps=2``, ``rounds`` rounds, the order
+       reversed every other round, with K1's launches per step.
+    """
+    bpe = 2048 // 16 // 32
+    t_phase = time.perf_counter()
+    out = {"runs": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "pipe_ckpt")
+        with PendingWatch() as watch:
+            for label, over in PIPELINES:
+                kw = ({"checkpoint_every": 1, "savePath": root,
+                       "name": "pipe"} if label == "staleness=2" else {})
+                result, row = pipeline_run(dev, label, over, **kw)
+                if label == "staleness=2":
+                    whole = state_tensors(result.state)
+                    ring1 = torch.load(os.path.join(ckpt, "1", "state.pt"),
+                                       map_location="cpu",
+                                       weights_only=True)["mix_pending"]
+                out["runs"][label] = row
+                del result
+        out["drain_worst_rel"] = watch.check()
+        out["launches"]["train() pipelined"] = sum(
+            r["launches"] for r in out["runs"].values())
+
+        # 3. resume
+        epoch0 = os.path.join(root, "from_epoch0")
+        shutil.copytree(os.path.join(ckpt, "0"), os.path.join(epoch0, "0"))
+        for side in ("digest-0.json", "schedule-0.json"):
+            shutil.copy(os.path.join(ckpt, side), epoch0)
+        resumed = {}
+        with PendingWatch() as watch:
+            for label, over in (
+                    ("staleness=2", {"overlap": "1step", "staleness": 2}),
+                    ("staleness=4", {"overlap": "1step", "staleness": 4}),
+                    ("off", {})):
+                kw = {"resume": epoch0, "savePath": root,
+                      "name": f"resumed-{label}",
+                      "checkpoint_every": 1 if label == "staleness=2" else 0}
+                result, row = pipeline_run(dev, f"resumed {label}", over,
+                                           **kw)
+                if [h["epoch"] for h in result.history] != [1]:
+                    raise AssertionError(f"resumed {label}: epochs "
+                                         f"{result.history}")
+                if label == "staleness=2":
+                    got = state_tensors(result.state)
+                    differ = [k for k, v in whole.items()
+                              if not same_bits(got[k], v)]
+                    ring = torch.load(os.path.join(
+                        root, "resumed-staleness=2_ckpt", "1", "state.pt"),
+                        map_location="cpu", weights_only=True)["mix_pending"]
+                    if differ or not same_bits(ring, ring1) \
+                            or not bool(ring1.any()):
+                        raise AssertionError(
+                            f"the resumed staleness=2 run is not bitwise "
+                            f"the uninterrupted one: {differ[:4]}, ring "
+                            f"equal {same_bits(ring, ring1)}")
+                    row["final_state_bitwise"] = row["ring_bitwise"] = True
+                resumed[label] = row
+                del result
+        # each resume reconciles the saved ring (a drain into the
+        # parameters at the depth change and at the eager resume)
+        if sum(r[0] == "_reconcile_mix_pending" for r in watch.records) != 3:
+            raise AssertionError(f"reconcile drains recorded: "
+                                 f"{[r[0] for r in watch.records]}")
+        out["resumed"] = resumed
+        out["resume_drain_worst_rel"] = watch.check()
+        out["launches"]["train() pipelined, resumed"] = sum(
+            r["launches"] for r in resumed.values())
+
+    # 2. the consensus laws through K1
+    sched, _, _ = tables
+    comm = make_decen(sched, "perm", device=dev)
+    x = state(16, SLICE_D, dev)
+    flags = sched.flags[:16]
+    chains = {}
+
+    def counted(label, fn):
+        reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        chains[label] = LAUNCHES["perm_gossip_dbuf"]
+        return result[0]
+
+    over = counted("run_overlapped", lambda: comm.run_overlapped(x, flags))
+    piped = counted("run_pipelined(staleness=1)",
+                    lambda: comm.run_pipelined(x, flags, staleness=1))
+    elided = counted("run_elided(L=2)", lambda: comm.run_elided(x, flags, 2))
+    compact = counted("run(flags[::2])", lambda: comm.run(x, flags[::2]))
+    eager = counted("run", lambda: comm.run(x, flags))
+    if chains != {"run_overlapped": 16, "run_pipelined(staleness=1)": 16,
+                  "run_elided(L=2)": 8, "run(flags[::2])": 1, "run": 1}:
+        raise AssertionError(f"chain launches {chains}")
+    if not same_bits(piped, over):
+        raise AssertionError("run_pipelined(staleness=1) is not bitwise "
+                             "run_overlapped")
+    if not same_bits(elided, compact):
+        raise AssertionError("run_elided(flags, 2) is not bitwise run on "
+                             "the compacted stream")
+    drain_err = float((over - eager).abs().max())
+    drain_bar = 16 * 2.0 ** -23 * float(eager.abs().max())
+    if not drain_err <= drain_bar:
+        raise AssertionError(f"drained run_overlapped vs run: {drain_err} "
+                             f"> {drain_bar}")
+    out["laws"] = {"shape": [16, SLICE_D], "T": 16, "launches": chains,
+                   "k1_bitwise": True, "elided_bitwise": True,
+                   "drained_vs_run_max_abs_err": drain_err,
+                   "drained_vs_run_bar": drain_bar}
+    out["launches"]["Communicator.run_overlapped / run_pipelined / "
+                    "run_elided"] = (chains["run_overlapped"]
+                                     + chains["run_pipelined(staleness=1)"]
+                                     + chains["run_elided(L=2)"])
+    del x, over, piped, elided, compact, eager
+
+    # 4. time, in alternated rounds
+    ms = {label: [] for label, _ in TIMED_PIPELINES}
+    per_step = {}
+    for r in range(rounds):
+        order = TIMED_PIPELINES if r % 2 == 0 else TIMED_PIPELINES[::-1]
+        for label, over in order:
+            _, row = pipeline_run(dev, f"timed {label}", over)
+            ms[label].append(row["ms_per_step"][1])
+            # K1 per step of the training loop (the timer's chains apart)
+            per_step[label] = row["issued_steps"] / (2 * bpe)
+    out["timing"] = {"ms_per_step_epoch1": ms,
+                     "median_ms_per_step": {k: statistics.median(v)
+                                            for k, v in ms.items()},
+                     "k1_launches_per_step": per_step, "rounds": rounds}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "pipeline", **out, "nvidia_smi": nvidia_smi()})
+    return out
 
 
 def phase_stream_chain(dev, tables):
@@ -2262,7 +2588,10 @@ def phase_split_probe(dev):
 def phase_split_timing(dev):
     """Both schedules of K4, the plain version (T = 64 only: at T = 2000 it
     repeats the arithmetic step by step for seconds), the library call (T
-    bf16 ``torch.matmul`` calls) and the bound, at T = 64 and 2000."""
+    bf16 ``torch.matmul`` calls) and the bound, at T = 64 and 2000.  Where
+    the profiler's trace of ``runs`` calls holds no record of the kernel,
+    ``single_call_device_ms`` profiles one call a session and prints what
+    the traces held."""
     from matcha_tpu_torch.probes import split_probe as sp
 
     flush = L2Flush(dev)
@@ -2280,12 +2609,14 @@ def phase_split_timing(dev):
         row = {"shape": f"probe [256, {SLICE_D}] bf16 T={t_steps}",
                "N": 256, "D": SLICE_D, "T": t_steps}
         for name, split in (("unsplit", False), ("split", True)):
-            row[f"{name}_ms"] = time_ms(
-                lambda: sp.split_gossip_run(x, stack, split=split), flush,
-                runs)
-            row[f"{name}_device_ms"] = device_ms(
-                lambda: sp.split_gossip_run(x, stack, split=split),
-                MAINLOOP_KERNEL, flush, runs)
+            fn = lambda split=split: sp.split_gossip_run(  # noqa: E731
+                x, stack, split=split)
+            row[f"{name}_ms"] = time_ms(fn, flush, runs)
+            row[f"{name}_device_ms"] = device_ms(fn, MAINLOOP_KERNEL, flush,
+                                                 runs)
+            if row[f"{name}_device_ms"] is None:
+                row[f"{name}_device_ms"], row[f"{name}_trace"] = \
+                    single_call_device_ms(fn, MAINLOOP_KERNEL, flush, runs)
         row["ratio_split_over_unsplit_time"] = row["split_ms"] / row[
             "unsplit_ms"]
         row["plain_ms"] = (time_ms(lambda: sp.split_gossip_plain(x, stack),
@@ -2328,7 +2659,8 @@ def kernels_line(r) -> list:
     # reference's other models at their widths
     by_path = {"perm_gossip_dbuf": {"train() slice": r["slice"][
         "perm_gossip_dbuf"], **{f"train() {label}": row["launches"]
-                                for label, row in r["models"].items()}},
+                                for label, row in r["models"].items()},
+        **r["pipeline"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -2350,7 +2682,16 @@ def kernels_line(r) -> list:
                          "plain_ms": t["plain_ms"],
                          "library_ms": t["library_ms"],
                          "bound_ms": t["bound_ms"],
-                         "bound_by": t["bound_by"]} for t in r["timing"]],
+                         "bound_by": t["bound_by"]} for t in r["timing"]]
+            + ([{"shape": f"{label} [{row['workers']}, {row['D']}] T=1",
+                 "path": "slab", "ms": row["k1_ms"],
+                 "device_ms": row["k1_device_ms"],
+                 "plain_ms": row["k1_plain_ms"],
+                 "library_ms": row["k1_library_ms"],
+                 "bound_ms": row["k1_bound_ms"],
+                 "bound_by": row["k1_bound_by"]}
+                for label, row in r["models"].items()]
+               if name == "perm_gossip_dbuf" else []),
         })
     fused_rows = r["fused_timing"]
     keys = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
@@ -2513,6 +2854,7 @@ def main():
     results["determinism"] = phase_determinism(dev)
     results["choco"] = phase_choco(dev)
     results["models"] = phase_models(dev)
+    results["pipeline"] = phase_pipeline(dev, tables)
     emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,23 @@ with ``flags_t`` the ``f32[M]`` activation row of this step, on the state's
 device, or on the host for a communicator with ``host_flags`` (the skip
 backend branches on it).  ``run`` applies a whole flag stream, through
 ``multi_step`` (one kernel launch for the chain) when the backend has one.
-``run_overlapped``, ``run_pipelined`` and ``run_elided`` are not ported
-yet (``ROADMAP.md``).
+
+The two-phase form of ``step`` (JAX ``base.py:93``, :117), which the
+pipelined training step runs:
+
+    delta, c' = comm.begin_mix(flat, carry, flags_t[, alive])  # issue
+    flat'     = comm.apply_mix(flat, delta)                    # consume
+
+``begin_mix`` runs this step's whole exchange and returns the mixing delta
+``step(flat)[0] − flat``, a tensor of its own (never a view of ``flat``);
+``apply_mix`` is an elementwise add.  Every transform here keeps the worker
+mean (doubly stochastic ``W``; CHOCO's telescoping ``s``/``x̂``), so a
+delta has zero column mean, and applying it late moves only the spread of
+the workers, never their mean.  ``run_overlapped`` (:123),
+``run_pipelined`` (:182, a ring of K in-flight deltas) and ``run_elided``
+(:258, local steps that execute nothing) chain it, or ``step``, over a
+flag stream.  JAX's ``lax.scan``/``lax.cond`` become host loops and host
+branches on the step index: no device value is read to decide anything.
 """
 
 from __future__ import annotations
@@ -55,6 +70,121 @@ class Communicator:
         there, or on the host."""
         return torch.device("cpu") if self.host_flags else device
 
+    def _step(self, flat, carry, flags_t, alive=None):
+        """``step``, with the survivor mask only where there is one."""
+        if alive is None:
+            return self.step(flat, carry, flags_t)
+        return self.step(flat, carry, flags_t, alive)
+
+    def _chain_inputs(self, flat, flags, carry, alive):
+        """A chain's flag rows (where ``step`` wants them), carry (``init``
+        when None) and survivor mask, as tensors."""
+        if carry is None:
+            carry = self.init(flat)
+        flags = torch.as_tensor(flags, dtype=torch.float32,
+                                device=self.flags_device(flat.device))
+        if alive is not None:
+            alive = torch.as_tensor(alive, dtype=torch.float32,
+                                    device=flat.device)
+        return flags, carry, alive
+
+    @staticmethod
+    def _alive_at(alive, t: int):
+        """Step t's mask of an ``f32[N]`` or ``f32[T, N]`` mask."""
+        return alive if alive is None or alive.ndim == 1 else alive[t]
+
+    def begin_mix(self, flat: torch.Tensor, carry: Any, flags_t,
+                  alive: Any = None):
+        """Issue this step's exchange; returns ``(delta, carry')`` with
+        ``delta = step(flat)[0] − flat``.  Every launch of the exchange
+        happens here, and the carry advances at issue time (CHOCO's
+        ``{x̂, s}``), so a pipelined chain threads carries as an eager one
+        does.  The subtraction makes ``delta`` a new tensor even where
+        ``step`` returns ``flat`` itself (``none``)."""
+        mixed, carry = self._step(flat, carry, flags_t, alive)
+        return mixed - flat, carry
+
+    def apply_mix(self, flat: torch.Tensor,
+                  delta: torch.Tensor) -> torch.Tensor:
+        """Consume a ``begin_mix`` delta: ``flat + delta``, no exchange."""
+        return flat + delta
+
+    def run_overlapped(self, flat: torch.Tensor, flags, carry: Any = None,
+                       alive: Any = None, drain: bool = True):
+        """The one-step pipeline over a flag stream: step t applies the
+        delta issued at t−1, then issues its own.
+
+        On a pure consensus chain the drained pipeline is ``run`` up to f32
+        reassociation (about an ulp a step); a bf16 wire re-rounds the
+        slightly different state, so there the two agree to the 2⁻⁸ noise
+        of the wire.  ``drain=True`` applies the last delta and returns
+        ``(flat, carry)``; ``drain=False`` returns ``(visible state,
+        carry, pending delta)``, what an epoch boundary of the pipelined
+        train loop holds.  ``alive``: ``f32[N]`` or ``f32[T, N]``."""
+        flags, carry, alive = self._chain_inputs(flat, flags, carry, alive)
+        pending = torch.zeros_like(flat)
+        for t in range(flags.shape[0]):
+            flat = self.apply_mix(flat, pending)
+            pending, carry = self.begin_mix(flat, carry, flags[t],
+                                            self._alive_at(alive, t))
+        if drain:
+            return self.apply_mix(flat, pending), carry
+        return flat, carry, pending
+
+    def run_pipelined(self, flat: torch.Tensor, flags, carry: Any = None,
+                      alive: Any = None, staleness: int = 1,
+                      drain: bool = True):
+        """The bounded-staleness pipeline, consume-at-t+K, over a ``[K, N,
+        D]`` ring of in-flight deltas: step t applies slot ``t mod K`` (the
+        delta issued at t−K, zero in the first K steps), then issues into
+        the same slot.  ``staleness=1`` is :meth:`run_overlapped` bit for
+        bit.  For K > 1 each delta is issued on a state missing its K−1
+        in-flight predecessors, so the chain is not ``run``'s, but every
+        delta has zero column mean and the worker mean never moves; on a
+        stream that fires at most once every K steps each delta is
+        consumed before the next is issued, and the drained chain is
+        ``run``'s again.  ``drain=True`` flushes the ring oldest-first
+        (slot ``(T + i) mod K`` for i = 0..K−1) and returns ``(flat,
+        carry)``; ``drain=False`` returns ``(visible state, carry,
+        ring)``."""
+        k = int(staleness)
+        if k < 1:
+            raise ValueError(f"staleness must be >= 1, got {staleness}")
+        flags, carry, alive = self._chain_inputs(flat, flags, carry, alive)
+        ring = torch.zeros((k,) + tuple(flat.shape), dtype=flat.dtype,
+                           device=flat.device)
+        steps = flags.shape[0]
+        if steps == 0:
+            return (flat, carry) if drain else (flat, carry, ring)
+        for t in range(steps):
+            slot = t % k
+            flat = self.apply_mix(flat, ring[slot])
+            delta, carry = self.begin_mix(flat, carry, flags[t],
+                                          self._alive_at(alive, t))
+            ring[slot] = delta
+        if not drain:
+            return flat, carry, ring
+        for i in range(k):
+            flat = self.apply_mix(flat, ring[(steps + i) % k])
+        return flat, carry
+
+    def run_elided(self, flat: torch.Tensor, flags, local_every: int,
+                   carry: Any = None, alive: Any = None, offset: int = 0):
+        """The chain with local-step elision: step t runs ``step`` only
+        when ``(t + offset) % local_every == 0``; any other step executes
+        nothing (no launch, no carry advance).  So ``run_elided(flags, L)``
+        is ``run(flags[::L])`` on the executed rows, and on a stream whose
+        other rows are zero it is ``run`` (a zero row mixes by the
+        identity).  ``local_every``: a Python int (values below 1 count as
+        1); ``offset`` aligns the cursor mid-stream."""
+        flags, carry, alive = self._chain_inputs(flat, flags, carry, alive)
+        every = max(int(local_every), 1)
+        for t in range(flags.shape[0]):
+            if (t + int(offset)) % every == 0:
+                flat, carry = self._step(flat, carry, flags[t],
+                                         self._alive_at(alive, t))
+        return flat, carry
+
     def run(self, flat: torch.Tensor, flags, carry: Any = None,
             alive: Any = None):
         """Apply the communicator over a whole flag stream (consensus-only
@@ -64,22 +194,15 @@ class Communicator:
         chain) or ``f32[T, N]`` (per step).  A constant mask uses
         ``multi_step_masked`` when the backend offers one; otherwise
         masked chains step one row at a time."""
-        if carry is None:
-            carry = self.init(flat)
-        flags = torch.as_tensor(flags, dtype=torch.float32,
-                                device=self.flags_device(flat.device))
+        flags, carry, alive = self._chain_inputs(flat, flags, carry, alive)
         if flags.shape[0] == 0:
             return flat, carry
-        if alive is None:
-            if self.multi_step is not None:
-                return self.multi_step(flat, carry, flags)
-            for t in range(flags.shape[0]):
-                flat, carry = self.step(flat, carry, flags[t])
-            return flat, carry
-        alive = torch.as_tensor(alive, dtype=torch.float32, device=flat.device)
-        if alive.ndim == 1 and self.multi_step_masked is not None:
+        if alive is None and self.multi_step is not None:
+            return self.multi_step(flat, carry, flags)
+        if alive is not None and alive.ndim == 1 \
+                and self.multi_step_masked is not None:
             return self.multi_step_masked(flat, carry, flags, alive)
         for t in range(flags.shape[0]):
-            a = alive if alive.ndim == 1 else alive[t]
-            flat, carry = self.step(flat, carry, flags[t], a)
+            flat, carry = self._step(flat, carry, flags[t],
+                                     self._alive_at(alive, t))
         return flat, carry

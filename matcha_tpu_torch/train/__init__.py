@@ -1,5 +1,6 @@
 """Training: config, learning-rate schedule, train state and step, and the
-training loop.  Port of the eager perm-backend path of ``matcha_tpu.train``."""
+training loop.  Port of ``matcha_tpu.train``: the eager and the pipelined
+schedules, checkpoints and resume."""
 
 from .config import TrainConfig
 from .loop import TrainResult, TrainingDiverged, build_dataset, build_schedule, train

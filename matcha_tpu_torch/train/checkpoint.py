@@ -4,8 +4,9 @@ Port of ``matcha_tpu/train/checkpoint.py``, which persists the whole
 ``TrainState`` through orbax.  Here one generation is one directory per
 epoch, ``<dir>/<epoch>/``, holding one ``torch.save`` file
 (``CHECKPOINT_FILE``) with the worker-stacked parameters, the batch-norm
-buffers, the optimizer's ``state_dict`` (the momentum), ``comm_carry`` and
-the step cursor ``step``.  The file is written into a temporary directory
+buffers, the optimizer's ``state_dict`` (the momentum), ``comm_carry``,
+the step cursor ``step`` and the pipelined schedule's ``mix_pending``
+(``()`` when eager, ``[N, D]`` or the ``[N, K, D]`` ring).  The file is written into a temporary directory
 that is then renamed into place, so a committed generation is never
 half-written; at most ``MAX_TO_KEEP`` generations stay, as orbax's
 ``max_to_keep=3`` keeps.
@@ -17,10 +18,17 @@ generation, which restore verifies before trusting it, and
 the resuming schedule to: the cursor ``step`` means something only
 against the flag stream it indexes.
 
-Not ported, with the features they belong to (``ROADMAP.md``): the
-membership sidecar (elastic membership) and the ``mix_pending`` /
-``mix_ages`` state (overlap and staleness), with the JAX package's ladder
-of older orbax layouts.
+``mix_pending`` restores with whatever shape the file holds, and the
+training loop reconciles it with the resuming run's depth; a file written
+without the key restores as eager (``()``).  ``torch.load`` needs no
+template of the saved shape, so the port has no counterpart of orbax's
+``saved_mix_pending_shape`` probe (JAX ``checkpoint.py:266``).  The ring's
+``mix_ages`` is never saved: the reconcile rebuilds it from the cursor, as
+in the JAX package.
+
+Not ported, with the feature it belongs to (``ROADMAP.md``): the
+membership sidecar (elastic membership), with the JAX package's ladder of
+older orbax layouts.
 """
 
 from __future__ import annotations
@@ -177,6 +185,7 @@ def _payload(state: TrainState) -> dict:
         "optimizer": state.optimizer.state_dict(),
         "comm_carry": state.comm_carry,
         "step": int(state.step),
+        "mix_pending": state.mix_pending,
     }
 
 
@@ -258,8 +267,9 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
 def restore_checkpoint(directory: str, template: TrainState,
                        epoch: Optional[int] = None, schedule=None):
     """Load generation ``epoch`` (default: the newest) into ``template``
-    — its model, optimizer, ``comm_carry`` and ``step`` are overwritten in
-    place — and return ``(state, epoch)``.  The file is read with
+    — its model, optimizer, ``comm_carry``, ``step`` and ``mix_pending``
+    (``mix_ages`` emptied) are overwritten in place — and return
+    ``(state, epoch)``.  The file is read with
     ``weights_only=True`` onto the template's device.
 
     With ``schedule`` given, the restored cursor is verified against it:
@@ -309,6 +319,8 @@ def restore_checkpoint(directory: str, template: TrainState,
     template.optimizer.load_state_dict(payload["optimizer"])
     template.comm_carry = payload["comm_carry"]
     template.step = cursor
+    template.mix_pending = payload.get("mix_pending", ())
+    template.mix_ages = ()
     return template, int(step)
 
 

@@ -76,6 +76,9 @@ class TrainConfig:
     gossip_w_window: int = 1  # perm/fused steps per window (exact)
     gossip_measured_vs_ceiling: Optional[float] = None
     gossip_measured_source: Optional[str] = None
+    # the pipelined schedule: "1step" consumes each step's exchange at the
+    # next step; staleness K ≥ 2 (with "1step") ages the deltas through a
+    # K-slot ring; local_steps L runs the exchange every L-th step only
     overlap: str = "off"  # off|1step
     staleness: int = 1
     local_steps: int = 1
@@ -244,9 +247,6 @@ _UNPORTED = {
     "plan": None,
     "gossip_measured_vs_ceiling": None,
     "gossip_measured_source": None,
-    "overlap": "off",
-    "staleness": 1,
-    "local_steps": 1,
     "fault_plan": None,
     "max_recoveries": 0,
     "membership_trace": None,

@@ -30,11 +30,19 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   by ``torch.save`` (``train/checkpoint.py``).
 * cuDNN runs its deterministic algorithms, so a run on the card is
   reproducible and a resumed run equals the uninterrupted one bitwise.
+* The pipelined schedule (``overlap``, ``staleness``, ``local_steps``), as
+  the JAX loop runs it: the flag stream is thinned to every L-th row for
+  the step and the comm-split timer alike (:188-200); a ``staleness > 1``
+  decen run executes the damped α of ``plan.stale_alpha_rescale``
+  (:338-356); a restored pending state is reconciled with this run's
+  depth (``_reconcile_mix_pending``, :1352); and ``train()`` drains the
+  in-flight deltas before it returns (:1281-1316).  The port issues
+  ``begin_mix`` on the same CUDA stream as the step, so nothing overlaps
+  on the card yet.
 
 Not ported yet (``TrainConfig`` refuses them): rollback recovery, faults,
 elastic membership, telemetry and the drift monitor (so the journal's
-``predicted`` is empty, as in the JAX package with telemetry off),
-overlap/staleness and local steps.
+``predicted`` is empty, as in the JAX package with telemetry off).
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from .lr import make_lr_schedule
 from .recorder import Recorder
 from .state import (
     TrainState,
+    fresh_mix_pending,
     init_train_state,
     make_eval_fn,
     make_optimizer,
@@ -173,6 +182,13 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         schedule = dataclasses.replace(schedule,
                                        alpha=float(config.alpha_override))
     flags = np.asarray(schedule.flags, np.float32)
+    if config.local_steps > 1:
+        # local steps: the exchange fires every L-th step only.  The step
+        # launches nothing on the other steps (a host branch); thinning the
+        # stream too makes the comm-split timer count zero for them.  The
+        # checkpoint fingerprints the schedule as built.
+        keep = np.arange(len(flags)) % config.local_steps == 0
+        flags = flags * keep[:, None].astype(np.float32)
 
     def make_comm(ratio: float):
         return select_communicator(
@@ -196,13 +212,19 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                                config.weight_decay, config.nesterov)
     state, flattener = init_train_state(
         model, config.num_workers, optimizer, communicator, seed=config.seed,
-        sync_init=config.sync_init, device=dev)
+        sync_init=config.sync_init, device=dev, overlap=config.overlap,
+        staleness=config.staleness)
     evaluate = make_eval_fn(model)
+    stale_scale = _stale_scale(config, schedule)
 
     def make_stage(comm):
         """(step, comm-split timer) over ``comm``."""
         step = make_train_step(optimizer, comm, flattener, flags, lr_schedule,
-                               grad_chunk=config.grad_chunk)
+                               grad_chunk=config.grad_chunk,
+                               overlap=config.overlap,
+                               staleness=config.staleness,
+                               stale_alpha_scale=stale_scale,
+                               local_steps=config.local_steps)
         timer = (_make_comm_timer(comm, flattener, dev)
                  if config.measure_comm_split
                  and config.communicator != "none" else None)
@@ -228,6 +250,9 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         state, last_epoch = restore_with_fallback(
             resume_dir, state, schedule=schedule, notices=recovery_notices)
         start_epoch = last_epoch + 1
+        state = _reconcile_mix_pending(state, config.overlap, communicator,
+                                       flattener, config.num_workers,
+                                       staleness=config.staleness)
     recorder = Recorder(config, config.num_workers)
     if config.save and start_epoch:
         # extend the CSVs and the journal of the run being resumed, cut
@@ -332,9 +357,94 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
             recorder.log_event("checkpoint", epoch=epoch, path=ckpt_dir,
                                seconds=time.perf_counter() - t0,
                                bytes=nbytes)
+    if config.overlap == "1step":
+        # the returned parameters are the fully mixed state; inside the
+        # run (and in its checkpoints) the pending deltas stay in flight
+        state = _drain_mix_pending(state, communicator, flattener)
     if config.save:
         recorder.save()
     return TrainResult(state, recorder, schedule, history)
+
+
+def _stale_scale(config: TrainConfig, schedule: Schedule) -> float:
+    """The damping of the executed α under a ``staleness > 1`` pipeline
+    (``plan.stale_alpha_rescale``): the MATCHA α is solved for the eager
+    dynamics and overdrives a k-deep one.  Only decen is modelled; every
+    other run executes its α undamped."""
+    if config.staleness > 1 and config.communicator == "decen":
+        from ..plan import stale_alpha_rescale
+
+        scale, _ = stale_alpha_rescale(
+            schedule.laplacians(), schedule.probs, float(schedule.alpha),
+            staleness=config.staleness, local_steps=config.local_steps)
+        return float(scale)
+    return 1.0
+
+
+def _apply_pending(state: TrainState, communicator, flattener) -> None:
+    """Add every in-flight delta to the parameters: the one-step delta, or
+    the ``[N, K, D]`` ring oldest-first, slot ``(cursor + i) mod K`` for
+    i = 0..K−1 (``run_pipelined``'s drain order)."""
+    pend = state.mix_pending
+    params = state.params
+    with torch.no_grad():
+        flat = flattener.flatten(params)
+        if pend.ndim == 2:
+            flat = communicator.apply_mix(flat, pend)
+        else:
+            k = pend.shape[1]
+            for i in range(k):
+                flat = communicator.apply_mix(flat,
+                                              pend[:, (state.step + i) % k])
+        flattener.unflatten_into(flat, params)
+
+
+def _drain_mix_pending(state: TrainState, communicator,
+                       flattener) -> TrainState:
+    """Apply the in-flight delta(s) to the parameters and empty the
+    pipeline (JAX ``loop.py:1281-1316``)."""
+    _apply_pending(state, communicator, flattener)
+    state.mix_pending.zero_()
+    if isinstance(state.mix_ages, torch.Tensor):
+        state.mix_ages.fill_(-1)
+    return state
+
+
+def _reconcile_mix_pending(state: TrainState, overlap: str, communicator,
+                           flattener, num_workers: int,
+                           staleness: int = 1) -> TrainState:
+    """Align a restored state's in-flight delta(s) with this run's
+    ``overlap``/``staleness`` (JAX ``loop.py:1352``).
+
+    * An eager checkpoint (``()``): prime a fresh zero pipeline, or stay
+      eager.
+    * Same depth: go on; the ring's ages, never checkpointed, are rebuilt
+      from the cursor (slot s holds the delta issued at the last step
+      t' < cursor with t' ≡ s mod K).
+    * Resuming eagerly, or at another depth: drain every saved delta into
+      the parameters, oldest-first (slot ``(cursor + i) mod K'``), then
+      prime a fresh pipeline at the new depth.  Slots are the cursor mod
+      K, so re-basing a ring in place would mis-age every delta."""
+    dev = next(state.model.parameters()).device
+    pend = state.mix_pending
+    if isinstance(pend, torch.Tensor):
+        saved_k = int(pend.shape[1]) if pend.ndim == 3 else 1
+        if overlap == "1step" and saved_k == staleness:
+            state.mix_ages = ()
+            if staleness > 1:
+                cursor = int(state.step)
+                ages = np.full((num_workers, staleness), -1, np.int64)
+                for s in range(staleness):
+                    issued = cursor - 1 - ((cursor - 1 - s) % staleness)
+                    if issued >= 0:
+                        ages[:, s] = cursor - issued
+                state.mix_ages = torch.as_tensor(ages, dtype=torch.int32,
+                                                 device=dev)
+            return state
+        _apply_pending(state, communicator, flattener)
+    state.mix_pending, state.mix_ages = fresh_mix_pending(
+        overlap, staleness, num_workers, flattener.dim, dev)
+    return state
 
 
 def _epoch_batches(loader: WorkerBatches, epoch: int,
@@ -354,10 +464,13 @@ def _epoch_batches(loader: WorkerBatches, epoch: int,
 
 
 def _state_finite(state: TrainState) -> torch.Tensor:
-    """0-d bool: every parameter, BN buffer and momentum buffer is finite."""
+    """0-d bool: every parameter, BN buffer, momentum buffer and pending
+    delta is finite."""
     tensors = list(state.model.parameters()) + list(state.model.buffers())
     tensors += [s["momentum_buffer"] for s in state.optimizer.state.values()
                 if s.get("momentum_buffer") is not None]
+    if isinstance(state.mix_pending, torch.Tensor):
+        tensors.append(state.mix_pending)
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 

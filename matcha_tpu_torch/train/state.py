@@ -1,9 +1,10 @@
 """Train state and the (SGD + gossip) step.
 
-Port of ``matcha_tpu/train/state.py`` on its eager path (no overlap,
-faults, elastic membership, run control, telemetry or local-step elision):
-``make_optimizer`` (:100), ``init_train_state`` (:114), ``make_train_step``
-(:167, with ``grad_chunk``) and ``make_eval_fn`` (:672).
+Port of ``matcha_tpu/train/state.py``: ``make_optimizer`` (:100),
+``init_train_state`` (:114), ``make_train_step`` (:167, with
+``grad_chunk``, the pipelined schedule and local-step elision) and
+``make_eval_fn`` (:672).  Faults, elastic membership, run control and
+telemetry are not ported yet.
 
 The JAX step vmaps a per-worker loss over the worker axis.  The port's
 model holds all workers stacked, so one forward/backward serves them all:
@@ -14,7 +15,10 @@ communicator's consensus transform on the flattened ``[N, D]`` parameter
 stack.  Batch-norm statistics are per-worker buffers and are not gossiped.
 
 PyTorch updates in place: the step mutates the state it is given (model
-parameters, optimizer momentum, the step cursor) and returns it.
+parameters, optimizer momentum, the step cursor, the pending ring) and
+returns it.  The pending deltas are tensors of their own (``begin_mix``'s
+subtraction, or the ring's storage), never views of the parameters, so the
+next optimizer step cannot write into them.
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ from ..ops import WorkerFlattener
 from ..parallel import worker_disagreement
 from ..utils import cross_entropy_loss, top_k_accuracy
 
-__all__ = ["OptimizerSpec", "TrainState", "init_train_state", "make_eval_fn",
-           "make_optimizer", "make_train_step"]
+__all__ = ["OptimizerSpec", "TrainState", "fresh_mix_pending",
+           "init_train_state", "make_eval_fn", "make_optimizer",
+           "make_train_step"]
 
 
 @dataclasses.dataclass
@@ -43,6 +48,15 @@ class TrainState:
     optimizer: torch.optim.Optimizer  # holds the momentum (opt_state)
     comm_carry: Any
     step: int  # host-side schedule cursor
+    # in-flight mixing delta(s) of the pipelined schedule: f32[N, D] at
+    # overlap="1step" with staleness 1 (issued at step t−1, consumed at t),
+    # the worker-major ring f32[N, K, D] at staleness K ≥ 2 (slot t mod K
+    # holds the delta issued at t−K), () when eager.  Checkpointed.
+    mix_pending: Any = ()
+    # i32[N, K] age of each ring slot's delta (−1: empty, before the ring
+    # filled or after an elided issue), () below K = 2.  Never
+    # checkpointed: a resume rebuilds it from the cursor.
+    mix_ages: Any = ()
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -80,13 +94,33 @@ def make_optimizer(lr_schedule: Callable, momentum: float = 0.9,
     return OptimizerSpec(lr_schedule, momentum, weight_decay, nesterov)
 
 
+def fresh_mix_pending(overlap: str, staleness: int, num_workers: int,
+                      dim: int, device=None):
+    """``(mix_pending, mix_ages)`` of a primed pipeline: the zero delta
+    (``overlap="1step"``), the zero ``[N, K, D]`` ring and all-empty (−1)
+    ages (``staleness`` K ≥ 2), or ``((), ())`` when eager."""
+    if overlap != "1step":
+        return (), ()
+    if staleness > 1:
+        return (torch.zeros(num_workers, staleness, dim, device=device),
+                torch.full((num_workers, staleness), -1, dtype=torch.int32,
+                           device=device))
+    return torch.zeros(num_workers, dim, device=device), ()
+
+
 def init_train_state(model: nn.Module, num_workers: int,
                      optimizer: OptimizerSpec, communicator: Communicator,
                      seed: int = 0, sync_init: bool = True,
-                     device=None) -> tuple[TrainState, WorkerFlattener]:
+                     device=None, overlap: str = "off",
+                     staleness: int = 1) -> tuple[TrainState, WorkerFlattener]:
     """Per-worker independent inits (worker ``w`` seeded ``seed + w``),
     made on the CPU so they are the same on every device, then the
-    reference's initial AllReduce sync when ``sync_init``."""
+    reference's initial AllReduce sync when ``sync_init``.
+    ``overlap="1step"`` primes the zero delta the pipelined step consumes
+    at step 0, ``staleness`` K ≥ 2 the ``[N, K, D]`` ring and its empty
+    ages (:func:`fresh_mix_pending`)."""
+    if staleness < 1:
+        raise ValueError(f"staleness must be >= 1, got {staleness}")
     if getattr(model, "num_workers", None) != num_workers:
         raise ValueError(f"model stacks {getattr(model, 'num_workers', None)} "
                          f"workers, expected {num_workers}")
@@ -98,11 +132,16 @@ def init_train_state(model: nn.Module, num_workers: int,
     model.to(device)
     params = dict(model.named_parameters())
     flattener = WorkerFlattener(params)
+    pending, ages = fresh_mix_pending(overlap, staleness, num_workers,
+                                      flattener.dim,
+                                      next(model.parameters()).device)
     state = TrainState(
         model=model,
         optimizer=optimizer.init(model.parameters()),
         comm_carry=communicator.init(flattener.flatten(params)),
         step=0,
+        mix_pending=pending,
+        mix_ages=ages,
     )
     return state, flattener
 
@@ -134,6 +173,10 @@ def make_train_step(
     flags: np.ndarray,
     lr_schedule: Optional[Callable] = None,
     grad_chunk: Optional[int] = None,
+    overlap: str = "off",
+    staleness: int = 1,
+    stale_alpha_scale: float = 1.0,
+    local_steps: int = 1,
 ):
     """Build ``step(state, xb, yb) -> (state, metrics)``.
 
@@ -150,10 +193,45 @@ def make_train_step(
     Workers are independent until the gossip, so the result is the same up
     to the order of cuDNN's sums (its algorithms may differ by group
     count).
+
+    ``overlap="1step"``: the pipelined schedule.  Each step first consumes
+    the delta issued at step t−1 (``state.mix_pending``, an add), then
+    issues its own exchange through ``communicator.begin_mix`` and parks
+    the delta for step t+1: the post-SGD parameters of step t are mixed by
+    ``W_t`` as eagerly, only step t+1's gradient update joins the
+    consensus a round late.  ``staleness`` K ≥ 2 (needs ``"1step"``):
+    step t consumes ring slot ``t mod K`` (the delta issued at t−K), ages
+    the slots, then issues into the same slot.  ``stale_alpha_scale``
+    multiplies the communicator's flag rows (the executed α;
+    ``active_matchings`` counts the unscaled rows).  ``local_steps`` L:
+    the exchange runs only where ``state.step % L == 0``, a host branch;
+    any other step launches nothing, and under the pipeline it parks a
+    zero delta (its ring slot marked empty, −1) while the consume stays
+    unconditional.
     """
     flags_host = np.asarray(flags, np.float32)  # [T, M]
-    flags_dev = {}  # device -> tensor, placed at first use
     n = flattener.num_workers
+    if overlap not in ("off", "1step"):
+        raise ValueError(f"overlap must be 'off' or '1step', got {overlap!r}")
+    overlap_on = overlap == "1step"
+    staleness = int(staleness)
+    if staleness < 1:
+        raise ValueError(f"staleness must be >= 1, got {staleness}")
+    if staleness > 1 and not overlap_on:
+        raise ValueError("staleness > 1 needs overlap='1step': the eager "
+                         "path has no pending ring to age deltas through")
+    ring_on = overlap_on and staleness > 1
+    if not stale_alpha_scale > 0:
+        raise ValueError(f"stale_alpha_scale must be > 0, got "
+                         f"{stale_alpha_scale}")
+    local_steps = int(local_steps)
+    if local_steps < 1:
+        raise ValueError(f"local_steps must be >= 1, got {local_steps}")
+    # the damped α rides the communicator's flag rows (every backend's edge
+    # weight is α·flag_j), scaled once here in f32 as the JAX step does
+    comm_flags_host = (flags_host * np.float32(stale_alpha_scale)
+                       if stale_alpha_scale != 1.0 else flags_host)
+    comm_flags = {}  # device -> tensor, placed at first use
     if grad_chunk is not None and not 1 <= grad_chunk <= n:
         raise ValueError(f"grad_chunk {grad_chunk} must be in [1, {n}]")
     if grad_chunk is not None and n % grad_chunk:
@@ -182,11 +260,43 @@ def make_train_step(
             logits.append(out.detach())
         return torch.cat(losses), torch.cat(logits)
 
+    def mix(state: TrainState, flat: torch.Tensor, row) -> torch.Tensor:
+        """The consensus transform of this step on ``flat``; returns the
+        state the step leaves visible (the pending deltas in ``state``)."""
+        do_mix = state.step % local_steps == 0
+        if ring_on:
+            slot = state.step % staleness
+            ages = state.mix_ages
+            ages.add_((ages >= 0).to(ages.dtype))
+            ring = state.mix_pending
+            flat = communicator.apply_mix(flat, ring[:, slot])
+            if do_mix:
+                delta, state.comm_carry = communicator.begin_mix(
+                    flat, state.comm_carry, row)
+                ring[:, slot] = delta
+                ages[:, slot] = 0
+            else:
+                ring[:, slot] = 0.0
+                ages[:, slot] = -1
+            return flat
+        if overlap_on:
+            flat = communicator.apply_mix(flat, state.mix_pending)
+            if do_mix:
+                state.mix_pending, state.comm_carry = communicator.begin_mix(
+                    flat, state.comm_carry, row)
+            else:
+                state.mix_pending = torch.zeros_like(flat)
+            return flat
+        if do_mix:
+            flat, state.comm_carry = communicator.step(
+                flat, state.comm_carry, row)
+        return flat
+
     def step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor):
         model, opt = state.model, state.optimizer
         dev = communicator.flags_device(xb.device)
-        if dev not in flags_dev:
-            flags_dev[dev] = torch.as_tensor(flags_host, device=dev)
+        if dev not in comm_flags:
+            comm_flags[dev] = torch.as_tensor(comm_flags_host, device=dev)
         model.train()
         opt.zero_grad(set_to_none=True)
         losses, logits = forward_backward(model, xb, yb)
@@ -198,9 +308,7 @@ def make_train_step(
         t = min(state.step, flags_host.shape[0] - 1)
         params = state.params
         with torch.no_grad():
-            flat = flattener.flatten(params)
-            flat, state.comm_carry = communicator.step(
-                flat, state.comm_carry, flags_dev[dev][t])
+            flat = mix(state, flattener.flatten(params), comm_flags[dev][t])
             flattener.unflatten_into(flat, params)
             metrics = {
                 "loss": losses.mean(),

@@ -42,6 +42,15 @@ every K epochs, and ``--resume DIR`` goes on from the newest one in DIR::
     python train_torch.py --model mlp --dataset digits --graphid 5 \
         --numworkers 8 --epoch 8 --save --resume runs/experiment_ckpt
 
+The pipelined schedule: ``--overlap 1step`` consumes each step's exchange
+at the next step, ``--staleness K`` (with ``--overlap 1step``) ages the
+exchanges through a K-slot ring, and ``--local-steps L`` exchanges on
+every L-th step only::
+
+    python train_torch.py --model resnet20 --dataset synthetic_image \
+        --graphid 4 --numworkers 16 --overlap 1step --staleness 2 \
+        --local-steps 2
+
 ``digits`` and ``photo_patches`` need scikit-learn and PIL (and read
 photographs shipped with matplotlib and pygame).
 """
@@ -102,6 +111,21 @@ def parse_args(argv=None):
                         "workers (0: all at once)")
     p.add_argument("--wire-dtype", default="f32", choices=["f32", "bf16"],
                    dest="wire_dtype")
+    p.add_argument("--overlap", default="off", choices=["off", "1step"],
+                   help="pipelined gossip: '1step' issues each step's "
+                        "exchange (begin_mix) and consumes it at the next "
+                        "step (one-step-stale mixing)")
+    p.add_argument("--staleness", type=int, default=1,
+                   help="pipeline depth K (needs --overlap 1step): deltas "
+                        "issued at step t are consumed at t+K through a "
+                        "[N, K, D] ring; K=1 is the one-step pipeline "
+                        "bitwise, K>=2 damps the executed mixing weight "
+                        "for the delay")
+    p.add_argument("--local-steps", type=int, default=1, dest="local_steps",
+                   help="local SGD steps per gossip exchange: the exchange "
+                        "runs every L-th step only (composes with "
+                        "--staleness: delays count in exchanges, "
+                        "ceil(K/L))")
     p.add_argument("--randomSeed", "--seed", type=int, default=9001,
                    dest="seed")
     p.add_argument("--name", default="experiment")
@@ -131,7 +155,9 @@ def parse_args(argv=None):
         consensus_lr=args.consensus_lr,
         compress_warmup_epochs=args.compress_warmup_epochs,
         remat=args.remat, grad_chunk=args.grad_chunk or None,
-        wire_dtype=args.wire_dtype, seed=args.seed, name=args.name,
+        wire_dtype=args.wire_dtype, overlap=args.overlap,
+        staleness=args.staleness, local_steps=args.local_steps,
+        seed=args.seed, name=args.name,
         save=args.save, savePath=args.savePath,
         checkpoint_every=args.checkpoint_every, resume=args.resume)
     return cfg, args.device
