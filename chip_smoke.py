@@ -165,6 +165,23 @@ raises and the script exits non-zero:
    ``remat`` and with ``grad_chunk=4``; K1 at
    each model's D, T = 1, against its byte bound, its plain version and
    the library call (one ``torch.matmul(W, x)``).
+   resilience — resilience and elastic membership at the slice's width,
+   3 epochs of 4 steps (``phase_resilience``): ``train()`` under a fault
+   plan with every event kind (``RESILIENCE_PLAN``: finite; 15 workers
+   alive in epoch 0 and 16 in epoch 2; the ``plan`` and ``healed``
+   events in ``faults.json``; worker 3's evaluation a NaN gap in epoch 0;
+   the detector's rows finite outside the quarantine at every epoch
+   boundary; K1 launched once per step under the step's survivor mask);
+   K1's inputs at two faulted steps captured and each launch held bitwise
+   to its plain version, and step 5's input with a dead worker's row
+   poisoned through ``gossip_quarantined``: bitwise, survivors finite;
+   a rollback (a NaN on all 16 workers, ``max_recoveries=1``: the retry
+   starts from the snapshot's digest; its bytes and clone time); a
+   membership trace 16 → 12 → 16, eager and at staleness 2 (the vacant
+   rows frozen bitwise, the joined rows bitwise the donors' mean, α
+   ``refold_for``'s, a resume from the shrink's checkpoint bitwise the
+   uninterrupted run, ring included); ms per step of epoch 2 with and
+   without the fault plan in alternated rounds.
    pipeline — the pipelined gossip schedule at the slice's width
    (``phase_pipeline``): ``train()`` with ``overlap="1step"``, staleness
    2 and 4, and staleness 2 with ``local_steps=2`` (finite; K1 launched
@@ -179,14 +196,15 @@ raises and the script exits non-zero:
    ``staleness=2`` and ``local_steps=2`` in alternated rounds.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
-    the models' and the pipelined runs included), then the ``nvidia-smi``
-    line.
+    the models', the resilience and the pipelined runs included), then
+    the ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -238,6 +256,14 @@ from matcha_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from matcha_tpu_torch.resilience.runtime import (
+    finite_rows,
+    gossip_quarantined,
+    heal_and_mask,
+    tensors_in,
+)
+from matcha_tpu_torch.resilience.runtime import \
+    state_tensors as all_state_tensors
 from matcha_tpu_torch.train.recorder import SERIES
 from matcha_tpu_torch.train import (
     TrainConfig,
@@ -1460,10 +1486,10 @@ STEP_PARTS = (
 )
 
 
-def slice_stepper(dev, iterations: int):
+def slice_stepper(dev, iterations: int, **step_kw):
     """The slice's model, optimizer and perm communicator on the card, its
-    step function and one seeded batch standing in for the loader:
-    ``(state, step, xb, yb)``."""
+    step function (``make_train_step`` with ``step_kw``) and one seeded
+    batch standing in for the loader: ``(state, step, xb, yb)``."""
     cfg = slice_config(1)
     sched = build_schedule(cfg, iterations)
     comm = make_decen(sched, "perm", device=dev)
@@ -1471,7 +1497,7 @@ def slice_stepper(dev, iterations: int):
     model = select_model("resnet20", "synthetic_image", num_workers=16)
     state, flattener = init_train_state(model, 16, opt, comm, seed=SEED,
                                         device=dev)
-    step = make_train_step(opt, comm, flattener, sched.flags)
+    step = make_train_step(opt, comm, flattener, sched.flags, **step_kw)
     g = torch.Generator(device=dev).manual_seed(SEED)
     xb = torch.randn(16, 32, 32, 32, 3, generator=g, device=dev)
     yb = torch.randint(0, 10, (16, 32), generator=g, device=dev)
@@ -2272,6 +2298,423 @@ def pipeline_run(dev, label: str, over: dict, **kw):
                                      for h in result.history]}
 
 
+# the fault plan of the resilience phase: every event kind; the
+# straggler's window lies in epoch 1 only, so that alive_workers is exact
+# in epochs 0 and 2
+RESILIENCE_PLAN = (
+    {"kind": "dead", "worker": 3, "start": 0, "stop": 4},
+    {"kind": "nan", "worker": 5, "start": 5},
+    {"kind": "straggler", "worker": 9, "start": 4, "stop": 8, "period": 2},
+    {"kind": "link_down", "matching": 0, "start": 8, "stop": 10},
+    {"kind": "flaky_link", "start": 0, "drop_prob": 0.2, "seed": 7},
+)
+# the pool shrinks from 16 to 12 at epoch 1 and grows back at epoch 2
+SHRINK_TRACE = {"events": (
+    [{"kind": "leave", "epoch": 1, "worker": f"w{w}"} for w in range(12, 16)]
+    + [{"kind": "rejoin", "epoch": 2, "worker": f"w{w}"}
+       for w in range(12, 16)])}
+
+
+def state_digest(state) -> str:
+    """sha256 of every tensor of a train state (parameters, buffers,
+    momentum, carry, pending deltas) and its cursor."""
+    h = hashlib.sha256()
+    for t in all_state_tensors(state):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    h.update(str(int(state.step)).encode())
+    return h.hexdigest()
+
+
+class LoopWatch:
+    """Wraps functions of ``train/loop.py`` (``name -> wrapper(inner)``)
+    for the runs in its block."""
+
+    def __init__(self, **wrappers):
+        from matcha_tpu_torch.train import loop
+
+        self.loop, self.wrappers = loop, wrappers
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.loop, name) for name in self.wrappers}
+        for name, wrap in self.wrappers.items():
+            setattr(self.loop, name, wrap(self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.loop, name, fn)
+
+
+def k1_expected(result, bpe: int, rollbacks: int = 0) -> int:
+    """K1's launches of a perm ``train()`` whose every step mixes: one per
+    step run (a rolled-back epoch runs twice) and the timer's chains of
+    each completed epoch."""
+    steps = (len(result.history) + rollbacks) * bpe
+    return steps + len(result.history) * timer_chains(bpe)
+
+
+def resilience_run(dev, label: str, root: str, rollbacks: int = 0, **kw):
+    """``train()`` of the slice for 3 epochs with ``kw``, K1 counted;
+    returns ``(result, row)``."""
+    bpe = 2048 // 16 // 32
+    cfg = dataclasses.replace(slice_config(3), savePath=root,
+                              name=label.replace(" ", "_"), **kw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = LAUNCHES["perm_gossip_dbuf"]
+    expected = k1_expected(result, bpe, rollbacks)
+    if launches != expected:
+        raise AssertionError(f"{label}: K1 launched {launches} times, "
+                             f"expected {expected}")
+    for h in result.history:
+        if not math.isfinite(h["loss"]):
+            raise AssertionError(f"{label}: epoch {h['epoch']} loss "
+                                 f"{h['loss']}")
+    return result, {"launches": launches, "seconds": seconds,
+                    "ms_per_step": [h["epoch_time"] / bpe * 1e3
+                                    for h in result.history],
+                    "loss": [h["loss"] for h in result.history],
+                    "disagreement": [h["disagreement"]
+                                     for h in result.history],
+                    "alive_workers": [h.get("alive_workers")
+                                      for h in result.history]}
+
+
+def phase_resilience(dev, rounds: int = 3):
+    """Resilience and elastic membership at the slice's width
+    (``slice_config``: ResNet-20, 16 workers, graph 4, perm backend, 3
+    epochs of 4 steps):
+
+    1. Chaos: ``RESILIENCE_PLAN`` (every event kind).  The run finishes;
+       ``alive_workers`` is 15 in epoch 0 and 16 in epoch 2; the ``plan``
+       and ``healed`` events are in ``faults.json``; worker 3's evaluation
+       is a NaN gap in epoch 0; the detector's rows at each epoch boundary
+       are finite on every worker outside the quarantine.  K1 launched
+       once per step (with that step's survivor mask) plus the timer's
+       chains.
+    2. K1 on the sealed, masked state: the inputs of the launches at step
+       1 (worker 3 dead) and step 5 (worker 5's NaN healed, the straggler
+       worker 9 out) are captured and each launch held bitwise against
+       ``perm_gossip_plain`` on them.  Then step 5's input poisoned where
+       the step's mask is 0 (worker 9's row NaN) goes through
+       ``gossip_quarantined`` with the step's
+       weights and mask: K1 on the sealed state, bitwise its plain
+       version; no survivor row of the output is non-finite, and the
+       poisoned row comes back as it went in.
+    3. Rollback: a NaN on all 16 workers at step 5 with
+       ``max_recoveries=1``: a ``rollback`` at epoch 1 with ``lr_scale``
+       0.5; the state the retry starts from has the digest of the state
+       snapshotted before epoch 1; the final loss finite.  The snapshot's
+       bytes and the time of its clone.
+    4. Membership: ``SHRINK_TRACE`` (16 → 12 at epoch 1, back at epoch 2,
+       ``bootstrap="mean"``, hysteresis 0), eager and at ``staleness=2``:
+       the vacant rows bitwise unchanged across epoch 1; the joined rows
+       bitwise the donors' mean (``masked_mean_rows`` of the continuing
+       rows); α of each ``membership`` event ``refold_for``'s; a run
+       resumed from the checkpoint written at the end of epoch 1 bitwise
+       the uninterrupted one (the ring of the epoch-2 checkpoint too).
+    5. ms per step of epoch 2 with and without the fault plan, ``rounds``
+       rounds, the order reversed every other round; the steady step
+       outside ``train()`` (20 steps a round, ``slice_stepper``) with and
+       without the plan, alternated; and the heal alone
+       (``heal_and_mask`` on the slice's ``[16, 273258]`` with a NaN row
+       and a dead worker) against one copy of the state, by CUDA events
+       with the L2 flushed (``time_ms``).
+    """
+    from matcha_tpu_torch.communicator import decen
+    from matcha_tpu_torch.parallel import masked_mean_rows
+    from matcha_tpu_torch.resilience import FaultEvent, FaultPlan
+
+    bpe = 2048 // 16 // 32
+    t_phase = time.perf_counter()
+    plan = FaultPlan(tuple(FaultEvent(**e) for e in RESILIENCE_PLAN),
+                     name="chip_smoke")
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # 1 and 2: chaos, with the detector's rows and K1's inputs watched
+        rows, captured = [], {}
+        inner_run = decen.perm_gossip_run
+        masked_calls = [0]
+
+        def capture_k1(x, weights, perms, partnered, **kw):
+            y = inner_run(x, weights, perms, partnered, **kw)
+            if kw.get("alive") is not None:
+                step = masked_calls[0]
+                masked_calls[0] += 1
+                if step in (1, 5):
+                    captured[step] = (x.clone(), weights.clone(), perms,
+                                      partnered, kw["alive"].clone(),
+                                      y.clone(), kw)
+            return y
+
+        def watch_rows(inner):
+            def detector(state, n):
+                got = inner(state, n)
+                rows.append((int(state.step), got.cpu().numpy()))
+                return got
+            return detector
+
+        decen.perm_gossip_run = capture_k1
+        try:
+            with LoopWatch(state_finite_rows=watch_rows):
+                chaos, row = resilience_run(dev, "chaos", root,
+                                            fault_plan=plan, save=True)
+        finally:
+            decen.perm_gossip_run = inner_run
+        alive = row["alive_workers"]
+        if alive[0] != 15.0 or alive[2] != 16.0:
+            raise AssertionError(f"chaos: alive_workers {alive}")
+        faults = plan.compile(chaos.schedule.iterations, 16,
+                              chaos.schedule.num_matchings)
+        for cursor, finite in rows:
+            survivors = faults.dead_alive[cursor - 1] > 0
+            if not finite[survivors].all():
+                raise AssertionError(f"chaos: a survivor row is not finite "
+                                     f"at step {cursor}: {finite}")
+        folder = chaos.recorder.folder
+        with open(os.path.join(folder, "faults.json")) as f:
+            kinds = [e["kind"] for e in json.load(f)["events"]]
+        if "plan" not in kinds or "healed" not in kinds:
+            raise AssertionError(f"chaos: faults.json holds {kinds}")
+        tacc = np.asarray(chaos.recorder.data["tacc"][0])
+        if not np.isnan(tacc[3]) or not np.isfinite(np.delete(tacc, 3)).all():
+            raise AssertionError(f"chaos: epoch 0 evaluation {tacc}")
+        out["chaos"] = {**row, "fault_kinds": kinds,
+                        "detector_rows": [[c, f.tolist()] for c, f in rows],
+                        "healed": [h["healed"] for h in chaos.history]}
+        del chaos
+        seals = {}
+        for step, (x, w, perms, partnered, av, y, kw) in captured.items():
+            extra = {k: v for k, v in kw.items() if k != "alive"}
+            plain = perm_gossip_plain(x, w, perms, partnered, alive=av,
+                                      **extra)
+            seals[step] = {
+                "bitwise": same_bits(y, plain), "alive": av.tolist(),
+                "survivors_finite": bool(torch.isfinite(y[av > 0]).all())}
+            if not seals[step]["bitwise"] \
+                    or not seals[step]["survivors_finite"]:
+                raise AssertionError(f"K1 at step {step}: {seals[step]}")
+        if sorted(seals) != [1, 5] or seals[1]["alive"][3] != 0.0 \
+                or seals[5]["alive"][9] != 0.0:
+            raise AssertionError(f"K1's masked inputs: {seals}")
+        # step 5's input, poisoned where its mask is 0, through the seal
+        x, w, perms, partnered, av, _, kw = captured[5]
+        extra = {k: v for k, v in kw.items() if k != "alive"}
+        poisoned = x.clone()
+        poisoned[9] = float("nan")
+
+        def sealed_step(run):
+            def step_fn(flat, carry, flags_t, ok):
+                return run(flat, w, perms, partnered, alive=ok,
+                           **extra), carry
+            return step_fn
+
+        gate = finite_rows(poisoned)
+        got, _ = gossip_quarantined(sealed_step(perm_gossip_run), poisoned,
+                                    (), None, av, gate=gate)
+        want, _ = gossip_quarantined(sealed_step(perm_gossip_plain),
+                                     poisoned, (), None, av, gate=gate)
+        seals["poisoned"] = {
+            "bitwise": same_bits(got, want),
+            "survivors_finite": bool(torch.isfinite(got[av > 0]).all()),
+            "poisoned_row_kept": bool(torch.isnan(got[9]).all())}
+        if not all(seals["poisoned"].values()):
+            raise AssertionError(f"K1 on the sealed state: {seals}")
+        out["k1_sealed"] = seals
+        del captured, poisoned, got, want
+
+        # 3. rollback, from the snapshot bitwise
+        digests, clone = {}, []
+
+        def watch_snapshot(inner):
+            def snap(state):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s = inner(state)
+                torch.cuda.synchronize()
+                clone.append((time.perf_counter() - t0, sum(
+                    x.numel() * x.element_size()
+                    for value in s.values() for x in tensors_in(value))))
+                digests.setdefault(("snapshot", int(state.step)),
+                                   state_digest(state))
+                return s
+            return snap
+
+        def watch_restore(inner):
+            def restore(state, snapshot):
+                s = inner(state, snapshot)
+                digests[("restored", int(s.step))] = state_digest(s)
+                return s
+            return restore
+
+        all_nan = FaultPlan(tuple(FaultEvent("nan", 5, worker=w)
+                                  for w in range(16)))
+        with LoopWatch(_snapshot_state=watch_snapshot,
+                       _restore_snapshot=watch_restore):
+            rolled, row = resilience_run(dev, "rollback", root, rollbacks=1,
+                                         fault_plan=all_nan,
+                                         max_recoveries=1)
+        events = {e["kind"]: e for e in rolled.recorder.faults}
+        back = events.get("rollback", {})
+        if back.get("epoch") != 1 or back.get("lr_scale") != 0.5:
+            raise AssertionError(f"rollback: {rolled.recorder.faults}")
+        if digests.get(("restored", bpe)) != digests.get(("snapshot", bpe)):
+            raise AssertionError(f"rollback: the retry does not start from "
+                                 f"the snapshot: {digests}")
+        out["rollback"] = {**row, "rollback": back,
+                           "retry_from_snapshot_bitwise": True,
+                           "snapshot_bytes": [c[1] for c in clone],
+                           "snapshot_clone_ms": [c[0] * 1e3 for c in clone]}
+        del rolled
+
+        # 4. membership, eager and staleness 2
+        joined = torch.zeros(16, device=dev)
+        joined[12:] = 1.0
+        donors = 1.0 - joined
+        member = {}
+        for label, over in (("eager", {}),
+                            ("staleness=2", {"overlap": "1step",
+                                             "staleness": 2})):
+            seen = {}
+
+            def watch_step(inner):
+                def make(*args, **kwargs):
+                    step = inner(*args, **kwargs)
+
+                    def watched(state, xb, yb):
+                        if state.step == bpe:
+                            seen["vacant_before"] = flat_params(
+                                state)[12:].clone()
+                        if state.step == 2 * bpe:
+                            seen["joined"] = flat_params(state)[12:].clone()
+                        state, metrics = step(state, xb, yb)
+                        if state.step == 2 * bpe:
+                            f = flat_params(state)
+                            seen["vacant_after"] = f[12:].clone()
+                            seen["donor_mean"] = masked_mean_rows(f, donors)
+                        return state, metrics
+                    return watched
+                return make
+
+            name = f"member {label}"
+            kw = dict(over, membership_trace=SHRINK_TRACE,
+                      checkpoint_every=1)
+            with LoopWatch(make_train_step=watch_step):
+                whole, row = resilience_run(dev, name, root, **kw)
+            frozen = same_bits(seen["vacant_before"], seen["vacant_after"])
+            mean_rows = all(same_bits(r, seen["donor_mean"])
+                            for r in seen["joined"])
+            alphas = [(e["alpha"], whole.schedule.refold_for(
+                np.asarray(e["new_alive"], np.float32))[0])
+                for e in whole.recorder.events if e["kind"] == "membership"]
+            if not frozen or not mean_rows or len(alphas) != 2 \
+                    or any(a != b for a, b in alphas):
+                raise AssertionError(f"{name}: vacant rows frozen {frozen}, "
+                                     f"joined rows the donor mean "
+                                     f"{mean_rows}, alphas {alphas}")
+            if row["alive_workers"] != [16.0, 12.0, 16.0]:
+                raise AssertionError(f"{name}: alive {row['alive_workers']}")
+            want = state_tensors(whole.state)
+            ckpt = os.path.join(root, f"member_{label}_ckpt")
+            at_shrink = os.path.join(root, f"at_shrink_{label}")
+            shutil.copytree(os.path.join(ckpt, "1"),
+                            os.path.join(at_shrink, "1"))
+            for side in ("digest-1.json", "schedule-1.json",
+                         "membership-1.json"):
+                shutil.copy(os.path.join(ckpt, side), at_shrink)
+            resumed, rrow = resilience_run(dev, f"resumed {label}", root,
+                                           **dict(kw, resume=at_shrink))
+            if [h["epoch"] for h in resumed.history] != [2]:
+                raise AssertionError(f"resumed {label}: {resumed.history}")
+            got = state_tensors(resumed.state)
+            differ = [k for k, v in want.items() if not same_bits(got[k], v)]
+            ring_equal = None
+            if over:
+                rings = [torch.load(os.path.join(root, d, "2", "state.pt"),
+                                    map_location="cpu",
+                                    weights_only=True)["mix_pending"]
+                         for d in (f"member_{label}_ckpt",
+                                   f"resumed_{label}_ckpt")]
+                ring_equal = same_bits(*rings) and bool(rings[0].any())
+            if differ or ring_equal is False:
+                raise AssertionError(f"resumed {label}: differs in "
+                                     f"{differ[:4]}, ring {ring_equal}")
+            member[label] = {**row, "vacant_frozen_bitwise": True,
+                             "joined_equal_donor_mean": True,
+                             "alphas": [a for a, _ in alphas],
+                             "resumed_bitwise": True,
+                             "ring_bitwise": ring_equal,
+                             "resumed_launches": rrow["launches"]}
+            del whole, resumed
+        out["membership"] = member
+
+        # 5. ms per step of epoch 2, with and without the plan
+        ms = {"no plan": [], "fault plan": []}
+        cases = (("no plan", {}), ("fault plan", {"fault_plan": plan}))
+        for r in range(rounds):
+            for label, kw in (cases if r % 2 == 0 else cases[::-1]):
+                _, row = resilience_run(dev, f"timed {label}", root, **kw)
+                ms[label].append(row["ms_per_step"][2])
+                out["launches"][f"timed {label}"] = out["launches"].get(
+                    f"timed {label}", 0) + row["launches"]
+        # the steady step outside train(): 20 steps after 3 warm-up steps,
+        # with and without the plan, alternated
+        steady = {"no plan": [], "fault plan": []}
+        iterations = 2 * rounds * 23 + 1
+        steppers = {"no plan": slice_stepper(dev, iterations),
+                    "fault plan": slice_stepper(dev, iterations,
+                                                faults=plan.compile(
+                                                    iterations, 16,
+                                                    build_schedule(
+                                                        slice_config(1),
+                                                        iterations)
+                                                    .num_matchings))}
+        for r in range(rounds):
+            order = list(steppers) if r % 2 == 0 else list(steppers)[::-1]
+            for label in order:
+                st, step, xb, yb = steppers[label]
+                for _ in range(3):
+                    st, _ = step(st, xb, yb)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    st, _ = step(st, xb, yb)
+                torch.cuda.synchronize()
+                steady[label].append((time.perf_counter() - t0) / 20 * 1e3)
+        del steppers
+        x = state(16, SLICE_D, dev)
+        x[5] = float("nan")
+        alive_t = torch.ones(16, device=dev)
+        alive_t[3] = 0.0
+        revive_t = torch.zeros(16, device=dev)
+        flush = L2Flush(dev)
+        heal_ms = time_ms(lambda: heal_and_mask(x, alive_t, revive_t), flush)
+        copy_ms = time_ms(lambda: x.clone(), flush)
+        del x, flush
+        out["timing"] = {"heal_and_mask_ms": heal_ms,
+                         "state_copy_ms": copy_ms,
+                         "heal_in_state_copies": heal_ms / copy_ms,
+                         "steady_ms_per_step": steady,
+                         "median_steady_ms_per_step": {
+                             k: statistics.median(v)
+                             for k, v in steady.items()},
+                         "ms_per_step_epoch2": ms,
+                         "median_ms_per_step": {k: statistics.median(v)
+                                                for k, v in ms.items()},
+                         "rounds": rounds}
+    out["launches"].update({
+        "train() fault plan (chaos)": out["chaos"]["launches"],
+        "train() rollback": out["rollback"]["launches"],
+        **{f"train() membership {k}": v["launches"] + v["resumed_launches"]
+           for k, v in member.items()}})
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "resilience", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
 def phase_pipeline(dev, tables, rounds: int = 3):
     """The pipelined schedule at the slice's width (``slice_config``: 2
     epochs of 4 steps, perm backend, f32 wire):
@@ -2660,7 +3103,7 @@ def kernels_line(r) -> list:
     by_path = {"perm_gossip_dbuf": {"train() slice": r["slice"][
         "perm_gossip_dbuf"], **{f"train() {label}": row["launches"]
                                 for label, row in r["models"].items()},
-        **r["pipeline"]["launches"]},
+        **r["resilience"]["launches"], **r["pipeline"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -2854,6 +3297,7 @@ def main():
     results["determinism"] = phase_determinism(dev)
     results["choco"] = phase_choco(dev)
     results["models"] = phase_models(dev)
+    results["resilience"] = phase_resilience(dev)
     results["pipeline"] = phase_pipeline(dev, tables)
     emit({"kernels": kernels_line(results)})
     print(smi, flush=True)

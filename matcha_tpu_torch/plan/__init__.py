@@ -1,7 +1,12 @@
 """The planner's numpy side, as far as the port needs it: the pipelined
-schedule's contraction bound and its α damping (``plan/spectral.py``)."""
+schedule's contraction bound and its α damping, and the degraded fleet's
+solver inputs and bound (``plan/spectral.py``)."""
 
 from .spectral import (
+    degraded_contraction_rho,
+    degraded_solver_inputs,
+    masked_consensus_error,
+    masked_laplacian_expectation,
     normalize_staleness,
     parse_staleness_spec,
     stale_alpha_rescale,
@@ -11,6 +16,10 @@ from .spectral import (
 )
 
 __all__ = [
+    "degraded_contraction_rho",
+    "degraded_solver_inputs",
+    "masked_consensus_error",
+    "masked_laplacian_expectation",
     "normalize_staleness",
     "parse_staleness_spec",
     "stale_alpha_rescale",

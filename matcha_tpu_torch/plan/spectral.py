@@ -1,25 +1,34 @@
-"""The pipelined schedule's contraction bound and its α damping, in numpy.
+"""Contraction bounds in numpy: the pipelined schedule's and the degraded
+fleet's.
 
-A partial copy of ``matcha_tpu/plan/spectral.py``: ``wire_quantization_eps``
-(:78), ``normalize_staleness`` (:357), ``parse_staleness_spec`` (:398),
+A partial copy of ``matcha_tpu/plan/spectral.py``: ``masked_consensus_error``
+(:60), ``wire_quantization_eps`` (:78), ``masked_laplacian_expectation``
+(:268), ``degraded_solver_inputs`` (:290), ``degraded_contraction_rho``
+(:322), ``normalize_staleness`` (:357), ``parse_staleness_spec`` (:398),
 ``_max_delay_root`` (:419), ``staleness_delay_inflation`` (:445),
 ``stale_contraction_rho`` (:473) and ``stale_alpha_rescale`` (:594), on the
 port's own ``schedule.solvers.contraction_rho``.  The training loop damps
 the executed α of a ``staleness > 1`` run by ``stale_alpha_rescale``'s
-scale.  The Monte-Carlo simulator and the rest of the planner are not
-ported yet (``ROADMAP.md``).
+scale, and re-solves α for a degraded fleet (a fault plan's expected
+availability, an elastic live set) through ``degraded_solver_inputs``.
+The Monte-Carlo simulator and the rest of the planner are not ported yet
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..schedule.solvers import contraction_rho
 
 __all__ = [
+    "degraded_contraction_rho",
+    "degraded_solver_inputs",
+    "masked_consensus_error",
+    "masked_laplacian_expectation",
     "normalize_staleness",
     "parse_staleness_spec",
     "stale_alpha_rescale",
@@ -27,6 +36,80 @@ __all__ = [
     "staleness_delay_inflation",
     "wire_quantization_eps",
 ]
+
+
+def masked_consensus_error(x: np.ndarray, alive: np.ndarray) -> float:
+    """Squared consensus error of the live rows, ``Σ_live ‖x_i − x̄_live‖²``:
+    vacant or dead rows neither define the mean nor count.  Zero with
+    fewer than two live rows."""
+    x = np.asarray(x, np.float64)
+    keep = np.asarray(alive, np.float64) > 0
+    if int(keep.sum()) < 2:
+        return 0.0
+    live = x[keep]
+    centered = live - live.mean(axis=0, keepdims=True)
+    return float(np.sum(centered * centered))
+
+
+def masked_laplacian_expectation(
+    laplacians: np.ndarray, worker_alive: np.ndarray
+) -> np.ndarray:
+    """E[L_j] under independent worker availability ``worker_alive: f64[N]``:
+    an edge (u, v) scales by ``a_u·a_v`` and the degrees are recomputed, so
+    each expected matrix is still a Laplacian.  The numpy twin of
+    ``parallel.masked_laplacians``."""
+    L = np.asarray(laplacians, np.float64)
+    a = np.asarray(worker_alive, np.float64)
+    n = L.shape[-1]
+    eye = np.eye(n)
+    adj = np.einsum("mn,nk->mnk", np.diagonal(L, axis1=-2, axis2=-1), eye) - L
+    adj = adj * np.outer(a, a)[None, :, :]
+    deg = adj.sum(axis=-1)
+    return np.einsum("mn,nk->mnk", deg, eye) - adj
+
+
+def degraded_solver_inputs(
+    laplacians: np.ndarray,
+    probs: np.ndarray,
+    worker_alive: Optional[np.ndarray] = None,
+    link_up: Optional[np.ndarray] = None,
+):
+    """``(masked Laplacian stack, effective probs)`` for a degraded fleet.
+
+    Workers with availability exactly 0 are projected out (the principal
+    submatrix over the survivors): a worker that never rejoins would pin
+    any full-space consensus measure at 1.  Partly alive workers stay in,
+    edge-scaled by their alive fractions.  ``link_up`` (scalar or
+    ``f64[M]``) scales the activation probabilities."""
+    Ls = np.asarray(laplacians, np.float64)
+    p = np.asarray(probs, np.float64)
+    if worker_alive is not None:
+        a = np.broadcast_to(np.asarray(worker_alive, np.float64),
+                            (Ls.shape[-1],))
+        Ls = masked_laplacian_expectation(Ls, a)
+        keep = a > 0
+        if not keep.all():
+            Ls = Ls[:, keep][:, :, keep]
+    if link_up is not None:
+        p = p * np.broadcast_to(np.asarray(link_up, np.float64), p.shape)
+    return Ls, p
+
+
+def degraded_contraction_rho(
+    laplacians: np.ndarray,
+    probs: np.ndarray,
+    alpha: float,
+    worker_alive: Optional[np.ndarray] = None,
+    link_up: Optional[np.ndarray] = None,
+) -> float:
+    """Closed-form ρ of the degraded expected mixing (survivor consensus):
+    ``contraction_rho`` on :func:`degraded_solver_inputs`; 1.0 with fewer
+    than two survivors, and exactly ``contraction_rho`` with neither
+    degradation given."""
+    Ls, p = degraded_solver_inputs(laplacians, probs, worker_alive, link_up)
+    if Ls.shape[-1] < 2:
+        return 1.0
+    return float(contraction_rho(Ls, p, float(alpha)))
 
 
 def wire_quantization_eps(wire_dtype) -> float:

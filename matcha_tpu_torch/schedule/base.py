@@ -9,8 +9,8 @@ arrays are all the gossip step needs:
     flags : uint8[T, M]   per-iteration activation draws
 
 The flag stream is sampled once, on the host, with an explicit seed.
-``Schedule.refold_for`` (the elastic re-plan) is not ported yet: it needs
-the planner's spectral module (``ROADMAP.md``).
+``Schedule.refold_for`` re-solves α over a partial live set (the elastic
+re-plan), through ``refold_mixing`` on the port's ``plan.spectral``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,27 @@ from ..topology import (
 )
 from .solvers import contraction_rho
 
-__all__ = ["Schedule", "sample_flags"]
+__all__ = ["Schedule", "refold_mixing", "sample_flags"]
+
+
+def refold_mixing(laplacians: np.ndarray, probs: np.ndarray, alpha0: float,
+                  worker_alive: np.ndarray):
+    """The degraded fold rule: ``(α, ρ, p_eff)`` over a partial live set.
+
+    The solver sees the alive-masked Laplacians with fully dead workers
+    projected out (``plan.spectral.degraded_solver_inputs``).  Fewer than
+    two live workers keeps ``alpha0`` and reports ρ = 1 (no consensus
+    process remains to optimize)."""
+    from ..plan.spectral import degraded_solver_inputs
+    from .solvers import solve_mixing_weight
+
+    Ls, p_eff = degraded_solver_inputs(
+        laplacians, probs,
+        worker_alive=np.asarray(worker_alive, np.float64))
+    if Ls.shape[-1] < 2:
+        return float(alpha0), 1.0, p_eff
+    alpha, rho = solve_mixing_weight(Ls, p_eff)
+    return float(alpha), float(rho), p_eff
 
 
 def sample_flags(
@@ -123,6 +143,15 @@ class Schedule:
     def expected_comm_fraction(self) -> float:
         """E[#active matchings] / M — the realized communication budget."""
         return float(np.mean(self.probs))
+
+    def refold_for(self, worker_alive: np.ndarray):
+        """Re-solve ``(α, ρ, p_eff)`` for a partial live set over this
+        schedule's matchings: the epoch-boundary re-plan of elastic
+        membership.  The permutations persist; only the expected mixing
+        they realize over the survivors is re-folded
+        (:func:`refold_mixing`)."""
+        return refold_mixing(self.laplacians(), self.probs, self.alpha,
+                             worker_alive)
 
     def slice(self, start: int, stop: int) -> "Schedule":
         """A view of steps [start, stop) — used for epoch-chunked scans."""

@@ -26,9 +26,12 @@ template of the saved shape, so the port has no counterpart of orbax's
 ``mix_ages`` is never saved: the reconcile rebuilds it from the cursor, as
 in the JAX package.
 
-Not ported, with the feature it belongs to (``ROADMAP.md``): the
-membership sidecar (elastic membership), with the JAX package's ladder of
-older orbax layouts.
+Under elastic membership a third sidecar, ``membership-<epoch>.json``,
+records who owned which pool slot and the α re-plan in force
+(``load_membership_sidecar``); the state file itself never holds the
+membership, which the training loop rebuilds from its trace.  The JAX
+package's ladder of older orbax layouts has no counterpart: the port has
+only its own format.
 """
 
 from __future__ import annotations
@@ -48,13 +51,13 @@ from .state import TrainState
 
 __all__ = ["CHECKPOINT_FILE", "MAX_TO_KEEP", "ScheduleMismatch",
            "all_steps", "checkpoint_digest", "latest_step",
-           "quarantine_step", "restore_checkpoint", "restore_with_fallback",
-           "save_checkpoint", "schedule_fingerprint",
-           "verify_checkpoint_digest"]
+           "load_membership_sidecar", "quarantine_step",
+           "restore_checkpoint", "restore_with_fallback", "save_checkpoint",
+           "schedule_fingerprint", "verify_checkpoint_digest"]
 
 CHECKPOINT_FILE = "state.pt"
 MAX_TO_KEEP = 3  # generations kept, as the JAX package's orbax manager
-_SIDECARS = ("schedule-", "digest-")
+_SIDECARS = ("schedule-", "membership-", "digest-")
 
 
 class ScheduleMismatch(ValueError):
@@ -94,8 +97,24 @@ def _sidecar_path(directory: str, epoch: int) -> str:
     return os.path.join(_root(directory), f"schedule-{epoch}.json")
 
 
+def _membership_sidecar_path(directory: str, epoch: int) -> str:
+    return os.path.join(_root(directory), f"membership-{epoch}.json")
+
+
 def _digest_path(directory: str, epoch: int) -> str:
     return os.path.join(_root(directory), f"digest-{epoch}.json")
+
+
+def load_membership_sidecar(directory: str, epoch: int):
+    """The membership recorded beside checkpoint ``epoch``: the pool's
+    view (slot → occupant and last owner) and the α re-plan that was
+    executing, or ``None`` for a checkpoint without one (every slot
+    occupied, scale 1)."""
+    path = _membership_sidecar_path(directory, int(epoch))
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
 
 
 def checkpoint_digest(directory: str, epoch: int) -> dict:
@@ -214,11 +233,12 @@ def _commit(root: str, step: int, payload: dict) -> None:
 
 
 def save_checkpoint(directory: str, state: TrainState, epoch: int,
-                    schedule=None) -> int:
+                    schedule=None, membership=None) -> int:
     """Commit ``state`` as generation ``epoch``, keep the newest
     ``MAX_TO_KEEP``, publish its digest (and, given ``schedule``, its
-    fingerprint) sidecar, and prune sidecars of generations no longer on
-    disk and crash leftovers.  Returns the bytes of the checkpoint file.
+    fingerprint; given ``membership``, a JSON-able dict, the membership)
+    sidecar, and prune sidecars of generations no longer on disk and
+    crash leftovers.  Returns the bytes of the checkpoint file.
     This is where the state is copied from the card to the host."""
     root = _root(directory)
     os.makedirs(root, exist_ok=True)
@@ -236,6 +256,9 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
         atomic_publish(_sidecar_path(root, epoch),
                        json.dumps(schedule_fingerprint(schedule)),
                        prefix=".schedule.")
+    if membership is not None:
+        atomic_publish(_membership_sidecar_path(root, epoch),
+                       json.dumps(membership), prefix=".membership.")
     for fname in os.listdir(root):
         path = os.path.join(root, fname)
         if fname.endswith(".tmp"):

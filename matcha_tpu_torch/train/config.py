@@ -7,9 +7,11 @@ raise ``NotImplementedError`` when set to anything but their default (see
 ``gossip_backend`` takes the port's five backends, ``perm``, ``dense``,
 ``fused``, ``gather`` and ``skip`` (``make_decen`` refuses the others), and
 ``communicator`` takes ``decen``, ``choco``, ``centralized`` and ``none``.
-Three defaults differ from the JAX package's, because the features behind
-them are not ported: ``gossip_backend`` is ``"perm"`` (``"auto"`` needs the
-planner's cost model), and ``telemetry`` and ``health`` are off.
+A fault plan, rollback recovery and a membership trace run; the live
+membership source (``membership_live``) is refused.  Three defaults differ
+from the JAX package's, because the features behind them are not ported:
+``gossip_backend`` is ``"perm"`` (``"auto"`` needs the planner's cost
+model), and ``telemetry`` and ``health`` are off.
 """
 
 from __future__ import annotations
@@ -247,9 +249,6 @@ _UNPORTED = {
     "plan": None,
     "gossip_measured_vs_ceiling": None,
     "gossip_measured_source": None,
-    "fault_plan": None,
-    "max_recoveries": 0,
-    "membership_trace": None,
     "membership_live": None,
     "telemetry": False,
     "health": False,

@@ -39,10 +39,22 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   in-flight deltas before it returns (:1281-1316).  The port issues
   ``begin_mix`` on the same CUDA stream as the step, so nothing overlaps
   on the card yet.
+* Resilience and elastic membership, as the JAX loop runs them: a fault
+  plan compiled against the schedule (its link outages folded into the
+  flag stream, :173-202, its ``plan`` journaled, :670-680); a membership
+  trace replayed by the ``ElasticController`` at each epoch boundary, with
+  the (re)join bootstrap and the ``membership`` event (:916-953), and
+  through a resume (``replay_to``, the checkpoint's membership sidecar,
+  ``reconcile_restored``, :568-600); the per-worker divergence detector
+  over the whole state with its quarantine exemptions (:997-1023); and
+  rollback recovery (:1030-1140): a copy of the state on the device each
+  epoch while the budget lasts, the emergency checkpoint, the consumed
+  NaN events, the learning-rate backoff and one α re-derivation.  The
+  evaluation leaves NaN gaps for dead and vacant rows (:1174-1187).
 
-Not ported yet (``TrainConfig`` refuses them): rollback recovery, faults,
-elastic membership, telemetry and the drift monitor (so the journal's
-``predicted`` is empty, as in the JAX package with telemetry off).
+Not ported yet (``TrainConfig`` refuses them): the live membership source,
+telemetry and the drift monitor (so the journal's ``predicted`` is empty,
+as in the JAX package with telemetry off).
 """
 
 from __future__ import annotations
@@ -64,11 +76,28 @@ from ..data import (
     synthetic_images,
     uci_digits,
 )
+from ..elastic import (
+    ElasticController,
+    load_membership_trace,
+    make_bootstrap_fn,
+    membership_arrays,
+)
 from ..models import select_model
-from ..schedule import Schedule, fixed_schedule, matcha_schedule
+from ..resilience import load_fault_plan, resolve_degraded_alpha
+from ..resilience.runtime import state_finite_rows
+from ..schedule import (
+    Schedule,
+    fixed_schedule,
+    matcha_schedule,
+    solve_mixing_weight,
+)
 from ..topology import decompose, graph_size, make_graph, select_graph
 from ..utils import resolve_device, synchronize
-from .checkpoint import restore_with_fallback, save_checkpoint
+from .checkpoint import (
+    load_membership_sidecar,
+    restore_with_fallback,
+    save_checkpoint,
+)
 from .config import TrainConfig
 from .lr import make_lr_schedule
 from .recorder import Recorder
@@ -87,7 +116,11 @@ __all__ = ["TrainResult", "TrainingDiverged", "build_dataset",
 
 class TrainingDiverged(RuntimeError):
     """Raised when an epoch produces a non-finite loss or train state
-    (parameters, batch-norm statistics or momentum)."""
+    (parameters, batch-norm statistics, momentum, the communicator's carry
+    or the pending deltas), per worker outside the quarantine.  With
+    ``max_recoveries > 0`` the loop first rolls back to the epoch's
+    snapshot, backs the learning rate off and re-derives α, and raises only
+    once the budget is spent."""
 
 
 def build_schedule(config: TrainConfig, iterations: int) -> Schedule:
@@ -181,14 +214,36 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     if config.alpha_override is not None:
         schedule = dataclasses.replace(schedule,
                                        alpha=float(config.alpha_override))
-    flags = np.asarray(schedule.flags, np.float32)
+    # the runtime fault plan, compiled against the schedule's horizon into
+    # static per-step arrays as the flags are; a severed link is a flag
+    # that does not fire, so link outages fold into the flag stream here
+    faults = fault_plan = None
+    if config.fault_plan is not None:
+        fault_plan = load_fault_plan(config.fault_plan)
+        faults = fault_plan.compile(schedule.iterations, config.num_workers,
+                                    schedule.num_matchings)
+    run_flags = np.asarray(schedule.flags, np.float32)
+    if faults is not None:
+        run_flags = run_flags * faults.link_up
     if config.local_steps > 1:
         # local steps: the exchange fires every L-th step only.  The step
         # launches nothing on the other steps (a host branch); thinning the
         # stream too makes the comm-split timer count zero for them.  The
         # checkpoint fingerprints the schedule as built.
-        keep = np.arange(len(flags)) % config.local_steps == 0
-        flags = flags * keep[:, None].astype(np.float32)
+        keep = np.arange(len(run_flags)) % config.local_steps == 0
+        run_flags = run_flags * keep[:, None].astype(np.float32)
+    # checkpoints fingerprint the schedule as built: a recovery may
+    # re-derive α, which no config could reproduce at resume time
+    schedule0 = schedule
+
+    # elastic membership: the trace replays at epoch boundaries through the
+    # host controller; the step sees only the pool mask and the α scale
+    elastic_ctl = None
+    if config.membership_trace is not None:
+        elastic_ctl = ElasticController(
+            load_membership_trace(config.membership_trace),
+            config.num_workers, hysteresis=config.membership_hysteresis,
+            bootstrap=config.membership_bootstrap)
 
     def make_comm(ratio: float):
         return select_communicator(
@@ -204,10 +259,17 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                          num_workers=config.num_workers,
                          input_shape=dataset.x_train.shape[1:],
                          remat=config.remat)
-    lr_schedule = make_lr_schedule(
-        config.lr, bpe, base_lr=config.base_lr, warmup=config.warmup,
-        warmup_epochs=config.warmup_epochs, decay_epochs=config.decay_epochs,
-        decay_factor=config.decay_factor)
+    # lr_scale is the recovery's backoff (1.0 until a rollback)
+    lr_scale = 1.0
+
+    def make_lr():
+        return make_lr_schedule(
+            config.lr * lr_scale, bpe, base_lr=config.base_lr * lr_scale,
+            warmup=config.warmup, warmup_epochs=config.warmup_epochs,
+            decay_epochs=config.decay_epochs,
+            decay_factor=config.decay_factor)
+
+    lr_schedule = make_lr()
     optimizer = make_optimizer(lr_schedule, config.momentum,
                                config.weight_decay, config.nesterov)
     state, flattener = init_train_state(
@@ -215,16 +277,43 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         sync_init=config.sync_init, device=dev, overlap=config.overlap,
         staleness=config.staleness)
     evaluate = make_eval_fn(model)
-    stale_scale = _stale_scale(config, schedule)
+
+    bootstrap_fn = member_alive_np = None
+    if elastic_ctl is not None:
+        bootstrap_fn = make_bootstrap_fn(flattener, config.num_workers)
+        member_alive_np = elastic_ctl.alive_mask() > 0
+
+    def bootstrap_rows(state, joined, restored):
+        """Boundary surgery for (re)entering slots: the donors are the
+        continuing members, alive now and not themselves entering."""
+        donors = elastic_ctl.alive_mask() * (1.0 - joined) * (1.0 - restored)
+        return bootstrap_fn(state, joined, restored, donors)
+
+    def fresh_membership():
+        return membership_arrays(elastic_ctl.alive_mask(),
+                                 elastic_ctl.alpha_scale, dev)
+
+    def membership_sidecar():
+        """What a checkpoint records beside the state: who owns which pool
+        slot, and the α re-plan in force."""
+        if elastic_ctl is None:
+            return None
+        return {"view": elastic_ctl.view.to_json(),
+                "alpha": elastic_ctl.alpha, "rho": elastic_ctl.rho,
+                "alpha_scale": elastic_ctl.alpha_scale}
 
     def make_stage(comm):
-        """(step, comm-split timer) over ``comm``."""
-        step = make_train_step(optimizer, comm, flattener, flags, lr_schedule,
-                               grad_chunk=config.grad_chunk,
+        """(step, comm-split timer) over ``comm``, from the current
+        ``optimizer`` (its learning rate), ``faults`` and ``schedule``."""
+        step = make_train_step(optimizer, comm, flattener, run_flags,
+                               lr_schedule, grad_chunk=config.grad_chunk,
                                overlap=config.overlap,
                                staleness=config.staleness,
-                               stale_alpha_scale=stale_scale,
-                               local_steps=config.local_steps)
+                               stale_alpha_scale=_stale_scale(config,
+                                                              schedule),
+                               local_steps=config.local_steps,
+                               faults=faults,
+                               elastic=elastic_ctl is not None)
         timer = (_make_comm_timer(comm, flattener, dev)
                  if config.measure_comm_split
                  and config.communicator != "none" else None)
@@ -242,6 +331,19 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
 
     stages = {config.compress_ratio: make_stage(communicator)}
 
+    def rebuild_programs():
+        """Rebuild the step and the timer of every stage from the current
+        ``lr_scale``, ``schedule`` (α perhaps re-derived) and ``faults``
+        (NaN events consumed): a recovery's retry runs the updated
+        recipe."""
+        nonlocal lr_schedule, optimizer, communicator
+        lr_schedule = make_lr()
+        optimizer = make_optimizer(lr_schedule, config.momentum,
+                                   config.weight_decay, config.nesterov)
+        communicator = make_comm(config.compress_ratio)
+        stages.clear()
+        stages[config.compress_ratio] = make_stage(communicator)
+
     start_epoch = 0
     recovery_notices: List[Dict] = []
     if resume_dir is None:
@@ -253,6 +355,18 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         state = _reconcile_mix_pending(state, config.overlap, communicator,
                                        flattener, config.num_workers,
                                        staleness=config.staleness)
+        if elastic_ctl is not None:
+            # the controller state this boundary had (the trace replays
+            # deterministically), then the restored rows mapped onto the
+            # current occupancy: a slot whose saved content belongs to
+            # another worker (or to nobody) bootstraps from the members
+            elastic_ctl.replay_to(start_epoch, schedule)
+            member_alive_np = elastic_ctl.alive_mask() > 0
+            side = load_membership_sidecar(resume_dir, last_epoch)
+            joined, restored = elastic_ctl.reconcile_restored(
+                (side or {}).get("view"))
+            if joined.any() or restored.any():
+                state = bootstrap_rows(state, joined, restored)
     recorder = Recorder(config, config.num_workers)
     if config.save and start_epoch:
         # extend the CSVs and the journal of the run being resumed, cut
@@ -262,6 +376,17 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         recorder.log_event("recovery", scope="checkpoint",
                            action="quarantine", reason=n["reason"],
                            epoch=n["step"], quarantined=n["path"])
+    if fault_plan is not None:
+        plan_events = fault_plan.to_json()["events"]
+        already = any(e.get("kind") == "plan"
+                      and e.get("events") == plan_events
+                      for e in recorder.faults)
+        if not already:  # a resume reloaded the ledger: no duplicate
+            recorder.log_fault(
+                "plan", name=fault_plan.name, events=plan_events,
+                expected_alive=[float(v) for v in faults.expected_alive()],
+                expected_link_up=[float(v)
+                                  for v in faults.expected_link_up()])
     if start_epoch:
         recorder.log_event("resume", epoch=start_epoch,
                            config=_config_snapshot(config), predicted={})
@@ -276,8 +401,38 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     x_test = torch.as_tensor(dataset.x_test, device=dev)
     y_test = torch.as_tensor(dataset.y_test, device=dev).long()
 
+    # rollback recovery: the snapshot is a copy on the device, since the
+    # step updates the state in place
+    recoveries_used = 0
+    alpha_rederived = emergency_written = False
+    snapshot = None
     history: List[Dict] = []
-    for epoch in range(start_epoch, config.epochs):
+    epoch = start_epoch
+    while epoch < config.epochs:
+        if elastic_ctl is not None:
+            # membership changes here and nowhere else; advance() is
+            # idempotent per epoch, so a rollback's retry does not apply a
+            # transition twice (its bootstrap is in the snapshot).  The
+            # drift monitor that the JAX loop re-bases on a re-plan is not
+            # ported (ROADMAP.md, the host plane).
+            trans = elastic_ctl.advance(epoch, schedule)
+            if trans is not None:
+                member_alive_np = trans.new_alive > 0
+                if trans.joined.any() or trans.restored.any():
+                    state = bootstrap_rows(state, trans.joined,
+                                           trans.restored)
+                recorder.log_event(
+                    "membership", epoch=epoch,
+                    old_alive=[float(v) for v in trans.old_alive],
+                    new_alive=[float(v) for v in trans.new_alive],
+                    trigger=list(trans.trigger), alpha=float(trans.alpha),
+                    rho=None if trans.rho is None else float(trans.rho),
+                    alpha_scale=float(trans.alpha_scale),
+                    replanned=bool(trans.replanned), predicted={})
+            state.membership = fresh_membership()
+        # with the budget spent the copy could never be used: not taken
+        snapshot = (_snapshot_state(state)
+                    if recoveries_used < config.max_recoveries else None)
         ratio = effective_ratio(epoch)
         if ratio not in stages:
             stages[ratio] = make_stage(make_comm(ratio))
@@ -295,37 +450,108 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 else:
                     host_sums[k] = host_sums.get(k, 0.0) + v
             count += 1
-        finite = _state_finite(state)
         # the one deliberate per-epoch read: the step metrics and the
-        # divergence check together
+        # per-worker divergence detector together
         keys = list(dev_sums)
-        read = torch.stack([dev_sums[k] for k in keys]
-                           + [finite.to(torch.float32)]).tolist()
+        reads = [torch.stack([dev_sums[k] for k in keys])]
+        if config.halt_on_divergence:
+            reads.append(state_finite_rows(state, config.num_workers).to(
+                torch.float32))
+        read = torch.cat(reads).tolist()
         epoch_time = time.perf_counter() - t0
         epoch_metrics = {k: read[i] / count for i, k in enumerate(keys)}
         epoch_metrics.update({k: v / count for k, v in host_sums.items()})
 
-        if config.halt_on_divergence and (
-                not np.isfinite(epoch_metrics["loss"]) or read[-1] < 1.0):
-            what = ("training loss " + str(epoch_metrics["loss"])
-                    if not np.isfinite(epoch_metrics["loss"])
-                    else "train state (params/BN stats/momentum)")
-            raise TrainingDiverged(
-                f"non-finite {what} in epoch {epoch} (lr={config.lr}, "
-                f"communicator={config.communicator})")
+        if config.halt_on_divergence:
+            loss_bad = not np.isfinite(epoch_metrics["loss"])
+            finite_rows = np.asarray(read[len(keys):]) > 0
+            # only the workers a `dead` event quarantines are exempt (they
+            # are healed at revival), and the vacant pool slots (nobody's
+            # state until a (re)join bootstraps them)
+            relevant = np.ones(config.num_workers, bool)
+            if faults is not None:
+                cursor = max(min(state.step - 1, faults.iterations - 1), 0)
+                relevant = faults.dead_alive[cursor] > 0
+            if member_alive_np is not None:
+                relevant = relevant & member_alive_np
+            if loss_bad or bool(np.any(~finite_rows & relevant)):
+                what = ("training loss " + str(epoch_metrics["loss"])
+                        if loss_bad else "train state (params/BN stats/"
+                        "momentum/comm carry)")
+                if snapshot is not None \
+                        and recoveries_used < config.max_recoveries:
+                    # recover instead of abort: the last good state, the
+                    # learning rate backed off, α re-derived once
+                    recoveries_used += 1
+                    _restore_snapshot(state, snapshot)
+                    snapshot = None
+                    if config.save and not emergency_written and epoch > 0:
+                        path = f"{config.savePath}/{config.name}_emergency"
+                        save_checkpoint(path, state, epoch - 1,
+                                        schedule=schedule0,
+                                        membership=membership_sidecar())
+                        emergency_written = True
+                        recorder.log_fault("emergency_checkpoint",
+                                           epoch=epoch, path=path)
+                    if faults is not None:
+                        # the chaos happened: the retried window must not
+                        # fire its NaN injections again
+                        faults = faults.without_nan_in(
+                            epoch * bpe,
+                            min((epoch + 1) * bpe, faults.iterations))
+                    lr_scale *= config.recovery_lr_backoff
+                    if not alpha_rederived:
+                        alpha_rederived = True
+                        schedule = _rederive_alpha(schedule, faults,
+                                                   elastic_ctl, recorder,
+                                                   epoch)
+                    rebuild_programs()
+                    recorder.log_fault("rollback", epoch=epoch, reason=what,
+                                       lr_scale=lr_scale,
+                                       attempt=recoveries_used)
+                    continue  # retry this epoch from the last good state
+                # keep the curve leading into the blow-up
+                recorder.add_epoch(
+                    epoch_time=epoch_time, comp_time=epoch_time,
+                    comm_time=0.0, train_acc=epoch_metrics["accuracy"],
+                    train_loss=epoch_metrics["loss"],
+                    test_acc=np.zeros(config.num_workers),
+                    disagreement=epoch_metrics["disagreement"])
+                if config.save:
+                    recorder.save()
+                budget = (f", {recoveries_used}/{config.max_recoveries} "
+                          f"recoveries exhausted"
+                          if config.max_recoveries else "")
+                raise TrainingDiverged(
+                    f"non-finite {what} in epoch {epoch} (lr={config.lr}, "
+                    f"communicator={config.communicator}{budget})")
 
         comm_time = comm_encode_time = 0.0
         if comm_timer is not None:
-            window = flags[epoch * bpe:(epoch + 1) * bpe]
+            window = run_flags[epoch * bpe:(epoch + 1) * bpe]
             split = comm_timer(state, window)
             comm_time = min(split["comm_time"], epoch_time)
             comm_encode_time = min(split["comm_encode_time"], comm_time)
 
         test_loss = test_acc = np.zeros(config.num_workers)
+        eval_alive = None
         if config.eval_every and (epoch + 1) % config.eval_every == 0:
             eval_batch = config.eval_batch or max(16, 1024 // config.num_workers)
             test_loss, test_acc = _evaluate_in_batches(
                 evaluate, x_test, y_test, eval_batch)
+            if faults is not None or member_alive_np is not None:
+                # a plan-dead worker's or a vacant slot's state may be
+                # garbage: its entries become explicit NaN gaps
+                if faults is not None:
+                    cursor = max(min(state.step - 1, faults.iterations - 1),
+                                 0)
+                    eval_alive = faults.dead_alive[cursor] > 0
+                    if member_alive_np is not None:
+                        eval_alive = eval_alive & member_alive_np
+                else:
+                    eval_alive = member_alive_np
+                test_loss = np.where(eval_alive, test_loss, np.nan)
+                test_acc = np.where(eval_alive, test_acc, np.nan)
 
         recorder.add_epoch(
             epoch_time=epoch_time,
@@ -339,13 +565,18 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         history.append({
             "epoch": epoch,
             **epoch_metrics,
-            "test_acc_mean": float(np.mean(test_acc)),
-            "test_loss_mean": float(np.mean(test_loss)),
+            "test_acc_mean": _masked_mean(test_acc, eval_alive),
+            "test_loss_mean": _masked_mean(test_loss, eval_alive),
             "epoch_time": epoch_time,
             "comm_time": comm_time,
             "comm_encode_time": comm_encode_time,
             "comm_exchange_time": comm_time - comm_encode_time,
         })
+        if faults is not None and epoch_metrics.get("healed", 0.0) > 0:
+            recorder.log_fault(
+                "healed", epoch=epoch, rows=epoch_metrics["healed"] * bpe,
+                mean_alive=epoch_metrics.get("alive_workers",
+                                             float(config.num_workers)))
 
         if config.save and recorder.epochs_recorded % 10 == 0:
             recorder.save()
@@ -353,10 +584,13 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 and (epoch + 1) % config.checkpoint_every == 0:
             t0 = time.perf_counter()
             nbytes = save_checkpoint(ckpt_dir, state, epoch,
-                                     schedule=schedule)
+                                     schedule=schedule0,
+                                     membership=membership_sidecar())
             recorder.log_event("checkpoint", epoch=epoch, path=ckpt_dir,
                                seconds=time.perf_counter() - t0,
                                bytes=nbytes)
+        epoch += 1
+    snapshot = None
     if config.overlap == "1step":
         # the returned parameters are the fully mixed state; inside the
         # run (and in its checkpoints) the pending deltas stay in flight
@@ -364,6 +598,102 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     if config.save:
         recorder.save()
     return TrainResult(state, recorder, schedule, history)
+
+
+def _rederive_alpha(schedule: Schedule, faults, elastic_ctl, recorder,
+                    epoch: int) -> Schedule:
+    """A recovery's α re-derivation (JAX ``loop.py:1052-1122``): for the
+    fault plan's expected availability and link reliability, composed with
+    the membership's occupancy (``resolve_degraded_alpha``), else for the
+    live set (``refold_for``), else for the schedule's own probabilities.
+    Where the new α differs from the executed one (the schedule's α times
+    the membership's scale), the schedule is rebound to it, the
+    controller re-bases to scale 1 against it, and an ``alpha_rederived``
+    fault is journaled (its ``predicted`` is None: the drift monitor that
+    the JAX loop re-bases here is not ported, ROADMAP.md item 7)."""
+    member_mask = (elastic_ctl.alive_mask() if elastic_ctl is not None
+                   else None)
+    if faults is not None:
+        new_alpha, new_rho, _ = resolve_degraded_alpha(
+            schedule, faults, worker_alive=member_mask)
+    elif member_mask is not None:
+        new_alpha, new_rho, _ = schedule.refold_for(member_mask)
+    else:
+        new_alpha, new_rho = solve_mixing_weight(schedule.laplacians(),
+                                                 schedule.probs)
+    executed = float(schedule.alpha) * (elastic_ctl.alpha_scale
+                                        if elastic_ctl is not None else 1.0)
+    if abs(new_alpha - executed) <= 1e-9:
+        return schedule
+    schedule = dataclasses.replace(schedule, alpha=float(new_alpha))
+    if elastic_ctl is not None:
+        # the composed solve subsumes the membership's re-fold
+        elastic_ctl.alpha = float(new_alpha)
+        elastic_ctl.rho = float(new_rho)
+        elastic_ctl.alpha_scale = 1.0
+    recorder.log_fault("alpha_rederived", epoch=epoch, old=executed,
+                       new=float(new_alpha), rho=float(new_rho),
+                       predicted=None)
+    return schedule
+
+
+def _clone_tree(tree):
+    """A copy of every tensor of a carry-like value (a tensor, or a
+    dict/tuple/list of them); anything else as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree
+
+
+def _snapshot_state(state: TrainState) -> Dict:
+    """A copy on the state's device of everything an epoch changes: the
+    parameters, buffers, the optimizer's per-parameter state (momentum),
+    the carry, the pending deltas and their ages, and the cursor.  The
+    step updates in place, so a reference would not do."""
+    model, opt = state.model, state.optimizer
+    return {
+        "params": [p.detach().clone() for p in model.parameters()],
+        "buffers": [b.clone() for b in model.buffers()],
+        "optimizer": [_clone_tree(dict(opt.state[p])) if p in opt.state
+                      else None for p in model.parameters()],
+        "comm_carry": _clone_tree(state.comm_carry),
+        "mix_pending": _clone_tree(state.mix_pending),
+        "mix_ages": _clone_tree(state.mix_ages),
+        "step": int(state.step),
+    }
+
+
+def _restore_snapshot(state: TrainState, snapshot: Dict) -> TrainState:
+    """Put a snapshot back into ``state`` (in place; the snapshot's tensors
+    are consumed)."""
+    model, opt = state.model, state.optimizer
+    with torch.no_grad():
+        for p, saved in zip(model.parameters(), snapshot["params"]):
+            p.copy_(saved)
+        for b, saved in zip(model.buffers(), snapshot["buffers"]):
+            b.copy_(saved)
+    for p, saved in zip(model.parameters(), snapshot["optimizer"]):
+        if saved is None:
+            opt.state.pop(p, None)
+        else:
+            opt.state[p] = saved
+    state.comm_carry = snapshot["comm_carry"]
+    state.mix_pending = snapshot["mix_pending"]
+    state.mix_ages = snapshot["mix_ages"]
+    state.step = snapshot["step"]
+    return state
+
+
+def _masked_mean(values, alive) -> float:
+    """Mean of the entries of a per-worker evaluation series outside the
+    quarantine (its NaN gaps)."""
+    if alive is not None and alive.any():
+        values = values[alive]
+    return float(np.mean(values))
 
 
 def _stale_scale(config: TrainConfig, schedule: Schedule) -> float:
@@ -461,17 +791,6 @@ def _epoch_batches(loader: WorkerBatches, epoch: int,
     for idx in loader.epoch_indices(epoch):
         idx = torch.as_tensor(idx, device=dev)
         yield x_train[idx], y_train[idx]
-
-
-def _state_finite(state: TrainState) -> torch.Tensor:
-    """0-d bool: every parameter, BN buffer, momentum buffer and pending
-    delta is finite."""
-    tensors = list(state.model.parameters()) + list(state.model.buffers())
-    tensors += [s["momentum_buffer"] for s in state.optimizer.state.values()
-                if s.get("momentum_buffer") is not None]
-    if isinstance(state.mix_pending, torch.Tensor):
-        tensors.append(state.mix_pending)
-    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 
 def _make_comm_timer(communicator, flattener, dev: torch.device,

@@ -2,8 +2,8 @@
 
 Port of ``matcha_tpu/train/state.py``: ``make_optimizer`` (:100),
 ``init_train_state`` (:114), ``make_train_step`` (:167, with
-``grad_chunk``, the pipelined schedule and local-step elision) and
-``make_eval_fn`` (:672).  Faults, elastic membership, run control and
+``grad_chunk``, the pipelined schedule, local-step elision, a runtime fault
+plan and elastic membership) and ``make_eval_fn`` (:672).  Run control and
 telemetry are not ported yet.
 
 The JAX step vmaps a per-worker loss over the worker axis.  The port's
@@ -32,9 +32,19 @@ import torch
 import torch.nn as nn
 
 from ..communicator import Communicator
+from ..elastic.runtime import Membership, freeze_worker_rows, vacant_rows
 from ..models.layers import init_workers
 from ..ops import WorkerFlattener
 from ..parallel import worker_disagreement
+from ..resilience.runtime import (
+    begin_mix_quarantined,
+    gossip_quarantined,
+    heal_and_mask,
+    heal_worker_stat_rows,
+    inject_nan_rows,
+    mask_worker_rows,
+    momentum_buffers,
+)
 from ..utils import cross_entropy_loss, top_k_accuracy
 
 __all__ = ["OptimizerSpec", "TrainState", "fresh_mix_pending",
@@ -54,9 +64,13 @@ class TrainState:
     # holds the delta issued at t−K), () when eager.  Checkpointed.
     mix_pending: Any = ()
     # i32[N, K] age of each ring slot's delta (−1: empty, before the ring
-    # filled or after an elided issue), () below K = 2.  Never
-    # checkpointed: a resume rebuilds it from the cursor.
+    # filled, after an elided issue, or a healed or vacant row), () below
+    # K = 2.  Never checkpointed: a resume rebuilds it from the cursor.
     mix_ages: Any = ()
+    # the elastic pool's mask and α scale (``elastic.runtime.Membership``),
+    # set by the loop at each epoch boundary; () without a membership
+    # trace.  Never checkpointed: a sidecar records the view.
+    membership: Any = ()
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -177,6 +191,8 @@ def make_train_step(
     staleness: int = 1,
     stale_alpha_scale: float = 1.0,
     local_steps: int = 1,
+    faults=None,
+    elastic: bool = False,
 ):
     """Build ``step(state, xb, yb) -> (state, metrics)``.
 
@@ -208,6 +224,27 @@ def make_train_step(
     any other step launches nothing, and under the pipeline it parks a
     zero delta (its ring slot marked empty, −1) while the consume stays
     unconditional.
+
+    ``faults``: a compiled fault plan (``resilience.RuntimeFaults``,
+    arrays ``[T, N]`` indexed by the cursor, placed on the device once).
+    Each step then (a) poisons the plan's NaN rows, (b) heals the planned
+    revivals and the alive rows that are not finite from the donors' mean
+    (``heal_and_mask``), resets their momentum, carry and in-flight delta
+    rows (ring slots marked −1) and gives them the donors' batch-norm
+    statistics, and (c) gossips under the survivor mask with the
+    non-finite rows sealed to zero (``gossip_quarantined``, or
+    ``begin_mix_quarantined`` in the pipeline).  Link faults are not
+    handled here: the caller multiplies ``flags`` by the plan's
+    ``link_up``.  ``elastic``: the step reads ``state.membership`` (an
+    ``elastic.runtime.Membership``): the pool mask composes into the
+    survivor mask (and into the plan's revivals), ``alpha_scale``
+    multiplies the flag row, and the vacant slots' parameters, batch-norm
+    statistics, momentum and carry are frozen (captured before the step
+    writes them, written back after), their in-flight deltas zeroed.
+    Under either, ``loss`` and ``accuracy`` average the surviving rows,
+    ``disagreement`` is theirs, and ``healed`` and ``alive_workers`` join
+    the metrics.  With neither, the step is the step without them: no
+    extra launch.
     """
     flags_host = np.asarray(flags, np.float32)  # [T, M]
     n = flattener.num_workers
@@ -239,6 +276,19 @@ def make_train_step(
                          f"{n}")
     slabs = [(0, n)] if grad_chunk is None else [
         (lo, lo + grad_chunk) for lo in range(0, n, grad_chunk)]
+    if faults is not None and faults.alive.shape != (flags_host.shape[0], n):
+        raise ValueError(
+            f"fault arrays {faults.alive.shape} do not match "
+            f"(iterations={flags_host.shape[0]}, workers={n}); compile the "
+            f"FaultPlan against this schedule")
+    fault_arrays = {}  # device -> (alive, revive, nan_inject), f32[T, N]
+
+    def fault_rows(dev, t: int):
+        if dev not in fault_arrays:
+            fault_arrays[dev] = tuple(
+                torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                for a in (faults.alive, faults.revive, faults.nan_inject))
+        return tuple(a[t] for a in fault_arrays[dev])
 
     def forward_backward(model: nn.Module, xb, yb):
         """Per-worker losses ``[N]`` and logits, detached; the gradients
@@ -260,9 +310,19 @@ def make_train_step(
             logits.append(out.detach())
         return torch.cat(losses), torch.cat(logits)
 
-    def mix(state: TrainState, flat: torch.Tensor, row) -> torch.Tensor:
+    def issue(flat, carry, row, alive, gate):
+        """``begin_mix``, quarantined under a survivor mask."""
+        if alive is None:
+            return communicator.begin_mix(flat, carry, row)
+        return begin_mix_quarantined(communicator.begin_mix, flat, carry,
+                                     row, alive, gate=gate)
+
+    def mix(state: TrainState, flat: torch.Tensor, row, alive=None,
+            gate=None) -> torch.Tensor:
         """The consensus transform of this step on ``flat``; returns the
-        state the step leaves visible (the pending deltas in ``state``)."""
+        state the step leaves visible (the pending deltas in ``state``).
+        ``alive``/``gate``: the survivor mask and the rows' finiteness
+        of a faulted or elastic step."""
         do_mix = state.step % local_steps == 0
         if ring_on:
             slot = state.step % staleness
@@ -271,10 +331,15 @@ def make_train_step(
             ring = state.mix_pending
             flat = communicator.apply_mix(flat, ring[:, slot])
             if do_mix:
-                delta, state.comm_carry = communicator.begin_mix(
-                    flat, state.comm_carry, row)
+                delta, state.comm_carry = issue(
+                    flat, state.comm_carry, row, alive, gate)
                 ring[:, slot] = delta
-                ages[:, slot] = 0
+                if alive is None:
+                    ages[:, slot] = 0
+                else:
+                    # dead or non-finite rows issued nothing real
+                    ages[:, slot] = torch.where(
+                        (alive > 0) & (gate > 0), 0, -1).to(ages.dtype)
             else:
                 ring[:, slot] = 0.0
                 ages[:, slot] = -1
@@ -282,21 +347,115 @@ def make_train_step(
         if overlap_on:
             flat = communicator.apply_mix(flat, state.mix_pending)
             if do_mix:
-                state.mix_pending, state.comm_carry = communicator.begin_mix(
-                    flat, state.comm_carry, row)
+                state.mix_pending, state.comm_carry = issue(
+                    flat, state.comm_carry, row, alive, gate)
             else:
                 state.mix_pending = torch.zeros_like(flat)
             return flat
         if do_mix:
-            flat, state.comm_carry = communicator.step(
-                flat, state.comm_carry, row)
+            if alive is None:
+                flat, state.comm_carry = communicator.step(
+                    flat, state.comm_carry, row)
+            else:
+                flat, state.comm_carry = gossip_quarantined(
+                    communicator.step, flat, state.comm_carry, row, alive,
+                    gate=gate)
         return flat
+
+    def stat_buffers(model: nn.Module) -> list:
+        return [b for b in model.buffers() if b.is_floating_point()]
+
+    def momenta(state: TrainState) -> list:
+        """``(parameter, momentum buffer or None)`` in the model's order;
+        none at all without momentum (SGD keeps no buffer then)."""
+        if not state.optimizer.defaults.get("momentum"):
+            return []
+        return [(p, state.optimizer.state.get(p, {}).get("momentum_buffer"))
+                for p in state.model.parameters()]
+
+    def capture_vacant(state: TrainState, vacant: torch.Tensor):
+        """Copies of the vacant slots' rows, before the step writes them:
+        parameters (as one ``[V, D]`` block), batch-norm buffers, momentum
+        (zeros where no buffer exists yet, as the JAX trace starts) and
+        carry."""
+        moms = [buf if buf is not None else torch.zeros_like(p)
+                for p, buf in momenta(state)]
+        return {"flat": flattener.flatten(state.params).index_select(
+                    0, vacant),
+                "buffers": vacant_rows(stat_buffers(state.model), vacant, n),
+                "momentum": vacant_rows(moms, vacant, n),
+                "carry": vacant_rows(state.comm_carry, vacant, n)}
+
+    def freeze_vacant(state: TrainState, saved, vacant: torch.Tensor):
+        """Write the captured rows back (the parameters went through the
+        flat stack already)."""
+        freeze_worker_rows(stat_buffers(state.model), saved["buffers"],
+                           vacant, n)
+        freeze_worker_rows([buf for _, buf in momenta(state)],
+                           saved["momentum"], vacant, n)
+        freeze_worker_rows(state.comm_carry, saved["carry"], vacant, n)
+
+    def heal(state: TrainState, flat: torch.Tensor, dev, t: int, member):
+        """Inject, heal and mask (the fault/membership branch before the
+        gossip, JAX ``state.py:393-470``): returns ``(flat, alive,
+        healed, gate)``."""
+        if faults is not None:
+            alive_t, revive_t, inject_t = fault_rows(dev, t)
+            flat = inject_nan_rows(flat, inject_t)
+            if member is not None:
+                # a vacant slot is dead whatever the plan says, and a
+                # planned revival of a vacant slot stays vacant
+                alive_t = alive_t * member.alive
+                revive_t = revive_t * member.alive
+        else:
+            alive_t = member.alive
+            revive_t = torch.zeros_like(alive_t)
+        flat, alive, healed, gate = heal_and_mask(flat, alive_t, revive_t)
+        keep = 1.0 - healed
+        mask_worker_rows(momentum_buffers(state.optimizer), keep, n)
+        mask_worker_rows(state.comm_carry, keep, n)
+        if overlap_on:
+            # a healed worker restarts from the donors' mean: the deltas
+            # issued from its old parameters are stale like its momentum
+            if ring_on:
+                state.mix_ages.masked_fill_(keep[:, None] <= 0, -1)
+            mask_worker_rows(state.mix_pending, keep, n)
+        heal_worker_stat_rows(stat_buffers(state.model), healed,
+                              alive * keep, n)
+        return flat, alive, healed, gate
+
+    def fleet_mean(v: torch.Tensor, alive) -> torch.Tensor:
+        """Mean over workers, the quarantined rows left out (``where``:
+        a dead worker's loss may be NaN).  With no alive worker, the mean
+        of the finite rows, and NaN when none is finite."""
+        if alive is None:
+            return v.mean()
+        per_worker = v.reshape(v.shape[0], -1).mean(dim=1)
+        zero = torch.zeros_like(per_worker)
+        kept = torch.where(alive > 0, per_worker, zero)
+        fin = torch.isfinite(per_worker).to(per_worker.dtype)
+        local = torch.where(
+            fin.sum() > 0,
+            torch.where(fin > 0, per_worker, zero).sum()
+            / torch.clamp(fin.sum(), min=1.0),
+            torch.full_like(fin.sum(), float("nan")))
+        return torch.where(alive.sum() > 0,
+                           kept.sum() / torch.clamp(alive.sum(), min=1.0),
+                           local)
 
     def step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor):
         model, opt = state.model, state.optimizer
         dev = communicator.flags_device(xb.device)
         if dev not in comm_flags:
             comm_flags[dev] = torch.as_tensor(comm_flags_host, device=dev)
+        member = (state.membership if elastic
+                  and isinstance(state.membership, Membership) else None)
+        # the vacant slots are a host-made index tensor: its size is
+        # metadata, not a device read
+        vacant = (member.vacant if member is not None
+                  and member.vacant.numel() else None)
+        saved = (capture_vacant(state, vacant) if vacant is not None
+                 else None)
         model.train()
         opt.zero_grad(set_to_none=True)
         losses, logits = forward_backward(model, xb, yb)
@@ -306,17 +465,41 @@ def make_train_step(
         opt.step()
 
         t = min(state.step, flags_host.shape[0] - 1)
+        row = comm_flags[dev][t]
+        if member is not None and member.alpha_scale != 1.0:
+            # the re-folded α rides the flag row, scaled in f32 as the
+            # JAX step scales it
+            row = row * float(np.float32(member.alpha_scale))
         params = state.params
         with torch.no_grad():
-            flat = mix(state, flattener.flatten(params), comm_flags[dev][t])
+            flat = flattener.flatten(params)
+            alive = healed = gate = None
+            if faults is not None or member is not None:
+                flat, alive, healed, gate = heal(state, flat, xb.device, t,
+                                                 member)
+            flat = mix(state, flat, row, alive, gate)
+            if saved is not None:
+                # the vacant slots keep the rows they had before the step
+                # (the survivor mask already made their gossip a self-loop)
+                flat.index_copy_(0, vacant, saved["flat"])
+                freeze_vacant(state, saved, vacant)
+            if member is not None and overlap_on:
+                # a vacant slot neither issues nor consumes deltas
+                if ring_on:
+                    state.mix_ages.masked_fill_(member.alive[:, None] <= 0,
+                                                -1)
+                mask_worker_rows(state.mix_pending, member.alive, n)
             flattener.unflatten_into(flat, params)
             metrics = {
-                "loss": losses.mean(),
-                "accuracy": top_k_accuracy(logits, yb).mean(),
-                "disagreement": worker_disagreement(flat),
+                "loss": fleet_mean(losses, alive),
+                "accuracy": fleet_mean(top_k_accuracy(logits, yb), alive),
+                "disagreement": worker_disagreement(flat, alive),
                 "lr": float(lr_schedule(state.step)) if lr_schedule else 0.0,
                 "active_matchings": float(flags_host[t].sum()),
             }
+            if alive is not None:
+                metrics["healed"] = healed.sum()
+                metrics["alive_workers"] = alive.sum()
         state.step += 1
         return state, metrics
 

@@ -280,8 +280,8 @@ def test_cli_parses_the_epoch_end_flags():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("max_recoveries", 1), ("health", True), ("fault_plan", {}),
-    ("membership_trace", {}), ("scan_chunk", 4), ("telemetry", True),
+    ("membership_live", "health"), ("health", True), ("trace_dir", "t"),
+    ("devices", 2), ("scan_chunk", 4), ("telemetry", True),
 ])
 def test_config_refuses_unported_features(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

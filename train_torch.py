@@ -51,6 +51,19 @@ every L-th step only::
         --graphid 4 --numworkers 16 --overlap 1step --staleness 2 \
         --local-steps 2
 
+Resilience and elastic membership: ``--fault-plan FILE`` injects a
+declarative fault plan (dead workers, stragglers, NaN emitters, link
+outages) and heals through it, ``--max-recoveries R`` rolls a diverged
+epoch back (``--recovery-lr-backoff``), and ``--membership-trace FILE``
+replays join/leave/rejoin events at epoch boundaries
+(``--membership-hysteresis``, ``--membership-bootstrap``)::
+
+    python train_torch.py --model mlp --dataset synthetic --graphid 5 \
+        --numworkers 8 --epoch 3 --fault-plan plan.json --max-recoveries 1 \
+        --device cpu
+    python train_torch.py --model mlp --dataset synthetic --graphid 5 \
+        --numworkers 8 --epoch 3 --membership-trace trace.json --device cpu
+
 ``digits`` and ``photo_patches`` need scikit-learn and PIL (and read
 photographs shipped with matplotlib and pygame).
 """
@@ -126,6 +139,42 @@ def parse_args(argv=None):
                         "runs every L-th step only (composes with "
                         "--staleness: delays count in exchanges, "
                         "ceil(K/L))")
+    p.add_argument("--fault-plan", default=None, dest="fault_plan",
+                   help="JSON fault plan file (resilience.FaultPlan): dead "
+                        "workers, stragglers, NaN emitters and link outages "
+                        "over step ranges, injected deterministically into "
+                        "the step; e.g. "
+                        '\'{"events": [{"kind": "dead", "worker": 3, '
+                        '"start": 100, "stop": 200}]}\'')
+    p.add_argument("--max-recoveries", type=int, default=0,
+                   dest="max_recoveries",
+                   help="on a non-finite epoch: roll back to the epoch's "
+                        "snapshot, back off the LR, re-derive alpha once, "
+                        "and retry up to this many times before raising "
+                        "(0: raise at once)")
+    p.add_argument("--recovery-lr-backoff", type=float, default=0.5,
+                   dest="recovery_lr_backoff",
+                   help="LR scale applied per recovery attempt")
+    p.add_argument("--membership-trace", default=None,
+                   dest="membership_trace",
+                   help="JSON membership trace file "
+                        "(elastic.MembershipTrace): join/leave/rejoin "
+                        "events of named workers applied at epoch "
+                        "boundaries over the static pool of --numworkers "
+                        "slots, alpha re-folded per live set; e.g. "
+                        '\'{"events": [{"kind": "leave", "epoch": 2, '
+                        '"worker": "w3"}]}\'')
+    p.add_argument("--membership-hysteresis", type=int, default=0,
+                   dest="membership_hysteresis",
+                   help="epochs the membership must hold still before "
+                        "alpha is re-folded for the new live set (0: at "
+                        "once); the alive mask always applies at once")
+    p.add_argument("--membership-bootstrap", default="mean",
+                   choices=["mean", "restore"], dest="membership_bootstrap",
+                   help="join/rejoin policy: 'mean' bootstraps every "
+                        "(re)entering worker from the continuing members' "
+                        "mean; 'restore' lets a rejoiner keep its own "
+                        "frozen rows when still finite")
     p.add_argument("--randomSeed", "--seed", type=int, default=9001,
                    dest="seed")
     p.add_argument("--name", default="experiment")
@@ -159,7 +208,12 @@ def parse_args(argv=None):
         staleness=args.staleness, local_steps=args.local_steps,
         seed=args.seed, name=args.name,
         save=args.save, savePath=args.savePath,
-        checkpoint_every=args.checkpoint_every, resume=args.resume)
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+        fault_plan=args.fault_plan, max_recoveries=args.max_recoveries,
+        recovery_lr_backoff=args.recovery_lr_backoff,
+        membership_trace=args.membership_trace,
+        membership_hysteresis=args.membership_hysteresis,
+        membership_bootstrap=args.membership_bootstrap)
     return cfg, args.device
 
 
