@@ -194,10 +194,20 @@ raises and the script exits non-zero:
    checkpoint bitwise the uninterrupted one, ring included, and resumed
    at staleness 4 and eagerly; ms per step of eager, ``1step``,
    ``staleness=2`` and ``local_steps=2`` in alternated rounds.
+   planner — the offline planner and ``gossip_backend="auto"``
+   (``phase_planner``): ``sweep`` over zoo graph 4 at budgets 0.25 /
+   0.5 / 0.75 through the port's planlint, its host seconds; the slice
+   trained under the artifact with ``auto`` gated by r, K3's bound over
+   its time at chain (b) in this run, read from a roofline report (the
+   journaled ``backend`` event equal to ``choose_gossip_backend`` on r),
+   and with the ratio 0.9 (``perm``: K1 launched 8 + 4 times, a step
+   bitwise its plain version); ``make_decen(<4096-worker hypercube>,
+   "auto")`` (``perm`` with no measurement) at ``[4096, 273258]``, T = 1,
+   on K1's band path, bitwise; ``verify_plan_run`` on the gated run.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
-    the models', the resilience and the pipelined runs included), then
-    the ``nvidia-smi`` line.
+    the models', the resilience, the pipelined and the planner's runs
+    included), then the ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1678,8 +1688,10 @@ def _epoch_end(dev, bpe: int, spread: dict):
         events = read_journal(os.path.join(folder, "events.jsonl"))
         problems = [p for e in events for p in validate_event(e)]
         kinds = [e["kind"] for e in events]
-        if problems or kinds != ["run_start", "epoch", "checkpoint",
-                                 "epoch", "checkpoint"]:
+        # the explicit backend's decision record follows run_start
+        if problems or kinds != ["run_start", "backend", "epoch",
+                                 "checkpoint", "epoch", "checkpoint"] \
+                or events[1]["chosen"] != "perm":
             raise AssertionError(f"journal {kinds}: {problems}")
         saves = [{"seconds": e["seconds"], "bytes": e["bytes"]}
                  for e in events if e["kind"] == "checkpoint"]
@@ -2870,6 +2882,215 @@ def phase_pipeline(dev, tables, rounds: int = 3):
     return out
 
 
+# the planner phase's sweep: zoo graph 4 (the slice's graph) at three
+# budgets, with a small Monte-Carlo check beside each bound
+PLANNER_BUDGETS = (0.25, 0.5, 0.75)
+
+
+def planner_run(dev, label: str, root: str, plan: str, **kw):
+    """``train()`` of the slice under the plan artifact, 2 epochs, saved
+    under ``root``, launches counted: ``(result, row, backend event)``."""
+    bpe = 2048 // 16 // 32
+    cfg = dataclasses.replace(slice_config(2), plan=plan, save=True,
+                              savePath=root, name=label, **kw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    for h in result.history:
+        for key in ("loss", "disagreement", "test_loss_mean"):
+            if not math.isfinite(h[key]):
+                raise AssertionError(f"{label}: epoch {h['epoch']} {key} = "
+                                     f"{h[key]}")
+    events = read_journal(os.path.join(result.recorder.folder,
+                                       "events.jsonl"))
+    problems = [p for e in events for p in validate_event(e)]
+    backend = [e for e in events if e["kind"] == "backend"]
+    if problems or [e["kind"] for e in events[:2]] != ["run_start",
+                                                       "backend"] \
+            or len(backend) != 1:
+        raise AssertionError(f"{label}: journal "
+                             f"{[e['kind'] for e in events]}: {problems}")
+    row = {"label": label, "seconds": seconds,
+           "k1_launches": launches["perm_gossip_dbuf"],
+           "fused_launches": launches["fused_gossip"],
+           "ms_per_step": [h["epoch_time"] / bpe * 1e3
+                           for h in result.history],
+           "loss": [h["loss"] for h in result.history],
+           "disagreement": [h["disagreement"] for h in result.history]}
+    return result, row, backend[0]
+
+
+def phase_planner(dev, fused_rows, huge_tables):
+    """The offline planner and ``gossip_backend="auto"`` on the card:
+
+    1. ``sweep`` over zoo graph 4 at budgets 0.25 / 0.5 / 0.75 (a 2-trial,
+       40-step Monte-Carlo check each), written to a temporary directory
+       and passed through the port's planlint; its host seconds.
+    2. r, K3's ``bound_ms / ms`` at chain (b) (bf16, N = 256, T = 64) from
+       this run's fused_timing, written as a roofline report; the slice
+       trained under the artifact with ``auto`` and that report as
+       ``gossip_measured_source``: the journaled ``backend`` event equals
+       ``choose_gossip_backend`` on r, and the run launches what it chose.
+    3. The same run with ``gossip_measured_vs_ceiling=0.9``: ``perm``, K1
+       launched 8 + 4 times (8 steps, 2 timer chains an epoch), and the
+       third step's launch bitwise its plain version on the same input.
+    4. ``make_decen(<4096-worker hypercube>, "auto")``: ``perm`` with no
+       measurement, its ``Communicator.run`` at ``[4096, 273258]`` f32,
+       T = 1 (K1's band path) bitwise the plain version.
+    5. ``verify_plan_run`` on run 3's Recorder CSVs.
+    Each decision record's ``chosen`` and ``reason`` is printed on a line
+    of its own.  Any failure raises."""
+    from matcha_tpu_torch.analysis import lint_plan_file, render_plan_text
+    from matcha_tpu_torch.communicator import decen
+    from matcha_tpu_torch.plan import save_plan, sweep, verify_plan_run
+    from matcha_tpu_torch.plan.cost import choose_gossip_backend
+
+    t_phase = time.perf_counter()
+    bpe = 2048 // 16 // 32
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # 1. the sweep, self-checked through planlint
+        plan = os.path.join(root, "plan.json")
+        t0 = time.perf_counter()
+        artifact = sweep([{"graphid": 4}], PLANNER_BUDGETS, seed=SEED,
+                         mc_trials=2, mc_steps=40)
+        sweep_s = time.perf_counter() - t0
+        save_plan(artifact, plan)
+        violations, is_plan = lint_plan_file(plan)
+        if violations or not is_plan:
+            raise AssertionError(render_plan_text(violations, [plan]))
+        chosen = artifact.chosen
+        out["sweep"] = {
+            "graphid": 4, "workers": 16, "budgets": list(PLANNER_BUDGETS),
+            "host_seconds": sweep_s, "chosen_budget": chosen["budget"],
+            "rho": chosen["rho"], "alpha": chosen["alpha"],
+            "ranking": [{"budget": c["budget"], "rho": c["rho"],
+                         "mc_empirical_rate": c["mc_empirical_rate"],
+                         "steps_to_target": c["steps_to_target"]}
+                        for c in artifact.candidates]}
+
+        # 2. the gate on the card's own ratio, read from a report file
+        chain_b = next(t for t in fused_rows
+                       if t["shape"] == "hypercube N=256 T=64 bf16")
+        ratio = chain_b["bound_ms"] / chain_b["ms"]
+        report = os.path.join(root, "roofline.json")
+        with open(report, "w") as f:
+            json.dump({"measured_vs_ceiling": ratio,
+                       "measured_vs_ceiling_backend": "fused"}, f)
+        auto, row, event = planner_run(dev, "planner_auto", root, plan,
+                                       gossip_backend="auto",
+                                       gossip_measured_source=report)
+        sched = auto.schedule
+        want = choose_gossip_backend(
+            sched.num_workers, sched.num_matchings, wire_dtype="f32",
+            budget=float(np.mean(np.asarray(sched.probs))),
+            topology=sched.name, measured_vs_ceiling=ratio)
+        differ = sorted(k for k in want if event.get(k) != want[k])
+        if differ or event["measured_source"]["path"] != report \
+                or sched.num_workers != 16 \
+                or float(sched.alpha) != chosen["alpha"]:
+            raise AssertionError(f"planner auto: backend event {event} is "
+                                 f"not choose_gossip_backend on r = {ratio} "
+                                 f"({differ})")
+        expect_k1 = 2 * bpe + 2 * timer_chains(bpe) \
+            if want["chosen"] == "perm" else 0
+        if row["k1_launches"] != expect_k1 or row["fused_launches"]:
+            raise AssertionError(f"planner auto ({want['chosen']}): "
+                                 f"launches {row}")
+        print(json.dumps({"decision": "train() auto, measured r",
+                          "chosen": event["chosen"],
+                          "reason": event["reason"]}), flush=True)
+        out["auto"] = {**row, "r": ratio, "chain_b": {
+            "ms": chain_b["ms"], "bound_ms": chain_b["bound_ms"]},
+            "chosen": event["chosen"], "reason": event["reason"],
+            "budget": chosen["budget"]}
+        if want["chosen"] == "perm":
+            out["launches"]["train() planner, auto on r"] = row["k1_launches"]
+        del auto
+
+        # 3. the gate forced to perm; K1's third per-step launch captured
+        inner_run = decen.perm_gossip_run
+        captured, calls = {}, [0]
+
+        def capture_k1(x, weights, perms, partnered, **kw):
+            y = inner_run(x, weights, perms, partnered, **kw)
+            if weights.shape[0] == 1:
+                calls[0] += 1
+                if calls[0] == 3:
+                    captured["step"] = (x.clone(), weights.clone(), perms,
+                                        partnered, y.clone(), kw)
+            return y
+
+        decen.perm_gossip_run = capture_k1
+        try:
+            gated, row, event = planner_run(
+                dev, "planner_gated", root, plan, gossip_backend="auto",
+                gossip_measured_vs_ceiling=0.9)
+        finally:
+            decen.perm_gossip_run = inner_run
+        expected = 2 * bpe + 2 * timer_chains(bpe)
+        if event["chosen"] != "perm" or row["k1_launches"] != expected \
+                or calls[0] != 2 * bpe:
+            raise AssertionError(f"planner gated: {event['chosen']}, K1 "
+                                 f"launched {row['k1_launches']} times "
+                                 f"({calls[0]} steps), expected {expected}")
+        x, w, perms, partnered, y, kw = captured["step"]
+        if not same_bits(y, perm_gossip_plain(x, w, perms, partnered, **kw)):
+            raise AssertionError("planner gated: K1's step 3 is not bitwise "
+                                 "its plain version")
+        print(json.dumps({"decision": "train() auto, ratio 0.9",
+                          "chosen": event["chosen"],
+                          "reason": event["reason"]}), flush=True)
+        out["gated"] = {**row, "chosen": event["chosen"],
+                        "reason": event["reason"], "k1_step_bitwise": True}
+        out["launches"]["train() planner, auto gated to perm"] = \
+            row["k1_launches"]
+        del captured, x, w, y
+
+        # 5. verify run 3 against the plan
+        verdict = verify_plan_run(artifact, gated.recorder.folder, bpe)
+        out["verify"] = {k: verdict[k] for k in (
+            "rho", "predicted_epoch_factor", "measured_epoch_factors",
+            "floor", "checked_epochs", "violations", "consistent")}
+        del gated
+
+    # 4. the forced rule: 4096 workers, no measurement
+    sch, p, part = huge_tables
+    comm_decision = decen.resolve_gossip_backend(sch, wire_dtype=None)
+    if comm_decision["chosen"] != "perm":
+        raise AssertionError(f"auto at N = 4096: {comm_decision}")
+    print(json.dumps({"decision": "make_decen auto, N = 4096",
+                      "chosen": comm_decision["chosen"],
+                      "reason": comm_decision["reason"]}), flush=True)
+    x = state(sch.num_workers, SLICE_D, dev)
+    comm = make_decen(sch, "auto", device=dev)
+    reset_launch_counts()
+    got = comm.run(x, sch.flags[:1])[0]
+    torch.cuda.synchronize()
+    band = LAUNCHES["perm_gossip/band"]
+    if band != 1 or LAUNCHES["perm_gossip_dbuf"] != 1:
+        raise AssertionError(f"make_decen auto at N = 4096 launched "
+                             f"{dict(LAUNCHES)}, expected one band launch")
+    w = torch.as_tensor(sch.alpha * sch.flags[:1], dtype=torch.float32,
+                        device=dev)
+    if not same_bits(got, perm_gossip_plain(x, w, p, part)):
+        raise AssertionError("make_decen auto at N = 4096: not bitwise "
+                             "the plain version")
+    out["forced"] = {"shape": [sch.num_workers, SLICE_D], "T": 1,
+                     "matchings": sch.num_matchings,
+                     "chosen": comm_decision["chosen"], "band_launches": band,
+                     "bitwise": True}
+    del x, got, w, comm
+    torch.cuda.empty_cache()
+    out["band_launches"] = band
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "planner", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
 def phase_stream_chain(dev, tables):
     """The streamed-window instantiation, which no entry point of the port
     takes (``dbuf=True`` is the default, as in the JAX package): one chain
@@ -3103,7 +3324,8 @@ def kernels_line(r) -> list:
     by_path = {"perm_gossip_dbuf": {"train() slice": r["slice"][
         "perm_gossip_dbuf"], **{f"train() {label}": row["launches"]
                                 for label, row in r["models"].items()},
-        **r["resilience"]["launches"], **r["pipeline"]["launches"]},
+        **r["resilience"]["launches"], **r["pipeline"]["launches"],
+        **r["planner"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -3211,10 +3433,13 @@ def kernels_line(r) -> list:
     kernels.append({
         "name": "perm_gossip_dbuf", "path": "band", "route": "cuda",
         "source": SOURCE, "replaces": KERNELS["perm_gossip_dbuf"]["replaces"],
-        "launches": perm["launches"]["perm_gossip/band"],
+        "launches": perm["launches"]["perm_gossip/band"]
+        + r["planner"]["band_launches"],
         "launches_by_path": {"Communicator.run, perm chains at N = 16384 "
                              "and 4096 (M >= 25)":
-                             perm["launches"]["perm_gossip/band"]},
+                             perm["launches"]["perm_gossip/band"],
+                             "Communicator.run, auto at N = 4096 (T = 1)":
+                             r["planner"]["band_launches"]},
         "bitwise": True, "max_abs_err": 0.0, "shape": main["shape"],
         "ms": main["ms"], "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"], "library_ms": main["library_ms"],
@@ -3299,6 +3524,8 @@ def main():
     results["models"] = phase_models(dev)
     results["resilience"] = phase_resilience(dev)
     results["pipeline"] = phase_pipeline(dev, tables)
+    results["planner"] = phase_planner(dev, results["fused_timing"],
+                                       huge_tables)
     emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

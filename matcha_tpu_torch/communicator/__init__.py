@@ -18,7 +18,7 @@ def select_communicator(
     *,
     ratio: float = 0.9,
     consensus_lr: float = 0.1,
-    backend: str = "perm",
+    backend: str = "auto",
     compressor: str = "top_k",
     seed: int = 0,
     device=None,
@@ -31,8 +31,8 @@ def select_communicator(
     through :func:`make_decen` with ``backend``, ``device``, ``block_d``,
     ``w_window``), ``choco`` (CHOCO-SGD, through :func:`make_choco` with
     ``ratio``, ``consensus_lr``, ``compressor`` and ``seed``; the gossip
-    backends ``dense``, ``fused``, ``gather`` and ``perm`` all mean its
-    batched form, and ``skip`` is refused), ``centralized`` (the AllReduce
+    backends ``auto``, ``dense``, ``fused``, ``gather`` and ``perm`` all
+    mean its batched form, and ``skip`` is refused), ``centralized`` (the AllReduce
     baseline) and ``none``.  ``wire_dtype`` narrows the exchange of every
     communicator but ``none``, which exchanges nothing."""
     if name == "decen":

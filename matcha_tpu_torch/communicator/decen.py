@@ -1,7 +1,7 @@
 """Decentralized gossip communicator (D-PSGD / MATCHA hot path).
 
-Port of ``matcha_tpu/communicator/decen.py``: ``make_decen`` (:77) with the
-five backends of the port so far,
+Port of ``matcha_tpu/communicator/decen.py``: ``resolve_gossip_backend``
+(:43) and ``make_decen`` (:77) with the port's backends,
 
 * ``"perm"``   — the permutation-form CUDA kernel for every phase: the
                  per-step training mix is a T=1 launch, ``run`` chains are
@@ -18,13 +18,17 @@ five backends of the port so far,
                  (``parallel.gossip_mix_skip``): an inactive matching
                  launches nothing.  Its flag rows stay on the host
                  (``Communicator.host_flags``), so the branch reads no
-                 device value.
+                 device value;
+* ``"auto"``   — one of the above, chosen by ``resolve_gossip_backend``:
+                 on one card ``plan.cost.choose_gossip_backend`` picks
+                 ``perm`` from 4096 workers or when the dense form's
+                 measured-vs-ceiling ratio reaches the gate, else
+                 ``dense``.
 
 The fused ``multi_step`` has no masked twin: its stack knows nothing of
 survivors, so ``Communicator.run`` steps a masked chain through the dense
-mix, as the JAX package does.  The other backends of the JAX package
-(``shard_map``, multi-card, and ``auto``, whose choice needs the planner's
-cost model) are not ported yet and raise.
+mix, as the JAX package does.  The JAX package's ``shard_map`` backend
+(workers across cards) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -45,18 +49,48 @@ from ..parallel import (
     perm_gossip_run,
     resolve_wire_dtype,
 )
+from ..plan.cost import choose_gossip_backend
 from ..schedule import Schedule
 from ..utils import resolve_device
 from .base import Communicator
 
-__all__ = ["make_decen"]
+__all__ = ["make_decen", "resolve_gossip_backend"]
 
-PORTED_BACKENDS = ("perm", "dense", "fused", "gather", "skip")
+PORTED_BACKENDS = ("perm", "dense", "fused", "gather", "skip", "auto")
+
+
+def resolve_gossip_backend(schedule, mesh=None, requested: str = "auto",
+                           dim=None, wire_dtype=None,
+                           measured_vs_ceiling=None) -> dict:
+    """Resolve a ``gossip_backend`` request to the backend that is built,
+    with the decision record for the journal.
+
+    A request other than ``auto`` passes through as it is (the record says
+    so).  ``auto`` answers ``shard_map`` on a mesh of more than one device
+    (the port has none yet, so that branch never runs) and on one card
+    delegates to :func:`matcha_tpu_torch.plan.cost.choose_gossip_backend`.
+    :func:`make_decen` and the training loop both call this, so the
+    journaled decision is the backend that was built.
+    """
+    if requested != "auto":
+        return {"requested": requested, "chosen": requested,
+                "reason": "explicit config; no selection ran"}
+    if mesh is not None and mesh.size > 1:
+        return {"requested": "auto", "chosen": "shard_map",
+                "reason": f"multi-device mesh ({mesh.size} devices): "
+                          f"worker-folded ppermute plan rides ICI"}
+    return choose_gossip_backend(
+        schedule.num_workers, schedule.num_matchings, dim=dim,
+        wire_dtype=wire_dtype,
+        budget=float(np.mean(np.asarray(schedule.probs)))
+        if len(schedule.probs) else None,
+        topology=getattr(schedule, "name", None),
+        measured_vs_ceiling=measured_vs_ceiling)
 
 
 def make_decen(
     schedule: Schedule,
-    backend: str = "perm",
+    backend: str = "auto",
     *,
     device=None,
     compute_dtype=torch.float32,
@@ -81,8 +115,14 @@ def make_decen(
     — the same ``x_T`` for consensus-only chains; keep 1 for training.
     ``block_d``/``w_window`` tune the perm and fused kernels (tile width,
     steps per window) and never change their arithmetic.
+
+    ``backend="auto"`` builds what :func:`resolve_gossip_backend` chooses
+    with no measurement: ``perm`` from 4096 workers, else ``dense``.
     """
     dev = resolve_device(device)
+    if backend == "auto":
+        backend = resolve_gossip_backend(schedule,
+                                         wire_dtype=wire_dtype)["chosen"]
     perms = np.asarray(schedule.perms)
     alpha = float(schedule.alpha)
     wire = resolve_wire_dtype(wire_dtype)
@@ -156,9 +196,8 @@ def make_decen(
     else:
         raise ValueError(
             f"gossip backend '{backend}' is not ported yet: the port has "
-            f"{list(PORTED_BACKENDS)}; ROADMAP.md lists the order in which "
-            f"the others ('shard_map' and 'auto', which needs the "
-            f"planner's cost model) land")
+            f"{list(PORTED_BACKENDS)}; 'shard_map' (workers across cards) "
+            f"lands with the multi-card work listed in ROADMAP.md")
 
     def init(flat: torch.Tensor):
         return ()

@@ -2,9 +2,9 @@
 slots.  Port of ``matcha_tpu.elastic``: the host half (``membership``:
 declarative churn traces, the slot reconciler, the epoch-boundary
 controller) and the device half (``runtime``: the step's membership input,
-the freeze of vacant slots and the (re)join bootstrap).  The live
-membership source and the offline policy scorer are not ported yet
-(``ROADMAP.md``)."""
+the freeze of vacant slots and the (re)join bootstrap) and the offline
+policy scorer (``policy``, imported as ``elastic.policy``).  The live
+membership source is not ported yet (``ROADMAP.md``)."""
 
 from .membership import (
     MEMBERSHIP_KINDS,

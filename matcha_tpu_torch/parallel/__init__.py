@@ -2,7 +2,8 @@
 single-card surface of ``matcha_tpu.parallel``: the wire-dtype and
 precision seams, the gather oracle and its skipping twin, the per-matching
 byte account, the dense backend, the centralized collectives, the
-permutation-form kernel and the fused W-stack kernel."""
+permutation-form kernel, the fused W-stack kernel, and the folded plan's
+card-offset accounting that the planner's cost model reads."""
 
 from .collectives import (
     allreduce_mean,
@@ -12,6 +13,7 @@ from .collectives import (
     worker_deviation_rows,
     worker_disagreement,
 )
+from .folded import FoldedPlan, build_folded_plan
 from .fused_gossip import (
     build_mixing_stack,
     canonical_chunk,
@@ -38,9 +40,11 @@ from .perm_gossip import (
 )
 
 __all__ = [
+    "FoldedPlan",
     "LAUNCHES",
     "allreduce_mean",
     "broadcast_worker0",
+    "build_folded_plan",
     "build_mixing_stack",
     "canonical_chunk",
     "compose_mixing_stack",

@@ -4,14 +4,16 @@ Port of ``matcha_tpu/train/config.py``: ``TrainConfig`` with the same fields
 and the same validation.  Fields of features the port does not have yet
 raise ``NotImplementedError`` when set to anything but their default (see
 ``_UNPORTED``); ``ROADMAP.md`` lists the order in which they land.
-``gossip_backend`` takes the port's five backends, ``perm``, ``dense``,
-``fused``, ``gather`` and ``skip`` (``make_decen`` refuses the others), and
-``communicator`` takes ``decen``, ``choco``, ``centralized`` and ``none``.
-A fault plan, rollback recovery and a membership trace run; the live
-membership source (``membership_live``) is refused.  Three defaults differ
-from the JAX package's, because the features behind them are not ported:
-``gossip_backend`` is ``"perm"`` (``"auto"`` needs the planner's cost
-model), and ``telemetry`` and ``health`` are off.
+``gossip_backend`` takes ``auto`` (the default, as in the JAX package) and
+the port's five backends, ``perm``, ``dense``, ``fused``, ``gather`` and
+``skip`` (``make_decen`` refuses ``shard_map``), and ``communicator`` takes
+``decen``, ``choco``, ``centralized`` and ``none``.  A plan artifact
+(``plan``), the measured input of ``auto``'s gate
+(``gossip_measured_vs_ceiling``, ``gossip_measured_source``), a fault
+plan, rollback recovery and a membership trace run; the live membership
+source (``membership_live``) is refused.  Two defaults differ from the
+JAX package's, because the features behind them are not ported:
+``telemetry`` and ``health`` are off.
 """
 
 from __future__ import annotations
@@ -60,7 +62,9 @@ class TrainConfig:
     budget: float = 0.5
     fixed_mode: str = "all"  # D-PSGD flag mode: all|bernoulli|alternating
     seed: int = 9001
-    plan: Optional[str] = None  # planner artifact (not ported yet)
+    # a plan_torch.py artifact: train() resolves its graph, budget and seed
+    # into the config at entry (plan.apply_plan)
+    plan: Optional[str] = None
 
     # communicator
     communicator: str = "decen"  # decen|choco|centralized|none
@@ -68,14 +72,20 @@ class TrainConfig:
     compressor: str = "top_k"
     consensus_lr: float = 0.1
     compress_warmup_epochs: int = 0
-    # gossip backend: perm (the permutation-form CUDA kernel), dense (one
-    # matrix product per step), fused (dense steps; chains through the
-    # fused W-stack CUDA kernel), gather (the oracle) or skip (the oracle,
-    # inactive matchings skipped on the host); shard_map and auto are not
-    # ported yet
-    gossip_backend: str = "perm"
+    # gossip backend: auto (plan.cost.choose_gossip_backend picks perm or
+    # dense), perm (the permutation-form CUDA kernel), dense (one matrix
+    # product per step), fused (dense steps; chains through the fused
+    # W-stack CUDA kernel), gather (the oracle) or skip (the oracle,
+    # inactive matchings skipped on the host); shard_map is not ported yet
+    gossip_backend: str = "auto"
     gossip_block_d: Optional[int] = None  # perm/fused kernel tile cap
     gossip_w_window: int = 1  # perm/fused steps per window (exact)
+    # the auto gate's measured input: the dense formulation's
+    # measured-vs-ceiling ratio, given as a number or read from a file
+    # (a journal's roofline records, a {"record": ...} capture or a raw
+    # roofline report: plan.cost.load_measured_vs_ceiling); the number
+    # wins when both are set, and with neither auto picks dense below
+    # 4096 workers
     gossip_measured_vs_ceiling: Optional[float] = None
     gossip_measured_source: Optional[str] = None
     # the pipelined schedule: "1step" consumes each step's exchange at the
@@ -246,9 +256,6 @@ class TrainConfig:
 
 # fields of features not ported yet, with the only value the port accepts
 _UNPORTED = {
-    "plan": None,
-    "gossip_measured_vs_ceiling": None,
-    "gossip_measured_source": None,
     "membership_live": None,
     "telemetry": False,
     "health": False,

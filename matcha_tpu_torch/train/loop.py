@@ -52,6 +52,13 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   NaN events, the learning-rate backoff and one α re-derivation.  The
   evaluation leaves NaN gaps for dead and vacant rows (:1174-1187).
 
+* The planner's hooks, as the JAX loop has them: a plan artifact resolved
+  into the config at entry (:141-147); the gossip backend resolved once
+  for a decen run, ``auto`` through the planner's gate on the measured
+  ratio given or read from ``gossip_measured_source`` (:270-298); the
+  decision journaled as a ``backend`` event right after ``run_start`` or
+  ``resume`` (:755-759).
+
 Not ported yet (``TrainConfig`` refuses them): the live membership source,
 telemetry and the drift monitor (so the journal's ``predicted`` is empty,
 as in the JAX package with telemetry off).
@@ -67,6 +74,7 @@ import numpy as np
 import torch
 
 from ..communicator import select_communicator
+from ..communicator.decen import resolve_gossip_backend
 from ..data import (
     WorkerBatches,
     normalized_zero,
@@ -83,6 +91,7 @@ from ..elastic import (
     membership_arrays,
 )
 from ..models import select_model
+from ..plan import apply_plan, load_measured_vs_ceiling
 from ..resilience import load_fault_plan, resolve_degraded_alpha
 from ..resilience.runtime import state_finite_rows
 from ..schedule import (
@@ -198,6 +207,10 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     epoch after it; ``history`` then holds the epochs run here."""
     dev = resolve_device(device)
     _reproducible_numerics()
+    if config.plan:
+        # the plan artifact's schedule choice (graph, budget, seed) enters
+        # the config before anything reads those fields
+        config = apply_plan(config)
 
     dataset = build_dataset(config)
     parts = partition_indices(
@@ -245,10 +258,28 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
             config.num_workers, hysteresis=config.membership_hysteresis,
             bootstrap=config.membership_bootstrap)
 
+    # the gossip backend, resolved once here (``auto`` through the
+    # planner's gate, on the measured ratio given or read from a file) and
+    # handed to every rebuild; the decision is journaled after run_start
+    backend_decision = None
+    gossip_backend = config.gossip_backend
+    if config.communicator == "decen":
+        measured = config.gossip_measured_vs_ceiling
+        measured_src = None
+        if measured is None and config.gossip_measured_source:
+            measured, measured_src = load_measured_vs_ceiling(
+                config.gossip_measured_source)
+        backend_decision = resolve_gossip_backend(
+            schedule, requested=config.gossip_backend,
+            wire_dtype=config.wire_dtype, measured_vs_ceiling=measured)
+        if measured_src is not None:
+            backend_decision["measured_source"] = measured_src
+        gossip_backend = backend_decision["chosen"]
+
     def make_comm(ratio: float):
         return select_communicator(
             config.communicator, schedule, ratio=ratio,
-            consensus_lr=config.consensus_lr, backend=config.gossip_backend,
+            consensus_lr=config.consensus_lr, backend=gossip_backend,
             compressor=config.compressor, seed=config.seed, device=dev,
             block_d=config.gossip_block_d, w_window=config.gossip_w_window,
             wire_dtype=config.wire_dtype)
@@ -393,6 +424,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     else:
         recorder.log_event("run_start", config=_config_snapshot(config),
                            predicted={})
+    if backend_decision is not None:
+        recorder.log_event("backend", **backend_decision)
     ckpt_dir = f"{config.savePath}/{config.name}_ckpt"
 
     x_train = None if config.augment else torch.as_tensor(dataset.x_train,

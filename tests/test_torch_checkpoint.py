@@ -136,6 +136,7 @@ def test_keeps_the_newest_generations(tmp_path):
 
 RUN = dict(model="mlp", dataset="synthetic", num_workers=N, graphid=None,
            topology="ring", batch_size=8, lr=0.1, warmup=False,
+           gossip_backend="perm",
            name="ckpt", dataset_kwargs={"num_train": 96, "num_test": 16})
 
 

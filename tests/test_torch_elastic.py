@@ -367,7 +367,7 @@ BASE = dict(name="elastic", model="mlp", dataset="synthetic",
             dataset_kwargs={"num_train": 256, "num_test": 32},
             num_workers=N, graphid=GID, batch_size=8, epochs=3, lr=0.05,
             warmup=False, matcha=True, budget=0.5, seed=SEED, eval_every=1,
-            measure_comm_split=False)
+            measure_comm_split=False, gossip_backend="perm")
 REL = 3e-7
 
 

@@ -301,7 +301,7 @@ def test_train_remat_and_grad_chunk_match_the_plain_run():
         dataset_kwargs={"num_train": 32, "num_test": 16, "separation": 40.0},
         num_workers=4, graphid=None, topology="ring", batch_size=4, epochs=1,
         lr=0.05, warmup=False, matcha=False, fixed_mode="all", seed=0,
-        measure_comm_split=False)
+        measure_comm_split=False, gossip_backend="perm")
     ref = train(cfg, device="cpu").history[-1]
     for knob in ({"remat": True}, {"grad_chunk": 2},
                  {"remat": True, "grad_chunk": 2}):

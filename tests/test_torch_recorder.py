@@ -163,6 +163,7 @@ def port_run(tmp_path_factory):
     cfg = TrainConfig(name="journal", model="mlp", dataset="synthetic",
                       num_workers=N, graphid=None, topology="ring",
                       batch_size=8, epochs=2, lr=0.1, warmup=False,
+                      gossip_backend="perm",
                       save=True, savePath=str(root), checkpoint_every=1,
                       dataset_kwargs={"num_train": 128, "num_test": 32})
     result = train(cfg, device="cpu")
@@ -172,8 +173,9 @@ def port_run(tmp_path_factory):
 def test_port_journal_validates_under_jax(port_run):
     result, folder = port_run
     events = read_journal(str(folder / "events.jsonl"))
+    # the backend decision follows run_start, as in the JAX loop
     assert [e["kind"] for e in events] == [
-        "run_start", "epoch", "checkpoint", "epoch", "checkpoint"]
+        "run_start", "backend", "epoch", "checkpoint", "epoch", "checkpoint"]
     for e in events:
         assert jax_validate_event(e) == [] == validate_event(e)
     assert events == result.recorder.events
@@ -188,7 +190,7 @@ def test_obs_tpu_summary_reads_the_port_run(port_run):
                           str(folder)], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "(5 events)" in out.stdout
+    assert "(6 events)" in out.stdout
     rows = [line.split() for line in out.stdout.splitlines()]
     assert [r[0] for r in rows if r and r[0].isdigit()] == ["0", "1"]
 

@@ -500,7 +500,7 @@ def test_recovery_budget_is_bounded():
     plan = res.FaultPlan(tuple(res.FaultEvent("nan", 0, stop=10 ** 6,
                                               worker=w) for w in range(N)))
     cfg = TrainConfig(**{**BASE, "epochs": 2}, fault_plan=plan,
-                      max_recoveries=1)
+                      max_recoveries=1, gossip_backend="perm")
     with pytest.raises(TrainingDiverged, match="recoveries exhausted"):
         train(cfg, device="cpu")
 

@@ -28,6 +28,7 @@ TIMINGS = ("epoch_time", "comm_time", "comm_encode_time",
 RUN = dict(model="resnet8", dataset="synthetic_image", num_workers=4,
            graphid=None, topology="ring", matcha=True, budget=0.5,
            batch_size=4, lr=0.1, warmup=False, name="resume", seed=5,
+           gossip_backend="perm",
            dataset_kwargs={"num_train": 64, "num_test": 16})
 
 
@@ -87,6 +88,8 @@ def test_resumed_journal_extends_the_first(runs):
     _, first, rest = runs
     events = rest.recorder.events
     assert events[:len(first.recorder.events)] == first.recorder.events
+    # the backend decision follows run_start and resume, as in the JAX loop
     assert [e["kind"] for e in events] == [
-        "run_start", "epoch", "checkpoint", "resume", "epoch", "epoch"]
+        "run_start", "backend", "epoch", "checkpoint", "resume", "backend",
+        "epoch", "epoch"]
     assert sorted(latest_per_epoch(events, "epoch")) == [0, 1, 2]

@@ -166,7 +166,7 @@ def test_ring_train_drains_and_keeps_the_worker_mean(ring_runs):
 # -------------------------------------------------------- checkpoint, resume
 
 RUN = dict(model="mlp", dataset="synthetic", num_workers=8, graphid=0,
-           batch_size=16, lr=0.1, warmup=False, seed=3,
+           batch_size=16, lr=0.1, warmup=False, seed=3, gossip_backend="perm",
            measure_comm_split=False, eval_every=0,
            dataset_kwargs={"num_train": 384, "num_test": 32,
                            "shape": (8, 8, 1)})  # 3 steps an epoch

@@ -290,9 +290,18 @@ def test_config_refuses_unported_features(field, value):
 
 @pytest.mark.parametrize("unported", ["auto", "shard_map"])
 def test_unported_backends_raise_naming_the_roadmap(unported):
+    """``shard_map`` raises; ``auto`` resolves to it only on a mesh of more
+    than one device, and what it resolves to there raises the same way."""
+    from types import SimpleNamespace
+
+    from matcha_tpu_torch.communicator.decen import resolve_gossip_backend
+
     sched = build_schedule(TrainConfig(**CONFIG), 2)
+    backend = resolve_gossip_backend(
+        sched, SimpleNamespace(size=2), requested=unported)["chosen"]
+    assert backend == "shard_map"
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        make_decen(sched, unported, device="cpu")
+        make_decen(sched, backend, device="cpu")
 
 
 def test_config_validates_like_jax():
@@ -306,12 +315,13 @@ def test_config_validates_like_jax():
 
 # ------------------------------------------------------- no JAX in the port
 
-BANNED = ("jax", "flax", "optax", "matcha_tpu")
+BANNED = ("jax", "flax", "optax", "matcha_tpu", "ml_dtypes")
 
 
 def _port_files():
     return sorted((REPO / "matcha_tpu_torch").rglob("*.py")) + [
-        REPO / "train_torch.py", REPO / "chip_smoke.py"]
+        REPO / "train_torch.py", REPO / "plan_torch.py",
+        REPO / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -342,7 +352,9 @@ def test_port_imports_with_jax_blocked():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in (REPO / "matcha_tpu_torch").rglob("*.py"))
-    assert "matcha_tpu_torch.probes.split_probe" in modules
+    assert {"matcha_tpu_torch.probes.split_probe",
+            "matcha_tpu_torch.plan.cost", "matcha_tpu_torch.analysis.planlint",
+            "matcha_tpu_torch.elastic.policy"} <= set(modules)
     code = f"""
 import importlib, importlib.abc, sys
 BANNED = {BANNED + ABSENT_ON_CARD_HOST!r}
@@ -351,7 +363,7 @@ class Block(importlib.abc.MetaPathFinder):
         if name.split(".")[0] in BANNED:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
-for name in {modules!r} + ["train_torch", "chip_smoke"]:
+for name in {modules!r} + ["train_torch", "plan_torch", "chip_smoke"]:
     importlib.import_module(name)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked

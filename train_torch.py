@@ -12,6 +12,19 @@ gossip mixed by the perm kernel::
         --graphid 4 --numworkers 16 --budget 0.5 --bs 32 --epoch 10 \\
         --backend perm --wire-dtype f32
 
+``--backend auto`` (the default, as in ``train_tpu.py``) lets the
+planner's gate choose: ``perm`` from 4096 workers or when the dense form's
+measured-vs-ceiling ratio (``--gossip-measured-ratio R``, or read from a
+file by ``--gossip-measured-source FILE``) reaches 0.85, else ``dense``;
+the decision is journaled as a ``backend`` event.  ``--plan plan.json``
+(written by ``plan_torch.py sweep``) sets the graph, worker count, budget
+and seed the planner chose::
+
+    python plan_torch.py sweep --graphid 4 --budgets 0.25,0.5,0.75 \
+        --out plan.json
+    python train_torch.py --plan plan.json --model resnet20 \
+        --dataset synthetic_image --bs 32 --epoch 10 --save
+
 ``--backend fused`` mixes each step with one dense product ``W_t @ x`` and
 runs the comm-split timer's chains through the fused W-stack kernel;
 ``--backend dense`` is the dense product alone; ``--backend skip`` is the
@@ -97,9 +110,28 @@ def parse_args(argv=None):
     p.add_argument("--bs", type=int, default=32, help="per-worker batch size")
     p.add_argument("--lr", type=float, default=0.8)
     p.add_argument("--epoch", type=int, default=200, dest="epochs")
-    p.add_argument("--backend", default="perm",
-                   choices=["perm", "gather", "dense", "fused", "skip"],
-                   help="gossip backend of the decen communicator")
+    p.add_argument("--plan", default=None,
+                   help="plan_torch.py artifact (plan.json): sets the graph, "
+                        "worker count, budget, MATCHA mode and seed the "
+                        "planner chose, over --graphid/--topology/"
+                        "--numworkers/--budget/--matcha/--randomSeed")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "perm", "gather", "dense", "fused",
+                            "skip"],
+                   help="gossip backend of the decen communicator; auto "
+                        "picks perm or dense by the planner's gate and "
+                        "journals the decision as a `backend` event")
+    p.add_argument("--gossip-measured-ratio", type=float, default=None,
+                   dest="gossip_measured_vs_ceiling",
+                   help="the dense form's measured-vs-ceiling ratio, the "
+                        "input of the --backend auto gate: >= 0.85 "
+                        "picks perm")
+    p.add_argument("--gossip-measured-source", default=None,
+                   dest="gossip_measured_source",
+                   help="file to read the auto gate's ratio from instead: "
+                        "a run journal with roofline records, a "
+                        "{\"record\": ...} capture or a roofline report "
+                        "(dense/fused ratios only)")
     p.add_argument("--communicator", default="decen",
                    choices=["decen", "choco", "centralized", "none"])
     p.add_argument("--compress", action="store_true",
@@ -199,7 +231,10 @@ def parse_args(argv=None):
         graphid=None if args.graphid < 0 else args.graphid,
         topology=args.topology, matcha=args.matcha, budget=args.budget,
         batch_size=args.bs, lr=args.lr, epochs=args.epochs,
-        gossip_backend=args.backend, communicator=communicator,
+        plan=args.plan, gossip_backend=args.backend,
+        gossip_measured_vs_ceiling=args.gossip_measured_vs_ceiling,
+        gossip_measured_source=args.gossip_measured_source,
+        communicator=communicator,
         compress_ratio=args.ratio, compressor=args.compressor,
         consensus_lr=args.consensus_lr,
         compress_warmup_epochs=args.compress_warmup_epochs,
