@@ -131,7 +131,8 @@ raises and the script exits non-zero:
    temporary savePath: ``train()`` for 2 epochs with ``save`` and a
    checkpoint every epoch (K1's launch count as in the slice phase; 16 × 8
    Recorder CSVs of 2 rows; every ``events.jsonl`` line valid under the
-   port's ``validate_event``: ``run_start``, ``epoch`` and ``checkpoint``
+   port's ``validate_event``: ``run_start``, then ``epoch``,
+   ``telemetry``, ``heartbeat`` (and any ``anomaly``) and ``checkpoint``
    twice); ``save_checkpoint`` then ``restore_checkpoint`` of its live
    state, bitwise (every parameter, batch-norm and momentum buffer, the
    step); a run resumed from the epoch-0 checkpoint in the same folder
@@ -204,10 +205,22 @@ raises and the script exits non-zero:
    bitwise its plain version); ``make_decen(<4096-worker hypercube>,
    "auto")`` (``perm`` with no measurement) at ``[4096, 273258]``, T = 1,
    on K1's band path, bitwise; ``verify_plan_run`` on the gated run.
+   observability — the training run's observability plane at the slice's
+   width, 3 epochs of 4 steps, ``save`` on, telemetry and health on
+   (``phase_observability``): one ``telemetry`` event an epoch whose
+   matchings and wire bytes are exactly the schedule's flag rows', three
+   heartbeats in ``{run}/health/`` and in the journal, ``run_start``'s
+   ``predicted`` equal to ``compose_predicted_rho`` recomputed; gossip
+   alone with no ``drift`` event at the solved α and one at 0.05·α;
+   ``membership_live`` on a heartbeat directory where w3 is an hour
+   stale (one ``leave``, K1 under the survivor mask every step, a step
+   bitwise its plain version); synchronizing calls (the sync debug mode)
+   equal with the accumulator on and off, in the step and in ``train()``;
+   ms and launches a step, on and off, in alternated rounds.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
-    the models', the resilience, the pipelined and the planner's runs
-    included), then the ``nvidia-smi`` line.
+    the models', the resilience, the pipelined, the planner's and the
+    observability runs included), then the ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -1688,9 +1701,15 @@ def _epoch_end(dev, bpe: int, spread: dict):
         events = read_journal(os.path.join(folder, "events.jsonl"))
         problems = [p for e in events for p in validate_event(e)]
         kinds = [e["kind"] for e in events]
-        # the explicit backend's decision record follows run_start
-        if problems or kinds != ["run_start", "backend", "epoch",
-                                 "checkpoint", "epoch", "checkpoint"] \
+        # the explicit backend's decision record follows run_start; each
+        # epoch journals its telemetry and heartbeat (on by default), then
+        # the detectors' anomalies, if any, then the checkpoint
+        epoch_kinds = ["epoch", "telemetry", "heartbeat"]
+        if problems or [k for k in kinds if k != "anomaly"] != [
+                "run_start", "backend", *epoch_kinds, "checkpoint",
+                *epoch_kinds, "checkpoint"] \
+                or any(kinds[i - 1] not in ("heartbeat", "anomaly")
+                       for i, k in enumerate(kinds) if k == "anomaly") \
                 or events[1]["chosen"] != "perm":
             raise AssertionError(f"journal {kinds}: {problems}")
         saves = [{"seconds": e["seconds"], "bytes": e["bytes"]}
@@ -3091,6 +3110,321 @@ def phase_planner(dev, fused_rows, huge_tables):
     return out
 
 
+def obs_run(dev, label: str, root: str, epochs: int = 3, **kw):
+    """``train()`` of the slice with ``save`` (telemetry and health on, the
+    defaults) and ``kw``, K1 counted: ``(result, journal, row)``."""
+    bpe = 2048 // 16 // 32
+    cfg = dataclasses.replace(slice_config(epochs), save=True, savePath=root,
+                              name=label, **kw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(cfg, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = LAUNCHES["perm_gossip_dbuf"]
+    if launches != k1_expected(result, bpe):
+        raise AssertionError(f"{label}: K1 launched {launches} times, "
+                             f"expected {k1_expected(result, bpe)}")
+    events = read_journal(os.path.join(result.recorder.folder,
+                                       "events.jsonl"))
+    problems = [p for e in events for p in validate_event(e)]
+    bad = [h["epoch"] for h in result.history
+           if not (math.isfinite(h["loss"])
+                   and math.isfinite(h["disagreement"]))]
+    if problems or bad:
+        raise AssertionError(f"{label}: journal {problems}, non-finite "
+                             f"epochs {bad}")
+    kinds = {}
+    for e in events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    return result, events, {
+        "launches": launches, "seconds": seconds, "event_kinds": kinds,
+        "ms_per_step": [h["epoch_time"] / bpe * 1e3 for h in result.history],
+        "disagreement": [h["disagreement"] for h in result.history]}
+
+
+def of_kind(events, kind):
+    return [e for e in events if e["kind"] == kind]
+
+
+# gossip alone: no SGD moves the parameters, from an unsynced init
+PURE_GOSSIP = dict(lr=0.0, warmup=False, momentum=0.0, weight_decay=0.0,
+                   sync_init=False)
+
+
+def obs_stepper(dev, iterations: int, telemetry: bool):
+    """``slice_stepper`` with the telemetry accumulator on or off."""
+    from matcha_tpu_torch.obs.telemetry import Telemetry, make_telemetry_spec
+
+    spec = None
+    if telemetry:
+        sched = build_schedule(slice_config(1), iterations)
+        spec = make_telemetry_spec(sched.decomposed, SLICE_D)
+    state, step, xb, yb = slice_stepper(dev, iterations, telemetry=spec)
+    if telemetry:
+        state.telemetry = Telemetry.zeros(16, device=dev)
+    return state, step, xb, yb
+
+
+def sync_warnings(fn) -> dict:
+    """Synchronizing CUDA calls made by ``fn()``, counted by PyTorch's sync
+    debug mode (each one a warning), by the ``file:line`` that made them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:
+        if "synchronizing" in str(w.message):
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return where
+
+
+def phase_observability(dev, rounds: int = 5, steps: int = 20,
+                        profiled: int = 5):
+    """The training run's observability plane on the card (cell (l)):
+    slice (a) at full width, 3 epochs of 4 steps, ``save`` on and the
+    defaults ``telemetry=True``, ``health=True``.
+
+    1. The plain run: one ``telemetry`` event an epoch with 4 steps, its
+       ``matchings_mean`` and ``wire_bytes`` exactly the host's sums of the
+       schedule's flag rows (times ``matching_wire_bytes``); three
+       heartbeats under ``{run}/health/`` and in the journal;
+       ``run_start.predicted`` equal to ``compose_predicted_rho``
+       recomputed on the host.
+    2. Gossip alone (``lr=0``, no sync of the init), twice: no ``drift``
+       event at the solved α; a ``drift`` event with ``alpha_override`` at
+       0.05·α.
+    3. ``membership_live`` on a heartbeat directory whose newest beat of
+       w3 is an hour old: one ``leave`` at epoch 0, every step's K1 launch
+       under the survivor mask, the second one bitwise its plain version
+       on the captured sealed inputs, the heartbeats without w3.
+    4. Synchronizing calls counted by the sync debug mode: 8 steps of the
+       slice's step with and without the accumulator, and a one-epoch
+       ``train()`` with ``telemetry`` on and off; equal.
+    5. ms a step (median of ``steps`` steps on the host clock, ``rounds``
+       alternated rounds) and launches a step (``torch.profiler``,
+       ``profiled`` steps) with the accumulator on and off.
+    Any failure raises."""
+    from matcha_tpu_torch.communicator import decen
+    from matcha_tpu_torch.obs.drift import compose_predicted_rho
+    from matcha_tpu_torch.parallel.gossip import matching_wire_bytes
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    bpe = 2048 // 16 // 32
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # 1. the plain run
+        plain, events, row = obs_run(dev, "obs_plain", root)
+        sched = plain.schedule
+        flags = np.asarray(sched.flags, np.float64)
+        bytes_vec = matching_wire_bytes(sched.decomposed, SLICE_D, "f32")
+        tel = of_kind(events, "telemetry")
+        if [e["epoch"] for e in tel] != [0, 1, 2] \
+                or any(e["steps"] != bpe for e in tel):
+            raise AssertionError(f"obs plain: telemetry {tel}")
+        for e in tel:
+            rows = flags[e["epoch"] * bpe:(e["epoch"] + 1) * bpe]
+            if e["matchings_mean"] != rows.sum() / bpe \
+                    or e["wire_bytes"] != float(rows.sum(0) @ bytes_vec):
+                raise AssertionError(f"obs plain: epoch {e['epoch']} counts "
+                                     f"{e['matchings_mean']}, "
+                                     f"{e['wire_bytes']}")
+        beats = [json.loads(line) for line in open(os.path.join(
+            plain.recorder.folder, "health", "host0.jsonl"))]
+        mirrored = of_kind(events, "heartbeat")
+        if [b["epoch"] for b in beats] != [0, 1, 2] \
+                or [b["epoch"] for b in mirrored] != [0, 1, 2] \
+                or any(len(b["workers"]) != 16 or not b["peak_bytes"]
+                       for b in beats):
+            raise AssertionError(f"obs plain: heartbeats {beats}")
+        want = compose_predicted_rho(sched.laplacians(), sched.probs,
+                                     float(sched.alpha), wire_dtype="f32")
+        want.update(steps_per_epoch=bpe, tolerance=0.25, patience=2,
+                    plan_alpha=float(sched.alpha), stale_alpha_scale=1.0,
+                    executed_alpha=float(sched.alpha))
+        predicted = of_kind(events, "run_start")[0]["predicted"]
+        if predicted != want:
+            raise AssertionError(f"obs plain: predicted {predicted} != "
+                                 f"{want}")
+        alpha = float(sched.alpha)
+        out["plain"] = {**row, "predicted": predicted,
+                        "telemetry": [{k: e[k] for k in (
+                            "epoch", "steps", "matchings_mean", "wire_bytes",
+                            "disagreement_mean", "alive_min")} for e in tel],
+                        "peak_bytes": [b["peak_bytes"] for b in beats],
+                        "anomalies": [(a["subject"], a["cause"]) for a in
+                                      of_kind(events, "anomaly")]}
+        out["launches"]["train() observability, plain"] = row["launches"]
+        del plain
+
+        # 2. gossip alone, at the solved α and misplanned
+        drift_rows = {}
+        for label, over in (("obs_gossip", {}),
+                            ("obs_misplan", {"alpha_override":
+                                             0.05 * alpha})):
+            result, events, row = obs_run(dev, label, root, **PURE_GOSSIP,
+                                          **over)
+            drift = of_kind(events, "drift")
+            if bool(drift) != bool(over):
+                raise AssertionError(f"{label}: drift events {drift}")
+            drift_rows[label] = {**row, "drift": [
+                {k: e[k] for k in ("epoch", "predicted_factor",
+                                   "measured_factor")} for e in drift]}
+            out["launches"][f"train() observability, {label}"] = \
+                row["launches"]
+            del result
+        out["drift"] = drift_rows
+
+        # 3. the live membership source
+        hdir = os.path.join(root, "fleet_health")
+        os.makedirs(hdir)
+        now = time.time()
+        with open(os.path.join(hdir, "host0.jsonl"), "w") as f:
+            for t, members, epoch in (
+                    (now - 3600.0, range(16), 0),
+                    (now, [i for i in range(16) if i != 3], 1)):
+                f.write(json.dumps({
+                    "v": 3, "kind": "heartbeat", "t": t, "host": "host0",
+                    "epoch": epoch, "step": 4 * (epoch + 1),
+                    "step_time": 0.1, "step_time_ewma": 0.1,
+                    "comp_time": 0.3, "comm_time": 0.1, "peak_bytes": None,
+                    "workers": {f"w{i}": {"slot": i, "participation": 1.0,
+                                          "disagreement": 0.0}
+                                for i in members}}) + "\n")
+        inner_run = decen.perm_gossip_run
+        captured, masked = {}, [0]
+
+        def capture_k1(x, weights, perms, partnered, **kw):
+            y = inner_run(x, weights, perms, partnered, **kw)
+            if kw.get("alive") is not None:
+                masked[0] += 1
+                if masked[0] == 2:
+                    captured["step"] = (x.clone(), weights.clone(), perms,
+                                        partnered, kw["alive"].clone(),
+                                        y.clone(), kw)
+            return y
+
+        decen.perm_gossip_run = capture_k1
+        try:
+            live, events, row = obs_run(dev, "obs_live", root,
+                                        membership_live=hdir,
+                                        membership_deadline=60.0)
+        finally:
+            decen.perm_gossip_run = inner_run
+        members = of_kind(events, "membership")
+        if len(members) != 1 or members[0]["epoch"] != 0 \
+                or [(t["kind"], t["worker"]) for t in members[0]["trigger"]] \
+                != [("leave", "w3")] \
+                or [h["alive_workers"] for h in live.history] != [15.0] * 3:
+            raise AssertionError(f"obs live: membership {members}")
+        if masked[0] != 3 * bpe or any(
+                "w3" in b["workers"] or len(b["workers"]) != 15
+                for b in of_kind(events, "heartbeat")):
+            raise AssertionError(f"obs live: {masked[0]} masked K1 launches,"
+                                 f" heartbeats {of_kind(events, 'heartbeat')}")
+        x, w, perms, partnered, av, y, kw = captured["step"]
+        extra = {k: v for k, v in kw.items() if k != "alive"}
+        sealed = same_bits(y, perm_gossip_plain(x, w, perms, partnered,
+                                                alive=av, **extra))
+        if not sealed or av[3] != 0 or int(av.sum()) != 15:
+            raise AssertionError(f"obs live: K1's step 2 under the mask "
+                                 f"{av.tolist()}, bitwise {sealed}")
+        out["live"] = {**row, "membership": {k: members[0][k] for k in (
+            "epoch", "trigger", "alpha", "rho", "replanned")},
+            "predicted_rho": members[0]["predicted"].get("rho"),
+            "masked_k1_launches": masked[0], "k1_step_bitwise": sealed}
+        out["launches"]["train() observability, membership_live"] = \
+            row["launches"]
+        del live, captured, x, w, y
+
+        # 4. synchronizing calls, telemetry on and off.  The first counted
+        # call of a process records one synchronizing call of PyTorch's own
+        # (from torch/cuda/__init__.py, with or without the accumulator),
+        # so each count follows a discarded one
+        counts, primes = {}, {}
+        for on in (True, False):
+            state, step, xb, yb = obs_stepper(dev, 20, on)
+            for _ in range(2):
+                state, _ = step(state, xb, yb)
+            torch.cuda.synchronize()
+
+            def eight(state=state, step=step, xb=xb, yb=yb):
+                for _ in range(8):
+                    step(state, xb, yb)
+
+            primes[f"step x8, telemetry {'on' if on else 'off'}"] = \
+                sync_warnings(eight)
+            counts[f"step x8, telemetry {'on' if on else 'off'}"] = \
+                sync_warnings(eight)
+            del state, step
+            label = f"obs_sync_{'on' if on else 'off'}"
+            holder = {}
+
+            def one_epoch(label=label, on=on):
+                holder["result"] = obs_run(dev, label, root, epochs=1,
+                                           telemetry=on)
+
+            counts[f"train() 1 epoch, telemetry {'on' if on else 'off'}"] = \
+                sync_warnings(one_epoch)
+            out["launches"][f"train() observability, {label}"] = \
+                holder["result"][2]["launches"]
+            del holder
+        totals = {k: sum(v.values()) for k, v in counts.items()}
+        if totals["step x8, telemetry on"] != totals["step x8, telemetry off"] \
+                or totals["train() 1 epoch, telemetry on"] \
+                != totals["train() 1 epoch, telemetry off"]:
+            raise AssertionError(f"obs: synchronizing calls {counts}")
+        out["sync_warnings"] = totals
+        out["sync_warnings_where"] = counts
+        out["sync_warnings_discarded"] = primes
+    torch.cuda.empty_cache()
+
+    # 5. the step with the accumulator on and off, alternated
+    steppers = {on: obs_stepper(dev, 3 + rounds * steps + profiled + 1, on)
+                for on in (True, False)}
+    for on, (state, step, xb, yb) in steppers.items():
+        for _ in range(3):
+            state, _ = step(state, xb, yb)
+    ms = {True: [], False: []}
+    for r in range(rounds):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            state, step, xb, yb = steppers[on]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = step(state, xb, yb)
+            torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t0) / steps * 1e3)
+    launches = {}
+    for on, (state, step, xb, yb) in steppers.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled):
+                state, _ = step(state, xb, yb)
+            torch.cuda.synchronize()
+        launches[on] = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                           for e in prof.events()) / profiled
+    del steppers
+    torch.cuda.empty_cache()
+    out["step"] = {
+        "ms_per_step_on": ms[True], "ms_per_step_off": ms[False],
+        "median_ms_on": statistics.median(ms[True]),
+        "median_ms_off": statistics.median(ms[False]),
+        "launches_per_step_on": launches[True],
+        "launches_per_step_off": launches[False],
+        "launches_added": launches[True] - launches[False]}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "observability", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
 def phase_stream_chain(dev, tables):
     """The streamed-window instantiation, which no entry point of the port
     takes (``dbuf=True`` is the default, as in the JAX package): one chain
@@ -3325,7 +3659,7 @@ def kernels_line(r) -> list:
         "perm_gossip_dbuf"], **{f"train() {label}": row["launches"]
                                 for label, row in r["models"].items()},
         **r["resilience"]["launches"], **r["pipeline"]["launches"],
-        **r["planner"]["launches"]},
+        **r["planner"]["launches"], **r["observability"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -3526,6 +3860,7 @@ def main():
     results["pipeline"] = phase_pipeline(dev, tables)
     results["planner"] = phase_planner(dev, results["fused_timing"],
                                        huge_tables)
+    results["observability"] = phase_observability(dev)
     emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,13 @@
 """Elastic membership: join, leave and rejoin over a static pool of worker
 slots.  Port of ``matcha_tpu.elastic``: the host half (``membership``:
 declarative churn traces, the slot reconciler, the epoch-boundary
-controller) and the device half (``runtime``: the step's membership input,
-the freeze of vacant slots and the (re)join bootstrap) and the offline
-policy scorer (``policy``, imported as ``elastic.policy``).  The live
-membership source is not ported yet (``ROADMAP.md``)."""
+controller), the device half (``runtime``: the step's membership input,
+the freeze of vacant slots and the (re)join bootstrap), the offline policy
+scorer (``policy``, imported as ``elastic.policy``) and the live half
+(``live``: :class:`LiveMembershipSource`, the trace's interface with its
+events derived from heartbeat liveness)."""
 
+from .live import LiveMembershipSource
 from .membership import (
     MEMBERSHIP_KINDS,
     ElasticController,
@@ -26,6 +28,7 @@ from .runtime import (
 __all__ = [
     "MEMBERSHIP_KINDS",
     "ElasticController",
+    "LiveMembershipSource",
     "Membership",
     "MembershipEvent",
     "MembershipTrace",

@@ -4,9 +4,12 @@ Port of the writer side of ``matcha_tpu/obs/journal.py``: the schema
 (``SCHEMA_VERSION``, the kind sets and ``REQUIRED_FIELDS``, :1-187), the
 envelope (``make_event``, ``validate_event``), the incremental sink
 (``Journal``), the readers the Recorder's resume needs (``read_journal``,
-``salvage_journal``, ``count_journal_lines``), ``latest_per_epoch`` and
-``append_journal_record`` (:477).  The report tools (``obs_tpu.py``) stay
-with the JAX package and read the port's journals unchanged.
+``salvage_journal``, ``count_journal_lines``), the readers of the health
+plane and the drift monitor (``fmt_value`` :188, ``read_journal_tail``
+:385, ``resolve_journal_path`` :433, ``epoch_series`` :467),
+``latest_per_epoch`` and ``append_journal_record`` (:477).  The report
+tools (``obs_tpu.py``) stay with the JAX package and read the port's
+journals unchanged.
 
 One file per run — ``events.jsonl`` next to the Recorder's CSVs.  One JSON
 object per line, append-only.  Every event carries
@@ -28,14 +31,15 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 __all__ = ["SCHEMA_VERSION", "ACCEPTED_VERSIONS", "EVENT_KINDS",
            "FAULT_KINDS", "V2_KINDS", "V3_KINDS", "V4_KINDS", "V5_KINDS",
            "V6_KINDS", "V7_KINDS", "KIND_MIN_VERSION", "REQUIRED_FIELDS",
-           "make_event", "validate_event", "Journal", "read_journal",
-           "salvage_journal", "count_journal_lines", "latest_per_epoch",
-           "append_journal_record"]
+           "fmt_value", "make_event", "validate_event", "Journal",
+           "read_journal", "salvage_journal", "read_journal_tail",
+           "count_journal_lines", "resolve_journal_path",
+           "latest_per_epoch", "epoch_series", "append_journal_record"]
 
 #: v2 adds only new kinds — ``compile`` (the cost ledger's
 #: program introspection) and ``profile`` (overlap-truth trace analysis).
@@ -179,6 +183,16 @@ REQUIRED_FIELDS: Dict[str, frozenset] = {
     # the pinned triple is what every auditor can rely on.
     "recovery": frozenset({"scope", "action", "reason"}),
 }
+
+
+def fmt_value(v, digits: int = 4) -> str:
+    """Table-cell formatter of the health and drift renderers: ``None``
+    renders ``-``, floats general-format."""
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:.{digits}g}"
+    return str(v)
 
 
 def make_event(kind: str, t: float, **fields) -> dict:
@@ -338,6 +352,54 @@ def salvage_journal(path: str) -> tuple:
     return events, quarantine, problem
 
 
+def _tail_lines(f, n: int, block: int) -> List[bytes]:
+    """Last ``n`` non-empty lines of an opened binary file, reading only
+    tail blocks.  The stop condition counts *usable* lines: non-empty,
+    and not the first fragment of the window (a partial line when the
+    window starts mid-file), so blank lines cost extra block reads but
+    never shrink the result below the ``n`` lines the file holds."""
+    if n <= 0:
+        return []
+    f.seek(0, os.SEEK_END)
+    pos = f.tell()
+    data = b""
+    while True:
+        lines = data.split(b"\n")
+        usable = lines[1:] if pos > 0 else lines
+        nonempty = [ln for ln in usable if ln.strip()]
+        if pos == 0 or len(nonempty) >= n:
+            return nonempty[-n:]
+        step = min(block, pos)
+        pos -= step
+        f.seek(pos)
+        data = f.read(step) + data
+
+
+def read_journal_tail(path: str, n: int, block: int = 65536) -> List[dict]:
+    """The last ``n`` events of a journal by a bounded reverse read:
+    O(tail bytes), not O(run length).
+
+    A malformed **final** line (the partial tail of a crash, or of a
+    writer appending right now) is dropped; a malformed line anywhere
+    earlier in the window raises: it is corruption, not a torn append."""
+    if n <= 0:
+        return []
+    events: List[dict] = []
+    with open(path, "rb") as f:
+        # one line of slack: a dropped partial tail still leaves n events
+        lines = _tail_lines(f, n + 1, block)
+    for i, raw in enumerate(lines):
+        try:
+            events.append(json.loads(raw.decode("utf-8")))
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            if i == len(lines) - 1:
+                break
+            raise ValueError(
+                f"{path}: malformed journal line in tail window ({e})"
+            ) from e
+    return events[-n:]
+
+
 def count_journal_lines(path: str) -> int:
     """Non-blank line count of a journal, torn-tail tolerant.
 
@@ -373,6 +435,30 @@ def latest_per_epoch(events: Iterable[dict], kind: str,
                                                      key(e))
             out[k] = e
     return out
+
+
+def resolve_journal_path(source: str) -> str:
+    """A run directory (holding ``events.jsonl``) or a journal file path."""
+    if os.path.isdir(source):
+        path = os.path.join(source, "events.jsonl")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"{source} holds no events.jsonl — was the run saved with "
+                f"telemetry on (TrainConfig.save / --save)?")
+        return path
+    if not os.path.exists(source):
+        raise FileNotFoundError(f"no journal at {source}")
+    return source
+
+
+def epoch_series(events: Iterable[dict], kind: str, field: str,
+                 default: Optional[float] = None):
+    """``(epochs, values)`` for one field of one kind, the last event per
+    epoch, sorted by epoch: what the drift replay reads."""
+    latest = latest_per_epoch(events, kind)
+    epochs = sorted(latest)
+    values = [latest[e].get(field, default) for e in epochs]
+    return epochs, values
 
 
 def append_journal_record(path: str, kind: str, **fields) -> dict:

@@ -10,6 +10,7 @@ from .collectives import (
     broadcast_worker0,
     masked_allreduce_mean,
     masked_mean_rows,
+    worker_deviation,
     worker_deviation_rows,
     worker_disagreement,
 )
@@ -64,6 +65,7 @@ __all__ = [
     "perm_gossip_run",
     "reset_launch_counts",
     "resolve_wire_dtype",
+    "worker_deviation",
     "worker_deviation_rows",
     "worker_disagreement",
 ]

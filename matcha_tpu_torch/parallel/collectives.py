@@ -9,8 +9,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["allreduce_mean", "broadcast_worker0", "masked_mean_rows",
-           "masked_allreduce_mean", "worker_deviation_rows",
-           "worker_disagreement"]
+           "masked_allreduce_mean", "worker_deviation",
+           "worker_deviation_rows", "worker_disagreement"]
 
 
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -63,11 +63,22 @@ def worker_deviation_rows(x: torch.Tensor, alive=None) -> torch.Tensor:
     ``‖x_i − x̄‖ / √D``, the per-worker decomposition of
     :func:`worker_disagreement`.  With ``alive`` the consensus point is
     the survivor mean and quarantined rows report 0."""
+    return worker_deviation(x, alive)[0]
+
+
+def worker_deviation(x: torch.Tensor, alive=None):
+    """``(worker_deviation_rows, disagreement)`` from one pass over ``x``:
+    the scalar is the alive-weighted RMS of the rows, which is
+    :func:`worker_disagreement` summed in another order (the training
+    step's telemetry reads both)."""
     if alive is None:
         centered = x - x.mean(dim=0, keepdim=True)
     else:
         w = _rows(alive, x)
         centered = torch.where(w > 0, x - masked_mean_rows(x, alive)[None],
                                torch.zeros_like(x))
-    sq = (centered * centered).reshape(x.shape[0], -1)
-    return torch.sqrt(torch.mean(sq, dim=1))
+    sq = torch.mean((centered * centered).reshape(x.shape[0], -1), dim=1)
+    if alive is None:
+        return torch.sqrt(sq), torch.sqrt(sq.mean())
+    return torch.sqrt(sq), torch.sqrt(sq.sum()
+                                      / torch.clamp(alive.sum(), min=1.0))

@@ -10,10 +10,12 @@ the port's five backends, ``perm``, ``dense``, ``fused``, ``gather`` and
 ``decen``, ``choco``, ``centralized`` and ``none``.  A plan artifact
 (``plan``), the measured input of ``auto``'s gate
 (``gossip_measured_vs_ceiling``, ``gossip_measured_source``), a fault
-plan, rollback recovery and a membership trace run; the live membership
-source (``membership_live``) is refused.  Two defaults differ from the
-JAX package's, because the features behind them are not ported:
-``telemetry`` and ``health`` are off.
+plan, rollback recovery, a membership trace or the live membership source
+(``membership_live``, a heartbeat directory), and the observability plane
+(``telemetry``, ``health``, the drift monitor's ``drift_tolerance`` and
+``drift_patience``) run, with the JAX package's defaults: telemetry and
+health on.  Still refused: ``trace_dir`` (the profiler capture),
+``scan_chunk`` and ``devices``.
 """
 
 from __future__ import annotations
@@ -120,8 +122,8 @@ class TrainConfig:
     membership_deadline: float = 60.0
 
     # observability
-    telemetry: bool = False
-    health: bool = False
+    telemetry: bool = True
+    health: bool = True
     drift_tolerance: float = 0.25
     drift_patience: int = 2
     trace_dir: Optional[str] = None
@@ -256,9 +258,6 @@ class TrainConfig:
 
 # fields of features not ported yet, with the only value the port accepts
 _UNPORTED = {
-    "membership_live": None,
-    "telemetry": False,
-    "health": False,
     "trace_dir": None,
     "scan_chunk": None,
     "devices": None,

@@ -58,15 +58,24 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   ratio given or read from ``gossip_measured_source`` (:270-298); the
   decision journaled as a ``backend`` event right after ``run_start`` or
   ``resume`` (:755-759).
-
-Not ported yet (``TrainConfig`` refuses them): the live membership source,
-telemetry and the drift monitor (so the journal's ``predicted`` is empty,
-as in the JAX package with telemetry off).
+* The observability plane, as the JAX loop runs it: the telemetry spec
+  built once and the accumulator made fresh at entry, on resume, after
+  every flush and for a rollback's retry (:360-375, :442, :602, :1233);
+  its tensors ride the epoch's one read, and the flush is journaled as
+  ``telemetry`` (:1220-1233); the composed ρ (``_compose_predicted``,
+  :681-727) in ``run_start``/``resume``, and the drift monitor of a
+  decen run (:729-738), re-based with the journal's ``predicted`` on a
+  membership re-plan (:925-945) and on a recovery's α re-derivation
+  (:1101-1120); with ``save``, one heartbeat a host and epoch under
+  ``{run}/health/``, its anomalies and the heartbeat sink's ``recovery``
+  events (:627-636, :1239-1262); and the live membership source
+  (:238-246), seeded from the journal on a resume (:577-592).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -86,11 +95,22 @@ from ..data import (
 )
 from ..elastic import (
     ElasticController,
+    LiveMembershipSource,
     load_membership_trace,
     make_bootstrap_fn,
     membership_arrays,
 )
 from ..models import select_model
+from ..obs.anomaly import AnomalyDetector
+from ..obs.drift import DriftMonitor, compose_predicted_rho
+from ..obs.health import HeartbeatEmitter
+from ..obs.journal import read_journal
+from ..obs.telemetry import (
+    Telemetry,
+    make_telemetry_spec,
+    telemetry_flush,
+    telemetry_tensor,
+)
 from ..plan import apply_plan, load_measured_vs_ceiling
 from ..resilience import load_fault_plan, resolve_degraded_alpha
 from ..resilience.runtime import state_finite_rows
@@ -224,6 +244,9 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     )
     bpe = loader.batches_per_epoch
     schedule = build_schedule(config, config.epochs * bpe + 1)
+    # the plan's α, what the drift monitor predicts with: alpha_override
+    # executes another α, and the monitor is to see that discrepancy
+    plan_alpha = float(schedule.alpha)
     if config.alpha_override is not None:
         schedule = dataclasses.replace(schedule,
                                        alpha=float(config.alpha_override))
@@ -251,11 +274,18 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
 
     # elastic membership: the trace replays at epoch boundaries through the
     # host controller; the step sees only the pool mask and the α scale
-    elastic_ctl = None
-    if config.membership_trace is not None:
+    elastic_ctl = membership_source = None
+    if config.membership_live is not None:
+        # events derived from heartbeat liveness instead of a declaration;
+        # the controller and everything after it are the same
+        membership_source = LiveMembershipSource(
+            config.membership_live, deadline=config.membership_deadline)
+    elif config.membership_trace is not None:
+        membership_source = load_membership_trace(config.membership_trace)
+    if membership_source is not None:
         elastic_ctl = ElasticController(
-            load_membership_trace(config.membership_trace),
-            config.num_workers, hysteresis=config.membership_hysteresis,
+            membership_source, config.num_workers,
+            hysteresis=config.membership_hysteresis,
             bootstrap=config.membership_bootstrap)
 
     # the gossip backend, resolved once here (``auto`` through the
@@ -308,6 +338,21 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         sync_init=config.sync_init, device=dev, overlap=config.overlap,
         staleness=config.staleness)
     evaluate = make_eval_fn(model)
+    stale_scale = _stale_scale(config, schedule)
+
+    # the telemetry's exchange accounting, fixed for the run; the "none"
+    # communicator moves nothing, so its byte ledger is all zero
+    tel_spec = None
+    if config.telemetry:
+        tel_dec = (schedule.decomposed if config.communicator != "none"
+                   else [[] for _ in schedule.decomposed])
+        tel_spec = make_telemetry_spec(
+            tel_dec, flattener.dim, wire_dtype=config.wire_dtype,
+            overlap=config.overlap, staleness=config.staleness)
+
+    def fresh_telemetry():
+        return Telemetry.zeros(config.num_workers, config.staleness,
+                               device=dev)
 
     bootstrap_fn = member_alive_np = None
     if elastic_ctl is not None:
@@ -340,11 +385,11 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                                lr_schedule, grad_chunk=config.grad_chunk,
                                overlap=config.overlap,
                                staleness=config.staleness,
-                               stale_alpha_scale=_stale_scale(config,
-                                                              schedule),
+                               stale_alpha_scale=stale_scale,
                                local_steps=config.local_steps,
                                faults=faults,
-                               elastic=elastic_ctl is not None)
+                               elastic=elastic_ctl is not None,
+                               telemetry=tel_spec)
         timer = (_make_comm_timer(comm, flattener, dev)
                  if config.measure_comm_split
                  and config.communicator != "none" else None)
@@ -367,7 +412,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         ``lr_scale``, ``schedule`` (α perhaps re-derived) and ``faults``
         (NaN events consumed): a recovery's retry runs the updated
         recipe."""
-        nonlocal lr_schedule, optimizer, communicator
+        nonlocal lr_schedule, optimizer, communicator, stale_scale
+        stale_scale = _stale_scale(config, schedule)
         lr_schedule = make_lr()
         optimizer = make_optimizer(lr_schedule, config.momentum,
                                    config.weight_decay, config.nesterov)
@@ -391,6 +437,15 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
             # deterministically), then the restored rows mapped onto the
             # current occupancy: a slot whose saved content belongs to
             # another worker (or to nobody) bootstraps from the members
+            journal_path = os.path.join(
+                config.savePath, f"{config.name}_{config.model}",
+                "events.jsonl")
+            if hasattr(membership_source, "seed_replay") \
+                    and os.path.exists(journal_path):
+                # a live source's poll cache died with the old process: its
+                # decisions replay from the journal, not from today's clock
+                membership_source.seed_replay(read_journal(journal_path),
+                                              start_epoch)
             elastic_ctl.replay_to(start_epoch, schedule)
             member_alive_np = elastic_ctl.alive_mask() > 0
             side = load_membership_sidecar(resume_dir, last_epoch)
@@ -398,7 +453,27 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 (side or {}).get("view"))
             if joined.any() or restored.any():
                 state = bootstrap_rows(state, joined, restored)
+    if tel_spec is not None:
+        state.telemetry = fresh_telemetry()
     recorder = Recorder(config, config.num_workers)
+    # one heartbeat an epoch under {run}/health/ and the anomaly detectors
+    # over those records: host code on values the epoch's read brought
+    health_emitter = anomaly_detector = None
+    if config.health and config.save and config.telemetry:
+        health_emitter = HeartbeatEmitter(
+            os.path.join(recorder.folder, "health"), host="host0")
+        anomaly_detector = AnomalyDetector()
+
+    def member_workers(worker_stats):
+        """The heartbeat's workers: member slots only (a vacant slot is
+        nobody's worker)."""
+        occupants = (elastic_ctl.view.occupants if elastic_ctl is not None
+                     else [f"w{i}" for i in range(config.num_workers)])
+        return {wid: {"slot": i,
+                      "participation": worker_stats["worker_participation"][i],
+                      "disagreement": worker_stats["worker_disagreement"][i]}
+                for i, wid in enumerate(occupants) if wid is not None}
+
     if config.save and start_epoch:
         # extend the CSVs and the journal of the run being resumed, cut
         # back to the restored epoch
@@ -418,12 +493,69 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 expected_alive=[float(v) for v in faults.expected_alive()],
                 expected_link_up=[float(v)
                                   for v in faults.expected_link_up()])
+    def compose_predicted(sched: Schedule):
+        """The plan's composed ρ for the mixing that runs on ``sched``
+        (its probabilities; the α it executes): the fault plan's
+        expected availability times the membership's occupancy, its link
+        reliability, the staleness-damped α, staleness and local steps.
+        ``control_probs`` (a budget swap's probabilities) waits for the
+        serve plane: the schedule's own probabilities stand."""
+        fault_alive = (np.asarray(faults.expected_alive(), np.float64)
+                       if faults is not None else None)
+        member_alive = (np.asarray(elastic_ctl.alive_mask(), np.float64)
+                        if elastic_ctl is not None else None)
+        if fault_alive is None:
+            worker_alive = member_alive
+        elif member_alive is None:
+            worker_alive = fault_alive
+        else:
+            worker_alive = fault_alive * member_alive
+        pred = compose_predicted_rho(
+            sched.laplacians(), sched.probs, plan_alpha * stale_scale,
+            overlap=config.overlap, wire_dtype=config.wire_dtype,
+            worker_alive=worker_alive,
+            link_up=(np.asarray(faults.expected_link_up(), np.float64)
+                     if faults is not None else None),
+            staleness=config.staleness, local_steps=config.local_steps)
+        pred.update(steps_per_epoch=int(bpe),
+                    tolerance=float(config.drift_tolerance),
+                    patience=int(config.drift_patience),
+                    plan_alpha=float(plan_alpha),
+                    stale_alpha_scale=float(stale_scale),
+                    executed_alpha=float(sched.alpha) * float(stale_scale))
+        return pred
+
+    def rebase_drift(alpha: float, sched: Schedule) -> Optional[Dict]:
+        """A re-plan's α is the plan from here on: the monitor re-bases
+        on it, and the journal's ``predicted`` with it (``None`` without a
+        monitor).  ``sched``: the schedule that runs from here."""
+        nonlocal plan_alpha, predicted, drift_monitor
+        plan_alpha = float(alpha)
+        if drift_monitor is None:
+            return None
+        predicted = compose_predicted(sched)
+        drift_monitor = DriftMonitor(
+            predicted["rho"], int(bpe), tolerance=config.drift_tolerance,
+            patience=config.drift_patience)
+        return predicted
+
+    predicted = drift_monitor = None
+    if elastic_ctl is not None and elastic_ctl.alpha is not None:
+        # a resume replayed membership re-plans: their α is in force
+        plan_alpha = float(elastic_ctl.alpha)
+    if config.telemetry and config.communicator == "decen":
+        # the spectral bound models the decen mixing only
+        predicted = compose_predicted(schedule)
+        drift_monitor = DriftMonitor(
+            predicted["rho"], int(bpe), tolerance=config.drift_tolerance,
+            patience=config.drift_patience)
     if start_epoch:
         recorder.log_event("resume", epoch=start_epoch,
-                           config=_config_snapshot(config), predicted={})
+                           config=_config_snapshot(config),
+                           predicted=predicted or {})
     else:
         recorder.log_event("run_start", config=_config_snapshot(config),
-                           predicted={})
+                           predicted=predicted or {})
     if backend_decision is not None:
         recorder.log_event("backend", **backend_decision)
     ckpt_dir = f"{config.savePath}/{config.name}_ckpt"
@@ -445,15 +577,15 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         if elastic_ctl is not None:
             # membership changes here and nowhere else; advance() is
             # idempotent per epoch, so a rollback's retry does not apply a
-            # transition twice (its bootstrap is in the snapshot).  The
-            # drift monitor that the JAX loop re-bases on a re-plan is not
-            # ported (ROADMAP.md, the host plane).
+            # transition twice (its bootstrap is in the snapshot)
             trans = elastic_ctl.advance(epoch, schedule)
             if trans is not None:
                 member_alive_np = trans.new_alive > 0
                 if trans.joined.any() or trans.restored.any():
                     state = bootstrap_rows(state, trans.joined,
                                            trans.restored)
+                new_pred = (rebase_drift(trans.alpha, schedule)
+                            if trans.replanned else None)
                 recorder.log_event(
                     "membership", epoch=epoch,
                     old_alive=[float(v) for v in trans.old_alive],
@@ -461,7 +593,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                     trigger=list(trans.trigger), alpha=float(trans.alpha),
                     rho=None if trans.rho is None else float(trans.rho),
                     alpha_scale=float(trans.alpha_scale),
-                    replanned=bool(trans.replanned), predicted={})
+                    replanned=bool(trans.replanned),
+                    predicted=new_pred or {})
             state.membership = fresh_membership()
         # with the budget spent the copy could never be used: not taken
         snapshot = (_snapshot_state(state)
@@ -483,13 +616,17 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 else:
                     host_sums[k] = host_sums.get(k, 0.0) + v
             count += 1
-        # the one deliberate per-epoch read: the step metrics and the
-        # per-worker divergence detector together
+        # the one deliberate per-epoch read: the step metrics, the
+        # per-worker divergence detector (the telemetry left out: scratch,
+        # not model state) and the telemetry accumulator together
         keys = list(dev_sums)
         reads = [torch.stack([dev_sums[k] for k in keys])]
         if config.halt_on_divergence:
             reads.append(state_finite_rows(state, config.num_workers).to(
                 torch.float32))
+        tel_at = sum(int(r.numel()) for r in reads)
+        if tel_spec is not None:
+            reads.append(telemetry_tensor(state.telemetry))
         read = torch.cat(reads).tolist()
         epoch_time = time.perf_counter() - t0
         epoch_metrics = {k: read[i] / count for i, k in enumerate(keys)}
@@ -497,7 +634,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
 
         if config.halt_on_divergence:
             loss_bad = not np.isfinite(epoch_metrics["loss"])
-            finite_rows = np.asarray(read[len(keys):]) > 0
+            finite_rows = np.asarray(read[len(keys):tel_at]) > 0
             # only the workers a `dead` event quarantines are exempt (they
             # are healed at revival), and the vacant pool slots (nobody's
             # state until a (re)join bootstraps them)
@@ -537,8 +674,12 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                         alpha_rederived = True
                         schedule = _rederive_alpha(schedule, faults,
                                                    elastic_ctl, recorder,
-                                                   epoch)
+                                                   epoch, rebase_drift)
                     rebuild_programs()
+                    if tel_spec is not None:
+                        # the retry counts from zero, as it does in JAX
+                        # from the snapshot's fresh accumulator
+                        state.telemetry = fresh_telemetry()
                     recorder.log_fault("rollback", epoch=epoch, reason=what,
                                        lr_scale=lr_scale,
                                        attempt=recoveries_used)
@@ -611,6 +752,39 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 mean_alive=epoch_metrics.get("alive_workers",
                                              float(config.num_workers)))
 
+        if tel_spec is not None:
+            tel = telemetry_flush(state.telemetry, read[tel_at:])
+            state.telemetry = fresh_telemetry()
+            # the per-worker stats feed the heartbeat, not the event
+            worker_stats = {
+                "worker_participation": tel.pop("worker_participation"),
+                "worker_disagreement": tel.pop("worker_disagreement")}
+            recorder.log_event("telemetry", epoch=epoch, **tel)
+            if drift_monitor is not None:
+                drift = drift_monitor.observe(epoch, tel["disagreement_mean"])
+                if drift is not None:
+                    recorder.log_event("drift", **drift)
+            if health_emitter is not None:
+                # step is host arithmetic; the peak is an allocator query,
+                # which does not synchronize
+                peak = (torch.cuda.max_memory_allocated(dev)
+                        if dev.type == "cuda" else 0)
+                hb = health_emitter.beat(
+                    epoch=epoch, step=(epoch + 1) * bpe, steps=tel["steps"],
+                    epoch_time=epoch_time, comm_time=comm_time,
+                    workers=member_workers(worker_stats),
+                    peak_bytes=peak or None)
+                recorder.log_event("heartbeat", **hb)
+                for a in anomaly_detector.observe(hb):
+                    recorder.log_event("anomaly", **a)
+                for ev in health_emitter.drain_recovery():
+                    # the heartbeat sink degraded or came back: the run
+                    # journal is the record a watcher reads then
+                    recorder.log_event("recovery", scope="io",
+                                       action=ev["action"],
+                                       reason=ev["reason"], sink=ev["sink"],
+                                       epoch=epoch)
+
         if config.save and recorder.epochs_recorded % 10 == 0:
             recorder.save()
         if config.checkpoint_every \
@@ -634,16 +808,17 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
 
 
 def _rederive_alpha(schedule: Schedule, faults, elastic_ctl, recorder,
-                    epoch: int) -> Schedule:
+                    epoch: int, rebase=None) -> Schedule:
     """A recovery's α re-derivation (JAX ``loop.py:1052-1122``): for the
     fault plan's expected availability and link reliability, composed with
     the membership's occupancy (``resolve_degraded_alpha``), else for the
     live set (``refold_for``), else for the schedule's own probabilities.
     Where the new α differs from the executed one (the schedule's α times
     the membership's scale), the schedule is rebound to it, the
-    controller re-bases to scale 1 against it, and an ``alpha_rederived``
-    fault is journaled (its ``predicted`` is None: the drift monitor that
-    the JAX loop re-bases here is not ported, ROADMAP.md item 7)."""
+    controller re-bases to scale 1 against it, ``rebase(new_alpha,
+    schedule)`` re-bases the drift monitor (returning the new prediction,
+    or ``None`` without a monitor), and an ``alpha_rederived`` fault is
+    journaled with that prediction."""
     member_mask = (elastic_ctl.alive_mask() if elastic_ctl is not None
                    else None)
     if faults is not None:
@@ -664,9 +839,11 @@ def _rederive_alpha(schedule: Schedule, faults, elastic_ctl, recorder,
         elastic_ctl.alpha = float(new_alpha)
         elastic_ctl.rho = float(new_rho)
         elastic_ctl.alpha_scale = 1.0
+    predicted = (rebase(float(new_alpha), schedule) if rebase is not None
+                 else None)
     recorder.log_fault("alpha_rederived", epoch=epoch, old=executed,
                        new=float(new_alpha), rho=float(new_rho),
-                       predicted=None)
+                       predicted=predicted)
     return schedule
 
 

@@ -3,8 +3,8 @@
 Port of ``matcha_tpu/train/state.py``: ``make_optimizer`` (:100),
 ``init_train_state`` (:114), ``make_train_step`` (:167, with
 ``grad_chunk``, the pipelined schedule, local-step elision, a runtime fault
-plan and elastic membership) and ``make_eval_fn`` (:672).  Run control and
-telemetry are not ported yet.
+plan, elastic membership and the telemetry accumulator) and
+``make_eval_fn`` (:672).  Run control is not ported yet.
 
 The JAX step vmaps a per-worker loss over the worker axis.  The port's
 model holds all workers stacked, so one forward/backward serves them all:
@@ -34,8 +34,14 @@ import torch.nn as nn
 from ..communicator import Communicator
 from ..elastic.runtime import Membership, freeze_worker_rows, vacant_rows
 from ..models.layers import init_workers
+from ..obs.telemetry import (
+    Telemetry,
+    TelemetrySpec,
+    age_bin_table,
+    telemetry_step,
+)
 from ..ops import WorkerFlattener
-from ..parallel import worker_disagreement
+from ..parallel import worker_deviation, worker_disagreement
 from ..resilience.runtime import (
     begin_mix_quarantined,
     gossip_quarantined,
@@ -71,6 +77,10 @@ class TrainState:
     # set by the loop at each epoch boundary; () without a membership
     # trace.  Never checkpointed: a sidecar records the view.
     membership: Any = ()
+    # the epoch's ``obs.Telemetry`` accumulator, made fresh by the loop at
+    # each epoch (and for a rollback's retry); () with telemetry off.
+    # Never checkpointed, never snapshotted, never checked for finiteness.
+    telemetry: Any = ()
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -93,10 +103,12 @@ class OptimizerSpec:
     nesterov: bool = True
 
     def init(self, params) -> torch.optim.SGD:
+        # without momentum, Nesterov's look-ahead is the plain step (optax's
+        # trace of decay 0); torch refuses the pair, so it is dropped
         return torch.optim.SGD(list(params), lr=float(self.lr_schedule(0)),
                                momentum=self.momentum,
                                weight_decay=self.weight_decay,
-                               nesterov=self.nesterov)
+                               nesterov=self.nesterov and self.momentum != 0)
 
 
 def make_optimizer(lr_schedule: Callable, momentum: float = 0.9,
@@ -193,6 +205,7 @@ def make_train_step(
     local_steps: int = 1,
     faults=None,
     elastic: bool = False,
+    telemetry: Optional[TelemetrySpec] = None,
 ):
     """Build ``step(state, xb, yb) -> (state, metrics)``.
 
@@ -245,6 +258,16 @@ def make_train_step(
     ``disagreement`` is theirs, and ``healed`` and ``alive_workers`` join
     the metrics.  With neither, the step is the step without them: no
     extra launch.
+
+    ``telemetry``: an ``obs.TelemetrySpec``.  When given and
+    ``state.telemetry`` is an ``obs.Telemetry``, each step adds to it in
+    place (``obs.telemetry_step``, JAX ``state.py:621-650``): the step's
+    disagreement, its flag row times the mix gate (an elided step moves
+    no bytes), the alive count, heals and dropped deltas, the ring's
+    consumed ages and the per-worker alive mask and deviation rows.  The
+    disagreement metric is then derived from the deviation rows (the two
+    differ only by the alive-weighted mean), so the accounting costs a few
+    launches a step and no read.
     """
     flags_host = np.asarray(flags, np.float32)  # [T, M]
     n = flattener.num_workers
@@ -282,6 +305,7 @@ def make_train_step(
             f"(iterations={flags_host.shape[0]}, workers={n}); compile the "
             f"FaultPlan against this schedule")
     fault_arrays = {}  # device -> (alive, revive, nan_inject), f32[T, N]
+    age_tables = {}  # device -> the consumed-age histogram's bin table
 
     def fault_rows(dev, t: int):
         if dev not in fault_arrays:
@@ -317,17 +341,20 @@ def make_train_step(
         return begin_mix_quarantined(communicator.begin_mix, flat, carry,
                                      row, alive, gate=gate)
 
-    def mix(state: TrainState, flat: torch.Tensor, row, alive=None,
-            gate=None) -> torch.Tensor:
-        """The consensus transform of this step on ``flat``; returns the
-        state the step leaves visible (the pending deltas in ``state``).
+    def mix(state: TrainState, flat: torch.Tensor, row, do_mix: bool,
+            alive=None, gate=None, counting: bool = False):
+        """The consensus transform of this step on ``flat`` (``do_mix``:
+        the step exchanges; else it is elided): returns
+        ``(flat, consumed)``, the parameters the step leaves visible (the
+        pending deltas in ``state``) and, on the ring when ``counting``,
+        the age of the delta each row consumed (else ``None``).
         ``alive``/``gate``: the survivor mask and the rows' finiteness
         of a faulted or elastic step."""
-        do_mix = state.step % local_steps == 0
         if ring_on:
             slot = state.step % staleness
             ages = state.mix_ages
             ages.add_((ages >= 0).to(ages.dtype))
+            consumed = ages[:, slot].clone() if counting else None
             ring = state.mix_pending
             flat = communicator.apply_mix(flat, ring[:, slot])
             if do_mix:
@@ -343,7 +370,7 @@ def make_train_step(
             else:
                 ring[:, slot] = 0.0
                 ages[:, slot] = -1
-            return flat
+            return flat, consumed
         if overlap_on:
             flat = communicator.apply_mix(flat, state.mix_pending)
             if do_mix:
@@ -351,7 +378,7 @@ def make_train_step(
                     flat, state.comm_carry, row, alive, gate)
             else:
                 state.mix_pending = torch.zeros_like(flat)
-            return flat
+            return flat, None
         if do_mix:
             if alive is None:
                 flat, state.comm_carry = communicator.step(
@@ -360,7 +387,7 @@ def make_train_step(
                 flat, state.comm_carry = gossip_quarantined(
                     communicator.step, flat, state.comm_carry, row, alive,
                     gate=gate)
-        return flat
+        return flat, None
 
     def stat_buffers(model: nn.Module) -> list:
         return [b for b in model.buffers() if b.is_floating_point()]
@@ -395,10 +422,17 @@ def make_train_step(
                            saved["momentum"], vacant, n)
         freeze_worker_rows(state.comm_carry, saved["carry"], vacant, n)
 
-    def heal(state: TrainState, flat: torch.Tensor, dev, t: int, member):
+    def ring_drops(ages: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+        """The ring's real deltas (slots with an age) a row mask is about to
+        drop, as a 0-d f32 count on the device."""
+        return ((ages >= 0) & (keep[:, None] <= 0)).sum(dtype=torch.float32)
+
+    def heal(state: TrainState, flat: torch.Tensor, dev, t: int, member,
+             counting: bool):
         """Inject, heal and mask (the fault/membership branch before the
         gossip, JAX ``state.py:393-470``): returns ``(flat, alive,
-        healed, gate)``."""
+        healed, gate, dropped)``; ``dropped`` counts the ring's deltas the
+        heal dropped when ``counting`` (telemetry on), else ``None``."""
         if faults is not None:
             alive_t, revive_t, inject_t = fault_rows(dev, t)
             flat = inject_nan_rows(flat, inject_t)
@@ -414,15 +448,18 @@ def make_train_step(
         keep = 1.0 - healed
         mask_worker_rows(momentum_buffers(state.optimizer), keep, n)
         mask_worker_rows(state.comm_carry, keep, n)
+        dropped = None
         if overlap_on:
             # a healed worker restarts from the donors' mean: the deltas
             # issued from its old parameters are stale like its momentum
             if ring_on:
+                if counting:
+                    dropped = ring_drops(state.mix_ages, keep)
                 state.mix_ages.masked_fill_(keep[:, None] <= 0, -1)
             mask_worker_rows(state.mix_pending, keep, n)
         heal_worker_stat_rows(stat_buffers(state.model), healed,
                               alive * keep, n)
-        return flat, alive, healed, gate
+        return flat, alive, healed, gate, dropped
 
     def fleet_mean(v: torch.Tensor, alive) -> torch.Tensor:
         """Mean over workers, the quarantined rows left out (``where``:
@@ -445,6 +482,9 @@ def make_train_step(
 
     def step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor):
         model, opt = state.model, state.optimizer
+        tel = (state.telemetry if telemetry is not None
+               and isinstance(state.telemetry, Telemetry) else None)
+        counting = tel is not None
         dev = communicator.flags_device(xb.device)
         if dev not in comm_flags:
             comm_flags[dev] = torch.as_tensor(comm_flags_host, device=dev)
@@ -471,13 +511,15 @@ def make_train_step(
             # JAX step scales it
             row = row * float(np.float32(member.alpha_scale))
         params = state.params
+        do_mix = state.step % local_steps == 0
         with torch.no_grad():
             flat = flattener.flatten(params)
-            alive = healed = gate = None
+            alive = healed = gate = dropped = None
             if faults is not None or member is not None:
-                flat, alive, healed, gate = heal(state, flat, xb.device, t,
-                                                 member)
-            flat = mix(state, flat, row, alive, gate)
+                flat, alive, healed, gate, dropped = heal(
+                    state, flat, xb.device, t, member, counting)
+            flat, consumed = mix(state, flat, row, do_mix, alive, gate,
+                                 counting)
             if saved is not None:
                 # the vacant slots keep the rows they had before the step
                 # (the survivor mask already made their gossip a self-loop)
@@ -486,20 +528,49 @@ def make_train_step(
             if member is not None and overlap_on:
                 # a vacant slot neither issues nor consumes deltas
                 if ring_on:
+                    if counting:
+                        vacated = ring_drops(state.mix_ages, member.alive)
+                        dropped = (vacated if dropped is None
+                                   else dropped + vacated)
                     state.mix_ages.masked_fill_(member.alive[:, None] <= 0,
                                                 -1)
                 mask_worker_rows(state.mix_pending, member.alive, n)
             flattener.unflatten_into(flat, params)
+            rows = None
+            if counting:
+                rows, disagreement = worker_deviation(flat, alive)
+            else:
+                disagreement = worker_disagreement(flat, alive)
             metrics = {
                 "loss": fleet_mean(losses, alive),
                 "accuracy": fleet_mean(top_k_accuracy(logits, yb), alive),
-                "disagreement": worker_disagreement(flat, alive),
+                "disagreement": disagreement,
                 "lr": float(lr_schedule(state.step)) if lr_schedule else 0.0,
                 "active_matchings": float(flags_host[t].sum()),
             }
             if alive is not None:
                 metrics["healed"] = healed.sum()
                 metrics["alive_workers"] = alive.sum()
+            if counting:
+                age_bins = None
+                if consumed is not None:
+                    if consumed.device not in age_tables:
+                        age_tables[consumed.device] = age_bin_table(
+                            staleness, consumed.device)
+                    age_bins = age_tables[consumed.device]
+                # the ring counts the deltas its masks dropped; the one-step
+                # pipeline drops a healed row's pending delta
+                stale_dropped = dropped if ring_on else (
+                    metrics.get("healed") if overlap_on else None)
+                telemetry_step(
+                    tel, telemetry, disagreement=disagreement,
+                    # an elided step exchanges nothing: zero bytes
+                    flags_t=flags_host[t] * np.float32(do_mix),
+                    alive_count=metrics.get("alive_workers", n),
+                    healed=metrics.get("healed"),
+                    stale_dropped=stale_dropped, consumed_age=consumed,
+                    worker_alive=alive, worker_disagreement=rows,
+                    age_bins=age_bins)
         state.step += 1
         return state, metrics
 

@@ -50,7 +50,8 @@ def runs():
                       lambda model, seed: load_into_port(model, params,
                                                          stats))
         before = dict(LAUNCHES)
-        port = train(TrainConfig(**CONFIG, sync_init=False), device="cpu")
+        port = train(TrainConfig(**CONFIG, sync_init=False, telemetry=False,
+                                 health=False), device="cpu")
         assert LAUNCHES == before  # the CPU path: the plain version
     return port.history, ref.history
 

@@ -150,7 +150,8 @@ def test_choco_acceptance_against_jax_train():
         patch.setattr("matcha_tpu_torch.train.state.init_workers",
                       lambda model, seed: load_into_port(model, params,
                                                          stats))
-        port = train(TrainConfig(**ACCEPT, sync_init=False), device="cpu")
+        port = train(TrainConfig(**ACCEPT, sync_init=False, telemetry=False,
+                                 health=False), device="cpu")
     got, want = port.history[0], ref.history[0]
     assert set(got) == set(want)
     for key in ("loss", "disagreement"):

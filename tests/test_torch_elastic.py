@@ -387,7 +387,8 @@ def churn_pair(tmp_path_factory):
         port = train(TrainConfig(**BASE, savePath=str(tmp / "port"),
                                  sync_init=False,
                                  membership_trace=dict(TRACE),
-                                 membership_bootstrap="restore", save=True),
+                                 membership_bootstrap="restore", save=True,
+                                 telemetry=False, health=False),
                      device="cpu")
     return port, ref
 
@@ -463,8 +464,12 @@ def test_resume_through_the_shrink_is_bitwise(tmp_path, pipeline):
 
 
 def test_membership_live_stays_refused():
-    with pytest.raises(NotImplementedError, match="membership_live"):
-        TrainConfig(membership_live="runs/health")
+    """Kept by name: the live source is ported now (``LiveMembershipSource``,
+    tests/test_torch_health.py), so the config takes it, and refuses it
+    beside a trace as JAX does."""
+    assert TrainConfig(membership_live="runs/health").membership_live == \
+        "runs/health"
+    assert el.LiveMembershipSource is not None
     with pytest.raises(ValueError, match="mutually exclusive"):
         TrainConfig(membership_live="runs/health",
                     membership_trace={"events": []})

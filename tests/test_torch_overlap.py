@@ -387,7 +387,8 @@ def train_against_jax(**pipeline):
         patch.setattr("matcha_tpu_torch.train.state.init_workers",
                       lambda model, seed: load_into_port(model, params,
                                                          stats))
-        port = train(TrainConfig(**cfg, sync_init=False), device="cpu")
+        port = train(TrainConfig(**cfg, sync_init=False, telemetry=False,
+                                 health=False), device="cpu")
     return port.history, ref.history, port
 
 

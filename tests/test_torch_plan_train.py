@@ -75,7 +75,8 @@ def _pair(root, plan_path, jax_init, name, **over):
                       lambda model, seed: load_into_port(model, params,
                                                          stats))
         port = train(TrainConfig(**cfg, savePath=str(root / "port"),
-                                 sync_init=False), device="cpu")
+                                 sync_init=False, telemetry=False,
+                                 health=False), device="cpu")
     return port, ref
 
 

@@ -173,9 +173,11 @@ def port_run(tmp_path_factory):
 def test_port_journal_validates_under_jax(port_run):
     result, folder = port_run
     events = read_journal(str(folder / "events.jsonl"))
-    # the backend decision follows run_start, as in the JAX loop
+    # the backend decision follows run_start, as in the JAX loop; each
+    # epoch's telemetry and heartbeat (on by default) before its checkpoint
     assert [e["kind"] for e in events] == [
-        "run_start", "backend", "epoch", "checkpoint", "epoch", "checkpoint"]
+        "run_start", "backend", "epoch", "telemetry", "heartbeat",
+        "checkpoint", "epoch", "telemetry", "heartbeat", "checkpoint"]
     for e in events:
         assert jax_validate_event(e) == [] == validate_event(e)
     assert events == result.recorder.events
@@ -190,7 +192,8 @@ def test_obs_tpu_summary_reads_the_port_run(port_run):
                           str(folder)], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "(6 events)" in out.stdout
+    assert "(10 events)" in out.stdout
+    assert "heartbeats: 2 (hosts: host0" in out.stdout
     rows = [line.split() for line in out.stdout.splitlines()]
     assert [r[0] for r in rows if r and r[0].isdigit()] == ["0", "1"]
 

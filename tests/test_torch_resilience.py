@@ -441,6 +441,7 @@ def train_pair(jax_init, events, **over):
                       lambda model, seed: load_into_port(model, *jax_init))
         port = train(TrainConfig(
             **BASE, **over, gossip_backend="perm", sync_init=False,
+            telemetry=False, health=False,
             fault_plan=res.FaultPlan(tuple(res.FaultEvent(**e)
                                            for e in events))),
             device="cpu")
@@ -512,8 +513,9 @@ def test_config_takes_resilience_and_refuses_live_membership():
     cfg = TrainConfig(fault_plan=plan, max_recoveries=2,
                       membership_trace={"events": []})
     assert cfg.max_recoveries == 2
-    with pytest.raises(NotImplementedError, match="membership_live"):
-        TrainConfig(membership_live="runs/health")
+    # the live membership source is ported now: the config takes it
+    assert TrainConfig(membership_live="runs/health").membership_live == \
+        "runs/health"
     for bad in (dict(max_recoveries=-1),
                 dict(max_recoveries=1, halt_on_divergence=False),
                 dict(recovery_lr_backoff=0.0),

@@ -88,8 +88,10 @@ def test_resumed_journal_extends_the_first(runs):
     _, first, rest = runs
     events = rest.recorder.events
     assert events[:len(first.recorder.events)] == first.recorder.events
-    # the backend decision follows run_start and resume, as in the JAX loop
+    # the backend decision follows run_start and resume, as in the JAX loop;
+    # each epoch journals its telemetry and heartbeat (on by default)
     assert [e["kind"] for e in events] == [
-        "run_start", "backend", "epoch", "checkpoint", "resume", "backend",
-        "epoch", "epoch"]
+        "run_start", "backend", "epoch", "telemetry", "heartbeat",
+        "checkpoint", "resume", "backend", "epoch", "telemetry", "heartbeat",
+        "epoch", "telemetry", "heartbeat"]
     assert sorted(latest_per_epoch(events, "epoch")) == [0, 1, 2]

@@ -280,10 +280,12 @@ def test_cli_parses_the_epoch_end_flags():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("membership_live", "health"), ("health", True), ("trace_dir", "t"),
-    ("devices", 2), ("scan_chunk", 4), ("telemetry", True),
+    ("trace_dir", "t"), ("devices", 2), ("scan_chunk", 4),
 ])
 def test_config_refuses_unported_features(field, value):
+    from matcha_tpu_torch.train.config import _UNPORTED
+
+    assert set(_UNPORTED) == {"trace_dir", "scan_chunk", "devices"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**{field: value})
 

@@ -77,6 +77,20 @@ replays join/leave/rejoin events at epoch boundaries
     python train_torch.py --model mlp --dataset synthetic --graphid 5 \
         --numworkers 8 --epoch 3 --membership-trace trace.json --device cpu
 
+Observability is on, as in ``train_tpu.py``: each epoch journals its
+``telemetry`` (and, for a decen run, a ``drift`` event when the measured
+contraction leaves the plan's band: ``--drift-tolerance``,
+``--drift-patience``); with ``--save`` each epoch also appends a heartbeat
+under ``{savePath}/{name}_{model}/health/`` and journals the anomaly
+detectors' findings.  ``--no-telemetry`` and ``--no-health`` switch them
+off.  ``--membership-live DIR`` takes membership from a heartbeat
+directory instead of a trace: a member silent for
+``--membership-deadline`` seconds leaves, a returning one rejoins::
+
+    python train_torch.py --model mlp --dataset synthetic --graphid 5 \
+        --numworkers 8 --epoch 3 --save --membership-live runs/fleet/health \
+        --device cpu
+
 ``digits`` and ``photo_patches`` need scikit-learn and PIL (and read
 photographs shipped with matplotlib and pygame).
 """
@@ -207,6 +221,42 @@ def parse_args(argv=None):
                         "(re)entering worker from the continuing members' "
                         "mean; 'restore' lets a rejoiner keep its own "
                         "frozen rows when still finite")
+    p.add_argument("--membership-live", default=None,
+                   dest="membership_live",
+                   help="heartbeat directory to drive membership from "
+                        "LIVE instead of a declared trace (a run's "
+                        "health/ dir on a shared FS): a member missing "
+                        "its --membership-deadline leaves, a reappearing "
+                        "worker rejoins — same controller, hysteresis, "
+                        "and re-folds as --membership-trace; mutually "
+                        "exclusive with it")
+    p.add_argument("--membership-deadline", type=float, default=60.0,
+                   dest="membership_deadline",
+                   help="seconds without a heartbeat before a member is "
+                        "presumed gone (with --membership-live)")
+    p.add_argument("--no-health", action="store_true",
+                   help="disable the live health plane (per-epoch "
+                        "heartbeat records under {run}/health/ and the "
+                        "streaming anomaly detectors); heartbeats ride "
+                        "--save + telemetry and are pure host work, so "
+                        "this exists for A/B, not speed")
+    p.add_argument("--no-telemetry", action="store_true",
+                   help="disable the in-step counters and the live "
+                        "planner-drift monitor; the events.jsonl run "
+                        "journal itself rides --save and keeps recording "
+                        "epoch/fault/checkpoint events. Telemetry is a "
+                        "handful of scalar adds on the device read once "
+                        "per epoch, so this exists for A/B measurement, "
+                        "not for speed")
+    p.add_argument("--drift-tolerance", type=float, default=0.25,
+                   dest="drift_tolerance",
+                   help="relative band over the predicted per-epoch "
+                        "contraction factor before an epoch counts as "
+                        "out-of-plan")
+    p.add_argument("--drift-patience", type=int, default=2,
+                   dest="drift_patience",
+                   help="consecutive out-of-band epochs before a drift "
+                        "event is journaled")
     p.add_argument("--randomSeed", "--seed", type=int, default=9001,
                    dest="seed")
     p.add_argument("--name", default="experiment")
@@ -248,7 +298,12 @@ def parse_args(argv=None):
         recovery_lr_backoff=args.recovery_lr_backoff,
         membership_trace=args.membership_trace,
         membership_hysteresis=args.membership_hysteresis,
-        membership_bootstrap=args.membership_bootstrap)
+        membership_bootstrap=args.membership_bootstrap,
+        membership_live=args.membership_live,
+        membership_deadline=args.membership_deadline,
+        telemetry=not args.no_telemetry, health=not args.no_health,
+        drift_tolerance=args.drift_tolerance,
+        drift_patience=args.drift_patience)
     return cfg, args.device
 
 
