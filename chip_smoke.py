@@ -2,9 +2,12 @@
 """Quickest proof that the PyTorch/CUDA port runs on the card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase perf_obs,observability
 
 Needs one CUDA card.  Phases, each printed as a JSON line; any failure
-raises and the script exits non-zero:
+raises and the script exits non-zero.  ``--phase`` runs the phases named
+(and those whose results they read: ``planner`` reads ``fused_timing``,
+``perf_obs`` both) after the build, and prints no kernels line:
 
 1. device — the card, CUDA and torch versions, and ``nvidia-smi``'s name
    and power limit (printed raw on a line of its own).
@@ -131,9 +134,9 @@ raises and the script exits non-zero:
    temporary savePath: ``train()`` for 2 epochs with ``save`` and a
    checkpoint every epoch (K1's launch count as in the slice phase; 16 × 8
    Recorder CSVs of 2 rows; every ``events.jsonl`` line valid under the
-   port's ``validate_event``: ``run_start``, then ``epoch``,
-   ``telemetry``, ``heartbeat`` (and any ``anomaly``) and ``checkpoint``
-   twice); ``save_checkpoint`` then ``restore_checkpoint`` of its live
+   port's ``validate_event``: ``run_start``, ``backend``, the cost
+   ledger's three ``compile`` events, then ``epoch``, ``telemetry``,
+   ``heartbeat`` (and any ``anomaly``) and ``checkpoint`` twice); ``save_checkpoint`` then ``restore_checkpoint`` of its live
    state, bitwise (every parameter, batch-norm and momentum buffer, the
    step); a run resumed from the epoch-0 checkpoint in the same folder
    (K1 launched for one epoch; epoch 1's loss, disagreement and test loss
@@ -148,7 +151,7 @@ raises and the script exits non-zero:
    every step.
 12. determinism — what ``train()``'s deterministic cuDNN costs: the
    slice's steady step on the default and the deterministic algorithms,
-   alternated, 5 rounds of 20 steps each way.
+   alternated, 3 rounds of 20 steps each way.
    choco — CHOCO at BASELINE.json config 4's shape (ResNet-20, 64 workers
    on a generated Erdős–Rényi graph, MATCHA budget 0.5, batch 32, top-k
    at ratio 0.9) through ``train()``, 2 epochs of 4 steps with a
@@ -217,15 +220,29 @@ raises and the script exits non-zero:
    bitwise its plain version); synchronizing calls (the sync debug mode)
    equal with the accumulator on and off, in the step and in ``train()``;
    ms and launches a step, on and off, in alternated rounds.
+   perf_obs — performance observability (``phase_perf_obs``, cell (m)):
+   the observability run with ``trace_dir`` and ``trace_epoch=1``; the
+   one trace attributed by ``obs.xprof`` (every K1 row of the traced
+   epoch in ``comm``, 4 of them; every convolution row in ``comp``; the
+   phases' seconds, the overlap, the device-busy share and the
+   ``STEP_PARTS`` split printed); the cost ledger's ``compile`` events
+   and the heartbeats' ``peak_bytes``; the step's spans, each a
+   ``nullcontext`` outside a profiler and a ``record_function`` inside
+   one, and ms a step with them and patched away; the roofline at
+   chain (b) on the card's row, priced by one K3 launch, against the
+   planner phase's r and read back by ``load_measured_vs_ceiling``;
+   ``obs_torch.py``'s commands on the run with JAX blocked.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
-    the models', the resilience, the pipelined, the planner's and the
-    observability runs included), then the ``nvidia-smi`` line.
+    the models', the resilience, the pipelined, the planner's, the
+    observability and the perf_obs runs included; K3's ``tensor_core``
+    path with the roofline's launch), then the ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -274,6 +291,7 @@ from matcha_tpu_torch.topology import (
 )
 from matcha_tpu_torch.models import select_model
 from matcha_tpu_torch.ops import WorkerFlattener
+from matcha_tpu_torch.obs.costs import H100
 from matcha_tpu_torch.obs.journal import read_journal, validate_event
 from matcha_tpu_torch.train.checkpoint import (
     restore_checkpoint,
@@ -298,9 +316,9 @@ from matcha_tpu_torch.train import (
     train,
 )
 
-# NVIDIA H100 SXM data sheet: the dense bf16 tensor-core peak (the HBM
+# the dense bf16 tensor-core peak, from the port's one chip table (the HBM
 # bandwidth and the FP32 peak come with the perm kernel's bound)
-BF16_OPS_PER_S = 989e12
+BF16_OPS_PER_S = H100.peak_tflops * 1e12
 
 SEED = 9001
 SLICE_D = 273258  # ResNet-20 parameters per worker
@@ -1300,8 +1318,9 @@ def phase_perm_large(dev):
     than the slab tables hold).  First the times, before the bitwise
     checks' temporaries fill the card's memory: T = 1 and 4, the ER
     graph at full width and the hypercube at D = 32,768, by CUDA events and
-    the profiler's device time per call, with the plain version, the
-    library call and the bound, 3 runs each; the hypercube at full width,
+    the profiler's device time per call (3 runs), with the plain version
+    and the library call (one run each: seconds a call) and the bound; the
+    hypercube at full width,
     T = 4, the kernel's time and its peak device memory, and its first
     32,768 and last 1031 columns bitwise against the plain version on those
     columns (the plain version does not fit the whole width).  Then, at D = 32,768: T = 1, 2, 3, 4 and 8, an f32
@@ -1327,9 +1346,9 @@ def phase_perm_large(dev):
                    "M": int(p.shape[0]), "ms": time_ms(run, flush, 3),
                    "device_ms": device_ms(run, "perm_band_kernel", flush, 3),
                    "plain_ms": time_ms(lambda: perm_gossip_plain(
-                       x, w, p, part), flush, 3),
+                       x, w, p, part), flush, 1),
                    "library_ms": time_ms(perm_yardstick(w, p, part, x),
-                                         flush, 3)}
+                                         flush, 1)}
             row["bound_ms"], row["bound_by"] = bound(x, w, p, part)
             rows.append(row)
             emit({"phase": "perm_large_timing", **row})
@@ -1701,13 +1720,17 @@ def _epoch_end(dev, bpe: int, spread: dict):
         events = read_journal(os.path.join(folder, "events.jsonl"))
         problems = [p for e in events for p in validate_event(e)]
         kinds = [e["kind"] for e in events]
-        # the explicit backend's decision record follows run_start; each
-        # epoch journals its telemetry and heartbeat (on by default), then
-        # the detectors' anomalies, if any, then the checkpoint
+        # the explicit backend's decision record follows run_start; the
+        # cost ledger's programs (the step, the timer's chain, the
+        # evaluation) at their first calls; each epoch journals its
+        # telemetry and heartbeat (on by default), then the detectors'
+        # anomalies, if any, then the checkpoint
         epoch_kinds = ["epoch", "telemetry", "heartbeat"]
         if problems or [k for k in kinds if k != "anomaly"] != [
-                "run_start", "backend", *epoch_kinds, "checkpoint",
-                *epoch_kinds, "checkpoint"] \
+                "run_start", "backend", "compile", "compile", "compile",
+                *epoch_kinds, "checkpoint", *epoch_kinds, "checkpoint"] \
+                or [e["label"] for e in events if e["kind"] == "compile"] \
+                != ["epoch_scan", "gossip_chain", "evaluate"] \
                 or any(kinds[i - 1] not in ("heartbeat", "anomaly")
                        for i, k in enumerate(kinds) if k == "anomaly") \
                 or events[1]["chosen"] != "perm":
@@ -1840,7 +1863,7 @@ def phase_communicators(dev):
     return rows
 
 
-def phase_determinism(dev, steps: int = 20, rounds: int = 5):
+def phase_determinism(dev, steps: int = 20, rounds: int = 3):
     """What ``train()``'s deterministic cuDNN costs: the slice's steady
     step (``slice_stepper``) on cuDNN's default algorithms and on its
     deterministic ones, benchmark mode off both ways, in turns (the default
@@ -3186,7 +3209,7 @@ def sync_warnings(fn) -> dict:
     return where
 
 
-def phase_observability(dev, rounds: int = 5, steps: int = 20,
+def phase_observability(dev, rounds: int = 3, steps: int = 20,
                         profiled: int = 5):
     """The training run's observability plane on the card (cell (l)):
     slice (a) at full width, 3 epochs of 4 steps, ``save`` on and the
@@ -3425,6 +3448,302 @@ def phase_observability(dev, rounds: int = 5, steps: int = 20,
     return out
 
 
+# the CLI's commands on a run the card wrote, run with JAX blocked
+OBS_CLI = """
+import importlib.abc, json, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                  "matcha_tpu", "ml_dtypes"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import obs_torch
+codes = [obs_torch.main(argv) for argv in json.loads(sys.argv[1])]
+leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "matcha_tpu")]
+print(json.dumps({"codes": codes, "leaked": leaked}))
+"""
+
+
+def _null_span(name):
+    return contextlib.nullcontext()
+
+
+def window_split(events: list, phased: list, steps: int) -> dict:
+    """From a trace's events and its ``(device row, phase)`` pairs: device
+    time by ``STEP_PARTS`` part (ms a step), K1's and the convolutions'
+    rows by phase (and K1's rows whose launch row is in the trace), the
+    device-busy share of the window, and the host's ms a step inside each
+    of the step's spans (their ``user_annotation`` ranges: launching the
+    phase's kernels, and its host work)."""
+    parts, k1, conv, host = {}, {}, {}, {}
+    launched = {(e.get("args") or {}).get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    k1_launch_rows = 0
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            name = e.get("name", "")
+            if name.startswith(("matcha/", "comm/")):
+                host[name] = host.get(name, 0.0) \
+                    + float(e.get("dur", 0.0)) / 1e3 / steps
+    busy, reach = 0.0, float("-inf")
+    lo = min(float(e["ts"]) for e, _ in phased)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e, _ in phased)
+    for e, phase in sorted(phased, key=lambda ep: float(ep[0]["ts"])):
+        name, start = e.get("name", "").lower(), float(e["ts"])
+        end = start + float(e["dur"])
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+        part = next((label for label, keys in STEP_PARTS
+                     if any(k in name for k in keys)), "other")
+        parts[part] = parts.get(part, 0.0) + float(e["dur"]) / 1e3 / steps
+        if "perm_gossip_kernel" in name:
+            k1[phase] = k1.get(phase, 0) + 1
+            # a ctypes launch outside the dispatcher: its runtime call is
+            # what puts it in a phase
+            k1_launch_rows += (e.get("args") or {}).get("correlation") \
+                in launched
+        elif part == "convolution":
+            conv[phase] = conv.get(phase, 0) + 1
+    return {"kernel_ms_per_step_by_part": parts, "k1_rows_by_phase": k1,
+            "conv_rows_by_phase": conv, "k1_rows_with_launch_row":
+            k1_launch_rows, "device_rows": len(phased),
+            "device_busy_share": busy / max(hi - lo, 1e-9),
+            "device_window_ms_per_step": (hi - lo) / 1e3 / steps,
+            "host_ms_per_step_by_span": host}
+
+
+def phase_perf_obs(dev, fused_rows, planner, big_tables, rounds: int = 3,
+                   steps: int = 8):
+    """Performance observability on the card (cell (m)): slice (a) at
+    full width, 3 epochs of 4 steps, ``save``, telemetry and health on,
+    ``trace_dir`` set with ``trace_epoch=1``.
+
+    1. The run (K1 launched once a step plus the timer's chains): one
+       trace under ``trace_dir``; ``profile_report`` finds device rows;
+       every K1 row of the traced epoch is in ``comm``, 4 of them (the
+       timer's chains run after the window closes), and every convolution
+       row is in ``comp``.  Printed: the phases' seconds, the overlap
+       fraction, the device-busy share of the window, the
+       ``STEP_PARTS`` split of the same steps and the host's ms a step
+       inside each span.
+    2. The cost ledger: one ``compile`` event per distinct program, each
+       ``peak_bytes`` in (0, 80 GB], each heartbeat's ``peak_bytes`` the
+       largest of the programs journaled before it.
+    3. The spans outside a window: every ``device_span`` the slice's step
+       enters on the card outside a profiler is a ``nullcontext``, and
+       inside a profiler window a ``record_function``; ms a step with the
+       spans and with ``device_span`` patched to a ``nullcontext``, in
+       ``rounds`` alternated rounds (printed).
+    4. The roofline on the card's row at chain (b) (``[256, 273258]``,
+       bf16, fused, T = 64, the 256-worker hypercube), priced by one K3
+       launch, with the rate of this run's ``fused_timing``:
+       ``measured_vs_ceiling`` in (0, 1.05] and within 1 % of the planner
+       phase's r; the report written and read back by
+       ``load_measured_vs_ceiling``.
+    5. ``obs_torch.py`` on the run with JAX blocked: summary, tail, drift,
+       profile, roofline, capacity, watch --once, attribute and timeline,
+       each with its documented exit code (drift, watch and attribute 0
+       or 1; an artifact ``attribute`` writes passes planlint; the
+       timeline validates).
+    Any failure raises."""
+    from matcha_tpu_torch.analysis import lint_plan_file
+    from matcha_tpu_torch.obs import costs, xprof
+    from matcha_tpu_torch.obs.health import fleet_verdict
+    from matcha_tpu_torch.obs.timeline import validate_trace
+    from matcha_tpu_torch.plan import load_measured_vs_ceiling
+    from matcha_tpu_torch.train import state as train_state
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    bpe = 2048 // 16 // 32
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # 1. the traced run and its attribution
+        trace_dir = os.path.join(root, "trace")
+        result, events, row = obs_run(dev, "perf_obs", root,
+                                      trace_dir=trace_dir, trace_epoch=1)
+        out["run"] = row
+        out["launches"]["train() perf_obs, traced epoch 1"] = \
+            row["launches"]
+        files = [f for _, _, fs in os.walk(trace_dir) for f in fs]
+        trace_file = xprof.find_trace_file(trace_dir)
+        t0 = time.perf_counter()
+        report = xprof.profile_report(trace_dir)
+        trace_events = xprof.load_trace_events(trace_file)
+        phased = xprof.kernel_phases(trace_events)
+        parse_s = time.perf_counter() - t0
+        split = window_split(trace_events, phased, bpe)
+        del trace_events
+        out["trace"] = {
+            "files": len(files), "bytes": os.path.getsize(trace_file),
+            "parse_seconds": parse_s, "rows": report["rows"],
+            **{k: report[k] for k in ("comm_seconds", "comp_seconds",
+                                      "other_seconds", "compute_seconds",
+                                      "overlap_seconds",
+                                      "overlap_fraction")},
+            **split}
+        emit({"phase": "perf_obs", "trace": out["trace"]})
+        if len(files) != 1 or split["k1_rows_by_phase"] != {"comm": bpe} \
+                or not split["conv_rows_by_phase"] \
+                or set(split["conv_rows_by_phase"]) != {"comp"}:
+            raise AssertionError(f"perf_obs: {len(files)} trace files, K1 "
+                                 f"rows {split['k1_rows_by_phase']}, "
+                                 f"convolutions "
+                                 f"{split['conv_rows_by_phase']}")
+
+        # 2. the ledger
+        compiles = of_kind(events, "compile")
+        keys = [(e["label"], e["fingerprint"]) for e in compiles]
+        peaks = [e["peak_bytes"] for e in compiles]
+        bad_beats = [e["epoch"] for i, e in enumerate(events)
+                     if e["kind"] == "heartbeat"
+                     and e["peak_bytes"] != max(
+                         (c["peak_bytes"] for c in of_kind(events[:i],
+                                                           "compile")),
+                         default=None)]
+        out["ledger"] = [{k: e[k] for k in (
+            "label", "fingerprint", "compile_seconds", "flops", "hbm_bytes",
+            "peak_bytes", "temp_bytes")} for e in compiles]
+        if len(keys) != len(set(keys)) \
+                or {k[0] for k in keys} != {"epoch_scan", "gossip_chain",
+                                            "evaluate"} \
+                or not all(0 < p <= costs.H100.hbm_gb * 1e9 for p in peaks) \
+                or bad_beats:
+            raise AssertionError(f"perf_obs: ledger {out['ledger']}, "
+                                 f"heartbeats off the ledger {bad_beats}")
+
+        # 3. the spans outside a window, on and patched off, alternated
+        state, step, xb, yb = slice_stepper(dev, 3 + 2 * rounds * steps + 3)
+        for _ in range(3):
+            state, _ = step(state, xb, yb)
+        real_span = train_state.device_span
+        ms = {"spans": [], "nullcontext": []}
+        entered = {"outside": [], "inside": []}
+        try:
+            for where in ("outside", "inside"):
+                def spy(name, seen=entered[where]):
+                    ctx = real_span(name)
+                    seen.append((name, type(ctx).__name__))
+                    return ctx
+                train_state.device_span = spy
+                with (profile(activities=[ProfilerActivity.CUDA])
+                      if where == "inside" else contextlib.nullcontext()):
+                    state, _ = step(state, xb, yb)
+                    torch.cuda.synchronize()
+            train_state.device_span = real_span
+            for r in range(rounds):
+                for mode in (("spans", "nullcontext") if r % 2 == 0
+                             else ("nullcontext", "spans")):
+                    train_state.device_span = (real_span if mode == "spans"
+                                               else _null_span)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        state, _ = step(state, xb, yb)
+                    torch.cuda.synchronize()
+                    ms[mode].append((time.perf_counter() - t0) / steps * 1e3)
+        finally:
+            train_state.device_span = real_span
+        del state, step, xb, yb
+        torch.cuda.empty_cache()
+        kinds = {w: sorted(set(v)) for w, v in entered.items()}
+        out["spans"] = {"ms_per_step": ms,
+                        "median_ms": {k: statistics.median(v)
+                                      for k, v in ms.items()},
+                        "entered": kinds}
+        names = {n for n, _ in entered["outside"]}
+        if not {"matcha/fwd_bwd", "matcha/sgd", "comm/step"} <= names \
+                or {n for n, _ in entered["inside"]} != names \
+                or {k for _, k in entered["outside"]} != {"nullcontext"} \
+                or {k for _, k in entered["inside"]} != {"record_function"}:
+            raise AssertionError(f"perf_obs: the step's spans {kinds}")
+
+        # 4. the roofline at chain (b), one K3 launch on the card
+        chain_b = next(t for t in fused_rows
+                       if t["shape"] == "hypercube N=256 T=64 bf16")
+        rate = 64 / (chain_b["ms"] / 1e3)
+        sched = big_tables[0]
+        reset_launch_counts()
+        rep = costs.roofline_report(
+            sched.num_workers, SLICE_D, sched.decomposed, wire_dtype="bf16",
+            backend="fused", t_steps=64, measured_steps_per_sec=rate,
+            device=dev)
+        torch.cuda.synchronize()
+        out["roofline_launches"] = dict(LAUNCHES)
+        path = os.path.join(root, "roofline.json")
+        with open(path, "w") as f:
+            json.dump(rep, f)
+        read_back, _ = load_measured_vs_ceiling(path)
+        r_planner = planner["auto"]["r"]
+        out["roofline"] = {
+            k: rep[k] for k in (
+                "chip", "peak_tflops", "peak_dtype", "peak_gbps",
+                "flops_per_step", "hbm_bytes_per_step", "model_flops",
+                "flops_vs_model", "hbm_vs_model", "peak_bytes",
+                "compile_seconds", "compute_bound_steps_per_sec",
+                "hbm_bound_steps_per_sec", "ceiling_steps_per_sec", "bound",
+                "measured_steps_per_sec", "measured_vs_ceiling")}
+        out["roofline"]["planner_r"] = r_planner
+        out["roofline"]["read_back"] = read_back
+        if not 0 < rep["measured_vs_ceiling"] <= 1.05 \
+                or abs(rep["measured_vs_ceiling"] / r_planner - 1) > 0.01 \
+                or read_back != rep["measured_vs_ceiling"] \
+                or LAUNCHES["fused_gossip/tensor_core"] != 1 \
+                or rep["chip"] != "h100":
+            raise AssertionError(f"perf_obs: roofline {out['roofline']}, "
+                                 f"launches {dict(LAUNCHES)}")
+
+        # 5. the CLI with JAX blocked
+        run_dir = result.recorder.folder
+        art = os.path.join(root, "lc.json")
+        commands = [
+            ["summary", run_dir], ["tail", run_dir, "-n", "5"],
+            ["drift", run_dir], ["profile", trace_dir],
+            ["roofline", "--backend", "fused", "--workers", "256",
+             "--topology", "hypercube", "--dim", str(SLICE_D),
+             "--t-steps", "64", "--measured", str(rate)],
+            ["capacity", "--dim", str(SLICE_D), "--workers", "256,16"],
+            ["watch", run_dir, "--once", "--deadline", "3600"],
+            ["attribute", run_dir, "--out", art],
+            ["timeline", run_dir, "--out", os.path.join(root, "t.json")]]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", OBS_CLI,
+                               json.dumps(commands)], capture_output=True,
+                              text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"perf_obs: obs_torch.py failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        cli = json.loads(proc.stdout.strip().splitlines()[-1])
+        codes = dict(zip([c[0] for c in commands], cli["codes"]))
+        watch_rc, _ = fleet_verdict(run_dir, deadline=3600.0)
+        with open(os.path.join(root, "t.json")) as f:
+            timeline_ok = validate_trace(json.load(f)) == []
+        art_ok = (not os.path.exists(art)
+                  or lint_plan_file(art)[0] == [])
+        out["cli"] = {"codes": codes, "seconds": cli_s,
+                      "artifact_written": os.path.exists(art),
+                      "timeline_valid": timeline_ok}
+        expected_zero = ("summary", "tail", "profile", "roofline",
+                         "capacity", "timeline")
+        if cli["leaked"] or any(codes[c] != 0 for c in expected_zero) \
+                or codes["drift"] not in (0, 1) \
+                or codes["watch"] != watch_rc \
+                or codes["attribute"] not in (0, 1) \
+                or codes["attribute"] == 0 and not art_ok \
+                or not timeline_ok:
+            raise AssertionError(f"perf_obs: CLI {out['cli']}, leaked "
+                                 f"{cli['leaked']}:\n{proc.stderr[-3000:]}")
+        del result
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "perf_obs", **{k: v for k, v in out.items()
+                                  if k != "trace"},
+          "nvidia_smi": nvidia_smi()})
+    return out
+
+
 def phase_stream_chain(dev, tables):
     """The streamed-window instantiation, which no entry point of the port
     takes (``dbuf=True`` is the default, as in the JAX package): one chain
@@ -3659,7 +3978,8 @@ def kernels_line(r) -> list:
         "perm_gossip_dbuf"], **{f"train() {label}": row["launches"]
                                 for label, row in r["models"].items()},
         **r["resilience"]["launches"], **r["pipeline"]["launches"],
-        **r["planner"]["launches"], **r["observability"]["launches"]},
+        **r["planner"]["launches"], **r["observability"]["launches"],
+        **r["perf_obs"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -3708,7 +4028,9 @@ def kernels_line(r) -> list:
             ("tc_regs", "slice T=64 bf16",
              {"Communicator.run, slice-width bf16 chain": r["fused_chain"]}),
             ("tensor_core", "hypercube N=256 T=64 bf16",
-             {chain_runs: r["fused_chain"]})):
+             {chain_runs: r["fused_chain"],
+              "obs.costs.roofline_report at chain (b), on the card":
+              r["perf_obs"]["roofline_launches"]})):
         counter = f"fused_gossip/{path}"
         launches = sum(run[counter] for run in by_path.values())
         if launches < 1:
@@ -3806,7 +4128,94 @@ def kernels_line(r) -> list:
     return kernels
 
 
-def main():
+#: the phases in the order a full run takes them, and the phases whose
+#: results each one reads (run first when it is asked for alone)
+PHASES = ("parity", "timing", "perm_large", "slice", "profile", "agreement",
+          "stream_chain", "fused_parity", "fused_timing", "fused_chain",
+          "fused_slice", "fused_large", "fused_sweep", "split_probe",
+          "split_timing", "epoch_end", "communicators", "determinism",
+          "choco", "models", "resilience", "pipeline", "planner",
+          "observability", "perf_obs")
+NEEDS = {"planner": ("fused_timing",), "perf_obs": ("fused_timing",
+                                                    "planner")}
+
+
+def run_phases(dev, names, spills) -> dict:
+    """Run ``names`` (and what they read) in ``PHASES`` order, printing
+    each one's wall seconds; returns their results by name."""
+    wanted, todo = set(), list(names)
+    while todo:
+        name = todo.pop()
+        if name not in PHASES:
+            raise SystemExit(f"chip_smoke.py: unknown phase {name!r}; have "
+                             f"{', '.join(PHASES)}")
+        if name not in wanted:
+            wanted.add(name)
+            todo.extend(NEEDS.get(name, ()))
+    tables = {}
+
+    def table(key):
+        if key not in tables:
+            tables[key] = {"slice": lambda: slice_tables(dev),
+                           "big": lambda: hypercube_tables(dev),
+                           "huge": lambda: hypercube_tables(dev, 4096)}[key]()
+        return tables[key]
+
+    steps = {
+        "parity": lambda r: phase_parity(dev, table("slice"), table("big"),
+                                         table("huge")),
+        "timing": lambda r: phase_timing(dev, table("slice"), table("big"),
+                                         table("huge")),
+        "perm_large": lambda r: phase_perm_large(dev),
+        "slice": lambda r: phase_slice(dev),
+        "profile": lambda r: phase_profile(dev),
+        "agreement": lambda r: phase_agreement(dev),
+        "stream_chain": lambda r: phase_stream_chain(dev, table("slice")),
+        "fused_parity": lambda r: phase_fused_parity(dev, table("slice"),
+                                                     table("big")),
+        "fused_timing": lambda r: phase_fused_timing(dev, table("slice"),
+                                                     table("big")),
+        "fused_chain": lambda r: phase_fused_chain(dev, table("slice"),
+                                                   table("big")),
+        "fused_slice": lambda r: phase_fused_slice(dev),
+        "fused_large": lambda r: phase_fused_large(dev),
+        "fused_sweep": lambda r: phase_fused_sweep(dev, spills),
+        "split_probe": lambda r: phase_split_probe(dev),
+        "split_timing": lambda r: phase_split_timing(dev),
+        "epoch_end": lambda r: phase_epoch_end(dev),
+        "communicators": lambda r: phase_communicators(dev),
+        "determinism": lambda r: phase_determinism(dev),
+        "choco": lambda r: phase_choco(dev),
+        "models": lambda r: phase_models(dev),
+        "resilience": lambda r: phase_resilience(dev),
+        "pipeline": lambda r: phase_pipeline(dev, table("slice")),
+        "planner": lambda r: phase_planner(dev, r["fused_timing"],
+                                           table("huge")),
+        "observability": lambda r: phase_observability(dev),
+        "perf_obs": lambda r: phase_perf_obs(dev, r["fused_timing"],
+                                             r["planner"], table("big")),
+    }
+    results, seconds = {}, {}
+    for name in PHASES:
+        if name in wanted:
+            t0 = time.perf_counter()
+            results[name] = steps[name](results)
+            seconds[name] = time.perf_counter() - t0
+    emit({"phase_seconds": seconds})
+    return results
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Proof that the port runs on the card: every phase, "
+                    "the kernels line and the last line by default.")
+    parser.add_argument("--phase", default=None,
+                        help="run only these phases (comma-separated, with "
+                             "the phases they read); no kernels line. "
+                             f"Phases: {', '.join(PHASES)}")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
                  "is False")
@@ -3832,36 +4241,12 @@ def main():
     if any(spills.values()):
         raise AssertionError(f"kernels spill registers: {spills}")
 
-    tables, big_tables = slice_tables(dev), hypercube_tables(dev)
-    huge_tables = hypercube_tables(dev, 4096)
-    results = {}
-    results["parity"] = phase_parity(dev, tables, big_tables, huge_tables)
-    results["timing"] = phase_timing(dev, tables, big_tables, huge_tables)
-    results["perm_large"] = phase_perm_large(dev)
-    results["slice"] = phase_slice(dev)
-    phase_profile(dev)
-    phase_agreement(dev)
-    results["stream_chain"] = phase_stream_chain(dev, tables)
-    results["fused_parity"] = phase_fused_parity(dev, tables, big_tables)
-    results["fused_timing"] = phase_fused_timing(dev, tables, big_tables)
-    results["fused_chain"] = phase_fused_chain(dev, tables, big_tables)
-    results["fused_slice"] = phase_fused_slice(dev)
-    results["fused_large"] = phase_fused_large(dev)
-    results["fused_sweep"] = phase_fused_sweep(dev, spills)
+    names = (PHASES if args.phase is None
+             else [n.strip() for n in args.phase.split(",") if n.strip()])
+    results = run_phases(dev, names, spills)
     results["spills"] = spills
-    results["split_probe"] = phase_split_probe(dev)
-    results["split_timing"] = phase_split_timing(dev)
-    results["epoch_end"] = phase_epoch_end(dev)
-    results["communicators"] = phase_communicators(dev)
-    results["determinism"] = phase_determinism(dev)
-    results["choco"] = phase_choco(dev)
-    results["models"] = phase_models(dev)
-    results["resilience"] = phase_resilience(dev)
-    results["pipeline"] = phase_pipeline(dev, tables)
-    results["planner"] = phase_planner(dev, results["fused_timing"],
-                                       huge_tables)
-    results["observability"] = phase_observability(dev)
-    emit({"kernels": kernels_line(results)})
+    if args.phase is None:
+        emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

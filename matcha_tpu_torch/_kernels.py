@@ -12,11 +12,16 @@ shared-memory mainloop.
 
 ``LAUNCHES`` holds one count per kernel; each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its gossip
-went through the kernels.
+went through the kernels.  Beside the count, each wrapper reports its
+launch's operations to the open :func:`kernel_flop_meter` (``obs.costs``:
+``FlopCounterMode`` does not see a ``ctypes`` launch).  Each kernel's
+operation count has one function here (:func:`fused_gossip_flops`,
+:func:`perm_gossip_flops`), which the wrappers and the roofline both call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,8 +31,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "NVCC_FLAGS", "TILES", "build", "build_all", "load",
-           "nvcc_path", "pick_tile", "reset_launch_counts"]
+__all__ = ["LAUNCHES", "NVCC_FLAGS", "TILES", "add_kernel_flops", "build",
+           "build_all", "fused_gossip_flops", "kernel_flop_meter", "load",
+           "nvcc_path", "perm_gossip_flops", "pick_tile",
+           "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parent
 SOURCE_DIR = _PKG / "csrc"
@@ -59,6 +66,40 @@ LAUNCHES = {"perm_gossip_dbuf": 0, "perm_gossip_stream": 0,
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def fused_gossip_flops(n: int, d: int, t_steps: int = 1) -> float:
+    """The fused kernel's operations (the JAX package's hand model):
+    ``W_t @ x`` a step, ``2·N²·D·T``."""
+    return 2.0 * n * n * d * t_steps
+
+
+def perm_gossip_flops(m: int, n: int, d: int, t_steps: int = 1) -> float:
+    """The perm kernel's operations (the JAX package's hand model): a
+    gather-subtract, a gate-scale and two f32 accumulates per matching,
+    row and column, each step: ``(4·M+2)·N·D·T``."""
+    return float((4 * m + 2) * n * d * t_steps)
+
+
+_FLOP_METERS: list = []
+
+
+@contextlib.contextmanager
+def kernel_flop_meter():
+    """Sum the hand-model operations of the kernels launched inside the
+    block: yields a one-element list holding the running total."""
+    meter = [0.0]
+    _FLOP_METERS.append(meter)
+    try:
+        yield meter
+    finally:
+        _FLOP_METERS.remove(meter)
+
+
+def add_kernel_flops(flops: float) -> None:
+    """A wrapper's report of one launch's operations to the open meters."""
+    for meter in _FLOP_METERS:
+        meter[0] += float(flops)
 
 
 def nvcc_path() -> str:

@@ -1,0 +1,304 @@
+"""Fleet timeline export: one Chrome-trace/Perfetto JSON per run.
+
+Port of ``matcha_tpu/obs/timeline.py``.  It merges the run journal
+(run-relative clock), the per-host heartbeat files (absolute clock) and
+the anomaly verdicts into one ``trace_event`` JSON that
+``chrome://tracing`` and https://ui.perfetto.dev open:
+
+* one process track per host, plus a ``journal`` track for fleet-scope
+  events, named by ``M`` metadata events;
+* spans (``ph: "X"``): per-host ``compute``/``comm`` pairs from the
+  heartbeats, the ``epoch`` window, ``compile``s, and zero-length marks
+  for checkpoints, heals, rollbacks, α re-derivations and membership
+  re-folds (the journal records when they finished);
+* instants (``ph: "i"``) for anomalies, membership churn, drift and
+  lifecycle marks; counters (``ph: "C"``) for the telemetry series.
+
+The journal's run-relative ``t`` is the trace clock (seconds → µs); each
+heartbeat file's offset is solved from the records the journal mirrors,
+and a mirrored record is emitted once.  ``validate_trace`` checks the
+schema and that every journal event and heartbeat-file record is in the
+trace exactly once (by per-event source tags).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+__all__ = ["build_timeline", "validate_trace", "timeline_for_run",
+           "render_timeline_summary"]
+
+_US = 1e6  # journal seconds -> trace microseconds
+
+#: journal kinds drawn as zero-duration completion spans (the journal logs
+#: the *finish*; duration is unknown and not invented)
+_MARK_SPANS = {
+    "checkpoint": "checkpoint",
+    "emergency_checkpoint": "checkpoint",
+    "healed": "heal",
+    "rollback": "rollback",
+    "alpha_rederived": "refold",
+}
+#: journal kinds drawn as instants
+_INSTANTS = {"run_start", "resume", "plan", "drift", "retrace", "anomaly",
+             "bench", "profile", "attribution"}
+
+
+def _ev(name: str, ph: str, ts: float, pid: int, tid: int, src: str,
+        **extra) -> dict:
+    e = {"name": name, "ph": ph, "ts": max(float(ts), 0.0) * _US,
+         "pid": int(pid), "tid": int(tid),
+         "args": {"src": src, **extra.pop("args", {})}}
+    e.update(extra)
+    return e
+
+
+def _meta(name: str, pid: int, label: str) -> dict:
+    return {"name": name, "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": label}}
+
+
+def _heartbeat_spans(rec: dict, pid: int, src: str) -> List[dict]:
+    """One heartbeat -> its (compute, comm) span pair, ending at ``t``."""
+    t = float(rec.get("t", 0.0))
+    comm = float(rec.get("comm_time") or 0.0)
+    comp = float(rec.get("comp_time") or 0.0)
+    e = int(rec.get("epoch", -1))
+    args = {"epoch": e, "step": rec.get("step"),
+            "step_time_ewma": rec.get("step_time_ewma")}
+    return [
+        _ev("compute", "X", t - comm - comp, pid, 0, src,
+            dur=comp * _US, args=args),
+        _ev("comm", "X", t - comm, pid, 0, src, dur=comm * _US, args=args),
+    ]
+
+
+def build_timeline(events: Sequence[dict],
+                   heartbeats_by_host: Optional[Dict[str, List[dict]]] = None,
+                   source: str = "events.jsonl") -> dict:
+    """Merge one journal (+ optional heartbeat files) into a trace dict."""
+    heartbeats_by_host = heartbeats_by_host or {}
+    hosts = sorted({str(e.get("host")) for e in events
+                    if e.get("kind") == "heartbeat"}
+                   | set(heartbeats_by_host))
+    pid_of = {h: i + 1 for i, h in enumerate(hosts)}
+    trace_events: List[dict] = [_meta("process_name", 0, "journal")]
+    trace_events += [_meta("process_name", pid_of[h], f"host {h}")
+                     for h in hosts]
+
+    # --- journal events: the run-relative clock is the trace clock -------
+    # standalone appenders (``obs_torch.py attribute --journal``, bench
+    # records) write *absolute* unix t into the same file; anchor
+    # anything wall-clock-sized at the run horizon instead of 50 years out
+    _ABS = 1e8  # > 3 run-years: unambiguously a wall clock
+    horizon = max((float(e.get("t", 0.0)) for e in events
+                   if float(e.get("t", 0.0)) < _ABS), default=0.0)
+    mirrored: Dict[Tuple[str, int, int], float] = {}  # (host,epoch,step)->t
+    for i, e in enumerate(events):
+        kind = e.get("kind")
+        src = f"journal:{i}"
+        t = float(e.get("t", 0.0))
+        if t >= _ABS:
+            t = horizon
+        detail = {k: v for k, v in e.items()
+                  if k not in ("v", "t", "kind", "workers")
+                  and not isinstance(v, (dict, list))}
+        if kind == "heartbeat":
+            host = str(e.get("host"))
+            mirrored[(host, int(e.get("epoch", -1)),
+                      int(e.get("step", -1)))] = t
+            trace_events += _heartbeat_spans(e, pid_of[host], src)
+        elif kind == "epoch":
+            dur = float(e.get("epoch_time") or 0.0)
+            trace_events.append(_ev(
+                "epoch", "X", t - dur, 0, 0, src, dur=dur * _US,
+                args=detail))
+        elif kind == "compile":
+            dur = float(e.get("compile_seconds") or 0.0)
+            trace_events.append(_ev(
+                "compile", "X", t - dur, 0, 0, src, dur=dur * _US,
+                args=detail))
+        elif kind == "telemetry":
+            trace_events.append(_ev(
+                "telemetry", "C", t, 0, 0, src,
+                args={"disagreement": float(
+                          e.get("disagreement_mean") or 0.0),
+                      "wire_bytes": float(e.get("wire_bytes") or 0.0)}))
+        elif kind == "membership":
+            name = "refold" if e.get("replanned") else "membership"
+            ph = "X" if e.get("replanned") else "i"
+            ev = _ev(name, ph, t, 0, 0, src, args=detail)
+            if ph == "X":
+                ev["dur"] = 0.0
+            else:
+                ev["s"] = "g"
+            trace_events.append(ev)
+        elif kind in _MARK_SPANS:
+            trace_events.append(_ev(_MARK_SPANS[kind], "X", t, 0, 0, src,
+                                    dur=0.0, args=detail))
+        else:  # _INSTANTS and any future additive kind: never drop events
+            ev = _ev(kind or "event", "i", t, 0, 0, src, args=detail)
+            ev["s"] = "g"
+            trace_events.append(ev)
+
+    # --- heartbeat files: absolute clock, aligned per host ---------------
+    hb_expected: List[str] = []
+    for host, records in sorted(heartbeats_by_host.items()):
+        offsets = [float(rec.get("t", 0.0))
+                   - mirrored[(host, int(rec.get("epoch", -1)),
+                               int(rec.get("step", -1)))]
+                   for rec in records
+                   if (host, int(rec.get("epoch", -1)),
+                       int(rec.get("step", -1))) in mirrored]
+        if offsets:
+            offsets.sort()
+            offset = offsets[len(offsets) // 2]
+        elif records:
+            first = records[0]
+            # no mirror to solve against: pin the first record's span start
+            # to the trace origin
+            offset = (float(first.get("t", 0.0))
+                      - float(first.get("comp_time") or 0.0)
+                      - float(first.get("comm_time") or 0.0))
+        for k, rec in enumerate(records):
+            key = (host, int(rec.get("epoch", -1)), int(rec.get("step", -1)))
+            if key in mirrored:
+                continue  # journal already round-tripped this heartbeat
+            src = f"hb:{host}:{k}"
+            hb_expected.append(src)
+            shifted = dict(rec)
+            shifted["t"] = float(rec.get("t", 0.0)) - offset
+            trace_events += _heartbeat_spans(shifted, pid_of[host], src)
+
+    return {
+        "traceEvents": trace_events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "source": str(source),
+            "journal_events": len(events),
+            "heartbeat_file_records": len(hb_expected),
+            "hosts": hosts,
+        },
+    }
+
+
+def _expected_sources(trace: dict) -> Tuple[int, int]:
+    other = trace.get("otherData", {})
+    return (int(other.get("journal_events", 0)),
+            int(other.get("heartbeat_file_records", 0)))
+
+
+def validate_trace(trace: dict) -> List[str]:
+    """Chrome ``trace_event`` schema + round-trip check; [] = valid.
+
+    Schema: ``traceEvents`` list of objects, each with a non-empty name, a
+    known phase, integer pid/tid, finite non-negative ``ts`` (metadata
+    exempt), ``X`` spans a finite non-negative ``dur``, instants a valid
+    scope.  Round-trip: the per-event ``args.src`` tags must cover
+    ``journal:0..n-1`` and every exported heartbeat-file record exactly
+    once — a span *pair* shares one src (one source record), but the same
+    (src, name) may never repeat.
+    """
+    problems: List[str] = []
+    if not isinstance(trace, dict) or not isinstance(
+            trace.get("traceEvents"), list):
+        return ["trace is not an object with a traceEvents list"]
+    if trace.get("displayTimeUnit") not in (None, "ms", "ns"):
+        problems.append(f"displayTimeUnit "
+                        f"{trace.get('displayTimeUnit')!r} not ms/ns")
+    seen: Dict[Tuple[str, str], int] = {}
+    covered: Dict[str, int] = {}
+    for i, e in enumerate(trace["traceEvents"]):
+        where = f"traceEvents[{i}]"
+        if not isinstance(e, dict):
+            problems.append(f"{where}: not an object")
+            continue
+        name, ph = e.get("name"), e.get("ph")
+        if not isinstance(name, str) or not name:
+            problems.append(f"{where}: missing/empty name")
+        if ph not in ("X", "i", "I", "C", "M"):
+            problems.append(f"{where}: unknown phase {ph!r}")
+            continue
+        for key in ("pid", "tid"):
+            if not isinstance(e.get(key), int):
+                problems.append(f"{where}: {key} is not an int")
+        if ph == "M":
+            if not isinstance(e.get("args", {}).get("name"), str):
+                problems.append(f"{where}: metadata without args.name")
+            continue
+        ts = e.get("ts")
+        if not isinstance(ts, (int, float)) or not math.isfinite(ts) \
+                or ts < 0:
+            problems.append(f"{where}: ts={ts!r} not a finite "
+                            f"non-negative number")
+        if ph == "X":
+            dur = e.get("dur")
+            if not isinstance(dur, (int, float)) or not math.isfinite(dur) \
+                    or dur < 0:
+                problems.append(f"{where}: X span dur={dur!r} invalid")
+        if ph in ("i", "I") and e.get("s", "t") not in ("g", "p", "t"):
+            problems.append(f"{where}: instant scope {e.get('s')!r}")
+        src = (e.get("args") or {}).get("src")
+        if not isinstance(src, str) or not src:
+            problems.append(f"{where}: missing args.src round-trip tag")
+            continue
+        covered[src] = covered.get(src, 0) + 1
+        key = (src, str(name))
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] > 1:
+            problems.append(f"{where}: duplicate ({src}, {name}) — a "
+                            f"source event round-tripped twice")
+    n_journal, n_hb = _expected_sources(trace)
+    for i in range(n_journal):
+        if f"journal:{i}" not in covered:
+            problems.append(f"journal event {i} dropped from the trace")
+    got_hb = sum(1 for s in covered if s.startswith("hb:"))
+    if got_hb != n_hb:
+        problems.append(f"heartbeat-file records: exported {n_hb} but "
+                        f"trace covers {got_hb}")
+    extra = [s for s in covered
+             if not (s.startswith("hb:") or s.startswith("journal:"))]
+    if extra:
+        problems.append(f"unknown source tags: {sorted(extra)[:5]}")
+    try:
+        json.dumps(trace, allow_nan=False)
+    except ValueError as e:
+        problems.append(f"trace is not strict JSON (NaN/Inf?): {e}")
+    return problems
+
+
+def timeline_for_run(source: str, tail: int = 0) -> dict:
+    """Build the trace for a run dir (journal + ``health/`` heartbeats) or
+    a bare journal path.  ``tail`` bounds the heartbeat records read per
+    host (0 = the per-host files' full history)."""
+    from .health import read_heartbeats
+    from .journal import read_journal, resolve_journal_path
+
+    path = resolve_journal_path(source)
+    events = read_journal(path)
+    heartbeats: Dict[str, List[dict]] = {}
+    health_dir = os.path.join(os.path.dirname(path), "health")
+    if os.path.isdir(health_dir):
+        heartbeats = read_heartbeats(health_dir, tail=tail or 10 ** 9)
+    return build_timeline(events, heartbeats, source=path)
+
+
+def render_timeline_summary(trace: dict) -> str:
+    evs = trace["traceEvents"]
+    by_ph: Dict[str, int] = {}
+    for e in evs:
+        by_ph[e.get("ph", "?")] = by_ph.get(e.get("ph", "?"), 0) + 1
+    other = trace.get("otherData", {})
+    span_ts = [e["ts"] + e.get("dur", 0.0) for e in evs
+               if e.get("ph") == "X"]
+    horizon = max(span_ts) / _US if span_ts else 0.0
+    return (f"timeline: {other.get('journal_events', 0)} journal events + "
+            f"{other.get('heartbeat_file_records', 0)} heartbeat-file "
+            f"records -> {len(evs)} trace events "
+            f"({by_ph.get('X', 0)} spans, {by_ph.get('i', 0)} instants, "
+            f"{by_ph.get('C', 0)} counters) over "
+            f"{len(other.get('hosts', []))} host track(s), "
+            f"horizon {horizon:.1f}s — open in https://ui.perfetto.dev")

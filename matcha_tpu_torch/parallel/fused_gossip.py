@@ -53,7 +53,8 @@ from typing import NamedTuple
 
 import torch
 
-from .._kernels import LAUNCHES, pick_tile
+from .._kernels import (LAUNCHES, add_kernel_flops, fused_gossip_flops,
+                       pick_tile)
 from .gossip import _dense_apply, _mixing_matrices, mxu_precision
 
 __all__ = [
@@ -353,6 +354,7 @@ def launch_kernel(x, stack, shape: LaunchShape, *,
                            f"{lib.fused_gossip_error_string(rc).decode()}")
     LAUNCHES[counter] += 1
     LAUNCHES[f"{counter}/{PATH_NAMES[shape.path]}"] += 1
+    add_kernel_flops(fused_gossip_flops(n, d, t_steps))
     return out
 
 

@@ -40,7 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._kernels import LAUNCHES, reset_launch_counts
+from .._kernels import (LAUNCHES, add_kernel_flops, perm_gossip_flops,
+                       reset_launch_counts)
 from .gossip import resolve_wire_dtype
 
 __all__ = [
@@ -332,6 +333,7 @@ def _launch(x, weights, perms, gate, w_window, block_d, wire, dbuf,
                            f"{lib.perm_gossip_error_string(rc).decode()}")
     LAUNCHES[counter] += 1
     LAUNCHES[f"perm_gossip/{path}"] += 1
+    add_kernel_flops(perm_gossip_flops(m, n, d, t_padded))
     return out
 
 

@@ -55,6 +55,7 @@ from pathlib import Path
 
 import torch
 
+from ..obs.costs import H100
 from ..parallel import involution_tables, perm_gossip
 from ..schedule import fixed_schedule, matcha_schedule
 from ..topology import (decompose, erdos_renyi_graph, hypercube_graph,
@@ -64,9 +65,10 @@ __all__ = ["FP32_OPS_PER_S", "HBM_BYTES_PER_S", "bands", "bound",
            "device_ms", "gathered_bytes", "host_us", "library",
            "load_package", "main", "perm_yardstick", "shapes", "time_ms"]
 
-# NVIDIA H100 SXM data sheet: HBM bandwidth and the FP32 (non-tensor) peak
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# the H100's HBM bandwidth and FP32 (non-tensor) peak, from the port's one
+# chip table (obs/costs.py: the NVIDIA H100 SXM data sheet)
+HBM_BYTES_PER_S = H100.peak_gbps * 1e9
+FP32_OPS_PER_S = H100.peak_tflops_fp32 * 1e12
 SEED = 9001
 D = 273258
 SHAPES = ("slice T=1", "slice T=64", "hypercube N=256 T=64",

@@ -14,8 +14,9 @@ plan, rollback recovery, a membership trace or the live membership source
 (``membership_live``, a heartbeat directory), and the observability plane
 (``telemetry``, ``health``, the drift monitor's ``drift_tolerance`` and
 ``drift_patience``) run, with the JAX package's defaults: telemetry and
-health on.  Still refused: ``trace_dir`` (the profiler capture),
-``scan_chunk`` and ``devices``.
+health on; so does the profiler window (``trace_dir``, ``trace_epoch``:
+one epoch under ``torch.profiler``).  Still refused: ``scan_chunk`` and
+``devices``.
 """
 
 from __future__ import annotations
@@ -258,7 +259,6 @@ class TrainConfig:
 
 # fields of features not ported yet, with the only value the port accepts
 _UNPORTED = {
-    "trace_dir": None,
     "scan_chunk": None,
     "devices": None,
 }

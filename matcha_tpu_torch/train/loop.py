@@ -70,10 +70,23 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   ``{run}/health/``, its anomalies and the heartbeat sink's ``recovery``
   events (:627-636, :1239-1262); and the live membership source
   (:238-246), seeded from the journal on a resume (:577-592).
+* Performance observability, as the JAX loop has it: with ``telemetry``
+  the cost ledger (:616-621) measures the first call of each distinct
+  program (the step, the comm-split timer's chains, the evaluation, the
+  drain) and journals one ``compile`` event for it; the heartbeat's
+  ``peak_bytes`` is the ledger's largest (:1242); a step program seen
+  with a second input signature is journaled as a ``retrace`` (:786-805).
+  With ``trace_dir`` one epoch, ``min(trace_epoch, epochs − 1)``, runs in
+  a ``torch.profiler`` window with its one read (:965-972); the window
+  closes after the epoch's clock is read, so the capture's export is not
+  charged to the epoch.  Host phases carry ``annotate`` ranges
+  (``matcha/checkpoint``, ``matcha/membership_bootstrap``,
+  ``matcha/comm_split_timer``, ``matcha/recorder_flush``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -102,6 +115,7 @@ from ..elastic import (
 )
 from ..models import select_model
 from ..obs.anomaly import AnomalyDetector
+from ..obs.costs import CostLedger
 from ..obs.drift import DriftMonitor, compose_predicted_rho
 from ..obs.health import HeartbeatEmitter
 from ..obs.journal import read_journal
@@ -121,7 +135,7 @@ from ..schedule import (
     solve_mixing_weight,
 )
 from ..topology import decompose, graph_size, make_graph, select_graph
-from ..utils import resolve_device, synchronize
+from ..utils import annotate, resolve_device, synchronize, trace
 from .checkpoint import (
     load_membership_sidecar,
     restore_with_fallback,
@@ -224,7 +238,14 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     ``resume_dir`` (default ``config.resume``): a checkpoint directory.
     The newest intact generation is restored (a damaged one is quarantined
     and journaled, and the next-oldest tried) and the run goes on from the
-    epoch after it; ``history`` then holds the epochs run here."""
+    epoch after it; ``history`` then holds the epochs run here.
+
+    With ``telemetry`` on the card, the cost ledger resets the allocator's
+    peak counter (``torch.cuda.reset_peak_memory_stats``) before each
+    program's first call: a caller that reads ``max_memory_allocated``
+    around ``train()`` sees the peak since the last such call, not the
+    run's.  The heartbeats' ``peak_bytes`` is the largest program
+    footprint the ledger measured."""
     dev = resolve_device(device)
     _reproducible_numerics()
     if config.plan:
@@ -378,6 +399,17 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 "alpha": elastic_ctl.alpha, "rho": elastic_ctl.rho,
                 "alpha_scale": elastic_ctl.alpha_scale}
 
+    # the cost ledger, made with the Recorder below; until then (and with
+    # telemetry off) a program runs unmeasured
+    cost_ledger = None
+
+    def ledger_call(label: str, fn, *args):
+        """``fn(*args)``, the first call of each distinct program measured
+        and journaled by the cost ledger."""
+        if cost_ledger is None:
+            return fn(*args)
+        return cost_ledger.call(label, fn, *args)
+
     def make_stage(comm):
         """(step, comm-split timer) over ``comm``, from the current
         ``optimizer`` (its learning rate), ``faults`` and ``schedule``."""
@@ -390,7 +422,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                                faults=faults,
                                elastic=elastic_ctl is not None,
                                telemetry=tel_spec)
-        timer = (_make_comm_timer(comm, flattener, dev)
+        timer = (_make_comm_timer(comm, flattener, dev, ledger_call)
                  if config.measure_comm_split
                  and config.communicator != "none" else None)
         return step, timer
@@ -456,6 +488,28 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     if tel_spec is not None:
         state.telemetry = fresh_telemetry()
     recorder = Recorder(config, config.num_workers)
+    # every distinct program this loop runs is measured once (its first
+    # call) and journaled as a `compile` event, gated with the rest of
+    # observability
+    cost_ledger = CostLedger(recorder.log_event) if config.telemetry else None
+    # the epoch's program carries the JAX package's label: one step here,
+    # where the JAX loop scans the epoch
+    step_label = "epoch_scan" if config.scan_epoch else "train_step"
+    retrace_flagged: set = set()
+
+    def watch_retrace(fn):
+        """A step program seen with a second input signature (a data
+        loader that drifts shape) is journaled once, with the fingerprint
+        of the program that was added (its `compile` event's)."""
+        if cost_ledger is None or id(fn) in retrace_flagged:
+            return
+        traces = cost_ledger.traces(step_label, fn)
+        if traces > 1:
+            retrace_flagged.add(id(fn))
+            recorder.log_event(
+                "retrace", label=step_label, traces=traces,
+                fingerprint=cost_ledger.last_fingerprint(step_label))
+
     # one heartbeat an epoch under {run}/health/ and the anomaly detectors
     # over those records: host code on values the epoch's read brought
     health_emitter = anomaly_detector = None
@@ -582,8 +636,9 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
             if trans is not None:
                 member_alive_np = trans.new_alive > 0
                 if trans.joined.any() or trans.restored.any():
-                    state = bootstrap_rows(state, trans.joined,
-                                           trans.restored)
+                    with annotate("matcha/membership_bootstrap"):
+                        state = bootstrap_rows(state, trans.joined,
+                                               trans.restored)
                 new_pred = (rebase_drift(trans.alpha, schedule)
                             if trans.replanned else None)
                 recorder.log_event(
@@ -603,32 +658,43 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         if ratio not in stages:
             stages[ratio] = make_stage(make_comm(ratio))
         step_fn, comm_timer = stages[ratio]
+        # the profiler window: exactly one epoch, its one read inside
+        tracing = (config.trace_dir is not None
+                   and epoch == min(config.trace_epoch, config.epochs - 1))
         synchronize(dev)
         t0 = time.perf_counter()
         dev_sums: Dict[str, torch.Tensor] = {}
         host_sums: Dict[str, float] = {}
         count = 0
-        for xb, yb in _epoch_batches(loader, epoch, x_train, y_train, dev):
-            state, metrics = step_fn(state, xb, yb)
-            for k, v in metrics.items():
-                if isinstance(v, torch.Tensor):
-                    dev_sums[k] = dev_sums[k] + v if k in dev_sums else v
+        with (trace(config.trace_dir, device=dev) if tracing
+              else contextlib.nullcontext()):
+            for xb, yb in _epoch_batches(loader, epoch, x_train, y_train,
+                                         dev):
+                if count == 0:
+                    # once an epoch is enough: the batches share a shape
+                    state, metrics = ledger_call(step_label, step_fn, state,
+                                                 xb, yb)
                 else:
-                    host_sums[k] = host_sums.get(k, 0.0) + v
-            count += 1
-        # the one deliberate per-epoch read: the step metrics, the
-        # per-worker divergence detector (the telemetry left out: scratch,
-        # not model state) and the telemetry accumulator together
-        keys = list(dev_sums)
-        reads = [torch.stack([dev_sums[k] for k in keys])]
-        if config.halt_on_divergence:
-            reads.append(state_finite_rows(state, config.num_workers).to(
-                torch.float32))
-        tel_at = sum(int(r.numel()) for r in reads)
-        if tel_spec is not None:
-            reads.append(telemetry_tensor(state.telemetry))
-        read = torch.cat(reads).tolist()
-        epoch_time = time.perf_counter() - t0
+                    state, metrics = step_fn(state, xb, yb)
+                for k, v in metrics.items():
+                    if isinstance(v, torch.Tensor):
+                        dev_sums[k] = dev_sums[k] + v if k in dev_sums else v
+                    else:
+                        host_sums[k] = host_sums.get(k, 0.0) + v
+                count += 1
+            # the one deliberate per-epoch read: the step metrics, the
+            # per-worker divergence detector (the telemetry left out:
+            # scratch, not model state) and the telemetry accumulator
+            keys = list(dev_sums)
+            reads = [torch.stack([dev_sums[k] for k in keys])]
+            if config.halt_on_divergence:
+                reads.append(state_finite_rows(
+                    state, config.num_workers).to(torch.float32))
+            tel_at = sum(int(r.numel()) for r in reads)
+            if tel_spec is not None:
+                reads.append(telemetry_tensor(state.telemetry))
+            read = torch.cat(reads).tolist()
+            epoch_time = time.perf_counter() - t0
         epoch_metrics = {k: read[i] / count for i, k in enumerate(keys)}
         epoch_metrics.update({k: v / count for k, v in host_sums.items()})
 
@@ -657,9 +723,10 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                     snapshot = None
                     if config.save and not emergency_written and epoch > 0:
                         path = f"{config.savePath}/{config.name}_emergency"
-                        save_checkpoint(path, state, epoch - 1,
-                                        schedule=schedule0,
-                                        membership=membership_sidecar())
+                        with annotate("matcha/checkpoint"):
+                            save_checkpoint(path, state, epoch - 1,
+                                            schedule=schedule0,
+                                            membership=membership_sidecar())
                         emergency_written = True
                         recorder.log_fault("emergency_checkpoint",
                                            epoch=epoch, path=path)
@@ -692,7 +759,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                     test_acc=np.zeros(config.num_workers),
                     disagreement=epoch_metrics["disagreement"])
                 if config.save:
-                    recorder.save()
+                    with annotate("matcha/recorder_flush"):
+                        recorder.save()
                 budget = (f", {recoveries_used}/{config.max_recoveries} "
                           f"recoveries exhausted"
                           if config.max_recoveries else "")
@@ -703,7 +771,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         comm_time = comm_encode_time = 0.0
         if comm_timer is not None:
             window = run_flags[epoch * bpe:(epoch + 1) * bpe]
-            split = comm_timer(state, window)
+            with annotate("matcha/comm_split_timer"):
+                split = comm_timer(state, window)
             comm_time = min(split["comm_time"], epoch_time)
             comm_encode_time = min(split["comm_encode_time"], comm_time)
 
@@ -712,7 +781,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         if config.eval_every and (epoch + 1) % config.eval_every == 0:
             eval_batch = config.eval_batch or max(16, 1024 // config.num_workers)
             test_loss, test_acc = _evaluate_in_batches(
-                evaluate, x_test, y_test, eval_batch)
+                evaluate, x_test, y_test, eval_batch, ledger=ledger_call)
             if faults is not None or member_alive_np is not None:
                 # a plan-dead worker's or a vacant slot's state may be
                 # garbage: its entries become explicit NaN gaps
@@ -765,10 +834,11 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 if drift is not None:
                     recorder.log_event("drift", **drift)
             if health_emitter is not None:
-                # step is host arithmetic; the peak is an allocator query,
-                # which does not synchronize
-                peak = (torch.cuda.max_memory_allocated(dev)
-                        if dev.type == "cuda" else 0)
+                # step is host arithmetic; the peak is the cost ledger's
+                # largest program footprint
+                peak = (max((e.get("peak_bytes") or 0.0
+                             for e in cost_ledger.programs), default=0.0)
+                        if cost_ledger is not None else 0.0)
                 hb = health_emitter.beat(
                     epoch=epoch, step=(epoch + 1) * bpe, steps=tel["steps"],
                     epoch_time=epoch_time, comm_time=comm_time,
@@ -785,14 +855,18 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                                        reason=ev["reason"], sink=ev["sink"],
                                        epoch=epoch)
 
+        watch_retrace(step_fn)
+
         if config.save and recorder.epochs_recorded % 10 == 0:
-            recorder.save()
+            with annotate("matcha/recorder_flush"):
+                recorder.save()
         if config.checkpoint_every \
                 and (epoch + 1) % config.checkpoint_every == 0:
             t0 = time.perf_counter()
-            nbytes = save_checkpoint(ckpt_dir, state, epoch,
-                                     schedule=schedule0,
-                                     membership=membership_sidecar())
+            with annotate("matcha/checkpoint"):
+                nbytes = save_checkpoint(ckpt_dir, state, epoch,
+                                         schedule=schedule0,
+                                         membership=membership_sidecar())
             recorder.log_event("checkpoint", epoch=epoch, path=ckpt_dir,
                                seconds=time.perf_counter() - t0,
                                bytes=nbytes)
@@ -801,9 +875,11 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     if config.overlap == "1step":
         # the returned parameters are the fully mixed state; inside the
         # run (and in its checkpoints) the pending deltas stay in flight
-        state = _drain_mix_pending(state, communicator, flattener)
+        state = ledger_call("drain", _drain_mix_pending, state,
+                            communicator, flattener)
     if config.save:
-        recorder.save()
+        with annotate("matcha/recorder_flush"):
+            recorder.save()
     return TrainResult(state, recorder, schedule, history)
 
 
@@ -1003,7 +1079,7 @@ def _epoch_batches(loader: WorkerBatches, epoch: int,
         yield x_train[idx], y_train[idx]
 
 
-def _make_comm_timer(communicator, flattener, dev: torch.device,
+def _make_comm_timer(communicator, flattener, dev: torch.device, ledger,
                      sample_steps: int = 32):
     """Gossip-only chain, timed on the host clock after a synchronize.
 
@@ -1017,7 +1093,9 @@ def _make_comm_timer(communicator, flattener, dev: torch.device,
     path timed alone, chained on CHOCO's own ``x̂`` update, as the
     reference's encode-vs-sendrecv split (communicator.py:184-196).
     Returns ``{"comm_time", "comm_encode_time"}`` (encode 0.0 for an
-    uncompressed exchange)."""
+    uncompressed exchange).  ``ledger(label, fn, *args)`` runs each
+    warm-up, so the cost ledger measures each chain's first call
+    (``gossip_chain``)."""
 
     def chain(state, flags):
         flat = flattener.flatten(state.params)
@@ -1035,7 +1113,7 @@ def _make_comm_timer(communicator, flattener, dev: torch.device,
         def timed(m: int) -> float:
             flags = torch.as_tensor(flags_window[:m], dtype=torch.float32,
                                     device=communicator.flags_device(dev))
-            fn(state, flags)  # warm-up
+            ledger("gossip_chain", fn, state, flags)  # warm-up
             synchronize(dev)
             t0 = time.perf_counter()
             fn(state, flags)
@@ -1061,13 +1139,15 @@ def _make_comm_timer(communicator, flattener, dev: torch.device,
 
 
 def _evaluate_in_batches(evaluate, x_test: torch.Tensor, y_test: torch.Tensor,
-                         batch: int):
+                         batch: int, ledger):
     """Every worker on the whole test set, ``batch`` examples per call;
-    weighted sums stay on the device and are read once."""
+    weighted sums stay on the device and are read once.  ``ledger(label,
+    fn, *args)`` runs each call (``evaluate``: the batch and the tail are
+    two programs)."""
     loss_sum = acc_sum = None
     for i in range(0, len(x_test), batch):
         xl, yl = x_test[i:i + batch], y_test[i:i + batch]
-        loss, acc = evaluate(xl, yl)
+        loss, acc = ledger("evaluate", evaluate, xl, yl)
         w = float(len(yl))
         loss_sum = loss * w if loss_sum is None else loss_sum + loss * w
         acc_sum = acc * w if acc_sum is None else acc_sum + acc * w

@@ -4,7 +4,10 @@ Port of ``matcha_tpu/train/state.py``: ``make_optimizer`` (:100),
 ``init_train_state`` (:114), ``make_train_step`` (:167, with
 ``grad_chunk``, the pipelined schedule, local-step elision, a runtime fault
 plan, elastic membership and the telemetry accumulator) and
-``make_eval_fn`` (:672).  Run control is not ported yet.
+``make_eval_fn`` (:672).  Run control is not ported yet.  The step's
+phases carry the JAX package's span names (``matcha/fwd_bwd``,
+``matcha/sgd``, ``matcha/heal``, ``comm/step``), ranges only inside a
+profiler window (``utils.device_span``).
 
 The JAX step vmaps a per-worker loss over the worker axis.  The port's
 model holds all workers stacked, so one forward/backward serves them all:
@@ -51,7 +54,7 @@ from ..resilience.runtime import (
     mask_worker_rows,
     momentum_buffers,
 )
-from ..utils import cross_entropy_loss, top_k_accuracy
+from ..utils import cross_entropy_loss, device_span, top_k_accuracy
 
 __all__ = ["OptimizerSpec", "TrainState", "fresh_mix_pending",
            "init_train_state", "make_eval_fn", "make_optimizer",
@@ -498,11 +501,15 @@ def make_train_step(
                  else None)
         model.train()
         opt.zero_grad(set_to_none=True)
-        losses, logits = forward_backward(model, xb, yb)
+        # the phases' ranges: inside a profiler window each kernel is the
+        # phase's that launched it (obs.xprof); outside, nothing
+        with device_span("matcha/fwd_bwd"):
+            losses, logits = forward_backward(model, xb, yb)
         lr = float(optimizer.lr_schedule(state.step))
         for group in opt.param_groups:
             group["lr"] = lr
-        opt.step()
+        with device_span("matcha/sgd"):
+            opt.step()
 
         t = min(state.step, flags_host.shape[0] - 1)
         row = comm_flags[dev][t]
@@ -516,10 +523,12 @@ def make_train_step(
             flat = flattener.flatten(params)
             alive = healed = gate = dropped = None
             if faults is not None or member is not None:
-                flat, alive, healed, gate, dropped = heal(
-                    state, flat, xb.device, t, member, counting)
-            flat, consumed = mix(state, flat, row, do_mix, alive, gate,
-                                 counting)
+                with device_span("matcha/heal"):
+                    flat, alive, healed, gate, dropped = heal(
+                        state, flat, xb.device, t, member, counting)
+            with device_span("comm/step"):
+                flat, consumed = mix(state, flat, row, do_mix, alive, gate,
+                                     counting)
             if saved is not None:
                 # the vacant slots keep the rows they had before the step
                 # (the survivor mask already made their gossip a self-loop)

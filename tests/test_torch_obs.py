@@ -18,7 +18,8 @@ monitor, and ``train()`` with telemetry on.
   lines, corruption mid-window).
 * ``tests/test_obs.py``'s ``ring8_run`` and ``misplan_run`` through both
   ``train()``s from the JAX run's initial parameters: the same event kinds
-  in order (the JAX cost ledger's ``compile`` events aside: not ported),
+  in order (the cost ledger's ``compile`` events included, with the same
+  labels), the heartbeat's ``peak_bytes`` the ledger's largest so far,
   ``telemetry`` fields within ``TEL_REL`` with the counts exact, the same
   ``drift`` epochs, the same ``predicted`` blocks; and the misplanned run
   through a rollback: ``alpha_rederived`` carries the same re-based
@@ -363,12 +364,11 @@ def misplan_pair(tmp_path_factory, jax_init):
 
 
 def journals(port, ref):
-    """Both runs' journals as written, without the JAX cost ledger's
-    ``compile`` events (the port has no cost ledger yet)."""
+    """Both runs' journals as written."""
     got = journal.read_journal(os.path.join(port.recorder.folder,
                                             "events.jsonl"))
-    want = [e for e in jjournal.read_journal(os.path.join(
-        ref.recorder.folder, "events.jsonl")) if e["kind"] != "compile"]
+    want = jjournal.read_journal(os.path.join(ref.recorder.folder,
+                                              "events.jsonl"))
     assert all(jjournal.validate_event(e) == [] for e in got)
     return got, want
 
@@ -382,6 +382,8 @@ def test_train_journals_what_jax_journals(request, pair):
     port, ref = request.getfixturevalue(pair)
     got, want = journals(port, ref)
     assert [e["kind"] for e in got] == [e["kind"] for e in want]
+    assert [e["label"] for e in of_kind(got, "compile")] == \
+        [e["label"] for e in of_kind(want, "compile")]
     for g, w in zip(of_kind(got, "telemetry"), of_kind(want, "telemetry")):
         strip = lambda e: {k: v for k, v in e.items() if k != "t"}
         assert_telemetry_equal(strip(g), strip(w))
@@ -395,7 +397,10 @@ def test_train_journals_what_jax_journals(request, pair):
     for g, w in zip(of_kind(got, "heartbeat"), of_kind(want, "heartbeat")):
         assert (g["host"], g["epoch"], g["step"], g["steps"]) == \
             (w["host"], w["epoch"], w["step"], w["steps"])
-        assert g["peak_bytes"] is None  # the CPU: no allocator to ask
+        # the cost ledger's largest footprint of the programs so far
+        seen = got[:got.index(g)]
+        assert g["peak_bytes"] == max(e["peak_bytes"]
+                                      for e in of_kind(seen, "compile"))
         assert set(g["workers"]) == set(w["workers"])
         for wid, stats in w["workers"].items():
             mine = g["workers"][wid]

@@ -173,11 +173,14 @@ def port_run(tmp_path_factory):
 def test_port_journal_validates_under_jax(port_run):
     result, folder = port_run
     events = read_journal(str(folder / "events.jsonl"))
-    # the backend decision follows run_start, as in the JAX loop; each
-    # epoch's telemetry and heartbeat (on by default) before its checkpoint
+    # the backend decision follows run_start, as in the JAX loop; the cost
+    # ledger's compile events (the step, the timer's chain, the evaluation)
+    # come with their programs' first calls in epoch 0; each epoch's
+    # telemetry and heartbeat (on by default) before its checkpoint
     assert [e["kind"] for e in events] == [
-        "run_start", "backend", "epoch", "telemetry", "heartbeat",
-        "checkpoint", "epoch", "telemetry", "heartbeat", "checkpoint"]
+        "run_start", "backend", "compile", "compile", "compile", "epoch",
+        "telemetry", "heartbeat", "checkpoint", "epoch", "telemetry",
+        "heartbeat", "checkpoint"]
     for e in events:
         assert jax_validate_event(e) == [] == validate_event(e)
     assert events == result.recorder.events
@@ -192,8 +195,9 @@ def test_obs_tpu_summary_reads_the_port_run(port_run):
                           str(folder)], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "(10 events)" in out.stdout
+    assert "(13 events)" in out.stdout
     assert "heartbeats: 2 (hosts: host0" in out.stdout
+    assert "compiled programs (cost ledger): 3" in out.stdout
     rows = [line.split() for line in out.stdout.splitlines()]
     assert [r[0] for r in rows if r and r[0].isdigit()] == ["0", "1"]
 

@@ -89,9 +89,12 @@ def test_resumed_journal_extends_the_first(runs):
     events = rest.recorder.events
     assert events[:len(first.recorder.events)] == first.recorder.events
     # the backend decision follows run_start and resume, as in the JAX loop;
-    # each epoch journals its telemetry and heartbeat (on by default)
+    # each process's cost ledger journals its programs (the step, the
+    # timer's chain, the evaluation) at their first calls; each epoch
+    # journals its telemetry and heartbeat (on by default)
     assert [e["kind"] for e in events] == [
-        "run_start", "backend", "epoch", "telemetry", "heartbeat",
-        "checkpoint", "resume", "backend", "epoch", "telemetry", "heartbeat",
+        "run_start", "backend", "compile", "compile", "compile", "epoch",
+        "telemetry", "heartbeat", "checkpoint", "resume", "backend",
+        "compile", "compile", "compile", "epoch", "telemetry", "heartbeat",
         "epoch", "telemetry", "heartbeat"]
     assert sorted(latest_per_epoch(events, "epoch")) == [0, 1, 2]

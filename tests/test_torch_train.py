@@ -280,14 +280,22 @@ def test_cli_parses_the_epoch_end_flags():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("trace_dir", "t"), ("devices", 2), ("scan_chunk", 4),
+    ("devices", 2), ("scan_chunk", 4),
 ])
 def test_config_refuses_unported_features(field, value):
     from matcha_tpu_torch.train.config import _UNPORTED
 
-    assert set(_UNPORTED) == {"trace_dir", "scan_chunk", "devices"}
+    assert set(_UNPORTED) == {"scan_chunk", "devices"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**{field: value})
+
+
+def test_config_takes_the_profiler_window():
+    cfg = TrainConfig(trace_dir="t", trace_epoch=0)
+    assert (cfg.trace_dir, cfg.trace_epoch) == ("t", 0)
+    for config in (TrainConfig, JaxTrainConfig):
+        with pytest.raises(ValueError, match="trace_epoch"):
+            config(trace_epoch=-1)
 
 
 @pytest.mark.parametrize("unported", ["auto", "shard_map"])
@@ -323,7 +331,7 @@ BANNED = ("jax", "flax", "optax", "matcha_tpu", "ml_dtypes")
 def _port_files():
     return sorted((REPO / "matcha_tpu_torch").rglob("*.py")) + [
         REPO / "train_torch.py", REPO / "plan_torch.py",
-        REPO / "chip_smoke.py"]
+        REPO / "obs_torch.py", REPO / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -365,7 +373,8 @@ class Block(importlib.abc.MetaPathFinder):
         if name.split(".")[0] in BANNED:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
-for name in {modules!r} + ["train_torch", "plan_torch", "chip_smoke"]:
+for name in {modules!r} + ["train_torch", "plan_torch", "obs_torch",
+                           "chip_smoke"]:
     importlib.import_module(name)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked

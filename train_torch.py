@@ -91,6 +91,12 @@ directory instead of a trace: a member silent for
         --numworkers 8 --epoch 3 --save --membership-live runs/fleet/health \
         --device cpu
 
+``--trace-dir DIR`` captures one epoch (``--trace-epoch``, default 1,
+clamped to the run) in a ``torch.profiler`` window; ``obs_torch.py
+profile DIR`` attributes its kernel rows to the step's phases::
+
+    python train_torch.py --epoch 3 --save --trace-dir runs/trace
+
 ``digits`` and ``photo_patches`` need scikit-learn and PIL (and read
 photographs shipped with matplotlib and pygame).
 """
@@ -257,6 +263,14 @@ def parse_args(argv=None):
                    dest="drift_patience",
                    help="consecutive out-of-band epochs before a drift "
                         "event is journaled")
+    p.add_argument("--trace-dir", default=None, dest="trace_dir",
+                   help="capture one epoch (--trace-epoch) as a "
+                        "torch.profiler trace under this dir — the "
+                        "executed-kernel record obs_torch.py profile "
+                        "parses for the comm/comp split and overlap")
+    p.add_argument("--trace-epoch", type=int, default=1, dest="trace_epoch",
+                   help="which epoch to trace (clamped to the run; default "
+                        "1, past the first calls' kernel builds)")
     p.add_argument("--randomSeed", "--seed", type=int, default=9001,
                    dest="seed")
     p.add_argument("--name", default="experiment")
@@ -303,7 +317,8 @@ def parse_args(argv=None):
         membership_deadline=args.membership_deadline,
         telemetry=not args.no_telemetry, health=not args.no_health,
         drift_tolerance=args.drift_tolerance,
-        drift_patience=args.drift_patience)
+        drift_patience=args.drift_patience,
+        trace_dir=args.trace_dir, trace_epoch=args.trace_epoch)
     return cfg, args.device
 
 
