@@ -49,6 +49,8 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    bf16 state, an alive mask and a state holding inf and NaN, both
    instantiations, and the 8193-worker ring at D = 1,031, bitwise;
    ``make_decen(..., "perm").run`` on both graphs, launches by path.
+   The hypercube's schedule (α's spectral solve: minutes of host numpy)
+   is made in a spawned side process that starts before the build.
 5. slice — ``train()`` at full width: ResNet-20, 16 workers, graph 4,
    MATCHA budget 0.5, batch 32, perm backend, f32 wire, 2 epochs of 4
    steps.  Loss and disagreement finite; the kernel's launch count equals
@@ -232,11 +234,29 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    chain (b) on the card's row, priced by one K3 launch, against the
    planner phase's r and read back by ``load_measured_vs_ceiling``;
    ``obs_torch.py``'s commands on the run with JAX blocked.
+   serve — the run controller (``phase_serve``, cell (n)): slice (a) with
+   ``save`` and a checkpoint every epoch.  ``train()`` under a
+   ``TrainerHarness`` with identity knobs bitwise the run without a hook
+   (K1's launches and the synchronizing calls equal, in ``train()`` and
+   in 8 steps); a budget swap (0.25) before epoch 1 and a ``local_steps``
+   swap (2) before epoch 2 (two journaled ``apply`` events whose numbers
+   are ``resolve_budget_swap``'s on the host; K1 launched 4, 4, 2, 2
+   times plus the timer's chains; K1's epoch-1 weights those built from
+   the journaled scales, and K1 on them bitwise its plain version at
+   T = 4); the daemon (``Controller`` in a thread behind a
+   ``ServeEndpoint``, 3 epochs, a promotion an epoch): a run SIGKILLed
+   after its first checkpoint, beside the uninterrupted run on the card,
+   ends with its last epoch row and promoted arrays, one restart and two
+   lifetimes; ``/status`` and ``/promoted`` answer 200, ``/healthz``
+   its ``fleet_verdict`` (503: w4 flagged); ``serve_torch.py verify``
+   exits 0, then 1 after a manifest byte is edited; no lifetime calls
+   ``nvcc``; ms a step with identity knobs and without, alternated.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
     the models', the resilience, the pipelined, the planner's, the
-    observability and the perf_obs runs included; K3's ``tensor_core``
-    path with the roofline's launch), then the ``nvidia-smi`` line.
+    observability, the perf_obs and the serve runs included; K3's
+    ``tensor_core`` path with the roofline's launch), then the
+    ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -254,6 +274,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -294,6 +315,7 @@ from matcha_tpu_torch.ops import WorkerFlattener
 from matcha_tpu_torch.obs.costs import H100
 from matcha_tpu_torch.obs.journal import read_journal, validate_event
 from matcha_tpu_torch.train.checkpoint import (
+    latest_step,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -362,13 +384,20 @@ def slice_tables(dev):
                                    seed=SEED), dev)
 
 
-def hypercube_tables(dev, n: int = 256):
+def hypercube_schedule(n: int):
     """An n-worker hypercube, each matching active with probability 0.5
     (the fixed Bernoulli schedule: MATCHA's solver takes minutes of host
-    time at this N and changes nothing the kernel sees but the weights)."""
+    time at this N and changes nothing the kernel sees but the weights).
+    Host numpy; its α's spectral solve takes minutes at N = 16,384."""
     dec = decompose(hypercube_graph(n), n, seed=SEED)
-    return _tables(fixed_schedule(dec, n, 64, budget=0.5, mode="bernoulli",
-                                  seed=SEED), dev)
+    return fixed_schedule(dec, n, 64, budget=0.5, mode="bernoulli",
+                          seed=SEED)
+
+
+def hypercube_tables(dev, n: int = 256, sched=None):
+    """``hypercube_schedule(n)`` (or ``sched``, if already made) and its
+    tables on the card."""
+    return _tables(hypercube_schedule(n) if sched is None else sched, dev)
 
 
 def state(n: int, d: int, dev) -> torch.Tensor:
@@ -1312,7 +1341,7 @@ def er_tables(dev, n: int = 4096, degree: float = 30.0):
                    dev)
 
 
-def phase_perm_large(dev):
+def phase_perm_large(dev, hypercube=None, waited=None):
     """K1's band path, where no slab fits a CTA, on the 16,384-worker
     hypercube and a 4096-worker ER graph of mean degree 30 (more matchings
     than the slab tables hold).  First the times, before the bitwise
@@ -1330,7 +1359,7 @@ def phase_perm_large(dev):
     and wires), bitwise; then ``make_decen(..., "perm").run`` on both
     graphs (T = 4), launches counted by path."""
     flush = L2Flush(dev)
-    graphs = {"hypercube N=16384": hypercube_tables(dev, 16384),
+    graphs = {"hypercube N=16384": hypercube_tables(dev, 16384, hypercube),
               "ER N=4096": er_tables(dev)}
     torch.cuda.empty_cache()
     rows = []
@@ -1460,6 +1489,7 @@ def phase_perm_large(dev):
             raise AssertionError(f"make_decen perm {label}: not bitwise")
     del outs
     emit({"phase": "perm_large", "D": 32768, "cases": cases,
+          "hypercube_schedule_wait_s": waited,
           "bitwise": True, "M": {k: int(v[1].shape[0])
                                  for k, v in graphs.items()},
           "launches": launches})
@@ -3744,6 +3774,503 @@ def phase_perf_obs(dev, fused_rows, planner, big_tables, rounds: int = 3,
     return out
 
 
+# the serve phase: the run controller at the slice's width (cell (n))
+SERVE_BUDGET = 0.25  # the swap's budget (the slice's is 0.5)
+
+
+def serve_config(epochs: int, name: str, root: str) -> TrainConfig:
+    """Slice (a) with ``save`` and a checkpoint every epoch, in ``root``."""
+    return dataclasses.replace(slice_config(epochs), save=True,
+                               savePath=root, name=name, checkpoint_every=1)
+
+
+def k1_by_epoch(launches: list) -> list:
+    """K1's launches in each epoch from the count read at each boundary
+    and at the end (an epoch's timer chains run before the next
+    boundary)."""
+    return [b - a for a, b in zip(launches, launches[1:])]
+
+
+class CountingHook:
+    """A boundary hook that reads K1's launch count at each boundary,
+    then calls ``inner`` (a ``TrainerHarness.on_boundary``, or ``None``)."""
+
+    def __init__(self, inner=None, before=None):
+        self.inner, self.before, self.launches = inner, before, []
+
+    def __call__(self, seam):
+        self.launches.append(LAUNCHES["perm_gossip_dbuf"])
+        if self.before is not None:
+            self.before(seam)
+        if self.inner is not None:
+            self.inner(seam)
+
+
+@contextlib.contextmanager
+def output_to(path: str):
+    """This process's standard output and error (and so its children's)
+    go to ``path`` within the block."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = os.dup(1), os.dup(2)
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.dup2(saved[0], 1)
+        os.dup2(saved[1], 2)
+        os.close(saved[0])
+        os.close(saved[1])
+
+
+class TimedLifetime:
+    """A trainer subprocess with its launch time (wall clock) and, once
+    ``wait`` returns, its seconds; everything else is the ``Popen``'s."""
+
+    def __init__(self, proc, rows: list):
+        self.proc, self.rows = proc, rows
+        self.t_wall, self.t0 = time.time(), time.perf_counter()
+
+    def wait(self, timeout=None):
+        rc = self.proc.wait(timeout)
+        self.rows.append({"launched": self.t_wall, "exit": rc,
+                          "seconds": time.perf_counter() - self.t0})
+        return rc
+
+    def __getattr__(self, name):
+        return getattr(self.proc, name)
+
+
+def http_get(port: int, path: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_controller(root: str, name: str, stub_home: str, lifetimes: list):
+    """A ``Controller`` over the slice for 3 epochs with a promotion every
+    epoch, its trainer on the card; the trainer's ``CUDA_HOME`` is a stub
+    whose ``nvcc`` fails, so a lifetime that tried to build a kernel
+    would crash.  Its launches are timed into ``lifetimes``."""
+    from matcha_tpu_torch.serve import Controller, ServeConfig
+
+    cfg = serve_config(3, name, root)
+    ctl = Controller(ServeConfig(
+        config=dataclasses.asdict(cfg), promote_every=1, restart_budget=2,
+        backoff=0.1, jitter_seed=0, env={"CUDA_HOME": stub_home}))
+    launch = ctl._launch
+    ctl._launch = lambda: TimedLifetime(launch(), lifetimes)
+    return ctl
+
+
+def final_epoch_row(ctl):
+    epochs = [e for e in read_journal(ctl.journal_path)
+              if e["kind"] == "epoch"]
+    last = max(epochs, key=lambda e: e["epoch"])
+    return (last["epoch"], last["train_loss"], last["train_acc"],
+            last["test_acc_mean"], last["disagreement"])
+
+
+def first_beats(run_dir: str, lifetimes: list) -> list:
+    """Seconds from each lifetime's launch to its first heartbeat (the
+    trainer's start-up and its first epoch)."""
+    path = os.path.join(run_dir, "health", "host0.jsonl")
+    beats = [json.loads(line)["t"] for line in open(path)]
+    out = []
+    for life in lifetimes:
+        after = [t for t in beats if t > life["launched"]]
+        out.append(min(after) - life["launched"] if after else None)
+    return out
+
+
+def phase_serve(dev, rounds: int = 3, steps: int = 20):
+    """The run controller on the card (cell (n)): slice (a) with ``save``
+    and a checkpoint every epoch.
+
+    1. Identity knobs: ``train()`` for 3 epochs with a ``TrainerHarness``
+       that has no control file and no serving dir, and without a hook:
+       final parameters bitwise, per-epoch loss and disagreement equal, K1
+       launched ``epochs·bpe + epochs·timer_chains(bpe)`` times in each,
+       and the same synchronizing calls (the sync debug mode) in each run
+       and in 8 steps of the step with identity knobs and without.
+    2. Swaps: 4 epochs, ``{"version": 1, "budget": 0.25}`` published
+       before epoch 1's boundary and ``{"version": 2, "local_steps": 2}``
+       before epoch 2's: two ``apply`` events, the budget's numbers equal
+       ``resolve_budget_swap`` on the host, each with a re-based
+       ``predicted``; K1 launched 4, 4, 2, 2 times plus the timer's
+       chains; finite; a K1 launch of epoch 1 got exactly the weights
+       built from the journaled scales, and K1 on those weights at T = 4
+       is bitwise ``perm_gossip_plain`` on the run's final state.
+    3. The daemon: ``Controller`` in a thread behind a ``ServeEndpoint``,
+       3 epochs, a promotion every epoch; run A uninterrupted and, beside
+       it on the card, run B SIGKILLed once its first checkpoint lands: B
+       1 restart, 2 lifetimes, one supervisor ``restart`` event, B's last
+       epoch row and promoted arrays equal A's; ``/status`` and
+       ``/promoted`` 200, ``/healthz`` 200 or 503 as the ``fleet_verdict``
+       it serves says (the detectors flag w4 on this slice: 503);
+       ``serve_torch.py verify`` 0, then 1 after a byte of
+       ``MANIFEST.json`` is edited; no lifetime ran ``nvcc`` (a stub that
+       fails) nor changed ``_build/``.  The children's output goes to a
+       file.
+    4. ms a step with identity knobs and without, alternated rounds.
+    Any failure raises."""
+    import signal
+
+    from matcha_tpu_torch.communicator import decen
+    from matcha_tpu_torch.obs import fleet_verdict
+    from matcha_tpu_torch.plan import resolve_budget_swap
+    from matcha_tpu_torch.serve import (
+        TrainerHarness,
+        control_arrays,
+        verify_promoted,
+        write_control,
+    )
+
+    t_phase = time.perf_counter()
+    bpe = 2048 // 16 // 32
+    chains = timer_chains(bpe)
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # 1. identity knobs against no hook
+        sync_warnings(lambda: torch.zeros(1, device=dev).sum().item())
+        runs, syncs = {}, {}
+        for label, hook in (("plain", None),
+                            ("identity", CountingHook(
+                                TrainerHarness({}).on_boundary))):
+            cfg = serve_config(3, f"serve_{label}", root)
+            reset_launch_counts()
+            holder = {}
+            syncs[label] = sync_warnings(lambda cfg=cfg, hook=hook: holder.
+                                         update(r=train(cfg, device=dev,
+                                                        boundary_hook=hook)))
+            torch.cuda.synchronize()
+            runs[label] = (holder["r"], LAUNCHES["perm_gossip_dbuf"])
+        (plain, n_plain), (ident, n_ident) = runs["plain"], runs["identity"]
+        want = 3 * bpe + 3 * chains
+        if n_plain != want or n_ident != want:
+            raise AssertionError(f"serve identity: K1 {n_plain} and "
+                                 f"{n_ident} launches, expected {want}")
+        if not same_bits(flat_params(plain.state), flat_params(ident.state)):
+            raise AssertionError("serve identity: final parameters differ")
+        rows = {k: [(h["loss"], h["disagreement"]) for h in r.history]
+                for k, (r, _) in runs.items()}
+        if rows["plain"] != rows["identity"]:
+            raise AssertionError(f"serve identity: epochs {rows}")
+        steppers = {}
+        matchings = build_schedule(slice_config(1), 5).num_matchings
+        for on in (True, False):
+            state, step, xb, yb = slice_stepper(dev, 40, control=on)
+            if on:
+                state.control = control_arrays(
+                    np.ones(matchings, np.float32), 1.0, 1, dev)
+            for _ in range(2):
+                state, _ = step(state, xb, yb)
+            torch.cuda.synchronize()
+            steppers[on] = (state, step, xb, yb)
+
+            def eight(state=state, step=step, xb=xb, yb=yb):
+                for _ in range(8):
+                    step(state, xb, yb)
+
+            syncs[f"step x8, knobs {'on' if on else 'off'}"] = \
+                sync_warnings(eight)
+        totals = {k: sum(v.values()) for k, v in syncs.items()}
+        if totals["plain"] != totals["identity"] \
+                or totals["step x8, knobs on"] != totals["step x8, knobs off"]:
+            raise AssertionError(f"serve identity: synchronizing calls "
+                                 f"{syncs}")
+        out["identity"] = {
+            "launches": {"plain": n_plain, "identity": n_ident,
+                         "expected": want},
+            "bitwise": True, "loss": [r[0] for r in rows["plain"]],
+            "disagreement": [r[1] for r in rows["plain"]],
+            "sync_calls": totals, "sync_calls_where": syncs,
+            "ms_per_step_plain": [h["epoch_time"] / bpe * 1e3
+                                  for h in plain.history],
+            "ms_per_step_identity": [h["epoch_time"] / bpe * 1e3
+                                     for h in ident.history]}
+        out["launches"]["train() serve, unsupervised"] = n_plain
+        out["launches"]["train() serve, identity knobs"] = n_ident
+        del plain, ident, runs
+
+        # 2. the swaps
+        control = os.path.join(root, "control.json")
+
+        def publish(seam):
+            if seam.epoch == 1:
+                write_control(control, {"version": 1,
+                                        "budget": SERVE_BUDGET})
+            elif seam.epoch == 2:
+                write_control(control, {"version": 2, "local_steps": 2})
+
+        hook = CountingHook(TrainerHarness({"control_path": control})
+                            .on_boundary, before=publish)
+        inner_run = decen.perm_gossip_run
+        seen = []
+
+        def capture_k1(x, weights, perms, partnered, **kw):
+            if len(hook.launches) == 2 and not seen:  # epoch 1's first
+                seen.append(weights.clone())
+            return inner_run(x, weights, perms, partnered, **kw)
+
+        cfg = serve_config(4, "serve_swap", root)
+        reset_launch_counts()
+        decen.perm_gossip_run = capture_k1
+        try:
+            swapped = train(cfg, device=dev, boundary_hook=hook)
+        finally:
+            decen.perm_gossip_run = inner_run
+        torch.cuda.synchronize()
+        per_epoch = k1_by_epoch(hook.launches + [LAUNCHES["perm_gossip_dbuf"]])
+        if per_epoch != [bpe + chains, bpe + chains, bpe // 2 + chains,
+                         bpe // 2 + chains]:
+            raise AssertionError(f"serve swap: K1 by epoch {per_epoch}")
+        bad = [h["epoch"] for h in swapped.history
+               if not (math.isfinite(h["loss"])
+                       and math.isfinite(h["disagreement"]))]
+        events = read_journal(os.path.join(swapped.recorder.folder,
+                                           "events.jsonl"))
+        applied = of_kind(events, "control")
+        sched = swapped.schedule
+        swap = resolve_budget_swap(sched, SERVE_BUDGET)
+        if bad or [(e["action"], e["applied"], e["epoch"]) for e in applied] \
+                != [("apply", True, 1), ("apply", True, 2)] \
+                or any(validate_event(e) for e in events):
+            raise AssertionError(f"serve swap: non-finite {bad}, control "
+                                 f"{applied}")
+        got = applied[0]["fields"]["budget"]
+        if [got["alpha"], got["rho"], got["alpha_scale"], got["row_scale"]] \
+                != [swap["alpha"], swap["rho"], swap["alpha_scale"],
+                    [float(v) for v in swap["row_scale"]]] \
+                or applied[1]["fields"] != {"local_steps": 2} \
+                or any(not e.get("predicted", {}).get("rho")
+                       for e in applied) \
+                or applied[0]["predicted"]["plan_alpha"] != swap["alpha"]:
+            raise AssertionError(f"serve swap: journaled {applied}, host "
+                                 f"{swap}")
+        # K1 on weights built from the journaled scales: α·((f·r)·s) in
+        # f32, the step's order
+        rs = torch.tensor(got["row_scale"], dtype=torch.float32, device=dev)
+        scale = float(np.float32(got["alpha_scale"]))
+        alpha = float(sched.alpha)
+        flags = torch.as_tensor(np.asarray(sched.flags[bpe:bpe + 4],
+                                           np.float32), device=dev)
+        weights = alpha * ((flags * rs) * scale)
+        if not seen or not same_bits(seen[0][0], weights[0]):
+            raise AssertionError(f"serve swap: K1's epoch-1 weights "
+                                 f"{seen[0].tolist() if seen else None} vs "
+                                 f"{weights[0].tolist()}")
+        _, perms, partnered = _tables(sched, dev)
+        x = flat_params(swapped.state)
+        kernel = perm_gossip_run(x, weights, perms, partnered)
+        plain_out = perm_gossip_plain(x, weights, perms, partnered)
+        if not same_bits(kernel, plain_out):
+            raise AssertionError("serve swap: K1 on the scaled weights is "
+                                 "not bitwise its plain version")
+        out["swap"] = {
+            "k1_by_epoch": per_epoch, "launches": sum(per_epoch),
+            "budget": SERVE_BUDGET, "alpha": got["alpha"], "rho": got["rho"],
+            "alpha_scale": got["alpha_scale"], "row_scale": got["row_scale"],
+            "unreachable": got["unreachable"],
+            "predicted_rho": [e["predicted"]["rho"] for e in applied],
+            "loss": [h["loss"] for h in swapped.history],
+            "disagreement": [h["disagreement"] for h in swapped.history],
+            "k1_scaled_weights_bitwise": True,
+            "max_abs_err": float((kernel - plain_out).abs().max())}
+        out["launches"]["train() serve, budget and local_steps swaps"] = \
+            sum(per_epoch)
+        del swapped, x, kernel, plain_out, seen
+        torch.cuda.empty_cache()
+
+        # 3. the daemon, A uninterrupted and B killed
+        from matcha_tpu_torch import _kernels
+        from matcha_tpu_torch.serve import ServeEndpoint
+
+        stub = os.path.join(root, "stub_cuda")
+        os.makedirs(os.path.join(stub, "bin"))
+        marker = os.path.join(root, "nvcc_called")
+        with open(os.path.join(stub, "bin", "nvcc"), "w") as f:
+            f.write(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+        os.chmod(os.path.join(stub, "bin", "nvcc"), 0o755)
+        built = {p.name: p.stat().st_mtime_ns
+                 for p in _kernels.BUILD_DIR.glob("*.so")}
+        log = os.path.join(root, "children.log")
+        lives = {"A": [], "B": []}
+        ctls = {k: serve_controller(os.path.join(root, k), f"serve{k}", stub,
+                                    lives[k]) for k in lives}
+        endpoint = ServeEndpoint(ctls).start()
+        codes = {"healthz": [], "status": [], "promoted": []}
+        verdicts, flagged = [], set()
+        alive_seen = {"A": False, "B": False}
+        rcs = {}
+        try:
+            with output_to(log):
+                # A and B run side by side on the card, each its own
+                # daemon thread and trainer process
+                threads = {name: threading.Thread(
+                    target=lambda c=ctl, n=name: rcs.update({n: c.run()}),
+                    daemon=True) for name, ctl in ctls.items()}
+                for thread in threads.values():
+                    thread.start()
+                killed = False
+                deadline = time.time() + 400
+                while any(t.is_alive() for t in threads.values()) \
+                        and time.time() < deadline:
+                    for name, ctl in ctls.items():
+                        if not threads[name].is_alive():
+                            continue
+                        code, body = http_get(endpoint.port,
+                                              f"/status?run={name}")
+                        codes["status"].append(code)
+                        alive_seen[name] |= bool(body.get("trainer_alive"))
+                        if os.path.exists(os.path.join(
+                                ctl.run_dir, "health", "host0.jsonl")):
+                            # /healthz bracketed by the verdict it serves
+                            before = fleet_verdict(ctl.run_dir)[0]
+                            code, health = http_get(endpoint.port,
+                                                    f"/healthz?run={name}")
+                            if fleet_verdict(ctl.run_dir)[0] == before:
+                                codes["healthz"].append(code)
+                                verdicts.append((before, code))
+                                flagged.update(
+                                    f"{a['subject']} {a['cause']}"
+                                    for a in health.get("anomalies", []))
+                        proc = ctl._proc
+                        if name == "B" and not killed and proc is not None \
+                                and latest_step(ctl.ckpt_dir) is not None:
+                            proc.send_signal(signal.SIGKILL)
+                            killed = True
+                    time.sleep(0.02)
+                for name, thread in threads.items():
+                    thread.join(timeout=30)
+                    if thread.is_alive():
+                        for ctl in ctls.values():
+                            ctl.shutdown()
+                        raise AssertionError(f"serve daemon {name}: still "
+                                             f"running after 400 s")
+                    codes["promoted"].append(http_get(
+                        endpoint.port, f"/promoted?run={name}")[0])
+        except BaseException:
+            with open(log, "rb") as f:
+                f.seek(max(os.path.getsize(log) - 4096, 0))
+                sys.stderr.write(f.read().decode(errors="replace"))
+            raise
+        finally:
+            endpoint.stop()
+        a, b = ctls["A"], ctls["B"]
+        restarts = [e for e in read_journal(b.journal_path)
+                    if e["kind"] == "control" and e["action"] == "restart"]
+        if rcs != {"A": 0, "B": 0} or (a.restarts_used, a.lifetimes) != (0, 1) \
+                or (b.restarts_used, b.lifetimes) != (1, 2) \
+                or len(restarts) != 1 or restarts[0]["epoch"] != -1:
+            raise AssertionError(f"serve daemon: exits {rcs}, A "
+                                 f"{a.status()}, B {b.status()}, restart "
+                                 f"events {restarts}")
+        if final_epoch_row(a) != final_epoch_row(b):
+            raise AssertionError(f"serve daemon: last rows "
+                                 f"{final_epoch_row(a)} vs "
+                                 f"{final_epoch_row(b)}")
+        promoted = {}
+        for name, ctl in ctls.items():
+            manifest = verify_promoted(ctl.serving_dir)
+            with np.load(os.path.join(ctl.serving_dir,
+                                      manifest["params_file"])) as npz:
+                promoted[name] = (manifest["epoch"],
+                                  {k: npz[k] for k in npz.files})
+        same = (promoted["A"][0] == promoted["B"][0]
+                and sorted(promoted["A"][1]) == sorted(promoted["B"][1])
+                and all(np.array_equal(v, promoted["B"][1][k])
+                        for k, v in promoted["A"][1].items()))
+        if not same:
+            raise AssertionError("serve daemon: promoted arrays differ")
+        # /healthz is 200 on a healthy fleet and 503 on a flagged one (the
+        # detectors flag the slice's w4 as a disagreement outlier, PR 15)
+        wrong = [(v, c) for v, c in verdicts
+                 if c != (200 if v == 0 else 503)]
+        if wrong or not any(v in (0, 1) for v, _ in verdicts) \
+                or set(codes["status"]) != {200} \
+                or codes["promoted"] != [200, 200] \
+                or not all(alive_seen.values()):
+            raise AssertionError(
+                f"serve endpoint: codes {codes}, trainer alive "
+                f"{alive_seen}, fleet verdicts now "
+                f"{[fleet_verdict(c.run_dir) for c in ctls.values()]}")
+        verify = [sys.executable, "serve_torch.py", "verify", b.serving_dir]
+        here = os.path.dirname(os.path.abspath(__file__))
+        rc_ok = subprocess.run(verify, cwd=here, capture_output=True,
+                               timeout=120).returncode
+        pointer = os.path.join(b.serving_dir, "MANIFEST.json")
+        blob = bytearray(open(pointer, "rb").read())
+        at = blob.index(b'"epoch": ') + len(b'"epoch": ')
+        blob[at] = ord("7") if blob[at] != ord("7") else ord("8")
+        open(pointer, "wb").write(bytes(blob))
+        rc_bad = subprocess.run(verify, cwd=here, capture_output=True,
+                                timeout=120).returncode
+        if (rc_ok, rc_bad) != (0, 1):
+            raise AssertionError(f"serve_torch.py verify: {rc_ok} then "
+                                 f"{rc_bad}, expected 0 then 1")
+        rebuilt = {p.name: p.stat().st_mtime_ns
+                   for p in _kernels.BUILD_DIR.glob("*.so")}
+        if os.path.exists(marker) or rebuilt != built:
+            raise AssertionError(f"serve daemon: a lifetime ran nvcc "
+                                 f"({os.path.exists(marker)}) or changed "
+                                 f"the build ({built} vs {rebuilt})")
+        out["daemon"] = {
+            "restarts_used": {k: c.restarts_used for k, c in ctls.items()},
+            "lifetimes": {k: c.lifetimes for k, c in ctls.items()},
+            "lifetime_seconds": [life["seconds"] for k in ("A", "B")
+                                 for life in lives[k]],
+            "lifetime_exits": [life["exit"] for k in ("A", "B")
+                               for life in lives[k]],
+            "first_heartbeat_seconds": [
+                s for k in ("A", "B")
+                for s in first_beats(ctls[k].run_dir, lives[k])],
+            "final_row": list(final_epoch_row(a)),
+            "promoted_epoch": promoted["A"][0],
+            "promoted_arrays_equal": True,
+            "endpoint_codes": {k: sorted(set(v)) for k, v in codes.items()},
+            "healthz_verdicts": sorted({f"{v}->{c}" for v, c in verdicts}),
+            "flagged": sorted(flagged),
+            "verify_exits": [rc_ok, rc_bad], "nvcc_called": False,
+            "children_log_bytes": os.path.getsize(log)}
+    torch.cuda.empty_cache()
+
+    # 4. ms a step with identity knobs and without, alternated
+    for on, (state, step, xb, yb) in steppers.items():
+        for _ in range(3):
+            state, _ = step(state, xb, yb)
+    ms = {True: [], False: []}
+    for r in range(rounds):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+            state, step, xb, yb = steppers[on]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = step(state, xb, yb)
+            torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t0) / steps * 1e3)
+    del steppers
+    torch.cuda.empty_cache()
+    out["step"] = {"ms_per_step_knobs": ms[True],
+                   "ms_per_step_plain": ms[False],
+                   "median_ms_knobs": statistics.median(ms[True]),
+                   "median_ms_plain": statistics.median(ms[False])}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "serve", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+
 def phase_stream_chain(dev, tables):
     """The streamed-window instantiation, which no entry point of the port
     takes (``dbuf=True`` is the default, as in the JAX package): one chain
@@ -3979,7 +4506,7 @@ def kernels_line(r) -> list:
                                 for label, row in r["models"].items()},
         **r["resilience"]["launches"], **r["pipeline"]["launches"],
         **r["planner"]["launches"], **r["observability"]["launches"],
-        **r["perf_obs"]["launches"]},
+        **r["perf_obs"]["launches"], **r["serve"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -4135,14 +4662,26 @@ PHASES = ("parity", "timing", "perm_large", "slice", "profile", "agreement",
           "fused_slice", "fused_large", "fused_sweep", "split_probe",
           "split_timing", "epoch_end", "communicators", "determinism",
           "choco", "models", "resilience", "pipeline", "planner",
-          "observability", "perf_obs")
+          "observability", "perf_obs", "serve")
 NEEDS = {"planner": ("fused_timing",), "perf_obs": ("fused_timing",
                                                     "planner")}
 
 
-def run_phases(dev, names, spills) -> dict:
+def waited_result(future):
+    """``(result, seconds waited for it)``, ``(None, None)`` without a
+    future."""
+    if future is None:
+        return None, None
+    t0 = time.perf_counter()
+    return future.result(), time.perf_counter() - t0
+
+
+def run_phases(dev, names, spills, early=None) -> dict:
     """Run ``names`` (and what they read) in ``PHASES`` order, printing
-    each one's wall seconds; returns their results by name."""
+    each one's wall seconds; returns their results by name.  ``early``:
+    host work started before the build, by what it is for (``perm_large``:
+    a future of the 16,384-worker hypercube's schedule)."""
+    early = early or {}
     wanted, todo = set(), list(names)
     while todo:
         name = todo.pop()
@@ -4166,7 +4705,8 @@ def run_phases(dev, names, spills) -> dict:
                                          table("huge")),
         "timing": lambda r: phase_timing(dev, table("slice"), table("big"),
                                          table("huge")),
-        "perm_large": lambda r: phase_perm_large(dev),
+        "perm_large": lambda r: phase_perm_large(dev, *waited_result(
+            early.get("perm_large"))),
         "slice": lambda r: phase_slice(dev),
         "profile": lambda r: phase_profile(dev),
         "agreement": lambda r: phase_agreement(dev),
@@ -4194,6 +4734,7 @@ def run_phases(dev, names, spills) -> dict:
         "observability": lambda r: phase_observability(dev),
         "perf_obs": lambda r: phase_perf_obs(dev, r["fused_timing"],
                                              r["planner"], table("big")),
+        "serve": lambda r: phase_serve(dev),
     }
     results, seconds = {}, {}
     for name in PHASES:
@@ -4227,6 +4768,34 @@ def main(argv=None):
           "count": torch.cuda.device_count(), "cuda": torch.version.cuda,
           "torch": torch.__version__, "nvidia_smi": smi})
 
+    names = (PHASES if args.phase is None
+             else [n.strip() for n in args.phase.split(",") if n.strip()])
+    # the 16,384-worker hypercube's schedule (minutes of host numpy: α's
+    # spectral solve) is made in a process of its own while the kernels
+    # build and the first phases run
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    early = ({"perm_large": pool.submit(hypercube_schedule, 16384)}
+             if "perm_large" in names else {})
+    try:
+        run_all(dev, names, early, smi, args.phase is None)
+    finally:
+        if any(not f.done() for f in early.values()):
+            for proc in list((getattr(pool, "_processes", None)
+                              or {}).values()):
+                proc.kill()
+        pool.shutdown(wait=True, cancel_futures=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def run_all(dev, names, early, smi, kernels: bool) -> None:
+    """Build the kernels, run ``names`` and print the kernels line (when
+    ``kernels``) and the ``nvidia-smi`` line."""
     t0 = time.perf_counter()
     reports = _kernels.build_all(["perm_gossip", "fused_gossip"])
     ptxas = {k: ptxas_kernels(r["ptxas"]) for k, r in reports.items()}
@@ -4241,16 +4810,11 @@ def main(argv=None):
     if any(spills.values()):
         raise AssertionError(f"kernels spill registers: {spills}")
 
-    names = (PHASES if args.phase is None
-             else [n.strip() for n in args.phase.split(",") if n.strip()])
-    results = run_phases(dev, names, spills)
+    results = run_phases(dev, names, spills, early)
     results["spills"] = spills
-    if args.phase is None:
+    if kernels:
         emit({"kernels": kernels_line(results)})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

@@ -2,6 +2,7 @@
 training loop.  Port of ``matcha_tpu.train``: the eager and the pipelined
 schedules, checkpoints and resume."""
 
+from .checkpoint import latest_step
 from .config import TrainConfig
 from .loop import TrainResult, TrainingDiverged, build_dataset, build_schedule, train
 from .lr import make_lr_schedule
@@ -23,6 +24,7 @@ __all__ = [
     "build_dataset",
     "build_schedule",
     "init_train_state",
+    "latest_step",
     "make_eval_fn",
     "make_lr_schedule",
     "make_optimizer",

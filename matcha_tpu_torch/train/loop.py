@@ -82,6 +82,16 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   charged to the epoch.  Host phases carry ``annotate`` ranges
   (``matcha/checkpoint``, ``matcha/membership_bootstrap``,
   ``matcha/comm_split_timer``, ``matcha/recorder_flush``).
+* The run controller's seam, as the JAX loop has it: ``boundary_hook``
+  is called with a ``_BoundarySeam`` at the top of every epoch (:904-915)
+  and may swap the knobs the step reads (``serve.ControlKnobs``, host
+  values re-primed into ``state.control`` after the hook), re-base the
+  drift monitor on a budget swap's probabilities (:711), edit config
+  fields no step reads, checkpoint the last completed epoch and stop the
+  run.  Under a hook the flag stream is not thinned by ``local_steps``
+  (the knob gates the steps instead, :188-206), and the journal of a
+  previous lifetime is reloaded even at epoch 0 (:645-660).  The chaos
+  harness's kill taps are not ported.
 """
 
 from __future__ import annotations
@@ -134,6 +144,7 @@ from ..schedule import (
     matcha_schedule,
     solve_mixing_weight,
 )
+from ..serve.runtime import control_arrays
 from ..topology import decompose, graph_size, make_graph, select_graph
 from ..utils import annotate, resolve_device, synchronize, trace
 from .checkpoint import (
@@ -231,7 +242,7 @@ def _reproducible_numerics() -> None:
 
 
 def train(config: TrainConfig, resume_dir: Optional[str] = None,
-          device=None) -> TrainResult:
+          device=None, boundary_hook=None) -> TrainResult:
     """Run ``config`` on ``device`` (default: the CUDA card; a host without
     one raises unless ``device="cpu"`` is asked for).
 
@@ -245,7 +256,12 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     program's first call: a caller that reads ``max_memory_allocated``
     around ``train()`` sees the peak since the last such call, not the
     run's.  The heartbeats' ``peak_bytes`` is the largest program
-    footprint the ledger measured."""
+    footprint the ledger measured.
+
+    ``boundary_hook``: the run controller's seam (``serve.trainer.
+    TrainerHarness.on_boundary``), called with a ``_BoundarySeam`` before
+    each epoch, again on a rollback's retry.  With identity knobs a
+    supervised run is bitwise the unsupervised one."""
     dev = resolve_device(device)
     _reproducible_numerics()
     if config.plan:
@@ -282,16 +298,32 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     run_flags = np.asarray(schedule.flags, np.float32)
     if faults is not None:
         run_flags = run_flags * faults.link_up
-    if config.local_steps > 1:
+    if config.local_steps > 1 and boundary_hook is None:
         # local steps: the exchange fires every L-th step only.  The step
         # launches nothing on the other steps (a host branch); thinning the
         # stream too makes the comm-split timer count zero for them.  The
-        # checkpoint fingerprints the schedule as built.
+        # checkpoint fingerprints the schedule as built.  Under a boundary
+        # hook the stream stays whole: the controller's ``local_every``
+        # knob, swappable at any boundary, gates the steps instead
         keep = np.arange(len(run_flags)) % config.local_steps == 0
         run_flags = run_flags * keep[:, None].astype(np.float32)
     # checkpoints fingerprint the schedule as built: a recovery may
     # re-derive α, which no config could reproduce at resume time
     schedule0 = schedule
+
+    # the run controller's knobs: a host mirror of ``state.control``,
+    # identity until a control document swaps them at a boundary, then
+    # re-primed into the step's input; ``control_probs`` are a budget
+    # swap's effective probabilities, which the drift monitor predicts with
+    control_knobs: Optional[Dict] = None
+    control_probs = None
+    stop_requested = False
+    if boundary_hook is not None:
+        control_knobs = {
+            "row_scale": np.ones(schedule.num_matchings, np.float32),
+            "alpha_scale": 1.0,
+            "local_every": max(int(config.local_steps), 1),
+        }
 
     # elastic membership: the trace replays at epoch boundaries through the
     # host controller; the step sees only the pool mask and the α scale
@@ -390,6 +422,14 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         return membership_arrays(elastic_ctl.alive_mask(),
                                  elastic_ctl.alpha_scale, dev)
 
+    def fresh_control():
+        """The knobs' host mirror as the step's input, with the flag
+        rows' device (one copy of ``row_scale``)."""
+        return control_arrays(control_knobs["row_scale"],
+                              control_knobs["alpha_scale"],
+                              control_knobs["local_every"],
+                              communicator.flags_device(dev))
+
     def membership_sidecar():
         """What a checkpoint records beside the state: who owns which pool
         slot, and the α re-plan in force."""
@@ -421,7 +461,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                                local_steps=config.local_steps,
                                faults=faults,
                                elastic=elastic_ctl is not None,
-                               telemetry=tel_spec)
+                               telemetry=tel_spec,
+                               control=control_knobs is not None)
         timer = (_make_comm_timer(comm, flattener, dev, ledger_call)
                  if config.measure_comm_split
                  and config.communicator != "none" else None)
@@ -528,9 +569,14 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                       "disagreement": worker_stats["worker_disagreement"][i]}
                 for i, wid in enumerate(occupants) if wid is not None}
 
-    if config.save and start_epoch:
+    if config.save and (start_epoch or (
+            boundary_hook is not None
+            and os.path.exists(recorder.journal.path))):
         # extend the CSVs and the journal of the run being resumed, cut
-        # back to the restored epoch
+        # back to the restored epoch.  A supervised run reloads the journal
+        # at epoch 0 too: a relaunch before the first checkpoint trains
+        # from scratch, but the journal is the supervision record, and the
+        # previous lifetimes' control and promotion decisions stay in it
         recorder.load_previous(start_epoch)
     for n in recovery_notices:
         recorder.log_event("recovery", scope="checkpoint",
@@ -549,11 +595,10 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                                   for v in faults.expected_link_up()])
     def compose_predicted(sched: Schedule):
         """The plan's composed ρ for the mixing that runs on ``sched``
-        (its probabilities; the α it executes): the fault plan's
-        expected availability times the membership's occupancy, its link
-        reliability, the staleness-damped α, staleness and local steps.
-        ``control_probs`` (a budget swap's probabilities) waits for the
-        serve plane: the schedule's own probabilities stand."""
+        (its probabilities, or a budget swap's ``control_probs``; the α it
+        executes): the fault plan's expected availability times the
+        membership's occupancy, its link reliability, the staleness-damped
+        α, staleness and local steps."""
         fault_alive = (np.asarray(faults.expected_alive(), np.float64)
                        if faults is not None else None)
         member_alive = (np.asarray(elastic_ctl.alive_mask(), np.float64)
@@ -565,7 +610,9 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         else:
             worker_alive = fault_alive * member_alive
         pred = compose_predicted_rho(
-            sched.laplacians(), sched.probs, plan_alpha * stale_scale,
+            sched.laplacians(),
+            sched.probs if control_probs is None else control_probs,
+            plan_alpha * stale_scale,
             overlap=config.overlap, wire_dtype=config.wire_dtype,
             worker_alive=worker_alive,
             link_up=(np.asarray(faults.expected_link_up(), np.float64)
@@ -626,8 +673,102 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     alpha_rederived = emergency_written = False
     snapshot = None
     history: List[Dict] = []
+
+    class _BoundarySeam:
+        """The run controller's handle into the loop (JAX
+        ``loop.py:807-894``).  Every mutator is a value change: knob
+        updates ride ``state.control``, a drift re-base swaps host floats,
+        and config edits touch fields no step reads, so no program is
+        rebuilt.  The controller's side (``serve.trainer.TrainerHarness``)
+        decides what to apply; the seam knows how."""
+
+        def __init__(self):
+            self.epoch = 0
+            self.bpe = int(bpe)
+            self.recorder = recorder
+            self.schedule = schedule0
+            self.flattener = flattener
+            # the test set as the loop placed it on the device
+            self.x_test = x_test
+            self.y_test = y_test
+
+        @property
+        def config(self):
+            return config
+
+        @property
+        def state(self):
+            return state
+
+        def set_control(self, row_scale=None, alpha_scale=None,
+                        local_every=None):
+            """Rewrite the knobs' host mirror; the loop top re-primes
+            ``state.control`` before the epoch runs."""
+            if row_scale is not None:
+                control_knobs["row_scale"] = np.asarray(row_scale,
+                                                        np.float32)
+            if alpha_scale is not None:
+                control_knobs["alpha_scale"] = float(alpha_scale)
+            if local_every is not None:
+                control_knobs["local_every"] = max(int(local_every), 1)
+
+        def update_config(self, **fields):
+            """Replace config fields no step reads (drift tolerance and
+            patience, the local-step and budget bookkeeping), validated by
+            ``TrainConfig`` through ``dataclasses.replace``."""
+            nonlocal config
+            config = dataclasses.replace(config, **fields)
+
+        def rebase_drift(self, alpha=None, probs=None):
+            """Re-base the drift monitor's plan after a swap: the
+            re-solved (α, p) is the plan from here on, as for a recovery's
+            and a membership's re-plans.  Returns the new prediction (the
+            current one without a monitor)."""
+            nonlocal plan_alpha, predicted, drift_monitor, control_probs
+            if alpha is not None:
+                plan_alpha = float(alpha)
+            if probs is not None:
+                control_probs = np.asarray(probs, np.float64)
+            if drift_monitor is not None:
+                predicted = compose_predicted(schedule)
+                drift_monitor = DriftMonitor(
+                    predicted["rho"], int(bpe),
+                    tolerance=config.drift_tolerance,
+                    patience=config.drift_patience)
+            return predicted
+
+        def checkpoint(self):
+            """Checkpoint the last completed epoch on demand (before a
+            restart or a stop), as the cadence does; ``None`` before any
+            epoch completed."""
+            if self.epoch == 0:
+                return None
+            with annotate("matcha/checkpoint"):
+                save_checkpoint(ckpt_dir, state, self.epoch - 1,
+                                schedule=schedule0,
+                                membership=membership_sidecar())
+            recorder.log_event("checkpoint", epoch=self.epoch - 1,
+                               path=ckpt_dir)
+            return ckpt_dir
+
+        def request_stop(self):
+            """Stop before the next epoch: the loop leaves for the drain
+            and the final flush."""
+            nonlocal stop_requested
+            stop_requested = True
+
+    seam = _BoundarySeam() if boundary_hook is not None else None
     epoch = start_epoch
     while epoch < config.epochs:
+        if boundary_hook is not None:
+            # the control plane's one entry: pending control documents and
+            # the promotion cadence, then the knobs re-primed.  A rollback's
+            # retry comes back here; the hook is idempotent per boundary
+            seam.epoch = epoch
+            boundary_hook(seam)
+            if stop_requested:
+                break
+            state.control = fresh_control()
         if elastic_ctl is not None:
             # membership changes here and nowhere else; advance() is
             # idempotent per epoch, so a rollback's retry does not apply a

@@ -4,7 +4,8 @@ Port of ``matcha_tpu/train/state.py``: ``make_optimizer`` (:100),
 ``init_train_state`` (:114), ``make_train_step`` (:167, with
 ``grad_chunk``, the pipelined schedule, local-step elision, a runtime fault
 plan, elastic membership and the telemetry accumulator) and
-``make_eval_fn`` (:672).  Run control is not ported yet.  The step's
+``make_eval_fn`` (:672); the step reads the run controller's knobs
+(``serve.ControlKnobs``, JAX :403-418) from ``state.control``.  The step's
 phases carry the JAX package's span names (``matcha/fwd_bwd``,
 ``matcha/sgd``, ``matcha/heal``, ``comm/step``), ranges only inside a
 profiler window (``utils.device_span``).
@@ -54,6 +55,7 @@ from ..resilience.runtime import (
     mask_worker_rows,
     momentum_buffers,
 )
+from ..serve.runtime import ControlKnobs
 from ..utils import cross_entropy_loss, device_span, top_k_accuracy
 
 __all__ = ["OptimizerSpec", "TrainState", "fresh_mix_pending",
@@ -84,6 +86,11 @@ class TrainState:
     # each epoch (and for a rollback's retry); () with telemetry off.
     # Never checkpointed, never snapshotted, never checked for finiteness.
     telemetry: Any = ()
+    # the run controller's knobs (``serve.ControlKnobs``: the flag row's
+    # per-matching scale, the α scale and the gossip cadence), set by the
+    # loop at each epoch boundary of a supervised run; () otherwise.
+    # Never checkpointed: the journal's control events rebuild them.
+    control: Any = ()
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -209,6 +216,7 @@ def make_train_step(
     faults=None,
     elastic: bool = False,
     telemetry: Optional[TelemetrySpec] = None,
+    control: bool = False,
 ):
     """Build ``step(state, xb, yb) -> (state, metrics)``.
 
@@ -271,6 +279,15 @@ def make_train_step(
     disagreement metric is then derived from the deviation rows (the two
     differ only by the alive-weighted mean), so the accounting costs a few
     launches a step and no read.
+
+    ``control``: when True and ``state.control`` is a
+    ``serve.ControlKnobs``, the flag row (after the membership's α scale)
+    is multiplied by ``row_scale`` and then by ``alpha_scale``, in f32 and
+    in that order, as the JAX step does (:403-418), so the kernel gets the
+    same weights bit for bit; and ``local_every`` replaces
+    ``local_steps`` as the cadence of the host branch.  The knobs change
+    only at an epoch boundary.  The telemetry counts the unscaled row
+    gated by the cadence, as in JAX.
     """
     flags_host = np.asarray(flags, np.float32)  # [T, M]
     n = flattener.num_workers
@@ -517,8 +534,16 @@ def make_train_step(
             # the re-folded α rides the flag row, scaled in f32 as the
             # JAX step scales it
             row = row * float(np.float32(member.alpha_scale))
+        every = local_steps
+        knobs = state.control if control and isinstance(
+            state.control, ControlKnobs) else None
+        if knobs is not None:
+            row = row * knobs.row_scale
+            if knobs.alpha_scale != 1.0:
+                row = row * knobs.alpha_scale
+            every = knobs.local_every
         params = state.params
-        do_mix = state.step % local_steps == 0
+        do_mix = state.step % every == 0
         with torch.no_grad():
             flat = flattener.flatten(params)
             alive = healed = gate = dropped = None

@@ -331,7 +331,8 @@ BANNED = ("jax", "flax", "optax", "matcha_tpu", "ml_dtypes")
 def _port_files():
     return sorted((REPO / "matcha_tpu_torch").rglob("*.py")) + [
         REPO / "train_torch.py", REPO / "plan_torch.py",
-        REPO / "obs_torch.py", REPO / "chip_smoke.py"]
+        REPO / "obs_torch.py", REPO / "serve_torch.py",
+        REPO / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -364,7 +365,8 @@ def test_port_imports_with_jax_blocked():
         for p in (REPO / "matcha_tpu_torch").rglob("*.py"))
     assert {"matcha_tpu_torch.probes.split_probe",
             "matcha_tpu_torch.plan.cost", "matcha_tpu_torch.analysis.planlint",
-            "matcha_tpu_torch.elastic.policy"} <= set(modules)
+            "matcha_tpu_torch.elastic.policy", "matcha_tpu_torch.serve",
+            "matcha_tpu_torch.serve.trainer"} <= set(modules)
     code = f"""
 import importlib, importlib.abc, sys
 BANNED = {BANNED + ABSENT_ON_CARD_HOST!r}
@@ -374,7 +376,7 @@ class Block(importlib.abc.MetaPathFinder):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 for name in {modules!r} + ["train_torch", "plan_torch", "obs_torch",
-                           "chip_smoke"]:
+                           "serve_torch", "chip_smoke"]:
     importlib.import_module(name)
 leaked = [m for m in sys.modules if m.split(".")[0] in BANNED]
 assert not leaked, leaked
