@@ -50,7 +50,8 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    instantiations, and the 8193-worker ring at D = 1,031, bitwise;
    ``make_decen(..., "perm").run`` on both graphs, launches by path.
    The hypercube's schedule (α's spectral solve: minutes of host numpy)
-   is made in a spawned side process that starts before the build.
+   is made in a spawned side process that starts before the build, and
+   perm_large runs after ``communicators`` (11), when it is done.
 5. slice — ``train()`` at full width: ResNet-20, 16 workers, graph 4,
    MATCHA budget 0.5, batch 32, perm backend, f32 wire, 2 epochs of 4
    steps.  Loss and disagreement finite; the kernel's launch count equals
@@ -251,10 +252,25 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    its ``fleet_verdict`` (503: w4 flagged); ``serve_torch.py verify``
    exits 0, then 1 after a manifest byte is edited; no lifetime calls
    ``nvcc``; ms a step with identity knobs and without, alternated.
+   chaos — the chaos harness (``phase_chaos``, cell (o)): slice (a)'s
+   ``train()`` (2 epochs, ``save``) with ``MATCHA_CHAOS_KILL`` armed at
+   ``epoch_boundary`` on a marker that exists, bitwise the unarmed run
+   (K1's launches and profiler rows, 12 each, and the synchronizing calls
+   equal), in this process while ``campaign.run_trial`` runs slice (a)
+   in the place of the campaign's MLP ring, 4 epochs, a checkpoint an
+   epoch, in trainer subprocesses on the card:
+   seeds 6, 7, 8, 9 (the four kill families, SIGKILL and SIGTERM), 0
+   (``ckpt_bitflip``) and 10 (``io_enospc``), three lifetimes at once
+   after the kill families' three twins; every trial ``ok`` under the
+   invariant suite, each kill trial 1 restart and its final epoch row
+   float-equal to its twin's, every lifetime that ran to its end a
+   ``perm`` backend event, no lifetime calling ``nvcc``; each lifetime's
+   seconds and seconds to its first heartbeat.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
     the models', the resilience, the pipelined, the planner's, the
-    observability, the perf_obs and the serve runs included; K3's
+    observability, the perf_obs, the serve and the chaos phase's
+    in-process runs included; K3's
     ``tensor_core`` path with the roofline's launch), then the
     ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
@@ -3858,6 +3874,24 @@ def http_get(port: int, path: str):
         return e.code, json.loads(e.read())
 
 
+def stub_cuda_home(root: str):
+    """``(CUDA_HOME, marker)``: a toolkit whose ``nvcc`` touches ``marker``
+    and fails, for trainer subprocesses that must not build a kernel."""
+    stub = os.path.join(root, "stub_cuda")
+    os.makedirs(os.path.join(stub, "bin"))
+    marker = os.path.join(root, "nvcc_called")
+    with open(os.path.join(stub, "bin", "nvcc"), "w") as f:
+        f.write(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+    os.chmod(os.path.join(stub, "bin", "nvcc"), 0o755)
+    return stub, marker
+
+
+def built_kernels() -> dict:
+    """The built kernel libraries and their modification times."""
+    return {p.name: p.stat().st_mtime_ns
+            for p in _kernels.BUILD_DIR.glob("*.so")}
+
+
 def serve_controller(root: str, name: str, stub_home: str, lifetimes: list):
     """A ``Controller`` over the slice for 3 epochs with a promotion every
     epoch, its trainer on the card; the trainer's ``CUDA_HOME`` is a stub
@@ -3884,12 +3918,17 @@ def final_epoch_row(ctl):
 
 def first_beats(run_dir: str, lifetimes: list) -> list:
     """Seconds from each lifetime's launch to its first heartbeat (the
-    trainer's start-up and its first epoch)."""
+    trainer's start-up and its first epoch); ``None`` for a lifetime that
+    wrote none before it ended."""
     path = os.path.join(run_dir, "health", "host0.jsonl")
-    beats = [json.loads(line)["t"] for line in open(path)]
+    beats = []
+    if os.path.exists(path):
+        with open(path) as f:
+            beats = [json.loads(line)["t"] for line in f]
     out = []
     for life in lifetimes:
-        after = [t for t in beats if t > life["launched"]]
+        end = life["launched"] + life["seconds"]
+        after = [t for t in beats if life["launched"] < t <= end]
         out.append(min(after) - life["launched"] if after else None)
     return out
 
@@ -4094,17 +4133,10 @@ def phase_serve(dev, rounds: int = 3, steps: int = 20):
         torch.cuda.empty_cache()
 
         # 3. the daemon, A uninterrupted and B killed
-        from matcha_tpu_torch import _kernels
         from matcha_tpu_torch.serve import ServeEndpoint
 
-        stub = os.path.join(root, "stub_cuda")
-        os.makedirs(os.path.join(stub, "bin"))
-        marker = os.path.join(root, "nvcc_called")
-        with open(os.path.join(stub, "bin", "nvcc"), "w") as f:
-            f.write(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
-        os.chmod(os.path.join(stub, "bin", "nvcc"), 0o755)
-        built = {p.name: p.stat().st_mtime_ns
-                 for p in _kernels.BUILD_DIR.glob("*.so")}
+        stub, marker = stub_cuda_home(root)
+        built = built_kernels()
         log = os.path.join(root, "children.log")
         lives = {"A": [], "B": []}
         ctls = {k: serve_controller(os.path.join(root, k), f"serve{k}", stub,
@@ -4220,8 +4252,7 @@ def phase_serve(dev, rounds: int = 3, steps: int = 20):
         if (rc_ok, rc_bad) != (0, 1):
             raise AssertionError(f"serve_torch.py verify: {rc_ok} then "
                                  f"{rc_bad}, expected 0 then 1")
-        rebuilt = {p.name: p.stat().st_mtime_ns
-                   for p in _kernels.BUILD_DIR.glob("*.so")}
+        rebuilt = built_kernels()
         if os.path.exists(marker) or rebuilt != built:
             raise AssertionError(f"serve daemon: a lifetime ran nvcc "
                                  f"({os.path.exists(marker)}) or changed "
@@ -4268,6 +4299,265 @@ def phase_serve(dev, rounds: int = 3, steps: int = 20):
                    "median_ms_plain": statistics.median(ms[False])}
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "serve", **out, "nvidia_smi": nvidia_smi()})
+    return out
+
+#: one seed of each family the chaos phase runs, by ``schedule_for_seed``:
+#: the four kill families (6 and 8 by SIGKILL, 7 and 9 by SIGTERM; 6 at
+#: the second epoch boundary), ``ckpt_bitflip`` (0) and ``io_enospc`` (10:
+#: the third and fourth heartbeat writes fail)
+CHAOS_SEEDS = (6, 7, 8, 9, 0, 10)
+#: ``run_trial``'s control document for ``kill_mid_control``, which its
+#: twin trains under too
+CHAOS_CONTROL_DOC = {"version": 1, "drift_tolerance": 5.0}
+
+
+def chaos_trial_config(save_path: str, epochs: int) -> dict:
+    """Slice (a) with ``save`` and a checkpoint every epoch, in the place
+    of the campaign's MLP ring (``campaign._trial_config``)."""
+    return dataclasses.asdict(serve_config(epochs, "chaos", save_path))
+
+
+def chaos_armed_taps(dev, root: str, bpe: int, env_lock) -> dict:
+    """Slice (a)'s ``train()`` (2 epochs, ``save``, a checkpoint an epoch)
+    with the taps unarmed, then armed at ``epoch_boundary`` with a marker
+    that already exists (so the tap cannot fire in this process): final
+    parameters bitwise, K1's launches equal (the wrapper's count and the
+    profiler's kernel rows), synchronizing calls equal.
+
+    The tap reads ``MATCHA_CHAOS_KILL`` once, at its first call: the
+    variable is set under ``env_lock``, parsed there by a call at another
+    barrier (which returns at once), and removed again, so a trainer
+    subprocess launched under the same lock meanwhile never inherits
+    it."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tpu_torch.chaos import taps
+
+    marker = os.path.join(root, "already_fired")
+    open(marker, "w").close()
+    armed_spec = json.dumps({"barrier": "epoch_boundary", "count": 1,
+                             "signal": "KILL", "marker": marker})
+    sync_warnings(lambda: torch.zeros(1, device=dev).sum().item())
+    runs = {}
+    for label, env in (("unarmed", {}), ("armed", {taps.ENV_KILL:
+                                                     armed_spec})):
+        cfg = serve_config(2, f"chaos_{label}", root)
+        holder = {}
+
+        def run(cfg=cfg, holder=holder):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                holder["r"] = train(cfg, device=dev)
+                torch.cuda.synchronize()
+            holder["rows"] = sum(
+                e.device_type == torch.autograd.DeviceType.CUDA
+                and "perm_gossip" in e.name for e in prof.events())
+
+        with env_lock, mock.patch.dict(os.environ, env):
+            if label == "unarmed":
+                os.environ.pop(taps.ENV_KILL, None)
+            taps.reset()
+            taps.maybe_kill("mid_save")  # parses the spec; not its barrier
+        reset_launch_counts()
+        syncs = sync_warnings(run)
+        spec = taps._spec
+        taps.reset()
+        runs[label] = {"result": holder["r"], "spec": spec,
+                       "launches": LAUNCHES["perm_gossip_dbuf"],
+                       "profiler_rows": holder["rows"], "sync": syncs}
+    unarmed, armed = runs["unarmed"], runs["armed"]
+    want = 2 * bpe + 2 * timer_chains(bpe)
+    if unarmed["spec"] is not None or armed["spec"] is None \
+            or armed["spec"]["barrier"] != "epoch_boundary" \
+            or os.path.getsize(marker) != 0:
+        raise AssertionError(f"chaos armed taps: specs {unarmed['spec']}, "
+                             f"{armed['spec']}")
+    if not same_bits(flat_params(unarmed["result"].state),
+                     flat_params(armed["result"].state)):
+        raise AssertionError("chaos armed taps: final parameters differ")
+    counts = [(r["launches"], r["profiler_rows"]) for r in runs.values()]
+    if counts != [(want, want)] * 2:
+        raise AssertionError(f"chaos armed taps: K1 launches and profiler "
+                             f"rows {counts}, expected {want} each")
+    if sum(unarmed["sync"].values()) != sum(armed["sync"].values()):
+        raise AssertionError(f"chaos armed taps: synchronizing calls "
+                             f"{unarmed['sync']} vs {armed['sync']}")
+    return {"launches": want, "profiler_rows": want, "bitwise": True,
+            "sync_calls": {k: sum(r["sync"].values())
+                           for k, r in runs.items()},
+            "loss": [h["loss"] for h in armed["result"].history],
+            "ms_per_step": {k: [h["epoch_time"] / bpe * 1e3
+                                for h in r["result"].history]
+                            for k, r in runs.items()}}
+
+
+def phase_chaos(dev, workers: int = 3):
+    """The chaos harness on the card (cell (o)): the port's own campaign
+    machinery (``matcha_tpu_torch.chaos.campaign``) with slice (a) in the
+    place of its MLP ring (``_trial_config`` patched here, the module
+    unchanged), 4 epochs of 4 steps, ``save``, a checkpoint every epoch,
+    K1 at T = 1 every step.
+
+    1. Armed taps that cannot fire cost nothing (``chaos_armed_taps``, in
+       this process while the trials run).
+    2. One trial per seed of ``CHAOS_SEEDS`` through ``run_trial(...,
+       device="cuda")``, up to ``workers`` at once on the card, after the
+       three uninterrupted twins the kill families read (run first, side
+       by side).  Each trial ``ok`` (no violation of the invariant
+       suite); each kill family's marker fired, 1 restart, its killed
+       lifetime's exit the spec's signal, its final epoch row
+       float-equal to its twin's (the resume bitwise through K1); each
+       lifetime that ran to its end journaled a ``backend`` event saying
+       ``perm`` (a killed lifetime's journal dies unflushed with it);
+       each lifetime's seconds and seconds to its first heartbeat; no
+       lifetime ran ``nvcc`` (a stub that fails) or changed ``_build/``.
+       The children's output goes to a file.
+    Any failure raises."""
+    import concurrent.futures
+    import signal
+    from unittest import mock
+
+    from matcha_tpu_torch.chaos import campaign
+    from matcha_tpu_torch.chaos.invariants import final_epoch_row as row_of
+    from matcha_tpu_torch.serve import Controller
+
+    t_phase = time.perf_counter()
+    bpe = 2048 // 16 // 32
+    out = {"launches": {}}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        work = os.path.join(root, "campaign")
+        stub, marker = stub_cuda_home(root)
+        built = built_kernels()
+        log = os.path.join(root, "children.log")
+        lives, logs = {}, []
+        launch = Controller._launch
+        env_lock = threading.Lock()  # a launch copies os.environ
+
+        def timed_launch(ctl):
+            with env_lock:
+                proc = launch(ctl)
+            return TimedLifetime(proc, lives.setdefault(
+                os.path.abspath(ctl.run_dir), []))
+
+        specs = [campaign.schedule_for_seed(s) for s in CHAOS_SEEDS]
+        twin_of = {s.seed: (s.family == "kill_mid_promote",
+                            s.family == "kill_mid_control")
+                   for s in specs if s.family.startswith("kill_")}
+        t_trials = time.perf_counter()
+        try:
+            with mock.patch.object(campaign, "_trial_config",
+                                   chaos_trial_config), \
+                    mock.patch.object(Controller, "_launch", timed_launch), \
+                    mock.patch.dict(os.environ, {"CUDA_HOME": stub}), \
+                    output_to(log), \
+                    concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                twins = {key: pool.submit(
+                    campaign._twin_row, work, 4, key[0],
+                    CHAOS_CONTROL_DOC if key[1] else None, logs.append,
+                    "cuda") for key in sorted(set(twin_of.values()))}
+
+                def trial(spec):
+                    if spec.seed in twin_of:  # cached before the trial
+                        twins[twin_of[spec.seed]].result()
+                    return campaign.run_trial(spec, work, log=logs.append,
+                                              device="cuda")
+
+                jobs = {s.seed: pool.submit(trial, s) for s in specs}
+                armed = chaos_armed_taps(dev, root, bpe, env_lock)
+                trials = {seed: job.result() for seed, job in jobs.items()}
+                for job in twins.values():
+                    job.result()
+        except BaseException:
+            with open(log, "rb") as f:
+                f.seek(max(os.path.getsize(log) - 4096, 0))
+                sys.stderr.write(f.read().decode(errors="replace"))
+            sys.stderr.write("\n".join(logs[-20:]) + "\n")
+            raise
+        trials_seconds = time.perf_counter() - t_trials
+        out["armed_taps"] = armed
+        out["launches"]["train() chaos, taps unarmed"] = armed["launches"]
+        out["launches"]["train() chaos, taps armed (not firing)"] = \
+            armed["launches"]
+        if sum("running uninterrupted twin" in m for m in logs) != \
+                len(twins):
+            raise AssertionError(f"chaos: twins recomputed: {logs}")
+        rows, problems = [], []
+        for spec in specs:
+            t = trials[spec.seed]
+            run_dir = os.path.dirname(os.path.abspath(t["journal_path"]))
+            life = lives.get(run_dir, [])
+            events = read_journal(t["journal_path"])
+            backends = [e.get("chosen") for e in events
+                        if e["kind"] == "backend"]
+            clean = [x for x in life if x["exit"] == 0]
+            bad = list(t["violations"])
+            if not t["ok"] or backends != ["perm"] * len(clean) \
+                    or any(validate_event(e) for e in events):
+                bad.append(f"backends {backends} for {len(clean)} clean "
+                           f"lifetimes")
+            if spec.family.startswith("kill_"):
+                killed = [x["exit"] for x in life if x["exit"] != 0]
+                sig = -getattr(signal, f"SIG{spec.signal}")
+                if not t["evidence"].get("fired") or t["restarts_used"] != 1 \
+                        or killed != [sig] \
+                        or tuple(t["twin_row"]) != row_of(events):
+                    bad.append(f"fired {t['evidence'].get('fired')}, "
+                               f"restarts {t['restarts_used']}, exits "
+                               f"{[x['exit'] for x in life]}, twin "
+                               f"{t.get('twin_row')} vs {row_of(events)}")
+            elif t["restarts_used"] != 0:
+                bad.append(f"restarts {t['restarts_used']}")
+            if bad:
+                problems.append(f"seed {spec.seed} [{spec.family}]: {bad}")
+            rows.append({
+                "seed": spec.seed, "family": spec.family,
+                "signal": spec.signal if spec.family.startswith("kill_")
+                else None, "spec": spec.to_json(), "ok": t["ok"],
+                "rc": t["rc"], "restarts_used": t["restarts_used"],
+                "lifetimes": len(life),
+                "lifetime_exits": [x["exit"] for x in life],
+                "lifetime_seconds": [x["seconds"] for x in life],
+                "first_heartbeat_seconds": first_beats(run_dir, life),
+                "backend_events": backends,
+                "evidence": {k: v for k, v in t["evidence"].items()
+                             if k != "env"},
+                "final_row": list(row_of(events)),
+                "twin_row": (list(t["twin_row"]) if "twin_row" in t
+                             else None)})
+        out["twins"] = {}
+        for run_dir, life in lives.items():
+            key = os.path.basename(os.path.dirname(run_dir))
+            if os.path.basename(os.path.dirname(os.path.dirname(
+                    run_dir))) != "twins":
+                continue
+            events = read_journal(os.path.join(run_dir, "events.jsonl"))
+            backends = [e.get("chosen") for e in events
+                        if e["kind"] == "backend"]
+            if [x["exit"] for x in life] != [0] or backends != ["perm"]:
+                problems.append(f"twin {key}: exits "
+                                f"{[x['exit'] for x in life]}, backends "
+                                f"{backends}")
+            out["twins"][key] = {
+                "row": list(row_of(events)),
+                "lifetime_seconds": [x["seconds"] for x in life],
+                "first_heartbeat_seconds": first_beats(run_dir, life)}
+        if len(out["twins"]) != len(twins):
+            problems.append(f"twins run: {sorted(out['twins'])}")
+        rebuilt = built_kernels()
+        if os.path.exists(marker) or rebuilt != built:
+            problems.append(f"a lifetime ran nvcc ({os.path.exists(marker)})"
+                            f" or changed the build ({built} vs {rebuilt})")
+        if problems:
+            raise AssertionError(f"chaos: {problems}")
+        out["trials"] = rows
+        out["trials_seconds"] = trials_seconds
+        out["workers"] = workers
+        out["nvcc_called"] = False
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "chaos", **out, "nvidia_smi": nvidia_smi()})
     return out
 
 
@@ -4506,7 +4796,8 @@ def kernels_line(r) -> list:
                                 for label, row in r["models"].items()},
         **r["resilience"]["launches"], **r["pipeline"]["launches"],
         **r["planner"]["launches"], **r["observability"]["launches"],
-        **r["perf_obs"]["launches"], **r["serve"]["launches"]},
+        **r["perf_obs"]["launches"], **r["serve"]["launches"],
+        **r["chaos"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -4657,12 +4948,12 @@ def kernels_line(r) -> list:
 
 #: the phases in the order a full run takes them, and the phases whose
 #: results each one reads (run first when it is asked for alone)
-PHASES = ("parity", "timing", "perm_large", "slice", "profile", "agreement",
+PHASES = ("parity", "timing", "slice", "profile", "agreement",
           "stream_chain", "fused_parity", "fused_timing", "fused_chain",
           "fused_slice", "fused_large", "fused_sweep", "split_probe",
-          "split_timing", "epoch_end", "communicators", "determinism",
-          "choco", "models", "resilience", "pipeline", "planner",
-          "observability", "perf_obs", "serve")
+          "split_timing", "epoch_end", "communicators", "perm_large",
+          "determinism", "choco", "models", "resilience", "pipeline",
+          "planner", "observability", "perf_obs", "serve", "chaos")
 NEEDS = {"planner": ("fused_timing",), "perf_obs": ("fused_timing",
                                                     "planner")}
 
@@ -4735,6 +5026,7 @@ def run_phases(dev, names, spills, early=None) -> dict:
         "perf_obs": lambda r: phase_perf_obs(dev, r["fused_timing"],
                                              r["planner"], table("big")),
         "serve": lambda r: phase_serve(dev),
+        "chaos": lambda r: phase_chaos(dev),
     }
     results, seconds = {}, {}
     for name in PHASES:

@@ -10,8 +10,9 @@
 * :mod:`health` — one heartbeat file per host under ``{run}/health/``;
 * :mod:`anomaly` — streaming detectors over those heartbeats (dead,
   straggler, disagreement outlier, time spike, deadline missed);
-* :mod:`bestio` — the fs seam and the best-effort sink every
-  observability write rides;
+* :mod:`bestio` — the fs seam every observability write rides (the
+  chaos harness injects ENOSPC and hung IO under it), the skew-aware
+  ``wall_clock``, and the best-effort sink;
 * :mod:`costs` — program costs, the cost ledger (one ``compile`` event per
   distinct program of a run) and the roofline on the H100's peaks;
 * :mod:`xprof` — an executed ``torch.profiler`` trace's kernel rows
@@ -24,8 +25,7 @@
 ``obs_torch.py`` renders a run's journal (summary / tail / drift /
 compare), the performance artifacts (roofline / capacity / profile), the
 fleet status (watch / health) and the attribution plane (attribute /
-timeline), with no JAX installed.  The chaos harness's clock skew
-(``wall_clock``) comes with ``chaos/``.
+timeline), with no JAX installed.
 """
 
 from .anomaly import ANOMALY_CAUSES, AnomalyDetector, liveness, mad_zscores
@@ -36,7 +36,7 @@ from .attribution import (
     link_costs_artifact,
     render_attribution,
 )
-from .bestio import BestEffortSink, get_fs, install_fs
+from .bestio import BestEffortSink, get_fs, install_fs, wall_clock
 from .costs import (
     CostLedger,
     analyze_program,
@@ -130,5 +130,6 @@ __all__ = [
     "timeline_for_run",
     "validate_event",
     "validate_trace",
+    "wall_clock",
     "worker_last_seen",
 ]

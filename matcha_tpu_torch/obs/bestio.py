@@ -1,13 +1,16 @@
-"""Best-effort observability IO: the fs seam and the sink breaker.
+"""Best-effort observability IO: the fault-injectable fs seam and breaker.
 
-Port of ``matcha_tpu/obs/bestio.py`` (:48-230), without the chaos
-harness's ``FaultyFS`` and clock skew (ROADMAP.md, the host plane).  The
-contract: **training never blocks or dies on observability IO**.
+Port of ``matcha_tpu/obs/bestio.py`` (:41-230).  The contract: **training
+never blocks or dies on observability IO**.
 
 * The **fs seam** — every observability write (the run journal, the
-  Recorder's CSVs and sidecars) opens and publishes files through
-  :func:`get_fs` instead of the builtins.  In a run that is
-  :class:`DirectFS`; tests may swap in another through :func:`install_fs`.
+  per-host heartbeat files, the Recorder's CSVs and sidecars) opens and
+  publishes files through :func:`get_fs` instead of the builtins.  In a
+  run that is :class:`DirectFS`.  The chaos harness threads
+  :class:`FaultyFS` under the same seam — through :func:`install_fs` in
+  the process, or the ``MATCHA_CHAOS_FS`` environment variable across the
+  supervisor's process boundary — to inject ENOSPC and hung or slow
+  writes into the daemon without patching it.
 
 * The **sink breaker** — :class:`BestEffortSink` wraps one observability
   write path in bounded retry + backoff with a per-attempt deadline.  A
@@ -17,16 +20,28 @@ contract: **training never blocks or dies on observability IO**.
   train loop stalls at most one deadline.  Every degrade/restore
   transition is reported through :meth:`BestEffortSink.drain` as a
   ``recovery`` journal payload (scope ``io``).
+
+``wall_clock`` is the one clock the heartbeat emitter and the one-shot
+journal appender stamp: ``time.time()`` in a run, skewed by
+``MATCHA_CHAOS_CLOCK_SKEW`` seconds under the chaos harness (the
+clock-skew injector).  The environment variables are the JAX package's,
+so one spec arms either package's trainer.
 """
 
 from __future__ import annotations
 
+import errno
+import json
 import os
 import threading
 import time
 from typing import Callable, List, Optional
 
-__all__ = ["DirectFS", "get_fs", "install_fs", "BestEffortSink"]
+__all__ = ["ENV_FS", "ENV_SKEW", "DirectFS", "FaultyFS", "get_fs",
+           "install_fs", "wall_clock", "BestEffortSink"]
+
+ENV_FS = "MATCHA_CHAOS_FS"
+ENV_SKEW = "MATCHA_CHAOS_CLOCK_SKEW"
 
 
 class DirectFS:
@@ -39,22 +54,86 @@ class DirectFS:
         os.replace(src, dst)
 
 
+class FaultyFS(DirectFS):
+    """A seam that faults a window of matching operations.
+
+    ``mode``: ``enospc`` raises ``OSError(ENOSPC)``; ``slow`` sleeps
+    ``delay`` seconds per op (a hung sink is a slow one with a delay
+    longer than anyone waits).  ``match`` is a path substring gate
+    (``"health/"`` targets heartbeat files only); ``after`` matching ops
+    pass clean before the window opens; ``count`` ops fault before the
+    device heals (``-1`` = never heals).
+    """
+
+    def __init__(self, mode: str = "enospc", match: str = "",
+                 after: int = 0, count: int = -1, delay: float = 0.0):
+        if mode not in ("enospc", "slow"):
+            raise ValueError(f"unknown FaultyFS mode {mode!r}")
+        self.mode = mode
+        self.match = str(match)
+        self.after = int(after)
+        self.count = int(count)
+        self.delay = float(delay)
+        self.ops = 0  # matching ops seen
+
+    def _trip(self, path: str) -> None:
+        if self.match and self.match not in str(path):
+            return
+        self.ops += 1
+        n = self.ops - self.after  # 1-based position inside the window
+        if n <= 0 or (self.count >= 0 and n > self.count):
+            return
+        if self.mode == "slow":
+            time.sleep(self.delay)
+            return
+        raise OSError(errno.ENOSPC, f"chaos: no space left on device "
+                                    f"(injected, op {self.ops})", path)
+
+    def open(self, path: str, mode: str = "r"):
+        if "w" in mode or "a" in mode or "x" in mode or "+" in mode:
+            self._trip(path)
+        return super().open(path, mode)
+
+    def replace(self, src: str, dst: str) -> None:
+        self._trip(dst)
+        super().replace(src, dst)
+
+
 _fs: Optional[DirectFS] = None
 
 
 def get_fs() -> DirectFS:
-    """The active fs seam: ``DirectFS`` unless :func:`install_fs` put
-    another in place."""
+    """The active fs seam — ``DirectFS`` unless the harness installed a
+    faulty one (``install_fs``) or armed ``MATCHA_CHAOS_FS`` before this
+    process first asked (the supervisor→trainer injection path).  A
+    malformed spec falls back to ``DirectFS``: chaos never breaks a run."""
     global _fs
     if _fs is None:
-        _fs = DirectFS()
+        raw = os.environ.get(ENV_FS)
+        if raw:
+            try:
+                _fs = FaultyFS(**json.loads(raw))
+            except (ValueError, TypeError):
+                _fs = DirectFS()
+        else:
+            _fs = DirectFS()
     return _fs
 
 
 def install_fs(fs: Optional[DirectFS]) -> None:
-    """Swap the seam in-process (tests); ``None`` restores ``DirectFS``."""
+    """Swap the seam in-process (the harness, tests); ``None`` re-reads
+    the environment on next use."""
     global _fs
     _fs = fs
+
+
+def wall_clock() -> float:
+    """``time.time()`` plus the injected skew (0 in a run)."""
+    try:
+        skew = float(os.environ.get(ENV_SKEW) or 0.0)
+    except ValueError:
+        skew = 0.0
+    return max(time.time() + skew, 0.0)
 
 
 class BestEffortSink:

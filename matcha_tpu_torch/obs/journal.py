@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Dict, Iterable, List, Optional, Sequence
 
 __all__ = ["SCHEMA_VERSION", "ACCEPTED_VERSIONS", "EVENT_KINDS",
@@ -464,12 +463,13 @@ def epoch_series(events: Iterable[dict], kind: str, field: str,
 def append_journal_record(path: str, kind: str, **fields) -> dict:
     """One-shot appender for standalone emitters (``bench.py --journal``,
     one-off stamps): no Recorder, no run clock — ``t`` is absolute unix
-    time (``time.time()``), monotone within the file like any
-    run journal.  IO rides the ``obs.bestio`` fs seam.  Returns the event
+    time (``bestio.wall_clock``: ``time.time()`` outside the chaos
+    harness's skew injection), monotone within the file like any run
+    journal.  IO rides the ``obs.bestio`` fs seam.  Returns the event
     written."""
-    from .bestio import get_fs
+    from .bestio import get_fs, wall_clock
 
-    event = make_event(kind, time.time(), **fields)
+    event = make_event(kind, wall_clock(), **fields)
     problems = validate_event(event)
     if problems:
         raise ValueError(f"refusing to journal invalid event: {problems}")

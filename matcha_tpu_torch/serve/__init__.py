@@ -27,9 +27,8 @@ of which rebuilds its step:
 
 ``serve_torch.py`` is the CLI: ``run`` starts the daemon (controller +
 endpoint), ``control`` publishes a document, ``verify`` checks a serving
-directory's manifest end-to-end.  The chaos harness's kill taps
-(``epoch_boundary``, ``mid_control``, ``mid_promote``) come with
-``chaos/``.
+directory's manifest end-to-end.  The chaos harness (``chaos/``,
+``chaos_torch.py``) runs seeded fault campaigns against this daemon.
 """
 
 from .control import (

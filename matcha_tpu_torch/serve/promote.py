@@ -173,8 +173,12 @@ def _file_sha256(path: str) -> str:
 
 
 def _atomic_json(path: str, obj: dict) -> None:
+    # barrier="mid_promote": the chaos kill tap (a no-op unless armed)
+    # fires between write and rename — dying there leaves a stale tempfile
+    # next to the still-valid previous pointer, the torn-publish state
+    # readers must never see half of
     atomic_publish(path, json.dumps(obj, indent=2, sort_keys=True) + "\n",
-                   prefix=".manifest.")
+                   prefix=".manifest.", barrier="mid_promote")
 
 
 def write_candidate(serving_dir: str, epoch: int, step: int,

@@ -154,6 +154,13 @@ class TrainerHarness:
                    if k in raw and getattr(seam.config, k) != raw[k]}
         if values:
             detail, predicted = self._apply_values(seam, values)
+            # chaos barrier (a no-op unless armed): dying here — values
+            # applied in memory, the decision not yet journaled — is the
+            # worst mid-swap state; recovery must re-apply the document
+            # idempotently, never observe it half-applied
+            from ..chaos.taps import maybe_kill
+
+            maybe_kill("mid_control")
             seam.recorder.log_event(
                 "control", action="apply", applied=True,
                 reason=f"value-scope fields {sorted(values)}",

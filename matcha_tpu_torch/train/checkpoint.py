@@ -247,6 +247,12 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
     for old in steps[:-MAX_TO_KEEP]:
         shutil.rmtree(os.path.join(root, str(old)))
     kept = set(steps[-MAX_TO_KEEP:])
+    # chaos barrier (a no-op unless armed): dying here leaves a committed
+    # generation with no digest, schedule or membership sidecar — the
+    # torn-save state restore accepts as unverifiable
+    from ..chaos.taps import maybe_kill
+
+    maybe_kill("mid_save")
     atomic_publish(_digest_path(root, epoch),
                    json.dumps(checkpoint_digest(root, epoch)),
                    prefix=".digest.")

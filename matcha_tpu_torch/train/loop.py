@@ -91,7 +91,8 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   run.  Under a hook the flag stream is not thinned by ``local_steps``
   (the knob gates the steps instead, :188-206), and the journal of a
   previous lifetime is reloaded even at epoch 0 (:645-660).  The chaos
-  harness's kill taps are not ported.
+  harness's ``epoch_boundary`` kill tap sits at the top of each epoch,
+  before the hook, as in the JAX loop (:897-903).
 """
 
 from __future__ import annotations
@@ -760,6 +761,12 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     seam = _BoundarySeam() if boundary_hook is not None else None
     epoch = start_epoch
     while epoch < config.epochs:
+        # chaos barrier (a no-op unless armed): the campaign's kill at the
+        # epoch boundary fires here, before any of this epoch's host-state
+        # transitions
+        from ..chaos.taps import maybe_kill
+
+        maybe_kill("epoch_boundary")
         if boundary_hook is not None:
             # the control plane's one entry: pending control documents and
             # the promotion cadence, then the knobs re-primed.  A rollback's

@@ -12,9 +12,9 @@ fault-ledger view) is published through this helper:
 4. ``os.replace`` onto the target: readers see the old document or the
    new one, never half of either.
 
-IO goes through the ``obs.bestio`` fs seam.  The JAX package's ``barrier``
-argument (a chaos kill tap between write and rename) belongs to the chaos
-harness, which is not ported.
+IO goes through the ``obs.bestio`` fs seam, so the chaos harness can
+inject ENOSPC and hung writes under any publish, and ``barrier`` arms a
+chaos kill tap between the write and the rename.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ Payload = Union[str, bytes, Callable]
 
 
 def atomic_publish(path: str, data: Payload, *, fsync: bool = True,
-                   mode: str = "w", prefix: str = None) -> None:
+                   mode: str = "w", prefix: str = None,
+                   barrier: str = None) -> None:
     """Atomically publish ``data`` at ``path`` (see module docstring).
 
     ``data`` may be ``str``/``bytes`` (written verbatim) or a callable
@@ -39,6 +40,9 @@ def atomic_publish(path: str, data: Payload, *, fsync: bool = True,
     or ``"wb"``).  ``prefix`` names the tempfile family (default derives
     from the target's basename); temp names always end in ``.tmp`` so the
     checkpoint root's stale-temp sweep recognises crash leftovers.
+    ``barrier`` optionally names a chaos kill tap (``chaos.taps``) that
+    fires after the flushed, fsynced write and before the rename — the
+    torn-publish window readers must never observe.
     """
     if mode not in ("w", "wb"):
         raise ValueError(f"atomic_publish requires a write mode, got {mode!r}")
@@ -63,6 +67,10 @@ def atomic_publish(path: str, data: Payload, *, fsync: bool = True,
             if fsync:
                 f.flush()
                 os.fsync(f.fileno())
+        if barrier is not None:
+            from ..chaos.taps import maybe_kill
+
+            maybe_kill(barrier)
         fs.replace(tmp, path)
     except BaseException:
         if os.path.exists(tmp):
