@@ -266,11 +266,22 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    float-equal to its twin's, every lifetime that ran to its end a
    ``perm`` backend event, no lifetime calling ``nvcc``; each lifetime's
    seconds and seconds to its first heartbeat.
+   mesh — workers folded across a mesh (``phase_mesh``, cell (p)), on
+   the card with virtual cards: the folded executor at ``[16, 273258]``
+   and ``[256, 273258]`` over C = 1, 2, 4 and 8 cards (bitwise across C,
+   within 1e-5 of K1 on the same flags, with a survivor mask and a bf16
+   wire, ``skip`` bitwise ``shard_map``; one folded step's time beside
+   K1's T = 1); slice (a)'s ``train()`` on 4 virtual cards with
+   ``shard_map`` against the one-card perm run (the acceptance bars), and
+   with ``auto`` resumed from its epoch-0 checkpoint (``shard_map``
+   journaled, bitwise the uninterrupted mesh run), over real cards too
+   when two or more are visible; ms, launches and the idle share a step
+   on one card and on 4 virtual cards.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
     the models', the resilience, the pipelined, the planner's, the
-    observability, the perf_obs, the serve and the chaos phase's
-    in-process runs included; K3's
+    observability, the perf_obs, the serve, the chaos and the mesh
+    phase's in-process runs included; K3's
     ``tensor_core`` path with the roofline's launch), then the
     ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
@@ -305,11 +316,15 @@ from matcha_tpu_torch.parallel import (
     compose_mixing_stack,
     fused_gossip_plain,
     fused_gossip_run,
+    gather_workers,
     gossip_mix_dense,
     involution_tables,
     perm_gossip_plain,
     perm_gossip_run,
     reset_launch_counts,
+    shard_map_gossip_fn,
+    shard_workers,
+    worker_mesh,
 )
 from matcha_tpu_torch.probes.perm_bench import (
     FP32_OPS_PER_S,
@@ -327,6 +342,7 @@ from matcha_tpu_torch.topology import (
     select_graph,
 )
 from matcha_tpu_torch.models import select_model
+from matcha_tpu_torch.models.layers import WorkerConv2d
 from matcha_tpu_torch.ops import WorkerFlattener
 from matcha_tpu_torch.obs.costs import H100
 from matcha_tpu_torch.obs.journal import read_journal, validate_event
@@ -344,6 +360,11 @@ from matcha_tpu_torch.resilience.runtime import (
 from matcha_tpu_torch.resilience.runtime import \
     state_tensors as all_state_tensors
 from matcha_tpu_torch.train.recorder import SERIES
+from matcha_tpu_torch.train.state import (
+    MeshTrainState,
+    init_mesh_train_state,
+    make_mesh_train_step,
+)
 from matcha_tpu_torch.train import (
     TrainConfig,
     build_schedule,
@@ -1574,14 +1595,15 @@ STEP_PARTS = (
 )
 
 
-def slice_stepper(dev, iterations: int, **step_kw):
-    """The slice's model, optimizer and perm communicator on the card, its
-    step function (``make_train_step`` with ``step_kw``) and one seeded
-    batch standing in for the loader: ``(state, step, xb, yb)``."""
+def slice_stepper(dev, iterations: int, lr_schedule=None, **step_kw):
+    """The slice's model, optimizer (the slice's lr, or ``lr_schedule``)
+    and perm communicator on the card, its step function
+    (``make_train_step`` with ``step_kw``) and one seeded batch standing
+    in for the loader: ``(state, step, xb, yb)``."""
     cfg = slice_config(1)
     sched = build_schedule(cfg, iterations)
     comm = make_decen(sched, "perm", device=dev)
-    opt = make_optimizer(make_lr_schedule(cfg.lr, 4))
+    opt = make_optimizer(lr_schedule or make_lr_schedule(cfg.lr, 4))
     model = select_model("resnet20", "synthetic_image", num_workers=16)
     state, flattener = init_train_state(model, 16, opt, comm, seed=SEED,
                                         device=dev)
@@ -4561,6 +4583,423 @@ def phase_chaos(dev, workers: int = 3):
     return out
 
 
+MESH_CARDS = (1, 2, 4, 8)
+
+
+def folded_chain(sched, x, rows, cards: int, dev, alive=None, wire=None,
+                 skip: bool = False) -> torch.Tensor:
+    """The folded executor on ``cards`` virtual cards of ``dev`` applied
+    for each host weight row of ``rows`` (``f32[T, M]``), gathered back
+    to ``[N, D]``."""
+    mesh = worker_mesh(devices=[dev] * cards)
+    fn = shard_map_gossip_fn(sched.perms, mesh, skip=skip, wire_dtype=wire)
+    blocks = shard_workers(x, mesh)
+    for w in rows:
+        blocks = fn(blocks, torch.as_tensor(w), *(
+            () if alive is None else (alive,)))
+    return gather_workers(blocks)
+
+
+def host_clock_ms(fn, runs: int = 10) -> float:
+    """Median host-clock ms of one call, the card synchronized before and
+    after: what a caller waits, launches included."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_executor_checks(dev, tables, label: str, steps: int = 4) -> dict:
+    """The folded executor at one shape against itself across
+    ``MESH_CARDS`` (bitwise), against K1 on the same flags (1e-5 of
+    max|K1|), with a survivor mask and a bf16 wire, skip against masking
+    over a stream holding an all-inactive row; then one folded step's
+    times beside K1's T = 1 time."""
+    sched, perms_t, partnered_t = tables
+    n = sched.num_workers
+    x = state(n, SLICE_D, dev)
+    rows = np.float32(sched.alpha) * np.asarray(sched.flags[:steps],
+                                                np.float32)
+    rows[1] = 0.0  # an all-inactive step
+    alive = torch.ones(n, device=dev)
+    alive[[1, n // 2 + 1]] = 0.0
+    out = {"shape": f"{label} [{n}, {SLICE_D}]", "steps": steps,
+           "max_rel_err_vs_k1": {}}
+    for case, kw in (("f32", {}), ("bf16 wire, alive",
+                                   {"alive": alive, "wire": "bf16"})):
+        folded = {c: folded_chain(sched, x, rows, c, dev, **kw)
+                  for c in MESH_CARDS}
+        for c in MESH_CARDS[1:]:
+            if not same_bits(folded[c], folded[1]):
+                raise AssertionError(f"{label} {case}: C={c} is not bitwise "
+                                     f"C=1")
+        k1 = perm_gossip_run(x, torch.as_tensor(rows, device=dev), perms_t,
+                             partnered_t, alive=kw.get("alive"),
+                             wire_dtype=kw.get("wire"))
+        scale = float(k1.abs().max())
+        err = float((folded[4] - k1).abs().max())
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"{label} {case}: folded vs K1 max|Δ| {err} "
+                                 f"> 1e-5·{scale}")
+        out["max_rel_err_vs_k1"][case] = err / scale
+        skipped = folded_chain(sched, x, rows, 4, dev, skip=True, **kw)
+        if not same_bits(skipped, folded[4]):
+            raise AssertionError(f"{label} {case}: skip is not bitwise "
+                                 f"shard_map")
+    torch.cuda.synchronize()
+    w1 = rows[:1]
+    flush = L2Flush(dev)
+    out["k1_t1_ms"] = time_ms(lambda: perm_gossip_run(
+        x, torch.as_tensor(w1, device=dev), perms_t, partnered_t), flush)
+    out["k1_t1_host_ms"] = host_clock_ms(lambda: perm_gossip_run(
+        x, torch.as_tensor(w1, device=dev), perms_t, partnered_t))
+    out["folded_step_ms"] = {}
+    out["folded_step_host_ms"] = {}
+    for c in MESH_CARDS:
+        mesh = worker_mesh(devices=[dev] * c)
+        fn = shard_map_gossip_fn(sched.perms, mesh)
+        blocks, w = shard_workers(x, mesh), torch.as_tensor(w1[0])
+        out["folded_step_ms"][c] = time_ms(lambda: fn(blocks, w), flush)
+        out["folded_step_host_ms"][c] = host_clock_ms(lambda: fn(blocks, w))
+    return out
+
+
+def mesh_stepper(dev, cards: int, iterations: int, lr_schedule=None):
+    """``slice_stepper``'s model, optimizer, batch and schedule, folded on
+    ``cards`` virtual cards of ``dev`` with the shard_map communicator:
+    ``(state, step, xb, yb)``."""
+    cfg = slice_config(1)
+    sched = build_schedule(cfg, iterations)
+    mesh = worker_mesh(devices=[dev] * cards)
+    comm = make_decen(sched, "shard_map", mesh=mesh)
+    opt = make_optimizer(lr_schedule or make_lr_schedule(cfg.lr, 4))
+    model = select_model("resnet20", "synthetic_image", num_workers=16)
+    state, flattener = init_mesh_train_state(
+        model, 16, opt, comm, mesh,
+        lambda rows: select_model("resnet20", "synthetic_image",
+                                  num_workers=rows), seed=SEED)
+    step = make_mesh_train_step(opt, comm, flattener, sched.flags)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xb = torch.randn(16, 32, 32, 32, 3, generator=g, device=dev)
+    yb = torch.randint(0, 10, (16, 32), generator=g, device=dev)
+    return state, step, xb, yb
+
+
+def stepper_cost(stepper, rounds: int, steps: int = 10,
+                 profiled: int = 3) -> dict:
+    """Host-clock ms of ``steps`` steps per round, then kernels launched
+    per step and the card's busy ms per step under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, xb, yb = stepper
+    for _ in range(3):
+        state, _ = step(state, xb, yb)
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, xb, yb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / steps * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(profiled):
+            state, _ = step(state, xb, yb)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in kernels):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return {"ms_per_step": times,
+            "kernels_launched_per_step": len(kernels) / profiled,
+            "device_busy_ms_per_step": busy_us / 1e3 / profiled,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+
+
+def stepper_tensors(state, grads: bool = True) -> dict:
+    """The worker-stacked parameters (and their gradients) and batch-norm
+    buffers of a one-card or a mesh state, each gathered in worker order.
+    The convolutions' biases (and their gradients) are keyed ``zero ...``:
+    every convolution feeds a batch norm, which cancels a bias, so their
+    gradient is zero but for rounding, and their values rounding noise."""
+    cards = state.cards if isinstance(state, MeshTrainState) else [state]
+    out = {}
+    for card in cards:
+        zero = {f"{name}.bias" for name, m in card.model.named_modules()
+                if isinstance(m, WorkerConv2d)}
+        for k, p in card.model.named_parameters():
+            tag = "zero " if k in zero else ""
+            out.setdefault(f"{tag}param {k}", []).append(p.detach())
+            if grads:
+                out.setdefault(f"{tag}grad {k}", []).append(p.grad)
+        for k, b in card.model.named_buffers():
+            out.setdefault(f"buffer {k}", []).append(b)
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def rel_gaps(a: dict, b: dict, prefix: str) -> dict:
+    """``max|a − b| / max|b|`` for each tensor of ``b`` whose name starts
+    with ``prefix``."""
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            / max(float(b[k].double().abs().max()), 1e-30)
+            for k in b if k.startswith(prefix)}
+
+
+def worst(gaps: dict) -> list:
+    """The largest gap and its tensor's name."""
+    name = max(gaps, key=gaps.get)
+    return [gaps[name], name]
+
+
+def chunk_witness(dev, steps: int = 8, small_lr: float = 1e-4) -> dict:
+    """What separates slice (a) with all 16 workers' forward/backward at
+    once from it in slabs of 4 (``grad_chunk=4``: the convolutions a
+    card of 4 workers runs), from one init and one batch on one card:
+    after one step at a small lr, the largest gap (``rel_gaps``) of the
+    loss, the gradients, the parameters and the batch-norm buffers, held
+    to 1e-3 (cuDNN's sums in another order give ulps; a slab or
+    batch-norm fault would give a gap of order 1), and the absolute gaps
+    of the convolutions' biases, whose gradient is zero but for rounding;
+    then the parameters' largest gap after each of ``steps`` steps at the
+    slice's lr, which the training amplifies.  The mesh of 4 virtual
+    cards is held to the slabs' run after the same one step: parameters
+    and buffers bitwise, gradients equal as numbers (the slabs accumulate
+    each gradient over zeros elsewhere, which may turn a −0 into +0).
+    The readings are printed before any check, under ``train()``'s
+    numerics (no TF32, cuDNN's deterministic algorithms), set here since
+    the steppers run outside ``train()``."""
+    from matcha_tpu_torch.train import loop
+
+    loop._reproducible_numerics()
+    tiny = lambda step: np.float32(small_lr)  # noqa: E731
+    one = {}
+    for label, stepper in (
+            ("16 at once", slice_stepper(dev, steps, tiny)),
+            ("grad_chunk 4", slice_stepper(dev, steps, tiny, grad_chunk=4)),
+            ("4 virtual cards", mesh_stepper(dev, 4, steps, tiny))):
+        state, step, xb, yb = stepper
+        state, metrics = step(state, xb, yb)
+        one[label] = {**stepper_tensors(state),
+                      "loss": metrics["loss"].reshape(1)}
+        del stepper, state, step
+    want, got, mesh = (one["grad_chunk 4"], one["16 at once"],
+                       one["4 virtual cards"])
+    out = {"small_lr": small_lr,
+           "one_step_rel_gap": {what: worst(rel_gaps(got, want, what))
+                                for what in ("loss", "grad", "param",
+                                             "buffer")},
+           "one_step_zero_abs": {
+               what: {"max_abs_gap": max(
+                   float((got[k] - want[k]).abs().max()) for k in want
+                   if k.startswith(what)),
+                   "max_abs": max(float(want[k].abs().max()) for k in want
+                                  if k.startswith(what))}
+               for what in ("zero grad", "zero param")}}
+    differ = [k for k in want if k != "loss" and not (
+        torch.equal if "grad" in k else same_bits)(mesh[k], want[k])]
+    out["mesh_one_step_differs_from_grad_chunk_4"] = differ
+    del one, want, got, mesh
+    runs = {label: slice_stepper(dev, steps, **kw) for label, kw in (
+        ("16 at once", {}), ("grad_chunk 4", {"grad_chunk": 4}))}
+    out["slice_lr_param_rel_gap_by_step"] = []
+    for _ in range(steps):
+        after = {}
+        for label, (state, step, xb, yb) in runs.items():
+            step(state, xb, yb)
+            after[label] = stepper_tensors(state, grads=False)
+        out["slice_lr_param_rel_gap_by_step"].append(worst(rel_gaps(
+            after["16 at once"], after["grad_chunk 4"], "param")))
+    del runs, after
+    emit({"phase": "mesh_witness", **out})
+    for what, (gap, name) in out["one_step_rel_gap"].items():
+        if not gap <= 1e-3:
+            raise AssertionError(f"16 at once vs grad_chunk=4 after one "
+                                 f"step: {name} gap {gap} > 1e-3")
+    if differ:
+        raise AssertionError(f"one mesh step is not bitwise the "
+                             f"grad_chunk=4 step: {differ[:4]}")
+    return out
+
+
+def history_agrees(got, want, examples: int, label: str) -> dict:
+    """``got``'s epochs within the acceptance bars of ``want``'s: loss,
+    disagreement and test loss within 1e-4 relative, test accuracy (each
+    worker's, from the Recorder, and the mean) within one example."""
+    worst = {}
+    for a, b in zip(got.history, want.history, strict=True):
+        for key in ("loss", "disagreement", "test_loss_mean"):
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-12)
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if not (math.isfinite(a[key]) and rel <= 1e-4):
+                raise AssertionError(f"{label} epoch {a['epoch']} {key}: "
+                                     f"{a[key]} vs {b[key]}")
+    tacc = np.abs(np.asarray(got.recorder.data["tacc"], np.float64)
+                  - np.asarray(want.recorder.data["tacc"], np.float64))
+    worst["test_acc"] = float(tacc.max())
+    if tacc.shape != (len(want.history), 16) \
+            or not worst["test_acc"] <= 1.0 / examples:
+        raise AssertionError(f"{label}: per-worker test accuracy {tacc}")
+    return worst
+
+
+def phase_mesh(dev, rounds: int = 3):
+    """Workers folded across a mesh (cell (p)), on ``cuda:0`` with virtual
+    cards (``devices=[dev] * C``), which a host with one card can run.
+
+    1. The folded executor at slice width ``[16, 273258]`` (zoo graph 4)
+       and ``[256, 273258]`` (chain (b)'s hypercube), C ∈ {1, 2, 4, 8},
+       4 steps with one all-inactive: bitwise across C, within 1e-5 of K1
+       on the same flags, with a survivor mask and a bf16 wire, and
+       ``skip`` bitwise ``shard_map`` (``mesh_executor_checks``); one
+       folded step's time beside K1's T = 1 time.
+    2. ``train()`` on slice (a)'s config (ResNet-20, 16 workers, graph 4,
+       budget 0.5, 2 epochs of 4 steps, telemetry off as a mesh requires)
+       on one card with the perm backend (K1's launches counted), with
+       ``grad_chunk=4`` and without (``chunk_witness`` first: the two
+       after one step, and the mesh bitwise the slabs' step); then with
+       ``device=[dev] * 4`` and
+       ``shard_map`` (a checkpoint every epoch; no kernel launched), then
+       with ``auto`` resumed from its epoch-0 checkpoint: the journal's
+       ``backend`` event says ``shard_map`` and the final state
+       (parameters, batch-norm and momentum of every card) is bitwise the
+       uninterrupted mesh run's.  The mesh run's Recorder rows lie within
+       the acceptance bars of the one-card run with ``grad_chunk=4``,
+       whose forward/backward runs the convolutions a card of 4 workers
+       runs (``history_agrees``); against the run of all 16 at once, whose
+       convolutions sum in another order, the gap is printed, not held
+       to a bar (the training amplifies ulps: 9e-4 relative at epoch 1 on
+       the CPU at ResNet-8).  With two or more cards visible the same
+       ``train()`` runs over real cards too.
+    3. The step on one card and on 4 virtual cards, alternated: host ms
+       per step, kernels launched per step and the card's idle share.
+    Any failure raises."""
+    out = {"executor": [mesh_executor_checks(dev, slice_tables(dev),
+                                             "slice graph 4"),
+                        mesh_executor_checks(dev, hypercube_tables(dev),
+                                             "hypercube")]}
+    out["chunk_witness"] = chunk_witness(dev)
+    bpe = 2048 // 16 // 32
+    one_cfg = dataclasses.replace(slice_config(2), telemetry=False,
+                                  health=False)
+    launches = 0
+    with tempfile.TemporaryDirectory() as root:
+        # the one-card runs: forward/backward in slabs of the 4 workers a
+        # card holds (the convolutions a card runs, so the same cuDNN
+        # algorithms), and all 16 at once
+        ones = {}
+        for chunk in (4, None):
+            reset_launch_counts()
+            ones[chunk] = train(dataclasses.replace(one_cfg,
+                                                    grad_chunk=chunk),
+                                device=dev)
+            torch.cuda.synchronize()
+            expected = 2 * bpe + 2 * timer_chains(bpe)
+            if LAUNCHES["perm_gossip_dbuf"] != expected:
+                raise AssertionError(f"one-card run: K1 launched "
+                                     f"{LAUNCHES['perm_gossip_dbuf']} times, "
+                                     f"expected {expected}")
+            launches += LAUNCHES["perm_gossip_dbuf"]
+        one = ones[4]
+        mesh_cfg = dataclasses.replace(one_cfg, gossip_backend="shard_map",
+                                       save=True, savePath=root,
+                                       checkpoint_every=1, name="mesh")
+        reset_launch_counts()
+        whole = train(mesh_cfg, device=[dev] * 4)
+        torch.cuda.synchronize()
+        if any(LAUNCHES.values()):
+            raise AssertionError(f"the mesh run launched {dict(LAUNCHES)}")
+        agree = history_agrees(whole, one, 512, "mesh vs one card")
+        # not held to a bar: other convolution shapes, other sums, which
+        # the training amplifies
+        unchunked = {key: max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-12)
+                              for a, b in zip(whole.history,
+                                              ones[None].history))
+                     for key in ("loss", "disagreement", "test_loss_mean")}
+        ckpt = os.path.join(root, "mesh_ckpt")
+        epoch0 = os.path.join(root, "from_epoch0")
+        shutil.copytree(os.path.join(ckpt, "0"), os.path.join(epoch0, "0"))
+        for side in ("digest-0.json", "schedule-0.json"):
+            shutil.copy(os.path.join(ckpt, side), epoch0)
+        resumed = train(dataclasses.replace(mesh_cfg, gossip_backend="auto",
+                                            checkpoint_every=0,
+                                            name="auto"),
+                        resume_dir=epoch0, device=[dev] * 4)
+        events = read_journal(os.path.join(resumed.recorder.folder,
+                                           "events.jsonl"))
+        chosen = [e["chosen"] for e in events if e["kind"] == "backend"]
+        if chosen != ["shard_map"] or [h["epoch"] for h in
+                                       resumed.history] != [1]:
+            raise AssertionError(f"auto journaled {chosen}, epochs "
+                                 f"{[h['epoch'] for h in resumed.history]}")
+        differ = []
+        for c, (a, b) in enumerate(zip(whole.state.cards,
+                                       resumed.state.cards)):
+            want, got = state_tensors(a), state_tensors(b)
+            differ += [f"card {c} {k}" for k in want
+                       if not same_bits(got[k], want[k])]
+        if differ:
+            raise AssertionError(f"the resumed mesh run is not bitwise the "
+                                 f"uninterrupted one: {differ[:4]}")
+        real = None
+        count = torch.cuda.device_count()
+        if count >= 2:
+            cards = [f"cuda:{i}" for i in range(4 if count >= 4 else 2)]
+            spread = train(dataclasses.replace(mesh_cfg, save=False,
+                                               checkpoint_every=0),
+                           device=cards)
+            real = {"cards": cards,
+                    "rel_err": history_agrees(spread, one, 512,
+                                              "real cards vs one card"),
+                    "ms_per_step": [h["epoch_time"] / bpe * 1e3
+                                    for h in spread.history]}
+    out["train"] = {
+        "one_card_k1_launches": launches,
+        "rel_err_vs_one_card_grad_chunk_4": agree,
+        "rel_err_vs_one_card_unchunked": unchunked,
+        "resumed_bitwise": True, "auto_backend": chosen[0],
+        "ms_per_step": {"one card": [h["epoch_time"] / bpe * 1e3
+                                     for h in ones[None].history],
+                        "one card, grad_chunk 4": [
+                            h["epoch_time"] / bpe * 1e3
+                            for h in one.history],
+                        "4 virtual cards": [h["epoch_time"] / bpe * 1e3
+                                            for h in whole.history]},
+        "comm_ms_per_step": {"one card": [h["comm_time"] / bpe * 1e3
+                                          for h in ones[None].history],
+                             "4 virtual cards": [h["comm_time"] / bpe * 1e3
+                                                 for h in whole.history]},
+        "loss": [h["loss"] for h in whole.history],
+        "real_cards": real}
+    del one, ones, whole, resumed
+    steppers = {"one card": slice_stepper(dev, 64),
+                "4 virtual cards": mesh_stepper(dev, 4, 64)}
+    costs = {label: {"ms_per_step": []} for label in steppers}
+    for _ in range(rounds):
+        for label, stepper in steppers.items():
+            costs[label]["ms_per_step"] += stepper_cost(stepper, 1)[
+                "ms_per_step"]
+    for label, stepper in steppers.items():
+        cost = stepper_cost(stepper, 1)
+        costs[label].update({k: v for k, v in cost.items()
+                             if k != "ms_per_step"})
+    out["step"] = costs
+    out["cards_visible"] = torch.cuda.device_count()
+    out["cards_used"] = 1 if real is None else len(real["cards"])
+    emit({"phase": "mesh", **out, "nvidia_smi": nvidia_smi()})
+    return {"launches": {"train() mesh phase, one-card perm run": launches}}
+
+
 def phase_stream_chain(dev, tables):
     """The streamed-window instantiation, which no entry point of the port
     takes (``dbuf=True`` is the default, as in the JAX package): one chain
@@ -4797,7 +5236,7 @@ def kernels_line(r) -> list:
         **r["resilience"]["launches"], **r["pipeline"]["launches"],
         **r["planner"]["launches"], **r["observability"]["launches"],
         **r["perf_obs"]["launches"], **r["serve"]["launches"],
-        **r["chaos"]["launches"]},
+        **r["chaos"]["launches"], **r["mesh"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -4953,7 +5392,7 @@ PHASES = ("parity", "timing", "slice", "profile", "agreement",
           "fused_slice", "fused_large", "fused_sweep", "split_probe",
           "split_timing", "epoch_end", "communicators", "perm_large",
           "determinism", "choco", "models", "resilience", "pipeline",
-          "planner", "observability", "perf_obs", "serve", "chaos")
+          "planner", "observability", "perf_obs", "serve", "chaos", "mesh")
 NEEDS = {"planner": ("fused_timing",), "perf_obs": ("fused_timing",
                                                     "planner")}
 
@@ -5027,6 +5466,7 @@ def run_phases(dev, names, spills, early=None) -> dict:
                                              r["planner"], table("big")),
         "serve": lambda r: phase_serve(dev),
         "chaos": lambda r: phase_chaos(dev),
+        "mesh": lambda r: phase_mesh(dev),
     }
     results, seconds = {}, {}
     for name in PHASES:

@@ -22,22 +22,25 @@ def select_communicator(
     compressor: str = "top_k",
     seed: int = 0,
     device=None,
+    mesh=None,
     block_d: int | None = None,
     w_window: int = 1,
     wire_dtype=None,
 ) -> Communicator:
     """Registry keyed by the reference's algorithm names, after
     ``matcha_tpu/communicator/__init__.py:21``: ``decen`` (D-PSGD/MATCHA,
-    through :func:`make_decen` with ``backend``, ``device``, ``block_d``,
-    ``w_window``), ``choco`` (CHOCO-SGD, through :func:`make_choco` with
-    ``ratio``, ``consensus_lr``, ``compressor`` and ``seed``; the gossip
+    through :func:`make_decen` with ``backend``, ``device``, ``mesh``,
+    ``block_d``, ``w_window``), ``choco`` (CHOCO-SGD, through
+    :func:`make_choco` with ``ratio``, ``consensus_lr``, ``compressor``
+    and ``seed``; the gossip
     backends ``auto``, ``dense``, ``fused``, ``gather`` and ``perm`` all
     mean its batched form, and ``skip`` is refused), ``centralized`` (the AllReduce
     baseline) and ``none``.  ``wire_dtype`` narrows the exchange of every
     communicator but ``none``, which exchanges nothing."""
     if name == "decen":
-        return make_decen(schedule, backend, device=device, block_d=block_d,
-                          w_window=w_window, wire_dtype=wire_dtype)
+        return make_decen(schedule, backend, device=device, mesh=mesh,
+                          block_d=block_d, w_window=w_window,
+                          wire_dtype=wire_dtype)
     if block_d is not None or w_window != 1:
         warnings.warn(
             f"block_d/w_window tune the decen kernels and have no effect on "

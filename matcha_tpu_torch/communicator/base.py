@@ -27,6 +27,11 @@ the workers, never their mean.  ``run_overlapped`` (:123),
 (:258, local steps that execute nothing) chain it, or ``step``, over a
 flag stream.  JAX's ``lax.scan``/``lax.cond`` become host loops and host
 branches on the step index: no device value is read to decide anything.
+
+On a worker mesh (``decen``'s folded backend) ``flat`` is a
+``parallel.WorkerBlocks``, the C card-major blocks: ``step``, ``run``,
+``begin_mix``/``apply_mix`` and ``run_overlapped`` take and return one;
+the ``[K, N, D]`` ring of ``run_pipelined`` has no folded form yet.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ import dataclasses
 from typing import Any, Callable, Tuple
 
 import torch
+
+from ..parallel.mesh import WorkerBlocks
 
 __all__ = ["Communicator"]
 
@@ -122,7 +129,8 @@ class Communicator:
         carry, pending delta)``, what an epoch boundary of the pipelined
         train loop holds.  ``alive``: ``f32[N]`` or ``f32[T, N]``."""
         flags, carry, alive = self._chain_inputs(flat, flags, carry, alive)
-        pending = torch.zeros_like(flat)
+        pending = (flat.zeros_like() if isinstance(flat, WorkerBlocks)
+                   else torch.zeros_like(flat))
         for t in range(flags.shape[0]):
             flat = self.apply_mix(flat, pending)
             pending, carry = self.begin_mix(flat, carry, flags[t],
@@ -150,6 +158,10 @@ class Communicator:
         k = int(staleness)
         if k < 1:
             raise ValueError(f"staleness must be >= 1, got {staleness}")
+        if isinstance(flat, WorkerBlocks):
+            raise NotImplementedError(
+                "the bounded-staleness ring on a worker mesh is not ported "
+                "yet (ROADMAP.md); run_overlapped is the one-step pipeline")
         flags, carry, alive = self._chain_inputs(flat, flags, carry, alive)
         ring = torch.zeros((k,) + tuple(flat.shape), dtype=flat.dtype,
                            device=flat.device)

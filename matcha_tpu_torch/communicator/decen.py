@@ -19,16 +19,24 @@ Port of ``matcha_tpu/communicator/decen.py``: ``resolve_gossip_backend``
                  launches nothing.  Its flag rows stay on the host
                  (``Communicator.host_flags``), so the branch reads no
                  device value;
+* ``"shard_map"`` — the workers folded card-major across a mesh
+                 (``parallel.shard_map_gossip_fn``): on-card edges are row
+                 gathers, cross-card edges move a neighbour card's block.
+                 Its state is a ``parallel.WorkerBlocks``, and its flag
+                 rows stay on the host, replicated to every card;
 * ``"auto"``   — one of the above, chosen by ``resolve_gossip_backend``:
-                 on one card ``plan.cost.choose_gossip_backend`` picks
-                 ``perm`` from 4096 workers or when the dense form's
+                 ``shard_map`` on a mesh of more than one device; on one
+                 card ``plan.cost.choose_gossip_backend`` picks ``perm``
+                 from 4096 workers or when the dense form's
                  measured-vs-ceiling ratio reaches the gate, else
                  ``dense``.
 
-The fused ``multi_step`` has no masked twin: its stack knows nothing of
-survivors, so ``Communicator.run`` steps a masked chain through the dense
-mix, as the JAX package does.  The JAX package's ``shard_map`` backend
-(workers across cards) is not ported yet and raises.
+On a mesh of more than one device ``skip`` is the folded backend too, with
+an inactive matching's block moves skipped; the one-tensor backends
+(``perm``, ``dense``, ``fused``, ``gather``) mix an ``[N, D]`` tensor on
+one card and refuse a mesh.  The fused ``multi_step`` has no masked twin:
+its stack knows nothing of survivors, so ``Communicator.run`` steps a
+masked chain through the dense mix, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from ..parallel import (
     involution_tables,
     perm_gossip_run,
     resolve_wire_dtype,
+    shard_map_gossip_fn,
 )
 from ..plan.cost import choose_gossip_backend
 from ..schedule import Schedule
@@ -56,7 +65,8 @@ from .base import Communicator
 
 __all__ = ["make_decen", "resolve_gossip_backend"]
 
-PORTED_BACKENDS = ("perm", "dense", "fused", "gather", "skip", "auto")
+PORTED_BACKENDS = ("perm", "dense", "fused", "gather", "skip", "shard_map",
+                   "auto")
 
 
 def resolve_gossip_backend(schedule, mesh=None, requested: str = "auto",
@@ -67,10 +77,11 @@ def resolve_gossip_backend(schedule, mesh=None, requested: str = "auto",
 
     A request other than ``auto`` passes through as it is (the record says
     so).  ``auto`` answers ``shard_map`` on a mesh of more than one device
-    (the port has none yet, so that branch never runs) and on one card
+    (a ``parallel.WorkerMesh``, virtual cards included) and on one card
     delegates to :func:`matcha_tpu_torch.plan.cost.choose_gossip_backend`.
     :func:`make_decen` and the training loop both call this, so the
-    journaled decision is the backend that was built.
+    journaled decision is the backend that was built.  The record is the
+    JAX package's, word for word, whatever the card's interconnect.
     """
     if requested != "auto":
         return {"requested": requested, "chosen": requested,
@@ -93,6 +104,7 @@ def make_decen(
     backend: str = "auto",
     *,
     device=None,
+    mesh=None,
     compute_dtype=torch.float32,
     chunk: int = 1,
     block_d: int | None = None,
@@ -116,13 +128,30 @@ def make_decen(
     ``block_d``/``w_window`` tune the perm and fused kernels (tile width,
     steps per window) and never change their arithmetic.
 
+    ``mesh`` (a ``parallel.WorkerMesh``): ``shard_map``, and ``skip`` on
+    a mesh of more than one device, build the folded communicator, whose
+    ``step`` and ``run`` take and return a ``WorkerBlocks`` (block c on
+    ``mesh.devices[c]``) and whose flag rows stay on the host.
+    ``shard_map`` without a mesh raises; so does a one-tensor backend on a
+    mesh of more than one device.
+
     ``backend="auto"`` builds what :func:`resolve_gossip_backend` chooses
-    with no measurement: ``perm`` from 4096 workers, else ``dense``.
+    with no measurement: ``shard_map`` on a mesh of more than one device,
+    else ``perm`` from 4096 workers, else ``dense``.
     """
-    dev = resolve_device(device)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     if backend == "auto":
-        backend = resolve_gossip_backend(schedule,
+        backend = resolve_gossip_backend(schedule, mesh,
                                          wire_dtype=wire_dtype)["chosen"]
+    multi_card = mesh is not None and mesh.size > 1
+    folded = backend == "shard_map" or (backend == "skip" and multi_card)
+    if backend == "shard_map" and mesh is None:
+        raise ValueError("shard_map backend needs a mesh")
+    if multi_card and not folded and backend in PORTED_BACKENDS:
+        raise NotImplementedError(
+            f"gossip backend '{backend}' mixes one [N, D] tensor on one "
+            f"card; on a mesh of {mesh.size} devices use 'shard_map' or "
+            f"'skip' (the one-tensor backends over a mesh: ROADMAP.md)")
     perms = np.asarray(schedule.perms)
     alpha = float(schedule.alpha)
     wire = resolve_wire_dtype(wire_dtype)
@@ -141,7 +170,10 @@ def make_decen(
         )
 
     multi_step = multi_step_masked = None
-    if backend == "gather":
+    if folded:
+        mix = shard_map_gossip_fn(perms, mesh, skip=backend == "skip",
+                                  wire_dtype=wire)
+    elif backend == "gather":
         if perms.shape[1] >= 64:
             warnings.warn(
                 f"gossip_backend='gather' walks the full state once per "
@@ -194,10 +226,8 @@ def make_decen(
             return perm_gossip_run(flat, alpha * flags, perms_t, partnered_t,
                                    alive=alive, **kernel_kwargs), carry
     else:
-        raise ValueError(
-            f"gossip backend '{backend}' is not ported yet: the port has "
-            f"{list(PORTED_BACKENDS)}; 'shard_map' (workers across cards) "
-            f"lands with the multi-card work listed in ROADMAP.md")
+        raise KeyError(f"unknown gossip backend '{backend}'; the port has "
+                       f"{list(PORTED_BACKENDS)}")
 
     def init(flat: torch.Tensor):
         return ()
@@ -209,5 +239,5 @@ def make_decen(
     return Communicator(
         name=f"decen[{backend}{wire_tag}]", init=init, step=step,
         multi_step=multi_step, multi_step_masked=multi_step_masked,
-        host_flags=backend == "skip",
+        host_flags=backend == "skip" or folded,
     )

@@ -2,8 +2,8 @@
 single-card surface of ``matcha_tpu.parallel``: the wire-dtype and
 precision seams, the gather oracle and its skipping twin, the per-matching
 byte account, the dense backend, the centralized collectives, the
-permutation-form kernel, the fused W-stack kernel, and the folded plan's
-card-offset accounting that the planner's cost model reads."""
+permutation-form kernel, the fused W-stack kernel, and the worker mesh with
+the folded plan and its executor (workers card-major across cards)."""
 
 from .collectives import (
     allreduce_mean,
@@ -26,11 +26,23 @@ from .gossip import (
     dense_gossip_fn,
     gossip_mix,
     gossip_mix_dense,
+    gossip_mix_folded,
     gossip_mix_skip,
     masked_laplacians,
     matching_wire_bytes,
     mxu_precision,
     resolve_wire_dtype,
+    shard_map_gossip_fn,
+)
+from .mesh import (
+    WORKER_AXIS,
+    WorkerBlocks,
+    WorkerMesh,
+    fold_dims,
+    gather_workers,
+    replicated,
+    shard_workers,
+    worker_mesh,
 )
 from .perm_gossip import (
     LAUNCHES,
@@ -41,6 +53,7 @@ from .perm_gossip import (
 )
 
 __all__ = [
+    "WORKER_AXIS",
     "FoldedPlan",
     "LAUNCHES",
     "allreduce_mean",
@@ -49,11 +62,16 @@ __all__ = [
     "build_mixing_stack",
     "canonical_chunk",
     "compose_mixing_stack",
+    "WorkerBlocks",
+    "WorkerMesh",
     "dense_gossip_fn",
+    "fold_dims",
     "fused_gossip_plain",
     "fused_gossip_run",
+    "gather_workers",
     "gossip_mix",
     "gossip_mix_dense",
+    "gossip_mix_folded",
     "gossip_mix_skip",
     "involution_tables",
     "masked_allreduce_mean",
@@ -63,9 +81,13 @@ __all__ = [
     "mxu_precision",
     "perm_gossip_plain",
     "perm_gossip_run",
+    "replicated",
     "reset_launch_counts",
     "resolve_wire_dtype",
+    "shard_map_gossip_fn",
+    "shard_workers",
     "worker_deviation",
     "worker_deviation_rows",
     "worker_disagreement",
+    "worker_mesh",
 ]

@@ -5,9 +5,9 @@ Port of the numpy half of ``matcha_tpu/parallel/gossip.py`` (:319-410):
 card-major onto ``C`` cards (worker ``g = c·L + l`` lives on card ``c``
 as row ``l``); for each matching and each distinct card offset
 ``d = (card(π(g)) − card(g)) mod C`` the plan holds a selection table.
-The executor that would move the blocks between cards is multi-card work
-(``ROADMAP.md``); the planner's cost model reads only the plan's hop
-accounting, which is why the plan object lives here on its own.
+The executor that moves the blocks between cards and mixes them is
+``gossip.gossip_mix_folded``; the planner's cost model reads only the
+plan's hop accounting, which is why the plan object lives here on its own.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ Port of ``matcha_tpu/parallel/gossip.py``: the wire-dtype seam
 :101), the per-matching byte account (``matching_wire_bytes``, :113), the
 gather oracle (``gossip_mix``, :138), its skipping twin
 (``gossip_mix_skip``, :182) and the dense backend (``masked_laplacians``
-:239, ``gossip_mix_dense`` :260, ``dense_gossip_fn`` :305).  One gossip
+:239, ``gossip_mix_dense`` :260, ``dense_gossip_fn`` :305), and the
+folded backend over a worker mesh (``gossip_mix_folded`` :413,
+``shard_map_gossip_fn`` :508).  One gossip
 step with matchings ``π_j`` (involutions over workers, fixed points =
 unmatched) and per-step weights ``w_j = α·flag_j``:
 
@@ -27,9 +29,13 @@ import contextlib
 import numpy as np
 import torch
 
+from .folded import FoldedPlan, build_folded_plan
+from .mesh import WORKER_AXIS, WorkerBlocks
+
 __all__ = ["dense_gossip_fn", "gossip_mix", "gossip_mix_dense",
-           "gossip_mix_skip", "masked_laplacians", "matching_wire_bytes",
-           "mxu_precision", "resolve_wire_dtype"]
+           "gossip_mix_folded", "gossip_mix_skip", "masked_laplacians",
+           "matching_wire_bytes", "mxu_precision", "resolve_wire_dtype",
+           "shard_map_gossip_fn"]
 
 
 def resolve_wire_dtype(wire_dtype):
@@ -237,5 +243,166 @@ def dense_gossip_fn(laplacians, compute_dtype=torch.float32, device=None):
     def fn(x, weights, alive=None):
         return gossip_mix_dense(x, lap, weights, compute_dtype=compute_dtype,
                                 alive=alive)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Folded backend: workers card-major across a mesh
+# ---------------------------------------------------------------------------
+
+def _identity_matchings(plan: FoldedPlan) -> list:
+    """``bool[M]``: matching j maps every worker to itself (every slot in
+    the offset-0 part, picking its own row).  Such a matching adds an exact
+    zero, and the gather oracle skips it; so does the folded executor."""
+    rows = np.arange(plan.rows_per_chip)
+    return [all(p.offset == 0 and np.array_equal(
+        np.where(p.mask > 0, p.src_local, rows), np.broadcast_to(
+            rows, p.src_local.shape)) for p in parts)
+        for parts in plan.matchings]
+
+
+def _card_tables(plan: FoldedPlan, devices) -> tuple:
+    """``(identity, tables)``: which matchings are the identity
+    (``_identity_matchings``), and for card ``c`` on ``devices[c]``, per
+    matching, the pieces ``(offset, rows, src)`` of its nonempty offset
+    parts (``rows`` None when one piece serves all L rows) and the
+    partners' global worker indices ``int64[L]`` (the survivor mask's
+    second gate)."""
+    C, L = plan.num_chips, plan.rows_per_chip
+    tables = []
+    for c, dev in enumerate(devices):
+        card = []
+        for parts in plan.matchings:
+            pieces = []
+            partner = np.zeros(L, np.int64)
+            for p in parts:
+                rows = np.flatnonzero(p.mask[c] > 0)
+                if rows.size == 0:
+                    continue
+                src = p.src_local[c][rows].astype(np.int64)
+                partner[rows] = ((c + p.offset) % C) * L + src
+                pieces.append((p.offset,
+                               None if rows.size == L
+                               else torch.as_tensor(rows, device=dev),
+                               torch.as_tensor(src, device=dev)))
+            card.append((pieces, torch.as_tensor(partner, device=dev)))
+        tables.append(card)
+    return _identity_matchings(plan), tables
+
+
+def gossip_mix_folded(blocks, plan: FoldedPlan, weights, skip: bool = False,
+                      alive=None, wire_dtype=None,
+                      tables=None) -> WorkerBlocks:
+    """One gossip step on a folded state: the port of the JAX per-chip
+    body (``gossip.py:413``), run for every card in turn from one host
+    thread.
+
+    ``blocks``: the C card-major ``[L, ...]`` blocks (a ``WorkerBlocks``
+    or a sequence), block c on card c.  ``weights``: the ``[M]`` row,
+    read on the host (the replicated flag predicate; pass a CPU tensor or
+    an array).  For card c and matching j, the edges of each offset part d
+    pick their partner rows out of card ``(c + d) mod C``'s wire image:
+    a row gather on the card for d = 0, else that card's block moved to
+    card c once a step (a copy between real cards, none at all between
+    virtual cards on one device).  The parts partition card c's rows, so the
+    assembled partner block is exactly ``x̃[π_j]`` on those rows.
+
+    ``skip``: an inactive matching (weight 0) moves and computes nothing,
+    and a step with none active returns ``blocks`` themselves; without
+    it every matching's delta is formed and masked by its weight, as the
+    JAX masked body does.  ``alive``: a replicated ``f32[N]`` survivor
+    mask (any device; copied to each card once a call); each edge is gated
+    by ``alive[own]·alive[partner]``.  ``wire_dtype``: each block is cast
+    once before the exchange, and both sides of every delta read the
+    quantized values in f32.  ``tables``: ``_card_tables(plan, devices)``
+    for the blocks' devices, made here when not given.
+
+    The result is formed in new tensors and no input is written, so a
+    caller may write card c's result back into its state while card c+1's
+    old block is still to be read.  Each row's arithmetic is the gather
+    oracle's (``gossip_mix`` without ``skip``, ``gossip_mix_skip`` with
+    it): the same ops in the same order, so the result has their bits
+    whatever C is.  Returns a ``WorkerBlocks``.
+    """
+    blocks = list(blocks)
+    C, L = plan.num_chips, plan.rows_per_chip
+    if len(blocks) != C or any(b.shape[0] != L for b in blocks):
+        raise ValueError(f"plan folds {C} cards of {L} rows; got blocks "
+                         f"{[tuple(b.shape) for b in blocks]}")
+    w = torch.as_tensor(weights, dtype=torch.float32, device="cpu").tolist()
+    if len(w) != plan.num_matchings:
+        raise ValueError(f"{len(w)} weights for {plan.num_matchings} "
+                         f"matchings")
+    wire = resolve_wire_dtype(wire_dtype)
+    empty, tables = (tables if tables is not None
+                     else _card_tables(plan, [b.device for b in blocks]))
+    images = [b if wire is None else b.to(wire) for b in blocks]
+    xw = [b if wire is None else img.to(b.dtype)
+          for b, img in zip(blocks, images)]
+    out = []
+    for c, x in enumerate(blocks):
+        active = [j for j in range(plan.num_matchings)
+                  if not empty[j] and (w[j] != 0 or not skip)]
+        if skip and not active:
+            out.append(x)
+            continue
+        received = {0: xw[c]}
+
+        def block_at(d: int) -> torch.Tensor:
+            if d not in received:
+                s = (c + d) % C
+                # torch's copy between two cards waits for both cards'
+                # current streams and makes both wait for the copy, so the
+                # block is whole when read (not run: one card visible)
+                received[d] = (xw[s] if blocks[s].device == x.device
+                               else images[s].to(x.device, non_blocking=True)
+                               .to(x.dtype))
+            return received[d]
+
+        if alive is not None:
+            gate_all = torch.as_tensor(alive, dtype=torch.float32,
+                                       device=x.device)
+            gate_own = gate_all[c * L:(c + 1) * L]
+        acc = torch.zeros_like(x)
+        for j in active:
+            pieces, partners = tables[c][j]
+            if pieces[0][1] is None:
+                d, _, src = pieces[0]
+                partner = block_at(d).index_select(0, src)
+            else:
+                partner = torch.empty_like(x)
+                for d, rows, src in pieces:
+                    partner.index_copy_(0, rows,
+                                        block_at(d).index_select(0, src))
+            delta = partner - xw[c]
+            if alive is not None:
+                delta = _rows(gate_own * gate_all.index_select(0, partners),
+                              delta) * delta
+            acc = acc + w[j] * delta
+        out.append(x + acc)
+    return WorkerBlocks(out)
+
+
+def shard_map_gossip_fn(perms, mesh, axis: str = WORKER_AXIS,
+                        skip: bool = False, wire_dtype=None):
+    """Build ``(x, weights[M][, alive[N]]) -> x`` over a folded state on
+    ``mesh``: the JAX package's shard_map backend (``gossip.py:508``),
+    with :func:`gossip_mix_folded` as its body on the plan
+    ``build_folded_plan(perms, C)``.  ``x``: a ``WorkerBlocks`` whose
+    block c lies on ``mesh.devices[c]`` (``shard_workers`` makes one)."""
+    plan = build_folded_plan(np.asarray(perms), mesh.shape[axis])
+    tables = _card_tables(plan, mesh.devices)
+
+    def fn(x, weights, alive=None):
+        if not isinstance(x, WorkerBlocks):
+            raise TypeError(f"the folded backend takes a WorkerBlocks "
+                            f"(shard_workers(x, mesh)), got {type(x)}")
+        placed = [str(b.device) for b in x]
+        if placed != [str(d) for d in mesh.devices]:
+            raise ValueError(f"blocks lie on {placed}, the mesh is "
+                             f"{[str(d) for d in mesh.devices]}")
+        return gossip_mix_folded(x, plan, weights, skip=skip, alive=alive,
+                                 wire_dtype=wire_dtype, tables=tables)
 
     return fn

@@ -32,6 +32,12 @@ records who owned which pool slot and the α re-plan in force
 membership, which the training loop rebuilds from its trace.  The JAX
 package's ladder of older orbax layouts has no counterpart: the port has
 only its own format.
+
+A state folded across a worker mesh (``state.MeshTrainState``) is saved
+gathered: each card's rows concatenated in worker order, so the file is
+the one card's format whatever the number of cards, and a restore into a
+mesh slices the ``[N, ...]`` arrays onto the run's cards (a one-card
+checkpoint resumes on a mesh and back).
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ import numpy as np
 import torch
 
 from ..utils.atomicio import atomic_publish
-from .state import TrainState
+from ..parallel import gather_workers
+from .state import MeshTrainState, TrainState
 
 __all__ = ["CHECKPOINT_FILE", "MAX_TO_KEEP", "ScheduleMismatch",
            "all_steps", "checkpoint_digest", "latest_step",
@@ -196,7 +203,38 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _payload(state: TrainState) -> dict:
+def _gathered_optimizer(cards) -> dict:
+    """The cards' optimizer ``state_dict``s as one: each per-parameter
+    tensor concatenated in card order (the worker axis), the rest card
+    0's."""
+    dicts = [card.optimizer.state_dict() for card in cards]
+    merged = dict(dicts[0])
+    merged["state"] = {
+        index: {key: (torch.cat([d["state"][index][key].to(value.device)
+                                 for d in dicts])
+                      if isinstance(value, torch.Tensor) and value.ndim
+                      else value)
+                for key, value in entry.items()}
+        for index, entry in dicts[0]["state"].items()}
+    return merged
+
+
+def _payload(state) -> dict:
+    if isinstance(state, MeshTrainState):
+        first = state.mesh.devices[0]
+        named = [(dict(card.model.named_parameters()),
+                  dict(card.model.named_buffers())) for card in state.cards]
+        return {
+            "params": {k: torch.cat([p[k].detach().to(first)
+                                     for p, _ in named])
+                       for k in named[0][0]},
+            "buffers": {k: torch.cat([b[k].to(first) for _, b in named])
+                        for k in named[0][1]},
+            "optimizer": _gathered_optimizer(state.cards),
+            "comm_carry": gather_workers(state.comm_carry, first),
+            "step": int(state.step),
+            "mix_pending": (),
+        }
     model = state.model
     return {
         "params": {k: v.detach() for k, v in model.named_parameters()},
@@ -310,8 +348,9 @@ def restore_checkpoint(directory: str, template: TrainState,
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(_root(directory), str(int(step)), CHECKPOINT_FILE)
-    payload = torch.load(path, weights_only=True,
-                         map_location=next(template.model.parameters()).device)
+    first = (template.mesh.devices[0] if isinstance(template, MeshTrainState)
+             else next(template.model.parameters()).device)
+    payload = torch.load(path, weights_only=True, map_location=first)
     cursor = int(payload["step"])
     if schedule is not None:
         if cursor > schedule.iterations:
@@ -343,6 +382,10 @@ def restore_checkpoint(directory: str, template: TrainState,
                         f"solver outputs. Rebuild the schedule with the "
                         f"original graph/budget/seed/sampler."
                     )
+    if isinstance(template, MeshTrainState):
+        _fold_into(template, payload)
+        template.step = cursor
+        return template, int(step)
     template.model.load_state_dict(
         {**payload["params"], **payload["buffers"]}, strict=True)
     template.optimizer.load_state_dict(payload["optimizer"])
@@ -351,6 +394,32 @@ def restore_checkpoint(directory: str, template: TrainState,
     template.mix_pending = payload.get("mix_pending", ())
     template.mix_ages = ()
     return template, int(step)
+
+
+def _fold_into(template: MeshTrainState, payload: dict) -> None:
+    """Load a gathered payload into a mesh's cards: card c takes rows
+    ``c·L..(c+1)·L`` of every parameter, buffer and momentum tensor.  The
+    pipeline's in-flight deltas and a communicator's carry have no folded
+    form yet, so a payload holding either raises."""
+    if isinstance(payload.get("mix_pending", ()), torch.Tensor) \
+            or payload["comm_carry"] != ():
+        raise ValueError("the checkpoint holds in-flight deltas or a "
+                         "communicator carry, which a worker mesh does not "
+                         "fold yet; resume it on one card")
+    rows = template.cards[0].model.num_workers
+    for c, card in enumerate(template.cards):
+        lo, hi = c * rows, (c + 1) * rows
+        card.model.load_state_dict(
+            {k: v[lo:hi] for k, v in {**payload["params"],
+                                      **payload["buffers"]}.items()},
+            strict=True)
+        opt = dict(payload["optimizer"])
+        opt["state"] = {
+            index: {key: (value[lo:hi] if isinstance(value, torch.Tensor)
+                          and value.ndim else value)
+                    for key, value in entry.items()}
+            for index, entry in payload["optimizer"]["state"].items()}
+        card.optimizer.load_state_dict(opt)
 
 
 def restore_with_fallback(directory: str, template: TrainState,

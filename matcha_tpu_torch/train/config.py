@@ -5,8 +5,9 @@ and the same validation.  Fields of features the port does not have yet
 raise ``NotImplementedError`` when set to anything but their default (see
 ``_UNPORTED``); ``ROADMAP.md`` lists the order in which they land.
 ``gossip_backend`` takes ``auto`` (the default, as in the JAX package) and
-the port's five backends, ``perm``, ``dense``, ``fused``, ``gather`` and
-``skip`` (``make_decen`` refuses ``shard_map``), and ``communicator`` takes
+the port's backends, ``perm``, ``dense``, ``fused``, ``gather``, ``skip``
+and ``shard_map`` (the workers folded across a mesh of ``devices``
+cards), and ``communicator`` takes
 ``decen``, ``choco``, ``centralized`` and ``none``.  A plan artifact
 (``plan``), the measured input of ``auto``'s gate
 (``gossip_measured_vs_ceiling``, ``gossip_measured_source``), a fault
@@ -15,8 +16,11 @@ plan, rollback recovery, a membership trace or the live membership source
 (``telemetry``, ``health``, the drift monitor's ``drift_tolerance`` and
 ``drift_patience``) run, with the JAX package's defaults: telemetry and
 health on; so does the profiler window (``trace_dir``, ``trace_epoch``:
-one epoch under ``torch.profiler``).  Still refused: ``scan_chunk`` and
-``devices``.
+one epoch under ``torch.profiler``).  ``devices`` is the mesh's size, as
+in the JAX package, but ``None`` means one card here, not every visible
+one: ``train()`` refuses, on a mesh, the features this port does not fold
+yet, so it folds only when asked.  Still refused
+everywhere: ``scan_chunk``.
 """
 
 from __future__ import annotations
@@ -79,7 +83,8 @@ class TrainConfig:
     # dense), perm (the permutation-form CUDA kernel), dense (one matrix
     # product per step), fused (dense steps; chains through the fused
     # W-stack CUDA kernel), gather (the oracle) or skip (the oracle,
-    # inactive matchings skipped on the host); shard_map is not ported yet
+    # inactive matchings skipped on the host); shard_map (the workers
+    # folded across a mesh, which auto picks there)
     gossip_backend: str = "auto"
     gossip_block_d: Optional[int] = None  # perm/fused kernel tile cap
     gossip_w_window: int = 1  # perm/fused steps per window (exact)
@@ -139,7 +144,7 @@ class TrainConfig:
     grad_chunk: Optional[int] = None
     scan_epoch: bool = True  # the port's step loop is a plain python loop
     scan_chunk: Optional[int] = None
-    devices: Optional[int] = None
+    devices: Optional[int] = None  # mesh size; None → one card
     measure_comm_split: bool = True  # comm-split timer (one gossip chain/epoch)
     halt_on_divergence: bool = True  # raise TrainingDiverged on NaN
 
@@ -153,6 +158,8 @@ class TrainConfig:
             raise ValueError("need at least 2 virtual workers")
         if not 0 <= self.budget <= 1:
             raise ValueError("budget must be in [0, 1]")
+        if self.devices is not None and self.devices < 1:
+            raise ValueError(f"devices must be >= 1, got {self.devices}")
         if self.scan_chunk is not None and self.scan_chunk < 1:
             # a negative value would silently degenerate to the unbounded
             # whole-epoch stack via the tail path — the opposite of what
@@ -260,5 +267,4 @@ class TrainConfig:
 # fields of features not ported yet, with the only value the port accepts
 _UNPORTED = {
     "scan_chunk": None,
-    "devices": None,
 }

@@ -93,6 +93,18 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   previous lifetime is reloaded even at epoch 0 (:645-660).  The chaos
   harness's ``epoch_boundary`` kill tap sits at the top of each epoch,
   before the hook, as in the JAX loop (:897-903).
+* The worker mesh, as the JAX loop resolves it (:260-267): ``devices``
+  cards (or the devices ``train()`` is given), and no mesh for one card or
+  a fold that C does not divide; ``devices=None`` is one card here, not
+  every visible one.  On a mesh the state is folded card-major
+  where the JAX loop calls ``shard_workers`` (:445-446,
+  ``state.init_mesh_train_state``), each step's ``[N, B, ...]`` batch is
+  sliced by card, ``auto`` resolves to ``shard_map`` (journaled), and the
+  evaluation, the Recorder's per-worker series, the divergence detector,
+  the comm-split timer (the folded chain, every card synchronized) and
+  the checkpoints (the gathered ``[N, ...]`` arrays, the format of one
+  card) run over the cards.  What the port does not fold yet is refused
+  (``_refuse_on_mesh``).
 """
 
 from __future__ import annotations
@@ -125,6 +137,7 @@ from ..elastic import (
     membership_arrays,
 )
 from ..models import select_model
+from ..parallel import worker_mesh
 from ..obs.anomaly import AnomalyDetector
 from ..obs.costs import CostLedger
 from ..obs.drift import DriftMonitor, compose_predicted_rho
@@ -159,10 +172,14 @@ from .recorder import Recorder
 from .state import (
     TrainState,
     fresh_mix_pending,
+    init_mesh_train_state,
     init_train_state,
     make_eval_fn,
+    make_mesh_eval_fn,
+    make_mesh_train_step,
     make_optimizer,
     make_train_step,
+    mesh_flat,
 )
 
 __all__ = ["TrainResult", "TrainingDiverged", "build_dataset",
@@ -235,7 +252,8 @@ def _reproducible_numerics() -> None:
     """f32 means f32, as in the JAX package: no TF32 in matmuls or convs.
     And a run is reproducible, as the JAX package's runs are: cuDNN takes
     its deterministic algorithms and does not benchmark for the fastest
-    (their cost per step: ``PERF.md`` § 5)."""
+    (their cost per step: ``PERF.md`` § 5).  The switches are the
+    process's, so they hold on every card of a mesh."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -244,8 +262,17 @@ def _reproducible_numerics() -> None:
 
 def train(config: TrainConfig, resume_dir: Optional[str] = None,
           device=None, boundary_hook=None) -> TrainResult:
-    """Run ``config`` on ``device`` (default: the CUDA card; a host without
-    one raises unless ``device="cpu"`` is asked for).
+    """Run ``config`` on ``device`` (default: the CUDA cards; a host
+    without one raises unless ``device="cpu"`` is asked for).
+
+    The worker mesh (``_resolve_mesh``): ``device`` may be a sequence of
+    devices, which is then the mesh (a device may repeat: virtual cards),
+    and ``config.devices`` must be None or its length.  Else
+    ``config.devices`` cards fold the workers (on the CPU, that many
+    virtual cards); ``devices=None`` is the one card ``device`` names,
+    however many are visible (JAX takes every visible device: the port
+    folds only when asked).  On a mesh ``result.state`` is a
+    ``state.MeshTrainState``.
 
     ``resume_dir`` (default ``config.resume``): a checkpoint directory.
     The newest intact generation is restored (a damaged one is quarantined
@@ -263,12 +290,14 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     TrainerHarness.on_boundary``), called with a ``_BoundarySeam`` before
     each epoch, again on a rollback's retry.  With identity knobs a
     supervised run is bitwise the unsupervised one."""
-    dev = resolve_device(device)
     _reproducible_numerics()
     if config.plan:
         # the plan artifact's schedule choice (graph, budget, seed) enters
         # the config before anything reads those fields
         config = apply_plan(config)
+    dev, mesh = _resolve_mesh(config, device)
+    if mesh is not None:
+        _refuse_on_mesh(config, mesh, boundary_hook)
 
     dataset = build_dataset(config)
     parts = partition_indices(
@@ -354,7 +383,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
             measured, measured_src = load_measured_vs_ceiling(
                 config.gossip_measured_source)
         backend_decision = resolve_gossip_backend(
-            schedule, requested=config.gossip_backend,
+            schedule, mesh, requested=config.gossip_backend,
             wire_dtype=config.wire_dtype, measured_vs_ceiling=measured)
         if measured_src is not None:
             backend_decision["measured_source"] = measured_src
@@ -365,8 +394,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
             config.communicator, schedule, ratio=ratio,
             consensus_lr=config.consensus_lr, backend=gossip_backend,
             compressor=config.compressor, seed=config.seed, device=dev,
-            block_d=config.gossip_block_d, w_window=config.gossip_w_window,
-            wire_dtype=config.wire_dtype)
+            mesh=mesh, block_d=config.gossip_block_d,
+            w_window=config.gossip_w_window, wire_dtype=config.wire_dtype)
 
     communicator = make_comm(config.compress_ratio)
     model = select_model(config.model, config.dataset,
@@ -387,11 +416,39 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     lr_schedule = make_lr()
     optimizer = make_optimizer(lr_schedule, config.momentum,
                                config.weight_decay, config.nesterov)
-    state, flattener = init_train_state(
-        model, config.num_workers, optimizer, communicator, seed=config.seed,
-        sync_init=config.sync_init, device=dev, overlap=config.overlap,
-        staleness=config.staleness)
-    evaluate = make_eval_fn(model)
+    if mesh is None:
+        state, flattener = init_train_state(
+            model, config.num_workers, optimizer, communicator,
+            seed=config.seed, sync_init=config.sync_init, device=dev,
+            overlap=config.overlap, staleness=config.staleness)
+        evaluate = make_eval_fn(model)
+    else:
+        # the N inits on the CPU as on one card, then folded card-major
+        state, flattener = init_mesh_train_state(
+            model, config.num_workers, optimizer, communicator, mesh,
+            lambda rows: select_model(
+                config.model, config.dataset,
+                num_classes=dataset.num_classes, num_workers=rows,
+                input_shape=dataset.x_train.shape[1:], remat=config.remat),
+            seed=config.seed, sync_init=config.sync_init)
+        evaluate = make_mesh_eval_fn(state)
+    # the devices a host clock read waits for: every card of the mesh
+    clock_devices = [dev] if mesh is None else list(dict.fromkeys(
+        mesh.devices))
+
+    def flat_params(state):
+        """The ``[N, D]`` parameter stack the communicator mixes (folded
+        on a mesh)."""
+        if mesh is None:
+            return flattener.flatten(state.params)
+        return mesh_flat(state, flattener)
+
+    def worker_rows_finite(state) -> torch.Tensor:
+        """``bool[N]`` on ``dev``: each worker's state all finite."""
+        if mesh is None:
+            return state_finite_rows(state, config.num_workers)
+        return torch.cat([state_finite_rows(card, flattener.num_workers)
+                          .to(dev) for card in state.cards])
     stale_scale = _stale_scale(config, schedule)
 
     # the telemetry's exchange accounting, fixed for the run; the "none"
@@ -454,17 +511,20 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     def make_stage(comm):
         """(step, comm-split timer) over ``comm``, from the current
         ``optimizer`` (its learning rate), ``faults`` and ``schedule``."""
-        step = make_train_step(optimizer, comm, flattener, run_flags,
-                               lr_schedule, grad_chunk=config.grad_chunk,
-                               overlap=config.overlap,
-                               staleness=config.staleness,
-                               stale_alpha_scale=stale_scale,
-                               local_steps=config.local_steps,
-                               faults=faults,
-                               elastic=elastic_ctl is not None,
-                               telemetry=tel_spec,
-                               control=control_knobs is not None)
-        timer = (_make_comm_timer(comm, flattener, dev, ledger_call)
+        if mesh is not None:
+            step = make_mesh_train_step(optimizer, comm, flattener,
+                                        run_flags, lr_schedule,
+                                        grad_chunk=config.grad_chunk)
+        else:
+            step = make_train_step(
+                optimizer, comm, flattener, run_flags, lr_schedule,
+                grad_chunk=config.grad_chunk, overlap=config.overlap,
+                staleness=config.staleness, stale_alpha_scale=stale_scale,
+                local_steps=config.local_steps, faults=faults,
+                elastic=elastic_ctl is not None, telemetry=tel_spec,
+                control=control_knobs is not None)
+        timer = (_make_comm_timer(comm, flat_params, clock_devices,
+                                  ledger_call)
                  if config.measure_comm_split
                  and config.communicator != "none" else None)
         return step, timer
@@ -503,9 +563,11 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         state, last_epoch = restore_with_fallback(
             resume_dir, state, schedule=schedule, notices=recovery_notices)
         start_epoch = last_epoch + 1
-        state = _reconcile_mix_pending(state, config.overlap, communicator,
-                                       flattener, config.num_workers,
-                                       staleness=config.staleness)
+        if mesh is None:  # a mesh runs eager: no pending delta to align
+            state = _reconcile_mix_pending(state, config.overlap,
+                                           communicator, flattener,
+                                           config.num_workers,
+                                           staleness=config.staleness)
         if elastic_ctl is not None:
             # the controller state this boundary had (the trace replays
             # deterministically), then the restored rows mapped onto the
@@ -809,7 +871,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         # the profiler window: exactly one epoch, its one read inside
         tracing = (config.trace_dir is not None
                    and epoch == min(config.trace_epoch, config.epochs - 1))
-        synchronize(dev)
+        for d in clock_devices:
+            synchronize(d)
         t0 = time.perf_counter()
         dev_sums: Dict[str, torch.Tensor] = {}
         host_sums: Dict[str, float] = {}
@@ -836,8 +899,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
             keys = list(dev_sums)
             reads = [torch.stack([dev_sums[k] for k in keys])]
             if config.halt_on_divergence:
-                reads.append(state_finite_rows(
-                    state, config.num_workers).to(torch.float32))
+                reads.append(worker_rows_finite(state).to(torch.float32))
             tel_at = sum(int(r.numel()) for r in reads)
             if tel_spec is not None:
                 reads.append(telemetry_tensor(state.telemetry))
@@ -1029,6 +1091,61 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         with annotate("matcha/recorder_flush"):
             recorder.save()
     return TrainResult(state, recorder, schedule, history)
+
+
+def _resolve_mesh(config: TrainConfig, device):
+    """``(device, mesh)``: where the run's host-made tensors go, and the
+    worker mesh, or ``None`` (JAX ``loop.py:260-267``).
+
+    ``device`` a sequence: that sequence is the mesh, and
+    ``config.devices`` must be None or its length.  Else ``devices=k``
+    takes the first k visible cards (k virtual cards when ``device`` is
+    the CPU), raising when fewer are visible, never folding quietly onto
+    fewer.  ``devices=None`` is the one device, whatever number of cards
+    is visible: unlike JAX (every visible device), the port folds only
+    when asked, since a mesh refuses features a one-card run has
+    (``_refuse_on_mesh``; ``ROADMAP.md``).  A mesh of one device, or one
+    whose size does not divide ``num_workers``, is no mesh, as in JAX:
+    the run goes on on its first device."""
+    if isinstance(device, (list, tuple)):
+        if config.devices is not None and config.devices != len(device):
+            raise ValueError(f"config.devices={config.devices} but train() "
+                             f"was given {len(device)} devices: "
+                             f"{[str(d) for d in device]}")
+        mesh = worker_mesh(devices=device)
+        dev = mesh.devices[0]
+    else:
+        dev = resolve_device(device)
+        if config.devices is None or config.devices == 1:
+            return dev, None
+        mesh = worker_mesh(config.devices, devices=(
+            [dev] * config.devices if dev.type == "cpu" else None))
+    if mesh.size == 1 or config.num_workers % mesh.size:
+        return dev, None
+    return mesh.devices[0], mesh
+
+
+def _refuse_on_mesh(config: TrainConfig, mesh, boundary_hook) -> None:
+    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` for what the
+    port does not fold across a mesh yet."""
+    refused = []
+    if config.communicator in ("choco", "centralized"):
+        refused.append(f"communicator={config.communicator!r}")
+    for name, off in (("overlap", "off"), ("staleness", 1),
+                      ("local_steps", 1), ("fault_plan", None),
+                      ("max_recoveries", 0), ("membership_trace", None),
+                      ("membership_live", None), ("telemetry", False),
+                      ("trace_dir", None)):
+        if getattr(config, name) != off:
+            refused.append(f"{name}={getattr(config, name)!r}")
+    if boundary_hook is not None:
+        refused.append("boundary_hook")
+    if refused:
+        raise NotImplementedError(
+            f"on a worker mesh of {mesh.size} devices the port does not "
+            f"fold {', '.join(refused)} yet (ROADMAP.md): run it on one "
+            f"card, or switch it off (telemetry=False also switches off "
+            f"the health heartbeats, which read it)")
 
 
 def _rederive_alpha(schedule: Schedule, faults, elastic_ctl, recorder,
@@ -1227,8 +1344,8 @@ def _epoch_batches(loader: WorkerBatches, epoch: int,
         yield x_train[idx], y_train[idx]
 
 
-def _make_comm_timer(communicator, flattener, dev: torch.device, ledger,
-                     sample_steps: int = 32):
+def _make_comm_timer(communicator, flat_params, devices: List[torch.device],
+                     ledger, sample_steps: int = 32):
     """Gossip-only chain, timed on the host clock after a synchronize.
 
     Scaling to the full epoch uses the *marginal* per-step cost: two window
@@ -1243,15 +1360,22 @@ def _make_comm_timer(communicator, flattener, dev: torch.device, ledger,
     Returns ``{"comm_time", "comm_encode_time"}`` (encode 0.0 for an
     uncompressed exchange).  ``ledger(label, fn, *args)`` runs each
     warm-up, so the cost ledger measures each chain's first call
-    (``gossip_chain``)."""
+    (``gossip_chain``).  ``flat_params(state)``: the stack the chain
+    mixes (a ``WorkerBlocks`` on a mesh); ``devices``: every device a
+    clock read waits for (each card of a mesh)."""
+    dev = devices[0]
+
+    def sync():
+        for d in devices:
+            synchronize(d)
 
     def chain(state, flags):
-        flat = flattener.flatten(state.params)
-        out, _ = communicator.run(flat, flags, state.comm_carry)
+        out, _ = communicator.run(flat_params(state), flags,
+                                  state.comm_carry)
         return out
 
     def encode_chain(state, flags):
-        flat = flattener.flatten(state.params)
+        flat = flat_params(state)
         probe = torch.zeros_like(flat)
         for _ in range(flags.shape[0]):
             probe = communicator.encode_probe(flat, probe)
@@ -1262,10 +1386,10 @@ def _make_comm_timer(communicator, flattener, dev: torch.device, ledger,
             flags = torch.as_tensor(flags_window[:m], dtype=torch.float32,
                                     device=communicator.flags_device(dev))
             ledger("gossip_chain", fn, state, flags)  # warm-up
-            synchronize(dev)
+            sync()
             t0 = time.perf_counter()
             fn(state, flags)
-            synchronize(dev)
+            sync()
             return time.perf_counter() - t0
 
         n = len(flags_window)

@@ -23,13 +23,22 @@ parameters, optimizer momentum, the step cursor, the pending ring) and
 returns it.  The pending deltas are tensors of their own (``begin_mix``'s
 subtraction, or the ring's storage), never views of the parameters, so the
 next optimizer step cannot write into them.
+
+On a worker mesh (the JAX package's ``shard_workers`` of the state,
+``loop.py:445``) the state is a :class:`MeshTrainState`: card c holds a
+model stacking workers ``c·L..(c+1)·L`` and its optimizer, folded from
+the same CPU inits as one card's (:func:`init_mesh_train_state`).
+:func:`make_mesh_train_step` runs the one-card step without a
+communicator on each card's block in turn, then the communicator's folded
+mix once across the cards; every card's new block is formed before any is
+written back.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,7 +54,13 @@ from ..obs.telemetry import (
     telemetry_step,
 )
 from ..ops import WorkerFlattener
-from ..parallel import worker_deviation, worker_disagreement
+from ..parallel import (
+    WorkerBlocks,
+    WorkerMesh,
+    fold_dims,
+    worker_deviation,
+    worker_disagreement,
+)
 from ..resilience.runtime import (
     begin_mix_quarantined,
     gossip_quarantined,
@@ -58,9 +73,10 @@ from ..resilience.runtime import (
 from ..serve.runtime import ControlKnobs
 from ..utils import cross_entropy_loss, device_span, top_k_accuracy
 
-__all__ = ["OptimizerSpec", "TrainState", "fresh_mix_pending",
-           "init_train_state", "make_eval_fn", "make_optimizer",
-           "make_train_step"]
+__all__ = ["MeshTrainState", "OptimizerSpec", "TrainState",
+           "fresh_mix_pending", "init_mesh_train_state", "init_train_state",
+           "make_eval_fn", "make_mesh_eval_fn", "make_mesh_train_step",
+           "make_optimizer", "make_train_step", "mesh_flat"]
 
 
 @dataclasses.dataclass
@@ -99,6 +115,32 @@ class TrainState:
     @property
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_buffers())
+
+
+@dataclasses.dataclass
+class MeshTrainState:
+    """The train state folded card-major across a worker mesh.
+
+    ``cards[c]`` is the one-card :class:`TrainState` of workers
+    ``c·L..(c+1)·L``: a model stacking those L workers on
+    ``mesh.devices[c]`` and its optimizer.  The communicator's carry is
+    the mesh's (the cards' own ``comm_carry`` is not read); the schedule
+    cursor ``step`` is every card's, which advance together.  The
+    pipelined, elastic, telemetry and control state have no folded form
+    yet: ``train()`` refuses those features on a mesh."""
+
+    cards: List[TrainState]
+    mesh: WorkerMesh
+    comm_carry: Any = ()
+
+    @property
+    def step(self) -> int:
+        return self.cards[0].step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        for card in self.cards:
+            card.step = value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,11 +202,7 @@ def init_train_state(model: nn.Module, num_workers: int,
     if getattr(model, "num_workers", None) != num_workers:
         raise ValueError(f"model stacks {getattr(model, 'num_workers', None)} "
                          f"workers, expected {num_workers}")
-    init_workers(model, seed)
-    if sync_init:
-        with torch.no_grad():
-            for p in model.parameters():
-                p.copy_(p.mean(dim=0, keepdim=True).expand_as(p))
+    _init_replicas(model, seed, sync_init)
     model.to(device)
     params = dict(model.named_parameters())
     flattener = WorkerFlattener(params)
@@ -180,6 +218,57 @@ def init_train_state(model: nn.Module, num_workers: int,
         mix_ages=ages,
     )
     return state, flattener
+
+
+def _init_replicas(model: nn.Module, seed: int, sync_init: bool) -> None:
+    """Worker ``w`` seeded ``seed + w``, then, with ``sync_init``, every
+    parameter set to the workers' mean (the reference's AllReduce)."""
+    init_workers(model, seed)
+    if sync_init:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.mean(dim=0, keepdim=True).expand_as(p))
+
+
+def init_mesh_train_state(model: nn.Module, num_workers: int,
+                          optimizer: OptimizerSpec,
+                          communicator: Communicator, mesh: WorkerMesh,
+                          make_model: Callable[[int], nn.Module],
+                          seed: int = 0, sync_init: bool = True
+                          ) -> tuple[MeshTrainState, WorkerFlattener]:
+    """The N workers' inits made on the CPU in ``model`` exactly as
+    :func:`init_train_state` makes them (``sync_init`` included), then
+    folded card-major: card c gets ``make_model(L)``, loaded with rows
+    ``c·L..(c+1)·L`` of every parameter and buffer and moved to
+    ``mesh.devices[c]``, and a fresh optimizer over it.  Returns the
+    state and the flattener of one card's ``[L, D]`` block (every card's
+    is the same)."""
+    if getattr(model, "num_workers", None) != num_workers:
+        raise ValueError(f"model stacks {getattr(model, 'num_workers', None)} "
+                         f"workers, expected {num_workers}")
+    _, rows = fold_dims(num_workers, mesh)
+    _init_replicas(model, seed, sync_init)
+    whole = model.state_dict()
+    cards = []
+    for c, dev in enumerate(mesh.devices):
+        card = make_model(rows)
+        card.load_state_dict({k: v[c * rows:(c + 1) * rows]
+                              for k, v in whole.items()})
+        card.to(dev)
+        cards.append(TrainState(model=card,
+                                optimizer=optimizer.init(card.parameters()),
+                                comm_carry=(), step=0))
+    flattener = WorkerFlattener(cards[0].params)
+    state = MeshTrainState(cards, mesh)
+    state.comm_carry = communicator.init(mesh_flat(state, flattener))
+    return state, flattener
+
+
+def mesh_flat(state: MeshTrainState,
+              flattener: WorkerFlattener) -> WorkerBlocks:
+    """The folded ``[N, D]`` parameter stack: each card's ``[L, D]``."""
+    return WorkerBlocks(flattener.flatten(card.params)
+                        for card in state.cards)
 
 
 @contextlib.contextmanager
@@ -219,6 +308,11 @@ def make_train_step(
     control: bool = False,
 ):
     """Build ``step(state, xb, yb) -> (state, metrics)``.
+
+    ``communicator=None``: the step of one card of a worker mesh, which
+    runs the forward/backward and SGD and leaves the mix and the
+    disagreement to its caller (:func:`make_mesh_train_step`); none of
+    the options below that act on the mix may be set then.
 
     ``xb: [N, B, ...]`` and ``yb: int[N, B]`` on the model's device.  The
     activation-flag stream is moved to the device once (kept on the host
@@ -291,6 +385,11 @@ def make_train_step(
     """
     flags_host = np.asarray(flags, np.float32)  # [T, M]
     n = flattener.num_workers
+    if communicator is None and (
+            overlap != "off" or local_steps != 1 or faults is not None
+            or elastic or telemetry is not None or control):
+        raise ValueError("a step without a communicator takes no option "
+                         "that acts on the mix")
     if overlap not in ("off", "1step"):
         raise ValueError(f"overlap must be 'off' or '1step', got {overlap!r}")
     overlap_on = overlap == "1step"
@@ -505,9 +604,6 @@ def make_train_step(
         tel = (state.telemetry if telemetry is not None
                and isinstance(state.telemetry, Telemetry) else None)
         counting = tel is not None
-        dev = communicator.flags_device(xb.device)
-        if dev not in comm_flags:
-            comm_flags[dev] = torch.as_tensor(comm_flags_host, device=dev)
         member = (state.membership if elastic
                   and isinstance(state.membership, Membership) else None)
         # the vacant slots are a host-made index tensor: its size is
@@ -529,6 +625,19 @@ def make_train_step(
             opt.step()
 
         t = min(state.step, flags_host.shape[0] - 1)
+        if communicator is None:
+            # one card of a mesh: the caller mixes across the cards
+            metrics = {
+                "loss": losses.mean(),
+                "accuracy": top_k_accuracy(logits, yb).mean(),
+                "lr": float(lr_schedule(state.step)) if lr_schedule else 0.0,
+                "active_matchings": float(flags_host[t].sum()),
+            }
+            state.step += 1
+            return state, metrics
+        dev = communicator.flags_device(xb.device)
+        if dev not in comm_flags:
+            comm_flags[dev] = torch.as_tensor(comm_flags_host, device=dev)
         row = comm_flags[dev][t]
         if member is not None and member.alpha_scale != 1.0:
             # the re-folded α rides the flag row, scaled in f32 as the
@@ -609,6 +718,98 @@ def make_train_step(
         return state, metrics
 
     return step
+
+
+def make_mesh_train_step(optimizer: OptimizerSpec,
+                         communicator: Communicator,
+                         flattener: WorkerFlattener, flags: np.ndarray,
+                         lr_schedule: Optional[Callable] = None,
+                         grad_chunk: Optional[int] = None):
+    """Build the folded ``step(state, xb, yb) -> (state, metrics)`` over a
+    :class:`MeshTrainState`.
+
+    ``xb: [N, B, ...]``, ``yb: int[N, B]`` on card 0's device; card c
+    takes rows ``c·L..(c+1)·L`` (a view on its own device, else a copy).
+    Each card runs the one-card step without a communicator
+    (:func:`make_train_step`: forward/backward in ``grad_chunk`` slabs
+    within its L workers, then SGD), all launched from this thread in card
+    order.  Then the folded ``[N, D]`` stack (``mesh_flat``) goes through
+    ``communicator.step`` once, which forms every card's new block before
+    any is written back into the cards' parameters.  ``metrics``: the
+    one-card step's without faults or membership, on card 0: ``loss`` and
+    ``accuracy`` the mean of the cards' means, ``disagreement`` over the
+    whole stack from per-card partials (:func:`_folded_disagreement`);
+    the communicator's flag rows are kept where it wants them (the host,
+    for the folded backend)."""
+    card_step = make_train_step(optimizer, None, flattener, flags,
+                                lr_schedule=lr_schedule,
+                                grad_chunk=grad_chunk)
+    flags_host = np.asarray(flags, np.float32)  # [T, M]
+    comm_flags = {}
+
+    def step(state: MeshTrainState, xb: torch.Tensor, yb: torch.Tensor):
+        devices = state.mesh.devices
+        rows = flattener.num_workers
+        t = min(state.step, flags_host.shape[0] - 1)
+        # each card's step advances its own cursor: the mesh's
+        parts = [card_step(card,
+                           xb[c * rows:(c + 1) * rows].to(devices[c],
+                                                          non_blocking=True),
+                           yb[c * rows:(c + 1) * rows].to(devices[c],
+                                                          non_blocking=True)
+                           )[1]
+                 for c, card in enumerate(state.cards)]
+        dev = communicator.flags_device(devices[0])
+        if dev not in comm_flags:
+            comm_flags[dev] = torch.as_tensor(flags_host, device=dev)
+        first = devices[0]
+        with torch.no_grad():
+            flat = mesh_flat(state, flattener)
+            with device_span("comm/step"):
+                flat, state.comm_carry = communicator.step(
+                    flat, state.comm_carry, comm_flags[dev][t])
+            for card, block in zip(state.cards, flat):
+                flattener.unflatten_into(block, card.params)
+            metrics = {**parts[0], "disagreement": _folded_disagreement(
+                flat, first)}
+            for key in ("loss", "accuracy"):
+                metrics[key] = torch.stack(
+                    [part[key].to(first) for part in parts]).mean()
+        return state, metrics
+
+    return step
+
+
+def _folded_disagreement(blocks, first: torch.device) -> torch.Tensor:
+    """``worker_disagreement`` of the folded ``[N, D]`` stack, on
+    ``first``, from per-card partials: each card's ``[D]`` column sum
+    goes to ``first`` for the mean, the mean back to each card, and each
+    card's sum of squared deviations to ``first`` as one scalar.  Between
+    real cards that moves ``2·C·D + C`` floats, not ``N·D``; the sums run
+    in another order than the one-tensor function's."""
+    n = sum(b.shape[0] for b in blocks)
+    mean = torch.stack([b.sum(dim=0).to(first) for b in blocks]).sum(
+        dim=0) / n
+    squares = []
+    for b in blocks:
+        centered = b - mean.to(b.device)
+        squares.append((centered * centered).sum().to(first))
+    return torch.sqrt(torch.stack(squares).sum() / (n * mean.numel()))
+
+
+def make_mesh_eval_fn(state: MeshTrainState):
+    """Build ``evaluate(x, y) -> (loss[N], acc[N])`` over a mesh: each card
+    evaluates the whole batch with its L workers (``x`` copied to cards on
+    another device), the rows gathered onto card 0 in worker order."""
+    fns = [make_eval_fn(card.model) for card in state.cards]
+    devices = state.mesh.devices
+
+    def evaluate(x: torch.Tensor, y: torch.Tensor):
+        outs = [fn(x.to(dev), y.to(dev)) for fn, dev in zip(fns, devices)]
+        return (torch.cat([loss.to(devices[0]) for loss, _ in outs]),
+                torch.cat([acc.to(devices[0]) for _, acc in outs]))
+
+    return evaluate
 
 
 def make_eval_fn(model: nn.Module):

@@ -252,7 +252,7 @@ def test_cli_parses_the_slice_flags(cli_backend):
             cfg.wire_dtype, cfg.seed) == ("resnet20", 16, 4, False, 32, 0.1,
                                           2, cli_backend, "bf16", 7)
     with pytest.raises(SystemExit):
-        train_torch.parse_args(["--backend", "shard_map"])
+        train_torch.parse_args(["--backend", "ring"])
 
 
 def test_cli_parses_the_epoch_end_flags():
@@ -282,12 +282,23 @@ def test_cli_parses_the_epoch_end_flags():
 @pytest.mark.parametrize("field,value", [
     ("devices", 2), ("scan_chunk", 4),
 ])
-def test_config_refuses_unported_features(field, value):
+def test_config_refuses_unported_features(field, value, monkeypatch):
+    """``scan_chunk`` is still refused.  ``devices`` is taken, and a mesh
+    of more cards than are visible raises, naming the device list: it never
+    folds quietly onto fewer cards."""
     from matcha_tpu_torch.train.config import _UNPORTED
+    from matcha_tpu_torch.train.loop import _resolve_mesh
 
-    assert set(_UNPORTED) == {"scan_chunk", "devices"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(**{field: value})
+    assert set(_UNPORTED) == {"scan_chunk"}
+    if field == "scan_chunk":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TrainConfig(**{field: value})
+        return
+    cfg = TrainConfig(**{field: value})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"asked for 2 devices.*'cuda:0'"):
+        _resolve_mesh(cfg, None)
 
 
 def test_config_takes_the_profiler_window():
@@ -300,18 +311,22 @@ def test_config_takes_the_profiler_window():
 
 @pytest.mark.parametrize("unported", ["auto", "shard_map"])
 def test_unported_backends_raise_naming_the_roadmap(unported):
-    """``shard_map`` raises; ``auto`` resolves to it only on a mesh of more
-    than one device, and what it resolves to there raises the same way."""
-    from types import SimpleNamespace
-
+    """``auto`` resolves to ``shard_map`` on a mesh of more than one
+    device, and both build the folded communicator there; ``shard_map``
+    without a mesh raises."""
     from matcha_tpu_torch.communicator.decen import resolve_gossip_backend
+    from matcha_tpu_torch.parallel import worker_mesh
 
     sched = build_schedule(TrainConfig(**CONFIG), 2)
-    backend = resolve_gossip_backend(
-        sched, SimpleNamespace(size=2), requested=unported)["chosen"]
+    mesh = worker_mesh(devices=["cpu"] * 2)
+    backend = resolve_gossip_backend(sched, mesh,
+                                     requested=unported)["chosen"]
     assert backend == "shard_map"
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        make_decen(sched, backend, device="cpu")
+    comm = make_decen(sched, unported, mesh=mesh)
+    assert comm.name == "decen[shard_map]" and comm.host_flags
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_decen(sched, unported if unported == "shard_map" else backend,
+                   device="cpu")
 
 
 def test_config_validates_like_jax():

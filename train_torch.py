@@ -29,6 +29,18 @@ and seed the planner chose::
 runs the comm-split timer's chains through the fused W-stack kernel;
 ``--backend dense`` is the dense product alone; ``--backend skip`` is the
 gather oracle with inactive matchings skipped on the host.
+
+``--backend shard_map`` folds the workers card-major across every
+visible card (``CUDA_VISIBLE_DEVICES`` picks the cards; one card is no
+mesh, and the backend then raises): on-card edges are row gathers,
+cross-card edges move a neighbour card's block.  Any other backend runs
+on one card, however many are visible.  A mesh runs the decen (or
+``none``) communicator eager, with ``--no-telemetry``; what it does not
+fold yet is refused, naming ``ROADMAP.md``::
+
+    CUDA_VISIBLE_DEVICES=0,1,2,3 python train_torch.py --model resnet20 \
+        --dataset synthetic_image --graphid 4 --numworkers 16 \
+        --backend shard_map --no-telemetry --epoch 10
 ``--communicator centralized`` averages all workers every step (the
 AllReduce baseline), ``--communicator none`` never mixes.
 
@@ -106,6 +118,8 @@ from __future__ import annotations
 import argparse
 import json
 
+import torch
+
 from matcha_tpu_torch.ops import COMPRESSOR_NAMES
 from matcha_tpu_torch.train import TrainConfig, train
 
@@ -137,10 +151,12 @@ def parse_args(argv=None):
                         "--numworkers/--budget/--matcha/--randomSeed")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "perm", "gather", "dense", "fused",
-                            "skip"],
+                            "skip", "shard_map"],
                    help="gossip backend of the decen communicator; auto "
                         "picks perm or dense by the planner's gate and "
-                        "journals the decision as a `backend` event")
+                        "journals the decision as a `backend` event; "
+                        "shard_map folds the workers across every visible "
+                        "card")
     p.add_argument("--gossip-measured-ratio", type=float, default=None,
                    dest="gossip_measured_vs_ceiling",
                    help="the dense form's measured-vs-ceiling ratio, the "
@@ -318,7 +334,11 @@ def parse_args(argv=None):
         telemetry=not args.no_telemetry, health=not args.no_health,
         drift_tolerance=args.drift_tolerance,
         drift_patience=args.drift_patience,
-        trace_dir=args.trace_dir, trace_epoch=args.trace_epoch)
+        trace_dir=args.trace_dir, trace_epoch=args.trace_epoch,
+        # the folded backend asks for the mesh: every visible card
+        devices=(max(torch.cuda.device_count(), 1)
+                 if args.backend == "shard_map" and args.device == "cuda"
+                 else None))
     return cfg, args.device
 
 
