@@ -7,7 +7,8 @@
 Needs one CUDA card.  Phases, each printed as a JSON line; any failure
 raises and the script exits non-zero.  ``--phase`` runs the phases named
 (and those whose results they read: ``planner`` reads ``fused_timing``,
-``perf_obs`` both) after the build, and prints no kernels line:
+``perf_obs`` both, ``mesh_features`` ``mesh``) after the build, and
+prints no kernels line:
 
 1. device — the card, CUDA and torch versions, and ``nvidia-smi``'s name
    and power limit (printed raw on a line of its own).
@@ -38,7 +39,8 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    each (for ``device_ms`` too); and the bound from the card's bandwidth
    and FP32 peak.  Shapes:
    the slice at T=1 and 64, N=256 at T=64, N=4096 at T=1 (the band
-   path) and 64 (the slabs; plain and library at T=1 only, 3 runs).
+   path) and 64 (the slabs; 5 runs; plain and library at T=1 only, 3
+   runs); the plain version at N=256, 5 runs.
    perm_large — the perm kernel's band path (no slab fits a CTA) on the
    16,384-worker hypercube and a 4096-worker ER graph of mean degree 30
    (more matchings than the slab tables hold): times first, at T = 1 and
@@ -51,7 +53,7 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    ``make_decen(..., "perm").run`` on both graphs, launches by path.
    The hypercube's schedule (α's spectral solve: minutes of host numpy)
    is made in a spawned side process that starts before the build, and
-   perm_large runs after ``communicators`` (11), when it is done.
+   perm_large runs after ``models``, when it is done.
 5. slice — ``train()`` at full width: ResNet-20, 16 workers, graph 4,
    MATCHA budget 0.5, batch 32, perm backend, f32 wire, 2 epochs of 4
    steps.  Loss and disagreement finite; the kernel's launch count equals
@@ -271,17 +273,27 @@ raises and the script exits non-zero.  ``--phase`` runs the phases named
    and ``[256, 273258]`` over C = 1, 2, 4 and 8 cards (bitwise across C,
    within 1e-5 of K1 on the same flags, with a survivor mask and a bf16
    wire, ``skip`` bitwise ``shard_map``; one folded step's time beside
-   K1's T = 1); slice (a)'s ``train()`` on 4 virtual cards with
-   ``shard_map`` against the one-card perm run (the acceptance bars), and
-   with ``auto`` resumed from its epoch-0 checkpoint (``shard_map``
-   journaled, bitwise the uninterrupted mesh run), over real cards too
-   when two or more are visible; ms, launches and the idle share a step
-   on one card and on 4 virtual cards.
+   K1's T = 1); slice (a)'s ``train()`` with the defaults (telemetry,
+   health, ``save``) on 4 virtual cards with ``shard_map`` against the
+   one-card perm run (the acceptance bars; with ``grad_chunk=4``, Recorder
+   rows and ``telemetry`` within 1e-6, the heartbeats' workers, a traced
+   epoch's ``comm`` rows), and with ``auto`` resumed from its epoch-0
+   checkpoint (``shard_map`` journaled, bitwise the uninterrupted mesh
+   run), over real cards too when two or more are visible; ms, launches
+   and the idle share a step on one card and on 4 virtual cards.
+   mesh_features — what a mesh folds besides the decen mix
+   (``phase_mesh_features``, cell (p); it reads the mesh phase's run) on
+   4 virtual cards: no synchronizing call added by the accumulator;
+   identity knobs bitwise the mesh phase's run and the swaps' mixes by
+   epoch; ``centralized`` within 1e-6 of one card; CHOCO at cell (g)'s
+   shape bitwise its batched form for C = 1–8, its folded step's ms and
+   cross-card bytes, and ``train()`` resumed bitwise; over real cards
+   too when two or more are visible.
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
     the models', the resilience, the pipelined, the planner's, the
-    observability, the perf_obs, the serve, the chaos and the mesh
-    phase's in-process runs included; K3's
+    observability, the perf_obs, the serve, the chaos, the mesh and the
+    mesh_features phase's in-process runs included; K3's
     ``tensor_core`` path with the roofline's launch), then the
     ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
@@ -698,16 +710,19 @@ def phase_timing(dev, tables, big_tables, huge_tables):
         path = "band" if LAUNCHES["perm_gossip/band"] > before else "slab"
         row = {"shape": label, "N": n, "D": SLICE_D, "T": t_steps,
                "M": int(p.shape[0]), "path": path}
+        # 5 calls where one takes over 10 ms (N = 4096, and the plain
+        # version at N = 256, T = 64), 20 elsewhere
+        runs = 5 if n == 4096 else 20
         for name, spec in KERNELS.items():
             run = lambda: perm_gossip_run(x, w, p, part, dbuf=spec["dbuf"])
-            row[f"{name}_ms"] = time_ms(run, flush)
+            row[f"{name}_ms"] = time_ms(run, flush, runs)
             row[f"{name}_device_ms"] = device_ms(
                 run, "perm_band_kernel" if path == "band"
-                else "perm_gossip_kernel", flush)
+                else "perm_gossip_kernel", flush, runs)
         slow = n == 4096 and t_steps > 1
         row["plain_ms"] = None if slow else time_ms(
             lambda: perm_gossip_plain(x, w, p, part), flush,
-            runs=3 if n == 4096 else 20)
+            runs=3 if n == 4096 else 5 if n * t_steps > 4096 else 20)
         row["library_ms"] = None if slow else time_ms(
             dense_yardstick(sch, w, x), flush, runs=3 if n == 4096 else 20)
         row["bound_ms"], row["bound_by"] = bound(x, w, p, part)
@@ -2837,7 +2852,7 @@ def phase_resilience(dev, rounds: int = 3):
     return out
 
 
-def phase_pipeline(dev, tables, rounds: int = 3):
+def phase_pipeline(dev, tables, rounds: int = 2):
     """The pipelined schedule at the slice's width (``slice_config``: 2
     epochs of 4 steps, perm backend, f32 wire):
 
@@ -4669,10 +4684,12 @@ def mesh_executor_checks(dev, tables, label: str, steps: int = 4) -> dict:
     return out
 
 
-def mesh_stepper(dev, cards: int, iterations: int, lr_schedule=None):
+def mesh_stepper(dev, cards: int, iterations: int, lr_schedule=None,
+                 telemetry=None):
     """``slice_stepper``'s model, optimizer, batch and schedule, folded on
-    ``cards`` virtual cards of ``dev`` with the shard_map communicator:
-    ``(state, step, xb, yb)``."""
+    ``cards`` virtual cards of ``dev`` with the shard_map communicator
+    (and the telemetry spec ``telemetry``, its accumulator made on card
+    0): ``(state, step, xb, yb)``."""
     cfg = slice_config(1)
     sched = build_schedule(cfg, iterations)
     mesh = worker_mesh(devices=[dev] * cards)
@@ -4683,7 +4700,12 @@ def mesh_stepper(dev, cards: int, iterations: int, lr_schedule=None):
         model, 16, opt, comm, mesh,
         lambda rows: select_model("resnet20", "synthetic_image",
                                   num_workers=rows), seed=SEED)
-    step = make_mesh_train_step(opt, comm, flattener, sched.flags)
+    step = make_mesh_train_step(opt, comm, flattener, sched.flags,
+                                telemetry=telemetry)
+    if telemetry is not None:
+        from matcha_tpu_torch.obs.telemetry import Telemetry
+
+        state.telemetry = Telemetry.zeros(16, device=dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
     xb = torch.randn(16, 32, 32, 32, 3, generator=g, device=dev)
     yb = torch.randint(0, 10, (16, 32), generator=g, device=dev)
@@ -4853,7 +4875,7 @@ def history_agrees(got, want, examples: int, label: str) -> dict:
     return worst
 
 
-def phase_mesh(dev, rounds: int = 3):
+def phase_mesh(dev, rounds: int = 2):
     """Workers folded across a mesh (cell (p)), on ``cuda:0`` with virtual
     cards (``devices=[dev] * C``), which a host with one card can run.
 
@@ -4864,7 +4886,8 @@ def phase_mesh(dev, rounds: int = 3):
        ``skip`` bitwise ``shard_map`` (``mesh_executor_checks``); one
        folded step's time beside K1's T = 1 time.
     2. ``train()`` on slice (a)'s config (ResNet-20, 16 workers, graph 4,
-       budget 0.5, 2 epochs of 4 steps, telemetry off as a mesh requires)
+       budget 0.5, 2 epochs of 4 steps, the defaults: telemetry and
+       health on, ``save``)
        on one card with the perm backend (K1's launches counted), with
        ``grad_chunk=4`` and without (``chunk_witness`` first: the two
        after one step, and the mesh bitwise the slabs' step); then with
@@ -4879,30 +4902,36 @@ def phase_mesh(dev, rounds: int = 3):
        runs (``history_agrees``); against the run of all 16 at once, whose
        convolutions sum in another order, the gap is printed, not held
        to a bar (the training amplifies ulps: 9e-4 relative at epoch 1 on
-       the CPU at ResNet-8).  With two or more cards visible the same
-       ``train()`` runs over real cards too.
+       the CPU at ResNet-8).  The mesh run's epoch 1 runs in a
+       ``trace_dir`` window, and against the ``grad_chunk=4`` run its
+       Recorder rows and ``telemetry`` events lie within 1e-6 and its
+       heartbeats' ``workers`` agree (slots and participation equal,
+       deviations within 1e-6; ``mesh_defaults``), the trace holding
+       ``comm`` rows.  With two or more cards visible the same
+       ``train()`` runs over real cards too, held to the same bars, its
+       trace split by card.
     3. The step on one card and on 4 virtual cards, alternated: host ms
        per step, kernels launched per step and the card's idle share.
-    Any failure raises."""
+    Returns the K1 launches and, for ``mesh_features``, the mesh run's
+    config and its final state tensors.  Any failure raises."""
     out = {"executor": [mesh_executor_checks(dev, slice_tables(dev),
                                              "slice graph 4"),
                         mesh_executor_checks(dev, hypercube_tables(dev),
                                              "hypercube")]}
     out["chunk_witness"] = chunk_witness(dev)
     bpe = 2048 // 16 // 32
-    one_cfg = dataclasses.replace(slice_config(2), telemetry=False,
-                                  health=False)
     launches = 0
     with tempfile.TemporaryDirectory() as root:
+        one_cfg = dataclasses.replace(slice_config(2), save=True,
+                                      savePath=root)
         # the one-card runs: forward/backward in slabs of the 4 workers a
         # card holds (the convolutions a card runs, so the same cuDNN
         # algorithms), and all 16 at once
         ones = {}
         for chunk in (4, None):
             reset_launch_counts()
-            ones[chunk] = train(dataclasses.replace(one_cfg,
-                                                    grad_chunk=chunk),
-                                device=dev)
+            ones[chunk] = train(dataclasses.replace(
+                one_cfg, grad_chunk=chunk, name=f"one_{chunk}"), device=dev)
             torch.cuda.synchronize()
             expected = 2 * bpe + 2 * timer_chains(bpe)
             if LAUNCHES["perm_gossip_dbuf"] != expected:
@@ -4912,14 +4941,18 @@ def phase_mesh(dev, rounds: int = 3):
             launches += LAUNCHES["perm_gossip_dbuf"]
         one = ones[4]
         mesh_cfg = dataclasses.replace(one_cfg, gossip_backend="shard_map",
-                                       save=True, savePath=root,
                                        checkpoint_every=1, name="mesh")
         reset_launch_counts()
-        whole = train(mesh_cfg, device=[dev] * 4)
+        whole = train(dataclasses.replace(
+            mesh_cfg, trace_dir=os.path.join(root, "trace"), trace_epoch=1),
+            device=[dev] * 4)
         torch.cuda.synchronize()
         if any(LAUNCHES.values()):
             raise AssertionError(f"the mesh run launched {dict(LAUNCHES)}")
         agree = history_agrees(whole, one, 512, "mesh vs one card")
+        out["defaults"] = mesh_defaults(whole, one,
+                                        os.path.join(root, "trace"),
+                                        "mesh vs one card")
         # not held to a bar: other convolution shapes, other sums, which
         # the training amplifies
         unchunked = {key: max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-12)
@@ -4955,14 +4988,23 @@ def phase_mesh(dev, rounds: int = 3):
         count = torch.cuda.device_count()
         if count >= 2:
             cards = [f"cuda:{i}" for i in range(4 if count >= 4 else 2)]
-            spread = train(dataclasses.replace(mesh_cfg, save=False,
-                                               checkpoint_every=0),
-                           device=cards)
+            real_dir = os.path.join(root, "trace_real")
+            spread = train(dataclasses.replace(
+                mesh_cfg, checkpoint_every=0, name="real",
+                trace_dir=real_dir, trace_epoch=1), device=cards)
             real = {"cards": cards,
                     "rel_err": history_agrees(spread, one, 512,
                                               "real cards vs one card"),
+                    "defaults": mesh_defaults(spread, one, real_dir,
+                                              "real cards vs one card"),
                     "ms_per_step": [h["epoch_time"] / bpe * 1e3
                                     for h in spread.history]}
+            # a row that names no device (a copy between two cards, say)
+            # is counted under "None"
+            split = real["defaults"]["trace"].get("per_device", {})
+            if not {c.split(":")[1] for c in cards} <= set(split):
+                raise AssertionError(f"real cards: the trace's devices "
+                                     f"{list(split)}")
     out["train"] = {
         "one_card_k1_launches": launches,
         "rel_err_vs_one_card_grad_chunk_4": agree,
@@ -4981,6 +5023,8 @@ def phase_mesh(dev, rounds: int = 3):
                                                  for h in whole.history]},
         "loss": [h["loss"] for h in whole.history],
         "real_cards": real}
+    # what mesh_features holds the supervised mesh runs to
+    whole_tensors = [state_tensors(card) for card in whole.state.cards]
     del one, ones, whole, resumed
     steppers = {"one card": slice_stepper(dev, 64),
                 "4 virtual cards": mesh_stepper(dev, 4, 64)}
@@ -4997,8 +5041,349 @@ def phase_mesh(dev, rounds: int = 3):
     out["cards_visible"] = torch.cuda.device_count()
     out["cards_used"] = 1 if real is None else len(real["cards"])
     emit({"phase": "mesh", **out, "nvidia_smi": nvidia_smi()})
-    return {"launches": {"train() mesh phase, one-card perm run": launches}}
+    return {"launches": {"train() mesh phase, one-card perm run": launches},
+            "mesh_cfg": mesh_cfg, "whole_tensors": whole_tensors}
 
+
+def mesh_defaults(mesh_run, one, trace_dir: str, label: str) -> dict:
+    """A mesh run with the defaults (telemetry, health, ``save``, one
+    epoch traced) against the one-card ``grad_chunk=4`` run: Recorder rows
+    and ``telemetry`` events within 1e-6, the heartbeats' ``workers``
+    (``telemetry_within``), and the trace's ``comm`` and ``comp`` rows
+    present; returns the gaps and the trace's attribution."""
+    from matcha_tpu_torch.obs import xprof
+
+    mesh_events = read_journal(os.path.join(mesh_run.recorder.folder,
+                                            "events.jsonl"))
+    one_events = read_journal(os.path.join(one.recorder.folder,
+                                           "events.jsonl"))
+    report = xprof.profile_report(trace_dir)
+    if not report["rows"]["comm"] or not report["rows"]["comp"]:
+        raise AssertionError(f"{label}: the traced epoch has rows "
+                             f"{report['rows']}")
+    return {
+        "rows_rel_gap": rows_within(mesh_run, one, 1e-6, label),
+        "telemetry_rel_gap": telemetry_within(mesh_events, one_events,
+                                              1e-6, label),
+        "event_kinds": sorted({e["kind"] for e in mesh_events}),
+        "peak_bytes": [e["peak_bytes"]
+                       for e in of_kind(mesh_events, "heartbeat")],
+        "trace": {k: report[k] for k in (
+            "rows", "comm_seconds", "comp_seconds", "other_seconds",
+            "overlap_fraction", "per_device") if k in report}}
+
+
+def rows_within(got, want, bar: float, label: str) -> dict:
+    """The largest relative gap of ``got``'s Recorder rows (train accuracy
+    and loss, test accuracy per worker, disagreement) from ``want``'s,
+    held to ``bar``."""
+    gaps = {}
+    for key in ("acc", "losses", "tacc", "disagreement"):
+        a = np.asarray(got.recorder.data[key], np.float64)
+        b = np.asarray(want.recorder.data[key], np.float64)
+        if a.shape != b.shape:
+            raise AssertionError(f"{label}: Recorder {key} {a.shape} vs "
+                                 f"{b.shape}")
+        gaps[key] = float(np.abs(a - b).max()
+                          / max(float(np.abs(b).max()), 1e-30))
+    bad = {k: v for k, v in gaps.items() if not v <= bar}
+    if bad:
+        raise AssertionError(f"{label}: Recorder rows {bad} > {bar}")
+    return gaps
+
+
+def telemetry_within(got_events, want_events, bar: float, label: str):
+    """``telemetry`` events and the heartbeats' ``workers`` of two runs:
+    counts exact, every other number within ``bar`` relative; returns the
+    largest gap."""
+    exact = ("steps", "matchings_mean", "wire_bytes", "alive_mean",
+             "alive_min", "stale_steps", "stale_dropped", "stale_age_hist",
+             "quantized_values", "healed")
+    worst = 0.0
+    pairs = list(zip(of_kind(got_events, "telemetry"),
+                     of_kind(want_events, "telemetry"), strict=True))
+    for g, w in pairs:
+        for key, value in w.items():
+            if key == "t":
+                continue
+            if key in exact:
+                if g[key] != value:
+                    raise AssertionError(f"{label}: telemetry {key} "
+                                         f"{g[key]} vs {value}")
+            elif isinstance(value, (int, float, list)):
+                a = np.asarray(g[key], np.float64)
+                b = np.asarray(value, np.float64)
+                gap = float(np.abs(a - b).max()
+                            / max(float(np.abs(b).max()), 1e-30))
+                worst = max(worst, gap)
+                if not gap <= bar:
+                    raise AssertionError(f"{label}: telemetry {key} gap "
+                                         f"{gap}")
+    for g, w in zip(of_kind(got_events, "heartbeat"),
+                    of_kind(want_events, "heartbeat"), strict=True):
+        if set(g["workers"]) != set(w["workers"]):
+            raise AssertionError(f"{label}: heartbeat workers differ")
+        for wid, stats in w["workers"].items():
+            mine = g["workers"][wid]
+            gap = abs(mine["disagreement"] - stats["disagreement"]) / max(
+                abs(stats["disagreement"]), 1e-30)
+            worst = max(worst, gap)
+            if (mine["slot"], mine["participation"]) != (
+                    stats["slot"], stats["participation"]) or not gap <= bar:
+                raise AssertionError(f"{label}: heartbeat {wid} {mine} vs "
+                                     f"{stats}")
+    return worst
+
+
+def choco_mesh_checks(dev, root: str, visible=()) -> dict:
+    """CHOCO folded on virtual cards at cell (g)'s shape: 64 workers, the
+    generated Erdős–Rényi graph, top-k at ratio 0.9, γ = 0.1.  The
+    executor over a 16-step chain at ``[64, 273258]`` bitwise the batched
+    form for C ∈ {1, 2, 4, 8} (state and carry), and on the ``visible``
+    cards when there are two or more (the compressed blocks then cross
+    between cards); one step's host ms, folded on 4 cards against
+    batched, alternated; the compressed bytes that cross cards a step;
+    then ``train()`` on 4 virtual cards for 2 epochs with a checkpoint
+    every epoch, and a run resumed from the epoch-0 checkpoint bitwise the
+    uninterrupted one (parameters, batch-norm, momentum and the folded
+    carry)."""
+    from matcha_tpu_torch.communicator import make_choco
+    from matcha_tpu_torch.communicator.choco import folded_message_bytes
+
+    cfg = choco_config(2)
+    sched = build_schedule(cfg, 17)
+    x = state(64, SLICE_D, dev)
+    kw = dict(ratio=cfg.compress_ratio, consensus_lr=cfg.consensus_lr)
+    batched = make_choco(sched, device=dev, **kw)
+    want, wcarry = batched.run(x, sched.flags[:16])
+    out = {"matchings": int(sched.num_matchings), "steps": 16}
+    meshes = [[dev] * c for c in MESH_CARDS]
+    if len(visible) >= 2:
+        meshes.append(list(visible))
+    for devices in meshes:
+        mesh = worker_mesh(devices=devices)
+        folded = make_choco(sched, backend="shard_map", mesh=mesh, **kw)
+        got, gcarry = folded.run(shard_workers(x, mesh), sched.flags[:16])
+        if not (same_bits(gather_workers(got), want)
+                and same_bits(gather_workers(gcarry["x_hat"]),
+                              wcarry["x_hat"])
+                and same_bits(gather_workers(gcarry["s"]), wcarry["s"])):
+            raise AssertionError(f"choco shard_map on "
+                                 f"{[str(d) for d in devices]} is not "
+                                 f"bitwise the batched form")
+        del got, gcarry
+    out["bitwise_on"] = [[str(d) for d in m] for m in meshes]
+    del want, wcarry
+    mesh = worker_mesh(devices=[dev] * 4)
+    folded = make_choco(sched, backend="shard_map", mesh=mesh, **kw)
+    xs = shard_workers(x, mesh)
+    carry_b, carry_f = batched.init(x), folded.init(xs)
+    row = torch.as_tensor(sched.flags[0], dtype=torch.float32, device=dev)
+    times = {"batched": [], "4 virtual cards": []}
+    for _ in range(3):
+        times["batched"].append(host_clock_ms(
+            lambda: batched.step(x, carry_b, row)))
+        times["4 virtual cards"].append(host_clock_ms(
+            lambda: folded.step(xs, carry_f, row)))
+    out["step_host_ms"] = times
+    out["cross_card_bytes_per_step"] = {
+        c: folded_message_bytes(sched, c, SLICE_D, cfg.compress_ratio)
+        for c in (2, 4, 8)}
+    del x, xs, carry_b, carry_f
+    mesh_cfg = dataclasses.replace(cfg, save=True, savePath=root,
+                                   checkpoint_every=1, name="choco_mesh")
+    whole = train(mesh_cfg, device=[dev] * 4)
+    torch.cuda.synchronize()
+    ckpt = os.path.join(root, "choco_mesh_ckpt")
+    epoch0 = os.path.join(root, "choco_from_epoch0")
+    shutil.copytree(os.path.join(ckpt, "0"), os.path.join(epoch0, "0"))
+    for side in ("digest-0.json", "schedule-0.json"):
+        shutil.copy(os.path.join(ckpt, side), epoch0)
+    # the evaluation and the comm-split timer change no state
+    resumed = train(dataclasses.replace(mesh_cfg, checkpoint_every=0,
+                                        name="choco_resumed", eval_every=0,
+                                        measure_comm_split=False),
+                    resume_dir=epoch0, device=[dev] * 4)
+    differ = []
+    for c, (a, b) in enumerate(zip(whole.state.cards, resumed.state.cards)):
+        want, got = state_tensors(a), state_tensors(b)
+        differ += [f"card {c} {k}" for k in want
+                   if not same_bits(got[k], want[k])]
+    for key in ("x_hat", "s"):
+        if not same_bits(gather_workers(resumed.state.comm_carry[key]),
+                         gather_workers(whole.state.comm_carry[key])):
+            differ.append(f"carry {key}")
+    if differ or [h["epoch"] for h in resumed.history] != [1]:
+        raise AssertionError(f"choco on the mesh: the resumed run is not "
+                             f"bitwise the uninterrupted one: {differ[:4]}")
+    bpe = 4
+    out["train"] = {
+        "resumed_bitwise": True,
+        "loss": [h["loss"] for h in whole.history],
+        "disagreement": [h["disagreement"] for h in whole.history],
+        "ms_per_step": [h["epoch_time"] / bpe * 1e3 for h in whole.history],
+        "comm_ms_per_step": [h["comm_time"] / bpe * 1e3
+                             for h in whole.history]}
+    return out
+
+
+class FoldedCount:
+    """Counts the folded executor's calls (``gossip_mix_folded``) while
+    entered: each is one mix of the whole mesh."""
+
+    def __init__(self):
+        from matcha_tpu_torch.parallel import gossip
+
+        self.module, self.calls = gossip, 0
+        self.real = gossip.gossip_mix_folded
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.real(*args, **kwargs)
+
+        self.module.gossip_mix_folded = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.gossip_mix_folded = self.real
+
+
+def phase_mesh_features(dev, mesh_result):
+    """What a worker mesh folds besides the decen mix (cell (p)), on 4
+    virtual cards of ``dev``; the default run itself (telemetry, health,
+    a traced epoch) is held to one card in the ``mesh`` phase.
+
+    1. The sync debug mode's count over 8 mesh steps with the telemetry
+       accumulator on equals the count with it off.
+    2. A ``boundary_hook``: identity knobs bitwise the ``mesh`` phase's
+       mesh run (``mesh_result``); then control documents that swap the
+       budget to 0.25 at epoch 1 and ``local_steps`` to 2 at epoch 2,
+       the folded mixes counted by epoch (4, 4 and 2).
+    3. ``centralized`` on 4 cards against one card, within 1e-6 of the
+       state's scale, f32 and bf16 wire, at ``[16, 273258]``.
+    4. CHOCO at cell (g)'s shape (``choco_mesh_checks``), over real cards
+       too when two or more are visible.
+    The evaluation and the comm-split timer change no state, so the runs
+    held bitwise to another leave them out.  Any failure raises."""
+    from matcha_tpu_torch import serve
+    from matcha_tpu_torch.communicator import make_centralized
+    from matcha_tpu_torch.obs.telemetry import make_telemetry_spec
+
+    out, seconds = {}, {}
+    bpe = 2048 // 16 // 32
+    # the mesh phase's run, without its trace and checkpoints
+    mesh_cfg = dataclasses.replace(mesh_result["mesh_cfg"],
+                                   checkpoint_every=0, eval_every=0,
+                                   measure_comm_split=False)
+    want_tensors = mesh_result.pop("whole_tensors")
+    with tempfile.TemporaryDirectory() as root:
+        # the accumulator adds no synchronizing call: 8 mesh steps with
+        # it on and off, each count after a discarded one
+        t0 = time.perf_counter()
+        counts, primes = {}, {}
+        for on in (True, False):
+            spec = (make_telemetry_spec(build_schedule(slice_config(1), 20)
+                                        .decomposed, SLICE_D)
+                    if on else None)
+            state_, step, xb, yb = mesh_stepper(dev, 4, 20, telemetry=spec)
+            for _ in range(2):
+                state_, _ = step(state_, xb, yb)
+            torch.cuda.synchronize()
+
+            def eight(state_=state_, step=step, xb=xb, yb=yb):
+                for _ in range(8):
+                    step(state_, xb, yb)
+
+            label = f"mesh step x8, telemetry {'on' if on else 'off'}"
+            primes[label] = sync_warnings(eight)
+            counts[label] = sync_warnings(eight)
+            del state_, step
+        totals = {k: sum(v.values()) for k, v in counts.items()}
+        if len(set(totals.values())) != 1:
+            raise AssertionError(f"mesh: synchronizing calls {counts}")
+        out["sync_warnings"] = totals
+        out["sync_warnings_where"] = counts
+        out["sync_warnings_discarded"] = primes
+        seconds["sync"] = time.perf_counter() - t0
+
+        # the run controller's seam on the mesh
+        t0 = time.perf_counter()
+        sup = train(dataclasses.replace(mesh_cfg, name="identity",
+                                        savePath=root), device=[dev] * 4,
+                    boundary_hook=serve.TrainerHarness({}).on_boundary)
+        differ = []
+        for c, (want, card) in enumerate(zip(want_tensors,
+                                             sup.state.cards)):
+            got = state_tensors(card)
+            differ += [f"card {c} {k}" for k in want
+                       if not same_bits(got[k], want[k])]
+        if differ:
+            raise AssertionError(f"identity knobs on the mesh: not bitwise "
+                                 f"the plain run: {differ[:4]}")
+        del sup, want_tensors
+        control = os.path.join(root, "control.json")
+        harness = serve.TrainerHarness({"control_path": control})
+        mixes, seen = [], [0]
+
+        with FoldedCount() as folded:
+            def hook(seam):
+                # the mixes of the epoch that just ended
+                if seam.epoch:
+                    mixes.append(folded.calls - seen[0])
+                seen[0] = folded.calls
+                if seam.epoch == 1:
+                    serve.write_control(control, {"version": 1,
+                                                  "budget": 0.25})
+                elif seam.epoch == 2:
+                    serve.write_control(control, {"version": 2,
+                                                  "local_steps": 2})
+                harness.on_boundary(seam)
+
+            swap = train(dataclasses.replace(mesh_cfg, epochs=3,
+                                             name="swap", savePath=root),
+                         device=[dev] * 4, boundary_hook=hook)
+            torch.cuda.synchronize()
+            mixes.append(folded.calls - seen[0])
+        applied = [(e["epoch"], sorted(e["fields"])) for e in of_kind(
+            read_journal(os.path.join(swap.recorder.folder,
+                                      "events.jsonl")), "control")]
+        if mixes != [bpe, bpe, bpe // 2] or applied != [
+                (1, ["budget"]), (2, ["local_steps"])]:
+            raise AssertionError(f"swaps on the mesh: mixes by epoch "
+                                 f"{mixes}, control {applied}")
+        out["swap"] = {"mixes_by_epoch": mixes, "control": applied,
+                       "loss": [h["loss"] for h in swap.history],
+                       "local_every": swap.state.control.local_every}
+        del swap
+        seconds["identity and swaps"] = time.perf_counter() - t0
+
+        # centralized: the mean across the cards against one card's
+        t0 = time.perf_counter()
+        x = state(16, SLICE_D, dev)
+        scale = float(x.abs().max())
+        out["centralized_rel_gap"] = {}
+        for wire in (None, "bf16"):
+            comm = make_centralized(wire_dtype=wire)
+            want, _ = comm.step(x, (), None)
+            mesh = worker_mesh(devices=[dev] * 4)
+            got, _ = comm.step(shard_workers(x, mesh), (), None)
+            gap = float((gather_workers(got) - want).abs().max()) / scale
+            if not gap <= 1e-6:
+                raise AssertionError(f"centralized on 4 cards, wire {wire}: "
+                                     f"gap {gap}")
+            out["centralized_rel_gap"][str(wire or "f32")] = gap
+        del x, got, want
+        seconds["centralized"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["choco"] = choco_mesh_checks(dev, root, [
+            torch.device("cuda", i) for i in range(
+                min(torch.cuda.device_count(), 4))])
+        seconds["choco"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh_features", **out, "nvidia_smi": nvidia_smi()})
+    return {"launches": {}}
 
 def phase_stream_chain(dev, tables):
     """The streamed-window instantiation, which no entry point of the port
@@ -5236,7 +5621,8 @@ def kernels_line(r) -> list:
         **r["resilience"]["launches"], **r["pipeline"]["launches"],
         **r["planner"]["launches"], **r["observability"]["launches"],
         **r["perf_obs"]["launches"], **r["serve"]["launches"],
-        **r["chaos"]["launches"], **r["mesh"]["launches"]},
+        **r["chaos"]["launches"], **r["mesh"]["launches"],
+        **r["mesh_features"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -5390,11 +5776,13 @@ def kernels_line(r) -> list:
 PHASES = ("parity", "timing", "slice", "profile", "agreement",
           "stream_chain", "fused_parity", "fused_timing", "fused_chain",
           "fused_slice", "fused_large", "fused_sweep", "split_probe",
-          "split_timing", "epoch_end", "communicators", "perm_large",
-          "determinism", "choco", "models", "resilience", "pipeline",
-          "planner", "observability", "perf_obs", "serve", "chaos", "mesh")
+          "split_timing", "epoch_end", "communicators", "determinism",
+          "choco", "models", "perm_large", "resilience", "pipeline",
+          "planner", "observability", "perf_obs", "serve", "chaos", "mesh",
+          "mesh_features")
 NEEDS = {"planner": ("fused_timing",), "perf_obs": ("fused_timing",
-                                                    "planner")}
+                                                    "planner"),
+         "mesh_features": ("mesh",)}
 
 
 def waited_result(future):
@@ -5467,6 +5855,7 @@ def run_phases(dev, names, spills, early=None) -> dict:
         "serve": lambda r: phase_serve(dev),
         "chaos": lambda r: phase_chaos(dev),
         "mesh": lambda r: phase_mesh(dev),
+        "mesh_features": lambda r: phase_mesh_features(dev, r["mesh"]),
     }
     results, seconds = {}, {}
     for name in PHASES:

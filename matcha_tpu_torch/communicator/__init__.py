@@ -1,5 +1,5 @@
 """Communicators: the consensus transform of each training step.  Port of
-``matcha_tpu.communicator`` (CHOCO with its batched backend only)."""
+``matcha_tpu.communicator``."""
 
 import warnings
 
@@ -32,11 +32,14 @@ def select_communicator(
     through :func:`make_decen` with ``backend``, ``device``, ``mesh``,
     ``block_d``, ``w_window``), ``choco`` (CHOCO-SGD, through
     :func:`make_choco` with ``ratio``, ``consensus_lr``, ``compressor``
-    and ``seed``; the gossip
-    backends ``auto``, ``dense``, ``fused``, ``gather`` and ``perm`` all
-    mean its batched form, and ``skip`` is refused), ``centralized`` (the AllReduce
-    baseline) and ``none``.  ``wire_dtype`` narrows the exchange of every
-    communicator but ``none``, which exchanges nothing."""
+    and ``seed``; ``auto`` is its folded ``shard_map`` form on a ``mesh``
+    of more than one device and its batched form elsewhere, as in JAX
+    (:63), ``shard_map`` the folded form, the gossip backends ``dense``,
+    ``fused``, ``gather`` and ``perm`` its batched form, and ``skip`` is
+    refused), ``centralized`` (the AllReduce baseline; on a mesh its state
+    is folded and the mean is formed across the cards) and ``none``.
+    ``wire_dtype`` narrows the exchange of every communicator but
+    ``none``, which exchanges nothing."""
     if name == "decen":
         return make_decen(schedule, backend, device=device, mesh=mesh,
                           block_d=block_d, w_window=w_window,
@@ -56,7 +59,8 @@ def select_communicator(
             else "batched"
         return make_choco(schedule, ratio=ratio, consensus_lr=consensus_lr,
                           backend=choco_backend, compressor=compressor,
-                          seed=seed, wire_dtype=wire_dtype, device=device)
+                          seed=seed, wire_dtype=wire_dtype, device=device,
+                          mesh=mesh)
     if name == "centralized":
         return make_centralized(wire_dtype=wire_dtype)
     if name == "none":

@@ -28,10 +28,11 @@ the workers, never their mean.  ``run_overlapped`` (:123),
 flag stream.  JAX's ``lax.scan``/``lax.cond`` become host loops and host
 branches on the step index: no device value is read to decide anything.
 
-On a worker mesh (``decen``'s folded backend) ``flat`` is a
-``parallel.WorkerBlocks``, the C card-major blocks: ``step``, ``run``,
-``begin_mix``/``apply_mix`` and ``run_overlapped`` take and return one;
-the ``[K, N, D]`` ring of ``run_pipelined`` has no folded form yet.
+On a worker mesh (``decen``'s and CHOCO's folded backends,
+``centralized``) ``flat`` is a ``parallel.WorkerBlocks``, the C
+card-major blocks: ``step``, ``run``, ``begin_mix``/``apply_mix`` and
+``run_overlapped`` take and return one; the ``[K, N, D]`` ring of
+``run_pipelined`` has no folded form yet.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """CHOCO-SGD communicator: gossip on compressed model differences.
 
 Port of ``matcha_tpu/communicator/choco.py`` (``_choco_core`` :59,
-``make_choco`` :106) with its batched backend, after the reference's
-``ChocoCommunicator`` (``communicator.py:161-268``):
+``make_choco`` :106, the ``shard_map`` backend :226-365), after the
+reference's ``ChocoCommunicator`` (``communicator.py:161-268``):
 
     q_i   = compress(x_i − x̂_i)              (top-k keeps 1 − ratio)
     s_i  += Σ_{j active, partnered} α·scatter(q_{π_j(i)})
@@ -25,22 +25,50 @@ top-k indices are distinct, so no ``scatter_add`` below adds twice to one
 element and its result does not depend on the order of the adds; the
 global deterministic mode is not needed.
 
-The ``shard_map`` backend (workers across cards, only the compressed
-blocks exchanged) waits for multi-GPU support (``ROADMAP.md``).
+Backends:
+
+``batched``
+    The ``[N, D]`` one-tensor form: a neighbour's message is a row gather
+    (``vals[π_j]``).  One card.
+``shard_map``
+    The workers folded card-major across a worker mesh
+    (``parallel.WorkerBlocks``): each card compresses its ``[L, D]``
+    block, stacks its own and the ``[L, k]`` compressed blocks of the
+    cards its rows' partners sit on (moved at the wire dtype, the indices
+    as int32; never the dense state), picks each matching's partner
+    messages out of that stack with one row gather, as the folded plan
+    of ``parallel.build_folded_plan`` places them, and runs
+    ``_choco_core`` on its own rows.  The carry ``{x̂, s}`` is folded
+    like the state.  Every row's arithmetic is the batched form's, so a
+    deterministic compressor gives the batched bits whatever C is.  A
+    stochastic compressor draws on each card from a stream of its own,
+    made from the step's one generator state and the card index (JAX's
+    ``fold_in(key, c)``): card 0 draws from the carried generator itself,
+    card c from a generator seeded by a hash of that state and c, so the
+    draws depend on C (as in JAX) and C = 1 is the batched form.
+``auto``
+    ``shard_map`` on a mesh of more than one device, else ``batched``.
 """
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
-from ..ops import DETERMINISTIC_COMPRESSORS, scatter_rows, select_compressor
-from ..parallel import resolve_wire_dtype
+from ..ops import (
+    DETERMINISTIC_COMPRESSORS,
+    scatter_rows,
+    select_compressor,
+    top_k_ratio_size,
+)
+from ..parallel import WorkerBlocks, resolve_wire_dtype
 from ..schedule import Schedule
 from ..utils import resolve_device
 from .base import Communicator
 
-__all__ = ["make_choco"]
+__all__ = ["folded_message_bytes", "make_choco"]
 
 
 def _choco_core(vals, idx, x_hat, s, flat, flags_t, *, gather_msg,
@@ -89,6 +117,7 @@ def make_choco(
     seed: int = 0,
     wire_dtype=None,
     device=None,
+    mesh=None,
 ) -> Communicator:
     """Build the CHOCO communicator.
 
@@ -98,16 +127,25 @@ def make_choco(
     seeded ``seed``, whose state rides the carry.  ``wire_dtype``
     (``"f32"``/``"bf16"``/None): the compressed values are quantized to
     the wire dtype once, right after ``compress``, so the exchange, the
-    self message and the ``x̂`` update all read the same values.
-    ``backend``: ``batched`` (``auto`` means it); ``shard_map`` raises.
-    ``device``: where the partner tables live (``None``: the card)."""
-    if backend == "shard_map":
-        raise NotImplementedError(
-            "CHOCO's shard_map backend (workers across cards) is not ported "
-            "yet (ROADMAP.md, Queue 1: multi-GPU); use backend='batched'")
-    if backend not in ("batched", "auto"):
+    self message and the ``x̂`` update all read the same values (between
+    two cards of a mesh they move at the wire dtype, losslessly).
+    ``backend``: ``batched``, ``shard_map`` (needs ``mesh``, a
+    ``parallel.WorkerMesh``; ``step``, ``run`` and ``encode_probe`` then
+    take and return ``WorkerBlocks``) or ``auto`` (module docstring); the
+    batched form refuses a mesh of more than one device.  ``device``:
+    where the batched form's partner tables live (``None``: the card)."""
+    if backend == "auto":
+        backend = ("shard_map" if mesh is not None and mesh.size > 1
+                   else "batched")
+    if backend not in ("batched", "shard_map"):
         raise KeyError(f"unknown choco backend '{backend}'")
-    dev = resolve_device(device)
+    if backend == "shard_map" and mesh is None:
+        raise ValueError("shard_map backend needs a mesh")
+    if backend == "batched" and mesh is not None and mesh.size > 1:
+        raise ValueError(
+            f"choco's batched backend mixes one [N, D] tensor on one card; "
+            f"on a mesh of {mesh.size} devices use backend='shard_map' or "
+            f"'auto'")
     perms = np.asarray(schedule.perms)
     alpha = float(schedule.alpha)
     m, n = perms.shape
@@ -115,8 +153,6 @@ def make_choco(
     # partner masks: a fixed point exchanges nothing (communicator.py:210)
     partnered_np = (perms != np.arange(n)[None, :]).astype(np.float32)
     nonempty = [bool(partnered_np[j].any()) for j in range(m)]
-    perms_t = torch.as_tensor(perms, dtype=torch.long, device=dev)
-    partnered = torch.as_tensor(partnered_np, device=dev)
     base_compress = select_compressor(compressor)
     if wire is None:
         compress = base_compress
@@ -125,22 +161,38 @@ def make_choco(
             vals, idx = base_compress(q, ratio_, gen)
             return vals.to(wire).to(q.dtype), idx
     stochastic = compressor not in DETERMINISTIC_COMPRESSORS
+    aligned_full = compressor == "top_k"
     name = f"choco[r{ratio}" + ("" if compressor == "top_k"
                                 else f",{compressor}")
     if wire is not None:
         name += ",wire=bfloat16"
 
-    def generator(flat, state=None):
-        gen = torch.Generator(device=flat.device)
+    def generator(dev, state=None):
+        gen = torch.Generator(device=dev)
         if state is None:
             return gen.manual_seed(seed)
         gen.set_state(state.cpu())
         return gen
 
+    def probe_one(flat: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+        gen = torch.Generator(device=flat.device).manual_seed(0)
+        vals, idx = compress(flat - x_hat, ratio, gen)
+        return scatter_rows(x_hat, idx, vals, 1.0)
+
+    if backend == "shard_map":
+        return _folded_choco(
+            name, perms, partnered_np, nonempty, mesh, compress, generator,
+            probe_one, stochastic=stochastic, aligned_full=aligned_full,
+            ratio=ratio, alpha=alpha, consensus_lr=consensus_lr, wire=wire)
+
+    dev = resolve_device(device)
+    perms_t = torch.as_tensor(perms, dtype=torch.long, device=dev)
+    partnered = torch.as_tensor(partnered_np, device=dev)
+
     def init(flat: torch.Tensor):
         carry = {"x_hat": torch.zeros_like(flat), "s": torch.zeros_like(flat)}
         if stochastic:
-            carry["key"] = generator(flat).get_state()
+            carry["key"] = generator(flat.device).get_state()
         return carry
 
     def encode_probe(flat: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
@@ -148,12 +200,10 @@ def make_choco(
         ``x̂ += scatter(q)``, for the comm-split timer's encode chain; a
         stochastic compressor draws from a fresh generator seeded 0 (the
         probe models the cost, not the sample path)."""
-        gen = torch.Generator(device=flat.device).manual_seed(0)
-        vals, idx = compress(flat - x_hat, ratio, gen)
-        return scatter_rows(x_hat, idx, vals, 1.0)
+        return probe_one(flat, x_hat)
 
     def step(flat: torch.Tensor, carry, flags_t: torch.Tensor, alive=None):
-        gen = generator(flat, carry["key"]) if stochastic else None
+        gen = generator(flat.device, carry["key"]) if stochastic else None
         vals, idx = compress(flat - carry["x_hat"], ratio, gen)
         idx = idx.long()
 
@@ -168,7 +218,7 @@ def make_choco(
             vals, idx, carry["x_hat"], carry["s"], flat, flags_t,
             gather_msg=gather_msg, partnered_rows=partnered_eff,
             matching_nonempty=nonempty, alpha=alpha,
-            consensus_lr=consensus_lr, aligned_full=compressor == "top_k")
+            consensus_lr=consensus_lr, aligned_full=aligned_full)
         out = {"x_hat": x_hat, "s": s}
         if stochastic:
             out["key"] = gen.get_state()
@@ -176,3 +226,177 @@ def make_choco(
 
     return Communicator(name=name + "]", init=init, step=step,
                         encode_probe=encode_probe)
+
+
+def _card_seed(state: torch.Tensor, card: int) -> int:
+    """The seed of card ``card``'s stream in a step whose carried
+    generator state is ``state``: a hash of the two, so every card and
+    every step draws a stream of its own (JAX's ``fold_in(key, c)``)."""
+    digest = hashlib.blake2b(state.cpu().numpy().tobytes()
+                             + int(card).to_bytes(4, "little"),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") & ((1 << 63) - 1)
+
+
+def _message_tables(perms: np.ndarray, cards: int, nonempty):
+    """For each card c of a fold onto ``cards``: the card offsets ``d``
+    whose blocks its rows' partners sit in (card ``(c + d) mod C``; 0, its
+    own, first), over the matchings with an edge, and ``int64[M, L]``
+    selections: row l's partner message in matching j is row
+    ``select[j, l]`` of those blocks stacked in that order."""
+    m, n = perms.shape
+    rows = n // cards
+    offsets, selects = [], []
+    for c in range(cards):
+        partner = perms[:, c * rows:(c + 1) * rows]  # [M, L]
+        offset = (partner // rows - c) % cards
+        used = sorted({0} | set(offset[np.asarray(nonempty)].ravel()
+                                .tolist()))
+        offsets.append(used)
+        selects.append(np.searchsorted(used, offset) * rows
+                       + partner % rows)
+    return offsets, selects
+
+
+def _folded_choco(name, perms, partnered_np, nonempty, mesh, compress,
+                  generator, probe_one, *, stochastic, aligned_full, ratio,
+                  alpha, consensus_lr, wire) -> Communicator:
+    """The ``shard_map`` backend on ``mesh`` (module docstring).  Card c
+    holds workers ``c·L..(c+1)·L``; its partner tables are the columns of
+    the batched form's, and it stacks the ``(vals, idx)`` blocks of the
+    cards its rows' partners sit on (``_message_tables``), from which one
+    row gather per matching picks each row's partner message."""
+    devices = mesh.devices
+    cards = mesh.size
+    if perms.shape[1] % cards:
+        raise ValueError(f"N={perms.shape[1]} not divisible by "
+                         f"{cards} cards")
+    rows_per_card = perms.shape[1] // cards
+    offsets, selects = _message_tables(perms, cards, nonempty)
+    selects = [torch.as_tensor(sel, dtype=torch.long, device=dev)
+               for sel, dev in zip(selects, devices)]
+    cols = [slice(c * rows_per_card, (c + 1) * rows_per_card)
+            for c in range(cards)]
+    partnered = [torch.as_tensor(np.ascontiguousarray(partnered_np[:, col]),
+                                 device=dev)
+                 for col, dev in zip(cols, devices)]
+    partners = [torch.as_tensor(np.ascontiguousarray(perms[:, col]),
+                                dtype=torch.long, device=dev)
+                for col, dev in zip(cols, devices)]
+
+    def check(flat):
+        if not isinstance(flat, WorkerBlocks):
+            raise TypeError(f"choco's shard_map backend takes a WorkerBlocks "
+                            f"(shard_workers(x, mesh)), got {type(flat)}")
+        if len(flat) != cards or any(b.shape[0] != rows_per_card
+                                     for b in flat):
+            raise ValueError(f"the plan folds {cards} cards of "
+                             f"{rows_per_card} rows; got blocks "
+                             f"{[tuple(b.shape) for b in flat]}")
+
+    def init(flat: WorkerBlocks):
+        check(flat)
+        carry = {"x_hat": flat.zeros_like(), "s": flat.zeros_like()}
+        if stochastic:
+            carry["key"] = generator(flat.device).get_state()
+        return carry
+
+    def encode_probe(flat: WorkerBlocks, x_hat: WorkerBlocks) -> WorkerBlocks:
+        """Each card's compress path alone, as the batched probe."""
+        return WorkerBlocks(probe_one(b, h) for b, h in zip(flat, x_hat))
+
+    def card_generators(key):
+        """Card 0 steps the carried generator; card c > 0 a generator
+        seeded from its state and c."""
+        gens = [generator(devices[0], key)]
+        for c in range(1, cards):
+            gens.append(torch.Generator(device=devices[c]).manual_seed(
+                _card_seed(key, c)))
+        return gens
+
+    def step(flat: WorkerBlocks, carry, flags_t: torch.Tensor, alive=None):
+        check(flat)
+        gens = (card_generators(carry["key"]) if stochastic
+                else [None] * cards)
+        # every card's message first: the exchange reads them all
+        msgs = [compress(b - xh, ratio, gen)
+                for b, xh, gen in zip(flat, carry["x_hat"], gens)]
+        wire_vals = {}  # card -> its values at the wire dtype, once
+        flags_on, alive_on = {}, {}
+        out_flat, out_xh, out_s = [], [], []
+        for c, x in enumerate(flat):
+            dev = x.device
+            if dev not in flags_on:
+                flags_on[dev] = flags_t.to(dev)
+                if alive is not None:
+                    alive_on[dev] = torch.as_tensor(
+                        alive, dtype=torch.float32).to(dev)
+            vals = msgs[c][0]
+
+            def block_at(d: int):
+                """Card ``(c + d) mod C``'s ``(vals, idx)`` on card c: a
+                move of the ``[L, k]`` blocks between two devices, none
+                between virtual cards of one device."""
+                src = (c + d) % cards
+                v, i = msgs[src]
+                if v.device != dev:
+                    if src not in wire_vals:
+                        wire_vals[src] = v if wire is None else v.to(wire)
+                    v = wire_vals[src].to(dev, non_blocking=True).to(
+                        vals.dtype)
+                    i = i.to(dev, non_blocking=True)
+                return v, i
+
+            received = [block_at(d) for d in offsets[c]]
+            if len(received) == 1:
+                table_v, table_i = received[0]
+            else:
+                table_v = torch.cat([v for v, _ in received])
+                table_i = torch.cat([i for _, i in received])
+            table_i = table_i.long()
+            idx = table_i[:rows_per_card]
+
+            def gather_msg(j, sel=selects[c], table_v=table_v,
+                           table_i=table_i):
+                return (table_v.index_select(0, sel[j]),
+                        table_i.index_select(0, sel[j]))
+
+            partnered_eff = partnered[c]
+            if alive is not None:
+                gate = alive_on[dev]
+                partnered_eff = (partnered[c] * gate[cols[c]][None, :]
+                                 * gate[partners[c]])
+            new_x, x_hat, s = _choco_core(
+                vals, idx, carry["x_hat"][c], carry["s"][c], x,
+                flags_on[dev], gather_msg=gather_msg,
+                partnered_rows=partnered_eff, matching_nonempty=nonempty,
+                alpha=alpha, consensus_lr=consensus_lr,
+                aligned_full=aligned_full)
+            out_flat.append(new_x)
+            out_xh.append(x_hat)
+            out_s.append(s)
+        out = {"x_hat": WorkerBlocks(out_xh), "s": WorkerBlocks(out_s)}
+        if stochastic:
+            out["key"] = gens[0].get_state()
+        return WorkerBlocks(out_flat), out
+
+    return Communicator(name=name + ",shard_map]", init=init, step=step,
+                        encode_probe=encode_probe)
+
+
+def folded_message_bytes(schedule: Schedule, num_cards: int, dim: int,
+                         ratio: float = 0.9, wire_dtype=None) -> int:
+    """The bytes of compressed messages the ``shard_map`` backend moves
+    between cards in one step at width ``dim``: for each card, one
+    ``[L, k]`` value block (at the wire dtype) and one int32 index block
+    from every other card that a partner of its rows sits on, in any
+    matching with an edge.  Between virtual cards of one device the same
+    blocks are read in place."""
+    perms = np.asarray(schedule.perms)
+    nonempty = (perms != np.arange(perms.shape[1])[None, :]).any(axis=1)
+    offsets, _ = _message_tables(perms, num_cards, nonempty)
+    wire = resolve_wire_dtype(wire_dtype)
+    value_bytes = 4 if wire is None else torch.finfo(wire).bits // 8
+    blocks = sum(len(used) - 1 for used in offsets)
+    return (blocks * (perms.shape[1] // num_cards)
+            * top_k_ratio_size(dim, ratio) * (value_bytes + 4))

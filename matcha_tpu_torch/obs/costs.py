@@ -18,7 +18,10 @@ re-based on what one call of the program shows:
   and is ``None``.
 * **Peak bytes**: on the card, ``torch.cuda.max_memory_allocated`` after
   ``reset_peak_memory_stats`` around the call; elsewhere the arguments
-  plus the outputs.
+  plus the outputs.  A program over a worker mesh reports its largest
+  card's footprint, as the JAX package's per-device memory analysis of
+  the SPMD program gives it (and virtual cards of one device, that
+  device's).
 * **Compile seconds**: the synchronized wall time of that first call
   (it includes a kernel build and cuDNN's algorithm search).
 
@@ -46,6 +49,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ..parallel.mesh import WorkerBlocks
 
 __all__ = ["ChipSpec", "CHIP_PEAKS", "CPU_PROVISIONAL", "H100", "chip_peaks",
            "resolve_chip", "program_fingerprint", "analyze_program",
@@ -139,6 +144,10 @@ def _walk(obj, visit, optimizer_state: bool) -> None:
     first step's signature would differ from the others')."""
     if isinstance(obj, torch.Tensor):
         visit(obj)
+    elif isinstance(obj, WorkerBlocks):
+        visit(f"WorkerBlocks{len(obj)}")
+        for block in obj:
+            visit(block)
     elif isinstance(obj, nn.Module):
         visit(type(obj).__name__)
         for t in list(obj.parameters()) + list(obj.buffers()):
@@ -216,10 +225,18 @@ def _boundary_bytes(args, out):
     return arg_b, out_b, alias_b
 
 
-def _device_of(args) -> torch.device:
-    for t in _tensors(args):
-        return t.device
-    return torch.device("cpu")
+def _cards_of(args) -> List[torch.device]:
+    """The distinct CUDA devices the arguments lie on (a mesh's cards)."""
+    return list(dict.fromkeys(t.device for t in _tensors(args)
+                              if t.device.type == "cuda"))
+
+
+def _new_out_bytes(args, out, dev: torch.device) -> float:
+    """The bytes of the outputs on ``dev`` that are no argument's."""
+    _, out_b, alias_b = _boundary_bytes(
+        [t for t in _tensors(args) if t.device == dev],
+        [t for t in _tensors(out) if t.device == dev])
+    return out_b - alias_b
 
 
 def _measure(fn: Callable, args, label: str, fingerprint: str):
@@ -229,23 +246,29 @@ def _measure(fn: Callable, args, label: str, fingerprint: str):
 
     from .._kernels import kernel_flop_meter
 
-    dev = _device_of(args)
-    cuda = dev.type == "cuda"
-    if cuda:
+    cards = _cards_of(args)
+    resident = {}
+    for dev in cards:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        resident = torch.cuda.memory_allocated(dev)
+        resident[dev] = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as counter, \
             kernel_flop_meter() as meter:
         out = fn(*args)
-    if cuda:
+    for dev in cards:
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
     arg_b, out_b, alias_b = _boundary_bytes(args, out)
-    if cuda:
-        peak = float(torch.cuda.max_memory_allocated(dev))
-        temp = max(peak - resident - (out_b - alias_b), 0.0)
+    if cards:
+        # the largest card's footprint, and what it held beyond its
+        # resident memory and its new outputs
+        peaks = {dev: float(torch.cuda.max_memory_allocated(dev))
+                 for dev in cards}
+        peak = max(peaks.values())
+        temp = max(max(peaks[dev] - resident[dev]
+                       - _new_out_bytes(args, out, dev), 0.0)
+                   for dev in cards)
     else:
         peak, temp = arg_b + out_b - alias_b, 0.0
     costs = {
@@ -280,15 +303,17 @@ def analyze_program(fn: Callable, *args, label: str = "program") -> Dict:
     ``peak_bytes``
         the bytes in, out and aliased; on the card the allocator's peak
         over the call and what it held beyond the resident memory and the
-        new outputs; elsewhere ``peak = arg + out − alias``, ``temp = 0``.
+        new outputs (over a worker mesh, the largest card's: the JAX
+        package's per-device memory analysis of the SPMD program);
+        elsewhere ``peak = arg + out − alias``, ``temp = 0``.
     ``compile_seconds`` / ``arg_shardings``
         the synchronized wall time of the call, and the devices of the
         arguments.
 
     ``args`` on the ``meta`` device price the program from shapes alone.
-    On the card the call resets the allocator's process-wide peak counter
-    (``torch.cuda.reset_peak_memory_stats``): a peak reached before it is
-    no longer in ``max_memory_allocated``.
+    On the card the call resets the allocator's peak counter of every card
+    the arguments lie on (``torch.cuda.reset_peak_memory_stats``): a peak
+    reached before it is no longer in ``max_memory_allocated``.
     """
     _, costs = _measure(fn, args, label, program_fingerprint(label, args))
     return costs

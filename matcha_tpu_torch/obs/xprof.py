@@ -22,10 +22,17 @@ are JAX's; two rules are re-based on the trace's format:
    like any other).  A kernel in no such range, or whose launch row is
    missing, is ``other`` (compute, as in JAX).
 
-Then each phase's intervals are merged and intersected: the overlap
-fraction is the share of the exchange's device time that ran while compute
-also ran.  A CPU capture has no device rows: the parser raises
-:class:`TraceParseError` instead of reporting a fake 0 %.
+Then each phase's intervals are merged and intersected on each device
+(a Kineto kernel row names its device in ``args["device"]``), and the
+seconds are summed over the devices: on a worker mesh every card's
+exchange and compute count, and the overlap fraction is the share of the
+exchange's device time that ran while compute also ran on the same card.
+Where the rows carry a device the report adds ``per_device``, the same
+seconds and row counts card by card (rows that name no device under
+``"None"``).  Virtual cards of one device (a
+mesh of ``["cuda:0"] * C``) put every row on that one device, so the
+split then has one entry.  A CPU capture has no device rows: the parser
+raises :class:`TraceParseError` instead of reporting a fake 0 %.
 """
 
 from __future__ import annotations
@@ -234,31 +241,49 @@ def overlap_report(events: Sequence[dict], source: str = "trace") -> Dict:
         raise TraceParseError(
             f"{source}: device processes exist but carry no complete "
             f"(ph=X) kernel rows — truncated capture?")
-    spans: Dict[str, List[Tuple[float, float]]] = {
-        "comm": [], "comp": [], "other": []}
-    counts: Dict[str, int] = {"comm": 0, "comp": 0, "other": 0}
+    by_device: Dict[object, Dict[str, List[Tuple[float, float]]]] = {}
     for e, phase in phased:
         ts, dur = float(e["ts"]), float(e["dur"])
+        card = (e.get("args") or {}).get("device")
+        spans = by_device.setdefault(card, {"comm": [], "comp": [],
+                                            "other": []})
         spans[phase].append((ts * 1e-6, (ts + dur) * 1e-6))
-        counts[phase] += 1
-    comm = _merge(spans["comm"])
-    compute = _merge(spans["comp"] + spans["other"])
-    comm_s = _span_len(comm)
-    overlap_s = _intersect_len(comm, compute)
-    return {
+    per_device = {card: _phase_seconds(spans)
+                  for card, spans in by_device.items()}
+    total = {key: sum(p[key] for p in per_device.values())
+             for key in ("comm_seconds", "comp_seconds", "other_seconds",
+                         "compute_seconds", "overlap_seconds")}
+    rows = {phase: sum(p["rows"][phase] for p in per_device.values())
+            for phase in ("comm", "comp", "other")}
+    comm_s = total["comm_seconds"]
+    report = {
         "source": source,
         "device_processes": sorted(
             str(proc_names.get(p) or f"device {p}") for p in device_pids),
-        "rows": dict(counts),
-        "comm_seconds": comm_s,
-        "comp_seconds": _span_len(_merge(spans["comp"])),
-        "other_seconds": _span_len(_merge(spans["other"])),
-        "compute_seconds": _span_len(compute),
-        "overlap_seconds": overlap_s,
+        "rows": rows,
+        **total,
         # of all communication device time, the share that ran while
         # compute was also executing; None with no comm row at all
-        "overlap_fraction": (overlap_s / comm_s) if comm_s > 0 else None,
+        "overlap_fraction": (total["overlap_seconds"] / comm_s)
+        if comm_s > 0 else None,
     }
+    if any(card is not None for card in per_device):
+        report["per_device"] = {str(card): per_device[card]
+                                for card in sorted(per_device, key=str)}
+    return report
+
+
+def _phase_seconds(spans: Dict[str, List[Tuple[float, float]]]) -> Dict:
+    """One device's rows and seconds by phase, and the exchange's seconds
+    that overlapped compute."""
+    comm = _merge(spans["comm"])
+    compute = _merge(spans["comp"] + spans["other"])
+    return {"rows": {phase: len(v) for phase, v in spans.items()},
+            "comm_seconds": _span_len(comm),
+            "comp_seconds": _span_len(_merge(spans["comp"])),
+            "other_seconds": _span_len(_merge(spans["other"])),
+            "compute_seconds": _span_len(compute),
+            "overlap_seconds": _intersect_len(comm, compute)}
 
 
 def profile_report(source: str) -> Dict:

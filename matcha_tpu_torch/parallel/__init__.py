@@ -8,6 +8,7 @@ the folded plan and its executor (workers card-major across cards)."""
 from .collectives import (
     allreduce_mean,
     broadcast_worker0,
+    folded_allreduce_mean,
     masked_allreduce_mean,
     masked_mean_rows,
     worker_deviation,
@@ -66,6 +67,7 @@ __all__ = [
     "WorkerMesh",
     "dense_gossip_fn",
     "fold_dims",
+    "folded_allreduce_mean",
     "fused_gossip_plain",
     "fused_gossip_run",
     "gather_workers",

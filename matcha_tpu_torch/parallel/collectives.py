@@ -1,15 +1,19 @@
 """Centralized collectives over the worker axis.
 
 Port of ``matcha_tpu/parallel/collectives.py`` (:20-97): on a ``[N, ...]``
-worker tensor the global average is a mean over the leading axis.
+worker tensor the global average is a mean over the leading axis.  On a
+worker mesh (a ``WorkerBlocks``) :func:`folded_allreduce_mean` forms it
+across the cards.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["allreduce_mean", "broadcast_worker0", "masked_mean_rows",
-           "masked_allreduce_mean", "worker_deviation",
+from .mesh import WorkerBlocks
+
+__all__ = ["allreduce_mean", "broadcast_worker0", "folded_allreduce_mean",
+           "masked_mean_rows", "masked_allreduce_mean", "worker_deviation",
            "worker_deviation_rows", "worker_disagreement"]
 
 
@@ -36,6 +40,39 @@ def masked_allreduce_mean(x: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     values."""
     mean = masked_mean_rows(x, alive)
     return torch.where(_rows(alive, x) > 0, mean.expand_as(x), x)
+
+
+def folded_allreduce_mean(blocks: WorkerBlocks, alive=None,
+                          operand: WorkerBlocks = None) -> WorkerBlocks:
+    """:func:`allreduce_mean` (with ``alive``, :func:`masked_allreduce_mean`)
+    of a folded ``[N, ...]`` state: each card's column sum of ``operand``
+    (default: ``blocks``; the wire's quantized image, say) goes to card 0,
+    the mean comes back to every card, and each card writes it into its
+    rows (with ``alive``, into its alive rows, the others keeping their
+    values in ``blocks``).  Between real cards that moves ``2·C`` rows,
+    not ``N``.  The sum runs in another order than the one-tensor
+    function's (per card, then over the cards), so the two agree to f32
+    rounding, not bitwise.  ``alive``: ``f32[N]`` on any device."""
+    operand = blocks if operand is None else operand
+    first = blocks.device
+    if alive is None:
+        total = torch.stack([o.sum(dim=0).to(first) for o in operand])
+        mean = total.sum(dim=0) / sum(b.shape[0] for b in blocks)
+        return WorkerBlocks(mean.to(b.device).expand_as(b).clone()
+                            for b in blocks)
+    alive = torch.as_tensor(alive, dtype=torch.float32)
+    gates, parts, lo = [], [], 0
+    for o in operand:
+        gate = alive[lo:lo + o.shape[0]].to(o.device)
+        lo += o.shape[0]
+        w = _rows(gate, o)
+        parts.append((w * torch.where(w > 0, o, torch.zeros_like(o)))
+                     .sum(dim=0).to(first))
+        gates.append(w)
+    mean = torch.stack(parts).sum(dim=0) / torch.clamp(
+        alive.to(first).sum(), min=1.0)
+    return WorkerBlocks(torch.where(w > 0, mean.to(b.device).expand_as(b), b)
+                        for w, b in zip(gates, blocks))
 
 
 def broadcast_worker0(x: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,10 @@ to the chosen shape's.
 ``library`` times the kernel and the library call (``T`` calls of
 ``torch.matmul(W_t, x)``, ``perm_yardstick``) and computes the bound
 (``bound``, the rule of ``chip_smoke.py``'s kernels line) at
-``LIBRARY_SHAPES``: the 8192-worker torus at T = 1 and 8 and the
-16,384-worker hypercube at full width, T = 4.
+``LIBRARY_SHAPES``: the 8192-worker torus at T = 1 and 8, the
+16,384-worker hypercube at full width, T = 4, and chain (d)'s
+4096-worker hypercube at full width, T = 64 (64 products of
+``[4096, 4096]`` by ``[4096, 273258]`` a call: about a minute).
 
 Shapes: the training slice's ``[16, 273258]`` f32 state (zoo graph 4, its
 MATCHA schedule at budget 0.5) at T = 1 and 64; ``[256, 273258]`` on the
@@ -82,7 +84,7 @@ SHAPES = ("slice T=1", "slice T=64", "hypercube N=256 T=64",
           "hypercube N=16384 D=32768 T=4")
 # the K1 rows of PERF.md's table that lacked a bound or a library time
 LIBRARY_SHAPES = ("torus N=8192 T=1", "torus N=8192 T=8",
-                  "hypercube N=16384 T=4")
+                  "hypercube N=16384 T=4", "hypercube N=4096 T=64")
 BAND_SHAPES = ("hypercube N=4096 T=1", "ER N=4096 T=1", "ER N=4096 T=4",
                "hypercube N=16384 D=32768 T=1",
                "hypercube N=16384 D=32768 T=4")

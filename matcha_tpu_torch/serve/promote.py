@@ -100,18 +100,38 @@ def snapshot_consensus(state, flattener) -> Dict[str, np.ndarray]:
     then ``running_mean`` before ``running_var``, as ``mean`` sorts
     before ``var``).  Only the running mean and variance are statistics
     of a JAX ``batch_stats`` tree; other buffers are left out.  One read
-    of the device, at the promotion cadence."""
+    of the device, at the promotion cadence.  A state folded across a
+    worker mesh (``train.MeshTrainState``) averages over every card's
+    rows, each card's sum gathered on card 0."""
+    cards = getattr(state, "cards", None)
     with torch.no_grad():
-        means = [flattener.flatten(state.params).mean(dim=0)]
-        buffers = state.batch_stats
+        if cards is None:
+            means = [flattener.flatten(state.params).mean(dim=0)]
+            buffers = state.batch_stats
+        else:
+            means = [_mesh_mean([flattener.flatten(c.params)
+                                 for c in cards])]
+            buffers = cards[0].batch_stats
         names = [k for k in tree_order(buffers)
                  if k.rsplit(".", 1)[-1] in _STAT_BUFFERS]
-        means += [buffers[k].mean(dim=0) for k in names]
+        if cards is None:
+            means += [buffers[k].mean(dim=0) for k in names]
+        else:
+            means += [_mesh_mean([c.batch_stats[k] for c in cards])
+                      for k in names]
         host = [m.cpu().numpy() for m in means]
     arrays = {"params_flat": np.asarray(host[0], np.float32)}
     for i, arr in enumerate(host[1:]):
         arrays[f"batch_stats_{i:03d}"] = np.asarray(arr, np.float32)
     return arrays
+
+
+def _mesh_mean(rows) -> torch.Tensor:
+    """The worker mean of a tensor folded card by card (``rows[c]`` card
+    c's ``[L, ...]``), on card 0: each card's sum gathered there."""
+    first = rows[0].device
+    total = torch.stack([r.sum(dim=0).to(first) for r in rows]).sum(dim=0)
+    return total / sum(r.shape[0] for r in rows)
 
 
 def consensus_metrics(state, x_test, y_test,
@@ -128,14 +148,22 @@ def consensus_metrics(state, x_test, y_test,
     tensors (or arrays) of the test set; batches move to the model's
     device.  Each batch's loss and accuracy stay on the device and are
     read once; the weighting by batch size is the JAX package's, in
-    float64 on the host."""
-    model = state.model
+    float64 on the host.  On a worker mesh the means run over every
+    card's rows, and card 0's model evaluates them."""
+    cards = getattr(state, "cards", None)
+    model = state.model if cards is None else cards[0].model
     dev = next(model.parameters()).device
     with torch.no_grad():
-        mean = {k: v.mean(dim=0, keepdim=True)
-                for k, v in model.named_parameters()}
-        mean.update({k: v.mean(dim=0, keepdim=True)
-                     for k, v in model.named_buffers()})
+        if cards is None:
+            mean = {k: v.mean(dim=0, keepdim=True)
+                    for k, v in model.named_parameters()}
+            mean.update({k: v.mean(dim=0, keepdim=True)
+                         for k, v in model.named_buffers()})
+        else:
+            stores = [dict(c.model.named_parameters())
+                      | dict(c.model.named_buffers()) for c in cards]
+            mean = {k: _mesh_mean([st[k] for st in stores])[None]
+                    for k in stores[0]}
         was_training = model.training
         model.eval()
         rows, weights = [], []

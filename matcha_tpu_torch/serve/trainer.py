@@ -5,8 +5,11 @@ Port of ``matcha_tpu/serve/trainer.py``.
 supervisor (``serve.controller.Controller``) launches: it builds the
 ``TrainConfig`` from the spec, installs a ``TrainerHarness`` as the
 loop's ``boundary_hook``, runs ``train()`` on the spec's ``device``
-(``None``: the card; a host without CUDA raises), and maps the harness's
-outcome onto the process exit code the supervisor switches on:
+(``None``: the card; a host without CUDA raises; the config's
+``devices`` folds the run onto that many cards, or virtual cards of the
+CPU, as ``train()`` does, the promotions reading every card), and maps
+the harness's outcome onto the process exit code the supervisor switches
+on:
 
 * ``0`` — clean completion (ran out of epochs, or a ``stop`` control
   document drained the run);

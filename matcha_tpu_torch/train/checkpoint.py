@@ -34,10 +34,12 @@ package's ladder of older orbax layouts has no counterpart: the port has
 only its own format.
 
 A state folded across a worker mesh (``state.MeshTrainState``) is saved
-gathered: each card's rows concatenated in worker order, so the file is
-the one card's format whatever the number of cards, and a restore into a
-mesh slices the ``[N, ...]`` arrays onto the run's cards (a one-card
-checkpoint resumes on a mesh and back).
+gathered: each card's rows concatenated in worker order (CHOCO's folded
+``x̂`` and ``s`` too; its generator state as it is), so the file is the
+one card's format whatever the number of cards, and a restore into a mesh
+slices the ``[N, ...]`` arrays onto the run's cards, the carry as the
+template's communicator folds it (a one-card checkpoint resumes on a mesh
+and back).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ import numpy as np
 import torch
 
 from ..utils.atomicio import atomic_publish
-from ..parallel import gather_workers
+from ..parallel import WorkerBlocks, gather_workers, shard_workers
 from .state import MeshTrainState, TrainState
 
 __all__ = ["CHECKPOINT_FILE", "MAX_TO_KEEP", "ScheduleMismatch",
@@ -398,14 +400,17 @@ def restore_checkpoint(directory: str, template: TrainState,
 
 def _fold_into(template: MeshTrainState, payload: dict) -> None:
     """Load a gathered payload into a mesh's cards: card c takes rows
-    ``c·L..(c+1)·L`` of every parameter, buffer and momentum tensor.  The
-    pipeline's in-flight deltas and a communicator's carry have no folded
-    form yet, so a payload holding either raises."""
-    if isinstance(payload.get("mix_pending", ()), torch.Tensor) \
-            or payload["comm_carry"] != ():
-        raise ValueError("the checkpoint holds in-flight deltas or a "
-                         "communicator carry, which a worker mesh does not "
-                         "fold yet; resume it on one card")
+    ``c·L..(c+1)·L`` of every parameter, buffer and momentum tensor, and
+    the communicator's carry is folded where the template's is (a
+    ``WorkerBlocks`` entry). The pipeline's in-flight deltas have no
+    folded form yet, so a payload holding them raises, as does a carry of
+    another communicator's shape."""
+    if isinstance(payload.get("mix_pending", ()), torch.Tensor):
+        raise ValueError("the checkpoint holds in-flight deltas, which a "
+                         "worker mesh does not fold yet; resume it on one "
+                         "card")
+    template.comm_carry = _fold_carry(template.comm_carry,
+                                      payload["comm_carry"], template.mesh)
     rows = template.cards[0].model.num_workers
     for c, card in enumerate(template.cards):
         lo, hi = c * rows, (c + 1) * rows
@@ -420,6 +425,23 @@ def _fold_into(template: MeshTrainState, payload: dict) -> None:
                     for key, value in entry.items()}
             for index, entry in payload["optimizer"]["state"].items()}
         card.optimizer.load_state_dict(opt)
+
+
+def _fold_carry(like, saved, mesh):
+    """``saved`` (a gathered carry) folded as ``like`` (the run's own
+    carry) is: a ``WorkerBlocks`` entry sliced onto the mesh, any other
+    entry as saved."""
+    if isinstance(like, WorkerBlocks):
+        return shard_workers(saved, mesh)
+    if isinstance(like, dict) and isinstance(saved, dict) \
+            and set(like) == set(saved):
+        return {k: _fold_carry(like[k], saved[k], mesh) for k in like}
+    if isinstance(like, dict) or isinstance(saved, dict):
+        keys = lambda c: sorted(c) if isinstance(c, dict) else c  # noqa
+        raise ValueError(f"the checkpoint's communicator carry "
+                         f"{keys(saved)!r} does not fit this run's "
+                         f"{keys(like)!r}")
+    return saved
 
 
 def restore_with_fallback(directory: str, template: TrainState,

@@ -18,8 +18,10 @@ plan, rollback recovery, a membership trace or the live membership source
 health on; so does the profiler window (``trace_dir``, ``trace_epoch``:
 one epoch under ``torch.profiler``).  ``devices`` is the mesh's size, as
 in the JAX package, but ``None`` means one card here, not every visible
-one: ``train()`` refuses, on a mesh, the features this port does not fold
-yet, so it folds only when asked.  Still refused
+one: ``train()`` refuses, on a mesh, the pipeline (``overlap``,
+``staleness``), resilience (``fault_plan``, ``max_recoveries``) and
+membership (``membership_trace``, ``membership_live``), which this port
+does not fold yet, so it folds only when asked.  Still refused
 everywhere: ``scan_chunk``.
 """
 

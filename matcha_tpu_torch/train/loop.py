@@ -99,12 +99,19 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   every visible one.  On a mesh the state is folded card-major
   where the JAX loop calls ``shard_workers`` (:445-446,
   ``state.init_mesh_train_state``), each step's ``[N, B, ...]`` batch is
-  sliced by card, ``auto`` resolves to ``shard_map`` (journaled), and the
-  evaluation, the Recorder's per-worker series, the divergence detector,
-  the comm-split timer (the folded chain, every card synchronized) and
-  the checkpoints (the gathered ``[N, ...]`` arrays, the format of one
-  card) run over the cards.  What the port does not fold yet is refused
-  (``_refuse_on_mesh``).
+  sliced by card, ``auto`` resolves to ``shard_map`` (journaled; CHOCO's
+  ``auto`` to its folded backend, ``centralized`` forms its mean across
+  the cards), and the evaluation, the Recorder's per-worker series, the
+  divergence detector (the cards' rows and the folded carry), the
+  comm-split timer (the folded chain, every card synchronized) and the
+  checkpoints (the gathered ``[N, ...]`` arrays, the format of one card)
+  run over the cards.  The telemetry accumulator lives on card 0 (one
+  per mesh), so the heartbeats, the drift monitor, the anomaly detectors
+  and the cost ledger (each program's largest card's peak) read what
+  they read on one card; ``local_steps``, the control knobs (once for the
+  mesh) and a profiler window over every card run as on one card.  The
+  pending-delta pipeline, resilience and membership, whose heal and
+  bootstrap read rows across cards, are refused (``_refuse_on_mesh``).
 """
 
 from __future__ import annotations
@@ -137,7 +144,7 @@ from ..elastic import (
     membership_arrays,
 )
 from ..models import select_model
-from ..parallel import worker_mesh
+from ..parallel import WorkerBlocks, worker_mesh
 from ..obs.anomaly import AnomalyDetector
 from ..obs.costs import CostLedger
 from ..obs.drift import DriftMonitor, compose_predicted_rho
@@ -179,6 +186,7 @@ from .state import (
     make_mesh_train_step,
     make_optimizer,
     make_train_step,
+    mesh_card_state,
     mesh_flat,
 )
 
@@ -272,7 +280,10 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     virtual cards); ``devices=None`` is the one card ``device`` names,
     however many are visible (JAX takes every visible device: the port
     folds only when asked).  On a mesh ``result.state`` is a
-    ``state.MeshTrainState``.
+    ``state.MeshTrainState``; every feature runs there but the pipeline
+    (``overlap``, ``staleness``), resilience (``fault_plan``,
+    ``max_recoveries``) and membership (``membership_trace``,
+    ``membership_live``), which raise ``NotImplementedError``.
 
     ``resume_dir`` (default ``config.resume``): a checkpoint directory.
     The newest intact generation is restored (a damaged one is quarantined
@@ -297,7 +308,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         config = apply_plan(config)
     dev, mesh = _resolve_mesh(config, device)
     if mesh is not None:
-        _refuse_on_mesh(config, mesh, boundary_hook)
+        _refuse_on_mesh(config, mesh)
 
     dataset = build_dataset(config)
     parts = partition_indices(
@@ -447,8 +458,9 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         """``bool[N]`` on ``dev``: each worker's state all finite."""
         if mesh is None:
             return state_finite_rows(state, config.num_workers)
-        return torch.cat([state_finite_rows(card, flattener.num_workers)
-                          .to(dev) for card in state.cards])
+        return torch.cat([state_finite_rows(mesh_card_state(state, c),
+                                            flattener.num_workers).to(dev)
+                          for c in range(len(state.cards))])
     stale_scale = _stale_scale(config, schedule)
 
     # the telemetry's exchange accounting, fixed for the run; the "none"
@@ -512,9 +524,11 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         """(step, comm-split timer) over ``comm``, from the current
         ``optimizer`` (its learning rate), ``faults`` and ``schedule``."""
         if mesh is not None:
-            step = make_mesh_train_step(optimizer, comm, flattener,
-                                        run_flags, lr_schedule,
-                                        grad_chunk=config.grad_chunk)
+            step = make_mesh_train_step(
+                optimizer, comm, flattener, run_flags, lr_schedule,
+                grad_chunk=config.grad_chunk,
+                local_steps=config.local_steps, telemetry=tel_spec,
+                control=control_knobs is not None)
         else:
             step = make_train_step(
                 optimizer, comm, flattener, run_flags, lr_schedule,
@@ -877,8 +891,9 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         dev_sums: Dict[str, torch.Tensor] = {}
         host_sums: Dict[str, float] = {}
         count = 0
-        with (trace(config.trace_dir, device=dev) if tracing
-              else contextlib.nullcontext()):
+        with (trace(config.trace_dir,
+                    device=dev if mesh is None else clock_devices)
+              if tracing else contextlib.nullcontext()):
             for xb, yb in _epoch_batches(loader, epoch, x_train, y_train,
                                          dev):
                 if count == 0:
@@ -1125,27 +1140,24 @@ def _resolve_mesh(config: TrainConfig, device):
     return mesh.devices[0], mesh
 
 
-def _refuse_on_mesh(config: TrainConfig, mesh, boundary_hook) -> None:
+def _refuse_on_mesh(config: TrainConfig, mesh) -> None:
     """Raise ``NotImplementedError`` naming ``ROADMAP.md`` for what the
-    port does not fold across a mesh yet."""
-    refused = []
-    if config.communicator in ("choco", "centralized"):
-        refused.append(f"communicator={config.communicator!r}")
-    for name, off in (("overlap", "off"), ("staleness", 1),
-                      ("local_steps", 1), ("fault_plan", None),
-                      ("max_recoveries", 0), ("membership_trace", None),
-                      ("membership_live", None), ("telemetry", False),
-                      ("trace_dir", None)):
-        if getattr(config, name) != off:
-            refused.append(f"{name}={getattr(config, name)!r}")
-    if boundary_hook is not None:
-        refused.append("boundary_hook")
+    port does not fold across a mesh yet: the pending-delta pipeline
+    (``overlap``, ``staleness``), resilience (``fault_plan``,
+    ``max_recoveries``) and membership (``membership_trace``,
+    ``membership_live``), whose heal and bootstrap read rows across
+    cards."""
+    refused = [f"{name}={getattr(config, name)!r}"
+               for name, off in (("overlap", "off"), ("staleness", 1),
+                                 ("fault_plan", None), ("max_recoveries", 0),
+                                 ("membership_trace", None),
+                                 ("membership_live", None))
+               if getattr(config, name) != off]
     if refused:
         raise NotImplementedError(
             f"on a worker mesh of {mesh.size} devices the port does not "
             f"fold {', '.join(refused)} yet (ROADMAP.md): run it on one "
-            f"card, or switch it off (telemetry=False also switches off "
-            f"the health heartbeats, which read it)")
+            f"card, or switch it off")
 
 
 def _rederive_alpha(schedule: Schedule, faults, elastic_ctl, recorder,
@@ -1376,7 +1388,8 @@ def _make_comm_timer(communicator, flat_params, devices: List[torch.device],
 
     def encode_chain(state, flags):
         flat = flat_params(state)
-        probe = torch.zeros_like(flat)
+        probe = (flat.zeros_like() if isinstance(flat, WorkerBlocks)
+                 else torch.zeros_like(flat))
         for _ in range(flags.shape[0]):
             probe = communicator.encode_probe(flat, probe)
         return probe

@@ -30,8 +30,9 @@ model stacking workers ``c·L..(c+1)·L`` and its optimizer, folded from
 the same CPU inits as one card's (:func:`init_mesh_train_state`).
 :func:`make_mesh_train_step` runs the one-card step without a
 communicator on each card's block in turn, then the communicator's folded
-mix once across the cards; every card's new block is formed before any is
-written back.
+mix once across the cards (every card's new block is formed before any
+is written back), the telemetry accumulator's step and the run
+controller's knobs.
 """
 
 from __future__ import annotations
@@ -76,7 +77,8 @@ from ..utils import cross_entropy_loss, device_span, top_k_accuracy
 __all__ = ["MeshTrainState", "OptimizerSpec", "TrainState",
            "fresh_mix_pending", "init_mesh_train_state", "init_train_state",
            "make_eval_fn", "make_mesh_eval_fn", "make_mesh_train_step",
-           "make_optimizer", "make_train_step", "mesh_flat"]
+           "make_optimizer", "make_train_step", "mesh_card_state",
+           "mesh_flat"]
 
 
 @dataclasses.dataclass
@@ -124,14 +126,23 @@ class MeshTrainState:
     ``cards[c]`` is the one-card :class:`TrainState` of workers
     ``c·L..(c+1)·L``: a model stacking those L workers on
     ``mesh.devices[c]`` and its optimizer.  The communicator's carry is
-    the mesh's (the cards' own ``comm_carry`` is not read); the schedule
-    cursor ``step`` is every card's, which advance together.  The
-    pipelined, elastic, telemetry and control state have no folded form
-    yet: ``train()`` refuses those features on a mesh."""
+    the mesh's, folded like the state where it has worker rows (CHOCO's
+    ``{x̂, s}`` as ``WorkerBlocks``; the cards' own ``comm_carry`` is not
+    read); the schedule cursor ``step`` is every card's, which advance
+    together.  ``telemetry``: the epoch's ``obs.Telemetry`` accumulator,
+    one per mesh on card 0 (JAX shards it like the state; its per-worker
+    rows arrive gathered in worker order), () with telemetry off.
+    ``control``: the run controller's ``serve.ControlKnobs``, once for the
+    mesh (replicated in JAX: ``row_scale`` is ``[M]`` matchings, not
+    workers), () unsupervised.  Neither is checkpointed.  The pipelined
+    and elastic state have no folded form yet: ``train()`` refuses those
+    features on a mesh."""
 
     cards: List[TrainState]
     mesh: WorkerMesh
     comm_carry: Any = ()
+    telemetry: Any = ()
+    control: Any = ()
 
     @property
     def step(self) -> int:
@@ -269,6 +280,22 @@ def mesh_flat(state: MeshTrainState,
     """The folded ``[N, D]`` parameter stack: each card's ``[L, D]``."""
     return WorkerBlocks(flattener.flatten(card.params)
                         for card in state.cards)
+
+
+def mesh_card_state(state: MeshTrainState, c: int) -> TrainState:
+    """Card c's :class:`TrainState` with its rows of the mesh's carry (a
+    ``WorkerBlocks`` entry's block c; an entry without worker rows, such
+    as CHOCO's generator state, as it is): what a per-worker check of the
+    whole state reads on that card."""
+    def rows(v):
+        if isinstance(v, WorkerBlocks):
+            return v[c]
+        if isinstance(v, dict):
+            return {k: rows(x) for k, x in v.items()}
+        return v
+
+    return dataclasses.replace(state.cards[c],
+                               comm_carry=rows(state.comm_carry))
 
 
 @contextlib.contextmanager
@@ -724,7 +751,10 @@ def make_mesh_train_step(optimizer: OptimizerSpec,
                          communicator: Communicator,
                          flattener: WorkerFlattener, flags: np.ndarray,
                          lr_schedule: Optional[Callable] = None,
-                         grad_chunk: Optional[int] = None):
+                         grad_chunk: Optional[int] = None,
+                         local_steps: int = 1,
+                         telemetry: Optional[TelemetrySpec] = None,
+                         control: bool = False):
     """Build the folded ``step(state, xb, yb) -> (state, metrics)`` over a
     :class:`MeshTrainState`.
 
@@ -738,19 +768,37 @@ def make_mesh_train_step(optimizer: OptimizerSpec,
     any is written back into the cards' parameters.  ``metrics``: the
     one-card step's without faults or membership, on card 0: ``loss`` and
     ``accuracy`` the mean of the cards' means, ``disagreement`` over the
-    whole stack from per-card partials (:func:`_folded_disagreement`);
+    whole stack from per-card partials (:func:`_folded_deviation`);
     the communicator's flag rows are kept where it wants them (the host,
-    for the folded backend)."""
+    for the folded decen backend).
+
+    ``local_steps``, ``telemetry`` and ``control`` are the one-card
+    step's (:func:`make_train_step`): the exchange runs only where the
+    cursor is a multiple of the cadence (a host branch; the other steps
+    launch no mix); with a ``TelemetrySpec`` and an ``obs.Telemetry`` in
+    ``state.telemetry`` (on card 0), each step adds to it in place, with
+    the per-worker deviation rows the disagreement is summed from
+    (gathered onto card 0 in worker order), and reads nothing back; with
+    ``control`` and a ``serve.ControlKnobs`` in ``state.control``, the
+    flag row is multiplied by ``row_scale`` and then by ``alpha_scale`` in
+    f32, in the JAX step's order, before the communicator scales it by α,
+    and ``local_every`` replaces ``local_steps``."""
     card_step = make_train_step(optimizer, None, flattener, flags,
                                 lr_schedule=lr_schedule,
                                 grad_chunk=grad_chunk)
     flags_host = np.asarray(flags, np.float32)  # [T, M]
+    local_steps = int(local_steps)
+    if local_steps < 1:
+        raise ValueError(f"local_steps must be >= 1, got {local_steps}")
     comm_flags = {}
 
     def step(state: MeshTrainState, xb: torch.Tensor, yb: torch.Tensor):
         devices = state.mesh.devices
         rows = flattener.num_workers
-        t = min(state.step, flags_host.shape[0] - 1)
+        cursor = state.step
+        t = min(cursor, flags_host.shape[0] - 1)
+        tel = (state.telemetry if telemetry is not None
+               and isinstance(state.telemetry, Telemetry) else None)
         # each card's step advances its own cursor: the mesh's
         parts = [card_step(card,
                            xb[c * rows:(c + 1) * rows].to(devices[c],
@@ -762,39 +810,62 @@ def make_mesh_train_step(optimizer: OptimizerSpec,
         dev = communicator.flags_device(devices[0])
         if dev not in comm_flags:
             comm_flags[dev] = torch.as_tensor(flags_host, device=dev)
+        row = comm_flags[dev][t]
+        every = local_steps
+        knobs = state.control if control and isinstance(
+            state.control, ControlKnobs) else None
+        if knobs is not None:
+            row = row * knobs.row_scale
+            if knobs.alpha_scale != 1.0:
+                row = row * knobs.alpha_scale
+            every = knobs.local_every
+        do_mix = cursor % every == 0
         first = devices[0]
         with torch.no_grad():
             flat = mesh_flat(state, flattener)
-            with device_span("comm/step"):
-                flat, state.comm_carry = communicator.step(
-                    flat, state.comm_carry, comm_flags[dev][t])
-            for card, block in zip(state.cards, flat):
-                flattener.unflatten_into(block, card.params)
-            metrics = {**parts[0], "disagreement": _folded_disagreement(
-                flat, first)}
+            if do_mix:
+                with device_span("comm/step"):
+                    flat, state.comm_carry = communicator.step(
+                        flat, state.comm_carry, row)
+                for card, block in zip(state.cards, flat):
+                    flattener.unflatten_into(block, card.params)
+            deviation, disagreement = _folded_deviation(flat, first)
+            metrics = {**parts[0], "disagreement": disagreement}
             for key in ("loss", "accuracy"):
                 metrics[key] = torch.stack(
                     [part[key].to(first) for part in parts]).mean()
+            if tel is not None:
+                telemetry_step(
+                    tel, telemetry, disagreement=disagreement,
+                    # an elided step exchanges nothing: zero bytes
+                    flags_t=flags_host[t] * np.float32(do_mix),
+                    alive_count=rows * len(devices),
+                    worker_disagreement=deviation)
         return state, metrics
 
     return step
 
 
-def _folded_disagreement(blocks, first: torch.device) -> torch.Tensor:
-    """``worker_disagreement`` of the folded ``[N, D]`` stack, on
-    ``first``, from per-card partials: each card's ``[D]`` column sum
-    goes to ``first`` for the mean, the mean back to each card, and each
-    card's sum of squared deviations to ``first`` as one scalar.  Between
-    real cards that moves ``2·C·D + C`` floats, not ``N·D``; the sums run
-    in another order than the one-tensor function's."""
+def _folded_deviation(blocks, first: torch.device):
+    """``(worker_deviation_rows, disagreement)`` of the folded ``[N, D]``
+    stack, on ``first``, from per-card partials
+    (``parallel.worker_deviation`` across the cards): each card's ``[D]``
+    column sum goes to ``first`` for the mean, the mean back to each card,
+    and each card's ``[L]`` sums of squared deviations to ``first`` in
+    worker order.  Between real cards that moves ``2·C·D + N`` floats, not
+    ``N·D``; the sums run in another order than the one-tensor
+    function's."""
     n = sum(b.shape[0] for b in blocks)
     mean = torch.stack([b.sum(dim=0).to(first) for b in blocks]).sum(
         dim=0) / n
-    squares = []
+    sums = []
     for b in blocks:
         centered = b - mean.to(b.device)
-        squares.append((centered * centered).sum().to(first))
-    return torch.sqrt(torch.stack(squares).sum() / (n * mean.numel()))
+        sums.append((centered * centered).reshape(b.shape[0], -1)
+                    .sum(dim=1).to(first))
+    sq = torch.cat(sums)
+    d = mean.numel()
+    return torch.sqrt(sq / d), torch.sqrt(sq.sum() / (n * d))
 
 
 def make_mesh_eval_fn(state: MeshTrainState):

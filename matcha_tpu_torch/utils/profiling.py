@@ -35,25 +35,34 @@ def trace(log_dir: str, device=None):
     ``log_dir``.
 
     Records CPU and CUDA activity when the card is in use (``device`` a
-    CUDA device, or ``None`` with CUDA available), the CPU alone otherwise.
-    The card is synchronized before the window closes, so work queued
-    inside the window lands in the capture (the JAX contract of ending the
-    block with a readback).  Yields ``log_dir``."""
+    CUDA device, a sequence of devices holding one, the cards of a worker
+    mesh, or ``None`` with CUDA available), the CPU alone otherwise.  The
+    CUDA activity is every card's: CUPTI traces each device the process
+    launches on, and each kernel row carries its device.  Every card is
+    synchronized before the window closes, so work queued inside the
+    window lands in the capture (the JAX contract of ending the block with
+    a readback).  Yields ``log_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     Path(log_dir).mkdir(parents=True, exist_ok=True)
-    dev = (torch.device(device) if device is not None
-           else torch.device("cuda" if torch.cuda.is_available() else "cpu"))
+    if device is None:
+        devices = [torch.device("cuda" if torch.cuda.is_available()
+                                else "cpu")]
+    elif isinstance(device, (list, tuple)):
+        devices = [torch.device(d) for d in device]
+    else:
+        devices = [torch.device(device)]
+    cards = list(dict.fromkeys(d for d in devices if d.type == "cuda"))
     activities = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
+    if cards:
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
     try:
         yield log_dir
     finally:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for card in cards:
+            torch.cuda.synchronize(card)
         prof.stop()
         name = (f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}"
                 f".pt.trace.json.gz")

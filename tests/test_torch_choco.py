@@ -41,7 +41,12 @@ from matcha_tpu_torch.communicator import (
     select_communicator,
 )
 from matcha_tpu_torch.ops import top_k_ratio_size
-from matcha_tpu_torch.parallel import worker_disagreement
+from matcha_tpu_torch.parallel import (
+    gather_workers,
+    shard_workers,
+    worker_disagreement,
+    worker_mesh,
+)
 from matcha_tpu_torch.schedule import fixed_schedule, matcha_schedule
 
 ULP = 2.0 ** -23
@@ -253,8 +258,24 @@ def test_select_communicator_choco_backends_and_names():
         device="cpu").name == "choco[r0.5,top_k_q8,wire=bfloat16]"
     with pytest.raises(ValueError, match="skip"):
         select_communicator("choco", sched, backend="skip", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         select_communicator("choco", sched, backend="shard_map", device="cpu")
+    # on a mesh, auto and shard_map are the folded form, bitwise the
+    # batched one; a batched spelling refuses the mesh
+    mesh = worker_mesh(devices=["cpu"] * 4)
+    x = torch.from_numpy(random_state(8, 40, seed=3))
+    want, want_carry = select_communicator(
+        "choco", sched, ratio=0.5, device="cpu").run(x, sched.flags[:2])
+    for backend in ("auto", "shard_map"):
+        comm = select_communicator("choco", sched, ratio=0.5, mesh=mesh,
+                                   backend=backend, device="cpu")
+        assert comm.name == "choco[r0.5,shard_map]"
+        got, carry = comm.run(shard_workers(x, mesh), sched.flags[:2])
+        assert torch.equal(gather_workers(got), want)
+        assert torch.equal(gather_workers(carry["s"]), want_carry["s"])
+    with pytest.raises(ValueError, match="shard_map"):
+        select_communicator("choco", sched, mesh=mesh, backend="perm",
+                            device="cpu")
     with pytest.raises(KeyError):
         make_choco(sched, backend="ring", device="cpu")
     with pytest.warns(UserWarning, match="no effect"):

@@ -40,10 +40,13 @@ from matcha_tpu_torch.communicator import (
     select_communicator,
 )
 from matcha_tpu_torch.parallel import (
+    gather_workers,
     gossip_mix_skip,
     matching_wire_bytes,
+    shard_workers,
     worker_deviation_rows,
     worker_disagreement,
+    worker_mesh,
 )
 from matcha_tpu_torch.schedule import matcha_schedule
 from matcha_tpu_torch.topology import select_graph
@@ -200,8 +203,23 @@ def test_select_communicator_names_and_refusals():
                                device="cpu").name == "choco[r0.9]"
     with pytest.raises(ValueError, match="skip"):
         select_communicator("choco", port, backend="skip", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         select_communicator("choco", port, backend="shard_map", device="cpu")
+    # on a mesh: CHOCO's folded form, bitwise its batched form, and the
+    # centralized mean formed across the cards
+    mesh = worker_mesh(devices=["cpu"] * 2)
+    x = torch.from_numpy(_state(seed=5))
+    folded = select_communicator("choco", port, mesh=mesh, device="cpu")
+    assert folded.name == "choco[r0.9,shard_map]"
+    got, _ = folded.run(shard_workers(x, mesh), port.flags[:3])
+    want, _ = select_communicator("choco", port, device="cpu").run(
+        x, port.flags[:3])
+    assert torch.equal(gather_workers(got), want)
+    cent = select_communicator("centralized", mesh=mesh)
+    got, _ = cent.step(shard_workers(x, mesh), (), port.flags[0])
+    want, _ = cent.step(x, (), port.flags[0])
+    assert float((gather_workers(got) - want).abs().max()) \
+        <= 1e-6 * float(x.abs().max())
     with pytest.raises(KeyError):
         select_communicator("gossip")
 

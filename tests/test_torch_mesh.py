@@ -49,6 +49,7 @@ from matcha_tpu_torch.parallel import (
     replicated,
     shard_map_gossip_fn,
     shard_workers,
+    worker_deviation_rows,
     worker_disagreement,
     worker_mesh,
 )
@@ -56,7 +57,7 @@ from matcha_tpu_torch.train import TrainConfig, train
 from matcha_tpu_torch.train.loop import TrainingDiverged, _resolve_mesh
 from matcha_tpu_torch.train.state import (
     MeshTrainState,
-    _folded_disagreement,
+    _folded_deviation,
     make_optimizer,
     make_train_step,
 )
@@ -411,14 +412,16 @@ def test_devices_none_is_one_card_however_many_are_visible(monkeypatch):
 
 @pytest.mark.parametrize("cards", [2, 4, 8])
 def test_folded_disagreement_is_the_gathered_stacks(cards):
-    """The mesh step's disagreement, from per-card partials, is
-    ``worker_disagreement`` of the gathered stack up to the order of its
-    sums."""
+    """The mesh step's disagreement and deviation rows, from per-card
+    partials, are ``worker_deviation`` of the gathered stack up to the
+    order of its sums."""
     x = torch.as_tensor(np.random.default_rng(cards).standard_normal(
         (16, 301)), dtype=torch.float32)
-    got = _folded_disagreement(shard_workers(x, cpu_mesh(cards)),
-                               torch.device("cpu"))
+    rows, got = _folded_deviation(shard_workers(x, cpu_mesh(cards)),
+                                  torch.device("cpu"))
     torch.testing.assert_close(got, worker_disagreement(x), rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(rows, worker_deviation_rows(x), rtol=RTOL,
                                atol=ATOL)
 
 
@@ -452,28 +455,21 @@ def test_the_cli_folds_onto_every_visible_card_for_shard_map(monkeypatch):
 
 
 REFUSED = [
-    ("communicator", dict(communicator="choco")),
-    ("communicator", dict(communicator="centralized")),
     ("overlap", dict(overlap="1step")),
     ("staleness", dict(overlap="1step", staleness=2)),
-    ("local_steps", dict(local_steps=2)),
     ("fault_plan", dict(fault_plan="plan.json")),
     ("max_recoveries", dict(max_recoveries=1)),
     ("membership_trace", dict(membership_trace="trace.json")),
     ("membership_live", dict(membership_live="beats")),
-    ("telemetry", dict(telemetry=True, health=True)),
-    ("trace_dir", dict(trace_dir="traces")),
-    ("boundary_hook", {}),
 ]
 
 
-@pytest.mark.parametrize("what,over", REFUSED,
-                         ids=[f"{w}-{i}" for i, (w, _) in enumerate(REFUSED)])
+@pytest.mark.parametrize("what,over", REFUSED, ids=[
+    f"{w}-{i}" for i, (w, _) in zip((2, 3, 5, 6, 7, 8), REFUSED)])
 def test_train_refuses_what_the_mesh_does_not_fold(what, over):
     cfg = TrainConfig(**{**CONFIG, **over}, devices=4)
-    hook = (lambda seam: None) if what == "boundary_hook" else None
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
-        train(cfg, device="cpu", boundary_hook=hook)
+        train(cfg, device="cpu")
 
 
 def test_train_halts_on_divergence_on_the_mesh():

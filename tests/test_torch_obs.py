@@ -377,11 +377,27 @@ def of_kind(events, kind):
     return [e for e in events if e["kind"] == kind]
 
 
+#: the anomaly causes scored on the host's wall clock: a run on a loaded
+#: host may show one that the other package's run did not
+HOST_TIME_CAUSES = ("step_time_spike", "comm_time_spike")
+
+
+def off_clock(events):
+    """``events`` without the anomalies whose verdict comes from the wall
+    clock (``HOST_TIME_CAUSES``).  The detector that gives them is held
+    to JAX's on fixed heartbeat records, both causes included, by
+    ``test_anomaly_detector_verdicts_equal_jax`` in
+    ``tests/test_torch_health.py``."""
+    return [e for e in events if not (e["kind"] == "anomaly"
+                                      and e["cause"] in HOST_TIME_CAUSES)]
+
+
 @pytest.mark.parametrize("pair", ["ring8_pair", "misplan_pair"])
 def test_train_journals_what_jax_journals(request, pair):
     port, ref = request.getfixturevalue(pair)
     got, want = journals(port, ref)
-    assert [e["kind"] for e in got] == [e["kind"] for e in want]
+    assert [e["kind"] for e in off_clock(got)] == \
+        [e["kind"] for e in off_clock(want)]
     assert [e["label"] for e in of_kind(got, "compile")] == \
         [e["label"] for e in of_kind(want, "compile")]
     for g, w in zip(of_kind(got, "telemetry"), of_kind(want, "telemetry")):
@@ -408,7 +424,8 @@ def test_train_journals_what_jax_journals(request, pair):
                 (stats["slot"], stats["participation"])
             assert rel(mine["disagreement"], stats["disagreement"]) \
                 <= TEL_REL
-    assert of_kind(got, "anomaly") == of_kind(want, "anomaly") == []
+    assert of_kind(off_clock(got), "anomaly") == \
+        of_kind(off_clock(want), "anomaly") == []
 
 
 def test_ring8_is_in_band_and_misplan_drifts(ring8_pair, misplan_pair):
@@ -443,7 +460,8 @@ def test_recovery_rebases_the_drift_monitor_like_jax(tmp_path, jax_init):
                            alpha_override=0.03, fault_plan=nan_all,
                            max_recoveries=1)
     got, want = journals(port, ref)
-    assert [e["kind"] for e in got] == [e["kind"] for e in want]
+    assert [e["kind"] for e in off_clock(got)] == \
+        [e["kind"] for e in off_clock(want)]
     (g,), (w,) = of_kind(got, "alpha_rederived"), of_kind(want,
                                                           "alpha_rederived")
     assert g["epoch"] == w["epoch"] == 1

@@ -34,13 +34,15 @@ gather oracle with inactive matchings skipped on the host.
 visible card (``CUDA_VISIBLE_DEVICES`` picks the cards; one card is no
 mesh, and the backend then raises): on-card edges are row gathers,
 cross-card edges move a neighbour card's block.  Any other backend runs
-on one card, however many are visible.  A mesh runs the decen (or
-``none``) communicator eager, with ``--no-telemetry``; what it does not
-fold yet is refused, naming ``ROADMAP.md``::
+on one card, however many are visible.  A mesh runs every communicator
+(CHOCO through its folded backend, ``centralized`` through a mean across
+the cards) with telemetry, health and the other defaults; the pipeline
+(``--overlap``, ``--staleness``), a fault plan, recovery and membership
+are refused, naming ``ROADMAP.md``::
 
     CUDA_VISIBLE_DEVICES=0,1,2,3 python train_torch.py --model resnet20 \
         --dataset synthetic_image --graphid 4 --numworkers 16 \
-        --backend shard_map --no-telemetry --epoch 10
+        --backend shard_map --epoch 10
 ``--communicator centralized`` averages all workers every step (the
 AllReduce baseline), ``--communicator none`` never mixes.
 
