@@ -202,7 +202,8 @@ prints no kernels line:
    T ulps of ``run``; a staleness-2 run resumed from its epoch-0
    checkpoint bitwise the uninterrupted one, ring included, and resumed
    at staleness 4 and eagerly; ms per step of eager, ``1step``,
-   ``staleness=2`` and ``local_steps=2`` in alternated rounds.
+   ``staleness=2`` and ``local_steps=2``, one round (alternated rounds
+   when more are asked for).
    planner — the offline planner and ``gossip_backend="auto"``
    (``phase_planner``): ``sweep`` over zoo graph 4 at budgets 0.25 /
    0.5 / 0.75 through the port's planlint, its host seconds; the slice
@@ -281,6 +282,17 @@ prints no kernels line:
    checkpoint (``shard_map`` journaled, bitwise the uninterrupted mesh
    run), over real cards too when two or more are visible; ms, launches
    and the idle share a step on one card and on 4 virtual cards.
+   mesh_full — every ``TrainConfig`` feature on 4 virtual cards
+   (``phase_mesh_full``, cell (p)): ``make_decen(..., "perm",
+   mesh=...).step`` at ``[16, 273258]`` and the fused chain (b) on the
+   mesh bitwise the one-card K1 and K3 calls, the gather and scatter's
+   time; run A (``perm``, staleness 2, the resilience phase's plan with
+   a rollback, the comm-split timer) and run B (``shard_map``, the
+   one-step pipeline, the membership trace 16 → 12 → 16) against their
+   one-card ``grad_chunk=4`` runs (Recorder rows within 1e-6, alive and
+   healed counts equal, K1's launches counted, each mix under its
+   survivor mask); ``devices=None`` resolved to every visible card; the
+   mesh step with ``perm`` against ``shard_map``.
    mesh_features — what a mesh folds besides the decen mix
    (``phase_mesh_features``, cell (p); it reads the mesh phase's run) on
    4 virtual cards: no synchronizing call added by the accumulator;
@@ -292,10 +304,10 @@ prints no kernels line:
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
     the models', the resilience, the pipelined, the planner's, the
-    observability, the perf_obs, the serve, the chaos, the mesh and the
-    mesh_features phase's in-process runs included; K3's
-    ``tensor_core`` path with the roofline's launch), then the
-    ``nvidia-smi`` line.
+    observability, the perf_obs, the serve, the chaos, the mesh, the
+    mesh_full and the mesh_features phase's in-process runs included;
+    K3's ``tensor_core`` path with the roofline's launch and chain (b)
+    on the mesh), then the ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -315,6 +327,17 @@ import sys
 import tempfile
 import threading
 import time
+
+if __name__ == "__main__":
+    # a new process on the card's host compiles each module of torch it
+    # imports (no bytecode is kept beside them): keep this run's bytecode
+    # in the checkout, so that the trainer lifetimes and the CLIs it starts
+    # import what an earlier process compiled
+    sys.pycache_prefix = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "_build", "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 import numpy as np
 import torch
@@ -2520,7 +2543,7 @@ def resilience_run(dev, label: str, root: str, rollbacks: int = 0, **kw):
                                       for h in result.history]}
 
 
-def phase_resilience(dev, rounds: int = 3):
+def phase_resilience(dev, rounds: int = 2):
     """Resilience and elastic membership at the slice's width
     (``slice_config``: ResNet-20, 16 workers, graph 4, perm backend, 3
     epochs of 4 steps):
@@ -2852,7 +2875,7 @@ def phase_resilience(dev, rounds: int = 3):
     return out
 
 
-def phase_pipeline(dev, tables, rounds: int = 2):
+def phase_pipeline(dev, tables, rounds: int = 1):
     """The pipelined schedule at the slice's width (``slice_config``: 2
     epochs of 4 steps, perm backend, f32 wire):
 
@@ -3292,7 +3315,7 @@ def sync_warnings(fn) -> dict:
     return where
 
 
-def phase_observability(dev, rounds: int = 3, steps: int = 20,
+def phase_observability(dev, rounds: int = 2, steps: int = 20,
                         profiled: int = 5):
     """The training run's observability plane on the card (cell (l)):
     slice (a) at full width, 3 epochs of 4 steps, ``save`` on and the
@@ -3596,7 +3619,7 @@ def window_split(events: list, phased: list, steps: int) -> dict:
             "host_ms_per_step_by_span": host}
 
 
-def phase_perf_obs(dev, fused_rows, planner, big_tables, rounds: int = 3,
+def phase_perf_obs(dev, fused_rows, planner, big_tables, rounds: int = 2,
                    steps: int = 8):
     """Performance observability on the card (cell (m)): slice (a) at
     full width, 3 epochs of 4 steps, ``save``, telemetry and health on,
@@ -3832,9 +3855,12 @@ SERVE_BUDGET = 0.25  # the swap's budget (the slice's is 0.5)
 
 
 def serve_config(epochs: int, name: str, root: str) -> TrainConfig:
-    """Slice (a) with ``save`` and a checkpoint every epoch, in ``root``."""
+    """Slice (a) with ``save`` and a checkpoint every epoch, in ``root``,
+    on one card (``devices=1``) however many are visible: the lifetimes
+    the controller and the campaign launch pass no card index."""
     return dataclasses.replace(slice_config(epochs), save=True,
-                               savePath=root, name=name, checkpoint_every=1)
+                               savePath=root, name=name, checkpoint_every=1,
+                               devices=1)
 
 
 def k1_by_epoch(launches: list) -> list:
@@ -3929,6 +3955,13 @@ def built_kernels() -> dict:
             for p in _kernels.BUILD_DIR.glob("*.so")}
 
 
+#: a trainer lifetime's host threads: several start on the card at once,
+#: and their start-up (imports, the schedule's solve, the inits) is host
+#: work that a pool of threads in each only makes contend
+LIFETIME_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+                "OPENBLAS_NUM_THREADS": "1"}
+
+
 def serve_controller(root: str, name: str, stub_home: str, lifetimes: list):
     """A ``Controller`` over the slice for 3 epochs with a promotion every
     epoch, its trainer on the card; the trainer's ``CUDA_HOME`` is a stub
@@ -3939,7 +3972,8 @@ def serve_controller(root: str, name: str, stub_home: str, lifetimes: list):
     cfg = serve_config(3, name, root)
     ctl = Controller(ServeConfig(
         config=dataclasses.asdict(cfg), promote_every=1, restart_budget=2,
-        backoff=0.1, jitter_seed=0, env={"CUDA_HOME": stub_home}))
+        backoff=0.1, jitter_seed=0, env=LIFETIME_ENV | {
+            "CUDA_HOME": stub_home}))
     launch = ctl._launch
     ctl._launch = lambda: TimedLifetime(launch(), lifetimes)
     return ctl
@@ -3970,7 +4004,155 @@ def first_beats(run_dir: str, lifetimes: list) -> list:
     return out
 
 
-def phase_serve(dev, rounds: int = 3, steps: int = 20):
+def serve_daemon(root: str, log: str) -> dict:
+    """The run controller's daemon on the card (part 3 of the serve
+    phase): ``Controller`` in a thread behind a ``ServeEndpoint``, 3
+    epochs, a promotion every epoch; run A uninterrupted and, beside it on
+    the card, run B SIGKILLed once its first checkpoint lands, their
+    output in ``log``.  Returns what it found; any failure raises."""
+    import signal
+
+    from matcha_tpu_torch.obs import fleet_verdict
+    from matcha_tpu_torch.serve import ServeEndpoint, verify_promoted
+
+    os.makedirs(root, exist_ok=True)
+
+    stub, marker = stub_cuda_home(root)
+    built = built_kernels()
+    lives = {"A": [], "B": []}
+    ctls = {k: serve_controller(os.path.join(root, k), f"serve{k}", stub,
+                                lives[k]) for k in lives}
+    endpoint = ServeEndpoint(ctls).start()
+    codes = {"healthz": [], "status": [], "promoted": []}
+    verdicts, flagged = [], set()
+    alive_seen = {"A": False, "B": False}
+    rcs = {}
+    try:
+        # A and B run side by side on the card, each its own
+        # daemon thread and trainer process
+        threads = {name: threading.Thread(
+            target=lambda c=ctl, n=name: rcs.update({n: c.run()}),
+            daemon=True) for name, ctl in ctls.items()}
+        for thread in threads.values():
+            thread.start()
+        killed = False
+        deadline = time.time() + 400
+        while any(t.is_alive() for t in threads.values()) \
+                and time.time() < deadline:
+            for name, ctl in ctls.items():
+                if not threads[name].is_alive():
+                    continue
+                code, body = http_get(endpoint.port,
+                                      f"/status?run={name}")
+                codes["status"].append(code)
+                alive_seen[name] |= bool(body.get("trainer_alive"))
+                if os.path.exists(os.path.join(
+                        ctl.run_dir, "health", "host0.jsonl")):
+                    # /healthz bracketed by the verdict it serves
+                    before = fleet_verdict(ctl.run_dir)[0]
+                    code, health = http_get(endpoint.port,
+                                            f"/healthz?run={name}")
+                    if fleet_verdict(ctl.run_dir)[0] == before:
+                        codes["healthz"].append(code)
+                        verdicts.append((before, code))
+                        flagged.update(
+                            f"{a['subject']} {a['cause']}"
+                            for a in health.get("anomalies", []))
+                proc = ctl._proc
+                if name == "B" and not killed and proc is not None \
+                        and latest_step(ctl.ckpt_dir) is not None:
+                    proc.send_signal(signal.SIGKILL)
+                    killed = True
+            time.sleep(0.02)
+        for name, thread in threads.items():
+            thread.join(timeout=30)
+            if thread.is_alive():
+                for ctl in ctls.values():
+                    ctl.shutdown()
+                raise AssertionError(f"serve daemon {name}: still "
+                                     f"running after 400 s")
+            codes["promoted"].append(http_get(
+                endpoint.port, f"/promoted?run={name}")[0])
+    finally:
+        endpoint.stop()
+    a, b = ctls["A"], ctls["B"]
+    restarts = [e for e in read_journal(b.journal_path)
+                if e["kind"] == "control" and e["action"] == "restart"]
+    if rcs != {"A": 0, "B": 0} or (a.restarts_used, a.lifetimes) != (0, 1) \
+            or (b.restarts_used, b.lifetimes) != (1, 2) \
+            or len(restarts) != 1 or restarts[0]["epoch"] != -1:
+        raise AssertionError(f"serve daemon: exits {rcs}, A "
+                             f"{a.status()}, B {b.status()}, restart "
+                             f"events {restarts}")
+    if final_epoch_row(a) != final_epoch_row(b):
+        raise AssertionError(f"serve daemon: last rows "
+                             f"{final_epoch_row(a)} vs "
+                             f"{final_epoch_row(b)}")
+    promoted = {}
+    for name, ctl in ctls.items():
+        manifest = verify_promoted(ctl.serving_dir)
+        with np.load(os.path.join(ctl.serving_dir,
+                                  manifest["params_file"])) as npz:
+            promoted[name] = (manifest["epoch"],
+                              {k: npz[k] for k in npz.files})
+    same = (promoted["A"][0] == promoted["B"][0]
+            and sorted(promoted["A"][1]) == sorted(promoted["B"][1])
+            and all(np.array_equal(v, promoted["B"][1][k])
+                    for k, v in promoted["A"][1].items()))
+    if not same:
+        raise AssertionError("serve daemon: promoted arrays differ")
+    # /healthz is 200 on a healthy fleet and 503 on a flagged one (the
+    # detectors flag the slice's w4 as a disagreement outlier, PR 15)
+    wrong = [(v, c) for v, c in verdicts
+             if c != (200 if v == 0 else 503)]
+    if wrong or not any(v in (0, 1) for v, _ in verdicts) \
+            or set(codes["status"]) != {200} \
+            or codes["promoted"] != [200, 200] \
+            or not all(alive_seen.values()):
+        raise AssertionError(
+            f"serve endpoint: codes {codes}, trainer alive "
+            f"{alive_seen}, fleet verdicts now "
+            f"{[fleet_verdict(c.run_dir) for c in ctls.values()]}")
+    verify = [sys.executable, "serve_torch.py", "verify", b.serving_dir]
+    here = os.path.dirname(os.path.abspath(__file__))
+    rc_ok = subprocess.run(verify, cwd=here, capture_output=True,
+                           timeout=120).returncode
+    pointer = os.path.join(b.serving_dir, "MANIFEST.json")
+    blob = bytearray(open(pointer, "rb").read())
+    at = blob.index(b'"epoch": ') + len(b'"epoch": ')
+    blob[at] = ord("7") if blob[at] != ord("7") else ord("8")
+    open(pointer, "wb").write(bytes(blob))
+    rc_bad = subprocess.run(verify, cwd=here, capture_output=True,
+                            timeout=120).returncode
+    if (rc_ok, rc_bad) != (0, 1):
+        raise AssertionError(f"serve_torch.py verify: {rc_ok} then "
+                             f"{rc_bad}, expected 0 then 1")
+    rebuilt = built_kernels()
+    if os.path.exists(marker) or rebuilt != built:
+        raise AssertionError(f"serve daemon: a lifetime ran nvcc "
+                             f"({os.path.exists(marker)}) or changed "
+                             f"the build ({built} vs {rebuilt})")
+    return {
+        "restarts_used": {k: c.restarts_used for k, c in ctls.items()},
+        "lifetimes": {k: c.lifetimes for k, c in ctls.items()},
+        "lifetime_seconds": [life["seconds"] for k in ("A", "B")
+                             for life in lives[k]],
+        "lifetime_exits": [life["exit"] for k in ("A", "B")
+                           for life in lives[k]],
+        "first_heartbeat_seconds": [
+            s for k in ("A", "B")
+            for s in first_beats(ctls[k].run_dir, lives[k])],
+        "final_row": list(final_epoch_row(a)),
+        "promoted_epoch": promoted["A"][0],
+        "promoted_arrays_equal": True,
+        "endpoint_codes": {k: sorted(set(v)) for k, v in codes.items()},
+        "healthz_verdicts": sorted({f"{v}->{c}" for v, c in verdicts}),
+        "flagged": sorted(flagged),
+        "verify_exits": [rc_ok, rc_bad], "nvcc_called": False,
+        "children_log_bytes": os.path.getsize(log)}
+
+
+def phase_serve(dev, rounds: int = 2, steps: int = 20):
     """The run controller on the card (cell (n)): slice (a) with ``save``
     and a checkpoint every epoch.
 
@@ -3998,18 +4180,17 @@ def phase_serve(dev, rounds: int = 3, steps: int = 20):
        ``serve_torch.py verify`` 0, then 1 after a byte of
        ``MANIFEST.json`` is edited; no lifetime ran ``nvcc`` (a stub that
        fails) nor changed ``_build/``.  The children's output goes to a
-       file.
-    4. ms a step with identity knobs and without, alternated rounds.
+       file.  The daemon (``serve_daemon``) runs while 1 and 2 run.
+    4. ms a step with identity knobs and without, alternated rounds,
+       once the daemon is done.
     Any failure raises."""
-    import signal
+    import concurrent.futures
 
     from matcha_tpu_torch.communicator import decen
-    from matcha_tpu_torch.obs import fleet_verdict
     from matcha_tpu_torch.plan import resolve_budget_swap
     from matcha_tpu_torch.serve import (
         TrainerHarness,
         control_arrays,
-        verify_promoted,
         write_control,
     )
 
@@ -4017,7 +4198,25 @@ def phase_serve(dev, rounds: int = 3, steps: int = 20):
     bpe = 2048 // 16 // 32
     chains = timer_chains(bpe)
     out = {"launches": {}}
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, \
+            contextlib.ExitStack() as beside:
+        # 3. the daemon runs beside 1 and 2: its trainers are processes of
+        # their own on the card, and the children's output, with this
+        # process's, goes to a file (its tail printed on a failure)
+        log = os.path.join(root, "children.log")
+
+        def tail_on_failure(kind, value, trace):
+            if kind is not None:
+                with open(log, "rb") as f:
+                    f.seek(max(os.path.getsize(log) - 4096, 0))
+                    sys.stderr.write(f.read().decode(errors="replace"))
+
+        beside.push(tail_on_failure)
+        beside.enter_context(output_to(log))
+        daemon = beside.enter_context(
+            concurrent.futures.ThreadPoolExecutor(1)).submit(
+                serve_daemon, os.path.join(root, "daemon"), log)
+
         # 1. identity knobs against no hook
         sync_warnings(lambda: torch.zeros(1, device=dev).sum().item())
         runs, syncs = {}, {}
@@ -4168,150 +4367,7 @@ def phase_serve(dev, rounds: int = 3, steps: int = 20):
             sum(per_epoch)
         del swapped, x, kernel, plain_out, seen
         torch.cuda.empty_cache()
-
-        # 3. the daemon, A uninterrupted and B killed
-        from matcha_tpu_torch.serve import ServeEndpoint
-
-        stub, marker = stub_cuda_home(root)
-        built = built_kernels()
-        log = os.path.join(root, "children.log")
-        lives = {"A": [], "B": []}
-        ctls = {k: serve_controller(os.path.join(root, k), f"serve{k}", stub,
-                                    lives[k]) for k in lives}
-        endpoint = ServeEndpoint(ctls).start()
-        codes = {"healthz": [], "status": [], "promoted": []}
-        verdicts, flagged = [], set()
-        alive_seen = {"A": False, "B": False}
-        rcs = {}
-        try:
-            with output_to(log):
-                # A and B run side by side on the card, each its own
-                # daemon thread and trainer process
-                threads = {name: threading.Thread(
-                    target=lambda c=ctl, n=name: rcs.update({n: c.run()}),
-                    daemon=True) for name, ctl in ctls.items()}
-                for thread in threads.values():
-                    thread.start()
-                killed = False
-                deadline = time.time() + 400
-                while any(t.is_alive() for t in threads.values()) \
-                        and time.time() < deadline:
-                    for name, ctl in ctls.items():
-                        if not threads[name].is_alive():
-                            continue
-                        code, body = http_get(endpoint.port,
-                                              f"/status?run={name}")
-                        codes["status"].append(code)
-                        alive_seen[name] |= bool(body.get("trainer_alive"))
-                        if os.path.exists(os.path.join(
-                                ctl.run_dir, "health", "host0.jsonl")):
-                            # /healthz bracketed by the verdict it serves
-                            before = fleet_verdict(ctl.run_dir)[0]
-                            code, health = http_get(endpoint.port,
-                                                    f"/healthz?run={name}")
-                            if fleet_verdict(ctl.run_dir)[0] == before:
-                                codes["healthz"].append(code)
-                                verdicts.append((before, code))
-                                flagged.update(
-                                    f"{a['subject']} {a['cause']}"
-                                    for a in health.get("anomalies", []))
-                        proc = ctl._proc
-                        if name == "B" and not killed and proc is not None \
-                                and latest_step(ctl.ckpt_dir) is not None:
-                            proc.send_signal(signal.SIGKILL)
-                            killed = True
-                    time.sleep(0.02)
-                for name, thread in threads.items():
-                    thread.join(timeout=30)
-                    if thread.is_alive():
-                        for ctl in ctls.values():
-                            ctl.shutdown()
-                        raise AssertionError(f"serve daemon {name}: still "
-                                             f"running after 400 s")
-                    codes["promoted"].append(http_get(
-                        endpoint.port, f"/promoted?run={name}")[0])
-        except BaseException:
-            with open(log, "rb") as f:
-                f.seek(max(os.path.getsize(log) - 4096, 0))
-                sys.stderr.write(f.read().decode(errors="replace"))
-            raise
-        finally:
-            endpoint.stop()
-        a, b = ctls["A"], ctls["B"]
-        restarts = [e for e in read_journal(b.journal_path)
-                    if e["kind"] == "control" and e["action"] == "restart"]
-        if rcs != {"A": 0, "B": 0} or (a.restarts_used, a.lifetimes) != (0, 1) \
-                or (b.restarts_used, b.lifetimes) != (1, 2) \
-                or len(restarts) != 1 or restarts[0]["epoch"] != -1:
-            raise AssertionError(f"serve daemon: exits {rcs}, A "
-                                 f"{a.status()}, B {b.status()}, restart "
-                                 f"events {restarts}")
-        if final_epoch_row(a) != final_epoch_row(b):
-            raise AssertionError(f"serve daemon: last rows "
-                                 f"{final_epoch_row(a)} vs "
-                                 f"{final_epoch_row(b)}")
-        promoted = {}
-        for name, ctl in ctls.items():
-            manifest = verify_promoted(ctl.serving_dir)
-            with np.load(os.path.join(ctl.serving_dir,
-                                      manifest["params_file"])) as npz:
-                promoted[name] = (manifest["epoch"],
-                                  {k: npz[k] for k in npz.files})
-        same = (promoted["A"][0] == promoted["B"][0]
-                and sorted(promoted["A"][1]) == sorted(promoted["B"][1])
-                and all(np.array_equal(v, promoted["B"][1][k])
-                        for k, v in promoted["A"][1].items()))
-        if not same:
-            raise AssertionError("serve daemon: promoted arrays differ")
-        # /healthz is 200 on a healthy fleet and 503 on a flagged one (the
-        # detectors flag the slice's w4 as a disagreement outlier, PR 15)
-        wrong = [(v, c) for v, c in verdicts
-                 if c != (200 if v == 0 else 503)]
-        if wrong or not any(v in (0, 1) for v, _ in verdicts) \
-                or set(codes["status"]) != {200} \
-                or codes["promoted"] != [200, 200] \
-                or not all(alive_seen.values()):
-            raise AssertionError(
-                f"serve endpoint: codes {codes}, trainer alive "
-                f"{alive_seen}, fleet verdicts now "
-                f"{[fleet_verdict(c.run_dir) for c in ctls.values()]}")
-        verify = [sys.executable, "serve_torch.py", "verify", b.serving_dir]
-        here = os.path.dirname(os.path.abspath(__file__))
-        rc_ok = subprocess.run(verify, cwd=here, capture_output=True,
-                               timeout=120).returncode
-        pointer = os.path.join(b.serving_dir, "MANIFEST.json")
-        blob = bytearray(open(pointer, "rb").read())
-        at = blob.index(b'"epoch": ') + len(b'"epoch": ')
-        blob[at] = ord("7") if blob[at] != ord("7") else ord("8")
-        open(pointer, "wb").write(bytes(blob))
-        rc_bad = subprocess.run(verify, cwd=here, capture_output=True,
-                                timeout=120).returncode
-        if (rc_ok, rc_bad) != (0, 1):
-            raise AssertionError(f"serve_torch.py verify: {rc_ok} then "
-                                 f"{rc_bad}, expected 0 then 1")
-        rebuilt = built_kernels()
-        if os.path.exists(marker) or rebuilt != built:
-            raise AssertionError(f"serve daemon: a lifetime ran nvcc "
-                                 f"({os.path.exists(marker)}) or changed "
-                                 f"the build ({built} vs {rebuilt})")
-        out["daemon"] = {
-            "restarts_used": {k: c.restarts_used for k, c in ctls.items()},
-            "lifetimes": {k: c.lifetimes for k, c in ctls.items()},
-            "lifetime_seconds": [life["seconds"] for k in ("A", "B")
-                                 for life in lives[k]],
-            "lifetime_exits": [life["exit"] for k in ("A", "B")
-                               for life in lives[k]],
-            "first_heartbeat_seconds": [
-                s for k in ("A", "B")
-                for s in first_beats(ctls[k].run_dir, lives[k])],
-            "final_row": list(final_epoch_row(a)),
-            "promoted_epoch": promoted["A"][0],
-            "promoted_arrays_equal": True,
-            "endpoint_codes": {k: sorted(set(v)) for k, v in codes.items()},
-            "healthz_verdicts": sorted({f"{v}->{c}" for v, c in verdicts}),
-            "flagged": sorted(flagged),
-            "verify_exits": [rc_ok, rc_bad], "nvcc_called": False,
-            "children_log_bytes": os.path.getsize(log)}
+        out["daemon"] = daemon.result()
     torch.cuda.empty_cache()
 
     # 4. ms a step with identity knobs and without, alternated
@@ -4429,7 +4485,7 @@ def chaos_armed_taps(dev, root: str, bpe: int, env_lock) -> dict:
                             for k, r in runs.items()}}
 
 
-def phase_chaos(dev, workers: int = 3):
+def phase_chaos(dev, workers=None):
     """The chaos harness on the card (cell (o)): the port's own campaign
     machinery (``matcha_tpu_torch.chaos.campaign``) with slice (a) in the
     place of its MLP ring (``_trial_config`` patched here, the module
@@ -4439,10 +4495,11 @@ def phase_chaos(dev, workers: int = 3):
     1. Armed taps that cannot fire cost nothing (``chaos_armed_taps``, in
        this process while the trials run).
     2. One trial per seed of ``CHAOS_SEEDS`` through ``run_trial(...,
-       device="cuda")``, up to ``workers`` at once on the card, after the
-       three uninterrupted twins the kill families read (run first, side
-       by side).  Each trial ``ok`` (no violation of the invariant
-       suite); each kill family's marker fired, 1 restart, its killed
+       device="cuda")`` and the three uninterrupted twins the kill families
+       read, up to ``workers`` at once on the card (``None``: all of them);
+       a kill family's trial waits for its twin only where it reads the
+       twin's row, after its own lifetimes.  Each trial ``ok`` (no
+       violation of the invariant suite); each kill family's marker fired, 1 restart, its killed
        lifetime's exit the spec's signal, its final epoch row
        float-equal to its twin's (the resume bitwise through K1); each
        lifetime that ran to its end journaled a ``backend`` event saying
@@ -4482,26 +4539,36 @@ def phase_chaos(dev, workers: int = 3):
         twin_of = {s.seed: (s.family == "kill_mid_promote",
                             s.family == "kill_mid_control")
                    for s in specs if s.family.startswith("kill_")}
+        twin_row, twins = campaign._twin_row, {}
+
+        def cached_twin_row(workdir, epochs, promote, control_doc, log,
+                            device):
+            # the twin runs beside the trial: its row is cached once it is
+            # done, so the trial reads it and never trains it again
+            twins[(promote, control_doc is not None)].result()
+            return twin_row(workdir, epochs, promote, control_doc, log,
+                            device)
+
         t_trials = time.perf_counter()
         try:
             with mock.patch.object(campaign, "_trial_config",
                                    chaos_trial_config), \
+                    mock.patch.object(campaign, "_twin_row",
+                                      cached_twin_row), \
                     mock.patch.object(Controller, "_launch", timed_launch), \
-                    mock.patch.dict(os.environ, {"CUDA_HOME": stub}), \
+                    mock.patch.dict(os.environ, LIFETIME_ENV | {
+                        "CUDA_HOME": stub}), \
                     output_to(log), \
-                    concurrent.futures.ThreadPoolExecutor(workers) as pool:
-                twins = {key: pool.submit(
-                    campaign._twin_row, work, 4, key[0],
+                    concurrent.futures.ThreadPoolExecutor(
+                        workers or len(specs) + len(set(twin_of.values()))
+                    ) as pool:
+                twins.update({key: pool.submit(
+                    twin_row, work, 4, key[0],
                     CHAOS_CONTROL_DOC if key[1] else None, logs.append,
-                    "cuda") for key in sorted(set(twin_of.values()))}
-
-                def trial(spec):
-                    if spec.seed in twin_of:  # cached before the trial
-                        twins[twin_of[spec.seed]].result()
-                    return campaign.run_trial(spec, work, log=logs.append,
-                                              device="cuda")
-
-                jobs = {s.seed: pool.submit(trial, s) for s in specs}
+                    "cuda") for key in sorted(set(twin_of.values()))})
+                jobs = {s.seed: pool.submit(campaign.run_trial, s, work,
+                                            log=logs.append, device="cuda")
+                        for s in specs}
                 armed = chaos_armed_taps(dev, root, bpe, env_lock)
                 trials = {seed: job.result() for seed, job in jobs.items()}
                 for job in twins.values():
@@ -4590,7 +4657,7 @@ def phase_chaos(dev, workers: int = 3):
             raise AssertionError(f"chaos: {problems}")
         out["trials"] = rows
         out["trials_seconds"] = trials_seconds
-        out["workers"] = workers
+        out["workers"] = workers or len(specs) + len(twins)
         out["nvcc_called"] = False
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -4685,15 +4752,15 @@ def mesh_executor_checks(dev, tables, label: str, steps: int = 4) -> dict:
 
 
 def mesh_stepper(dev, cards: int, iterations: int, lr_schedule=None,
-                 telemetry=None):
+                 telemetry=None, backend: str = "shard_map"):
     """``slice_stepper``'s model, optimizer, batch and schedule, folded on
-    ``cards`` virtual cards of ``dev`` with the shard_map communicator
-    (and the telemetry spec ``telemetry``, its accumulator made on card
-    0): ``(state, step, xb, yb)``."""
+    ``cards`` virtual cards of ``dev`` with the decen communicator's
+    ``backend`` (and the telemetry spec ``telemetry``, its accumulator
+    made on card 0): ``(state, step, xb, yb)``."""
     cfg = slice_config(1)
     sched = build_schedule(cfg, iterations)
     mesh = worker_mesh(devices=[dev] * cards)
-    comm = make_decen(sched, "shard_map", mesh=mesh)
+    comm = make_decen(sched, backend, mesh=mesh)
     opt = make_optimizer(lr_schedule or make_lr_schedule(cfg.lr, 4))
     model = select_model("resnet20", "synthetic_image", num_workers=16)
     state, flattener = init_mesh_train_state(
@@ -4875,7 +4942,7 @@ def history_agrees(got, want, examples: int, label: str) -> dict:
     return worst
 
 
-def phase_mesh(dev, rounds: int = 2):
+def phase_mesh(dev, rounds: int = 1):
     """Workers folded across a mesh (cell (p)), on ``cuda:0`` with virtual
     cards (``devices=[dev] * C``), which a host with one card can run.
 
@@ -5076,16 +5143,19 @@ def mesh_defaults(mesh_run, one, trace_dir: str, label: str) -> dict:
 def rows_within(got, want, bar: float, label: str) -> dict:
     """The largest relative gap of ``got``'s Recorder rows (train accuracy
     and loss, test accuracy per worker, disagreement) from ``want``'s,
-    held to ``bar``."""
+    held to ``bar``; the evaluation's NaN gaps (dead or vacant workers)
+    must sit in the same places."""
     gaps = {}
     for key in ("acc", "losses", "tacc", "disagreement"):
         a = np.asarray(got.recorder.data[key], np.float64)
         b = np.asarray(want.recorder.data[key], np.float64)
-        if a.shape != b.shape:
-            raise AssertionError(f"{label}: Recorder {key} {a.shape} vs "
-                                 f"{b.shape}")
-        gaps[key] = float(np.abs(a - b).max()
-                          / max(float(np.abs(b).max()), 1e-30))
+        if a.shape != b.shape or not np.array_equal(np.isnan(a),
+                                                    np.isnan(b)):
+            raise AssertionError(f"{label}: Recorder {key} {a} vs {b}")
+        kept = ~np.isnan(b)
+        gaps[key] = float(np.abs(a - b)[kept].max(initial=0.0)
+                          / max(float(np.abs(b[kept]).max(initial=0.0)),
+                                1e-30))
     bad = {k: v for k, v in gaps.items() if not v <= bar}
     if bad:
         raise AssertionError(f"{label}: Recorder rows {bad} > {bar}")
@@ -5247,6 +5317,256 @@ class FoldedCount:
 
     def __exit__(self, *exc):
         self.module.gossip_mix_folded = self.real
+
+
+# run A's extra fault: every worker's row NaN at step 6 (epoch 1), which
+# no donor can heal: the epoch diverges and rolls back once
+MESH_FULL_NAN_STEP = 6
+
+
+def mesh_full_executors(dev) -> dict:
+    """The one-tensor backends over 4 virtual cards against the one-card
+    calls: ``make_decen(..., "perm", mesh=...).step`` at slice width
+    ``[16, 273258]`` under a survivor mask (K1 at T = 1 on the gathered
+    stack) and ``make_decen(..., "fused", mesh=...).run`` of chain (b),
+    64 bf16 steps at ``[256, 273258]`` (K3's ``tensor_core`` path), each
+    bitwise the one-card communicator's call; the launches of the mesh
+    calls alone; then the gather and scatter (``gather_workers`` and
+    ``shard_workers``) alone at both shapes, CUDA events and the L2
+    flushed, beside the kernel call."""
+    from matcha_tpu_torch.parallel import gather_workers as gather
+
+    mesh = worker_mesh(devices=[dev] * 4)
+    flush = L2Flush(dev)
+    sched = slice_tables(dev)[0]
+    x = state(16, SLICE_D, dev)
+    alive = torch.ones(16, device=dev)
+    alive[[1, 9]] = 0.0
+    row = torch.as_tensor(sched.flags[0], dtype=torch.float32, device=dev)
+    one, folded = (make_decen(sched, "perm", device=dev),
+                   make_decen(sched, "perm", mesh=mesh))
+    blocks = shard_workers(x, mesh)
+    reset_launch_counts()
+    got = folded.step(blocks, (), row, alive)[0]
+    torch.cuda.synchronize()
+    k1 = dict(LAUNCHES)
+    if not same_bits(gather(got), one.step(x, (), row, alive)[0]):
+        raise AssertionError("perm on 4 virtual cards is not bitwise the "
+                             "one-card K1 step")
+    out = {"k1_launches": k1["perm_gossip_dbuf"],
+           "perm_step_ms": {
+               "4 virtual cards": time_ms(
+                   lambda: folded.step(blocks, (), row, alive), flush),
+               "one card": time_ms(lambda: one.step(x, (), row, alive),
+                                   flush)},
+           "gather_scatter_ms": {"[16, 273258] f32": time_ms(
+               lambda: shard_workers(gather(blocks), mesh), flush)}}
+    del got, blocks
+    big = hypercube_tables(dev)[0]
+    xb = state(256, SLICE_D, dev).to(torch.bfloat16)
+    flags = big.flags[:64]
+    one = make_decen(big, "fused", device=dev, compute_dtype=torch.bfloat16)
+    folded = make_decen(big, "fused", mesh=mesh,
+                        compute_dtype=torch.bfloat16)
+    blocks = shard_workers(xb, mesh)
+    reset_launch_counts()
+    got = folded.run(blocks, flags)[0]
+    torch.cuda.synchronize()
+    out["k3_launches"] = dict(LAUNCHES)
+    if out["k3_launches"]["fused_gossip/tensor_core"] != 1:
+        raise AssertionError(f"chain (b) on 4 virtual cards launched "
+                             f"{out['k3_launches']}")
+    if not same_bits(gather(got), one.run(xb, flags)[0]):
+        raise AssertionError("fused chain (b) on 4 virtual cards is not "
+                             "bitwise the one-card K3 chain")
+    out["chain_b_ms"] = {
+        "4 virtual cards": time_ms(lambda: folded.run(blocks, flags), flush),
+        "one card": time_ms(lambda: one.run(xb, flags), flush)}
+    out["gather_scatter_ms"]["[256, 273258] bf16"] = time_ms(
+        lambda: shard_workers(gather(blocks), mesh), flush)
+    del got, blocks, xb, flush
+    return out
+
+
+def mesh_full_pair(dev, label: str, root: str, epochs: int,
+                   mesh_backend: str, cards=None, one=None, **kw) -> dict:
+    """``train()`` of slice (a) with ``kw`` on 4 virtual cards (the decen
+    backend ``mesh_backend``; on the devices ``cards`` instead, when
+    given) and on one card with ``grad_chunk=4`` (perm; ``one``, an
+    earlier pair's one-card run of the same config, is reused), K1's
+    launches counted in each, and in the mesh run which of the mix's
+    launches (T = 1) carried a survivor mask."""
+    from matcha_tpu_torch.communicator import decen
+
+    cfg = dataclasses.replace(slice_config(epochs), savePath=root, **kw)
+    runs = {}
+    inner = decen.perm_gossip_run
+    for where, device, over in (
+            ("mesh", cards or [dev] * 4, {"gossip_backend": mesh_backend}),
+            ("one card", dev, {"grad_chunk": 4})):
+        if where == "one card" and one is not None:
+            runs[where] = one
+            continue
+        masks = []
+
+        def watched(x, w, *args, **kwargs):
+            if w.shape[0] == 1:
+                masks.append(kwargs.get("alive") is not None)
+            return inner(x, w, *args, **kwargs)
+
+        decen.perm_gossip_run = watched
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = train(dataclasses.replace(
+                cfg, name=f"{label}_{where.replace(' ', '_')}", **over),
+                device=device)
+            torch.cuda.synchronize()
+        finally:
+            decen.perm_gossip_run = inner
+        runs[where] = {"result": result, "k1": LAUNCHES["perm_gossip_dbuf"],
+                       "mix_masked": masks,
+                       "seconds": time.perf_counter() - t0}
+    return runs
+
+
+def hold_pair(runs, label: str, bpe: int, rollbacks: int,
+              mesh_k1: bool) -> dict:
+    """The mesh run against the one-card ``grad_chunk=4`` run: Recorder
+    rows within 1e-6 (``rows_within``), ``alive_workers`` and ``healed``
+    equal each epoch, K1's launches ``k1_expected`` in the one-card run
+    (and in the mesh run when it runs perm, each mix launch under its
+    survivor mask; none with shard_map)."""
+    mesh, one = runs["mesh"]["result"], runs["one card"]["result"]
+    gaps = rows_within(mesh, one, 1e-6, label)
+    counts = {key: ([h.get(key) for h in mesh.history],
+                    [h.get(key) for h in one.history])
+              for key in ("alive_workers", "healed")}
+    for key, (a, b) in counts.items():
+        if a != b:
+            raise AssertionError(f"{label}: {key} {a} vs one card {b}")
+    for where, run in runs.items():
+        if where == "mesh" and not mesh_k1:
+            want = 0
+        else:
+            want = k1_expected(run["result"], bpe, rollbacks)
+            steps = (len(run["result"].history) + rollbacks) * bpe
+            if where == "mesh" and run["mix_masked"] != [True] * steps:
+                raise AssertionError(f"{label}: the mesh's mix launches "
+                                     f"under a mask: {run['mix_masked']}")
+        if run["k1"] != want:
+            raise AssertionError(f"{label} {where}: K1 launched {run['k1']} "
+                                 f"times, expected {want}")
+    return {"rows_rel_gap": gaps,
+            "alive_workers": counts["alive_workers"][0],
+            "healed": counts["healed"][0],
+            "k1_launches": {w: r["k1"] for w, r in runs.items()},
+            "seconds": {w: r["seconds"] for w, r in runs.items()},
+            "ms_per_step": {w: [h["epoch_time"] / bpe * 1e3
+                                for h in r["result"].history]
+                            for w, r in runs.items()},
+            "loss": [h["loss"] for h in mesh.history]}
+
+
+def phase_mesh_full(dev):
+    """Every ``TrainConfig`` feature on a worker mesh (cell (p)), slice
+    (a) on 4 virtual cards of the card:
+
+    1. The one-tensor backends over the mesh (``mesh_full_executors``):
+       ``perm``'s step at ``[16, 273258]`` under a survivor mask and
+       ``fused``'s chain (b), each bitwise the one-card kernel call, K1 and
+       K3 launched once; the gather and scatter's time alone.
+    2. Run A: ``perm``, ``overlap="1step"``, ``staleness=2``, the
+       resilience phase's fault plan with every worker's row NaN at step
+       6 and ``max_recoveries=1`` (one rollback, epoch 1),
+       ``measure_comm_split=True``, 2 epochs; run B: ``shard_map``,
+       ``overlap="1step"``, ``SHRINK_TRACE`` (16 → 12 → 16), 3 epochs.
+       Each against the one-card run of its config with ``grad_chunk=4``
+       (``hold_pair``): Recorder rows within 1e-6, alive and healed
+       counts equal; K1's launches in run A (mesh and one card) its steps,
+       the rolled-back epoch's included, plus the timer's chains, every
+       mix launch under its survivor mask; none in run B's mesh run.
+       With two or more cards visible, run A also over the real cards
+       (4, or 2), held the same way to its one-card run.
+    3. ``devices=None`` resolves to ``torch.cuda.device_count()`` cards
+       (one card: no mesh), ``"cuda:0"`` to one card.
+    4. The mesh step with ``perm`` (K1 on the gathered stack) against
+       ``shard_map`` (the folded executor) on 4 virtual cards: host ms a
+       step (one round), launches and the card's idle share a step
+       (``stepper_cost``).
+    Returns K1's launches by run and K3's counters for the kernels
+    line."""
+    from matcha_tpu_torch.train.loop import _resolve_mesh
+
+    bpe = 2048 // 16 // 32
+    out = {"executors": mesh_full_executors(dev)}
+    plan = {"events": list(RESILIENCE_PLAN) + [
+        {"kind": "nan", "worker": w, "start": MESH_FULL_NAN_STEP}
+        for w in range(16)]}
+    with tempfile.TemporaryDirectory() as root:
+        runs = mesh_full_pair(dev, "run_a", root, 2, "perm",
+                              overlap="1step", staleness=2, fault_plan=plan,
+                              max_recoveries=1, measure_comm_split=True)
+        kinds = [e["kind"] for e in runs["mesh"]["result"].recorder.faults]
+        if kinds.count("rollback") != 1:
+            raise AssertionError(f"run A: faults {kinds}")
+        out["run_a"] = hold_pair(runs, "run A", bpe, 1, mesh_k1=True)
+        one = runs["one card"]
+        del runs
+        count = torch.cuda.device_count()
+        if count >= 2:
+            cards = [f"cuda:{i}" for i in range(4 if count >= 4 else 2)]
+            runs = mesh_full_pair(dev, "run_a_real", root, 2, "perm",
+                                  cards=cards, one=one, overlap="1step",
+                                  staleness=2,
+                                  fault_plan=plan, max_recoveries=1,
+                                  measure_comm_split=True)
+            out["run_a_real_cards"] = {
+                "cards": cards,
+                **hold_pair(runs, "run A on real cards", bpe, 1,
+                            mesh_k1=True)}
+            del runs
+        del one
+        runs = mesh_full_pair(dev, "run_b", root, 3, "shard_map",
+                              overlap="1step",
+                              membership_trace=SHRINK_TRACE)
+        out["run_b"] = hold_pair(runs, "run B", bpe, 0, mesh_k1=False)
+        if out["run_b"]["alive_workers"] != [16.0, 12.0, 16.0]:
+            raise AssertionError(f"run B: alive "
+                                 f"{out['run_b']['alive_workers']}")
+        del runs
+    count = torch.cuda.device_count()
+    resolved = _resolve_mesh(slice_config(1), "cuda")[1]
+    want = count if count > 1 and 16 % count == 0 else None
+    if (None if resolved is None else resolved.size) != want \
+            or _resolve_mesh(slice_config(1), "cuda:0")[1] is not None:
+        raise AssertionError(f"devices=None resolved to {resolved} with "
+                             f"{count} cards visible")
+    out["devices_none"] = {"visible": count,
+                           "mesh": None if resolved is None
+                           else [str(d) for d in resolved.devices]}
+    steppers = {backend: mesh_stepper(dev, 4, 40, backend=backend)
+                for backend in ("perm", "shard_map")}
+    out["step"] = {backend: stepper_cost(stepper, 1)
+                   for backend, stepper in steppers.items()}
+    del steppers
+    step_ms = statistics.median(out["step"]["perm"]["ms_per_step"])
+    out["gather_scatter_share_of_perm_step"] = (
+        out["executors"]["gather_scatter_ms"]["[16, 273258] f32"] / step_ms)
+    emit({"phase": "mesh_full", **out, "nvidia_smi": nvidia_smi()})
+    return {"launches": {
+        "train() mesh_full run A, perm on 4 virtual cards":
+            out["run_a"]["k1_launches"]["mesh"],
+        "train() mesh_full run A, one card":
+            out["run_a"]["k1_launches"]["one card"],
+        "train() mesh_full run B, one card":
+            out["run_b"]["k1_launches"]["one card"],
+        **({"train() mesh_full run A, perm on real cards":
+            out["run_a_real_cards"]["k1_launches"]["mesh"]}
+           if "run_a_real_cards" in out else {}),
+        "make_decen(..., 'perm', mesh=4 virtual cards).step":
+            out["executors"]["k1_launches"]},
+        "k3": out["executors"]["k3_launches"]}
 
 
 def phase_mesh_features(dev, mesh_result):
@@ -5622,7 +5942,7 @@ def kernels_line(r) -> list:
         **r["planner"]["launches"], **r["observability"]["launches"],
         **r["perf_obs"]["launches"], **r["serve"]["launches"],
         **r["chaos"]["launches"], **r["mesh"]["launches"],
-        **r["mesh_features"]["launches"]},
+        **r["mesh_full"]["launches"], **r["mesh_features"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -5673,7 +5993,9 @@ def kernels_line(r) -> list:
             ("tensor_core", "hypercube N=256 T=64 bf16",
              {chain_runs: r["fused_chain"],
               "obs.costs.roofline_report at chain (b), on the card":
-              r["perf_obs"]["roofline_launches"]})):
+              r["perf_obs"]["roofline_launches"],
+              "Communicator.run chain (b), fused on 4 virtual cards":
+              r["mesh_full"]["k3"]})):
         counter = f"fused_gossip/{path}"
         launches = sum(run[counter] for run in by_path.values())
         if launches < 1:
@@ -5779,7 +6101,7 @@ PHASES = ("parity", "timing", "slice", "profile", "agreement",
           "split_timing", "epoch_end", "communicators", "determinism",
           "choco", "models", "perm_large", "resilience", "pipeline",
           "planner", "observability", "perf_obs", "serve", "chaos", "mesh",
-          "mesh_features")
+          "mesh_full", "mesh_features")
 NEEDS = {"planner": ("fused_timing",), "perf_obs": ("fused_timing",
                                                     "planner"),
          "mesh_features": ("mesh",)}
@@ -5855,6 +6177,7 @@ def run_phases(dev, names, spills, early=None) -> dict:
         "serve": lambda r: phase_serve(dev),
         "chaos": lambda r: phase_chaos(dev),
         "mesh": lambda r: phase_mesh(dev),
+        "mesh_full": lambda r: phase_mesh_full(dev),
         "mesh_features": lambda r: phase_mesh_features(dev, r["mesh"]),
     }
     results, seconds = {}, {}
@@ -5881,7 +6204,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
                  "is False")
-    dev = torch.device("cuda")
+    # one card, named by its index: a run on it stays on it however many
+    # cards are visible (devices=None folds over every visible card)
+    dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()

@@ -29,10 +29,11 @@ flag stream.  JAX's ``lax.scan``/``lax.cond`` become host loops and host
 branches on the step index: no device value is read to decide anything.
 
 On a worker mesh (``decen``'s and CHOCO's folded backends,
-``centralized``) ``flat`` is a ``parallel.WorkerBlocks``, the C
-card-major blocks: ``step``, ``run``, ``begin_mix``/``apply_mix`` and
-``run_overlapped`` take and return one; the ``[K, N, D]`` ring of
-``run_pipelined`` has no folded form yet.
+``centralized``, and the one-tensor backends through
+:func:`gathered_communicator`) ``flat`` is a ``parallel.WorkerBlocks``,
+the C card-major blocks: ``step``, ``run``, ``begin_mix``/``apply_mix``,
+``run_overlapped`` and ``run_pipelined`` (its ring K ``WorkerBlocks``)
+take and return one.
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ from typing import Any, Callable, Tuple
 
 import torch
 
-from ..parallel.mesh import WorkerBlocks
+from ..parallel.mesh import WorkerBlocks, gather_workers, shard_workers
 
-__all__ = ["Communicator"]
+__all__ = ["Communicator", "gathered_communicator"]
 
 StepFn = Callable[..., Tuple[torch.Tensor, Any]]
 
@@ -155,17 +156,17 @@ class Communicator:
         ``run``'s again.  ``drain=True`` flushes the ring oldest-first
         (slot ``(T + i) mod K`` for i = 0..K−1) and returns ``(flat,
         carry)``; ``drain=False`` returns ``(visible state, carry,
-        ring)``."""
+        ring)``: the ring a ``[K, N, D]`` tensor, or on a worker mesh a
+        list of K ``WorkerBlocks``, slot by slot."""
         k = int(staleness)
         if k < 1:
             raise ValueError(f"staleness must be >= 1, got {staleness}")
-        if isinstance(flat, WorkerBlocks):
-            raise NotImplementedError(
-                "the bounded-staleness ring on a worker mesh is not ported "
-                "yet (ROADMAP.md); run_overlapped is the one-step pipeline")
         flags, carry, alive = self._chain_inputs(flat, flags, carry, alive)
-        ring = torch.zeros((k,) + tuple(flat.shape), dtype=flat.dtype,
-                           device=flat.device)
+        if isinstance(flat, WorkerBlocks):
+            ring = [flat.zeros_like() for _ in range(k)]
+        else:
+            ring = torch.zeros((k,) + tuple(flat.shape), dtype=flat.dtype,
+                               device=flat.device)
         steps = flags.shape[0]
         if steps == 0:
             return (flat, carry) if drain else (flat, carry, ring)
@@ -219,3 +220,60 @@ class Communicator:
             flat, carry = self._step(flat, carry, flags[t],
                                      self._alive_at(alive, t))
         return flat, carry
+
+
+def _fold_rows(tree, mesh, num_workers: int):
+    """The worker-major floating tensors of a carry-like value folded onto
+    ``mesh`` (``shard_workers``); anything else (a generator's state) as
+    it is, on card 0."""
+    if isinstance(tree, dict):
+        return {k: _fold_rows(v, mesh, num_workers) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_fold_rows(v, mesh, num_workers) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point() \
+            and tree.ndim >= 1 and tree.shape[0] == num_workers:
+        return shard_workers(tree, mesh)
+    return tree
+
+
+def gathered_communicator(comm: Communicator, mesh) -> Communicator:
+    """A one-tensor communicator (built on ``mesh.devices[0]``) over a
+    worker mesh, as the JAX package runs its one-tensor backends on a
+    sharded state: each call gathers the folded state and carry onto card
+    0 (``parallel.gather_workers``), runs ``comm`` there on the ``[N, D]``
+    tensor (the perm kernel, the dense product, the fused kernel's
+    chains) and folds the result back (``parallel.shard_workers``; the
+    carry's worker rows too, so that it is checkpointed and masked as a
+    folded carry is).  Every row is the one-card communicator's, bit for
+    bit, whatever C is.  The flag rows and the survivor mask are where
+    ``comm`` wants them: on card 0."""
+    first = mesh.devices[0]
+
+    def gathered(fn):
+        if fn is None:
+            return None
+
+        def call(flat, carry, *args):
+            x = gather_workers(flat, first)
+            out, carry = fn(x, gather_workers(carry, first), *args)
+            return (shard_workers(out, mesh),
+                    _fold_rows(carry, mesh, x.shape[0]))
+
+        return call
+
+    def init(flat):
+        x = gather_workers(flat, first)
+        return _fold_rows(comm.init(x), mesh, x.shape[0])
+
+    encode_probe = None
+    if comm.encode_probe is not None:
+        def encode_probe(flat, x_hat):
+            return shard_workers(comm.encode_probe(
+                gather_workers(flat, first), gather_workers(x_hat, first)),
+                mesh)
+
+    return dataclasses.replace(
+        comm, init=init, step=gathered(comm.step),
+        multi_step=gathered(comm.multi_step),
+        multi_step_masked=gathered(comm.multi_step_masked),
+        encode_probe=encode_probe)

@@ -29,7 +29,10 @@ Backends:
 
 ``batched``
     The ``[N, D]`` one-tensor form: a neighbour's message is a row gather
-    (``vals[π_j]``).  One card.
+    (``vals[π_j]``).  On a mesh of more than one device it runs on the
+    mesh's first card, the state and the ``{x̂, s}`` carry gathered there
+    for each call and folded back (``base.gathered_communicator``), so the
+    carry is checkpointed as a folded carry is.
 ``shard_map``
     The workers folded card-major across a worker mesh
     (``parallel.WorkerBlocks``): each card compresses its ``[L, D]``
@@ -66,7 +69,7 @@ from ..ops import (
 from ..parallel import WorkerBlocks, resolve_wire_dtype
 from ..schedule import Schedule
 from ..utils import resolve_device
-from .base import Communicator
+from .base import Communicator, gathered_communicator
 
 __all__ = ["folded_message_bytes", "make_choco"]
 
@@ -132,8 +135,9 @@ def make_choco(
     ``backend``: ``batched``, ``shard_map`` (needs ``mesh``, a
     ``parallel.WorkerMesh``; ``step``, ``run`` and ``encode_probe`` then
     take and return ``WorkerBlocks``) or ``auto`` (module docstring); the
-    batched form refuses a mesh of more than one device.  ``device``:
-    where the batched form's partner tables live (``None``: the card)."""
+    batched form on a mesh of more than one device runs on its first card
+    (module docstring).  ``device``: where the batched form's partner
+    tables live (``None``: the card)."""
     if backend == "auto":
         backend = ("shard_map" if mesh is not None and mesh.size > 1
                    else "batched")
@@ -142,10 +146,9 @@ def make_choco(
     if backend == "shard_map" and mesh is None:
         raise ValueError("shard_map backend needs a mesh")
     if backend == "batched" and mesh is not None and mesh.size > 1:
-        raise ValueError(
-            f"choco's batched backend mixes one [N, D] tensor on one card; "
-            f"on a mesh of {mesh.size} devices use backend='shard_map' or "
-            f"'auto'")
+        return gathered_communicator(make_choco(
+            schedule, ratio, consensus_lr, compressor=compressor, seed=seed,
+            wire_dtype=wire_dtype, device=mesh.devices[0]), mesh)
     perms = np.asarray(schedule.perms)
     alpha = float(schedule.alpha)
     m, n = perms.shape

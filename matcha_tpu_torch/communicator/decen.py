@@ -33,8 +33,11 @@ Port of ``matcha_tpu/communicator/decen.py``: ``resolve_gossip_backend``
 
 On a mesh of more than one device ``skip`` is the folded backend too, with
 an inactive matching's block moves skipped; the one-tensor backends
-(``perm``, ``dense``, ``fused``, ``gather``) mix an ``[N, D]`` tensor on
-one card and refuse a mesh.  The fused ``multi_step`` has no masked twin:
+(``perm``, ``dense``, ``fused``, ``gather``) mix the ``[N, D]`` tensor
+gathered onto the mesh's first card and fold the result back
+(``base.gathered_communicator``), as the JAX ``make_decen`` runs them on
+a sharded state with no mesh branch (:188-262): K1 for ``perm``'s steps
+and chains, K3 for ``fused``'s chains.  The fused ``multi_step`` has no masked twin:
 its stack knows nothing of survivors, so ``Communicator.run`` steps a
 masked chain through the dense mix, as the JAX package does.
 """
@@ -61,7 +64,7 @@ from ..parallel import (
 from ..plan.cost import choose_gossip_backend
 from ..schedule import Schedule
 from ..utils import resolve_device
-from .base import Communicator
+from .base import Communicator, gathered_communicator
 
 __all__ = ["make_decen", "resolve_gossip_backend"]
 
@@ -132,8 +135,10 @@ def make_decen(
     a mesh of more than one device, build the folded communicator, whose
     ``step`` and ``run`` take and return a ``WorkerBlocks`` (block c on
     ``mesh.devices[c]``) and whose flag rows stay on the host.
-    ``shard_map`` without a mesh raises; so does a one-tensor backend on a
-    mesh of more than one device.
+    ``shard_map`` without a mesh raises.  A one-tensor backend on a mesh
+    of more than one device is built on ``mesh.devices[0]`` and takes and
+    returns a ``WorkerBlocks`` too, gathered there for each call
+    (``base.gathered_communicator``); its flag rows live on that card.
 
     ``backend="auto"`` builds what :func:`resolve_gossip_backend` chooses
     with no measurement: ``shard_map`` on a mesh of more than one device,
@@ -147,11 +152,11 @@ def make_decen(
     folded = backend == "shard_map" or (backend == "skip" and multi_card)
     if backend == "shard_map" and mesh is None:
         raise ValueError("shard_map backend needs a mesh")
-    if multi_card and not folded and backend in PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"gossip backend '{backend}' mixes one [N, D] tensor on one "
-            f"card; on a mesh of {mesh.size} devices use 'shard_map' or "
-            f"'skip' (the one-tensor backends over a mesh: ROADMAP.md)")
+    if multi_card and not folded:
+        return gathered_communicator(make_decen(
+            schedule, backend, device=dev, compute_dtype=compute_dtype,
+            chunk=chunk, block_d=block_d, w_window=w_window,
+            wire_dtype=wire_dtype), mesh)
     perms = np.asarray(schedule.perms)
     alpha = float(schedule.alpha)
     wire = resolve_wire_dtype(wire_dtype)

@@ -18,7 +18,9 @@ Port of ``matcha_tpu/elastic/runtime.py`` (:51-156).
   slots, a plain function that updates the state in place: joined rows
   adopt the donors' parameter mean and batch-norm statistics; restored
   rows keep their own frozen parameters if still finite, else take the
-  mean; momentum, the carry and in-flight deltas reset for both.
+  mean; momentum, the carry and in-flight deltas reset for both.  On a
+  worker mesh (a state with ``cards``) the donors' mean comes from
+  per-card partials and every card writes its own rows.
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ from typing import Any, List
 import numpy as np
 import torch
 
-from ..parallel import masked_mean_rows
+from ..parallel import WorkerBlocks, block_of, masked_mean_rows, split_like
 from ..resilience.runtime import (
+    fill_rows,
     finite_rows,
+    heal_folded_stat_rows,
     heal_worker_stat_rows,
     mask_worker_rows,
     momentum_buffers,
@@ -50,11 +54,14 @@ class Membership:
     """The step's membership input: ``alive`` ``f32[N]`` (pool occupancy,
     on the device), ``alpha_scale`` (a host float) and ``vacant``, the
     ``int64`` indices of the slots where ``alive`` is 0 (on the device;
-    empty when the pool is full)."""
+    empty when the pool is full).  On a worker mesh ``card_vacant`` holds
+    each card's vacant rows as local indices on its device (``alive`` and
+    ``vacant`` on card 0); () on one card."""
 
     alive: torch.Tensor
     alpha_scale: float
     vacant: torch.Tensor
+    card_vacant: tuple = ()
 
     @classmethod
     def fresh(cls, num_workers: int, device=None) -> "Membership":
@@ -63,14 +70,24 @@ class Membership:
 
 
 def membership_arrays(alive: np.ndarray, alpha_scale: float,
-                      device=None) -> Membership:
-    """Host mask and scale → the value the next epoch's steps read."""
+                      device=None, mesh=None) -> Membership:
+    """Host mask and scale → the value the next epoch's steps read (with
+    ``mesh``, a ``parallel.WorkerMesh``, each card's vacant rows too)."""
     mask = np.asarray(alive, np.float32)
+    card_vacant = ()
+    if mesh is not None:
+        rows = len(mask) // mesh.size
+        card_vacant = tuple(
+            torch.as_tensor(np.flatnonzero(mask[c * rows:(c + 1) * rows]
+                                           <= 0), dtype=torch.long,
+                            device=dev)
+            for c, dev in enumerate(mesh.devices))
     return Membership(
         alive=torch.as_tensor(mask, device=device),
         alpha_scale=float(alpha_scale),
         vacant=torch.as_tensor(np.flatnonzero(mask <= 0), dtype=torch.long,
-                               device=device))
+                               device=device),
+        card_vacant=card_vacant)
 
 
 def vacant_rows(tree: Any, vacant: torch.Tensor,
@@ -115,25 +132,43 @@ def make_bootstrap_fn(flattener, num_workers: int):
     n = int(num_workers)
 
     def bootstrap(state, joined, restored, donors):
-        dev = next(state.model.parameters()).device
+        # a mesh state's cards, each an [L]-row one-card state, or the
+        # one-card state itself
+        cards = getattr(state, "cards", None)
+        views = [state] if cards is None else cards
+        dev = next(views[0].model.parameters()).device
         joined, restored, donors = (
             torch.as_tensor(np.asarray(m, np.float32), device=dev)
             for m in (joined, restored, donors))
-        params = state.params
-        flat = flattener.flatten(params)
+        flat = (flattener.flatten(state.params) if cards is None
+                else WorkerBlocks(flattener.flatten(card.params)
+                                  for card in cards))
         finite = finite_rows(flat)
         fallback = torch.clamp(restored * (1.0 - finite), 0.0, 1.0)
         want_mean = torch.clamp(joined + fallback, 0.0, 1.0)
         mean = masked_mean_rows(flat, donors)
         can = (donors.sum() > 0) & torch.isfinite(mean).all()
         healed = want_mean * can.to(torch.float32)
-        flat = torch.where(healed[:, None] > 0, mean.expand_as(flat), flat)
-        flattener.unflatten_into(flat, params)
-        heal_worker_stat_rows(list(state.model.buffers()), healed, donors, n)
+        flat = fill_rows(flat, healed, mean)
         keep = 1.0 - torch.clamp(joined + restored, 0.0, 1.0)
-        mask_worker_rows(momentum_buffers(state.optimizer), keep, n)
-        mask_worker_rows(state.comm_carry, keep, n)
-        mask_worker_rows(state.mix_pending, keep, n)
+        if cards is None:
+            flattener.unflatten_into(flat, state.params)
+            heal_worker_stat_rows(list(state.model.buffers()), healed,
+                                  donors, n)
+            rows, keeps, carries = n, [keep], [state.comm_carry]
+        else:
+            for card, block in zip(cards, flat):
+                flattener.unflatten_into(block, card.params)
+            rows = flattener.num_workers
+            heal_folded_stat_rows([list(card.model.buffers())
+                                   for card in cards], healed, donors, rows)
+            keeps = split_like(keep, flat)
+            carries = [block_of(state.comm_carry, c)
+                       for c in range(len(cards))]
+        for view, k, carry in zip(views, keeps, carries):
+            mask_worker_rows(momentum_buffers(view.optimizer), k, rows)
+            mask_worker_rows(carry, k, rows)
+            mask_worker_rows(view.mix_pending, k, rows)
         return state
 
     return bootstrap

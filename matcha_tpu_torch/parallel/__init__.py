@@ -39,10 +39,12 @@ from .mesh import (
     WORKER_AXIS,
     WorkerBlocks,
     WorkerMesh,
+    block_of,
     fold_dims,
     gather_workers,
     replicated,
     shard_workers,
+    split_like,
     worker_mesh,
 )
 from .perm_gossip import (
@@ -65,6 +67,7 @@ __all__ = [
     "compose_mixing_stack",
     "WorkerBlocks",
     "WorkerMesh",
+    "block_of",
     "dense_gossip_fn",
     "fold_dims",
     "folded_allreduce_mean",
@@ -88,6 +91,7 @@ __all__ = [
     "resolve_wire_dtype",
     "shard_map_gossip_fn",
     "shard_workers",
+    "split_like",
     "worker_deviation",
     "worker_deviation_rows",
     "worker_disagreement",

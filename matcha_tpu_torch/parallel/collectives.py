@@ -3,14 +3,14 @@
 Port of ``matcha_tpu/parallel/collectives.py`` (:20-97): on a ``[N, ...]``
 worker tensor the global average is a mean over the leading axis.  On a
 worker mesh (a ``WorkerBlocks``) :func:`folded_allreduce_mean` forms it
-across the cards.
+across the cards, and :func:`masked_mean_rows` takes one too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .mesh import WorkerBlocks
+from .mesh import WorkerBlocks, split_like
 
 __all__ = ["allreduce_mean", "broadcast_worker0", "folded_allreduce_mean",
            "masked_mean_rows", "masked_allreduce_mean", "worker_deviation",
@@ -26,10 +26,27 @@ def allreduce_mean(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=0, keepdim=True).expand_as(x).clone()
 
 
-def masked_mean_rows(x: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+def masked_mean_rows(x, alive: torch.Tensor) -> torch.Tensor:
     """Mean of the rows where ``alive > 0``.  Masked rows are excluded with
     ``where``, not a multiply (``0·NaN = NaN`` would leak a quarantined
-    row); no survivors at all gives the zero vector."""
+    row); no survivors at all gives the zero vector.
+
+    ``x`` a ``WorkerBlocks`` (``alive``: ``f32[N]`` on any device): from
+    per-card partials, each card's masked column sum moved to card 0 and
+    summed there, the mean on card 0.  Between real cards that moves C
+    rows, not N; the sum runs in another order than the one-tensor
+    function's, so the two agree to f32 rounding."""
+    if isinstance(x, WorkerBlocks):
+        first = x.device
+        alive = torch.as_tensor(alive, dtype=torch.float32)
+        parts, lo = [], 0
+        for b in x:
+            w = _rows(alive[lo:lo + b.shape[0]].to(b.device), b)
+            lo += b.shape[0]
+            parts.append((w * torch.where(w > 0, b, torch.zeros_like(b)))
+                         .sum(dim=0).to(first))
+        return torch.stack(parts).sum(dim=0) / torch.clamp(
+            alive.to(first).sum(), min=1.0)
     w = _rows(alive, x)
     kept = torch.where(w > 0, x, torch.zeros_like(x))
     return (w * kept).sum(dim=0) / torch.clamp(alive.sum(), min=1.0)
@@ -60,19 +77,11 @@ def folded_allreduce_mean(blocks: WorkerBlocks, alive=None,
         mean = total.sum(dim=0) / sum(b.shape[0] for b in blocks)
         return WorkerBlocks(mean.to(b.device).expand_as(b).clone()
                             for b in blocks)
-    alive = torch.as_tensor(alive, dtype=torch.float32)
-    gates, parts, lo = [], [], 0
-    for o in operand:
-        gate = alive[lo:lo + o.shape[0]].to(o.device)
-        lo += o.shape[0]
-        w = _rows(gate, o)
-        parts.append((w * torch.where(w > 0, o, torch.zeros_like(o)))
-                     .sum(dim=0).to(first))
-        gates.append(w)
-    mean = torch.stack(parts).sum(dim=0) / torch.clamp(
-        alive.to(first).sum(), min=1.0)
-    return WorkerBlocks(torch.where(w > 0, mean.to(b.device).expand_as(b), b)
-                        for w, b in zip(gates, blocks))
+    mean = masked_mean_rows(operand, alive)
+    gates = split_like(torch.as_tensor(alive, dtype=torch.float32), blocks)
+    return WorkerBlocks(
+        torch.where(_rows(g, b) > 0, mean.to(b.device).expand_as(b), b)
+        for g, b in zip(gates, blocks))
 
 
 def broadcast_worker0(x: torch.Tensor) -> torch.Tensor:

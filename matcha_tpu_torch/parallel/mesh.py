@@ -21,8 +21,9 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["WORKER_AXIS", "WorkerBlocks", "WorkerMesh", "fold_dims",
-           "gather_workers", "replicated", "shard_workers", "worker_mesh"]
+__all__ = ["WORKER_AXIS", "WorkerBlocks", "WorkerMesh", "block_of",
+           "fold_dims", "gather_workers", "replicated", "shard_workers",
+           "split_like", "worker_mesh"]
 
 WORKER_AXIS = "workers"
 
@@ -172,6 +173,27 @@ def gather_workers(x, device=None):
     if isinstance(x, WorkerBlocks):
         return get(x)
     return _tree_map(get, x)
+
+
+def split_like(x: torch.Tensor, blocks) -> WorkerBlocks:
+    """An ``[N, ...]`` tensor cut as ``blocks`` (a ``WorkerBlocks``) is
+    cut: block c's rows on block c's device (a per-worker mask's slice
+    for each card, say; a view where the device is the same)."""
+    out, lo = [], 0
+    for b in blocks:
+        out.append(x[lo:lo + b.shape[0]].to(b.device))
+        lo += b.shape[0]
+    return WorkerBlocks(out)
+
+
+def block_of(tree, c: int):
+    """Card c's rows of a carry-like value: block c of every
+    ``WorkerBlocks`` entry (the block's own tensor, so an in-place write
+    reaches the folded value), anything else as it is."""
+    if isinstance(tree, WorkerBlocks):
+        return tree[c]
+    return _tree_map(lambda a: a[c] if isinstance(a, WorkerBlocks) else a,
+                     tree)
 
 
 def replicated(x, mesh: WorkerMesh):

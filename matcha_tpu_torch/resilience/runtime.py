@@ -20,6 +20,14 @@ a dict/tuple/list of them) and the pipeline's ``mix_pending``.  A tensor
 is worker-major when its leading axis is the worker count; only floating
 tensors are touched (a stochastic compressor's ``uint8`` generator state
 passes through).
+
+On a worker mesh the parameter stack is a ``parallel.WorkerBlocks`` (the
+C card-major ``[L, D]`` blocks) and the masks stay ``f32[N]`` on card 0:
+:func:`finite_rows`, :func:`inject_nan_rows`, :func:`heal_and_mask` and
+the quarantined gossip take one and work block by block, each card on
+its slice of the masks, and the donors' mean comes from per-card
+partials (``parallel.masked_mean_rows``); :func:`heal_folded_stat_rows`
+is :func:`heal_worker_stat_rows` over the cards' statistics.
 """
 
 from __future__ import annotations
@@ -28,11 +36,12 @@ from typing import Any, Iterator, Tuple
 
 import torch
 
-from ..parallel import masked_mean_rows
+from ..parallel import WorkerBlocks, masked_mean_rows, split_like
 
 __all__ = ["begin_mix_quarantined", "finite_rows", "gossip_quarantined",
-           "heal_and_mask", "heal_worker_stat_rows", "inject_nan_rows",
-           "mask_worker_rows", "state_finite_rows", "state_tensors"]
+           "heal_and_mask", "heal_folded_stat_rows", "heal_worker_stat_rows",
+           "inject_nan_rows", "mask_worker_rows", "state_finite_rows",
+           "state_tensors"]
 
 
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -58,22 +67,33 @@ def tensors_in(tree: Any) -> Iterator[torch.Tensor]:
             yield from tensors_in(v)
 
 
-def finite_rows(flat: torch.Tensor) -> torch.Tensor:
-    """``f32[N]``: 1.0 where the row is entirely finite."""
+def per_card(fn, mask: torch.Tensor, *xs):
+    """``fn(mask, *xs)`` on ``[N, ...]`` tensors; on ``WorkerBlocks``
+    block by block, each with its card's slice of the ``[N]`` mask
+    (``parallel.split_like``)."""
+    if isinstance(xs[0], WorkerBlocks):
+        return WorkerBlocks(fn(m, *blocks) for m, *blocks in
+                            zip(split_like(mask, xs[0]), *xs))
+    return fn(mask, *xs)
+
+
+def finite_rows(flat) -> torch.Tensor:
+    """``f32[N]``: 1.0 where the row is entirely finite (of a
+    ``WorkerBlocks``: every card's rows, in worker order on card 0)."""
+    if isinstance(flat, WorkerBlocks):
+        return torch.cat([finite_rows(b).to(flat.device) for b in flat])
     return torch.isfinite(flat).reshape(flat.shape[0], -1).all(dim=1).to(
         torch.float32)
 
 
-def inject_nan_rows(flat: torch.Tensor, inject: torch.Tensor) -> torch.Tensor:
+def inject_nan_rows(flat, inject: torch.Tensor):
     """Poison the rows where ``inject > 0`` (the ``nan`` fault event)."""
-    return torch.where(_rows(inject, flat) > 0,
-                       torch.full_like(flat, float("nan")), flat)
+    return per_card(lambda m, x: torch.where(
+        _rows(m, x) > 0, torch.full_like(x, float("nan")), x), inject, flat)
 
 
-def heal_and_mask(flat: torch.Tensor, alive_t: torch.Tensor,
-                  revive_t: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                             torch.Tensor]:
+def heal_and_mask(flat, alive_t: torch.Tensor, revive_t: torch.Tensor
+                  ) -> Tuple[Any, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Quarantine, heal, and return the effective survivor mask.
 
     Returns ``(flat, ok, healed, finite)``, the masks ``f32[N]``:
@@ -94,20 +114,28 @@ def heal_and_mask(flat: torch.Tensor, alive_t: torch.Tensor,
     mean = masked_mean_rows(flat, donors)
     can_heal = (donors.sum() > 0) & torch.isfinite(mean).all()
     healed = want_heal * can_heal.to(torch.float32)
-    flat = torch.where(_rows(healed, flat) > 0, mean.expand_as(flat), flat)
+    flat = fill_rows(flat, healed, mean)
     finite = torch.clamp(finite + healed, 0.0, 1.0)
     ok = alive_t * finite
     return flat, ok, healed, finite
 
 
-def _seal(flat: torch.Tensor, gate) -> Tuple[torch.Tensor, torch.Tensor]:
+def fill_rows(flat, rows: torch.Tensor, value: torch.Tensor):
+    """``flat`` with the rows where ``rows > 0`` replaced by the row
+    ``value`` (``[...]``, on any device)."""
+    return per_card(lambda m, x: torch.where(
+        _rows(m, x) > 0, value.to(x.device).expand_as(x), x), rows, flat)
+
+
+def _seal(flat, gate):
+    """``(sealed input, gate)``: the rows where ``gate`` is 0 zeroed."""
     if gate is None:
         gate = finite_rows(flat)
-    g = _rows(gate, flat) > 0
-    return torch.where(g, flat, torch.zeros_like(flat)), g
+    return per_card(lambda g, x: torch.where(
+        _rows(g, x) > 0, x, torch.zeros_like(x)), gate, flat), gate
 
 
-def gossip_quarantined(step_fn, flat: torch.Tensor, carry: Any, flags_t,
+def gossip_quarantined(step_fn, flat, carry: Any, flags_t,
                        ok: torch.Tensor, gate=None):
     """One communicator step with the non-finite rows sealed: zeros on the
     input (their edges are already weight-zero through ``ok``, so the zeros
@@ -115,19 +143,21 @@ def gossip_quarantined(step_fn, flat: torch.Tensor, carry: Any, flags_t,
     restored on the output, where the divergence detector still sees them.
     ``gate``: the rows' finiteness if the caller has it
     (:func:`heal_and_mask`)."""
-    safe, g = _seal(flat, gate)
+    safe, gate = _seal(flat, gate)
     mixed, carry = step_fn(safe, carry, flags_t, ok)
-    return torch.where(g, mixed, flat), carry
+    return per_card(lambda g, m, x: torch.where(_rows(g, x) > 0, m, x),
+                    gate, mixed, flat), carry
 
 
-def begin_mix_quarantined(begin_fn, flat: torch.Tensor, carry: Any, flags_t,
+def begin_mix_quarantined(begin_fn, flat, carry: Any, flags_t,
                           ok: torch.Tensor, gate=None):
     """The two-phase twin of :func:`gossip_quarantined`: issue the exchange
     on the sealed input and zero the quarantined rows' deltas, so the
     deferred ``apply_mix`` never writes into them."""
-    safe, g = _seal(flat, gate)
+    safe, gate = _seal(flat, gate)
     delta, carry = begin_fn(safe, carry, flags_t, ok)
-    return torch.where(g, delta, torch.zeros_like(delta)), carry
+    return per_card(lambda g, d: torch.where(
+        _rows(g, d) > 0, d, torch.zeros_like(d)), gate, delta), carry
 
 
 def worker_groups(tensors, num_workers: int) -> list:
@@ -185,6 +215,21 @@ def heal_worker_stat_rows(tensors, healed: torch.Tensor, donors: torch.Tensor,
         healed_block = torch.where(healed[:, None] > 0,
                                    mean.expand_as(block), block)
         write_block(xs, healed_block)
+
+
+def heal_folded_stat_rows(card_tensors, healed: torch.Tensor,
+                          donors: torch.Tensor, rows: int) -> None:
+    """:func:`heal_worker_stat_rows` over a worker mesh:
+    ``card_tensors[c]`` are card c's ``[L, ...]`` statistic tensors (the
+    same structure on every card), ``healed`` and ``donors`` ``f32[N]``.
+    Each group's donors' mean comes from per-card partials
+    (``parallel.masked_mean_rows`` of the cards' blocks)."""
+    groups = [worker_groups(tensors, rows) for tensors in card_tensors]
+    for parts in zip(*groups):
+        blocks = WorkerBlocks(worker_block(xs, rows) for xs in parts)
+        mean = masked_mean_rows(blocks, donors)
+        for xs, block in zip(parts, fill_rows(blocks, healed, mean)):
+            write_block(xs, block)
 
 
 def momentum_buffers(optimizer) -> list:

@@ -5,9 +5,10 @@ Port of ``matcha_tpu/serve/trainer.py``.
 supervisor (``serve.controller.Controller``) launches: it builds the
 ``TrainConfig`` from the spec, installs a ``TrainerHarness`` as the
 loop's ``boundary_hook``, runs ``train()`` on the spec's ``device``
-(``None``: the card; a host without CUDA raises; the config's
-``devices`` folds the run onto that many cards, or virtual cards of the
-CPU, as ``train()`` does, the promotions reading every card), and maps
+(``None``: the CUDA cards, folded over every visible one unless the
+config's ``devices`` names how many, ``1`` for one card; a host without
+CUDA raises; on the CPU ``devices`` virtual cards, as ``train()`` does;
+the promotions read every card), and maps
 the harness's outcome onto the process exit code the supervisor switches
 on:
 

@@ -35,7 +35,8 @@ only its own format.
 
 A state folded across a worker mesh (``state.MeshTrainState``) is saved
 gathered: each card's rows concatenated in worker order (CHOCO's folded
-``x̂`` and ``s`` too; its generator state as it is), so the file is the
+``x̂`` and ``s`` and the pipeline's in-flight deltas too; CHOCO's
+generator state as it is), so the file is the
 one card's format whatever the number of cards, and a restore into a mesh
 slices the ``[N, ...]`` arrays onto the run's cards, the carry as the
 template's communicator folds it (a one-card checkpoint resumes on a mesh
@@ -235,7 +236,7 @@ def _payload(state) -> dict:
             "optimizer": _gathered_optimizer(state.cards),
             "comm_carry": gather_workers(state.comm_carry, first),
             "step": int(state.step),
-            "mix_pending": (),
+            "mix_pending": gather_workers(state.mix_pending, first),
         }
     model = state.model
     return {
@@ -400,17 +401,17 @@ def restore_checkpoint(directory: str, template: TrainState,
 
 def _fold_into(template: MeshTrainState, payload: dict) -> None:
     """Load a gathered payload into a mesh's cards: card c takes rows
-    ``c·L..(c+1)·L`` of every parameter, buffer and momentum tensor, and
-    the communicator's carry is folded where the template's is (a
-    ``WorkerBlocks`` entry). The pipeline's in-flight deltas have no
-    folded form yet, so a payload holding them raises, as does a carry of
-    another communicator's shape."""
-    if isinstance(payload.get("mix_pending", ()), torch.Tensor):
-        raise ValueError("the checkpoint holds in-flight deltas, which a "
-                         "worker mesh does not fold yet; resume it on one "
-                         "card")
+    ``c·L..(c+1)·L`` of every parameter, buffer and momentum tensor and
+    of the in-flight deltas (their ages are rebuilt from the cursor by the
+    loop's reconcile), and the communicator's carry is folded where the
+    template's is (a ``WorkerBlocks`` entry); a carry of another
+    communicator's shape raises."""
     template.comm_carry = _fold_carry(template.comm_carry,
                                       payload["comm_carry"], template.mesh)
+    pending = payload.get("mix_pending", ())
+    template.mix_pending = (shard_workers(pending, template.mesh)
+                            if isinstance(pending, torch.Tensor) else ())
+    template.mix_ages = ()
     rows = template.cards[0].model.num_workers
     for c, card in enumerate(template.cards):
         lo, hi = c * rows, (c + 1) * rows

@@ -17,11 +17,9 @@ plan, rollback recovery, a membership trace or the live membership source
 ``drift_patience``) run, with the JAX package's defaults: telemetry and
 health on; so does the profiler window (``trace_dir``, ``trace_epoch``:
 one epoch under ``torch.profiler``).  ``devices`` is the mesh's size, as
-in the JAX package, but ``None`` means one card here, not every visible
-one: ``train()`` refuses, on a mesh, the pipeline (``overlap``,
-``staleness``), resilience (``fault_plan``, ``max_recoveries``) and
-membership (``membership_trace``, ``membership_live``), which this port
-does not fold yet, so it folds only when asked.  Still refused
+in the JAX package: ``None`` means every visible card (one card when
+``train()`` is given a card by its index, ``"cuda:0"``, or the CPU), and
+every other field runs on a mesh as on one card.  Still refused
 everywhere: ``scan_chunk``.
 """
 
@@ -146,7 +144,7 @@ class TrainConfig:
     grad_chunk: Optional[int] = None
     scan_epoch: bool = True  # the port's step loop is a plain python loop
     scan_chunk: Optional[int] = None
-    devices: Optional[int] = None  # mesh size; None → one card
+    devices: Optional[int] = None  # mesh size; None → every visible card
     measure_comm_split: bool = True  # comm-split timer (one gossip chain/epoch)
     halt_on_divergence: bool = True  # raise TrainingDiverged on NaN
 

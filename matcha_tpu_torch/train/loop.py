@@ -94,9 +94,9 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   harness's ``epoch_boundary`` kill tap sits at the top of each epoch,
   before the hook, as in the JAX loop (:897-903).
 * The worker mesh, as the JAX loop resolves it (:260-267): ``devices``
-  cards (or the devices ``train()`` is given), and no mesh for one card or
-  a fold that C does not divide; ``devices=None`` is one card here, not
-  every visible one.  On a mesh the state is folded card-major
+  cards (or the devices ``train()`` is given; ``devices=None`` every
+  visible card unless ``device`` names one), and no mesh for one card or
+  a fold that C does not divide.  On a mesh the state is folded card-major
   where the JAX loop calls ``shard_workers`` (:445-446,
   ``state.init_mesh_train_state``), each step's ``[N, B, ...]`` batch is
   sliced by card, ``auto`` resolves to ``shard_map`` (journaled; CHOCO's
@@ -109,9 +109,11 @@ checkpoint every ``checkpoint_every`` epochs.  Differences by design:
   per mesh), so the heartbeats, the drift monitor, the anomaly detectors
   and the cost ledger (each program's largest card's peak) read what
   they read on one card; ``local_steps``, the control knobs (once for the
-  mesh) and a profiler window over every card run as on one card.  The
-  pending-delta pipeline, resilience and membership, whose heal and
-  bootstrap read rows across cards, are refused (``_refuse_on_mesh``).
+  mesh) and a profiler window over every card run as on one card.  So do
+  the pending-delta pipeline (each card's rows of the deltas, drained and
+  reconciled card by card), resilience (the heal's donors' mean from
+  per-card partials, the rollback snapshot of every card) and membership
+  (each card's vacant rows frozen, the bootstrap across the cards).
 """
 
 from __future__ import annotations
@@ -177,6 +179,7 @@ from .config import TrainConfig
 from .lr import make_lr_schedule
 from .recorder import Recorder
 from .state import (
+    MeshTrainState,
     TrainState,
     fresh_mix_pending,
     init_mesh_train_state,
@@ -277,13 +280,11 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     devices, which is then the mesh (a device may repeat: virtual cards),
     and ``config.devices`` must be None or its length.  Else
     ``config.devices`` cards fold the workers (on the CPU, that many
-    virtual cards); ``devices=None`` is the one card ``device`` names,
-    however many are visible (JAX takes every visible device: the port
-    folds only when asked).  On a mesh ``result.state`` is a
-    ``state.MeshTrainState``; every feature runs there but the pipeline
-    (``overlap``, ``staleness``), resilience (``fault_plan``,
-    ``max_recoveries``) and membership (``membership_trace``,
-    ``membership_live``), which raise ``NotImplementedError``.
+    virtual cards); ``devices=None`` is every visible card, as JAX takes
+    every visible device, unless ``device`` names one card by its index
+    (``"cuda:0"`` pins that card) or is the CPU (one device).  On a mesh
+    ``result.state`` is a ``state.MeshTrainState``, and every
+    ``TrainConfig`` feature of a one-card run runs there.
 
     ``resume_dir`` (default ``config.resume``): a checkpoint directory.
     The newest intact generation is restored (a damaged one is quarantined
@@ -307,8 +308,6 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         # the config before anything reads those fields
         config = apply_plan(config)
     dev, mesh = _resolve_mesh(config, device)
-    if mesh is not None:
-        _refuse_on_mesh(config, mesh)
 
     dataset = build_dataset(config)
     parts = partition_indices(
@@ -441,7 +440,8 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
                 config.model, config.dataset,
                 num_classes=dataset.num_classes, num_workers=rows,
                 input_shape=dataset.x_train.shape[1:], remat=config.remat),
-            seed=config.seed, sync_init=config.sync_init)
+            seed=config.seed, sync_init=config.sync_init,
+            overlap=config.overlap, staleness=config.staleness)
         evaluate = make_mesh_eval_fn(state)
     # the devices a host clock read waits for: every card of the mesh
     clock_devices = [dev] if mesh is None else list(dict.fromkeys(
@@ -490,7 +490,7 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
 
     def fresh_membership():
         return membership_arrays(elastic_ctl.alive_mask(),
-                                 elastic_ctl.alpha_scale, dev)
+                                 elastic_ctl.alpha_scale, dev, mesh=mesh)
 
     def fresh_control():
         """The knobs' host mirror as the step's input, with the flag
@@ -523,20 +523,13 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     def make_stage(comm):
         """(step, comm-split timer) over ``comm``, from the current
         ``optimizer`` (its learning rate), ``faults`` and ``schedule``."""
-        if mesh is not None:
-            step = make_mesh_train_step(
-                optimizer, comm, flattener, run_flags, lr_schedule,
-                grad_chunk=config.grad_chunk,
-                local_steps=config.local_steps, telemetry=tel_spec,
-                control=control_knobs is not None)
-        else:
-            step = make_train_step(
-                optimizer, comm, flattener, run_flags, lr_schedule,
-                grad_chunk=config.grad_chunk, overlap=config.overlap,
-                staleness=config.staleness, stale_alpha_scale=stale_scale,
-                local_steps=config.local_steps, faults=faults,
-                elastic=elastic_ctl is not None, telemetry=tel_spec,
-                control=control_knobs is not None)
+        step = (make_train_step if mesh is None else make_mesh_train_step)(
+            optimizer, comm, flattener, run_flags, lr_schedule,
+            grad_chunk=config.grad_chunk, overlap=config.overlap,
+            staleness=config.staleness, stale_alpha_scale=stale_scale,
+            local_steps=config.local_steps, faults=faults,
+            elastic=elastic_ctl is not None, telemetry=tel_spec,
+            control=control_knobs is not None)
         timer = (_make_comm_timer(comm, flat_params, clock_devices,
                                   ledger_call)
                  if config.measure_comm_split
@@ -577,11 +570,9 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
         state, last_epoch = restore_with_fallback(
             resume_dir, state, schedule=schedule, notices=recovery_notices)
         start_epoch = last_epoch + 1
-        if mesh is None:  # a mesh runs eager: no pending delta to align
-            state = _reconcile_mix_pending(state, config.overlap,
-                                           communicator, flattener,
-                                           config.num_workers,
-                                           staleness=config.staleness)
+        state = _reconcile_mix_pending(state, config.overlap, communicator,
+                                       flattener, config.num_workers,
+                                       staleness=config.staleness)
         if elastic_ctl is not None:
             # the controller state this boundary had (the trace replays
             # deterministically), then the restored rows mapped onto the
@@ -1116,12 +1107,12 @@ def _resolve_mesh(config: TrainConfig, device):
     ``config.devices`` must be None or its length.  Else ``devices=k``
     takes the first k visible cards (k virtual cards when ``device`` is
     the CPU), raising when fewer are visible, never folding quietly onto
-    fewer.  ``devices=None`` is the one device, whatever number of cards
-    is visible: unlike JAX (every visible device), the port folds only
-    when asked, since a mesh refuses features a one-card run has
-    (``_refuse_on_mesh``; ``ROADMAP.md``).  A mesh of one device, or one
-    whose size does not divide ``num_workers``, is no mesh, as in JAX:
-    the run goes on on its first device."""
+    fewer.  ``devices=None`` takes every visible card, as JAX takes every
+    visible device, where ``device`` is ``None`` or ``"cuda"``; a card
+    named by its index (``"cuda:0"``) pins the run to that card, and the
+    CPU is one device.  A mesh of one device, or one whose size does not
+    divide ``num_workers``, is no mesh, as in JAX: the run goes on on its
+    first device."""
     if isinstance(device, (list, tuple)):
         if config.devices is not None and config.devices != len(device):
             raise ValueError(f"config.devices={config.devices} but train() "
@@ -1131,33 +1122,17 @@ def _resolve_mesh(config: TrainConfig, device):
         dev = mesh.devices[0]
     else:
         dev = resolve_device(device)
-        if config.devices is None or config.devices == 1:
+        count = config.devices
+        if count is None:
+            count = (torch.cuda.device_count()
+                     if dev.type == "cuda" and dev.index is None else 1)
+        if count <= 1:
             return dev, None
-        mesh = worker_mesh(config.devices, devices=(
-            [dev] * config.devices if dev.type == "cpu" else None))
+        mesh = worker_mesh(count, devices=(
+            [dev] * count if dev.type == "cpu" else None))
     if mesh.size == 1 or config.num_workers % mesh.size:
         return dev, None
     return mesh.devices[0], mesh
-
-
-def _refuse_on_mesh(config: TrainConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` for what the
-    port does not fold across a mesh yet: the pending-delta pipeline
-    (``overlap``, ``staleness``), resilience (``fault_plan``,
-    ``max_recoveries``) and membership (``membership_trace``,
-    ``membership_live``), whose heal and bootstrap read rows across
-    cards."""
-    refused = [f"{name}={getattr(config, name)!r}"
-               for name, off in (("overlap", "off"), ("staleness", 1),
-                                 ("fault_plan", None), ("max_recoveries", 0),
-                                 ("membership_trace", None),
-                                 ("membership_live", None))
-               if getattr(config, name) != off]
-    if refused:
-        raise NotImplementedError(
-            f"on a worker mesh of {mesh.size} devices the port does not "
-            f"fold {', '.join(refused)} yet (ROADMAP.md): run it on one "
-            f"card, or switch it off")
 
 
 def _rederive_alpha(schedule: Schedule, faults, elastic_ctl, recorder,
@@ -1201,10 +1176,13 @@ def _rederive_alpha(schedule: Schedule, faults, elastic_ctl, recorder,
 
 
 def _clone_tree(tree):
-    """A copy of every tensor of a carry-like value (a tensor, or a
-    dict/tuple/list of them); anything else as it is."""
+    """A copy of every tensor of a carry-like value (a tensor, a
+    ``WorkerBlocks``, or a dict/tuple/list of them); anything else as it
+    is."""
     if isinstance(tree, torch.Tensor):
         return tree.clone()
+    if isinstance(tree, WorkerBlocks):
+        return WorkerBlocks(b.clone() for b in tree)
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -1212,11 +1190,16 @@ def _clone_tree(tree):
     return tree
 
 
-def _snapshot_state(state: TrainState) -> Dict:
+def _snapshot_state(state) -> Dict:
     """A copy on the state's device of everything an epoch changes: the
     parameters, buffers, the optimizer's per-parameter state (momentum),
     the carry, the pending deltas and their ages, and the cursor.  The
-    step updates in place, so a reference would not do."""
+    step updates in place, so a reference would not do.  Of a
+    ``MeshTrainState``: every card's, each on its card, and the folded
+    carry."""
+    if isinstance(state, MeshTrainState):
+        return {"cards": [_snapshot_state(card) for card in state.cards],
+                "comm_carry": _clone_tree(state.comm_carry)}
     model, opt = state.model, state.optimizer
     return {
         "params": [p.detach().clone() for p in model.parameters()],
@@ -1230,9 +1213,14 @@ def _snapshot_state(state: TrainState) -> Dict:
     }
 
 
-def _restore_snapshot(state: TrainState, snapshot: Dict) -> TrainState:
+def _restore_snapshot(state, snapshot: Dict):
     """Put a snapshot back into ``state`` (in place; the snapshot's tensors
     are consumed)."""
+    if isinstance(state, MeshTrainState):
+        for card, saved in zip(state.cards, snapshot["cards"]):
+            _restore_snapshot(card, saved)
+        state.comm_carry = snapshot["comm_carry"]
+        return state
     model, opt = state.model, state.optimizer
     with torch.no_grad():
         for p, saved in zip(model.parameters(), snapshot["params"]):
@@ -1292,10 +1280,14 @@ def _apply_pending(state: TrainState, communicator, flattener) -> None:
         flattener.unflatten_into(flat, params)
 
 
-def _drain_mix_pending(state: TrainState, communicator,
-                       flattener) -> TrainState:
+def _drain_mix_pending(state, communicator, flattener):
     """Apply the in-flight delta(s) to the parameters and empty the
-    pipeline (JAX ``loop.py:1281-1316``)."""
+    pipeline (JAX ``loop.py:1281-1316``); of a ``MeshTrainState``, card by
+    card (each card's rows of the deltas are its own)."""
+    if isinstance(state, MeshTrainState):
+        for card in state.cards:
+            _drain_mix_pending(card, communicator, flattener)
+        return state
     _apply_pending(state, communicator, flattener)
     state.mix_pending.zero_()
     if isinstance(state.mix_ages, torch.Tensor):
@@ -1303,11 +1295,12 @@ def _drain_mix_pending(state: TrainState, communicator,
     return state
 
 
-def _reconcile_mix_pending(state: TrainState, overlap: str, communicator,
+def _reconcile_mix_pending(state, overlap: str, communicator,
                            flattener, num_workers: int,
-                           staleness: int = 1) -> TrainState:
+                           staleness: int = 1):
     """Align a restored state's in-flight delta(s) with this run's
-    ``overlap``/``staleness`` (JAX ``loop.py:1352``).
+    ``overlap``/``staleness`` (JAX ``loop.py:1352``); of a
+    ``MeshTrainState``, card by card, each on its ``[L]`` rows.
 
     * An eager checkpoint (``()``): prime a fresh zero pipeline, or stay
       eager.
@@ -1318,6 +1311,11 @@ def _reconcile_mix_pending(state: TrainState, overlap: str, communicator,
       the parameters, oldest-first (slot ``(cursor + i) mod K'``), then
       prime a fresh pipeline at the new depth.  Slots are the cursor mod
       K, so re-basing a ring in place would mis-age every delta."""
+    if isinstance(state, MeshTrainState):
+        for card in state.cards:
+            _reconcile_mix_pending(card, overlap, communicator, flattener,
+                                   flattener.num_workers, staleness)
+        return state
     dev = next(state.model.parameters()).device
     pend = state.mix_pending
     if isinstance(pend, torch.Tensor):

@@ -26,13 +26,18 @@ next optimizer step cannot write into them.
 
 On a worker mesh (the JAX package's ``shard_workers`` of the state,
 ``loop.py:445``) the state is a :class:`MeshTrainState`: card c holds a
-model stacking workers ``c·L..(c+1)·L`` and its optimizer, folded from
-the same CPU inits as one card's (:func:`init_mesh_train_state`).
-:func:`make_mesh_train_step` runs the one-card step without a
-communicator on each card's block in turn, then the communicator's folded
-mix once across the cards (every card's new block is formed before any
+model stacking workers ``c·L..(c+1)·L``, its optimizer and its rows of
+the pending deltas, folded from the same CPU inits as one card's
+(:func:`init_mesh_train_state`).  :func:`make_mesh_train_step` runs the
+one-card step without a communicator on each card's block in turn, then
+what the one-card step does after SGD on the folded stack: the fault
+plan's injection and heal and the membership's freeze (JAX
+``state.py:393-470``, :575-582), the communicator's mix once across the
+cards, eager or pipelined (every card's new block is formed before any
 is written back), the telemetry accumulator's step and the run
-controller's knobs.
+controller's knobs.  Each row's arithmetic is the one-card step's; what
+reads rows across cards (the donors' mean of the heal, the fleet means,
+the disagreement) is formed from per-card partials.
 """
 
 from __future__ import annotations
@@ -58,7 +63,10 @@ from ..ops import WorkerFlattener
 from ..parallel import (
     WorkerBlocks,
     WorkerMesh,
+    block_of,
     fold_dims,
+    masked_mean_rows,
+    split_like,
     worker_deviation,
     worker_disagreement,
 )
@@ -66,6 +74,7 @@ from ..resilience.runtime import (
     begin_mix_quarantined,
     gossip_quarantined,
     heal_and_mask,
+    heal_folded_stat_rows,
     heal_worker_stat_rows,
     inject_nan_rows,
     mask_worker_rows,
@@ -125,22 +134,27 @@ class MeshTrainState:
 
     ``cards[c]`` is the one-card :class:`TrainState` of workers
     ``c·L..(c+1)·L``: a model stacking those L workers on
-    ``mesh.devices[c]`` and its optimizer.  The communicator's carry is
-    the mesh's, folded like the state where it has worker rows (CHOCO's
+    ``mesh.devices[c]``, its optimizer and its rows of the pending deltas
+    (``[L, D]``, or the ring ``[L, K, D]`` and its ``i32[L, K]`` ages);
+    ``mix_pending`` and ``mix_ages`` read and write them as
+    ``WorkerBlocks`` (() when eager).  The communicator's carry is the
+    mesh's, folded like the state where it has worker rows (CHOCO's
     ``{x̂, s}`` as ``WorkerBlocks``; the cards' own ``comm_carry`` is not
     read); the schedule cursor ``step`` is every card's, which advance
-    together.  ``telemetry``: the epoch's ``obs.Telemetry`` accumulator,
-    one per mesh on card 0 (JAX shards it like the state; its per-worker
-    rows arrive gathered in worker order), () with telemetry off.
+    together.  ``membership``: the elastic pool's
+    ``elastic.runtime.Membership`` (its masks on card 0, each card's
+    vacant rows on that card), () without a membership trace.
+    ``telemetry``: the epoch's ``obs.Telemetry`` accumulator, one per
+    mesh on card 0 (JAX shards it like the state; its per-worker rows
+    arrive gathered in worker order), () with telemetry off.
     ``control``: the run controller's ``serve.ControlKnobs``, once for the
     mesh (replicated in JAX: ``row_scale`` is ``[M]`` matchings, not
-    workers), () unsupervised.  Neither is checkpointed.  The pipelined
-    and elastic state have no folded form yet: ``train()`` refuses those
-    features on a mesh."""
+    workers), () unsupervised.  None of the three is checkpointed."""
 
     cards: List[TrainState]
     mesh: WorkerMesh
     comm_carry: Any = ()
+    membership: Any = ()
     telemetry: Any = ()
     control: Any = ()
 
@@ -152,6 +166,38 @@ class MeshTrainState:
     def step(self, value: int) -> None:
         for card in self.cards:
             card.step = value
+
+    @property
+    def mix_pending(self):
+        return _card_blocks(self.cards, "mix_pending")
+
+    @mix_pending.setter
+    def mix_pending(self, value) -> None:
+        _set_card_blocks(self.cards, "mix_pending", value)
+
+    @property
+    def mix_ages(self):
+        return _card_blocks(self.cards, "mix_ages")
+
+    @mix_ages.setter
+    def mix_ages(self, value) -> None:
+        _set_card_blocks(self.cards, "mix_ages", value)
+
+
+def _card_blocks(cards, name: str):
+    """The cards' ``name`` tensors as a ``WorkerBlocks``; () when they
+    hold none."""
+    if not isinstance(getattr(cards[0], name), torch.Tensor):
+        return ()
+    return WorkerBlocks(getattr(card, name) for card in cards)
+
+
+def _set_card_blocks(cards, name: str, value) -> None:
+    """Card c's ``name`` becomes block c of ``value`` (a ``WorkerBlocks``),
+    or ``value`` itself (())."""
+    for c, card in enumerate(cards):
+        setattr(card, name, value[c] if isinstance(value, WorkerBlocks)
+                else value)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,15 +291,19 @@ def init_mesh_train_state(model: nn.Module, num_workers: int,
                           optimizer: OptimizerSpec,
                           communicator: Communicator, mesh: WorkerMesh,
                           make_model: Callable[[int], nn.Module],
-                          seed: int = 0, sync_init: bool = True
+                          seed: int = 0, sync_init: bool = True,
+                          overlap: str = "off", staleness: int = 1
                           ) -> tuple[MeshTrainState, WorkerFlattener]:
     """The N workers' inits made on the CPU in ``model`` exactly as
     :func:`init_train_state` makes them (``sync_init`` included), then
     folded card-major: card c gets ``make_model(L)``, loaded with rows
     ``c·L..(c+1)·L`` of every parameter and buffer and moved to
-    ``mesh.devices[c]``, and a fresh optimizer over it.  Returns the
-    state and the flattener of one card's ``[L, D]`` block (every card's
-    is the same)."""
+    ``mesh.devices[c]``, a fresh optimizer over it and its rows of a
+    primed pipeline (:func:`fresh_mix_pending` of ``overlap`` and
+    ``staleness``).  Returns the state and the flattener of one card's
+    ``[L, D]`` block (every card's is the same)."""
+    if staleness < 1:
+        raise ValueError(f"staleness must be >= 1, got {staleness}")
     if getattr(model, "num_workers", None) != num_workers:
         raise ValueError(f"model stacks {getattr(model, 'num_workers', None)} "
                          f"workers, expected {num_workers}")
@@ -270,6 +320,9 @@ def init_mesh_train_state(model: nn.Module, num_workers: int,
                                 optimizer=optimizer.init(card.parameters()),
                                 comm_carry=(), step=0))
     flattener = WorkerFlattener(cards[0].params)
+    for card, dev in zip(cards, mesh.devices):
+        card.mix_pending, card.mix_ages = fresh_mix_pending(
+            overlap, staleness, rows, flattener.dim, dev)
     state = MeshTrainState(cards, mesh)
     state.comm_carry = communicator.init(mesh_flat(state, flattener))
     return state, flattener
@@ -284,18 +337,11 @@ def mesh_flat(state: MeshTrainState,
 
 def mesh_card_state(state: MeshTrainState, c: int) -> TrainState:
     """Card c's :class:`TrainState` with its rows of the mesh's carry (a
-    ``WorkerBlocks`` entry's block c; an entry without worker rows, such
-    as CHOCO's generator state, as it is): what a per-worker check of the
-    whole state reads on that card."""
-    def rows(v):
-        if isinstance(v, WorkerBlocks):
-            return v[c]
-        if isinstance(v, dict):
-            return {k: rows(x) for k, x in v.items()}
-        return v
-
+    ``WorkerBlocks`` entry's block c, the tensor itself; an entry without
+    worker rows, such as CHOCO's generator state, as it is): what a
+    per-worker check or write of the whole state reads on that card."""
     return dataclasses.replace(state.cards[c],
-                               comm_carry=rows(state.comm_carry))
+                               comm_carry=block_of(state.comm_carry, c))
 
 
 @contextlib.contextmanager
@@ -316,6 +362,171 @@ def _worker_slab(model: nn.Module, lo: int, hi: int):
     finally:
         for store, name, tensor in swapped:
             store[name] = tensor
+
+
+def _mix_options(flags_host: np.ndarray, overlap: str, staleness: int,
+                 stale_alpha_scale: float, local_steps: int):
+    """The pipelined schedule's options, checked: ``(overlap_on,
+    staleness, ring_on, local_steps, comm_flags_host)``, the last the
+    flag rows times the damped α's scale (f32)."""
+    if overlap not in ("off", "1step"):
+        raise ValueError(f"overlap must be 'off' or '1step', got {overlap!r}")
+    overlap_on = overlap == "1step"
+    staleness = int(staleness)
+    if staleness < 1:
+        raise ValueError(f"staleness must be >= 1, got {staleness}")
+    if staleness > 1 and not overlap_on:
+        raise ValueError("staleness > 1 needs overlap='1step': the eager "
+                         "path has no pending ring to age deltas through")
+    if not stale_alpha_scale > 0:
+        raise ValueError(f"stale_alpha_scale must be > 0, got "
+                         f"{stale_alpha_scale}")
+    local_steps = int(local_steps)
+    if local_steps < 1:
+        raise ValueError(f"local_steps must be >= 1, got {local_steps}")
+    # the damped α rides the communicator's flag rows (every backend's edge
+    # weight is α·flag_j), scaled once here in f32 as the JAX step does
+    comm_flags_host = (flags_host * np.float32(stale_alpha_scale)
+                       if stale_alpha_scale != 1.0 else flags_host)
+    return (overlap_on, staleness, overlap_on and staleness > 1,
+            local_steps, comm_flags_host)
+
+
+def _check_faults(faults, flags_host: np.ndarray, n: int) -> None:
+    if faults is not None and faults.alive.shape != (flags_host.shape[0], n):
+        raise ValueError(
+            f"fault arrays {faults.alive.shape} do not match "
+            f"(iterations={flags_host.shape[0]}, workers={n}); compile the "
+            f"FaultPlan against this schedule")
+
+
+def _fault_rows(faults):
+    """``rows(dev, t) -> (alive, revive, nan_inject)``, step t's ``f32[N]``
+    rows of the compiled plan, its arrays placed on ``dev`` once."""
+    placed = {}  # device -> (alive, revive, nan_inject), f32[T, N]
+
+    def rows(dev, t: int):
+        if dev not in placed:
+            placed[dev] = tuple(
+                torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                for a in (faults.alive, faults.revive, faults.nan_inject))
+        return tuple(a[t] for a in placed[dev])
+
+    return rows
+
+
+def _stat_buffers(model: nn.Module) -> list:
+    return [b for b in model.buffers() if b.is_floating_point()]
+
+
+def _momenta(state: TrainState) -> list:
+    """``(parameter, momentum buffer or None)`` in the model's order; none
+    at all without momentum (SGD keeps no buffer then)."""
+    if not state.optimizer.defaults.get("momentum"):
+        return []
+    return [(p, state.optimizer.state.get(p, {}).get("momentum_buffer"))
+            for p in state.model.parameters()]
+
+
+def _capture_vacant(state: TrainState, flattener: WorkerFlattener,
+                    vacant: torch.Tensor):
+    """Copies of the vacant slots' rows, before the step writes them:
+    parameters (as one ``[V, D]`` block), batch-norm buffers, momentum
+    (zeros where no buffer exists yet, as the JAX trace starts) and
+    carry."""
+    n = flattener.num_workers
+    moms = [buf if buf is not None else torch.zeros_like(p)
+            for p, buf in _momenta(state)]
+    return {"flat": flattener.flatten(state.params).index_select(0, vacant),
+            "buffers": vacant_rows(_stat_buffers(state.model), vacant, n),
+            "momentum": vacant_rows(moms, vacant, n),
+            "carry": vacant_rows(state.comm_carry, vacant, n)}
+
+
+def _freeze_vacant(state: TrainState, saved, vacant: torch.Tensor,
+                   n: int) -> None:
+    """Write the captured rows back (the parameters went through the flat
+    stack already)."""
+    freeze_worker_rows(_stat_buffers(state.model), saved["buffers"], vacant,
+                       n)
+    freeze_worker_rows([buf for _, buf in _momenta(state)],
+                       saved["momentum"], vacant, n)
+    freeze_worker_rows(state.comm_carry, saved["carry"], vacant, n)
+
+
+def _ring_drops(ages: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """The ring's real deltas (slots with an age) a row mask is about to
+    drop, as a 0-d f32 count on the device."""
+    return ((ages >= 0) & (keep[:, None] <= 0)).sum(dtype=torch.float32)
+
+
+def _reset_rows(state: TrainState, carry, keep: torch.Tensor, n: int,
+                overlap_on: bool, ring_on: bool, counting: bool):
+    """A heal's resets of the rows where ``keep`` is 0: momentum, the
+    carry ``carry`` and the in-flight deltas (ring slots marked −1).
+    Returns the ring's deltas dropped when ``counting``, else ``None``."""
+    mask_worker_rows(momentum_buffers(state.optimizer), keep, n)
+    mask_worker_rows(carry, keep, n)
+    dropped = None
+    if overlap_on:
+        # a healed worker restarts from the donors' mean: the deltas issued
+        # from its old parameters are stale like its momentum
+        if ring_on:
+            if counting:
+                dropped = _ring_drops(state.mix_ages, keep)
+            state.mix_ages.masked_fill_(keep[:, None] <= 0, -1)
+        mask_worker_rows(state.mix_pending, keep, n)
+    return dropped
+
+
+def _vacate_pending(state: TrainState, alive: torch.Tensor, n: int,
+                    ring_on: bool, counting: bool):
+    """A vacant slot neither issues nor consumes deltas: its pending rows
+    zeroed (ring slots marked −1).  Returns the ring's deltas dropped when
+    ``counting``, else ``None``."""
+    vacated = None
+    if ring_on:
+        if counting:
+            vacated = _ring_drops(state.mix_ages, alive)
+        state.mix_ages.masked_fill_(alive[:, None] <= 0, -1)
+    mask_worker_rows(state.mix_pending, alive, n)
+    return vacated
+
+
+def _exchange(communicator: Communicator, flat, carry, row, alive, gate):
+    """``step``, quarantined under a survivor mask."""
+    if alive is None:
+        return communicator.step(flat, carry, row)
+    return gossip_quarantined(communicator.step, flat, carry, row, alive,
+                              gate=gate)
+
+
+def _issue(communicator: Communicator, flat, carry, row, alive, gate):
+    """``begin_mix``, quarantined under a survivor mask."""
+    if alive is None:
+        return communicator.begin_mix(flat, carry, row)
+    return begin_mix_quarantined(communicator.begin_mix, flat, carry, row,
+                                 alive, gate=gate)
+
+
+def _fleet_mean(v: torch.Tensor, alive) -> torch.Tensor:
+    """Mean over workers, the quarantined rows left out (``where``: a dead
+    worker's loss may be NaN).  With no alive worker, the mean of the
+    finite rows, and NaN when none is finite."""
+    if alive is None:
+        return v.mean()
+    per_worker = v.reshape(v.shape[0], -1).mean(dim=1)
+    zero = torch.zeros_like(per_worker)
+    kept = torch.where(alive > 0, per_worker, zero)
+    fin = torch.isfinite(per_worker).to(per_worker.dtype)
+    local = torch.where(
+        fin.sum() > 0,
+        torch.where(fin > 0, per_worker, zero).sum()
+        / torch.clamp(fin.sum(), min=1.0),
+        torch.full_like(fin.sum(), float("nan")))
+    return torch.where(alive.sum() > 0,
+                       kept.sum() / torch.clamp(alive.sum(), min=1.0),
+                       local)
 
 
 def make_train_step(
@@ -417,26 +628,9 @@ def make_train_step(
             or elastic or telemetry is not None or control):
         raise ValueError("a step without a communicator takes no option "
                          "that acts on the mix")
-    if overlap not in ("off", "1step"):
-        raise ValueError(f"overlap must be 'off' or '1step', got {overlap!r}")
-    overlap_on = overlap == "1step"
-    staleness = int(staleness)
-    if staleness < 1:
-        raise ValueError(f"staleness must be >= 1, got {staleness}")
-    if staleness > 1 and not overlap_on:
-        raise ValueError("staleness > 1 needs overlap='1step': the eager "
-                         "path has no pending ring to age deltas through")
-    ring_on = overlap_on and staleness > 1
-    if not stale_alpha_scale > 0:
-        raise ValueError(f"stale_alpha_scale must be > 0, got "
-                         f"{stale_alpha_scale}")
-    local_steps = int(local_steps)
-    if local_steps < 1:
-        raise ValueError(f"local_steps must be >= 1, got {local_steps}")
-    # the damped α rides the communicator's flag rows (every backend's edge
-    # weight is α·flag_j), scaled once here in f32 as the JAX step does
-    comm_flags_host = (flags_host * np.float32(stale_alpha_scale)
-                       if stale_alpha_scale != 1.0 else flags_host)
+    overlap_on, staleness, ring_on, local_steps, comm_flags_host = \
+        _mix_options(flags_host, overlap, staleness, stale_alpha_scale,
+                     local_steps)
     comm_flags = {}  # device -> tensor, placed at first use
     if grad_chunk is not None and not 1 <= grad_chunk <= n:
         raise ValueError(f"grad_chunk {grad_chunk} must be in [1, {n}]")
@@ -445,20 +639,9 @@ def make_train_step(
                          f"{n}")
     slabs = [(0, n)] if grad_chunk is None else [
         (lo, lo + grad_chunk) for lo in range(0, n, grad_chunk)]
-    if faults is not None and faults.alive.shape != (flags_host.shape[0], n):
-        raise ValueError(
-            f"fault arrays {faults.alive.shape} do not match "
-            f"(iterations={flags_host.shape[0]}, workers={n}); compile the "
-            f"FaultPlan against this schedule")
-    fault_arrays = {}  # device -> (alive, revive, nan_inject), f32[T, N]
+    _check_faults(faults, flags_host, n)
+    fault_rows = _fault_rows(faults)
     age_tables = {}  # device -> the consumed-age histogram's bin table
-
-    def fault_rows(dev, t: int):
-        if dev not in fault_arrays:
-            fault_arrays[dev] = tuple(
-                torch.as_tensor(np.asarray(a, np.float32), device=dev)
-                for a in (faults.alive, faults.revive, faults.nan_inject))
-        return tuple(a[t] for a in fault_arrays[dev])
 
     def forward_backward(model: nn.Module, xb, yb):
         """Per-worker losses ``[N]`` and logits, detached; the gradients
@@ -480,13 +663,6 @@ def make_train_step(
             logits.append(out.detach())
         return torch.cat(losses), torch.cat(logits)
 
-    def issue(flat, carry, row, alive, gate):
-        """``begin_mix``, quarantined under a survivor mask."""
-        if alive is None:
-            return communicator.begin_mix(flat, carry, row)
-        return begin_mix_quarantined(communicator.begin_mix, flat, carry,
-                                     row, alive, gate=gate)
-
     def mix(state: TrainState, flat: torch.Tensor, row, do_mix: bool,
             alive=None, gate=None, counting: bool = False):
         """The consensus transform of this step on ``flat`` (``do_mix``:
@@ -504,8 +680,8 @@ def make_train_step(
             ring = state.mix_pending
             flat = communicator.apply_mix(flat, ring[:, slot])
             if do_mix:
-                delta, state.comm_carry = issue(
-                    flat, state.comm_carry, row, alive, gate)
+                delta, state.comm_carry = _issue(
+                    communicator, flat, state.comm_carry, row, alive, gate)
                 ring[:, slot] = delta
                 if alive is None:
                     ages[:, slot] = 0
@@ -520,58 +696,15 @@ def make_train_step(
         if overlap_on:
             flat = communicator.apply_mix(flat, state.mix_pending)
             if do_mix:
-                state.mix_pending, state.comm_carry = issue(
-                    flat, state.comm_carry, row, alive, gate)
+                state.mix_pending, state.comm_carry = _issue(
+                    communicator, flat, state.comm_carry, row, alive, gate)
             else:
                 state.mix_pending = torch.zeros_like(flat)
             return flat, None
         if do_mix:
-            if alive is None:
-                flat, state.comm_carry = communicator.step(
-                    flat, state.comm_carry, row)
-            else:
-                flat, state.comm_carry = gossip_quarantined(
-                    communicator.step, flat, state.comm_carry, row, alive,
-                    gate=gate)
+            flat, state.comm_carry = _exchange(
+                communicator, flat, state.comm_carry, row, alive, gate)
         return flat, None
-
-    def stat_buffers(model: nn.Module) -> list:
-        return [b for b in model.buffers() if b.is_floating_point()]
-
-    def momenta(state: TrainState) -> list:
-        """``(parameter, momentum buffer or None)`` in the model's order;
-        none at all without momentum (SGD keeps no buffer then)."""
-        if not state.optimizer.defaults.get("momentum"):
-            return []
-        return [(p, state.optimizer.state.get(p, {}).get("momentum_buffer"))
-                for p in state.model.parameters()]
-
-    def capture_vacant(state: TrainState, vacant: torch.Tensor):
-        """Copies of the vacant slots' rows, before the step writes them:
-        parameters (as one ``[V, D]`` block), batch-norm buffers, momentum
-        (zeros where no buffer exists yet, as the JAX trace starts) and
-        carry."""
-        moms = [buf if buf is not None else torch.zeros_like(p)
-                for p, buf in momenta(state)]
-        return {"flat": flattener.flatten(state.params).index_select(
-                    0, vacant),
-                "buffers": vacant_rows(stat_buffers(state.model), vacant, n),
-                "momentum": vacant_rows(moms, vacant, n),
-                "carry": vacant_rows(state.comm_carry, vacant, n)}
-
-    def freeze_vacant(state: TrainState, saved, vacant: torch.Tensor):
-        """Write the captured rows back (the parameters went through the
-        flat stack already)."""
-        freeze_worker_rows(stat_buffers(state.model), saved["buffers"],
-                           vacant, n)
-        freeze_worker_rows([buf for _, buf in momenta(state)],
-                           saved["momentum"], vacant, n)
-        freeze_worker_rows(state.comm_carry, saved["carry"], vacant, n)
-
-    def ring_drops(ages: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-        """The ring's real deltas (slots with an age) a row mask is about to
-        drop, as a 0-d f32 count on the device."""
-        return ((ages >= 0) & (keep[:, None] <= 0)).sum(dtype=torch.float32)
 
     def heal(state: TrainState, flat: torch.Tensor, dev, t: int, member,
              counting: bool):
@@ -592,39 +725,11 @@ def make_train_step(
             revive_t = torch.zeros_like(alive_t)
         flat, alive, healed, gate = heal_and_mask(flat, alive_t, revive_t)
         keep = 1.0 - healed
-        mask_worker_rows(momentum_buffers(state.optimizer), keep, n)
-        mask_worker_rows(state.comm_carry, keep, n)
-        dropped = None
-        if overlap_on:
-            # a healed worker restarts from the donors' mean: the deltas
-            # issued from its old parameters are stale like its momentum
-            if ring_on:
-                if counting:
-                    dropped = ring_drops(state.mix_ages, keep)
-                state.mix_ages.masked_fill_(keep[:, None] <= 0, -1)
-            mask_worker_rows(state.mix_pending, keep, n)
-        heal_worker_stat_rows(stat_buffers(state.model), healed,
+        dropped = _reset_rows(state, state.comm_carry, keep, n, overlap_on,
+                              ring_on, counting)
+        heal_worker_stat_rows(_stat_buffers(state.model), healed,
                               alive * keep, n)
         return flat, alive, healed, gate, dropped
-
-    def fleet_mean(v: torch.Tensor, alive) -> torch.Tensor:
-        """Mean over workers, the quarantined rows left out (``where``:
-        a dead worker's loss may be NaN).  With no alive worker, the mean
-        of the finite rows, and NaN when none is finite."""
-        if alive is None:
-            return v.mean()
-        per_worker = v.reshape(v.shape[0], -1).mean(dim=1)
-        zero = torch.zeros_like(per_worker)
-        kept = torch.where(alive > 0, per_worker, zero)
-        fin = torch.isfinite(per_worker).to(per_worker.dtype)
-        local = torch.where(
-            fin.sum() > 0,
-            torch.where(fin > 0, per_worker, zero).sum()
-            / torch.clamp(fin.sum(), min=1.0),
-            torch.full_like(fin.sum(), float("nan")))
-        return torch.where(alive.sum() > 0,
-                           kept.sum() / torch.clamp(alive.sum(), min=1.0),
-                           local)
 
     def step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor):
         model, opt = state.model, state.optimizer
@@ -637,8 +742,8 @@ def make_train_step(
         # metadata, not a device read
         vacant = (member.vacant if member is not None
                   and member.vacant.numel() else None)
-        saved = (capture_vacant(state, vacant) if vacant is not None
-                 else None)
+        saved = (_capture_vacant(state, flattener, vacant)
+                 if vacant is not None else None)
         model.train()
         opt.zero_grad(set_to_none=True)
         # the phases' ranges: inside a profiler window each kernel is the
@@ -653,12 +758,16 @@ def make_train_step(
 
         t = min(state.step, flags_host.shape[0] - 1)
         if communicator is None:
-            # one card of a mesh: the caller mixes across the cards
+            # one card of a mesh: the caller mixes across the cards and
+            # forms its fleet means from the per-worker values
+            correct = top_k_accuracy(logits, yb)
             metrics = {
                 "loss": losses.mean(),
-                "accuracy": top_k_accuracy(logits, yb).mean(),
+                "accuracy": correct.mean(),
                 "lr": float(lr_schedule(state.step)) if lr_schedule else 0.0,
                 "active_matchings": float(flags_host[t].sum()),
+                "worker_loss": losses,
+                "worker_accuracy": correct,
             }
             state.step += 1
             return state, metrics
@@ -694,17 +803,14 @@ def make_train_step(
                 # the vacant slots keep the rows they had before the step
                 # (the survivor mask already made their gossip a self-loop)
                 flat.index_copy_(0, vacant, saved["flat"])
-                freeze_vacant(state, saved, vacant)
+                _freeze_vacant(state, saved, vacant, n)
             if member is not None and overlap_on:
                 # a vacant slot neither issues nor consumes deltas
-                if ring_on:
-                    if counting:
-                        vacated = ring_drops(state.mix_ages, member.alive)
-                        dropped = (vacated if dropped is None
-                                   else dropped + vacated)
-                    state.mix_ages.masked_fill_(member.alive[:, None] <= 0,
-                                                -1)
-                mask_worker_rows(state.mix_pending, member.alive, n)
+                vacated = _vacate_pending(state, member.alive, n, ring_on,
+                                          counting)
+                if vacated is not None:
+                    dropped = (vacated if dropped is None
+                               else dropped + vacated)
             flattener.unflatten_into(flat, params)
             rows = None
             if counting:
@@ -712,8 +818,8 @@ def make_train_step(
             else:
                 disagreement = worker_disagreement(flat, alive)
             metrics = {
-                "loss": fleet_mean(losses, alive),
-                "accuracy": fleet_mean(top_k_accuracy(logits, yb), alive),
+                "loss": _fleet_mean(losses, alive),
+                "accuracy": _fleet_mean(top_k_accuracy(logits, yb), alive),
                 "disagreement": disagreement,
                 "lr": float(lr_schedule(state.step)) if lr_schedule else 0.0,
                 "active_matchings": float(flags_host[t].sum()),
@@ -752,7 +858,12 @@ def make_mesh_train_step(optimizer: OptimizerSpec,
                          flattener: WorkerFlattener, flags: np.ndarray,
                          lr_schedule: Optional[Callable] = None,
                          grad_chunk: Optional[int] = None,
+                         overlap: str = "off",
+                         staleness: int = 1,
+                         stale_alpha_scale: float = 1.0,
                          local_steps: int = 1,
+                         faults=None,
+                         elastic: bool = False,
                          telemetry: Optional[TelemetrySpec] = None,
                          control: bool = False):
     """Build the folded ``step(state, xb, yb) -> (state, metrics)`` over a
@@ -764,41 +875,142 @@ def make_mesh_train_step(optimizer: OptimizerSpec,
     (:func:`make_train_step`: forward/backward in ``grad_chunk`` slabs
     within its L workers, then SGD), all launched from this thread in card
     order.  Then the folded ``[N, D]`` stack (``mesh_flat``) goes through
-    ``communicator.step`` once, which forms every card's new block before
-    any is written back into the cards' parameters.  ``metrics``: the
-    one-card step's without faults or membership, on card 0: ``loss`` and
-    ``accuracy`` the mean of the cards' means, ``disagreement`` over the
-    whole stack from per-card partials (:func:`_folded_deviation`);
-    the communicator's flag rows are kept where it wants them (the host,
-    for the folded decen backend).
+    what the one-card step does after SGD, with every option of
+    :func:`make_train_step` and its meaning:
 
-    ``local_steps``, ``telemetry`` and ``control`` are the one-card
-    step's (:func:`make_train_step`): the exchange runs only where the
-    cursor is a multiple of the cadence (a host branch; the other steps
-    launch no mix); with a ``TelemetrySpec`` and an ``obs.Telemetry`` in
-    ``state.telemetry`` (on card 0), each step adds to it in place, with
-    the per-worker deviation rows the disagreement is summed from
-    (gathered onto card 0 in worker order), and reads nothing back; with
-    ``control`` and a ``serve.ControlKnobs`` in ``state.control``, the
-    flag row is multiplied by ``row_scale`` and then by ``alpha_scale`` in
-    f32, in the JAX step's order, before the communicator scales it by α,
-    and ``local_every`` replaces ``local_steps``."""
+    * ``faults``/``elastic``: each card poisons its rows of the plan's
+      NaN events; the heal (``heal_and_mask`` on the ``WorkerBlocks``:
+      the masks ``f32[N]`` on card 0, the donors' mean from per-card
+      partials) overwrites the healed rows on their cards, and each card
+      resets its healed rows' momentum, carry and pending deltas and
+      takes the donors' batch-norm mean; the gossip is quarantined (the
+      non-finite rows sealed card by card, the survivor mask handed to
+      the communicator); each card captures its vacant slots' rows
+      before its step and writes them back after the mix.
+    * ``overlap``/``staleness``: each card consumes its rows of the delta
+      (or of ring slot ``t mod K``) and parks its rows of the delta that
+      ``communicator.begin_mix`` issues on the folded stack; the ages age
+      and reset card by card.
+    * ``local_steps``, ``telemetry``, ``control``: the exchange runs only
+      where the cursor is a multiple of the cadence (a host branch); the
+      accumulator on card 0 takes the step's counts, with the per-worker
+      deviation rows, alive mask and consumed ages gathered onto card 0
+      in worker order, and nothing is read back; the knobs scale the flag
+      row in the JAX step's order.
+
+    Every card's new block is formed before any is written back into the
+    cards' parameters.  ``metrics`` on card 0: ``loss`` and ``accuracy``
+    the mean of the cards' means (under faults or membership, the one-card
+    fleet mean of the gathered per-worker values), ``disagreement`` from
+    per-card partials (:func:`_folded_deviation`), ``healed`` and
+    ``alive_workers`` under faults or membership.  The communicator's flag
+    rows are kept where it wants them (the host, for the folded decen
+    backend)."""
     card_step = make_train_step(optimizer, None, flattener, flags,
                                 lr_schedule=lr_schedule,
                                 grad_chunk=grad_chunk)
     flags_host = np.asarray(flags, np.float32)  # [T, M]
-    local_steps = int(local_steps)
-    if local_steps < 1:
-        raise ValueError(f"local_steps must be >= 1, got {local_steps}")
+    overlap_on, staleness, ring_on, local_steps, comm_flags_host = \
+        _mix_options(flags_host, overlap, staleness, stale_alpha_scale,
+                     local_steps)
+    rows = flattener.num_workers
+    fault_rows = _fault_rows(faults)
     comm_flags = {}
+    age_tables = {}
+
+    def mix(state: MeshTrainState, flat: WorkerBlocks, cursor: int, row,
+            do_mix: bool, alive, gate, counting: bool):
+        """The one-card step's ``mix`` on the folded stack: ``(flat,
+        consumed)``, the ages consumed ``i32[N]`` on card 0 when
+        ``counting`` on the ring."""
+        first = state.mesh.devices[0]
+        if ring_on:
+            slot = cursor % staleness
+            consumed = []
+            for card in state.cards:
+                ages = card.mix_ages
+                ages.add_((ages >= 0).to(ages.dtype))
+                if counting:
+                    consumed.append(ages[:, slot].clone().to(first))
+            flat = communicator.apply_mix(flat, WorkerBlocks(
+                card.mix_pending[:, slot] for card in state.cards))
+            if do_mix:
+                delta, state.comm_carry = _issue(
+                    communicator, flat, state.comm_carry, row, alive, gate)
+                issued = (None if alive is None else split_like(
+                    (alive > 0) & (gate > 0), flat))
+                for c, card in enumerate(state.cards):
+                    card.mix_pending[:, slot] = delta[c]
+                    if issued is None:
+                        card.mix_ages[:, slot] = 0
+                    else:
+                        # dead or non-finite rows issued nothing real
+                        card.mix_ages[:, slot] = torch.where(
+                            issued[c], 0, -1).to(card.mix_ages.dtype)
+            else:
+                for card in state.cards:
+                    card.mix_pending[:, slot] = 0.0
+                    card.mix_ages[:, slot] = -1
+            return flat, (torch.cat(consumed) if counting else None)
+        if overlap_on:
+            flat = communicator.apply_mix(flat, state.mix_pending)
+            if do_mix:
+                state.mix_pending, state.comm_carry = _issue(
+                    communicator, flat, state.comm_carry, row, alive, gate)
+            else:
+                state.mix_pending = flat.zeros_like()
+            return flat, None
+        if do_mix:
+            flat, state.comm_carry = _exchange(
+                communicator, flat, state.comm_carry, row, alive, gate)
+        return flat, None
+
+    def heal(state: MeshTrainState, flat: WorkerBlocks, t: int, member,
+             counting: bool):
+        """The one-card step's ``heal`` on the folded stack."""
+        first = state.mesh.devices[0]
+        if faults is not None:
+            alive_t, revive_t, inject_t = fault_rows(first, t)
+            flat = inject_nan_rows(flat, inject_t)
+            if member is not None:
+                # a vacant slot is dead whatever the plan says, and a
+                # planned revival of a vacant slot stays vacant
+                alive_t = alive_t * member.alive
+                revive_t = revive_t * member.alive
+        else:
+            alive_t = member.alive
+            revive_t = torch.zeros_like(alive_t)
+        flat, alive, healed, gate = heal_and_mask(flat, alive_t, revive_t)
+        keep = 1.0 - healed
+        drops = [_reset_rows(card, block_of(state.comm_carry, c), k, rows,
+                             overlap_on, ring_on, counting)
+                 for c, (card, k) in enumerate(zip(state.cards,
+                                                   split_like(keep, flat)))]
+        heal_folded_stat_rows([_stat_buffers(card.model)
+                               for card in state.cards], healed,
+                              alive * keep, rows)
+        return flat, alive, healed, gate, _card_sum(drops, first)
 
     def step(state: MeshTrainState, xb: torch.Tensor, yb: torch.Tensor):
         devices = state.mesh.devices
-        rows = flattener.num_workers
+        first = devices[0]
+        n = rows * len(devices)
+        _check_faults(faults, flags_host, n)
         cursor = state.step
         t = min(cursor, flags_host.shape[0] - 1)
         tel = (state.telemetry if telemetry is not None
                and isinstance(state.telemetry, Telemetry) else None)
+        counting = tel is not None
+        member = (state.membership if elastic
+                  and isinstance(state.membership, Membership) else None)
+        # each card's vacant rows: host-made index tensors, so their
+        # sizes are metadata, not device reads
+        vacant = ([v if v.numel() else None for v in member.card_vacant]
+                  if member is not None and member.vacant.numel()
+                  else [None] * len(devices))
+        saved = [None if v is None else _capture_vacant(
+                     mesh_card_state(state, c), flattener, v)
+                 for c, v in enumerate(vacant)]
         # each card's step advances its own cursor: the mesh's
         parts = [card_step(card,
                            xb[c * rows:(c + 1) * rows].to(devices[c],
@@ -807,10 +1019,12 @@ def make_mesh_train_step(optimizer: OptimizerSpec,
                                                           non_blocking=True)
                            )[1]
                  for c, card in enumerate(state.cards)]
-        dev = communicator.flags_device(devices[0])
+        dev = communicator.flags_device(first)
         if dev not in comm_flags:
-            comm_flags[dev] = torch.as_tensor(flags_host, device=dev)
+            comm_flags[dev] = torch.as_tensor(comm_flags_host, device=dev)
         row = comm_flags[dev][t]
+        if member is not None and member.alpha_scale != 1.0:
+            row = row * float(np.float32(member.alpha_scale))
         every = local_steps
         knobs = state.control if control and isinstance(
             state.control, ControlKnobs) else None
@@ -820,52 +1034,110 @@ def make_mesh_train_step(optimizer: OptimizerSpec,
                 row = row * knobs.alpha_scale
             every = knobs.local_every
         do_mix = cursor % every == 0
-        first = devices[0]
         with torch.no_grad():
             flat = mesh_flat(state, flattener)
-            if do_mix:
-                with device_span("comm/step"):
-                    flat, state.comm_carry = communicator.step(
-                        flat, state.comm_carry, row)
+            alive = healed = gate = dropped = None
+            if faults is not None or member is not None:
+                with device_span("matcha/heal"):
+                    flat, alive, healed, gate, dropped = heal(
+                        state, flat, t, member, counting)
+            with device_span("comm/step"):
+                flat, consumed = mix(state, flat, cursor, row, do_mix, alive,
+                                     gate, counting)
+            for c, v in enumerate(vacant):
+                if v is not None:
+                    # the vacant slots keep the rows they had before the
+                    # step (the survivor mask made their gossip a self-loop)
+                    flat[c].index_copy_(0, v, saved[c]["flat"])
+                    _freeze_vacant(mesh_card_state(state, c), saved[c], v,
+                                   rows)
+            if member is not None and overlap_on:
+                vacated = _card_sum(
+                    [_vacate_pending(card, m, rows, ring_on, counting)
+                     for card, m in zip(state.cards,
+                                        split_like(member.alive, flat))],
+                    first)
+                if vacated is not None:
+                    dropped = (vacated if dropped is None
+                               else dropped + vacated)
+            if do_mix or overlap_on or alive is not None:
                 for card, block in zip(state.cards, flat):
                     flattener.unflatten_into(block, card.params)
-            deviation, disagreement = _folded_deviation(flat, first)
-            metrics = {**parts[0], "disagreement": disagreement}
+            deviation, disagreement = _folded_deviation(flat, first, alive)
+            metrics = {k: v for k, v in parts[0].items()
+                       if not k.startswith("worker_")}
+            metrics["disagreement"] = disagreement
             for key in ("loss", "accuracy"):
-                metrics[key] = torch.stack(
-                    [part[key].to(first) for part in parts]).mean()
+                if alive is None:
+                    metrics[key] = torch.stack(
+                        [part[key].to(first) for part in parts]).mean()
+                else:
+                    metrics[key] = _fleet_mean(torch.cat(
+                        [part[f"worker_{key}"].to(first) for part in parts]),
+                        alive)
+            if alive is not None:
+                metrics["healed"] = healed.sum()
+                metrics["alive_workers"] = alive.sum()
             if tel is not None:
+                age_bins = None
+                if consumed is not None:
+                    if first not in age_tables:
+                        age_tables[first] = age_bin_table(staleness, first)
+                    age_bins = age_tables[first]
+                stale_dropped = dropped if ring_on else (
+                    metrics.get("healed") if overlap_on else None)
                 telemetry_step(
                     tel, telemetry, disagreement=disagreement,
                     # an elided step exchanges nothing: zero bytes
                     flags_t=flags_host[t] * np.float32(do_mix),
-                    alive_count=rows * len(devices),
-                    worker_disagreement=deviation)
+                    alive_count=metrics.get("alive_workers", n),
+                    healed=metrics.get("healed"),
+                    stale_dropped=stale_dropped, consumed_age=consumed,
+                    worker_alive=alive, worker_disagreement=deviation,
+                    age_bins=age_bins)
         return state, metrics
 
     return step
 
 
-def _folded_deviation(blocks, first: torch.device):
+def _card_sum(values, first: torch.device):
+    """The sum on ``first`` of the cards' 0-d counts; ``None`` when they
+    are ``None``."""
+    if values[0] is None:
+        return None
+    return torch.stack([v.to(first) for v in values]).sum()
+
+
+def _folded_deviation(blocks, first: torch.device, alive=None):
     """``(worker_deviation_rows, disagreement)`` of the folded ``[N, D]``
     stack, on ``first``, from per-card partials
     (``parallel.worker_deviation`` across the cards): each card's ``[D]``
-    column sum goes to ``first`` for the mean, the mean back to each card,
-    and each card's ``[L]`` sums of squared deviations to ``first`` in
-    worker order.  Between real cards that moves ``2·C·D + N`` floats, not
-    ``N·D``; the sums run in another order than the one-tensor
-    function's."""
+    column sum goes to ``first`` for the mean (with ``alive``, ``f32[N]``,
+    the survivors' mean, ``parallel.masked_mean_rows``), the mean back to
+    each card, and each card's ``[L]`` sums of squared deviations (0 for
+    a quarantined row) to ``first`` in worker order.  Between real cards
+    that moves ``2·C·D + N`` floats, not ``N·D``; the sums run in another
+    order than the one-tensor function's."""
     n = sum(b.shape[0] for b in blocks)
-    mean = torch.stack([b.sum(dim=0).to(first) for b in blocks]).sum(
-        dim=0) / n
+    if alive is None:
+        mean = torch.stack([b.sum(dim=0).to(first) for b in blocks]).sum(
+            dim=0) / n
+        gates = [None] * len(blocks)
+    else:
+        mean = masked_mean_rows(blocks, alive)
+        gates = split_like(alive, blocks)
     sums = []
-    for b in blocks:
+    for b, g in zip(blocks, gates):
         centered = b - mean.to(b.device)
+        if g is not None:
+            centered = torch.where(g.reshape(-1, *([1] * (b.ndim - 1))) > 0,
+                                   centered, torch.zeros_like(centered))
         sums.append((centered * centered).reshape(b.shape[0], -1)
                     .sum(dim=1).to(first))
     sq = torch.cat(sums)
     d = mean.numel()
-    return torch.sqrt(sq / d), torch.sqrt(sq.sum() / (n * d))
+    count = n if alive is None else torch.clamp(alive.sum(), min=1.0)
+    return torch.sqrt(sq / d), torch.sqrt(sq.sum() / (count * d))
 
 
 def make_mesh_eval_fn(state: MeshTrainState):

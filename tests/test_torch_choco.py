@@ -42,6 +42,7 @@ from matcha_tpu_torch.communicator import (
 )
 from matcha_tpu_torch.ops import top_k_ratio_size
 from matcha_tpu_torch.parallel import (
+    WorkerBlocks,
     gather_workers,
     shard_workers,
     worker_disagreement,
@@ -261,7 +262,7 @@ def test_select_communicator_choco_backends_and_names():
     with pytest.raises(ValueError, match="needs a mesh"):
         select_communicator("choco", sched, backend="shard_map", device="cpu")
     # on a mesh, auto and shard_map are the folded form, bitwise the
-    # batched one; a batched spelling refuses the mesh
+    # batched one; a batched spelling is the batched form on card 0
     mesh = worker_mesh(devices=["cpu"] * 4)
     x = torch.from_numpy(random_state(8, 40, seed=3))
     want, want_carry = select_communicator(
@@ -273,9 +274,14 @@ def test_select_communicator_choco_backends_and_names():
         got, carry = comm.run(shard_workers(x, mesh), sched.flags[:2])
         assert torch.equal(gather_workers(got), want)
         assert torch.equal(gather_workers(carry["s"]), want_carry["s"])
-    with pytest.raises(ValueError, match="shard_map"):
-        select_communicator("choco", sched, mesh=mesh, backend="perm",
-                            device="cpu")
+    comm = select_communicator("choco", sched, ratio=0.5, mesh=mesh,
+                               backend="perm", device="cpu")
+    assert comm.name == "choco[r0.5]"
+    got, carry = comm.run(shard_workers(x, mesh), sched.flags[:2])
+    assert isinstance(got, WorkerBlocks) and isinstance(carry["s"],
+                                                        WorkerBlocks)
+    assert torch.equal(gather_workers(got), want)
+    assert torch.equal(gather_workers(carry["s"]), want_carry["s"])
     with pytest.raises(KeyError):
         make_choco(sched, backend="ring", device="cpu")
     with pytest.warns(UserWarning, match="no effect"):

@@ -392,22 +392,33 @@ def test_mesh_resolution_keeps_jax_answers():
 
 
 def test_devices_none_is_one_card_however_many_are_visible(monkeypatch):
-    """The port folds only when asked: with 4 cards visible,
-    ``devices=None`` is one card for the default config, the chaos
-    trial's (which the serve trainer runs on the spec's ``"cuda"``) and
-    a perm config, whether ``device`` is None, ``"cuda"`` or
-    ``"cuda:0"``; ``devices=4`` folds onto the 4 cards."""
+    """``devices=None`` is every visible card, as in JAX, wherever the
+    card count divides the workers: with 4 cards visible, 8 workers fold
+    onto the 4 cards (``device`` None or ``"cuda"``, any backend) and 6
+    stay on one card.  One card stays one card however many are visible
+    when it is asked for by its index (``"cuda:0"``, as chip_smoke's
+    one-card phases ask) or by ``devices=1`` (the serve and chaos
+    lifetimes chip_smoke runs); the CPU is one device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert _resolve_mesh(TrainConfig(), None)[1] is None
-    for cfg in (TrainConfig(),
-                TrainConfig(**_trial_config("unused", 2)),
+    every = tuple(torch.device("cuda", i) for i in range(4))
+    for cfg in (TrainConfig(**CONFIG),
                 TrainConfig(**CONFIG, gossip_backend="perm")):
-        for device in (None, "cuda", "cuda:0"):
+        for device in (None, "cuda"):
             dev, mesh = _resolve_mesh(cfg, device)
-            assert dev.type == "cuda" and mesh is None, (cfg, device)
-    dev, mesh = _resolve_mesh(TrainConfig(**CONFIG, devices=4), "cuda")
-    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
+            assert dev == every[0] and mesh.devices == every, (cfg, device)
+    assert _resolve_mesh(TrainConfig(**{**CONFIG, "num_workers": 6,
+                                        "graphid": None}), None)[1] is None
+    for cfg, device in ((TrainConfig(**CONFIG), "cuda:0"),
+                        (TrainConfig(**CONFIG, devices=1), None),
+                        (TrainConfig(**_trial_config("unused", 2),
+                                     devices=1), "cuda")):
+        dev, mesh = _resolve_mesh(cfg, device)
+        assert dev.type == "cuda" and mesh is None, (cfg, device)
+    assert _resolve_mesh(TrainConfig(**CONFIG), "cpu") == (
+        torch.device("cpu"), None)
+    dev, mesh = _resolve_mesh(TrainConfig(**CONFIG, devices=2), "cuda")
+    assert mesh.devices == every[:2]
 
 
 @pytest.mark.parametrize("cards", [2, 4, 8])
@@ -439,37 +450,24 @@ def test_a_card_step_takes_no_option_of_the_mix():
 
 
 def test_the_cli_folds_onto_every_visible_card_for_shard_map(monkeypatch):
-    """``train_torch.py --backend shard_map`` asks for the mesh of every
-    visible card; any other backend, or the CPU, is one device."""
+    """``train_torch.py`` leaves ``devices`` at None for every backend, so
+    that ``train()`` folds onto every visible card on the card (shard_map
+    or any other backend) and runs on one device with ``--device cpu``."""
     sys.path.insert(0, str(REPO))
     try:
         import train_torch
     finally:
         sys.path.remove(str(REPO))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert train_torch.parse_args(
-        ["--backend", "shard_map"])[0].devices == 4
-    assert train_torch.parse_args(["--backend", "auto"])[0].devices is None
-    assert train_torch.parse_args(
-        ["--backend", "shard_map", "--device", "cpu"])[0].devices is None
-
-
-REFUSED = [
-    ("overlap", dict(overlap="1step")),
-    ("staleness", dict(overlap="1step", staleness=2)),
-    ("fault_plan", dict(fault_plan="plan.json")),
-    ("max_recoveries", dict(max_recoveries=1)),
-    ("membership_trace", dict(membership_trace="trace.json")),
-    ("membership_live", dict(membership_live="beats")),
-]
-
-
-@pytest.mark.parametrize("what,over", REFUSED, ids=[
-    f"{w}-{i}" for i, (w, _) in zip((2, 3, 5, 6, 7, 8), REFUSED)])
-def test_train_refuses_what_the_mesh_does_not_fold(what, over):
-    cfg = TrainConfig(**{**CONFIG, **over}, devices=4)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
-        train(cfg, device="cpu")
+    for backend in ("shard_map", "auto", "perm"):
+        cfg, device = train_torch.parse_args(
+            ["--backend", backend, "--numworkers", "8", "--graphid", "5"])
+        assert cfg.devices is None and device == "cuda"
+        assert _resolve_mesh(cfg, device)[1].size == 4
+    cfg, device = train_torch.parse_args(
+        ["--backend", "shard_map", "--device", "cpu"])
+    assert cfg.devices is None and _resolve_mesh(cfg, device)[1] is None
 
 
 def test_train_halts_on_divergence_on_the_mesh():
@@ -481,9 +479,10 @@ def test_train_halts_on_divergence_on_the_mesh():
 
 
 def test_one_tensor_backends_refuse_a_mesh():
+    """``shard_map`` refuses to run without a mesh; a one-tensor backend
+    takes a mesh (``tests/test_torch_mesh_full.py`` holds it to one
+    card)."""
     sched = bernoulli(jtp.select_graph(5), 8, 2, 0.5, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_decen(sched, "perm", mesh=cpu_mesh(2))
     with pytest.raises(ValueError, match="needs a mesh"):
         make_decen(sched, "shard_map", device="cpu")
     # a mesh of one device: skip is the one-tensor skip, as in JAX

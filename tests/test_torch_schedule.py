@@ -121,3 +121,30 @@ def test_sample_flags_matches_jax():
     # library's digests in tests/test_torch_native_np.py)
     assert psch.sample_flags(probs, 3, seed=0, sampler="native").shape \
         == (3, 6)
+
+
+@pytest.mark.parametrize("budget", [0.25, 0.5])
+def test_activation_solve_is_remembered_bitwise(budget):
+    # a repeated solve in one process returns the first answer, bitwise the
+    # JAX solver's, as a copy the caller may change
+    from matcha_tpu.schedule.solvers import \
+        solve_activation_probabilities as jax_solve
+    from matcha_tpu_torch.schedule import solvers
+
+    Ls = ptp.matching_laplacians(ptp.select_graph(4), 16)
+    want = jax_solve(Ls, budget, iters=400)
+    first = solvers.solve_activation_probabilities(Ls, budget, iters=400)
+    first[0] = 7.0
+    calls = []
+    real = solvers._solve_activation_probabilities
+    solvers._solve_activation_probabilities = \
+        lambda *a: calls.append(a) or real(*a)
+    try:
+        again = solvers.solve_activation_probabilities(Ls.copy(), budget,
+                                                       iters=400)
+        other = solvers.solve_activation_probabilities(Ls, budget, iters=399)
+    finally:
+        solvers._solve_activation_probabilities = real
+    np.testing.assert_array_equal(again, want)
+    assert len(calls) == 1 and calls[0][2] == 399
+    np.testing.assert_array_equal(other, jax_solve(Ls, budget, iters=399))

@@ -30,15 +30,16 @@ runs the comm-split timer's chains through the fused W-stack kernel;
 ``--backend dense`` is the dense product alone; ``--backend skip`` is the
 gather oracle with inactive matchings skipped on the host.
 
-``--backend shard_map`` folds the workers card-major across every
-visible card (``CUDA_VISIBLE_DEVICES`` picks the cards; one card is no
-mesh, and the backend then raises): on-card edges are row gathers,
-cross-card edges move a neighbour card's block.  Any other backend runs
-on one card, however many are visible.  A mesh runs every communicator
-(CHOCO through its folded backend, ``centralized`` through a mean across
-the cards) with telemetry, health and the other defaults; the pipeline
-(``--overlap``, ``--staleness``), a fault plan, recovery and membership
-are refused, naming ``ROADMAP.md``::
+On the card a run folds the workers card-major across every visible card
+(``CUDA_VISIBLE_DEVICES`` picks the cards; one card, or a card count that
+does not divide ``--numworkers``, is no mesh).  ``--backend shard_map``
+(``auto``'s choice on a mesh) mixes the folded state in place: on-card
+edges are row gathers, cross-card edges move a neighbour card's block;
+``perm``, ``dense``, ``fused`` and ``gather`` gather the state onto the
+first card for each mix (``shard_map`` on one card raises).  A mesh runs
+every communicator and every option a one-card run takes: the pipeline
+(``--overlap``, ``--staleness``), a fault plan and recovery, membership,
+telemetry and health::
 
     CUDA_VISIBLE_DEVICES=0,1,2,3 python train_torch.py --model resnet20 \
         --dataset synthetic_image --graphid 4 --numworkers 16 \
@@ -120,8 +121,6 @@ from __future__ import annotations
 import argparse
 import json
 
-import torch
-
 from matcha_tpu_torch.ops import COMPRESSOR_NAMES
 from matcha_tpu_torch.train import TrainConfig, train
 
@@ -157,8 +156,8 @@ def parse_args(argv=None):
                    help="gossip backend of the decen communicator; auto "
                         "picks perm or dense by the planner's gate and "
                         "journals the decision as a `backend` event; "
-                        "shard_map folds the workers across every visible "
-                        "card")
+                        "shard_map mixes the workers folded across the "
+                        "visible cards")
     p.add_argument("--gossip-measured-ratio", type=float, default=None,
                    dest="gossip_measured_vs_ceiling",
                    help="the dense form's measured-vs-ceiling ratio, the "
@@ -336,11 +335,7 @@ def parse_args(argv=None):
         telemetry=not args.no_telemetry, health=not args.no_health,
         drift_tolerance=args.drift_tolerance,
         drift_patience=args.drift_patience,
-        trace_dir=args.trace_dir, trace_epoch=args.trace_epoch,
-        # the folded backend asks for the mesh: every visible card
-        devices=(max(torch.cuda.device_count(), 1)
-                 if args.backend == "shard_map" and args.device == "cuda"
-                 else None))
+        trace_dir=args.trace_dir, trace_epoch=args.trace_epoch)
     return cfg, args.device
 
 
