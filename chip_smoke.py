@@ -8,7 +8,8 @@ Needs one CUDA card.  Phases, each printed as a JSON line; any failure
 raises and the script exits non-zero.  ``--phase`` runs the phases named
 (and those whose results they read: ``planner`` reads ``fused_timing``,
 ``perf_obs`` both, ``mesh_features`` ``mesh``) after the build, and
-prints no kernels line:
+prints no kernels line (``--phase multihost`` starts cell (q)'s
+processes at once):
 
 1. device — the card, CUDA and torch versions, and ``nvidia-smi``'s name
    and power limit (printed raw on a line of its own).
@@ -301,13 +302,29 @@ prints no kernels line:
    shape bitwise its batched form for C = 1–8, its folded step's ms and
    cross-card bytes, and ``train()`` resumed bitwise; over real cards
    too when two or more are visible.
+   multihost — the worker mesh across processes (``phase_multihost``,
+   cell (q)): ``probes/multihost_smoke.py`` in one process a card, started
+   before the mesh phases and run beside them (min(cards, 4) processes
+   over NCCL with two or more cards visible; two processes on ``cuda:0``
+   over gloo with one, staged through pinned host memory): the folded
+   ``shard_map``, ``skip``, survivor-mask and bf16-wire chains and
+   ``centralized`` at ``[16, 273258]``, chain (b) at ``[256, 273258]``
+   bf16 through ``shard_map`` and ``fused`` (K3), ``perm``'s step and
+   chain (K1) and CHOCO at cell (g)'s shape, each bitwise the one-process
+   run of the same fold; the two refusals (another flag stream,
+   ``train()``); ms a step across processes beside one process, bytes
+   across processes, seconds from spawn to the group, and which
+   in-process phases shared the card with the processes (in a full run
+   the mesh phases' ms and these are taken on a shared card; ``--phase
+   multihost`` alone shares it with none).
 13. a ``{"kernels": [...]}`` summary line (perm ×2 and its band path,
     fused_gossip per path ×6, split_gossip; K1's launches by entry point,
     the models', the resilience, the pipelined, the planner's, the
     observability, the perf_obs, the serve, the chaos, the mesh, the
-    mesh_full and the mesh_features phase's in-process runs included;
-    K3's ``tensor_core`` path with the roofline's launch and chain (b)
-    on the mesh), then the ``nvidia-smi`` line.
+    mesh_full and the mesh_features phase's in-process runs included,
+    and the multihost phase's processes; K3's ``tensor_core`` path with
+    the roofline's launch and chain (b) on the mesh and across
+    processes), then the ``nvidia-smi`` line.
 14. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -5705,6 +5722,167 @@ def phase_mesh_features(dev, mesh_result):
     emit({"phase": "mesh_features", **out, "nvidia_smi": nvidia_smi()})
     return {"launches": {}}
 
+# cell (q): the worker mesh across processes, one process a card
+MULTIHOST_MAX_PROCS = 4
+# the in-process phases the processes run beside (they start before the
+# first of these that runs)
+MULTIHOST_BESIDE = ("mesh", "mesh_full", "mesh_features", "multihost")
+# seconds from spawn within which every process must have ended
+MULTIHOST_LIMIT = 480.0
+
+
+class MultihostLaunch:
+    """Cell (q)'s processes: ``python -m matcha_tpu_torch.probes.
+    multihost_smoke`` with the ``full`` profile, one process a card.
+    With two or more cards visible, min(cards, 4) processes, one card
+    each, over NCCL; with one card, two processes on
+    ``cuda:0`` over gloo (NCCL refuses two ranks on one device: "Duplicate
+    GPU detected"), each message staged through pinned host memory by
+    ``parallel.multihost.exchange``.  The kernels are built before the
+    spawn, so the processes only load them, and they keep their bytecode
+    under ``_build/pycache`` as this process does.  Their output goes to
+    files in a temporary folder, removed by :meth:`finish`."""
+
+    def __init__(self):
+        from matcha_tpu_torch.probes.multihost_smoke import spawn
+
+        self.cards = torch.cuda.device_count()
+        self.transport = "nccl" if self.cards >= 2 else "gloo"
+        self.procs = (min(self.cards, MULTIHOST_MAX_PROCS)
+                      if self.cards >= 2 else 2)
+        self.root = tempfile.mkdtemp(prefix="multihost")
+        # the in-process phases run while the processes run: their ms
+        # and the processes' were taken on a card that both used
+        self.beside = []
+        self.t0 = time.perf_counter()
+        self.handles = spawn(
+            self.procs, self.root,
+            ["--profile", "full", "--device", "cuda", "--backend",
+             self.transport, "--timeout", "300"],
+            env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+    def finish(self) -> dict:
+        """Wait for the processes (killed past ``MULTIHOST_LIMIT`` from
+        the spawn) and read what they wrote; the folder is removed."""
+        from matcha_tpu_torch.probes.multihost_smoke import wait_all
+
+        try:
+            rcs = wait_all(self.handles, max(
+                MULTIHOST_LIMIT - (time.perf_counter() - self.t0), 1.0))
+            out = {"rcs": rcs, "seconds": time.perf_counter() - self.t0,
+                   "records": [], "logs": []}
+            for rank in range(self.procs):
+                with open(os.path.join(self.root, f"rank{rank}.log"),
+                          errors="replace") as f:
+                    out["logs"].append(f.read()[-3000:])
+                path = os.path.join(self.root, f"rank{rank}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        out["records"].append(json.load(f))
+            path = os.path.join(self.root, "check.json")
+            out["check"] = None
+            if os.path.exists(path):
+                with open(path) as f:
+                    out["check"] = json.load(f)
+            return out
+        finally:
+            shutil.rmtree(self.root, ignore_errors=True)
+
+
+def phase_multihost(dev, launch: MultihostLaunch) -> dict:
+    """The worker mesh across processes (cell (q)): the processes of
+    ``launch`` (started beside the mesh phases) each hold their cards'
+    rows, the folded executor sending the blocks that cross processes by
+    batched send/recv.  Every result bitwise the one-process run of the
+    same fold, which the first process computes after the cross-process
+    run from the same seed (and ``perm``/``fused`` bitwise the one-card
+    call): ``shard_map``, ``skip`` (a step all inactive), a survivor mask
+    and a bf16 wire at ``[16, 273258]`` f32, T = 8, on zoo graph 4 at
+    MATCHA budget 0.5 (slice (a)'s gossip); ``perm``'s step and 8-step
+    chain there (K1, the state gathered onto the first card's process);
+    ``centralized``, plain and masked; chain (b) at ``[256, 273258]`` bf16,
+    T = 64, on the 256-worker hypercube through ``shard_map`` and through
+    ``fused`` (K3 ``tensor_core``, one launch); CHOCO at cell (g)'s shape,
+    ``[64, 273258]``, top-k 0.9, γ = 0.1, one step and a 4-step run.  A
+    process with another flag stream is refused by ``make_decen`` on every
+    process, and ``train()`` under the group refuses.  K1's and K3's
+    launches in the processes counted (2 and 1).  Prints the transport,
+    the cards and processes, each step's ms across processes (the slowest
+    process's median) beside the one-process fold on the same cards (and
+    K1's step on one card), the bytes that cross processes a step, the
+    seconds from spawn to the initialized group, the seconds this phase
+    added to the script, and the in-process phases that ran while the
+    processes ran (``ran_beside``: their ms and these were taken on a
+    card shared with the other; ``--phase multihost`` alone runs none).
+    Any failure raises: no fallback from NCCL to gloo."""
+    t0 = time.perf_counter()
+    got = launch.finish()
+    if got["rcs"] != [0] * launch.procs or got["check"] is None:
+        raise AssertionError(f"multihost: exit codes {got['rcs']} "
+                             f"({launch.transport}, {launch.procs} "
+                             f"processes); logs: {got['logs']}")
+    check = got["check"]
+    wrong = [f"{case}: {key}" for case, row in check["cases"].items()
+             for key, same in row["bitwise"].items() if not same]
+    if wrong or not check["ok"]:
+        raise AssertionError(f"multihost: not bitwise the one-process "
+                             f"run: {wrong}")
+    records = got["records"]
+
+    def total(case, counter):
+        return sum(rec["cases"][case]["launches"].get(counter, 0)
+                   for rec in records)
+
+    k1 = total("slice", "perm_gossip_dbuf")
+    k3 = total("chain_b", "fused_gossip/tensor_core")
+    if k1 != 2 or k3 != 1:
+        raise AssertionError(f"multihost: K1 launched {k1} times (want 2: "
+                             f"the step and the chain), K3 tensor_core "
+                             f"{k3} (want 1)")
+    for rec in records:
+        digest, refused = (rec["refusals"]["schedule_digest"],
+                           rec["refusals"]["train"])
+        if digest is None or "ranks [1]" not in digest or refused is None:
+            raise AssertionError(f"multihost: rank {rec['rank']} did not "
+                                 f"refuse: {rec['refusals']}")
+    steps = {}
+    for case, row in check["cases"].items():
+        one = row.get("one_process_timings", {})
+        for key in ("shard_map_step", "choco_step", "perm_step"):
+            ms = [rec["cases"][case]["timings"].get(f"{key}_ms")
+                  for rec in records]
+            if ms[0] is None:
+                continue
+            steps[f"{case} {key}"] = {
+                "ms_across_processes": max(ms),
+                "ms_by_process": ms,
+                "ms_one_process": one[f"{key}_ms"],
+                "bytes_across_processes": sum(
+                    rec["cases"][case]["timings"][f"{key}_bytes_sent"]
+                    for rec in records)}
+    out = {"transport": launch.transport, "cards": launch.cards,
+           "processes": launch.procs, "ran_beside": launch.beside,
+           "devices": records[0]["devices"],
+           "steps": steps,
+           "spawn_to_group_seconds": min(rec["spawn_to_group_seconds"]
+                                         for rec in records),
+           "bytes_sent_by_case": {case: sum(rec["cases"][case]["bytes_sent"]
+                                            for rec in records)
+                                  for case in records[0]["cases"]},
+           "seconds_by_case": {case: max(rec["cases"][case]["seconds"]
+                                         for rec in records)
+                               for case in records[0]["cases"]},
+           "k1_launches": k1, "k3_launches": k3,
+           "bitwise": sorted(f"{case}: {key}" for case, row in
+                             check["cases"].items() for key in row["bitwise"]),
+           "processes_seconds": got["seconds"],
+           "added_seconds": time.perf_counter() - t0}
+    emit({"phase": "multihost", **out})
+    return {"launches": {"make_decen(..., 'perm') across processes (step "
+                         "and chain)": k1},
+            "k3": {"fused_gossip/tensor_core": k3}, **out}
+
+
 def phase_stream_chain(dev, tables):
     """The streamed-window instantiation, which no entry point of the port
     takes (``dbuf=True`` is the default, as in the JAX package): one chain
@@ -5942,7 +6120,8 @@ def kernels_line(r) -> list:
         **r["planner"]["launches"], **r["observability"]["launches"],
         **r["perf_obs"]["launches"], **r["serve"]["launches"],
         **r["chaos"]["launches"], **r["mesh"]["launches"],
-        **r["mesh_full"]["launches"], **r["mesh_features"]["launches"]},
+        **r["mesh_full"]["launches"], **r["mesh_features"]["launches"],
+        **r["multihost"]["launches"]},
                "perm_gossip_stream": {"stream chain": r["stream_chain"][
                    "perm_gossip_stream"]}}
     for name, spec in KERNELS.items():
@@ -5995,7 +6174,9 @@ def kernels_line(r) -> list:
               "obs.costs.roofline_report at chain (b), on the card":
               r["perf_obs"]["roofline_launches"],
               "Communicator.run chain (b), fused on 4 virtual cards":
-              r["mesh_full"]["k3"]})):
+              r["mesh_full"]["k3"],
+              "Communicator.run chain (b), fused across processes":
+              r["multihost"]["k3"]})):
         counter = f"fused_gossip/{path}"
         launches = sum(run[counter] for run in by_path.values())
         if launches < 1:
@@ -6101,7 +6282,7 @@ PHASES = ("parity", "timing", "slice", "profile", "agreement",
           "split_timing", "epoch_end", "communicators", "determinism",
           "choco", "models", "perm_large", "resilience", "pipeline",
           "planner", "observability", "perf_obs", "serve", "chaos", "mesh",
-          "mesh_full", "mesh_features")
+          "mesh_full", "mesh_features", "multihost")
 NEEDS = {"planner": ("fused_timing",), "perf_obs": ("fused_timing",
                                                     "planner"),
          "mesh_features": ("mesh",)}
@@ -6179,13 +6360,29 @@ def run_phases(dev, names, spills, early=None) -> dict:
         "mesh": lambda r: phase_mesh(dev),
         "mesh_full": lambda r: phase_mesh_full(dev),
         "mesh_features": lambda r: phase_mesh_features(dev, r["mesh"]),
+        "multihost": lambda r: phase_multihost(dev, launch),
     }
     results, seconds = {}, {}
-    for name in PHASES:
-        if name in wanted:
-            t0 = time.perf_counter()
-            results[name] = steps[name](results)
-            seconds[name] = time.perf_counter() - t0
+    launch = None
+    try:
+        for name in PHASES:
+            if name in wanted:
+                if launch is None and "multihost" in wanted \
+                        and name in MULTIHOST_BESIDE:
+                    # cell (q)'s processes run beside the mesh phases
+                    launch = MultihostLaunch()
+                if launch is not None and name != "multihost":
+                    launch.beside.append(name)
+                t0 = time.perf_counter()
+                results[name] = steps[name](results)
+                seconds[name] = time.perf_counter() - t0
+    finally:
+        if launch is not None:
+            for proc in launch.handles:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            shutil.rmtree(launch.root, ignore_errors=True)
     emit({"phase_seconds": seconds})
     return results
 

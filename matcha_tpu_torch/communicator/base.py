@@ -43,7 +43,14 @@ from typing import Any, Callable, Tuple
 
 import torch
 
-from ..parallel.mesh import WorkerBlocks, gather_workers, shard_workers
+from ..parallel.mesh import (
+    WorkerBlocks,
+    _tree_map,
+    gather_workers,
+    is_worker_rows,
+    shard_workers,
+)
+from ..parallel.multihost import gather_to_first, scatter_tree_from_first
 
 __all__ = ["Communicator", "gathered_communicator"]
 
@@ -230,10 +237,8 @@ def _fold_rows(tree, mesh, num_workers: int):
         return {k: _fold_rows(v, mesh, num_workers) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_fold_rows(v, mesh, num_workers) for v in tree)
-    if isinstance(tree, torch.Tensor) and tree.is_floating_point() \
-            and tree.ndim >= 1 and tree.shape[0] == num_workers:
-        return shard_workers(tree, mesh)
-    return tree
+    return shard_workers(tree, mesh) if is_worker_rows(tree, num_workers) \
+        else tree
 
 
 def gathered_communicator(comm: Communicator, mesh) -> Communicator:
@@ -246,7 +251,18 @@ def gathered_communicator(comm: Communicator, mesh) -> Communicator:
     carry's worker rows too, so that it is checkpointed and masked as a
     folded carry is).  Every row is the one-card communicator's, bit for
     bit, whatever C is.  The flag rows and the survivor mask are where
-    ``comm`` wants them: on card 0."""
+    ``comm`` wants them: on card 0.
+
+    On a mesh that spans processes (``comm`` built on this process's
+    first card) the state and the carry's folded rows are sent to the
+    process that owns card 0 (``multihost.gather_to_first``), ``comm``
+    runs there alone, and the result's rows are sent back and its other
+    leaves broadcast (``multihost.scatter_tree_from_first``): one launch
+    of the one-card kernel for the whole job, bitwise the one-card call.
+    Every process passes its own replicated flag row and mask; only the
+    first card's process reads them."""
+    if mesh.multi_process:
+        return _gathered_across_processes(comm, mesh)
     first = mesh.devices[0]
 
     def gathered(fn):
@@ -275,5 +291,43 @@ def gathered_communicator(comm: Communicator, mesh) -> Communicator:
     return dataclasses.replace(
         comm, init=init, step=gathered(comm.step),
         multi_step=gathered(comm.multi_step),
+        multi_step_masked=gathered(comm.multi_step_masked),
+        encode_probe=encode_probe)
+
+
+def _gathered_across_processes(comm: Communicator, mesh) -> Communicator:
+    """:func:`gathered_communicator` on a mesh that spans processes."""
+    leads = mesh.rank == mesh.owner(0)
+
+    def collect(tree):
+        return _tree_map(lambda a: gather_to_first(a)
+                         if isinstance(a, WorkerBlocks) else a, tree)
+
+    def on_first(fn, flat, *rest):
+        """``fn(flat, *rest)`` with every folded value gathered, in the
+        first card's process (None elsewhere), its result folded back."""
+        x = gather_to_first(flat)
+        rest = collect(rest)
+        out = fn(x, *rest) if leads else None
+        return scatter_tree_from_first(out, mesh,
+                                       mesh.size * flat[0].shape[0])
+
+    def gathered(fn):
+        if fn is None:
+            return None
+
+        def call(flat, carry, *args):
+            return on_first(fn, flat, carry, *args)
+
+        return call
+
+    encode_probe = None
+    if comm.encode_probe is not None:
+        def encode_probe(flat, x_hat):
+            return on_first(comm.encode_probe, flat, x_hat)
+
+    return dataclasses.replace(
+        comm, init=lambda flat: on_first(comm.init, flat),
+        step=gathered(comm.step), multi_step=gathered(comm.multi_step),
         multi_step_masked=gathered(comm.multi_step_masked),
         encode_probe=encode_probe)

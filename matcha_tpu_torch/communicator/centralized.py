@@ -5,7 +5,9 @@ Port of ``matcha_tpu/communicator/centralized.py``: ``make_centralized``
 ablation.  On the worker axis an AllReduce-average is a mean over rows;
 on a worker mesh (a folded ``WorkerBlocks`` state) it is
 ``parallel.folded_allreduce_mean``, each card's column sum gathered on
-card 0 and the mean sent back.
+card 0 and the mean sent back; on a mesh that spans processes every
+process sums all C column sums in card order, bitwise the one-process
+mean.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ def make_centralized(wire_dtype=None) -> Communicator:
     def step(flat: torch.Tensor, carry, flags_t, alive=None):
         if isinstance(flat, WorkerBlocks):
             operand = (None if wire is None else WorkerBlocks(
-                b.to(wire).to(b.dtype) for b in flat))
+                (b.to(wire).to(b.dtype) for b in flat), flat.mesh))
             return folded_allreduce_mean(flat, alive, operand), carry
         flat_w = flat if wire is None else flat.to(wire).to(flat.dtype)
         if alive is None:

@@ -43,7 +43,10 @@ Backends:
     of ``parallel.build_folded_plan`` places them, and runs
     ``_choco_core`` on its own rows.  The carry ``{x̂, s}`` is folded
     like the state.  Every row's arithmetic is the batched form's, so a
-    deterministic compressor gives the batched bits whatever C is.  A
+    deterministic compressor gives the batched bits whatever C is.  On a
+    mesh that spans processes (``parallel.multihost``) the compressed
+    blocks that cross processes move in one batched send/recv a step:
+    the real wire, top-k values and indices, never the dense block.  A
     stochastic compressor draws on each card from a stream of its own,
     made from the step's one generator state and the card index (JAX's
     ``fold_in(key, c)``): card 0 draws from the carried generator itself,
@@ -67,6 +70,12 @@ from ..ops import (
     top_k_ratio_size,
 )
 from ..parallel import WorkerBlocks, resolve_wire_dtype
+from ..parallel.mesh import check_blocks
+from ..parallel.multihost import (
+    broadcast_object,
+    check_same_schedule,
+    exchange_reads,
+)
 from ..schedule import Schedule
 from ..utils import resolve_device
 from .base import Communicator, gathered_communicator
@@ -145,10 +154,12 @@ def make_choco(
         raise KeyError(f"unknown choco backend '{backend}'")
     if backend == "shard_map" and mesh is None:
         raise ValueError("shard_map backend needs a mesh")
+    if mesh is not None and mesh.multi_process:
+        check_same_schedule(schedule)
     if backend == "batched" and mesh is not None and mesh.size > 1:
         return gathered_communicator(make_choco(
             schedule, ratio, consensus_lr, compressor=compressor, seed=seed,
-            wire_dtype=wire_dtype, device=mesh.devices[0]), mesh)
+            wire_dtype=wire_dtype, device=mesh.home), mesh)
     perms = np.asarray(schedule.perms)
     alpha = float(schedule.alpha)
     m, n = perms.shape
@@ -268,34 +279,34 @@ def _folded_choco(name, perms, partnered_np, nonempty, mesh, compress,
     holds workers ``c·L..(c+1)·L``; its partner tables are the columns of
     the batched form's, and it stacks the ``(vals, idx)`` blocks of the
     cards its rows' partners sit on (``_message_tables``), from which one
-    row gather per matching picks each row's partner message."""
+    row gather per matching picks each row's partner message.  On a mesh
+    that spans processes a process compresses only its own cards' blocks
+    and receives the others' ``(vals, idx)`` blocks it reads (values at
+    the wire dtype, indices as int32) in one batched exchange; the new
+    generator state comes from the first card's process."""
     devices = mesh.devices
     cards = mesh.size
     if perms.shape[1] % cards:
         raise ValueError(f"N={perms.shape[1]} not divisible by "
                          f"{cards} cards")
     rows_per_card = perms.shape[1] // cards
+    local = mesh.local_cards
     offsets, selects = _message_tables(perms, cards, nonempty)
-    selects = [torch.as_tensor(sel, dtype=torch.long, device=dev)
-               for sel, dev in zip(selects, devices)]
+    selects = {c: torch.as_tensor(selects[c], dtype=torch.long,
+                                  device=devices[c]) for c in local}
     cols = [slice(c * rows_per_card, (c + 1) * rows_per_card)
             for c in range(cards)]
-    partnered = [torch.as_tensor(np.ascontiguousarray(partnered_np[:, col]),
-                                 device=dev)
-                 for col, dev in zip(cols, devices)]
-    partners = [torch.as_tensor(np.ascontiguousarray(perms[:, col]),
-                                dtype=torch.long, device=dev)
-                for col, dev in zip(cols, devices)]
+    partnered = {c: torch.as_tensor(
+        np.ascontiguousarray(partnered_np[:, cols[c]]), device=devices[c])
+        for c in local}
+    partners = {c: torch.as_tensor(np.ascontiguousarray(perms[:, cols[c]]),
+                                   dtype=torch.long, device=devices[c])
+                for c in local}
+    # each card reads the (vals, idx) blocks of the cards at its offsets
+    reads = [(c, d) for c in range(cards) for d in offsets[c]]
 
     def check(flat):
-        if not isinstance(flat, WorkerBlocks):
-            raise TypeError(f"choco's shard_map backend takes a WorkerBlocks "
-                            f"(shard_workers(x, mesh)), got {type(flat)}")
-        if len(flat) != cards or any(b.shape[0] != rows_per_card
-                                     for b in flat):
-            raise ValueError(f"the plan folds {cards} cards of "
-                             f"{rows_per_card} rows; got blocks "
-                             f"{[tuple(b.shape) for b in flat]}")
+        check_blocks(flat, mesh, rows_per_card, "choco's shard_map backend")
 
     def init(flat: WorkerBlocks):
         check(flat)
@@ -306,28 +317,49 @@ def _folded_choco(name, perms, partnered_np, nonempty, mesh, compress,
 
     def encode_probe(flat: WorkerBlocks, x_hat: WorkerBlocks) -> WorkerBlocks:
         """Each card's compress path alone, as the batched probe."""
-        return WorkerBlocks(probe_one(b, h) for b, h in zip(flat, x_hat))
+        return WorkerBlocks((probe_one(b, h) for b, h in zip(flat, x_hat)),
+                            flat.mesh)
 
     def card_generators(key):
         """Card 0 steps the carried generator; card c > 0 a generator
-        seeded from its state and c."""
-        gens = [generator(devices[0], key)]
-        for c in range(1, cards):
-            gens.append(torch.Generator(device=devices[c]).manual_seed(
-                _card_seed(key, c)))
-        return gens
+        seeded from its state and c (this process's cards only)."""
+        return [generator(devices[0], key) if c == 0 else
+                torch.Generator(device=devices[c]).manual_seed(
+                    _card_seed(key, c)) for c in local]
+
+    def remote_messages(msgs: dict) -> dict:
+        """``{card: (vals, idx)}`` of the other processes' cards read
+        here, received at the wire dtype (values) and as int32 (indices),
+        in the dtypes of this process's own messages."""
+        v0, i0 = next(iter(msgs.values()))
+        sent = {}
+
+        def payload(c):
+            if c not in sent:
+                vals, idx = msgs[c]
+                sent[c] = (vals if wire is None else vals.to(wire),
+                           idx.to(torch.int32))
+            return sent[c]
+
+        shape = tuple(v0.shape)
+        got = exchange_reads(mesh, reads, payload, lambda c: (
+            (shape, wire or v0.dtype, mesh.home),
+            (shape, torch.int32, mesh.home)))
+        return {s: (v, i.to(i0.dtype)) for s, (v, i) in got.items()}
 
     def step(flat: WorkerBlocks, carry, flags_t: torch.Tensor, alive=None):
         check(flat)
         gens = (card_generators(carry["key"]) if stochastic
-                else [None] * cards)
+                else [None] * len(local))
         # every card's message first: the exchange reads them all
-        msgs = [compress(b - xh, ratio, gen)
-                for b, xh, gen in zip(flat, carry["x_hat"], gens)]
+        msgs = {c: compress(b - xh, ratio, gen)
+                for c, b, xh, gen in zip(local, flat, carry["x_hat"], gens)}
+        remote = remote_messages(msgs) if mesh.multi_process else {}
         wire_vals = {}  # card -> its values at the wire dtype, once
         flags_on, alive_on = {}, {}
         out_flat, out_xh, out_s = [], [], []
-        for c, x in enumerate(flat):
+        for c, x, x_hat, s_acc in zip(local, flat, carry["x_hat"],
+                                      carry["s"]):
             dev = x.device
             if dev not in flags_on:
                 flags_on[dev] = flags_t.to(dev)
@@ -338,9 +370,12 @@ def _folded_choco(name, perms, partnered_np, nonempty, mesh, compress,
 
             def block_at(d: int):
                 """Card ``(c + d) mod C``'s ``(vals, idx)`` on card c: a
-                move of the ``[L, k]`` blocks between two devices, none
-                between virtual cards of one device."""
+                move of the ``[L, k]`` blocks between two devices (or two
+                processes), none between virtual cards of one device."""
                 src = (c + d) % cards
+                if src not in msgs:
+                    v, i = remote[src]
+                    return v.to(dev).to(vals.dtype), i.to(dev)
                 v, i = msgs[src]
                 if v.device != dev:
                     if src not in wire_vals:
@@ -370,7 +405,7 @@ def _folded_choco(name, perms, partnered_np, nonempty, mesh, compress,
                 partnered_eff = (partnered[c] * gate[cols[c]][None, :]
                                  * gate[partners[c]])
             new_x, x_hat, s = _choco_core(
-                vals, idx, carry["x_hat"][c], carry["s"][c], x,
+                vals, idx, x_hat, s_acc, x,
                 flags_on[dev], gather_msg=gather_msg,
                 partnered_rows=partnered_eff, matching_nonempty=nonempty,
                 alpha=alpha, consensus_lr=consensus_lr,
@@ -378,10 +413,13 @@ def _folded_choco(name, perms, partnered_np, nonempty, mesh, compress,
             out_flat.append(new_x)
             out_xh.append(x_hat)
             out_s.append(s)
-        out = {"x_hat": WorkerBlocks(out_xh), "s": WorkerBlocks(out_s)}
+        out = {"x_hat": WorkerBlocks(out_xh, flat.mesh),
+               "s": WorkerBlocks(out_s, flat.mesh)}
         if stochastic:
-            out["key"] = gens[0].get_state()
-        return WorkerBlocks(out_flat), out
+            key = gens[0].get_state() if 0 in local else None
+            out["key"] = (broadcast_object(key, mesh.owner(0))
+                          if mesh.multi_process else key)
+        return WorkerBlocks(out_flat, flat.mesh), out
 
     return Communicator(name=name + ",shard_map]", init=init, step=step,
                         encode_probe=encode_probe)

@@ -31,6 +31,11 @@ Port of ``matcha_tpu/communicator/decen.py``: ``resolve_gossip_backend``
                  measured-vs-ceiling ratio reaches the gate, else
                  ``dense``.
 
+On a mesh that spans processes (one process a card, ``parallel.
+multihost``) the same holds: the folded backends send the blocks that
+cross processes, and the one-tensor backends gather the state onto the
+first card's process for each call.
+
 On a mesh of more than one device ``skip`` is the folded backend too, with
 an inactive matching's block moves skipped; the one-tensor backends
 (``perm``, ``dense``, ``fused``, ``gather``) mix the ``[N, D]`` tensor
@@ -49,6 +54,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..parallel.multihost import check_same_schedule
 from ..parallel import (
     build_mixing_stack,
     compose_mixing_stack,
@@ -143,8 +149,18 @@ def make_decen(
     ``backend="auto"`` builds what :func:`resolve_gossip_backend` chooses
     with no measurement: ``shard_map`` on a mesh of more than one device,
     else ``perm`` from 4096 workers, else ``dense``.
+
+    On a mesh that spans processes (``parallel.multihost``) every process
+    builds the same communicator: one all-gather of a digest of the
+    schedule's ``perms``, ``alpha`` and ``flags`` first checks that they
+    agree, and raises ``ValueError`` naming the ranks that differ.  The
+    folded backends then move blocks between processes; the one-tensor
+    backends run on the first card's process, the state gathered there
+    for each call.
     """
-    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    dev = mesh.home if mesh is not None else resolve_device(device)
+    if mesh is not None and mesh.multi_process:
+        check_same_schedule(schedule)
     if backend == "auto":
         backend = resolve_gossip_backend(schedule, mesh,
                                          wire_dtype=wire_dtype)["chosen"]

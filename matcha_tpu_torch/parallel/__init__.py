@@ -3,7 +3,9 @@ single-card surface of ``matcha_tpu.parallel``: the wire-dtype and
 precision seams, the gather oracle and its skipping twin, the per-matching
 byte account, the dense backend, the centralized collectives, the
 permutation-form kernel, the fused W-stack kernel, and the worker mesh with
-the folded plan and its executor (workers card-major across cards)."""
+the folded plan and its executor (workers card-major across cards), also
+across processes (``multihost``: one process a card over
+``torch.distributed``)."""
 
 from .collectives import (
     allreduce_mean,
@@ -37,6 +39,7 @@ from .gossip import (
 )
 from .mesh import (
     WORKER_AXIS,
+    MeshDevice,
     WorkerBlocks,
     WorkerMesh,
     block_of,
@@ -46,6 +49,11 @@ from .mesh import (
     shard_workers,
     split_like,
     worker_mesh,
+)
+from .multihost import (
+    dcn_aware_worker_order,
+    global_worker_mesh,
+    initialize_multihost,
 )
 from .perm_gossip import (
     LAUNCHES,
@@ -59,12 +67,14 @@ __all__ = [
     "WORKER_AXIS",
     "FoldedPlan",
     "LAUNCHES",
+    "MeshDevice",
     "allreduce_mean",
     "broadcast_worker0",
     "build_folded_plan",
     "build_mixing_stack",
     "canonical_chunk",
     "compose_mixing_stack",
+    "dcn_aware_worker_order",
     "WorkerBlocks",
     "WorkerMesh",
     "block_of",
@@ -74,10 +84,12 @@ __all__ = [
     "fused_gossip_plain",
     "fused_gossip_run",
     "gather_workers",
+    "global_worker_mesh",
     "gossip_mix",
     "gossip_mix_dense",
     "gossip_mix_folded",
     "gossip_mix_skip",
+    "initialize_multihost",
     "involution_tables",
     "masked_allreduce_mean",
     "masked_laplacians",

@@ -3,7 +3,12 @@
 Port of ``matcha_tpu/parallel/collectives.py`` (:20-97): on a ``[N, ...]``
 worker tensor the global average is a mean over the leading axis.  On a
 worker mesh (a ``WorkerBlocks``) :func:`folded_allreduce_mean` forms it
-across the cards, and :func:`masked_mean_rows` takes one too.
+across the cards, and :func:`masked_mean_rows` takes one too.  On a mesh
+that spans processes each process forms its cards' partial sums, every
+process receives all C of them (``multihost.all_cards``) and sums them in
+card order, as the one-process functions sum them on card 0: the result
+has their bits (``all_reduce``, whose order is unspecified, is not
+used).
 """
 
 from __future__ import annotations
@@ -11,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .mesh import WorkerBlocks, split_like
+from .multihost import all_cards
 
 __all__ = ["allreduce_mean", "broadcast_worker0", "folded_allreduce_mean",
            "masked_mean_rows", "masked_allreduce_mean", "worker_deviation",
@@ -19,6 +25,16 @@ __all__ = ["allreduce_mean", "broadcast_worker0", "folded_allreduce_mean",
 
 def _rows(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.reshape((mask.shape[0],) + (1,) * (x.ndim - 1)).to(x.dtype)
+
+
+def _card_parts(blocks: WorkerBlocks, parts: list) -> list:
+    """Every card's part on ``blocks.device``, in card order: ``parts``
+    (one per block held here) moved there, and on a mesh that spans
+    processes the other processes' parts received."""
+    first = blocks.device
+    if blocks.mesh is None:
+        return [p.to(first) for p in parts]
+    return all_cards(blocks.mesh, dict(zip(blocks.cards, parts)), first)
 
 
 def allreduce_mean(x: torch.Tensor) -> torch.Tensor:
@@ -39,13 +55,12 @@ def masked_mean_rows(x, alive: torch.Tensor) -> torch.Tensor:
     if isinstance(x, WorkerBlocks):
         first = x.device
         alive = torch.as_tensor(alive, dtype=torch.float32)
-        parts, lo = [], 0
-        for b in x:
-            w = _rows(alive[lo:lo + b.shape[0]].to(b.device), b)
-            lo += b.shape[0]
+        parts = []
+        for g, b in zip(split_like(alive, x), x):
+            w = _rows(g, b)
             parts.append((w * torch.where(w > 0, b, torch.zeros_like(b)))
-                         .sum(dim=0).to(first))
-        return torch.stack(parts).sum(dim=0) / torch.clamp(
+                         .sum(dim=0))
+        return torch.stack(_card_parts(x, parts)).sum(dim=0) / torch.clamp(
             alive.to(first).sum(), min=1.0)
     w = _rows(alive, x)
     kept = torch.where(w > 0, x, torch.zeros_like(x))
@@ -71,17 +86,17 @@ def folded_allreduce_mean(blocks: WorkerBlocks, alive=None,
     function's (per card, then over the cards), so the two agree to f32
     rounding, not bitwise.  ``alive``: ``f32[N]`` on any device."""
     operand = blocks if operand is None else operand
-    first = blocks.device
     if alive is None:
-        total = torch.stack([o.sum(dim=0).to(first) for o in operand])
-        mean = total.sum(dim=0) / sum(b.shape[0] for b in blocks)
-        return WorkerBlocks(mean.to(b.device).expand_as(b).clone()
-                            for b in blocks)
+        total = torch.stack(_card_parts(operand,
+                                        [o.sum(dim=0) for o in operand]))
+        mean = total.sum(dim=0) / (len(total) * blocks[0].shape[0])
+        return WorkerBlocks((mean.to(b.device).expand_as(b).clone()
+                             for b in blocks), blocks.mesh)
     mean = masked_mean_rows(operand, alive)
     gates = split_like(torch.as_tensor(alive, dtype=torch.float32), blocks)
     return WorkerBlocks(
-        torch.where(_rows(g, b) > 0, mean.to(b.device).expand_as(b), b)
-        for g, b in zip(gates, blocks))
+        (torch.where(_rows(g, b) > 0, mean.to(b.device).expand_as(b), b)
+         for g, b in zip(gates, blocks)), blocks.mesh)
 
 
 def broadcast_worker0(x: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from .folded import FoldedPlan, build_folded_plan
-from .mesh import WORKER_AXIS, WorkerBlocks
+from .mesh import WORKER_AXIS, WorkerBlocks, check_blocks
+from .multihost import exchange_reads
 
 __all__ = ["dense_gossip_fn", "gossip_mix", "gossip_mix_dense",
            "gossip_mix_folded", "gossip_mix_skip", "masked_laplacians",
@@ -263,15 +264,20 @@ def _identity_matchings(plan: FoldedPlan) -> list:
 
 
 def _card_tables(plan: FoldedPlan, devices) -> tuple:
-    """``(identity, tables)``: which matchings are the identity
-    (``_identity_matchings``), and for card ``c`` on ``devices[c]``, per
-    matching, the pieces ``(offset, rows, src)`` of its nonempty offset
-    parts (``rows`` None when one piece serves all L rows) and the
-    partners' global worker indices ``int64[L]`` (the survivor mask's
-    second gate)."""
+    """``(identity, tables, needs)``: which matchings are the identity
+    (``_identity_matchings``); for card ``c`` on ``devices[c]`` (None for
+    a card another process holds, which gets no table), per matching,
+    the pieces ``(offset, rows, src)`` of its nonempty offset parts
+    (``rows`` None when one piece serves all L rows) and the partners'
+    global worker indices ``int64[L]`` (the survivor mask's second gate);
+    and per matching the ``(card, offset)`` pairs, offset > 0, whose card
+    reads the block ``offset`` cards on (what crosses processes)."""
     C, L = plan.num_chips, plan.rows_per_chip
     tables = []
     for c, dev in enumerate(devices):
+        if dev is None:
+            tables.append(None)
+            continue
         card = []
         for parts in plan.matchings:
             pieces = []
@@ -288,7 +294,10 @@ def _card_tables(plan: FoldedPlan, devices) -> tuple:
                                torch.as_tensor(src, device=dev)))
             card.append((pieces, torch.as_tensor(partner, device=dev)))
         tables.append(card)
-    return _identity_matchings(plan), tables
+    needs = [[(c, p.offset) for p in parts if p.offset
+              for c in np.flatnonzero((p.mask > 0).any(axis=1)).tolist()]
+             for parts in plan.matchings]
+    return _identity_matchings(plan), tables, needs
 
 
 def gossip_mix_folded(blocks, plan: FoldedPlan, weights, skip: bool = False,
@@ -324,26 +333,52 @@ def gossip_mix_folded(blocks, plan: FoldedPlan, weights, skip: bool = False,
     oracle's (``gossip_mix`` without ``skip``, ``gossip_mix_skip`` with
     it): the same ops in the same order, so the result has their bits
     whatever C is.  Returns a ``WorkerBlocks``.
+
+    On a mesh that spans processes (``blocks.mesh`` set: this process's
+    cards only) each card c reads card ``(c + d) mod C``'s wire image
+    for offset d as before: in place or by a copy when both cards are in
+    this process, else received from the process that holds it.  Every
+    such move of the step (a function of the plan and the replicated
+    weight row alone) is posted in one batch of send/recv before any
+    card's mix is formed (``multihost.exchange_reads``); the row
+    arithmetic is unchanged, so each process's rows are bitwise the
+    one-process fold's.
     """
+    mesh = blocks.mesh if isinstance(blocks, WorkerBlocks) else None
     blocks = list(blocks)
     C, L = plan.num_chips, plan.rows_per_chip
-    if len(blocks) != C or any(b.shape[0] != L for b in blocks):
+    cards = list(range(C)) if mesh is None else list(mesh.local_cards)
+    if (mesh is not None and mesh.size != C) or len(blocks) != len(cards) \
+            or any(b.shape[0] != L for b in blocks):
         raise ValueError(f"plan folds {C} cards of {L} rows; got blocks "
-                         f"{[tuple(b.shape) for b in blocks]}")
+                         f"{[tuple(b.shape) for b in blocks]} of cards "
+                         f"{cards}")
     w = torch.as_tensor(weights, dtype=torch.float32, device="cpu").tolist()
     if len(w) != plan.num_matchings:
         raise ValueError(f"{len(w)} weights for {plan.num_matchings} "
                          f"matchings")
     wire = resolve_wire_dtype(wire_dtype)
-    empty, tables = (tables if tables is not None
-                     else _card_tables(plan, [b.device for b in blocks]))
-    images = [b if wire is None else b.to(wire) for b in blocks]
-    xw = [b if wire is None else img.to(b.dtype)
-          for b, img in zip(blocks, images)]
+    if tables is None:
+        devices = [None] * C
+        for c, b in zip(cards, blocks):
+            devices[c] = b.device
+        tables = _card_tables(plan, devices)
+    empty, tables, needs = tables
+    local = dict(zip(cards, blocks))
+    images = {c: b if wire is None else b.to(wire) for c, b in local.items()}
+    xw = {c: b if wire is None else images[c].to(b.dtype)
+          for c, b in local.items()}
+    active = [j for j in range(plan.num_matchings)
+              if not empty[j] and (w[j] != 0 or not skip)]
+    remote = {}
+    if mesh is not None and active:
+        like = next(iter(images.values()))
+        remote = exchange_reads(
+            mesh, [read for j in active for read in needs[j]],
+            lambda c: (images[c],),
+            lambda c: ((tuple(like.shape), like.dtype, mesh.home),))
     out = []
-    for c, x in enumerate(blocks):
-        active = [j for j in range(plan.num_matchings)
-                  if not empty[j] and (w[j] != 0 or not skip)]
+    for c, x in local.items():
         if skip and not active:
             out.append(x)
             continue
@@ -352,12 +387,16 @@ def gossip_mix_folded(blocks, plan: FoldedPlan, weights, skip: bool = False,
         def block_at(d: int) -> torch.Tensor:
             if d not in received:
                 s = (c + d) % C
-                # torch's copy between two cards waits for both cards'
-                # current streams and makes both wait for the copy, so the
-                # block is whole when read (not run: one card visible)
-                received[d] = (xw[s] if blocks[s].device == x.device
-                               else images[s].to(x.device, non_blocking=True)
-                               .to(x.dtype))
+                if s not in local:  # another process's card: its image
+                    received[d] = remote[s][0].to(x.device).to(x.dtype)
+                else:
+                    # torch's copy between two cards waits for both cards'
+                    # current streams and makes both wait for the copy, so
+                    # the block is whole when read
+                    received[d] = (xw[s] if local[s].device == x.device
+                                   else images[s].to(x.device,
+                                                     non_blocking=True)
+                                   .to(x.dtype))
             return received[d]
 
         if alive is not None:
@@ -381,7 +420,7 @@ def gossip_mix_folded(blocks, plan: FoldedPlan, weights, skip: bool = False,
                               delta) * delta
             acc = acc + w[j] * delta
         out.append(x + acc)
-    return WorkerBlocks(out)
+    return WorkerBlocks(out, mesh)
 
 
 def shard_map_gossip_fn(perms, mesh, axis: str = WORKER_AXIS,
@@ -392,16 +431,12 @@ def shard_map_gossip_fn(perms, mesh, axis: str = WORKER_AXIS,
     ``build_folded_plan(perms, C)``.  ``x``: a ``WorkerBlocks`` whose
     block c lies on ``mesh.devices[c]`` (``shard_workers`` makes one)."""
     plan = build_folded_plan(np.asarray(perms), mesh.shape[axis])
-    tables = _card_tables(plan, mesh.devices)
+    local = mesh.local_cards
+    tables = _card_tables(plan, [d if c in local else None
+                                 for c, d in enumerate(mesh.devices)])
 
     def fn(x, weights, alive=None):
-        if not isinstance(x, WorkerBlocks):
-            raise TypeError(f"the folded backend takes a WorkerBlocks "
-                            f"(shard_workers(x, mesh)), got {type(x)}")
-        placed = [str(b.device) for b in x]
-        if placed != [str(d) for d in mesh.devices]:
-            raise ValueError(f"blocks lie on {placed}, the mesh is "
-                             f"{[str(d) for d in mesh.devices]}")
+        check_blocks(x, mesh, plan.rows_per_chip, "the folded backend")
         return gossip_mix_folded(x, plan, weights, skip=skip, alive=alive,
                                  wire_dtype=wire_dtype, tables=tables)
 

@@ -12,6 +12,14 @@ The mesh may name one device more than once: C virtual cards on one device
 are the port's counterpart of the JAX tests' forced CPU devices, and let a
 one-card host run the folded path (``devices=["cuda:0"] * 4``).  A CUDA
 device that is not there raises; a mesh never falls back to the CPU.
+
+A mesh may span processes (``parallel.multihost.global_worker_mesh``):
+``WorkerMesh.ranks`` then names the process that owns each card, and a
+``WorkerBlocks`` on it holds only this process's blocks (its
+``mesh.local_cards``).  No process holds another's block except as a
+received wire image, so such a value cannot be gathered into one tensor
+here; the communicators move what they need through
+``parallel.multihost``.
 """
 
 from __future__ import annotations
@@ -21,20 +29,36 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["WORKER_AXIS", "WorkerBlocks", "WorkerMesh", "block_of",
-           "fold_dims", "gather_workers", "replicated", "shard_workers",
-           "split_like", "worker_mesh"]
+__all__ = ["WORKER_AXIS", "MeshDevice", "WorkerBlocks", "WorkerMesh",
+           "block_of", "check_blocks", "fold_dims", "gather_workers",
+           "is_worker_rows", "replicated", "shard_workers", "split_like",
+           "worker_mesh"]
 
 WORKER_AXIS = "workers"
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshDevice:
+    """One card of a mesh as JAX names a device: the card, the process
+    that owns it (``process_index``) and its global ``id`` (its place in
+    the rank-major list of every process's cards)."""
+
+    device: torch.device
+    process_index: int = 0
+    id: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class WorkerMesh:
     """A 1-D mesh: the devices of the worker axis, in card order (a device
-    may repeat).  ``size`` and ``shape[axis]`` read as a JAX mesh's do."""
+    may repeat, also across processes).  ``size`` and ``shape[axis]`` read
+    as a JAX mesh's do.  ``ranks``: the process that owns each card
+    (empty: every card is this process's); ``rank``: this process."""
 
     devices: Tuple[torch.device, ...]
     axis: str = WORKER_AXIS
+    ranks: Tuple[int, ...] = ()
+    rank: int = 0
 
     @property
     def size(self) -> int:
@@ -43,6 +67,32 @@ class WorkerMesh:
     @property
     def shape(self) -> Dict[str, int]:
         return {self.axis: len(self.devices)}
+
+    @property
+    def multi_process(self) -> bool:
+        """Whether the cards belong to more than one process."""
+        return len(set(self.ranks)) > 1
+
+    def owner(self, card: int) -> int:
+        """The process that holds card ``card``'s block."""
+        return self.ranks[card] if self.ranks else self.rank
+
+    @property
+    def local_cards(self) -> Tuple[int, ...]:
+        """The cards whose blocks this process holds, in card order."""
+        return tuple(c for c in range(self.size)
+                     if self.owner(c) == self.rank)
+
+    @property
+    def home(self) -> torch.device:
+        """This process's first card: where it places replicated inputs."""
+        return self.devices[self.local_cards[0]]
+
+    @property
+    def entries(self) -> Tuple[MeshDevice, ...]:
+        """The cards as ``MeshDevice`` entries, in card order."""
+        return tuple(MeshDevice(d, self.owner(c), c)
+                     for c, d in enumerate(self.devices))
 
 
 def _visible_cuda() -> list:
@@ -65,19 +115,28 @@ def _check_device(dev: torch.device) -> torch.device:
     return torch.device("cuda", index)
 
 
+def _this_rank() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)
+
+
 def worker_mesh(num_devices: int | None = None, axis: str = WORKER_AXIS,
                 devices: Sequence | None = None) -> WorkerMesh:
     """1-D mesh over ``devices`` (default: the visible CUDA cards), or the
     first ``num_devices`` of them.  Asking for more devices than there are
     raises ``ValueError`` naming the device list: the mesh never folds
-    quietly onto fewer cards."""
+    quietly onto fewer cards.  ``devices`` may be ``MeshDevice`` entries
+    (``dcn_aware_worker_order``'s answer): the mesh then spans their
+    processes, and only this process's cards are checked here."""
     if devices is None:
         devs = [torch.device(d) for d in _visible_cuda()]
         if not devs:
             raise ValueError("no CUDA device is visible; pass devices=[...] "
                              "(e.g. ['cpu'] * 4) for a mesh on the CPU")
     else:
-        devs = [torch.device(d) for d in devices]
+        devs = list(devices)
     if num_devices is not None:
         if num_devices > len(devs):
             raise ValueError(f"asked for {num_devices} devices, have "
@@ -85,7 +144,18 @@ def worker_mesh(num_devices: int | None = None, axis: str = WORKER_AXIS,
         devs = devs[:num_devices]
     if not devs:
         raise ValueError("a mesh needs at least one device")
-    return WorkerMesh(tuple(_check_device(d) for d in devs), axis)
+    if not any(isinstance(d, MeshDevice) for d in devs):
+        return WorkerMesh(tuple(_check_device(torch.device(d))
+                                for d in devs), axis)
+    if not all(isinstance(d, MeshDevice) for d in devs):
+        raise ValueError("a mesh's devices are all MeshDevice entries or "
+                         "none is")
+    rank = _this_rank()
+    return WorkerMesh(
+        tuple(_check_device(torch.device(e.device))
+              if e.process_index == rank else torch.device(e.device)
+              for e in devs),
+        axis, tuple(int(e.process_index) for e in devs), rank)
 
 
 def fold_dims(num_workers: int, mesh: WorkerMesh,
@@ -102,12 +172,22 @@ def fold_dims(num_workers: int, mesh: WorkerMesh,
 class WorkerBlocks:
     """A folded ``[N, ...]`` tensor: its C card-major ``[L, ...]`` blocks,
     block c on card c.  ``+`` and ``-`` act block by block (the two-phase
-    mix's ``delta`` and its consume)."""
+    mix's ``delta`` and its consume).  ``mesh``: set on a mesh that spans
+    processes, whose ``local_cards`` are then the cards of the blocks held
+    here; None when every block is here."""
 
-    __slots__ = ("blocks",)
+    __slots__ = ("blocks", "mesh")
 
-    def __init__(self, blocks):
+    def __init__(self, blocks, mesh: WorkerMesh | None = None):
         self.blocks = tuple(blocks)
+        self.mesh = mesh if mesh is not None and mesh.multi_process else None
+
+    @property
+    def cards(self) -> Tuple[int, ...]:
+        """The global card index of each block held here."""
+        if self.mesh is None:
+            return tuple(range(len(self.blocks)))
+        return self.mesh.local_cards
 
     def __len__(self) -> int:
         return len(self.blocks)
@@ -124,13 +204,38 @@ class WorkerBlocks:
         return self.blocks[0].device
 
     def __add__(self, other: "WorkerBlocks") -> "WorkerBlocks":
-        return WorkerBlocks(a + b for a, b in zip(self, other))
+        return WorkerBlocks((a + b for a, b in zip(self, other)), self.mesh)
 
     def __sub__(self, other: "WorkerBlocks") -> "WorkerBlocks":
-        return WorkerBlocks(a - b for a, b in zip(self, other))
+        return WorkerBlocks((a - b for a, b in zip(self, other)), self.mesh)
 
     def zeros_like(self) -> "WorkerBlocks":
-        return WorkerBlocks(torch.zeros_like(b) for b in self.blocks)
+        return WorkerBlocks((torch.zeros_like(b) for b in self.blocks),
+                            self.mesh)
+
+
+def check_blocks(x, mesh: WorkerMesh, rows: int, what: str) -> None:
+    """Raise unless ``x`` is a :class:`WorkerBlocks` of this process's
+    cards of ``mesh`` (``mesh.local_cards``), each block ``rows`` rows on
+    its card, that carries the mesh exactly when the mesh spans
+    processes: the placement a folded backend reads."""
+    if not isinstance(x, WorkerBlocks):
+        raise TypeError(f"{what} takes a WorkerBlocks "
+                        f"(shard_workers(x, mesh)), got {type(x)}")
+    want = [str(mesh.devices[c]) for c in mesh.local_cards]
+    placed = [str(b.device) for b in x]
+    if placed != want or any(b.shape[0] != rows for b in x) \
+            or (x.mesh is None) == mesh.multi_process:
+        raise ValueError(f"{what}: blocks {[tuple(b.shape) for b in x]} "
+                         f"on {placed}; this process's cards of the mesh "
+                         f"are {want}, {rows} rows each")
+
+
+def is_worker_rows(a, num_workers: int) -> bool:
+    """Whether ``a`` is a worker-major floating tensor of ``num_workers``
+    rows: what a carry folds onto a mesh (a generator's state does not)."""
+    return (isinstance(a, torch.Tensor) and a.is_floating_point()
+            and a.ndim >= 1 and a.shape[0] == num_workers)
 
 
 def _tree_map(fn, tree):
@@ -148,13 +253,14 @@ def shard_workers(x, mesh: WorkerMesh, axis: str = WORKER_AXIS):
     device already is a view, not a copy).  Scalars (0-d tensors, Python
     numbers) and generators are per-program state and stay single, as the
     JAX package replicates them; a leading dim that C does not divide is a
-    ``ValueError``, never a silent re-placement."""
+    ``ValueError``, never a silent re-placement.  On a mesh that spans
+    processes each process keeps the rows of its own cards."""
     def put(a):
         if not isinstance(a, torch.Tensor) or a.ndim == 0:
             return a
         _, rows = fold_dims(a.shape[0], mesh, axis)
-        return WorkerBlocks(a[c * rows:(c + 1) * rows].to(dev)
-                            for c, dev in enumerate(mesh.devices))
+        return WorkerBlocks((a[c * rows:(c + 1) * rows].to(mesh.devices[c])
+                             for c in mesh.local_cards), mesh)
 
     return _tree_map(put, x)
 
@@ -162,11 +268,17 @@ def shard_workers(x, mesh: WorkerMesh, axis: str = WORKER_AXIS):
 def gather_workers(x, device=None):
     """The reverse of :func:`shard_workers`: every :class:`WorkerBlocks`
     of ``x`` concatenated in worker order onto ``device`` (default: card
-    0's); anything else as it is."""
+    0's); anything else as it is.  A value on a mesh that spans processes
+    raises ``ValueError``: its other blocks are in other processes
+    (``parallel.multihost.gather_to_first`` moves them explicitly)."""
 
     def get(a):
         if not isinstance(a, WorkerBlocks):
             return a
+        if a.mesh is not None:
+            raise ValueError("this WorkerBlocks holds only this process's "
+                             "cards of a mesh that spans processes; gather "
+                             "it with parallel.multihost.gather_to_first")
         dev = a.device if device is None else torch.device(device)
         return torch.cat([b.to(dev) for b in a.blocks])
 
@@ -178,7 +290,13 @@ def gather_workers(x, device=None):
 def split_like(x: torch.Tensor, blocks) -> WorkerBlocks:
     """An ``[N, ...]`` tensor cut as ``blocks`` (a ``WorkerBlocks``) is
     cut: block c's rows on block c's device (a per-worker mask's slice
-    for each card, say; a view where the device is the same)."""
+    for each card, say; a view where the device is the same).  On a mesh
+    that spans processes, the rows of the cards held here."""
+    if blocks.mesh is not None:
+        return WorkerBlocks((x[c * b.shape[0]:(c + 1) * b.shape[0]]
+                             .to(b.device)
+                             for c, b in zip(blocks.cards, blocks)),
+                            blocks.mesh)
     out, lo = [], 0
     for b in blocks:
         out.append(x[lo:lo + b.shape[0]].to(b.device))
@@ -197,15 +315,17 @@ def block_of(tree, c: int):
 
 
 def replicated(x, mesh: WorkerMesh):
-    """A copy of small tensors (flags, survivor masks) on every card:
-    a tuple of C, one per card (one tensor object per distinct device)."""
+    """A copy of small tensors (flags, survivor masks) on every card held
+    here: a tuple, one per card of ``mesh.local_cards`` (C of them on a
+    mesh of one process; one tensor object per distinct device)."""
     def put(a):
         if not isinstance(a, torch.Tensor):
             return a
         per_device = {}
-        for dev in mesh.devices:
+        devs = [mesh.devices[c] for c in mesh.local_cards]
+        for dev in devs:
             if dev not in per_device:
                 per_device[dev] = a.to(dev)
-        return tuple(per_device[dev] for dev in mesh.devices)
+        return tuple(per_device[dev] for dev in devs)
 
     return _tree_map(put, x)

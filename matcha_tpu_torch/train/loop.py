@@ -271,6 +271,20 @@ def _reproducible_numerics() -> None:
     torch.backends.cudnn.benchmark = False
 
 
+def _refuse_process_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise ValueError(
+            f"train() runs in one process over any number of cards "
+            f"(TrainConfig.devices); this process is rank "
+            f"{dist.get_rank()} of a torch.distributed group of "
+            f"{dist.get_world_size()}. Across processes the port runs the "
+            f"communicators over parallel.multihost.global_worker_mesh(), "
+            f"as the JAX package does, not train()")
+
+
 def train(config: TrainConfig, resume_dir: Optional[str] = None,
           device=None, boundary_hook=None) -> TrainResult:
     """Run ``config`` on ``device`` (default: the CUDA cards; a host
@@ -301,7 +315,14 @@ def train(config: TrainConfig, resume_dir: Optional[str] = None,
     ``boundary_hook``: the run controller's seam (``serve.trainer.
     TrainerHarness.on_boundary``), called with a ``_BoundarySeam`` before
     each epoch, again on a rollback's retry.  With identity knobs a
-    supervised run is bitwise the unsupervised one."""
+    supervised run is bitwise the unsupervised one.
+
+    ``train()`` is one process over any number of cards: under an
+    initialized ``torch.distributed`` group of more than one process it
+    raises ``ValueError``, since N processes would quietly train N
+    divergent runs.  Across processes the port runs the communicators
+    (``parallel.multihost``), as the JAX package does."""
+    _refuse_process_group()
     _reproducible_numerics()
     if config.plan:
         # the plan artifact's schedule choice (graph, budget, seed) enters

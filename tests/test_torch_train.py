@@ -382,7 +382,9 @@ def test_port_imports_with_jax_blocked():
             "matcha_tpu_torch.plan.cost", "matcha_tpu_torch.analysis.planlint",
             "matcha_tpu_torch.elastic.policy", "matcha_tpu_torch.serve",
             "matcha_tpu_torch.serve.trainer", "matcha_tpu_torch.chaos",
-            "matcha_tpu_torch.chaos.campaign"} <= set(modules)
+            "matcha_tpu_torch.chaos.campaign",
+            "matcha_tpu_torch.parallel.multihost",
+            "matcha_tpu_torch.probes.multihost_smoke"} <= set(modules)
     code = f"""
 import importlib, importlib.abc, sys
 BANNED = {BANNED + ABSENT_ON_CARD_HOST!r}
